@@ -1,0 +1,87 @@
+"""The port stands alone and runs on the card unless asked otherwise: its
+modules import neither jax nor the reference package, its mesh defaults to
+CUDA and raises without a card, and its config maps the reference's.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+
+PORT_MODULES = (
+    "repro_torch", "repro_torch._build", "repro_torch.core.decomp",
+    "repro_torch.core.planconfig", "repro_torch.core.quant", "repro_torch.core.meshutil",
+    "repro_torch.core.pencil", "repro_torch.core.fftcore", "repro_torch.core.redistribute",
+    "repro_torch.core.pfft", "repro_torch.kernels.fft.ref", "repro_torch.kernels.fft.kernel",
+    "repro_torch.kernels.fft.ops", "repro_torch.kernels.exchange.ref",
+    "repro_torch.kernels.exchange.kernel", "repro_torch.kernels.exchange.ops",
+)
+
+
+def test_port_imports_neither_jax_nor_reference():
+    code = ("import importlib, sys\n"
+            f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_make_mesh_defaults_to_cuda_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from repro_torch.core.meshutil import make_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh((1, 1), ("p0", "p1"))
+
+
+def test_kernel_wrappers_refuse_non_cuda_tensors():
+    from repro_torch.kernels.exchange import kernel as xkernel
+    from repro_torch.kernels.fft import kernel as fkernel
+
+    with pytest.raises(ValueError):
+        fkernel.fourstep(torch.zeros(2, 8, dtype=torch.complex64), 8, 1)
+    with pytest.raises(ValueError):
+        xkernel.encode(torch.zeros(8, dtype=torch.complex64), 1, 1, 1, 8, codec="bf16",
+                       layout=xkernel.CHUNK_MAJOR)
+
+
+@pytest.mark.parametrize("fields,expect", [
+    ({}, {"impl": "torch", "exchange_impl": "torch"}),
+    ({"impl": "matmul", "exchange_impl": "pallas", "comm_dtype": "bf16"},
+     {"impl": "matmul", "exchange_impl": "cuda", "comm_dtype": "bf16"}),
+    ({"method": "traditional", "comm_dtype": "int8", "guard": "strict"},
+     {"method": "traditional", "comm_dtype": "int8", "guard": "strict", "exchange_impl": "torch"}),
+])
+def test_config_from_reference(fields, expect):
+    from repro.core.planconfig import PlanConfig as RefConfig
+    from repro_torch.core.planconfig import PlanConfig, config_from_reference
+
+    ref = RefConfig(**fields)
+    cfg = config_from_reference(dataclasses.asdict(ref))
+    assert isinstance(cfg, PlanConfig)
+    for k, v in expect.items():
+        assert getattr(cfg, k) == v
+    assert (cfg.chunks, cfg.batch_fusion, cfg.tuner_cache) == (ref.chunks, ref.batch_fusion,
+                                                               ref.tuner_cache)
+
+
+def test_port_vocabulary():
+    from repro_torch.core.planconfig import PlanConfig
+
+    for bad in ({"impl": "jnp"}, {"exchange_impl": "pallas"}, {"method": "bogus"},
+                {"guard": "maybe"}, {"chunks": 0}, {"comm_dtype": "fp8"}):
+        with pytest.raises(ValueError):
+            PlanConfig(**bad)
+    assert PlanConfig(comm_dtype="bfloat16").stage_entry() == ("fused", 1, "bf16", "torch",
+                                                               "stacked")
