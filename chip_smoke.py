@@ -9,15 +9,24 @@ non-zero):
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
    source, started together) and print the card's name and power limit;
 2. every kernel mode against its plain torch version on seeded inputs, with
-   CUDA-event times (one ``{"kernel_sweep": [...]}`` line);
-3. the port's main path on a 1-rank NCCL group and a (1, 1) mesh:
-   (a) the quickstart plan ``(42, 63, 64)``, ``method="fused"``, against
-   ``np.fft.fftn``; (b) the slice configuration (``impl="matmul"``,
-   ``exchange_impl="cuda"``, ``comm_dtype="bf16"``) at ``(42, 63, 64)`` and at
-   512^3 complex64, forward and backward timed; (c) 512^3 with int8;
-4. the kernels of the main path at its 512^3 shapes: launches counted over
-   phase 3, error against the plain version, kernel / plain / library times
-   and the bound (one ``{"kernels": [...]}`` line), then the result line.
+   CUDA-event times (one ``{"kernel_sweep": [...]}`` line): K4, K1 (both
+   layouts, both codecs, guard mode and the saturation divisor), K2/K3, K5;
+3. the port's paths on a 1-rank NCCL group and a (1, 1) mesh, each driven
+   with the launch counters set to 0 just before it and read just after
+   (one ``{"paths": ...}`` line):
+   "slice" — (a) the quickstart plan ``(42, 63, 64)``, ``method="fused"``,
+   against ``np.fft.fftn``; (b) the slice configuration (``impl="matmul"``,
+   ``exchange_impl="cuda"``, ``comm_dtype="bf16"``) at ``(42, 63, 64)`` and
+   at 512^3 complex64, forward and backward timed; (c) 512^3 with int8;
+   "engines" — the traditional and pipelined (``chunks=4``) engines at 512^3
+   for each ``comm_dtype``, lossless ones bitwise equal to the fused engine,
+   plus each engine's single exchange timed alone;
+   "guard" — ``guard="strict"`` clean runs at 512^3 (bitwise equal to the
+   unguarded plan, guarded and unguarded times), then faults under
+   ``guard="degrade"`` and ``"strict"`` that must end as the reference's do;
+4. the kernels at the main path's 512^3 shapes: launches from their path,
+   error against the plain version, kernel / plain / library times and the
+   bound (one ``{"kernels": [...]}`` line), then the result line.
 
 Without a CUDA device, or outside a checkout of the repository, it prints no
 result and exits non-zero.
@@ -45,9 +54,11 @@ SHAPE_QS = (42, 63, 64)
 # relative L2 of the 512^3 forward vs torch.fft.fftn, and of the round trip:
 # one bf16 rounding of normal data is 1.7e-3, the forward rounds twice and
 # the round trip four times; int8 with one scale per block of 2^28 values
-# (max ~6.2 sigma) is ~1.4e-2 per rounding
-TOL_FWD = {"bf16": 3e-3, "int8": 3e-2}
-TOL_BACK = {"bf16": 5e-3, "int8": 4e-2}
+# (max ~6.2 sigma) is ~1.4e-2 per rounding; lossless is the four-step DFT's
+# fp32 error
+TOL_FWD = {"complex64": 1e-5, "bf16": 3e-3, "int8": 3e-2}
+TOL_BACK = {"complex64": 1e-5, "bf16": 5e-3, "int8": 4e-2}
+COMM_DTYPES = ("complex64", "bf16", "int8")
 
 
 def fail(msg):
@@ -98,7 +109,7 @@ def main():
     from repro_torch import _build
 
     t0 = time.perf_counter()
-    logs = _build.build(["fourstep", "exchange"])
+    logs = _build.build(["fourstep", "exchange", "transpose"])
     print(f"built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -114,9 +125,10 @@ def main():
     sweep = kernel_sweep(torch)
     print(json.dumps({"kernel_sweep": sweep}))
 
-    counts = plan_phase(torch)
+    paths = run_paths(torch)
+    print(json.dumps({"paths": paths}))
 
-    kernels = main_path_kernels(torch, counts)
+    kernels = main_path_kernels(torch, paths)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -139,15 +151,26 @@ def _randn(torch, shape, seed, iscomplex=True):
     return torch.from_numpy(x).cuda()
 
 
+def _max_err(torch, got, want, nan_to_num=False):
+    """Max abs difference of two tensors (complex as re/im pairs; with
+    ``nan_to_num`` non-finite values compared as torch.nan_to_num maps them)."""
+    if got.is_complex():
+        got, want = torch.view_as_real(got), torch.view_as_real(want)
+    got, want = got.float(), want.float()
+    if nan_to_num:
+        got, want = got.nan_to_num(), want.nan_to_num()
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
 def _check_codec(torch, name, got, want, codec):
     """bf16 (and any decode of one payload): bitwise; int8 payloads within
     one quantum, i.e. 1 in q.  Returns the max abs error."""
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{name}: {tuple(got.shape)} {got.dtype} != {tuple(want.shape)} {want.dtype}")
+    err = _max_err(torch, got, want)
     if got.is_complex():
         got, want = torch.view_as_real(got), torch.view_as_real(want)
-    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
     if codec == "bf16" and not torch.equal(got, want):
         fail(f"{name}: bf16 not bitwise equal to the plain version (max err {err})")
     if codec == "int8" and err > 1.0:
@@ -158,6 +181,7 @@ def _check_codec(torch, name, got, want, codec):
 def kernel_sweep(torch):
     from repro_torch.kernels.exchange import ops as xops, ref as xref
     from repro_torch.kernels.fft import ops as fops, ref as fref
+    from repro_torch.kernels.transpose import ops as tops, ref as tref
 
     out = []
     for n in (42, 63, 64, 256, 512):
@@ -196,6 +220,20 @@ def kernel_sweep(torch):
             tag = (f"{codec}:F{F}:M{M}:{'w>v' if w > v else 'w<v'}"
                    f"{'' if iscomplex else ':f32'}")
             out += _exchange_modes(torch, xops, xref, y, codec, v, w, v + nb, M, nb, tag)
+
+    for shape in ((24, 24, 8), (7, 13, 3), (64, 48, 40), (512, 33, 1)):
+        for iscomplex in (True, False):
+            x = _randn(torch, shape, sum(shape), iscomplex)
+            got, want = tops.transpose01(x), tref.transpose01_ref(x)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"transpose01 {shape} {x.dtype}: not bitwise equal to the plain version")
+            out.append({"name": f"transpose01:{'c64' if iscomplex else 'f32'}:{shape}",
+                        "replaces": "transpose/kernel.py:24",
+                        "max_abs_err": _max_err(torch, got, want),
+                        "ms": cuda_ms(torch, lambda: tops.transpose01(x)),
+                        "plain_ms": cuda_ms(torch, lambda: tref.transpose01_ref(x)),
+                        "library_ms": cuda_ms(torch, lambda: x.transpose(0, 1).contiguous())})
     return out
 
 
@@ -215,16 +253,31 @@ def _exchange_modes(torch, xops, xref, y, codec, v, w, bv, M, nb, tag):
     for wrapper, plain_fn, replaces in (
             (xops.pack_chunks, xref.pack_chunks_ref, "kernel.py:89 (pack=True)"),
             (xops.encode_payload, xref.encode_payload_ref, "kernel.py:89")):
-        q, s = wrapper(y, axis=bv, **kw)
-        qr, sr = plain_fn(y, axis=bv, **kw)
+        q, s, _ = wrapper(y, axis=bv, **kw)
+        qr, sr, _ = plain_fn(y, axis=bv, **kw)
         err = _check_codec(torch, f"{wrapper.__name__}:{tag}", q, qr, codec)
         if codec == "int8" and not torch.equal(s, sr):
             fail(f"{wrapper.__name__}:{tag}: int8 scales differ from the plain version")
         rec(f"encode:{wrapper.__name__}", replaces, err,
             lambda wrapper=wrapper: wrapper(y, axis=bv, **kw),
             lambda plain_fn=plain_fn: plain_fn(y, axis=bv, **kw), cast)
+        # guard mode (and for int8 the saturation fault's divisor): the same
+        # payload as above where undivided, and the plain version's counts
+        for sd in ((None, 64.0) if codec == "int8" else (None,)):
+            gkw = dict(axis=bv, guard=True, scale_div=sd, **kw)
+            q, s, st = wrapper(y, **gkw)
+            qr, sr, str_ = plain_fn(y, **gkw)
+            err = _check_codec(torch, f"{wrapper.__name__}:guard:{tag}", q, qr, codec)
+            if codec == "int8" and not torch.equal(s, sr):
+                fail(f"{wrapper.__name__}:guard:{tag}: int8 scales differ from the plain version")
+            if [float(st[k]) for k in st] != [float(str_[k]) for k in st]:
+                fail(f"{wrapper.__name__}:guard:{tag}: counts {st} != plain {str_}")
+            rec(f"encode:{wrapper.__name__}:guard{'' if sd is None else ':sat64'}",
+                replaces + " (guard=True)", err,
+                lambda wrapper=wrapper, gkw=gkw: wrapper(y, **gkw),
+                lambda plain_fn=plain_fn, gkw=gkw: plain_fn(y, **gkw), cast)
 
-    qr, sr = xref.pack_chunks_ref(y, axis=bv, **kw)
+    qr, sr, _ = xref.pack_chunks_ref(y, axis=bv, **kw)
     dkw = dict(v=v, w=w, scale=sr, iscomplex=iscomplex, **kw)
     got = xops.unpack_chunks(qr, **dkw)
     want = xref.unpack_chunks_ref(qr, **dkw)
@@ -233,7 +286,7 @@ def _exchange_modes(torch, xops, xref, y, codec, v, w, bv, M, nb, tag):
     rec("decode:unpack_chunks", "kernel.py:173", err, lambda: xops.unpack_chunks(qr, **dkw),
         lambda: xref.unpack_chunks_ref(qr, **dkw), widen)
 
-    qr, sr = xref.encode_payload_ref(y, axis=bv, **kw)
+    qr, sr, _ = xref.encode_payload_ref(y, axis=bv, **kw)
     dkw = dict(axis=bv, scale=sr, iscomplex=iscomplex, **kw)
     got = xops.decode_payload(qr, **dkw)
     want = xref.decode_payload_ref(qr, **dkw)
@@ -249,49 +302,111 @@ def _exchange_modes(torch, xops, xref, y, codec, v, w, bv, M, nb, tag):
 # ---------------------------------------------------------------------------
 
 
-def plan_phase(torch):
-    """Drive the plans; returns the kernel launch counts of this phase."""
-    import numpy as np
+def _counters():
+    from repro_torch.kernels.exchange import ops as xops
+    from repro_torch.kernels.fft import ops as fops
+    from repro_torch.kernels.transpose import ops as tops
+
+    return fops.launches, xops.launches, tops.launches
+
+
+def _drive(torch, name, fn, *args):
+    """Run one path with every launch counter at 0 just before it; returns
+    the counts read just after."""
+    counters = _counters()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.clear()
+    fn(torch, *args)
+    torch.cuda.synchronize()
+    counts = {k: v for c in counters for k, v in c.items()}
+    print(f"path {name}: launches {counts}")
+    return counts
+
+
+def run_paths(torch):
+    """Drive the three paths on a 1-rank NCCL group; returns each path's
+    kernel launch counts."""
     import torch.distributed as dist
 
     from repro_torch.core.meshutil import make_mesh
-    from repro_torch.core.pfft import ParallelFFT
-    from repro_torch.core.planconfig import PlanConfig
-    from repro_torch.kernels.exchange import ops as xops
-    from repro_torch.kernels.fft import ops as fops
 
     pg_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
     try:
         dist.init_process_group("nccl", init_method=f"file://{pg_dir}/pg", rank=0, world_size=1)
         mesh = make_mesh((1, 1), ("p0", "p1"))
-        slice_cfg = PlanConfig(method="fused", impl="matmul", exchange_impl="cuda",
-                               comm_dtype="bf16")
-
-        fops.launches.clear()
-        xops.launches.clear()
-
-        # (a) the quickstart, default config
-        rng = np.random.default_rng(0)
-        u = (rng.standard_normal(SHAPE_QS) + 1j * rng.standard_normal(SHAPE_QS)).astype(np.complex64)
-        plan = ParallelFFT(mesh, SHAPE_QS, ("p0", "p1"), config=PlanConfig(method="fused"))
-        uh = plan.forward(u)
-        ub = plan.backward(uh)
-        np.testing.assert_allclose(ub.cpu().numpy(), u, rtol=1e-4, atol=1e-4)
-        np.testing.assert_allclose(uh.cpu().numpy(), np.fft.fftn(u), rtol=1e-4, atol=1e-2)
-        print(json.dumps({"plan": "quickstart", "shape": SHAPE_QS, "config": "default",
-                          "rel_l2_fwd": rel_l2(torch, uh, torch.from_numpy(np.fft.fftn(u)).cuda()),
-                          "rel_l2_roundtrip": rel_l2(torch, ub, torch.from_numpy(u).cuda())}))
-
-        # (b) the slice at the quickstart shape and at 512^3; (c) int8 at 512^3
-        for shape, cfg in ((SHAPE_QS, slice_cfg), (SHAPE_BIG, slice_cfg),
-                           (SHAPE_BIG, slice_cfg.replace(comm_dtype="int8"))):
-            _run_plan(torch, mesh, shape, cfg, ParallelFFT, fops, xops)
-        counts = {**fops.launches, **xops.launches}
+        paths = {"slice": _drive(torch, "slice", slice_path, mesh)}
+        torch.cuda.empty_cache()
+        paths["engines"] = _drive(torch, "engines", engines_path, mesh)
+        torch.cuda.empty_cache()
+        paths["guard"] = _drive(torch, "guard", guard_path, mesh)
+        torch.cuda.empty_cache()
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
         shutil.rmtree(pg_dir, ignore_errors=True)
-    return counts
+    return paths
+
+
+def slice_path(torch, mesh):
+    """The slice path: the quickstart, and the slice configuration
+    at the quickstart shape and at 512^3 (bf16, int8)."""
+    import numpy as np
+
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig
+    from repro_torch.kernels.exchange import ops as xops
+    from repro_torch.kernels.fft import ops as fops
+
+    slice_cfg = PlanConfig(method="fused", impl="matmul", exchange_impl="cuda",
+                           comm_dtype="bf16")
+
+    # (a) the quickstart, default config
+    rng = np.random.default_rng(0)
+    u = (rng.standard_normal(SHAPE_QS) + 1j * rng.standard_normal(SHAPE_QS)).astype(np.complex64)
+    plan = ParallelFFT(mesh, SHAPE_QS, ("p0", "p1"), config=PlanConfig(method="fused"))
+    uh = plan.forward(u)
+    ub = plan.backward(uh)
+    np.testing.assert_allclose(ub.cpu().numpy(), u, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(uh.cpu().numpy(), np.fft.fftn(u), rtol=1e-4, atol=1e-2)
+    print(json.dumps({"plan": "quickstart", "shape": SHAPE_QS, "config": "default",
+                      "rel_l2_fwd": rel_l2(torch, uh, torch.from_numpy(np.fft.fftn(u)).cuda()),
+                      "rel_l2_roundtrip": rel_l2(torch, ub, torch.from_numpy(u).cuda())}))
+
+    # (b) the slice at the quickstart shape and at 512^3; (c) int8 at 512^3
+    for shape, cfg in ((SHAPE_QS, slice_cfg), (SHAPE_BIG, slice_cfg),
+                       (SHAPE_BIG, slice_cfg.replace(comm_dtype="int8"))):
+        _run_plan(torch, mesh, shape, cfg, ParallelFFT, fops, xops)
+
+
+def _launches_of(torch, comm, fn):
+    """``(fn(), launches)``: the K4, encode (K1) and decode (K3) kernel
+    launches at ``comm`` that one call of ``fn`` made."""
+    from repro_torch.kernels.exchange import ops as xops
+    from repro_torch.kernels.fft import ops as fops
+
+    def totals():
+        return (sum(fops.launches.values()), xops.launches[f"pack_chunks:{comm}"],
+                xops.launches[f"unpack_chunks:{comm}"])
+
+    before = totals()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(zip(("fourstep", "encode", "decode"),
+                         (b - a for a, b in zip(before, totals()))))
+
+
+def _want_launches(plan, comm):
+    """Launches of one forward (or backward): a K4 per stage and per
+    pipelined slice, and per exchange collective one encode (an int8 encode
+    is two kernels) and one decode on a lossy wire."""
+    from repro_torch.kernels.exchange import ops as xops
+
+    colls = sum(e.chunks if e.method == "pipelined" else 1 for e in plan.schedule)
+    lossy = comm != "complex64"
+    return {"fourstep": 1 + colls,
+            "encode": colls * xops.ENCODE_KERNELS[comm] if lossy else 0,
+            "decode": colls if lossy else 0}
 
 
 def _run_plan(torch, mesh, shape, cfg, ParallelFFT, fops, xops):
@@ -299,16 +414,9 @@ def _run_plan(torch, mesh, shape, cfg, ParallelFFT, fops, xops):
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn(shape, dtype=torch.complex64, device="cuda", generator=gen)
     ref = torch.fft.fftn(x)
-    k4, enc, dec = (sum(fops.launches.values()), xops.launches[f"pack_chunks:{cfg.comm_dtype}"],
-                    xops.launches[f"unpack_chunks:{cfg.comm_dtype}"])
-    y = plan.forward_padded(x)
-    torch.cuda.synchronize()
-    per_fwd = {"fourstep": sum(fops.launches.values()) - k4,
-               "encode": xops.launches[f"pack_chunks:{cfg.comm_dtype}"] - enc,
-               "decode": xops.launches[f"unpack_chunks:{cfg.comm_dtype}"] - dec}
+    y, per_fwd = _launches_of(torch, cfg.comm_dtype, lambda: plan.forward_padded(x))
     # two exchanges per 3-D pencil forward; an int8 encode is two kernel launches
-    want = {"fourstep": 3, "encode": 2 * xops.ENCODE_KERNELS[cfg.comm_dtype], "decode": 2}
-    if per_fwd != want:
+    if per_fwd != _want_launches(plan, cfg.comm_dtype):
         fail(f"{shape} {cfg.comm_dtype}: one forward launched {per_fwd}")
     back = plan.backward_padded(y)
     if not (torch.isfinite(torch.view_as_real(y)).all() and y.shape == x.shape):
@@ -328,22 +436,187 @@ def _run_plan(torch, mesh, shape, cfg, ParallelFFT, fops, xops):
                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}))
 
 
+def _big_input(torch, seed=1):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(SHAPE_BIG, dtype=torch.complex64, device="cuda", generator=gen)
+
+
+def _check_finite(torch, name, y, shape):
+    torch.cuda.synchronize()
+    if tuple(y.shape) != tuple(shape) or not torch.isfinite(torch.view_as_real(y)).all():
+        fail(f"{name}: output not finite or of the wrong shape")
+
+
+def engines_path(torch, mesh):
+    """The traditional and pipelined engines at 512^3 for each comm_dtype,
+    against torch.fft.fftn and (lossless) bitwise against the fused engine;
+    then each engine's first forward exchange timed alone."""
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig
+    from repro_torch.core.redistribute import exchange_shard
+
+    x = _big_input(torch)
+    ref = torch.fft.fftn(x)
+    base = PlanConfig(method="fused", impl="matmul", exchange_impl="cuda", chunks=4)
+    fused = ParallelFFT(mesh, SHAPE_BIG, ("p0", "p1"), config=base)
+    y_fused = fused.forward_padded(x)
+    b_fused = fused.backward_padded(y_fused)
+    for method in ("fused", "traditional", "pipelined"):
+        for comm in COMM_DTYPES:
+            if method == "fused" and comm != "complex64":
+                continue  # the slice path times the lossy fused plans
+            plan = ParallelFFT(mesh, SHAPE_BIG, ("p0", "p1"),
+                               config=base.replace(method=method, comm_dtype=comm))
+            name = f"{method}@{comm}"
+            # each engine runs the path's kernels: K4 per stage and slice,
+            # K1 and K3 per collective on a lossy wire
+            y, per_fwd = _launches_of(torch, comm, lambda: plan.forward_padded(x))
+            back, per_bwd = _launches_of(torch, comm, lambda: plan.backward_padded(y))
+            want = _want_launches(plan, comm)
+            if per_fwd != want or per_bwd != want:
+                fail(f"{name}: forward launched {per_fwd}, backward {per_bwd}, want {want} each")
+            _check_finite(torch, name, y, SHAPE_BIG)
+            fwd_err, back_err = rel_l2(torch, y, ref), rel_l2(torch, back, x)
+            if fwd_err > TOL_FWD[comm] or back_err > TOL_BACK[comm]:
+                fail(f"{name}: rel L2 forward {fwd_err} (<= {TOL_FWD[comm]}), "
+                     f"round trip {back_err} (<= {TOL_BACK[comm]})")
+            bitwise = None
+            if comm == "complex64":
+                bitwise = torch.equal(y, y_fused) and torch.equal(back, b_fused)
+                if not bitwise:
+                    fail(f"{name}: lossless output is not bitwise equal to the fused engine's")
+            del back
+            fwd_ms = cuda_ms(torch, lambda: plan.forward_padded(x))
+            bwd_ms = cuda_ms(torch, lambda: plan.backward_padded(y))
+            print(json.dumps({"plan": "engine", "method": method,
+                              "chunks": plan.schedule[0].chunks, "comm_dtype": comm,
+                              "shape": SHAPE_BIG, "rel_l2_fwd_vs_fftn": fwd_err,
+                              "rel_l2_roundtrip": back_err, "bitwise_equal_fused": bitwise,
+                              "launches_per_forward": per_fwd,
+                              "forward_ms": fwd_ms, "backward_ms": bwd_ms}))
+            del y
+    del ref, y_fused, b_fused
+
+    # the first forward exchange (v = 2 -> w = 1 over "p1", M = 1) alone, and
+    # the pack copy a lossless exchange pays at M = 4 (at M = 1 the moved
+    # chunk axis has extent 1 and movedim(...).contiguous() copies nothing)
+    alone = {}
+    for comm in COMM_DTYPES:
+        for method in ("fused", "traditional", "pipelined"):
+            alone[f"{method}@{comm}"] = cuda_ms(torch, lambda: exchange_shard(
+                x, 2, 1, "p1", mesh=mesh, method=method, chunks=4, comm_dtype=comm,
+                impl="cuda"))
+    n0, n1, n2 = SHAPE_BIG
+    pack_m4 = cuda_ms(torch, lambda: torch.movedim(x.reshape(n0, n1, 4, n2 // 4), 2, 0)
+                      .contiguous())
+    print(json.dumps({"exchange_alone_ms": alone, "movedim_pack_copy_m4_ms": pack_m4}))
+
+
+def guard_path(torch, mesh):
+    """Guarded execution at 512^3: clean strict runs (bitwise equal to the
+    unguarded plan, guarded and unguarded forward times), then faults that
+    must end as the reference's matrix says."""
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig
+    from repro_torch.robustness import FaultPlan, GuardError
+
+    x = _big_input(torch)
+    base = PlanConfig(method="fused", impl="matmul", exchange_impl="cuda")
+
+    def plan(**kw):
+        return ParallelFFT(mesh, SHAPE_BIG, ("p0", "p1"), config=base.replace(**kw))
+
+    clean = {}
+    for comm in ("int8", "complex64"):
+        pu, pg = plan(comm_dtype=comm), plan(comm_dtype=comm, guard="strict")
+        yu = pu.forward(x)
+        yg, rep = pg.forward(x)
+        if not rep.ok or rep.transitions:
+            fail(f"guard strict {comm}: clean run tripped {rep.tripped}")
+        if not torch.equal(yg, yu):
+            fail(f"guard strict {comm}: guarded output differs from the unguarded one")
+        del yg
+        guarded = pg.guarded_padded("forward")
+        u_ms = cuda_ms(torch, lambda: pu.forward_padded(x))
+        g_ms = cuda_ms(torch, lambda: guarded(x))
+        print(json.dumps({"guard": "strict", "comm_dtype": comm, "shape": SHAPE_BIG,
+                          "ok": rep.ok, "transitions": len(rep.transitions),
+                          "bitwise_equal_unguarded": True, "forward_ms": u_ms,
+                          "guarded_forward_ms": g_ms, "parseval_rel_err": rep.parseval_rel_err,
+                          "stages": [st.to_dict() for st in rep.stages]}))
+        clean[comm] = yu
+
+    def degrade(fp, comm):
+        with fp:
+            return plan(comm_dtype=comm, guard="degrade").forward(x)
+
+    def record(case, y, rep, want, tol):
+        err = rel_l2(torch, y, want)
+        if not rep.ok or not rep.transitions or err > tol:
+            fail(f"guard {case}: ok={rep.ok} transitions={rep.transitions} rel L2 {err} (<= {tol})")
+        print(json.dumps({"guard": "degrade", "case": case, "ok": rep.ok,
+                          "attempts": rep.attempts, "schedule": [list(e) for e in rep.schedule],
+                          "transitions": [t.get("tripped") for t in rep.transitions],
+                          "rel_l2_vs_unguarded": err}))
+
+    y, rep = degrade(FaultPlan().saturate(engine="fused"), "int8")
+    if any(e[2] == "int8" for e in rep.schedule):
+        fail(f"guard saturate: final schedule still on int8: {rep.schedule}")
+    record("saturate", y, rep, clean["complex64"], TOL_FWD["bf16"])
+    y, rep = degrade(FaultPlan().corrupt_wire(engine="fused", codec="complex64"), "complex64")
+    if not any(e[0] != "fused" for e in rep.schedule):
+        fail(f"guard corrupt_wire complex64: no engine rung moved: {rep.schedule}")
+    record("corrupt_wire_complex64", y, rep, clean["complex64"], 1e-5)
+    y, rep = degrade(FaultPlan().corrupt_wire(engine="fused", codec="int8", label="scale"), "int8")
+    record("corrupt_wire_int8_scale", y, rep, clean["complex64"], TOL_FWD["bf16"])
+    del y
+    try:
+        degrade(FaultPlan().nan_input(), "complex64")
+        fail("guard nan_input (wildcard): no GuardError")
+    except GuardError as e:
+        print(json.dumps({"guard": "degrade", "case": "nan_input_wildcard", "raised": True,
+                          "tripped": list(e.report.tripped)}))
+    with FaultPlan().saturate(engine="fused"):
+        try:
+            plan(comm_dtype="int8", guard="strict").forward(x)
+            fail("guard strict saturate: no GuardError")
+        except GuardError as e:
+            if not any("saturation" in t for t in e.report.tripped):
+                fail(f"guard strict saturate: tripped {e.report.tripped}, no saturation")
+            print(json.dumps({"guard": "strict", "case": "saturate", "raised": True,
+                              "tripped": list(e.report.tripped)}))
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path's kernels at its 512^3 shapes
 # ---------------------------------------------------------------------------
 
 
-def main_path_kernels(torch, counts):
+def _launched(paths, key):
+    """Launches of ``key`` over every path (a kernel no path runs: 0)."""
+    return sum(counts.get(key, 0) for counts in paths.values())
+
+
+def _record(name, source, replaces, path, launches, err, ms, plain_ms, bound, library_ms):
+    b, by = bound
+    return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
+            "replaces": replaces, "path": path, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": library_ms}
+
+
+def main_path_kernels(torch, paths):
     from repro_torch.kernels.exchange import ops as xops, ref as xref
     from repro_torch.kernels.fft import ops as fops, ref as fref
+    from repro_torch.kernels.transpose import ops as tops, ref as tref
 
     n = SHAPE_BIG[-1]
     n1, n2 = fops.plan_factors(n)
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    x = torch.randn(SHAPE_BIG, dtype=torch.complex64, device="cuda", generator=gen)
+    x = _big_input(torch, seed=2)
     rows = x.reshape(-1, n)
     batch = rows.shape[0]
     kernels = []
+    counts = paths["slice"]
 
     k4_flops = batch * (8.0 * n * (n1 + n2) + 6.0 * n)
     k4_bytes = 2 * rows.numel() * 8
@@ -359,53 +632,169 @@ def main_path_kernels(torch, counts):
         if err > TOL_K4 * float(want.abs().max()):
             fail(f"fourstep {mode} at {SHAPE_BIG}: max err {err}")
         del got, want
-        b, by = bound_ms(k4_bytes, k4_flops)
-        kernels.append({"name": f"fourstep_dft[{mode}]", "route": "cuda",
-                        "source": "src/repro_torch/csrc/fourstep.cu",
-                        "replaces": "src/repro/kernels/fft/kernel.py:87",
-                        "launches": counts.get(mode, 0), "max_abs_err": err,
-                        "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
-                        "bound_ms": b, "bound_by": by, "library_ms": cuda_ms(torch, lib)})
+        kernels.append(_record(f"fourstep_dft[{mode}]", "fourstep.cu",
+                               "src/repro/kernels/fft/kernel.py:87", "slice", counts.get(mode, 0),
+                               err, cuda_ms(torch, kern), cuda_ms(torch, plain),
+                               bound_ms(k4_bytes, k4_flops), cuda_ms(torch, lib)))
 
     # the first forward exchange: v = 2 -> w = 1 over a group of 1
     v, w, m = 2, 1, 1
     elems = x.numel()
+    flat = torch.view_as_real(x)
     for codec, wire in (("bf16", 2), ("int8", 1)):
         enc = lambda: xops.pack_chunks(x, axis=v, m=m, codec=codec)
         enc_plain = lambda: xref.pack_chunks_ref(x, axis=v, m=m, codec=codec)
-        (q, s), (qr, sr) = enc(), enc_plain()
+        (q, s, _), (qr, sr, _) = enc(), enc_plain()
         err = _check_codec(torch, f"pack_chunks {codec} {SHAPE_BIG}", q, qr, codec)
         if codec == "int8" and not torch.equal(s, sr):
             fail("pack_chunks int8 at 512^3: scales differ from the plain version")
-        flat = torch.view_as_real(x)
-        b, by = bound_ms(elems * 8 + elems * 2 * wire, 0)
-        kernels.append({"name": f"exchange_encode[chunk_major,{codec}]", "route": "cuda",
-                        "source": "src/repro_torch/csrc/exchange.cu",
-                        "replaces": "src/repro/kernels/exchange/kernel.py:89",
-                        "launches": counts.get(f"pack_chunks:{codec}", 0), "max_abs_err": err,
-                        "ms": cuda_ms(torch, enc), "plain_ms": cuda_ms(torch, enc_plain),
-                        "bound_ms": b, "bound_by": by,
-                        "library_ms": (cuda_ms(torch, lambda: flat.to(torch.bfloat16))
-                                       if codec == "bf16" else None)})
+        cast = (cuda_ms(torch, lambda: flat.to(torch.bfloat16)) if codec == "bf16" else None)
+        kernels.append(_record(f"exchange_encode[chunk_major,{codec}]", "exchange.cu",
+                               "src/repro/kernels/exchange/kernel.py:89", "slice",
+                               counts.get(f"pack_chunks:{codec}", 0), err, cuda_ms(torch, enc),
+                               cuda_ms(torch, enc_plain),
+                               bound_ms(elems * 8 + elems * 2 * wire, 0), cast))
         del q, s
         dkw = dict(v=v, w=w, m=m, scale=sr, codec=codec, iscomplex=True)
         dec = lambda: xops.unpack_chunks(qr, **dkw)
         dec_plain = lambda: xref.unpack_chunks_ref(qr, **dkw)
         err = _check_codec(torch, f"unpack_chunks {codec} {SHAPE_BIG}", dec(), dec_plain(), "bf16")
-        b, by = bound_ms(elems * 2 * wire + elems * 8, 0)
-        kernels.append({"name": f"exchange_decode[scatter_w,{codec}]", "route": "cuda",
-                        "source": "src/repro_torch/csrc/exchange.cu",
-                        "replaces": "src/repro/kernels/exchange/kernel.py:173",
-                        "launches": counts.get(f"unpack_chunks:{codec}", 0), "max_abs_err": err,
-                        "ms": cuda_ms(torch, dec), "plain_ms": cuda_ms(torch, dec_plain),
-                        "bound_ms": b, "bound_by": by,
-                        "library_ms": (cuda_ms(torch, lambda: qr.float())
-                                       if codec == "bf16" else None)})
+        kernels.append(_record(f"exchange_decode[scatter_w,{codec}]", "exchange.cu",
+                               "src/repro/kernels/exchange/kernel.py:173", "slice",
+                               counts.get(f"unpack_chunks:{codec}", 0), err, cuda_ms(torch, dec),
+                               cuda_ms(torch, dec_plain),
+                               bound_ms(elems * 2 * wire + elems * 8, 0),
+                               cuda_ms(torch, lambda: qr.float()) if codec == "bf16" else None))
         del qr, sr
+
+    kernels += _pipelined_slice_records(torch, x, xops, xref, paths["engines"])
+    kernels += _guard_mode_records(torch, x, xops, xref, paths["guard"])
+    kernels += _in_place_decode_records(torch, x, xops, xref, paths)
+
+    # K5 at (512, 512, 512) complex64: on no path, in either package
+    got, want = tops.transpose01(x), tref.transpose01_ref(x)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail("transpose01 at 512^3: not bitwise equal to the plain version")
+    err = _max_err(torch, got, want)
+    del got, want
+    plain_ms = cuda_ms(torch, lambda: tref.transpose01_ref(x))
+    kernels.append(_record("transpose01[complex64]", "transpose.cu",
+                           "src/repro/kernels/transpose/kernel.py:24", None,
+                           _launched(paths, "transpose01:complex64"), err,
+                           cuda_ms(torch, lambda: tops.transpose01(x)), plain_ms,
+                           bound_ms(2 * elems * 8, 0),
+                           cuda_ms(torch, lambda: x.transpose(0, 1).contiguous())))
+
     for k in kernels:
-        if k["launches"] < 1:
-            fail(f"{k['name']} was never launched on the main path")
+        if k["path"] is not None and k["launches"] < 1:
+            fail(f"{k['name']} was never launched on the {k['path']} path")
     return kernels
+
+
+def _pipelined_slice_records(torch, x, xops, xref, counts):
+    """K1 and K3 at the pipelined engine's shapes: slice 0 of 4 of the first
+    forward exchange (v = 2 -> w = 1, M = 1), ``(512, 512, 1, 128)`` made
+    contiguous as the engine makes it, against the plain version."""
+    n0, n1, n2 = SHAPE_BIG
+    piece = x.reshape(n0, n1, 1, n2).narrow(3, 0, n2 // 4).contiguous()
+    elems = piece.numel()
+    flat = torch.view_as_real(piece)
+    recs = []
+    for codec, wire in (("bf16", 2), ("int8", 1)):
+        kw = dict(axis=2, m=1, codec=codec)
+        enc = lambda kw=kw: xops.pack_chunks(piece, **kw)
+        enc_plain = lambda kw=kw: xref.pack_chunks_ref(piece, **kw)
+        (q, s, _), (qr, sr, _) = enc(), enc_plain()
+        err = _check_codec(torch, f"pack_chunks {codec} pipelined slice", q, qr, codec)
+        if codec == "int8" and not torch.equal(s, sr):
+            fail("pack_chunks int8 at the pipelined slice: scales differ from the plain version")
+        cast = cuda_ms(torch, lambda: flat.to(torch.bfloat16)) if codec == "bf16" else None
+        recs.append(_record(f"exchange_encode[chunk_major,{codec},pipelined_slice]",
+                            "exchange.cu", "src/repro/kernels/exchange/kernel.py:89", "engines",
+                            counts.get(f"pack_chunks:{codec}", 0), err, cuda_ms(torch, enc),
+                            cuda_ms(torch, enc_plain), bound_ms(elems * 8 + elems * 2 * wire, 0),
+                            cast))
+        del q, s
+        dkw = dict(v=2, w=1, m=1, scale=sr, codec=codec, iscomplex=True)
+        dec = lambda dkw=dkw: xops.unpack_chunks(qr, **dkw)
+        dec_plain = lambda dkw=dkw: xref.unpack_chunks_ref(qr, **dkw)
+        err = _check_codec(torch, f"unpack_chunks {codec} pipelined slice", dec(), dec_plain(),
+                           "bf16")
+        recs.append(_record(f"exchange_decode[scatter_w,{codec},pipelined_slice]",
+                            "exchange.cu", "src/repro/kernels/exchange/kernel.py:173", "engines",
+                            counts.get(f"unpack_chunks:{codec}", 0), err, cuda_ms(torch, dec),
+                            cuda_ms(torch, dec_plain), bound_ms(elems * 2 * wire + elems * 8, 0),
+                            cuda_ms(torch, lambda: qr.float()) if codec == "bf16" else None))
+        del qr, sr
+    return recs
+
+
+def _guard_mode_records(torch, x, xops, xref, counts):
+    """K1's guard mode at 512^3: payload bitwise equal to the plain
+    version's, scales equal, counts equal to an exact count of the plain
+    payload, with and without the saturation fault's divisor."""
+    xg = x.clone()
+    xg.view(-1)[[0, xg.numel() // 3, xg.numel() // 2]] = torch.tensor(
+        [float("nan"), float("inf"), -float("inf")], dtype=torch.complex64, device=x.device)
+    elems = xg.numel()
+    want_nonfinite = int((~torch.isfinite(torch.view_as_real(xg))).sum())
+    recs = []
+    for codec, wire, sd in (("bf16", 2, None), ("int8", 1, None), ("int8", 1, 64.0)):
+        kw = dict(axis=2, m=1, codec=codec, guard=True, scale_div=sd)
+        (q, s, st), (qr, sr, _) = xops.pack_chunks(xg, **kw), xref.pack_chunks_ref(xg, **kw)
+        torch.cuda.synchronize()
+        if codec == "int8":
+            same = torch.equal(q, qr) and torch.equal(s, sr)
+            want_sat = int(((qr == 127) | (qr == -127)).sum())
+        else:
+            same = torch.equal(q.float().nan_to_num(), qr.float().nan_to_num())
+            want_sat = 0
+        err = _max_err(torch, q, qr, nan_to_num=True)
+        # the kernel's counts are exact integers rounded once to f32
+        got = (float(st["nonfinite"]), float(st["saturated"]))
+        want = (float(torch.tensor(float(want_nonfinite), dtype=torch.float32)),
+                float(torch.tensor(float(want_sat), dtype=torch.float32)))
+        if not same or got != want:
+            fail(f"pack_chunks guard {codec} scale_div={sd} at 512^3: payload equal {same}, "
+                 f"counts {got} != exact {want}")
+        print(json.dumps({"guard_counts": {"codec": codec, "scale_div": sd, "nonfinite": got[0],
+                                           "saturated": got[1], "exact": [want_nonfinite,
+                                                                          want_sat]}}))
+        del q, s, qr, sr
+        tag = f"{codec}{'' if sd is None else ',sat64'}"
+        cast = (cuda_ms(torch, lambda: torch.view_as_real(xg).to(torch.bfloat16))
+                if codec == "bf16" else None)
+        recs.append(_record(f"exchange_encode[chunk_major,{tag},guard]", "exchange.cu",
+                            "src/repro/kernels/exchange/kernel.py:89 (guard=True)", "guard",
+                            counts.get(f"pack_chunks:{codec}:guard", 0), err,
+                            cuda_ms(torch, lambda kw=kw: xops.pack_chunks(xg, **kw)),
+                            cuda_ms(torch, lambda kw=kw: xref.pack_chunks_ref(xg, **kw)),
+                            bound_ms(elems * 8 + elems * 2 * wire, 0), cast))
+    return recs
+
+
+def _in_place_decode_records(torch, x, xops, xref, paths):
+    """K2 (in-place decode) at the reference fused engine's 512^3 shapes:
+    the received payload of the first forward exchange, decoded along w = 1.
+    On no path of the port, whose exchanges decode with K3's scatter."""
+    recs = []
+    elems = x.numel()
+    for codec, wire in (("bf16", 2), ("int8", 1)):
+        qr, sr, _ = xref.encode_payload_ref(x, axis=2, m=1, codec=codec)
+        dkw = dict(axis=1, m=1, scale=sr, codec=codec, iscomplex=True)
+        err = _check_codec(torch, f"decode_payload {codec} {SHAPE_BIG}",
+                           xops.decode_payload(qr, **dkw), xref.decode_payload_ref(qr, **dkw),
+                           "bf16")
+        recs.append(_record(f"exchange_decode[in_place,{codec}]", "exchange.cu",
+                            "src/repro/kernels/exchange/kernel.py:144", None,
+                            _launched(paths, f"decode_payload:{codec}"), err,
+                            cuda_ms(torch, lambda: xops.decode_payload(qr, **dkw)),
+                            cuda_ms(torch, lambda: xref.decode_payload_ref(qr, **dkw)),
+                            bound_ms(elems * 2 * wire + elems * 8, 0),
+                            cuda_ms(torch, lambda: qr.float()) if codec == "bf16" else None))
+        del qr, sr
+    return recs
 
 
 if __name__ == "__main__":

@@ -14,9 +14,16 @@ and :meth:`~ParallelFFT.forward` / :meth:`~ParallelFFT.backward` take a
 logical-shape global tensor that every rank holds, cut out this rank's
 block, run, and all-gather the result.
 
-This slice runs ``method="fused"`` without ``guard`` on single-field blocks;
-the traditional, pipelined and tuned (``"auto"``) engines, batched fields
-and guarded execution raise ``NotImplementedError`` (ROADMAP).
+``method`` is ``"fused"`` (the paper's single all-to-all), ``"traditional"``
+(pack + all-to-all + unpack) or ``"pipelined"`` (sliced exchanges, each
+slice's next-stage FFT issued before the wait of the next slice); the tuned
+``"auto"`` raises ``NotImplementedError`` until the tuner is ported
+(ROADMAP).  ``guard="strict"|"degrade"`` routes ``forward``/``backward``
+through :func:`repro_torch.robustness.runner.run_guarded` and returns
+``(result, HealthReport)``; the guarded executor sums its stat vector over
+the plan's world with one ``all_reduce``, the one collective the
+reference's single controller does not need.  Plans run single-field blocks
+(``forward_many``, ROADMAP).
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ from repro_torch.core.meshutil import mesh_device
 from repro_torch.core.pencil import (Group, Pencil, allgather_global, group_size, make_pencil,
                                      scatter_global)
 from repro_torch.core.planconfig import PlanConfig, StageEntry
-from repro_torch.core.redistribute import exchange_shard
+from repro_torch.core.redistribute import exchange_shard, exchange_shard_sliced
+from repro_torch.robustness import faults, health
 
 
 @dataclass(frozen=True)
@@ -77,12 +85,10 @@ class ParallelFFT:
         if not 1 <= k <= d - 1:
             raise ValueError(f"need 1 <= len(grid)={k} <= d-1={d - 1}")
         config = PlanConfig() if config is None else config
-        if config.method != "fused":
+        if config.method == "auto":
             raise NotImplementedError(
-                f"method={config.method!r}: the port runs method='fused' only (ROADMAP: "
-                "traditional and pipelined engines; tuner for 'auto')")
-        if config.guard != "off":
-            raise NotImplementedError("guard: ROADMAP item 'guard + robustness'")
+                "method='auto' needs the schedule tuner (core/tuner.py), not ported yet "
+                "(ROADMAP); pass method='fused', 'traditional' or 'pipelined'")
         if transforms is not None:
             specs = tuple(as_spec(s) for s in transforms)
             if len(specs) != d:
@@ -103,6 +109,7 @@ class ParallelFFT:
         self.transforms = specs
         self.mesh, self.shape, self.grid = mesh, tuple(shape), tuple(grid)
         self.config = config
+        self.method, self.chunks, self.guard = config.method, config.chunks, config.guard
         self.impl, self.exchange_impl = config.impl, config.exchange_impl
         self.comm_dtype = config.comm_dtype
         self.d, self.k = d, k
@@ -173,20 +180,69 @@ class ParallelFFT:
 
     # -- executors on this rank's padded block -------------------------------
 
+    def _walk(self, direction: str):
+        """(stages, pencils, sign, input pencil) of ``direction``."""
+        if direction == "forward":
+            return self.stages, self.pencil_trace, fftcore.FORWARD, self.input_pencil
+        if direction == "backward":
+            stages, pencils = _reverse_plan(self.stages, self.pencil_trace)
+            return stages, pencils, fftcore.BACKWARD, self.output_pencil
+        raise ValueError(f"unknown direction {direction!r}")
+
+    def _execute(self, block, direction: str, schedule, guard: bool):
+        stages, pencils, sign, pen = self._walk(direction)
+        self._check_block(block, pen)
+        sched = schedule if direction == "forward" else schedule[::-1]
+        return _run_stages(block, stages=stages, pencils=pencils, schedule=sched,
+                           impl=self.impl, sign=sign, mesh=self.mesh, guard=guard)
+
     def forward_padded(self, block: torch.Tensor) -> torch.Tensor:
         """Forward transform of this rank's padded block (input pencil)."""
-        self._check_block(block, self.input_pencil)
-        return _run_stages(block, stages=self.stages, pencils=self.pencil_trace,
-                           schedule=self.schedule, impl=self.impl, sign=fftcore.FORWARD,
-                           mesh=self.mesh)
+        return self._execute(block, "forward", self.schedule, guard=False)
 
     def backward_padded(self, block: torch.Tensor) -> torch.Tensor:
         """Backward transform of this rank's padded block (output pencil)."""
-        self._check_block(block, self.output_pencil)
-        stages, pencils = _reverse_plan(self.stages, self.pencil_trace)
-        return _run_stages(block, stages=stages, pencils=pencils,
-                           schedule=self.schedule[::-1], impl=self.impl,
-                           sign=fftcore.BACKWARD, mesh=self.mesh)
+        return self._execute(block, "backward", self.schedule, guard=False)
+
+    def guarded_padded(self, direction: str = "forward", *, schedule=None):
+        """Guarded executor on this rank's padded block: ``fn(block) ->
+        (block, stats)``, ``stats`` the packed guard-stat vector
+        (:func:`repro_torch.robustness.health.pack_stats`) summed over the
+        plan's world by one ``all_reduce``, in float64.  ``schedule``
+        (forward order) overrides the plan's own; the degradation ladder
+        runs through here with widened entries."""
+        schedule = self.schedule if schedule is None else tuple(schedule)
+        world = dist.get_world_size()
+        if self.mesh.size() != world:
+            raise ValueError(f"a guarded plan's mesh of {self.mesh.size()} ranks must cover "
+                             f"the world of {world}")
+
+        def fn(block):
+            y, vec = self._execute(block, direction, schedule, guard=True)
+            vec = vec.to(torch.float64)
+            dist.all_reduce(vec, op=dist.ReduceOp.SUM)
+            return y, vec
+
+        return fn
+
+    def warm(self, directions=("forward", "backward")) -> int:
+        """Run each requested direction once on a zero block (through the
+        guarded executor when the plan is guarded), so that the kernels'
+        build and the first launches happen before the first real call.
+        Returns the number of executors run."""
+        n = 0
+        for direction in directions:
+            _, _, _, pen = self._walk(direction)
+            dt = self.input_dtype if direction == "forward" else self.spectral_dtype
+            block = torch.zeros(pen.local_shape, dtype=dt, device=self.device)
+            if self.guard != "off":
+                self.guarded_padded(direction)(block)
+            else:
+                self._execute(block, direction, self.schedule, guard=False)
+            n += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return n
 
     def _check_block(self, block: torch.Tensor, pencil: Pencil):
         if tuple(block.shape) != pencil.local_shape:
@@ -196,20 +252,27 @@ class ParallelFFT:
 
     # -- logical-shape global tensors ---------------------------------------
 
-    def forward(self, x) -> torch.Tensor:
+    def forward(self, x):
         """Forward transform of the logical global array ``x`` (every rank
         passes the same array); returns the logical global spectrum on the
-        plan's device."""
-        return self._global(x, self.input_pencil, self.output_pencil, self.input_dtype,
-                            self.forward_padded)
+        plan's device, with the :class:`~repro_torch.robustness.health.HealthReport`
+        when the plan is guarded."""
+        return self._global(x, "forward", self.input_dtype, self.output_pencil)
 
-    def backward(self, x) -> torch.Tensor:
-        return self._global(x, self.output_pencil, self.input_pencil, self.spectral_dtype,
-                            self.backward_padded)
+    def backward(self, x):
+        return self._global(x, "backward", self.spectral_dtype, self.input_pencil)
 
-    def _global(self, x, in_pen: Pencil, out_pen: Pencil, dtype, run) -> torch.Tensor:
+    def _global(self, x, direction: str, dtype, out_pen: Pencil):
+        _, _, _, in_pen = self._walk(direction)
         xt = torch.as_tensor(x).to(device=self.device, dtype=dtype)
-        return allgather_global(run(scatter_global(xt, in_pen, dist.get_rank())), out_pen)
+        block = scatter_global(xt, in_pen, dist.get_rank())
+        if self.guard != "off":
+            from repro_torch.robustness import runner
+
+            y, report = runner.run_guarded(self, block, direction)
+            return allgather_global(y, out_pen), report
+        return allgather_global(self._execute(block, direction, self.schedule, guard=False),
+                                out_pen)
 
 
 def _repad(pencil: Pencil, axis: int, divisor: int) -> Pencil:
@@ -236,35 +299,77 @@ def _reverse_plan(stages, pencils):
     return tuple(rev_stages), tuple(rev_pencils)
 
 
-def _run_stages(block, *, stages, pencils, schedule, impl, sign, mesh):
+def _run_stages(block, *, stages, pencils, schedule, impl, sign, mesh, guard=False):
     """Execute the plan on this rank's block; each exchange is followed by
-    the FFT of its newly aligned axis."""
+    the FFT of its newly aligned axis.  ``guard=True`` also returns this
+    rank's packed guard-stat vector: the output probe always, the Parseval
+    energy bracket and the per-stage counts for lossy schedules."""
+    lossy = guard and health.schedule_is_lossy(schedule)
+    zero = torch.zeros((), dtype=torch.float32, device=block.device)
+    energy_in = health.block_energy(block) if lossy else zero
+    per_stage = []
     ex_i = i = 0
     while i < len(stages):
         st = stages[i]
         if isinstance(st, ExchangeStage):
             nxt = stages[i + 1] if i + 1 < len(stages) else None
             fft_st = nxt if isinstance(nxt, FFTStage) and nxt.axis == st.w else None
-            block = _run_exchange_stage(
+            block, stats = _run_exchange_stage(
                 block, st, fft_st, pencils[i + 1],
                 pencils[i + 2] if fft_st is not None else None,
-                schedule[ex_i], impl=impl, sign=sign, mesh=mesh)
+                schedule[ex_i], impl=impl, sign=sign, mesh=mesh, guard=guard, stage_index=ex_i)
+            per_stage.append(stats)
             ex_i += 1
             i += 2 if fft_st is not None else 1
         else:
             block = _fft_padded_axis(block, st, pencils[i], pencils[i + 1], impl=impl, sign=sign)
             i += 1
-    return block
+    if not guard:
+        return block
+    energy_out = health.block_energy(block) if lossy else zero
+    last = stages[-1]
+    probe = health.output_probe(block, last.axis if isinstance(last, FFTStage) else None)
+    return block, health.pack_stats(per_stage, energy_in, energy_out, probe)
 
 
 def _run_exchange_stage(block, ex: ExchangeStage, fft_st: FFTStage | None, mid: Pencil,
-                        after: Pencil | None, entry: StageEntry, *, impl, sign, mesh):
-    """One exchange stage (+ the FFT of its newly aligned axis)."""
-    block = exchange_shard(block, ex.v, ex.w, ex.group, mesh=mesh, method=entry.method,
-                           comm_dtype=entry.comm_dtype, impl=entry.impl)
-    if fft_st is not None:
-        block = _fft_padded_axis(block, fft_st, mid, after, impl=impl, sign=sign)
-    return block
+                        after: Pencil | None, entry: StageEntry, *, impl, sign, mesh,
+                        guard=False, stage_index=None):
+    """One exchange stage (+ the FFT of its newly aligned axis) under one
+    schedule entry; returns ``(block, stats)``, ``stats`` None unless
+    ``guard``.  The fault taps return their input when no FaultPlan is
+    armed."""
+    method, chunks, comm_dtype, ex_impl, _ = entry
+    with faults.stage_context(stage_index, method, comm_dtype):
+        faults.check_compile(method, comm_dtype)
+        block = faults.tap_stage_input(block)
+        if fft_st is not None and method == "pipelined" and chunks > 1:
+            return _exchange_then_fft(block, ex, fft_st, mid, after, chunks=chunks,
+                                      comm_dtype=comm_dtype, exchange_impl=ex_impl, impl=impl,
+                                      sign=sign, mesh=mesh, guard=guard)
+        res = exchange_shard(block, ex.v, ex.w, ex.group, mesh=mesh, method=method,
+                             chunks=chunks, comm_dtype=comm_dtype, impl=ex_impl, guard=guard)
+        block, stats = res if guard else (res, None)
+        if fft_st is not None:
+            block = _fft_padded_axis(block, fft_st, mid, after, impl=impl, sign=sign)
+        return block, stats
+
+
+def _exchange_then_fft(block, ex: ExchangeStage, fft_st: FFTStage, mid: Pencil, after: Pencil,
+                       *, chunks, comm_dtype, exchange_impl, impl, sign, mesh, guard):
+    """Pipelined exchange fused with the next stage's 1-D FFT: every
+    slice's collective is issued, then each slice's FFT is issued right
+    after its wait, before the wait of the next slice, so the card can run
+    slice ``i + 1``'s collective under slice ``i``'s FFT.  Slicing commutes
+    with the FFT along ``w``, so the concat equals the unpipelined result
+    (bitwise for lossless payloads)."""
+    res = exchange_shard_sliced(
+        block, ex.v, ex.w, ex.group, mesh=mesh, chunks=chunks, comm_dtype=comm_dtype,
+        guard=guard, impl=exchange_impl,
+        then=lambda p: _fft_padded_axis(p, fft_st, mid, after, impl=impl, sign=sign))
+    out, stats = res if guard else (res, None)
+    out = out[0] if len(out) == 1 else torch.cat(out, dim=ex.v)
+    return out, stats
 
 
 def _fft_padded_axis(block, st: FFTStage, cur: Pencil, nxt: Pencil, *, impl, sign):

@@ -22,6 +22,7 @@ from dataclasses import dataclass, fields, replace
 from typing import NamedTuple
 
 from repro_torch.core.quant import canonical_comm_dtype
+from repro_torch.robustness.health import GUARD_MODES
 
 #: exchange-local implementations a stage entry may carry
 EXCHANGE_IMPLS = ("torch", "cuda")
@@ -34,9 +35,6 @@ BATCH_FUSIONS = ("stacked", "pipelined-across-fields", "per-field")
 
 #: exchange engines a stage entry may carry ("auto" is plan-level only)
 METHODS = ("fused", "traditional", "pipelined")
-
-#: runtime-guard modes (the reference's ``robustness.health.GUARD_MODES``)
-GUARD_MODES = ("off", "strict", "degrade")
 
 #: the reference's implementation names -> the port's
 _REFERENCE_IMPLS = {"jnp": "torch", "pallas": "cuda", "matmul": "matmul"}

@@ -1,27 +1,44 @@
 """The v->w exchange of a distributed array (paper Sec. 3.3.2, Alg. 2/3) on
-``torch.distributed`` — the port of ``repro/core/redistribute.py``, fused
-engine.
+``torch.distributed`` — the port of ``repro/core/redistribute.py``.
 
-The reference's fused engine is one ``lax.all_to_all(split_axis=v,
-concat_axis=w)``: the collective itself does the strided gather and
-scatter.  ``all_to_all_single`` only splits and concatenates dim 0, so here
-the send buffer is built chunk-major and the received chunks are scattered
-into the concat axis:
+``all_to_all_single`` only splits and concatenates dim 0, so every engine
+ships a chunk-major send buffer and scatters the received chunks into the
+concat axis:
 
-``complex64`` (lossless) — a plain ``movedim(...).contiguous()`` into
-    chunk-major order, the collective, and a plain scatter into ``w``.  This
-    brings back the local realignment pass the paper removes; a lossless
-    mode of the exchange kernels is to remove it (ROADMAP).
-``bf16`` / ``int8`` — the encode writes the narrow payload straight into
-    chunk-major order (``pack_chunks``), the collective ships it (int8 adds
-    a second, ``(M, F)``-scale all-to-all, chunk-major like the payload), and
-    the decode scatters chunk ``j`` into w-slot ``j`` while widening
-    (``unpack_chunks``): no pass beyond the codec's own.  With
+``method="fused"`` — the reference's one ``lax.all_to_all(split_axis=v,
+    concat_axis=w)``.  ``complex64`` (lossless): a plain
+    ``movedim(...).contiguous()`` into chunk-major order, the collective, and
+    a plain scatter into ``w`` (the local realignment the paper removes; a
+    lossless mode of the exchange kernels is to remove it, ROADMAP).
+    ``bf16``/``int8``: the encode writes the narrow payload straight into
+    chunk-major order (``pack_chunks``), the collective ships it (int8 adds a
+    second, ``(M, F)``-scale all-to-all) and the decode scatters chunk ``j``
+    into w-slot ``j`` while widening (``unpack_chunks``).  With
     ``impl="cuda"`` these are the exchange kernels (their plain versions for
     a CPU block); ``impl="torch"`` runs the plain versions everywhere.
+``method="traditional"`` — paper Eqs. 15-17 as the reference writes them:
+    with ``impl="cuda"`` and a lossy wire, the same pack kernel ->
+    collective -> unpack kernel as above (with ``transposed_out=True`` the
+    unpack scatters into a new leading chunk axis); otherwise a reshape,
+    the materialized ``movedim(...).contiguous()`` pack, the dim-0 exchange
+    (with the plain codec) and a second copy to scatter back, or none with
+    ``transposed_out=True`` (chunk-major output, FFTW's "transposed out").
+``method="pipelined"`` — the fused exchange cut into slices of the
+    post-exchange v shard, each one ``all_to_all_single(async_op=True)``:
+    every slice is issued first, then waited for and decoded in order, so a
+    caller's work on slice ``i`` (the next FFT stage, see
+    :func:`repro_torch.core.pfft._exchange_then_fft`) is issued before the
+    wait of slice ``i + 1``.  Lossless slices join to the fused output
+    bitwise; lossy slices quantize independently.
 
-The traditional and pipelined engines, ``guard=`` and the fault taps are not
-ported yet (ROADMAP).
+``guard=True`` makes every engine return ``(out, stats)``: the
+``{"nonfinite", "saturated"}`` counts of its lossy payload (from the codec
+kernel's guard mode, or :func:`~repro_torch.robustness.health.payload_stats`
+and ``quantize_int8(with_stats=True)`` under ``impl="torch"``), zeros for a
+lossless stage.  The fault taps (:mod:`repro_torch.robustness.faults`) act
+on every received buffer and on the int8 scale; unarmed they return their
+input.  Element 0 of each received chunk-major buffer is the output block's
+element 0, the element the reference's taps corrupt.
 """
 
 from __future__ import annotations
@@ -30,68 +47,189 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from repro_torch.core.decomp import local_lengths
 from repro_torch.core.meshutil import axis_size
 from repro_torch.core.pencil import Group, group_name
 from repro_torch.core.quant import canonical_comm_dtype
 from repro_torch.kernels.exchange import ops as xops, ref as xref
+from repro_torch.robustness import faults, health
 
 
-def _exchange_dim0(t: torch.Tensor, pg) -> torch.Tensor:
-    """``all_to_all_single`` of ``t``'s equal dim-0 chunks over ``pg``."""
+def _exchange_dim0(t: torch.Tensor, pg, *, async_op: bool = False):
+    """Start ``all_to_all_single`` of ``t``'s equal dim-0 chunks over ``pg``;
+    returns ``(out, work)`` (``work`` None unless ``async_op``)."""
     t = t.contiguous()
     out = torch.empty_like(t)
     if t.is_complex():
-        dist.all_to_all_single(torch.view_as_real(out), torch.view_as_real(t), group=pg)
+        work = dist.all_to_all_single(torch.view_as_real(out), torch.view_as_real(t), group=pg,
+                                      async_op=async_op)
     else:
-        dist.all_to_all_single(out, t, group=pg)
-    return out
+        work = dist.all_to_all_single(out, t, group=pg, async_op=async_op)
+    return out, work
 
 
-def _all_to_all_comm(y: torch.Tensor, pg, m: int, *, split_axis: int, concat_axis: int,
-                     comm_dtype=None, nbatch: int = 0, impl: str = "torch") -> torch.Tensor:
-    """The tiled all-to-all of ``y`` over ``pg`` (``m`` ranks): ``split_axis``
-    is cut into ``m`` chunks, chunk ``j`` goes to group rank ``j``, and the
-    chunk received from rank ``j`` lands in slot ``j`` of ``concat_axis``;
-    the payload travels as ``comm_dtype``."""
+def _wait(work):
+    if work is not None:
+        work.wait()
+
+
+def _start_comm(y: torch.Tensor, pg, m: int, *, split_axis: int, concat_axis: int,
+                comm_dtype=None, nbatch: int = 0, impl: str = "torch", guard: bool = False,
+                async_op: bool = False):
+    """Issue the tiled all-to-all of ``y`` over ``pg`` (``m`` ranks):
+    ``split_axis`` is cut into ``m`` chunks, chunk ``j`` goes to group rank
+    ``j``, and the chunk received from rank ``j`` lands in slot ``j`` of
+    ``concat_axis``; the payload travels as ``comm_dtype``.  Returns
+    ``(finish, stats)``: ``finish()`` waits for the collectives, applies the
+    wire taps and decodes; ``stats`` is None unless ``guard``."""
     d = canonical_comm_dtype(comm_dtype)
     if y.shape[split_axis] % m != 0:
         raise ValueError(f"split axis extent {y.shape[split_axis]} not divisible by group size {m}")
     if d == "complex64":
         shape = list(y.shape)
         shape[split_axis: split_axis + 1] = [m, shape[split_axis] // m]
-        recv = _exchange_dim0(torch.movedim(y.reshape(shape), split_axis, 0), pg)
-        out = torch.movedim(recv, 0, concat_axis)
-        shape = list(out.shape)
-        shape[concat_axis: concat_axis + 2] = [shape[concat_axis] * shape[concat_axis + 1]]
-        return out.reshape(shape)
+        recv, work = _exchange_dim0(torch.movedim(y.reshape(shape), split_axis, 0), pg,
+                                    async_op=async_op)
+
+        def finish():
+            _wait(work)
+            out = torch.movedim(faults.tap_wire(recv, "payload"), 0, concat_axis)
+            oshape = list(out.shape)
+            oshape[concat_axis: concat_axis + 2] = [oshape[concat_axis] * oshape[concat_axis + 1]]
+            return out.reshape(oshape)
+
+        return finish, health.zero_stats(y.device) if guard else None
     if impl == "cuda":
         pack, unpack = xops.pack_chunks, xops.unpack_chunks
     elif impl == "torch":
         pack, unpack = xref.pack_chunks_ref, xref.unpack_chunks_ref
     else:
         raise ValueError(f"unknown exchange impl {impl!r}")
-    payload, scale = pack(y, axis=split_axis, m=m, nbatch=nbatch, codec=d)
-    recv = _exchange_dim0(payload, pg)
-    scale_recv = None if scale is None else _exchange_dim0(scale, pg)
-    return unpack(recv, v=split_axis - nbatch, w=concat_axis - nbatch, m=m, nbatch=nbatch,
-                  scale=scale_recv, codec=d, iscomplex=y.is_complex())
+    sd = faults.scale_div() if d == "int8" else None
+    payload, scale, stats = pack(y, axis=split_axis, m=m, nbatch=nbatch, codec=d, guard=guard,
+                                 scale_div=sd)
+    recv, work = _exchange_dim0(payload, pg, async_op=async_op)
+    scale_recv, swork = (None, None) if scale is None else _exchange_dim0(scale, pg,
+                                                                          async_op=async_op)
+
+    def finish():
+        _wait(work)
+        _wait(swork)
+        s = None if scale_recv is None else faults.tap_wire(scale_recv, "scale")
+        return unpack(faults.tap_wire(recv, "payload"), v=split_axis - nbatch,
+                      w=concat_axis - nbatch, m=m, nbatch=nbatch, scale=s, codec=d,
+                      iscomplex=y.is_complex())
+
+    return finish, stats
+
+
+def _group(mesh: DeviceMesh, group: Group):
+    name = group_name(group)
+    return mesh.get_group(name), axis_size(mesh, name)
 
 
 def exchange_shard(block: torch.Tensor, v: int, w: int, group: Group, *, mesh: DeviceMesh,
-                   method: str = "fused", comm_dtype=None, nbatch: int = 0,
-                   impl: str = "torch") -> torch.Tensor:
+                   method: str = "fused", chunks: int = 1, transposed_out: bool = False,
+                   comm_dtype=None, nbatch: int = 0, guard: bool = False,
+                   impl: str = "torch"):
     """This rank's v->w exchange over the mesh dimension ``group``.
 
     Input block: axis ``v`` full, axis ``w`` this rank's shard.  Output
     block: axis ``v`` this rank's shard, axis ``w`` full.  ``nbatch``
-    leading axes are stacked fields (``v``/``w`` field-relative)."""
+    leading axes are stacked fields (``v``/``w`` field-relative).
+    ``chunks`` applies to ``method="pipelined"``, ``transposed_out`` to
+    ``method="traditional"``.  ``guard=True`` returns ``(out, stats)``."""
     if v == w:
         raise ValueError("exchange requires v != w (paper Alg. 3)")
-    if method != "fused":
+    bv, bw = v + nbatch, w + nbatch
+    if method == "pipelined":
+        r = exchange_shard_sliced(block, v, w, group, mesh=mesh, chunks=chunks,
+                                  comm_dtype=comm_dtype, nbatch=nbatch, guard=guard, impl=impl)
+        pieces, stats = r if guard else (r, None)
+        out = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=bv)
+        return (out, stats) if guard else out
+    if method not in ("fused", "traditional"):
+        raise ValueError(f"unknown method {method!r}")
+    pg, m = _group(mesh, group)
+    d = canonical_comm_dtype(comm_dtype)
+    chunk_out = method == "traditional" and transposed_out
+    if method == "traditional" and d == "int8" and nbatch and (transposed_out or impl != "cuda"):
         raise NotImplementedError(
-            f"method={method!r}: the port runs the fused engine only (ROADMAP: "
-            "traditional and pipelined engines)")
-    name = group_name(group)
-    return _all_to_all_comm(block, mesh.get_group(name), axis_size(mesh, name),
-                            split_axis=v + nbatch, concat_axis=w + nbatch,
-                            comm_dtype=comm_dtype, nbatch=nbatch, impl=impl)
+            "stacked fields through the traditional int8 transposed-out or plain path "
+            "(ROADMAP: forward_many)")
+    if method == "fused" or (impl == "cuda" and d != "complex64"):
+        # traditional with the kernels: one kernel packs chunk-major and
+        # encodes, the unpack kernel scatters and decodes, as the fused
+        # engine's (Eqs. 15-17 cost no extra pass).  Transposed out, the
+        # scatter goes into a new leading axis of extent 1, so received chunk
+        # j lands at index j of the chunk-major output.
+        y, sa, ca, nb = (block.unsqueeze(0), bv + 1, 0, 0) if chunk_out else (block, bv, bw, nbatch)
+        finish, stats = _start_comm(y, pg, m, split_axis=sa, concat_axis=ca, comm_dtype=d,
+                                    nbatch=nb, impl=impl, guard=guard)
+        out = finish()
+        return (out, stats) if guard else out
+    nv = block.shape[bv]
+    if nv % m != 0:
+        raise ValueError(f"axis v={v} extent {nv} not divisible by group size {m}")
+    # Eq. 15: v -> (m, nv/m), a view; Eq. 16: the chunk axis to the front,
+    # the materialized local transpose; then the dim-0 exchange
+    shape = list(block.shape)
+    shape[bv: bv + 1] = [m, nv // m]
+    y = torch.movedim(block.reshape(shape), bv, 0).contiguous()
+    finish, stats = _start_comm(y, pg, m, split_axis=0, concat_axis=0, comm_dtype=d,
+                                impl=impl, guard=guard)
+    y = finish()
+    if not transposed_out:
+        # Eq. 17: chunk q carries peer q's w shard; insert the chunk axis
+        # before w and merge (m, w_shard) -> w_full: the second copy
+        z = torch.movedim(y, 0, bw)
+        shape = list(z.shape)
+        shape[bw: bw + 2] = [shape[bw] * shape[bw + 1]]
+        y = z.reshape(shape)
+    return (y, stats) if guard else y
+
+
+def exchange_shard_sliced(block: torch.Tensor, v: int, w: int, group: Group, *,
+                          mesh: DeviceMesh, chunks: int, comm_dtype=None, nbatch: int = 0,
+                          guard: bool = False, impl: str = "torch", then=None):
+    """The fused v->w exchange as independent per-slice all-to-alls (the
+    pipelined engine).  The v axis is viewed as ``(m, b)``, ``b`` the
+    post-exchange shard, and sliced along ``b`` into
+    ``local_lengths(b, min(chunks, b))`` pieces; rank ``r``'s slice ``i`` is
+    a contiguous v-subrange of the fused output.
+
+    Every slice's collective is issued (``async_op=True``) before the first
+    wait; then each slice is waited for, decoded, and passed to ``then``
+    (default: identity) before the next wait.  Returns the list of
+    ``then(piece)``, with the stats summed over the slices when ``guard``."""
+    pg, m = _group(mesh, group)
+    bv, bw = v + nbatch, w + nbatch
+    nv = block.shape[bv]
+    if nv % m != 0:
+        raise ValueError(f"axis v={v} extent {nv} not divisible by group size {m}")
+    b = nv // m
+    sizes = [n for n in local_lengths(b, max(1, min(chunks, b))) if n > 0]
+    shape = list(block.shape)
+    shape[bv: bv + 1] = [m, b]
+    y = block.reshape(shape)
+    w_eff = bw if bw < bv else bw + 1  # the concat axis shifts right if it follows v
+    started, off = [], 0
+    stats = health.zero_stats(block.device) if guard else None
+    for n in sizes:
+        piece = torch.narrow(y, bv + 1, off, n)
+        off += n
+        finish, s = _start_comm(piece, pg, m, split_axis=bv, concat_axis=w_eff,
+                                comm_dtype=comm_dtype, nbatch=nbatch, impl=impl, guard=guard,
+                                async_op=True)
+        if guard:
+            stats = health.add_stats(stats, s)
+        started.append((finish, n))
+    out = []
+    for finish, n in started:
+        p = finish()
+        # the m-factor axis now has extent 1: merge (1, n) -> (n,)
+        pshape = list(p.shape)
+        pshape[bv: bv + 2] = [n]
+        p = p.reshape(pshape)
+        out.append(p if then is None else then(p))
+    return (out, stats) if guard else out

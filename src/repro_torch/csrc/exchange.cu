@@ -39,6 +39,19 @@
 // coalesced; the wire side is two contiguous streams (re and im planes).
 // The kernels allocate nothing (the wrapper zeroes the max-abs scratch)
 // and do not synchronise.
+//
+// Guard mode (the reference's encode_pallas_call(guard=True)): with a
+// non-null `counts`, the encode also counts, per (f, m) scale block, the
+// non-finite elements and (int8) the elements quantized to +-127.  Each count
+// rides the pass that already reads the element: the max-abs pass for int8
+// non-finites, the encode pass for bf16 non-finites and int8 saturation.  A
+// tile sums its counts with warp shuffles and adds them with one integer
+// atomicAdd per (f, m) into unsigned 64-bit scratch (exact at any size; the
+// wrapper converts to f32).  Counts are laid out like the scales, with a
+// trailing (nonfinite, saturated) pair.  `scale_div` divides the int8 scale
+// after the /127 (the saturation fault); 1.0 leaves every bit unchanged.
+// The counting is a template parameter, so an unguarded encode runs the
+// same instructions as one without guard mode.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,16 +84,36 @@ __device__ __forceinline__ void run_of(const View& v, long long& f, long long& o
   f = fo / v.O;
 }
 
-__global__ void amax_kernel(const float* __restrict__ x, unsigned int* __restrict__ amax, View v) {
+__device__ __forceinline__ long long stat_index(const View& v, int layout, long long f,
+                                                long long m) {
+  return layout == 1 ? m * v.F + f : f * v.M + m;
+}
+
+// Sum of every thread's `c` over the block, in thread 0.
+__device__ __forceinline__ unsigned int block_count(unsigned int c) {
+  for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xffffffffu, c, off);
+  __shared__ unsigned int warp_count[kThreads / 32];
+  if ((threadIdx.x & 31) == 0) warp_count[threadIdx.x >> 5] = c;
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 1; i < (int)(blockDim.x >> 5); ++i) c += warp_count[i];
+  return c;
+}
+
+template <bool kGuard>
+__global__ void amax_kernel(const float* __restrict__ x, unsigned int* __restrict__ amax,
+                            unsigned long long* __restrict__ counts, int layout, View v) {
   long long f, o, m, tile;
   run_of(v, f, o, m, tile);
   const long long len = v.S * v.P;
   const float* base = x + ((f * v.O + o) * v.M + m) * len;
   const long long end = min(len, (tile + 1) * kTile);
   float best = 0.0f;
+  unsigned int bad = 0;
   for (long long i = tile * kTile + threadIdx.x; i < end; i += blockDim.x) {
     const float a = base[i];
     if (isfinite(a)) best = fmaxf(best, fabsf(a));
+    else if (kGuard) ++bad;
   }
   for (int off = 16; off > 0; off >>= 1) best = fmaxf(best, __shfl_down_sync(0xffffffffu, best, off));
   __shared__ float warp_best[kThreads / 32];
@@ -90,36 +123,51 @@ __global__ void amax_kernel(const float* __restrict__ x, unsigned int* __restric
     for (int i = 1; i < (int)(blockDim.x >> 5); ++i) best = fmaxf(best, warp_best[i]);
     atomicMax(amax + f * v.M + m, __float_as_uint(best));
   }
+  if (kGuard) {
+    bad = block_count(bad);
+    if (threadIdx.x == 0 && bad != 0)
+      atomicAdd(counts + 2 * stat_index(v, layout, f, m), (unsigned long long)bad);
+  }
 }
 
+template <bool kGuard>
 __global__ void encode_kernel(const float* __restrict__ x, void* __restrict__ q,
                               const unsigned int* __restrict__ amax, float* __restrict__ scales,
+                              unsigned long long* __restrict__ counts, float scale_div,
                               int codec, int layout, View v) {
   long long f, o, m, tile;
   run_of(v, f, o, m, tile);
   const long long len = v.S * v.P;
   const float* base = x + ((f * v.O + o) * v.M + m) * len;
   const long long end = min(len, (tile + 1) * kTile);
+  unsigned int hits = 0;  // bf16: non-finite elements; int8: elements at +-127
   if (codec == 0) {
     __nv_bfloat16* out = static_cast<__nv_bfloat16*>(q);
     for (long long i = tile * kTile + threadIdx.x; i < end; i += blockDim.x) {
       const long long s = i / v.P;
       const int p = (int)(i - s * v.P);
-      out[wire_index(v, layout, f, o, m, s, p)] = __float2bfloat16_rn(base[i]);
+      const float a = base[i];
+      if (kGuard) hits += !isfinite(a);
+      out[wire_index(v, layout, f, o, m, s, p)] = __float2bfloat16_rn(a);
     }
-    return;
+  } else {
+    const float scale = fmaxf(__uint_as_float(amax[f * v.M + m]), 1e-12f) / 127.0f / scale_div;
+    if (o == 0 && tile == 0 && threadIdx.x == 0) scales[stat_index(v, layout, f, m)] = scale;
+    signed char* out = static_cast<signed char*>(q);
+    for (long long i = tile * kTile + threadIdx.x; i < end; i += blockDim.x) {
+      const long long s = i / v.P;
+      const int p = (int)(i - s * v.P);
+      const float a = base[i];
+      const float xf = isfinite(a) ? a : 0.0f;
+      const float r = fminf(fmaxf(rintf(xf / scale), -127.0f), 127.0f);
+      if (kGuard) hits += fabsf(r) == 127.0f;
+      out[wire_index(v, layout, f, o, m, s, p)] = (signed char)(int)r;
+    }
   }
-  const float scale = fmaxf(__uint_as_float(amax[f * v.M + m]), 1e-12f) / 127.0f;
-  if (o == 0 && tile == 0 && threadIdx.x == 0)
-    scales[layout == 1 ? m * v.F + f : f * v.M + m] = scale;
-  signed char* out = static_cast<signed char*>(q);
-  for (long long i = tile * kTile + threadIdx.x; i < end; i += blockDim.x) {
-    const long long s = i / v.P;
-    const int p = (int)(i - s * v.P);
-    const float a = base[i];
-    const float xf = isfinite(a) ? a : 0.0f;
-    const float r = fminf(fmaxf(rintf(xf / scale), -127.0f), 127.0f);
-    out[wire_index(v, layout, f, o, m, s, p)] = (signed char)(int)r;
+  if (kGuard) {
+    hits = block_count(hits);
+    if (threadIdx.x == 0 && hits != 0)
+      atomicAdd(counts + 2 * stat_index(v, layout, f, m) + codec, (unsigned long long)hits);
   }
 }
 
@@ -139,7 +187,7 @@ __global__ void decode_kernel(const void* __restrict__ q, const float* __restric
     }
     return;
   }
-  const float scale = scales[layout == 1 ? m * v.F + f : f * v.M + m];
+  const float scale = scales[stat_index(v, layout, f, m)];
   const signed char* in = static_cast<const signed char*>(q);
   for (long long i = tile * kTile + threadIdx.x; i < end; i += blockDim.x) {
     const long long s = i / v.P;
@@ -166,10 +214,12 @@ int make_view(long long F, long long O, long long M, long long S, int P, View& v
 
 // x: the block, (F, O, M, S, P) floats.  q: the payload, bf16 (codec 0) or
 // int8 (codec 1) in `layout`.  int8 also writes `scales` and needs `amax`,
-// F * M zeroed words of scratch.  Returns cudaGetLastError().
+// F * M zeroed words of scratch.  `counts` (guard mode, else null): F * M * 2
+// zeroed 64-bit counters.  Returns cudaGetLastError().
 extern "C" int exchange_encode(const float* x, void* q, float* scales, unsigned int* amax,
-                               int codec, int layout, long long F, long long O, long long M,
-                               long long S, int P, void* stream) {
+                               unsigned long long* counts, int codec, int layout, long long F,
+                               long long O, long long M, long long S, int P, float scale_div,
+                               void* stream) {
   View v;
   long long blocks;
   int err = make_view(F, O, M, S, P, v, blocks);
@@ -177,13 +227,21 @@ extern "C" int exchange_encode(const float* x, void* q, float* scales, unsigned 
   if (blocks == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   if (codec == 1) {
-    amax_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(x, amax, v);
+    if (counts != nullptr)
+      amax_kernel<true><<<(unsigned)blocks, kThreads, 0, st>>>(x, amax, counts, layout, v);
+    else
+      amax_kernel<false><<<(unsigned)blocks, kThreads, 0, st>>>(x, amax, counts, layout, v);
     err = (int)cudaGetLastError();
     if (err != (int)cudaSuccess) return err;
   } else if (codec != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  encode_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(x, q, amax, scales, codec, layout, v);
+  if (counts != nullptr)
+    encode_kernel<true><<<(unsigned)blocks, kThreads, 0, st>>>(x, q, amax, scales, counts,
+                                                              scale_div, codec, layout, v);
+  else
+    encode_kernel<false><<<(unsigned)blocks, kThreads, 0, st>>>(x, q, amax, scales, counts,
+                                                               scale_div, codec, layout, v);
   return (int)cudaGetLastError();
 }
 

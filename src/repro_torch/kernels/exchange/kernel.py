@@ -3,7 +3,9 @@
 Both entry points take the block as its ``(F, O, M, S, P)`` float view and
 the payload in one of two layouts (``IN_PLACE``: ``(P, F, O, M, S)``;
 ``CHUNK_MAJOR``: ``(M, P, F, O, S)``).  The library is built and loaded at
-the first launch, never at import.
+the first launch, never at import.  ``encode(guard=True)`` also returns the
+per-(field, chunk) ``(nonfinite, saturated)`` counts, laid out like the
+scales with a trailing pair.
 """
 
 from __future__ import annotations
@@ -21,11 +23,12 @@ _WIRE = {"bf16": torch.bfloat16, "int8": torch.int8}
 _c = ctypes.c_void_p
 _ll = ctypes.c_longlong
 _i = ctypes.c_int
+_f = ctypes.c_float
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.library("exchange")
-    lib.exchange_encode.argtypes = [_c, _c, _c, _c, _i, _i, _ll, _ll, _ll, _ll, _i, _c]
+    lib.exchange_encode.argtypes = [_c, _c, _c, _c, _c, _i, _i, _ll, _ll, _ll, _ll, _i, _f, _c]
     lib.exchange_encode.restype = _i
     lib.exchange_decode.argtypes = [_c, _c, _c, _i, _i, _ll, _ll, _ll, _ll, _i, _c]
     lib.exchange_decode.restype = _i
@@ -43,28 +46,34 @@ def _floats(block: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"the exchange kernels take complex64 or float32 blocks, got {block.dtype}")
 
 
-def encode(block: torch.Tensor, F: int, O: int, M: int, S: int, *, codec: str, layout: int):
+def encode(block: torch.Tensor, F: int, O: int, M: int, S: int, *, codec: str, layout: int,
+           guard: bool = False, scale_div: float = 1.0):
     """Encode ``block`` (viewed ``(F, O, M, S)``) into a new payload of
-    ``layout``; returns ``(payload, scales)`` with the payload flat in its
-    layout and, for int8, the ``(F, M)`` or ``(M, F)`` f32 scales."""
+    ``layout``; returns ``(payload, scales, counts)`` with the payload flat in
+    its layout, for int8 the ``(F, M)`` or ``(M, F)`` f32 scales (each divided
+    by ``scale_div``), and with ``guard`` the f32 counts of the same layout
+    with a trailing ``(nonfinite, saturated)`` pair."""
     x = _floats(block)
     P = 2 if block.is_complex() else 1
     if x.numel() != F * O * M * S * P:
         raise ValueError(f"block of {x.numel()} floats is not a ({F}, {O}, {M}, {S}, {P}) view")
     dev = block.device
     q = torch.empty(x.numel(), dtype=_WIRE[codec], device=dev)
-    scales = amax = None
+    blocks = (M, F) if layout == CHUNK_MAJOR else (F, M)
+    scales = amax = counts = None
     if codec == "int8":
-        scales = torch.empty((M, F) if layout == CHUNK_MAJOR else (F, M),
-                             dtype=torch.float32, device=dev)
+        scales = torch.empty(blocks, dtype=torch.float32, device=dev)
         amax = torch.zeros(F * M, dtype=torch.int32, device=dev)
+    if guard:
+        counts = torch.zeros((*blocks, 2), dtype=torch.int64, device=dev)
     rc = _lib().exchange_encode(
         x.data_ptr(), q.data_ptr(), 0 if scales is None else scales.data_ptr(),
-        0 if amax is None else amax.data_ptr(), _CODECS[codec], layout, F, O, M, S, P,
+        0 if amax is None else amax.data_ptr(), 0 if counts is None else counts.data_ptr(),
+        _CODECS[codec], layout, F, O, M, S, P, float(scale_div),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"exchange_encode failed with CUDA error {rc}")
-    return q, scales
+    return q, scales, None if counts is None else counts.to(torch.float32)
 
 
 def decode(payload: torch.Tensor, scales: torch.Tensor | None, out: torch.Tensor,

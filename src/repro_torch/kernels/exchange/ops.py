@@ -9,9 +9,15 @@ payload layouts:
     splits on dim 0, and what the port's fused exchange ships.  The unpack
     scatters received chunk ``j`` into slot ``j`` of the concat axis.
 
+The encodes return ``(payload, scale, stats)`` as the reference's do:
+``stats`` is ``None``, or with ``guard=True`` the ``{"nonfinite",
+"saturated"}`` f32 counts summed over the per-(field, chunk) blocks.
+``scale_div`` divides the int8 scales (the saturation fault).
+
 A tensor on the CPU takes the plain version (:mod:`.ref`); a CUDA tensor
 launches the kernel (:mod:`.kernel`).  ``launches`` counts kernel launches
-per wrapper and codec: an int8 encode is two (max-abs, then quantize).
+per wrapper and codec (``"<wrapper>:<codec>"``, with ``":guard"`` appended
+for a guarded encode): an int8 encode is two (max-abs, then quantize).
 """
 
 from __future__ import annotations
@@ -54,17 +60,36 @@ def _block_dtype(iscomplex: bool):
     return torch.complex64 if iscomplex else torch.float32
 
 
-def encode_payload(y: torch.Tensor, *, axis: int, m: int, nbatch: int = 0, codec: str):
-    """Encode block ``y`` in place: ``(payload (P, *y.shape), scales (F, M) | None)``."""
-    if _device_kind(y) == "cpu":
-        return ref.encode_payload_ref(y, axis=axis, m=m, nbatch=nbatch, codec=codec)
+def _stats_dict(counts: torch.Tensor | None) -> dict | None:
+    """Per-(field, chunk) ``(..., 2)`` counts -> the summed stats dict."""
+    if counts is None:
+        return None
+    return {"nonfinite": counts[..., 0].sum(), "saturated": counts[..., 1].sum()}
+
+
+def _encode(y, axis, m, nbatch, codec, guard, scale_div, layout, wrapper):
     from repro_torch.kernels.exchange import kernel
 
     y = y.contiguous()
-    q, scales = kernel.encode(y, *_chunk_view(y.shape, axis, m, nbatch), codec=codec,
-                              layout=kernel.IN_PLACE)
-    launches[f"encode_payload:{codec}"] += ENCODE_KERNELS[codec]
-    return q.reshape(_planes(y), *y.shape), scales
+    q, scales, counts = kernel.encode(
+        y, *_chunk_view(y.shape, axis, m, nbatch), codec=codec, layout=layout, guard=guard,
+        scale_div=1.0 if scale_div is None else scale_div)
+    launches[f"{wrapper}:{codec}{':guard' if guard else ''}"] += ENCODE_KERNELS[codec]
+    return y, q, scales, _stats_dict(counts)
+
+
+def encode_payload(y: torch.Tensor, *, axis: int, m: int, nbatch: int = 0, codec: str,
+                   guard: bool = False, scale_div=None):
+    """Encode block ``y`` in place: ``(payload (P, *y.shape), scales (F, M) | None,
+    stats | None)``."""
+    if _device_kind(y) == "cpu":
+        return ref.encode_payload_ref(y, axis=axis, m=m, nbatch=nbatch, codec=codec,
+                                      guard=guard, scale_div=scale_div)
+    from repro_torch.kernels.exchange import kernel
+
+    y, q, scales, stats = _encode(y, axis, m, nbatch, codec, guard, scale_div,
+                                  kernel.IN_PLACE, "encode_payload")
+    return q.reshape(_planes(y), *y.shape), scales, stats
 
 
 def decode_payload(p: torch.Tensor, *, axis: int, m: int, nbatch: int = 0, scale,
@@ -84,20 +109,21 @@ def decode_payload(p: torch.Tensor, *, axis: int, m: int, nbatch: int = 0, scale
     return out
 
 
-def pack_chunks(y: torch.Tensor, *, axis: int, m: int, nbatch: int = 0, codec: str):
+def pack_chunks(y: torch.Tensor, *, axis: int, m: int, nbatch: int = 0, codec: str,
+                guard: bool = False, scale_div=None):
     """Encode block ``y`` into the chunk-major payload ``(M, P, *s)``
-    (``s[axis]`` the chunk extent) and ``(M, F)`` int8 scales."""
+    (``s[axis]`` the chunk extent): ``(payload, (M, F) int8 scales | None,
+    stats | None)``."""
     if _device_kind(y) == "cpu":
-        return ref.pack_chunks_ref(y, axis=axis, m=m, nbatch=nbatch, codec=codec)
+        return ref.pack_chunks_ref(y, axis=axis, m=m, nbatch=nbatch, codec=codec,
+                                   guard=guard, scale_div=scale_div)
     from repro_torch.kernels.exchange import kernel
 
-    y = y.contiguous()
-    q, scales = kernel.encode(y, *_chunk_view(y.shape, axis, m, nbatch), codec=codec,
-                              layout=kernel.CHUNK_MAJOR)
-    launches[f"pack_chunks:{codec}"] += ENCODE_KERNELS[codec]
+    y, q, scales, stats = _encode(y, axis, m, nbatch, codec, guard, scale_div,
+                                  kernel.CHUNK_MAJOR, "pack_chunks")
     s = list(y.shape)
     s[axis] //= m
-    return q.reshape(m, _planes(y), *s), scales
+    return q.reshape(m, _planes(y), *s), scales, stats
 
 
 def unpack_chunks(p: torch.Tensor, *, v: int, w: int, m: int, nbatch: int = 0, scale,

@@ -5,7 +5,9 @@ reference's ``repro/kernels/exchange/ref.py``): same arguments, same payload
 layouts, same per-(field, chunk) scale blocking, built from the
 :mod:`repro_torch.core.quant` codec plus explicit ``movedim`` realignment.
 Payloads are re/im planes: ``(P, *shape)`` in place, ``(M, P, *s)``
-chunk-major.
+chunk-major.  The encodes return ``(payload, scale, stats)``: with
+``guard=True`` the bf16 stats are :func:`repro_torch.robustness.health.payload_stats`
+of the planes and the int8 stats come from ``quantize_int8(with_stats=True)``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import math
 import torch
 
 from repro_torch.core import quant
+from repro_torch.robustness import health
 
 
 def _prod(xs) -> int:
@@ -41,15 +44,18 @@ def _view6(shape, axis: int, m: int, nbatch: int):
             _prod(s[axis + 1:]))
 
 
-def encode_payload_ref(y, *, axis, m, nbatch=0, codec):
-    """In-place payload ``(P, *y.shape)`` and the ``(F, M)`` int8 scales."""
+def encode_payload_ref(y, *, axis, m, nbatch=0, codec, guard=False, scale_div=None):
+    """In-place payload ``(P, *y.shape)``, the ``(F, M)`` int8 scales and the
+    guard stats (``None`` unless ``guard``)."""
     planes = _to_planes(y)
     P, F, A, M, B, R = view = _view6(planes.shape, axis, m, nbatch)
     x6 = planes.reshape(view)
     if codec == "bf16":
-        return quant.encode_bf16(x6).reshape(planes.shape), None
-    q, sc = quant.quantize_int8(x6, block_axis=(1, 3))
-    return q.reshape(planes.shape), sc.reshape(F, M)
+        stats = health.payload_stats(x6) if guard else None
+        return quant.encode_bf16(x6).reshape(planes.shape), None, stats
+    q, sc, *stats = quant.quantize_int8(x6, block_axis=(1, 3), scale_div=scale_div,
+                                        with_stats=guard)
+    return q.reshape(planes.shape), sc.reshape(F, M), stats[0] if guard else None
 
 
 def decode_payload_ref(p, *, axis, m, nbatch=0, scale, codec, iscomplex):
@@ -62,18 +68,19 @@ def decode_payload_ref(p, *, axis, m, nbatch=0, scale, codec, iscomplex):
     return _from_planes(out.reshape(p.shape), iscomplex)
 
 
-def pack_chunks_ref(y, *, axis, m, nbatch=0, codec):
-    """Chunk-major payload ``(M, P, *s)`` (``s[axis]`` the chunk extent) and
-    the ``(M, F)`` int8 scales."""
+def pack_chunks_ref(y, *, axis, m, nbatch=0, codec, guard=False, scale_div=None):
+    """Chunk-major payload ``(M, P, *s)`` (``s[axis]`` the chunk extent), the
+    ``(M, F)`` int8 scales and the guard stats."""
     planes = _to_planes(y)
     P, F, A, M, B, R = view = _view6(planes.shape, axis, m, nbatch)
-    q, scale = encode_payload_ref(y, axis=axis, m=m, nbatch=nbatch, codec=codec)
+    q, scale, stats = encode_payload_ref(y, axis=axis, m=m, nbatch=nbatch, codec=codec,
+                                         guard=guard, scale_div=scale_div)
     packed = torch.movedim(q.reshape(view), 3, 0)
     s = list(planes.shape[1:])
     s[axis] = B
     if scale is not None:
         scale = scale.T.contiguous()  # (F, M) -> (M, F)
-    return packed.reshape((M, P, *s)), scale
+    return packed.reshape((M, P, *s)), scale, stats
 
 
 def unpack_chunks_ref(p, *, v, w, m, nbatch=0, scale, codec, iscomplex):

@@ -5,7 +5,8 @@ parametrisation of tests/test_exchange_kernels.py.
 
 Tolerance: bf16 payloads and decodes bitwise; int8 scales within 1 ULP,
 payloads within one quantum and decodes within 1.25 quanta (max |x| / 127),
-as in tests/test_exchange_kernels.py.  On a CPU tensor the wrappers
+as in tests/test_exchange_kernels.py.  Guard counts (non-finite, saturated)
+equal the reference kernel's exactly: they are integers far below 2^24.  On a CPU tensor the wrappers
 (``ops``) take the plain version and launch nothing.
 """
 
@@ -70,9 +71,10 @@ def _check_block(got, want, codec, y):
 def test_encode_decode_match_reference(codec, iscomplex, shape, axis, m, nbatch):
     y = _rand(shape, iscomplex, seed=axis + m)
     before = sum(tx.launches.values())
-    q, s = tx.encode_payload(torch.from_numpy(y), axis=axis, m=m, nbatch=nbatch, codec=codec)
+    q, s, st = tx.encode_payload(torch.from_numpy(y), axis=axis, m=m, nbatch=nbatch, codec=codec)
     jqq, js, _ = jx.encode_payload(jnp.asarray(y), axis=axis, m=m, nbatch=nbatch, codec=codec)
     _check_payload(q, jqq, codec)
+    assert st is None
     if codec == "int8":
         assert s.shape == (int(np.prod(shape[:nbatch])), m)
         np.testing.assert_array_max_ulp(s.numpy(), np.asarray(js), maxulp=1)
@@ -96,7 +98,7 @@ def test_encode_decode_match_reference(codec, iscomplex, shape, axis, m, nbatch)
 def test_pack_unpack_match_reference(codec, iscomplex, shape, v, w, m, nbatch):
     y = _rand(shape, iscomplex, seed=v * 10 + w)
     bv = v + nbatch
-    q, s = tx.pack_chunks(torch.from_numpy(y), axis=bv, m=m, nbatch=nbatch, codec=codec)
+    q, s, _ = tx.pack_chunks(torch.from_numpy(y), axis=bv, m=m, nbatch=nbatch, codec=codec)
     jqq, js, _ = jx.pack_chunks(jnp.asarray(y), axis=bv, m=m, nbatch=nbatch, codec=codec)
     _check_payload(q, jqq, codec)
     if codec == "int8":
@@ -107,6 +109,32 @@ def test_pack_unpack_match_reference(codec, iscomplex, shape, v, w, m, nbatch):
     want = jx.unpack_chunks(jqq, v=v, w=w, m=m, nbatch=nbatch, scale=js, codec=codec,
                             iscomplex=iscomplex)
     _check_block(out, want, codec, y)
+
+
+@pytest.mark.parametrize("codec", ["bf16", "int8"])
+@pytest.mark.parametrize("scale_div", [None, 64.0])
+@pytest.mark.parametrize("wrapper", ["encode_payload", "pack_chunks"])
+def test_guard_counts_match_reference(codec, scale_div, wrapper):
+    """K1's guard mode: per-(field, chunk) counts summed, with non-finite
+    inputs and with the saturation fault's scale divisor."""
+    y = _rand((3, 8, 6, 10), True, seed=5)
+    y.reshape(-1)[[0, 77, 400]] = [np.nan, np.inf, -np.inf + 1j]
+    kw = dict(axis=1, m=4, nbatch=1, codec=codec, guard=True, scale_div=scale_div)
+    q, s, st = getattr(tx, wrapper)(torch.from_numpy(y), **kw)
+    jq, js, jst = getattr(jx, wrapper)(jnp.asarray(y), **kw)
+    # as floats: a NaN's bf16 bit pattern differs between the frameworks
+    got, want = q.float().numpy(), np.asarray(jq).astype(np.float32)
+    if codec == "bf16":
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert np.max(np.abs(got - want)) <= 1
+    for key in ("nonfinite", "saturated"):
+        assert st[key].dtype == torch.float32
+        assert float(st[key]) == float(jst[key]), key
+    assert float(st["nonfinite"]) == 3
+    if codec == "int8":
+        np.testing.assert_array_max_ulp(s.numpy(), np.asarray(js), maxulp=1)
+        assert float(st["saturated"]) > (100 if scale_div else 0)
 
 
 def test_indivisible_chunk_axis_raises():

@@ -7,7 +7,15 @@ Marked ``gpu``: each test skips where ``torch.cuda.is_available()`` is false
 Tolerances: bf16 payloads and decodes are bitwise; int8 scales are equal and
 payloads within one quantum; the four-step DFT is f32 FMA arithmetic in
 another order than the plain matmuls, held to 1e-5 of the output's max.
+The encode's guard mode (counts and ``scale_div``) is held to the plain
+version exactly: same payload and scale bits, same counts.  The transpose
+moves values, so it is bitwise.  The traditional engine's transposed-out
+exchange with ``impl="cuda"`` on a 1-rank NCCL group launches the pack and
+unpack kernels and matches the plain codec's path (bf16 bitwise, int8
+within one quantum, equal stats).
 """
+
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -15,6 +23,7 @@ import torch
 
 from repro_torch.kernels.exchange import ops as xops, ref as xref
 from repro_torch.kernels.fft import ops as fops, ref as fref
+from repro_torch.kernels.transpose import ops as tops
 
 pytestmark = pytest.mark.gpu
 
@@ -24,6 +33,23 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def mesh1(tmp_path_factory):
+    """A (1, 1) mesh on a 1-rank NCCL group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.distributed as dist
+
+    from repro_torch.core.meshutil import make_mesh
+
+    init = tmp_path_factory.mktemp("nccl") / "pg"
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("p0", "p1"))
+    finally:
+        dist.destroy_process_group()
 
 
 def _rand(shape, iscomplex, seed, device):
@@ -82,8 +108,8 @@ def test_exchange_kernels_match_plain(cuda, codec, iscomplex, shape, v, w, m, nb
     quantum = torch.view_as_real(y).abs().max().item() / 127.0 if iscomplex else \
         y.abs().max().item() / 127.0
 
-    q, s = xops.pack_chunks(y, axis=bv, m=m, nbatch=nbatch, codec=codec)
-    qr, sr = xref.pack_chunks_ref(y, axis=bv, m=m, nbatch=nbatch, codec=codec)
+    q, s, _ = xops.pack_chunks(y, axis=bv, m=m, nbatch=nbatch, codec=codec)
+    qr, sr, _ = xref.pack_chunks_ref(y, axis=bv, m=m, nbatch=nbatch, codec=codec)
     _assert_codec(q.float(), qr.float(), codec, 1.0)
     if codec == "int8":
         assert torch.equal(s, sr)
@@ -93,8 +119,8 @@ def test_exchange_kernels_match_plain(cuda, codec, iscomplex, shape, v, w, m, nb
                                   iscomplex=iscomplex)
     _assert_codec(out, want, "bf16", quantum)  # same payload: decode is exact
 
-    q, s = xops.encode_payload(y, axis=bv, m=m, nbatch=nbatch, codec=codec)
-    qr, sr = xref.encode_payload_ref(y, axis=bv, m=m, nbatch=nbatch, codec=codec)
+    q, s, _ = xops.encode_payload(y, axis=bv, m=m, nbatch=nbatch, codec=codec)
+    qr, sr, _ = xref.encode_payload_ref(y, axis=bv, m=m, nbatch=nbatch, codec=codec)
     _assert_codec(q.float(), qr.float(), codec, 1.0)
     if codec == "int8":
         assert torch.equal(s, sr)
@@ -103,3 +129,72 @@ def test_exchange_kernels_match_plain(cuda, codec, iscomplex, shape, v, w, m, nb
     want = xref.decode_payload_ref(qr, axis=bv, m=m, nbatch=nbatch, scale=sr, codec=codec,
                                    iscomplex=iscomplex)
     _assert_codec(out, want, "bf16", quantum)
+
+
+@pytest.mark.parametrize("scale_div", [None, 64.0])
+@pytest.mark.parametrize("codec", ["bf16", "int8"])
+@pytest.mark.parametrize("iscomplex", [True, False])
+@pytest.mark.parametrize("shape,v,w,m,nbatch", [
+    ((8, 6, 10), 0, 2, 4, 0),
+    ((6, 10, 8), 2, 0, 2, 0),
+    ((3, 8, 6, 10), 0, 1, 4, 1),
+    ((4, 8, 5), 1, 0, 1, 0),
+])
+def test_exchange_guard_mode_matches_plain(cuda, codec, iscomplex, shape, v, w, m, nbatch,
+                                           scale_div):
+    y = _rand(shape, iscomplex, v * 10 + w + 1, cuda)
+    flat = y.view(-1)
+    flat[3] = float("nan")
+    flat[-1] = float("inf")
+    bv = v + nbatch
+    kw = dict(axis=bv, m=m, nbatch=nbatch, codec=codec, scale_div=scale_div)
+    for wrapper, plain in ((xops.pack_chunks, xref.pack_chunks_ref),
+                           (xops.encode_payload, xref.encode_payload_ref)):
+        q, s, st = wrapper(y, guard=True, **kw)
+        q0, s0, st0 = wrapper(y, guard=False, **kw)
+        qr, sr, str_ = plain(y, guard=True, **kw)
+        torch.cuda.synchronize()
+        # guard mode writes the unguarded payload, bit for bit
+        bits = (lambda t: t.view(torch.int16)) if codec == "bf16" else (lambda t: t)
+        assert st0 is None and torch.equal(bits(q), bits(q0))
+        if codec == "int8":
+            assert torch.equal(q, qr) and torch.equal(s, sr) and torch.equal(s, s0)
+        else:  # a NaN's bf16 bits may differ between the two: compare values
+            assert torch.equal(q.float().nan_to_num(), qr.float().nan_to_num())
+        for key in ("nonfinite", "saturated"):
+            assert st[key].dtype == torch.float32
+            assert st[key].item() == str_[key].item(), (wrapper.__name__, key)
+        assert st["nonfinite"].item() == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (24, 24, 8), (7, 13, 3), (64, 48, 40),
+                                   (512, 33, 1), (5, 7, 1025), (3, 2, 5000)])
+def test_transpose01_matches_plain(cuda, dtype, shape):
+    x = _rand(shape, dtype == torch.complex64, sum(shape), cuda)
+    got = tops.transpose01(x)
+    torch.cuda.synchronize()
+    assert got.shape == (shape[1], shape[0], shape[2]) and got.dtype == dtype
+    assert torch.equal(got, x.transpose(0, 1).contiguous())
+
+
+@pytest.mark.parametrize("codec", ["bf16", "int8"])
+@pytest.mark.parametrize("v,w,group", [(2, 1, "p1"), (0, 2, "p0")])
+def test_traditional_transposed_out_takes_the_kernels(mesh1, codec, v, w, group):
+    from repro_torch.core.redistribute import exchange_shard
+
+    y = _rand((8, 6, 10), True, 11 * v + w, "cuda")
+    kw = dict(mesh=mesh1, method="traditional", transposed_out=True, comm_dtype=codec,
+              guard=True)
+    before = Counter(xops.launches)
+    got, st = exchange_shard(y, v, w, group, impl="cuda", **kw)
+    torch.cuda.synchronize()
+    launched = {k: n - before[k] for k, n in xops.launches.items() if n != before[k]}
+    assert launched == {f"pack_chunks:{codec}:guard": xops.ENCODE_KERNELS[codec],
+                        f"unpack_chunks:{codec}": 1}
+    want, st_want = exchange_shard(y, v, w, group, impl="torch", **kw)
+    assert got.shape == (1, *y.shape)  # chunk-major: (M, ...) with M = 1
+    quantum = torch.view_as_real(y).abs().max().item() / 127.0
+    _assert_codec(got, want, codec, quantum)
+    for key in ("nonfinite", "saturated"):
+        assert st[key].item() == st_want[key].item()

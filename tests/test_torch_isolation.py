@@ -5,6 +5,7 @@ CUDA and raises without a card, and its config maps the reference's.
 
 import dataclasses
 import os
+import pkgutil
 import subprocess
 import sys
 from pathlib import Path
@@ -14,19 +15,22 @@ import torch
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 
-PORT_MODULES = (
-    "repro_torch", "repro_torch._build", "repro_torch.core.decomp",
-    "repro_torch.core.planconfig", "repro_torch.core.quant", "repro_torch.core.meshutil",
-    "repro_torch.core.pencil", "repro_torch.core.fftcore", "repro_torch.core.redistribute",
-    "repro_torch.core.pfft", "repro_torch.kernels.fft.ref", "repro_torch.kernels.fft.kernel",
-    "repro_torch.kernels.fft.ops", "repro_torch.kernels.exchange.ref",
-    "repro_torch.kernels.exchange.kernel", "repro_torch.kernels.exchange.ops",
-)
+
+def _port_modules() -> tuple[str, ...]:
+    """Every module of the port, found by walking the package, so that each
+    new module is held to the rule too."""
+    import repro_torch
+
+    return ("repro_torch",) + tuple(
+        m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
 
 
 def test_port_imports_neither_jax_nor_reference():
+    modules = _port_modules()
+    for want in ("repro_torch.robustness.runner", "repro_torch.kernels.transpose.ops"):
+        assert want in modules
     code = ("import importlib, sys\n"
-            f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
@@ -48,12 +52,15 @@ def test_make_mesh_defaults_to_cuda_and_raises_without_a_card():
 def test_kernel_wrappers_refuse_non_cuda_tensors():
     from repro_torch.kernels.exchange import kernel as xkernel
     from repro_torch.kernels.fft import kernel as fkernel
+    from repro_torch.kernels.transpose import kernel as tkernel
 
     with pytest.raises(ValueError):
         fkernel.fourstep(torch.zeros(2, 8, dtype=torch.complex64), 8, 1)
     with pytest.raises(ValueError):
         xkernel.encode(torch.zeros(8, dtype=torch.complex64), 1, 1, 1, 8, codec="bf16",
-                       layout=xkernel.CHUNK_MAJOR)
+                       layout=xkernel.CHUNK_MAJOR, guard=True)
+    with pytest.raises(ValueError):
+        tkernel.transpose01(torch.zeros(2, 3, 4))
 
 
 @pytest.mark.parametrize("fields,expect", [
@@ -85,3 +92,11 @@ def test_port_vocabulary():
             PlanConfig(**bad)
     assert PlanConfig(comm_dtype="bfloat16").stage_entry() == ("fused", 1, "bf16", "torch",
                                                                "stacked")
+
+
+def test_auto_method_names_the_tuner():
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig
+
+    with pytest.raises(NotImplementedError, match="tuner"):
+        ParallelFFT(None, (4, 4, 4), ("p0", "p1"), config=PlanConfig(method="auto"))

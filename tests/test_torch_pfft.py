@@ -15,7 +15,6 @@ sqrt(2) * 1.7e-3 = 2.4e-3; port vs JAX <= 1e-5 lossless and <= 1e-3 bf16
 a bf16 tie).
 """
 
-import multiprocessing as mp
 from pathlib import Path
 
 import numpy as np
@@ -29,19 +28,7 @@ TESTS = Path(__file__).resolve().parent
 @pytest.fixture(scope="module")
 def port(tmp_path_factory):
     d = tmp_path_factory.mktemp("torch_ranks")
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=R.run_rank, args=(r, str(d / "pg"), str(d)))
-             for r in range(R.WORLD)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=300)
-    for p in procs:
-        if p.is_alive():
-            p.terminate()
-            p.join(10)
-    codes = [p.exitcode for p in procs]
-    assert codes == [0] * R.WORLD, f"rank exit codes {codes}"
+    R.start(R.run_rank, d)()
     return dict(np.load(d / "results.npz"))
 
 
