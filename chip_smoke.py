@@ -10,7 +10,8 @@ non-zero):
    source, started together) and print the card's name and power limit;
 2. every kernel mode against its plain torch version on seeded inputs, with
    CUDA-event times (one ``{"kernel_sweep": [...]}`` line): K4, K1 (both
-   layouts, both codecs, guard mode and the saturation divisor), K2/K3, K5;
+   layouts, both codecs, guard mode and the saturation divisor), K2/K3, K5,
+   and K6 (flash attention) over dtype x causal x GQA group x S x head dim;
 3. the port's paths on a 1-rank NCCL group and a (1, 1) mesh, each driven
    with the launch counters set to 0 just before it and read just after
    (one ``{"paths": ...}`` line):
@@ -24,14 +25,25 @@ non-zero):
    "guard" — ``guard="strict"`` clean runs at 512^3 (bitwise equal to the
    unguarded plan, guarded and unguarded times), then faults under
    ``guard="degrade"`` and ``"strict"`` that must end as the reference's do;
-4. the kernels at the main path's 512^3 shapes: launches from their path,
+   "lm" — after the FFT paths' buffers are freed, LM serving through
+   ``repro_torch.launch.serve_lm.main``: GLM-4-9B at full width and depth
+   (40 layers, bf16, seeded weights), 4 prompts of 2048 tokens and 32 greedy
+   decode steps under the optimized flags; K6 must launch exactly once per
+   layer per prefill and never in decode, the prefill's logits must match
+   the same weights' prefill with the plain attention, and 3 teacher-forced
+   decode steps must match a prefill of S + 3 tokens (one ``{"lm": ...}``
+   line);
+4. the kernels at the main path's shapes (512^3; K6 at the serving
+   prefill's, and once at the prefill_32k length): launches from their path,
    error against the plain version, kernel / plain / library times and the
-   bound (one ``{"kernels": [...]}`` line), then the result line.
+   bound (one ``{"kernels": [...]}`` line), the serving times beside their
+   bounds (one ``{"lm_breakdown": ...}`` line), then the result line.
 
 Without a CUDA device, or outside a checkout of the repository, it prints no
 result and exits non-zero.
 """
 
+import gc
 import json
 import shutil
 import statistics
@@ -44,9 +56,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, fp32 (non-tensor) flop/s
+# H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, fp32 (non-tensor) flop/s,
+# bf16 tensor-core flop/s (dense)
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
 
 TOL_K4 = 1e-5          # max |kernel - plain| / max |plain|, f32 FMA in another order
 SHAPE_BIG = (512, 512, 512)
@@ -59,6 +73,16 @@ SHAPE_QS = (42, 63, 64)
 TOL_FWD = {"complex64": 1e-5, "bf16": 3e-3, "int8": 3e-2}
 TOL_BACK = {"complex64": 1e-5, "bf16": 5e-3, "int8": 4e-2}
 COMM_DTYPES = ("complex64", "bf16", "int8")
+
+# the LM path: GLM-4-9B at full width and depth, served as a user would call it
+LM_ARGV = ["--arch", "glm4_9b", "--preset", "full", "--opt", "--batch", "4",
+           "--prompt-len", "2048", "--gen", "32"]
+# rel. L2 of last-token logits: the reference's serving tolerance under the
+# optimized flags (tests/test_models.py, 6e-2 elementwise there); a wrong
+# mask, RoPE pairing or cache slot gives a rel. L2 of order 1
+TOL_LM = 6e-2
+# K6 at the serving prefill's shape and at the prefill_32k length (batch cut)
+K6_SHAPES = (((4, 2048, 32, 2, 128), None), ((1, 32768, 32, 2, 128), "batch 32->1"))
 
 
 def fail(msg):
@@ -81,9 +105,10 @@ def cuda_ms(torch, fn, reps=5):
     return statistics.median(times)
 
 
-def bound_ms(nbytes, flops):
-    """Least time for ``nbytes`` of HBM traffic and ``flops`` fp32 operations."""
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+def bound_ms(nbytes, flops, peak=FP32_FLOPS):
+    """Least time for ``nbytes`` of HBM traffic and ``flops`` operations at
+    ``peak`` (fp32 unless given)."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -109,7 +134,7 @@ def main():
     from repro_torch import _build
 
     t0 = time.perf_counter()
-    logs = _build.build(["fourstep", "exchange", "transpose"])
+    logs = _build.build(["fourstep", "exchange", "transpose", "flash"])
     print(f"built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -125,11 +150,13 @@ def main():
     sweep = kernel_sweep(torch)
     print(json.dumps({"kernel_sweep": sweep}))
 
-    paths = run_paths(torch)
+    lm_info = {}
+    paths = run_paths(torch, lm_info)
     print(json.dumps({"paths": paths}))
 
     kernels = main_path_kernels(torch, paths)
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"lm_breakdown": lm_breakdown(kernels, lm_info)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -234,6 +261,60 @@ def kernel_sweep(torch):
                         "ms": cuda_ms(torch, lambda: tops.transpose01(x)),
                         "plain_ms": cuda_ms(torch, lambda: tref.transpose01_ref(x)),
                         "library_ms": cuda_ms(torch, lambda: x.transpose(0, 1).contiguous())})
+    return out + _flash_sweep(torch)
+
+
+def _check_attention(torch, name, got, want, v):
+    """Max abs error of K6 against its plain version; fails past the limit.
+    fp32: tests/test_flash.py's 2e-4.  bf16, elementwise: one bf16 ulp of the
+    output (2^-7 relative: a rounding that fell the other way) plus twice the
+    bound 2^-9 max|v| of the kernel's rounding of p to bf16, which the plain
+    version does not round."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: {tuple(got.shape)} {got.dtype} != {tuple(want.shape)} {want.dtype}")
+    err = (got.float() - want.float()).abs()
+    if want.dtype == torch.float32:
+        limit = 2e-4 + 2e-4 * want.abs()
+    else:
+        limit = 2.0 ** -7 * want.float().abs() + 2.0 ** -8 * float(v.float().abs().max())
+    if not bool((err <= limit).all()):
+        fail(f"{name}: max err {float(err.max())} past the limit")
+    return float(err.max())
+
+
+def _sdpa(torch, q, k, v, causal):
+    """The library call K6 is timed against: one SDPA call on (B, H, S, dh)
+    views, GQA by ``enable_gqa``."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=True)
+
+
+def _flash_sweep(torch):
+    from repro_torch.kernels.flash import ops as flops, ref as flref
+
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for causal in (True, False):
+            for G in (1, 2, 16):
+                for S in (50, 64, 257):  # S <= block_k: the reference takes non-causal too
+                    for dh in (16, 64, 128, 160):
+                        gen = torch.Generator(device="cuda").manual_seed(S * dh + G)
+                        q, k, v = (torch.randn((2, S, h, dh), generator=gen, device="cuda")
+                                   .to(dtype) for h in (2 * G, 2, 2))
+                        kern = lambda: flops.flash_attention(q, k, v, causal=causal)
+                        plain = lambda: flref.attention_gqa_ref(q, k, v, causal=causal)
+                        name = (f"flash:{'bf16' if dtype == torch.bfloat16 else 'f32'}:"
+                                f"{'causal' if causal else 'full'}:G{G}:S{S}:dh{dh}")
+                        err = _check_attention(torch, name, kern(), plain(), v)
+                        out.append({"name": name, "replaces": "flash/kernel.py:80",
+                                    "max_abs_err": err, "ms": cuda_ms(torch, kern, reps=3),
+                                    "plain_ms": cuda_ms(torch, plain, reps=3),
+                                    "library_ms": cuda_ms(torch, _sdpa(torch, q, k, v, causal),
+                                                          reps=3)})
     return out
 
 
@@ -305,9 +386,10 @@ def _exchange_modes(torch, xops, xref, y, codec, v, w, bv, M, nb, tag):
 def _counters():
     from repro_torch.kernels.exchange import ops as xops
     from repro_torch.kernels.fft import ops as fops
+    from repro_torch.kernels.flash import ops as flops
     from repro_torch.kernels.transpose import ops as tops
 
-    return fops.launches, xops.launches, tops.launches
+    return fops.launches, xops.launches, tops.launches, flops.launches
 
 
 def _drive(torch, name, fn, *args):
@@ -324,9 +406,9 @@ def _drive(torch, name, fn, *args):
     return counts
 
 
-def run_paths(torch):
-    """Drive the three paths on a 1-rank NCCL group; returns each path's
-    kernel launch counts."""
+def run_paths(torch, lm_info):
+    """Drive the three FFT paths on a 1-rank NCCL group, then the LM path
+    (which fills ``lm_info``); returns each path's kernel launch counts."""
     import torch.distributed as dist
 
     from repro_torch.core.meshutil import make_mesh
@@ -345,6 +427,9 @@ def run_paths(torch):
         if dist.is_initialized():
             dist.destroy_process_group()
         shutil.rmtree(pg_dir, ignore_errors=True)
+    paths["lm"] = _drive(torch, "lm", lm_path, lm_info)
+    gc.collect()
+    torch.cuda.empty_cache()
     return paths
 
 
@@ -587,8 +672,140 @@ def guard_path(torch, mesh):
                               "tripped": list(e.report.tripped)}))
 
 
+def lm_path(torch, info):
+    """GLM-4-9B served through ``serve_lm.main`` (one warm-up round, then a
+    timed prefill and 32 decode steps), then on the same weights: the K6
+    launches of one prefill and of each decode step, the prefill against the
+    same prefill with the plain attention, and 3 teacher-forced decode steps
+    against a prefill of S + 3 tokens.  Fills ``info`` for the breakdown."""
+    from repro_torch.kernels.flash import ops as flops, ref as flref
+    from repro_torch.launch import serve_lm
+
+    def k6():
+        return sum(flops.launches.values())
+
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_lm.main(LM_ARGV)
+    peak = torch.cuda.max_memory_allocated()
+    lm, prompts = res.lm, res.prompts
+    B, S = prompts.shape
+    L, n_gen = lm.cfg.n_layers, res.ids.shape[1] - 1
+    if k6() != 2 * L:  # the warm-up and the timed prefill; decode launches none
+        fail(f"lm: serve_lm launched K6 {k6()} times, want {2 * L} (two prefills)")
+
+    extra = res.ids[:, :3].to(prompts.device)  # the first three generated ids
+    c0 = k6()
+    cache, lg = lm.prefill({"tokens": prompts}, max_len=S + 3)
+    per_prefill = k6() - c0
+    lg_prefill = lg[:, 0]
+    per_decode = []
+    for t in range(3):
+        c0 = k6()
+        cache, lg_dec = lm.decode_step(cache, extra[:, t], S + t)
+        per_decode.append(k6() - c0)
+    del cache
+    lg_full = lm.prefill({"tokens": torch.cat([prompts, extra], 1)})[1][:, 0]
+    lm._serving_causal = lambda q, k, v: flref.attention_gqa_ref(q, k, v, causal=True)
+    try:
+        lg_plain = lm.prefill({"tokens": prompts})[1][:, 0]
+    finally:
+        del lm._serving_causal
+    if per_prefill != L or any(per_decode):
+        fail(f"lm: K6 launches per prefill {per_prefill} (want {L}), per decode step "
+             f"{per_decode} (want 0)")
+    finite = bool(torch.isfinite(lg_prefill).all() and torch.isfinite(lg_dec).all())
+    rel_plain, rel_dec = rel_l2(torch, lg_prefill, lg_plain), rel_l2(torch, lg_dec, lg_full)
+    agree_plain = float((lg_prefill.argmax(-1) == lg_plain.argmax(-1)).float().mean())
+    agree_dec = float((lg_dec.argmax(-1) == lg_full.argmax(-1)).float().mean())
+    cfg = lm.cfg
+    # a decode step reads every weight once, of an untied embedding only B rows
+    param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    step_weight_bytes = param_bytes if cfg.tie_embeddings else (
+        param_bytes - (lm.embed.shape[0] - B) * lm.embed.shape[1] * lm.embed.element_size())
+    # the valid cache a decode step must read, at its last step
+    cache_bytes = 2 * L * B * cfg.n_kv_heads * (S + n_gen) * cfg.resolved_head_dim * 2
+    out = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+           "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab, "dtype": cfg.dtype, "params": sum(p.numel() for p in lm.parameters()),
+           "batch": B, "prompt_len": S, "gen": n_gen,
+           "prefill_ms": res.prefill_s * 1e3, "prefill_tok_s": B * S / res.prefill_s,
+           "decode_ms_per_step": res.decode_s * 1e3 / n_gen,
+           "decode_tok_s": B * n_gen / res.decode_s,
+           "max_memory_allocated_gib": peak / 2**30, "ids": res.ids[0][:12].tolist(),
+           "k6_launches_per_prefill": per_prefill, "k6_launches_per_decode_step": per_decode,
+           "rel_l2_k6_vs_plain_prefill": rel_plain, "limit": TOL_LM,
+           "argmax_agree_k6_vs_plain": agree_plain,
+           "rel_l2_teacher_forced_decode_vs_prefill": rel_dec,
+           "argmax_agree_teacher_forced": agree_dec, "finite": finite}
+    print(json.dumps({"lm": out}))
+    if not finite or rel_plain > TOL_LM or rel_dec > TOL_LM:
+        fail(f"lm: finite {finite}, rel L2 K6 vs plain prefill {rel_plain}, teacher-forced "
+             f"decode vs prefill {rel_dec} (limit {TOL_LM})")
+    info.update(out, step_weight_bytes=step_weight_bytes, cache_bytes=cache_bytes)
+    del lg, lg_dec, lg_full, lg_plain, lg_prefill
+
+    # device time of one prefill and of 4 decode steps, by kernel class
+    info["prefill_device"] = _device_time(
+        torch, lambda: lm.prefill({"tokens": prompts}, max_len=S + n_gen))
+    cache = lm.prefill({"tokens": prompts}, max_len=S + n_gen)[0]
+    tok = res.ids[:, 0].to(prompts.device)
+    info["decode_device_4_steps"] = _device_time(
+        torch, lambda: [lm.decode_step(cache, tok, S + t) for t in range(4)])
+    del res, lm, prompts, cache, tok
+
+
+def _device_time(torch, fn):
+    """Device time of ``fn`` from a torch.profiler trace: the sum of kernel
+    and copy times on the card (one stream, so no overlap), split into
+    K6, matrix products and the rest, and the five largest kernels.  None
+    where the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.self_device_time_total > 0 and e.device_type.name == "CUDA"]
+    if not kernels:
+        return None
+    classes = {"k6": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, ms, _ in kernels:
+        low = name.lower()
+        cls = ("k6" if "flash_kernel" in low else
+               "matmul" if any(w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
+               else "other")
+        classes[cls] += ms
+    top = sorted(kernels, key=lambda k: -k[1])[:5]
+    return {"device_ms": sum(classes.values()), "by_class_ms": classes,
+            "kernels": sum(n for _, _, n in kernels),
+            "top": [{"name": n[:80], "ms": ms, "count": c} for n, ms, c in top]}
+
+
+def lm_breakdown(kernels, info):
+    """The serving times beside K6's share and the decode step's byte bound."""
+    k6 = next(k for k in kernels if k["name"].startswith("flash_attention") and k["path"] == "lm")
+    k6_total = k6["ms"] * info["layers"]
+    decode_bytes = info["step_weight_bytes"] + info["cache_bytes"]
+    out = {"prefill_ms": info["prefill_ms"], "k6_ms_x_layers": k6_total,
+           "k6_share_of_prefill": k6_total / info["prefill_ms"],
+           "prefill_rest_ms": info["prefill_ms"] - k6_total,
+           "decode_ms_per_step": info["decode_ms_per_step"],
+           "decode_bound_ms": decode_bytes / HBM_BPS * 1e3, "decode_bound_by": "bytes",
+           "decode_bytes": decode_bytes,
+           "prefill_device": info["prefill_device"],
+           "decode_device_4_steps": info["decode_device_4_steps"]}
+    # the device's idle share against the unprofiled wall times of serve_lm
+    if info["prefill_device"]:
+        out["prefill_idle_share"] = 1 - info["prefill_device"]["device_ms"] / info["prefill_ms"]
+    if info["decode_device_4_steps"]:
+        out["decode_idle_share"] = (1 - info["decode_device_4_steps"]["device_ms"] / 4
+                                    / info["decode_ms_per_step"])
+    return out
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the main path's kernels at its 512^3 shapes
+# phase 4: the main path's kernels at its shapes
 # ---------------------------------------------------------------------------
 
 
@@ -597,12 +814,13 @@ def _launched(paths, key):
     return sum(counts.get(key, 0) for counts in paths.values())
 
 
-def _record(name, source, replaces, path, launches, err, ms, plain_ms, bound, library_ms):
+def _record(name, source, replaces, path, launches, err, ms, plain_ms, bound, library_ms,
+            **extra):
     b, by = bound
     return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
             "replaces": replaces, "path": path, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, **extra}
 
 
 def main_path_kernels(torch, paths):
@@ -685,11 +903,65 @@ def main_path_kernels(torch, paths):
                            cuda_ms(torch, lambda: tops.transpose01(x)), plain_ms,
                            bound_ms(2 * elems * 8, 0),
                            cuda_ms(torch, lambda: x.transpose(0, 1).contiguous())))
+    del x, rows
+    torch.cuda.empty_cache()
+    kernels += _flash_records(torch, paths)
 
     for k in kernels:
         if k["path"] is not None and k["launches"] < 1:
             fail(f"{k['name']} was never launched on the {k['path']} path")
     return kernels
+
+
+def _flash_records(torch, paths):
+    """K6 at the serving prefill's shape (launches from the lm path) and at
+    the prefill_32k length, bf16, causal, against the plain version (at 32k
+    one q head at a time: the whole (S, S) fp32 score matrix of 32 heads
+    would not fit) and SDPA."""
+    from repro_torch.kernels.flash import ops as flops, ref as flref
+
+    recs = []
+    for (B, S, Hq, Hkv, dh), reduced in K6_SHAPES:
+        t0 = time.perf_counter()
+        G = Hq // Hkv
+        gen = torch.Generator(device="cuda").manual_seed(S)
+        q, k, v = (torch.randn((B, S, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+                   for h in (Hq, Hkv, Hkv))
+        kern = lambda: flops.flash_attention(q, k, v, causal=True)
+
+        def head(h):  # the plain version of q head h
+            return flref.attention_gqa_ref(q[:, :, h:h + 1], k[:, :, h // G:h // G + 1],
+                                           v[:, :, h // G:h // G + 1], causal=True)
+        if reduced is None:
+            plain = lambda: flref.attention_gqa_ref(q, k, v, causal=True)
+            err = _check_attention(torch, f"flash at {(B, S, Hq, Hkv, dh)}", kern(), plain(), v)
+        else:
+            plain = lambda: [head(h) for h in range(Hq)]
+            got = kern()
+            err = max(_check_attention(torch, f"flash at {(B, S, Hq, Hkv, dh)} head {h}",
+                                       got[:, :, h:h + 1].contiguous(), head(h), v)
+                      for h in range(Hq))
+            del got
+        flop = 4.0 * dh * B * Hq * S * (S + 1) / 2
+        nbytes = 2 * (2 * B * S * Hq * dh + 2 * B * S * Hkv * dh)
+        reps = 5 if reduced is None else 3
+        ms = cuda_ms(torch, kern, reps)
+        extra = {"shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "dh": dh, "dtype": "bf16",
+                           "causal": True}, "tflops": flop / (ms * 1e9)}
+        plain_ms = cuda_ms(torch, plain, reps)
+        lib_ms = cuda_ms(torch, _sdpa(torch, q, k, v, True), reps)
+        if reduced is not None:
+            extra["reduced"] = reduced
+        extra["record_s"] = time.perf_counter() - t0
+        recs.append(_record(f"flash_attention[causal,bf16,B{B},S{S}]", "flash.cu",
+                            "src/repro/kernels/flash/kernel.py:80",
+                            "lm" if reduced is None else None,
+                            paths["lm"].get("flash_attention:bfloat16", 0) if reduced is None
+                            else _launched(paths, "flash_attention:bfloat16"), err, ms, plain_ms,
+                            bound_ms(nbytes, flop, BF16_TC_FLOPS), lib_ms, **extra))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return recs
 
 
 def _pipelined_slice_records(torch, x, xops, xref, counts):

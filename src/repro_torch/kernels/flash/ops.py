@@ -1,0 +1,45 @@
+"""Wrapper of the causal flash-attention kernel (the port of
+``repro/kernels/flash/ops.py``).
+
+``flash_attention(q, k, v, causal=True)`` takes (B, S, Hq, dh) / (B, S,
+Hkv, dh) GQA tensors and returns (B, S, Hq, dh) in v's dtype.  A tensor on
+the CPU takes the plain version (:mod:`.ref`); a CUDA tensor launches the
+kernel (:mod:`.kernel`), which reads kv head ``h // G`` for q head ``h``
+where the reference repeats k and v, and masks the ragged edge where the
+reference pads.  ``block_q`` and ``block_k`` keep the reference's meaning
+for the one rule they carry: a non-causal call whose Skv exceeds
+``block_k`` and is not a multiple of it raises, as the reference does; the
+kernel tiles by its own sizes.  With Sq > Skv and causal the two differ: the
+reference's zero-padded keys are visible to queries past Skv, the port's
+masked ones are not.  ``launches`` counts kernel launches per dtype.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+
+import torch
+
+from repro_torch.kernels.flash import ref
+
+#: kernel launches per "flash_attention:<dtype>"
+launches: Counter = Counter()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, block_q: int = 512,
+                    block_k: int = 512) -> torch.Tensor:
+    del block_q  # the kernel's own query tile replaces it
+    Skv = k.shape[1]
+    bk = min(block_k, Skv)
+    if not causal and Skv % bk:
+        raise ValueError("non-causal flash path needs Skv % block_k == 0")
+    if q.device.type == "cpu":
+        return ref.attention_gqa_ref(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    from repro_torch.kernels.flash import kernel
+
+    o = kernel.flash_attention(q, k, v, causal=causal)
+    launches[f"flash_attention:{str(q.dtype).removeprefix('torch.')}"] += 1
+    return o

@@ -1,0 +1,91 @@
+"""Shared neural-net layers: norms, RoPE, MLPs, weight init (the port of
+``repro/models/layers.py``).
+
+Functions over parameter mappings (``nn.ParameterDict`` or plain dicts of
+tensors).  Weight init draws a truncated normal with fan-in scaling from an
+explicit ``torch.Generator``.  The compute dtype is the weights' (bf16 on the
+serving path); norms run in fp32 and cast back, as in the reference.  The
+chunked cross-entropy of the reference's training path is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype=torch.bfloat16,
+               scale: float | None = None) -> torch.Tensor:
+    """(d_in, d_out) weights: a normal truncated to [-3, 3], times ``scale``
+    (default 1/sqrt(d_in)), drawn in fp32 on ``gen``'s device and cast."""
+    std = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.empty((d_in, d_out), dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
+    return (w * std).to(dtype)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * w.float()).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * w + b).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                            / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., T, Dh); positions: (..., T) integers.  Rotates the
+    interleaved pairs (x[..., 0::2], x[..., 1::2]), not the two halves."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                     # (Dh/2,)
+    ang = positions[..., None].float() * freqs                  # (..., T, Dh/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., 0::2].float(), x[..., 1::2].float()
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    return torch.stack([out1, out2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(gen: torch.Generator, d: int, ff: int, kind: str,
+             dtype=torch.bfloat16) -> dict[str, torch.Tensor]:
+    if kind in ("swiglu", "geglu"):
+        return {"w_gate": dense_init(gen, d, ff, dtype), "w_up": dense_init(gen, d, ff, dtype),
+                "w_down": dense_init(gen, ff, d, dtype)}
+    return {"w_up": dense_init(gen, d, ff, dtype), "w_down": dense_init(gen, ff, d, dtype)}
+
+
+def mlp_apply(p, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The activation acts on the product in the weights' dtype; jax's
+    ``gelu`` is the tanh form."""
+    if kind == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    elif kind == "geglu":
+        h = F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_up"])
+    elif kind == "relu2":
+        h = torch.square(F.relu(x @ p["w_up"]))
+    elif kind == "gelu":
+        h = F.gelu(x @ p["w_up"], approximate="tanh")
+    else:
+        raise ValueError(kind)
+    return h @ p["w_down"]

@@ -1,0 +1,223 @@
+"""The LM for serving, dense family (the port of ``repro/models/lm.py``).
+
+``LM`` is an ``nn.Module`` that holds the parameters of one card:
+``embed``, ``final_norm``, ``lm_head`` (unless tied) and ``blocks``, one
+per layer (the reference stacks them on a leading axis and scans).  Its
+entry points:
+
+  ``prefill(batch, *, max_len)``          -> (cache, last-token fp32 logits (B, 1, V))
+  ``decode_step(cache, token, cur_len)``  -> (cache, fp32 logits (B, V))
+
+The cache is ``{"blocks": {"k": ..., "v": ...}}`` with a leading layer axis,
+(L, B, Hkv, M, dh) under ``hmajor_cache`` and (L, B, M, Hkv, dh) otherwise,
+allocated at ``max_len`` by the prefill and written in place by each decode
+step at ``cur_len`` (the reference donates it instead).  There is no mesh:
+one card holds the model, so the vocabulary is not padded (``vocab_padded
+== vocab``).  Under ``exact_causal_prefill`` the prefill's attention is the
+flash kernel (K6).  Families other than ``dense`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import dense_init, layernorm, mlp_apply, mlp_init, rmsnorm
+
+
+@dataclasses.dataclass(frozen=True)
+class PerfFlags:
+    """Beyond-baseline optimizations; the defaults are the baseline.
+
+    bf16_attention       — the attention contractions keep the weights'
+                           dtype for p (see ``models/attention.py``).
+    exact_causal_prefill — the serving prefill's attention is the flash
+                           kernel (K6, exact causal FLOPs) instead of the
+                           masked blockwise form.
+    remat_policy         — the reference's training remat; no effect here.
+    hmajor_cache         — head-major (B, Hkv, S, dh) KV cache.
+    seq_sharded_residual — the reference's tensor-parallel residual; no
+                           effect on one card.
+    """
+
+    bf16_attention: bool = False
+    exact_causal_prefill: bool = False
+    remat_policy: str = "full"
+    hmajor_cache: bool = False
+    seq_sharded_residual: bool = False
+
+
+OPTIMIZED = PerfFlags(bf16_attention=True, exact_causal_prefill=True,
+                      remat_policy="dots", hmajor_cache=True)
+
+
+def _params(tensors: dict[str, torch.Tensor]) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False) for k, t in tensors.items()})
+
+
+def _norm_init(cfg: ArchConfig, d: int, device) -> nn.ParameterDict:
+    p = {"w": torch.ones((d,), dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        p["b"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return _params(p)
+
+
+def _norm_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["w"], p["b"], cfg.norm_eps)
+    return rmsnorm(x, p["w"], cfg.norm_eps)
+
+
+class Block(nn.Module):
+    """One pre-norm decoder layer: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator, dtype: torch.dtype):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = _norm_init(cfg, d, gen.device)
+        self.ln2 = _norm_init(cfg, d, gen.device)
+        self.attn = _params(attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                          cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
+                                          dtype=dtype))
+        self.mlp = _params(mlp_init(gen, d, cfg.d_ff, cfg.mlp, dtype))
+
+
+class LM(nn.Module):
+    """A dense decoder LM on one device, weights drawn from ``seed``.
+
+    ``device`` defaults to CUDA and raises without a card; pass ``"cpu"``
+    to run on the CPU (every kernel then takes its plain version).
+    """
+
+    def __init__(self, cfg: ArchConfig, *, q_block: int = 512, perf: PerfFlags | None = None,
+                 device: str | torch.device = "cuda", seed: int = 0):
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(f"the port's LM runs the dense family; {cfg.name} is "
+                                      f"{cfg.family!r}, still to port (ROADMAP.md §1)")
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("LM defaults to CUDA and no CUDA device is available; "
+                               "pass device='cpu' to run on the CPU")
+        self.cfg, self.q_block = cfg, q_block
+        self.perf = perf if perf is not None else PerfFlags()
+        self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        self.vocab_padded = cfg.vocab  # tp = fsdp = 1
+        gen = torch.Generator(device=device).manual_seed(seed)
+        d = cfg.d_model
+        self.embed = nn.Parameter(dense_init(gen, self.vocab_padded, d, self.dtype, scale=1.0),
+                                  requires_grad=False)
+        self.final_norm = _norm_init(cfg, d, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(dense_init(gen, d, self.vocab_padded, self.dtype),
+                                        requires_grad=False)
+        self.blocks = nn.ModuleList(Block(cfg, gen, self.dtype) for _ in range(cfg.n_layers))
+
+    @property
+    def head_dim(self) -> int:
+        return self.cfg.resolved_head_dim
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # -- pieces ---------------------------------------------------------------
+
+    def _last_logits(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        h = _norm_apply(self.cfg, self.final_norm, x[:, -1:])
+        return (h @ w).float()
+
+    def _serving_causal(self, q, k, v):
+        if self.perf.exact_causal_prefill:
+            return attn.triangular_causal_attention(q, k, v, q_block=self.q_block,
+                                                    bf16_compute=self.perf.bf16_attention)
+        return attn.blockwise_attention(q, k, v, causal=True, q_block=self.q_block,
+                                        bf16_compute=self.perf.bf16_attention)
+
+    def _qkv(self, p, h, positions):
+        cfg = self.cfg
+        return attn.gqa_qkv(p.attn, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                            head_dim=self.head_dim, positions=positions,
+                            rope_theta=cfg.rope_theta)
+
+    def _attn_prefill(self, p, x, positions, k_cache, v_cache):
+        """Attention sub-block; writes its keys and values to the layer's cache."""
+        B, S = x.shape[:2]
+        q, k, v = self._qkv(p, _norm_apply(self.cfg, p.ln1, x), positions)
+        o = self._serving_causal(q, k, v)
+        if self.perf.hmajor_cache:
+            k_cache[:, :, :S] = k.transpose(1, 2)
+            v_cache[:, :, :S] = v.transpose(1, 2)
+        else:
+            k_cache[:, :S] = k
+            v_cache[:, :S] = v
+        return x + o.reshape(B, S, -1) @ p.attn["wo"]
+
+    def _attn_decode(self, p, x, k_cache, v_cache, cur_len: int):
+        """One-token attention; writes the token's key and value at ``cur_len``."""
+        B = x.shape[0]
+        pos = torch.full((B, 1), cur_len, dtype=torch.int64, device=x.device)
+        q, k_new, v_new = self._qkv(p, _norm_apply(self.cfg, p.ln1, x), pos)
+        if self.perf.hmajor_cache:
+            k_cache[:, :, cur_len] = k_new[:, 0]
+            v_cache[:, :, cur_len] = v_new[:, 0]
+            layout = "bhsd"
+        else:
+            k_cache[:, cur_len] = k_new[:, 0]
+            v_cache[:, cur_len] = v_new[:, 0]
+            layout = "bskd"
+        o = attn.decode_attention(q, k_cache, v_cache, cur_len + 1, layout=layout,
+                                  bf16_compute=self.perf.bf16_attention)
+        return x + o.reshape(B, 1, -1) @ p.attn["wo"]
+
+    def _ffn_block(self, p, x):
+        return x + mlp_apply(p.mlp, _norm_apply(self.cfg, p.ln2, x), self.cfg.mlp)
+
+    def _new_cache(self, batch: int, max_len: int) -> dict:
+        """A zeroed cache of ``max_len`` positions."""
+        cfg = self.cfg
+        per_layer = ((batch, cfg.n_kv_heads, max_len, self.head_dim) if self.perf.hmajor_cache
+                     else (batch, max_len, cfg.n_kv_heads, self.head_dim))
+        shape = (cfg.n_layers, *per_layer)
+        return {"blocks": {name: torch.zeros(shape, dtype=self.dtype, device=self.device)
+                           for name in ("k", "v")}}
+
+    # -- serving ----------------------------------------------------------------
+
+    @torch.no_grad()
+    def prefill(self, batch: dict, *, max_len: int | None = None):
+        """Process a prompt batch (``tokens`` (B, S)); returns (cache of
+        ``max_len`` or S positions, last-token fp32 logits (B, 1, V))."""
+        tokens = batch["tokens"].to(self.device)
+        B, S = tokens.shape
+        M = max_len or S
+        if M < S:
+            raise ValueError(f"max_len {M} is shorter than the prompt ({S})")
+        x = self.embed[tokens]
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        cache = self._new_cache(B, M)
+        ks, vs = cache["blocks"]["k"], cache["blocks"]["v"]
+        for i, p in enumerate(self.blocks):
+            x = self._attn_prefill(p, x, positions, ks[i], vs[i])
+            x = self._ffn_block(p, x)
+        return cache, self._last_logits(x)
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, token: torch.Tensor, cur_len):
+        """token: (B,) ids; cur_len: the cache's current length.  Returns
+        (the cache, written in place, and fp32 logits (B, V))."""
+        cur_len = int(cur_len)
+        ks, vs = cache["blocks"]["k"], cache["blocks"]["v"]
+        max_len = ks.shape[3] if self.perf.hmajor_cache else ks.shape[2]
+        if not 0 <= cur_len < max_len:
+            raise ValueError(f"cur_len {cur_len} outside a cache of {max_len} positions")
+        x = self.embed[token.to(self.device)[:, None]]
+        for i, p in enumerate(self.blocks):
+            x = self._attn_decode(p, x, ks[i], vs[i], cur_len)
+            x = self._ffn_block(p, x)
+        return cache, self._last_logits(x)[:, 0]

@@ -9,7 +9,11 @@ payloads within one quantum; the four-step DFT is f32 FMA arithmetic in
 another order than the plain matmuls, held to 1e-5 of the output's max.
 The encode's guard mode (counts and ``scale_div``) is held to the plain
 version exactly: same payload and scale bits, same counts.  The transpose
-moves values, so it is bitwise.  The traditional engine's transposed-out
+moves values, so it is bitwise.  The flash attention (K6) is held to
+2e-4 in fp32 (``tests/test_flash.py``'s own limit) and in bf16 to
+2^-7 |plain| + 2^-8 max|v|: one bf16 ulp of the output plus twice the
+bound of the kernel's rounding of p to bf16, which the plain version does
+not round.  The traditional engine's transposed-out
 exchange with ``impl="cuda"`` on a 1-rank NCCL group launches the pack and
 unpack kernels and matches the plain codec's path (bf16 bitwise, int8
 within one quantum, equal stats).
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.kernels.exchange import ops as xops, ref as xref
 from repro_torch.kernels.fft import ops as fops, ref as fref
+from repro_torch.kernels.flash import ops as flops, ref as flref
 from repro_torch.kernels.transpose import ops as tops
 
 pytestmark = pytest.mark.gpu
@@ -198,3 +203,54 @@ def test_traditional_transposed_out_takes_the_kernels(mesh1, codec, v, w, group)
     _assert_codec(got, want, codec, quantum)
     for key in ("nonfinite", "saturated"):
         assert st[key].item() == st_want[key].item()
+
+
+@pytest.mark.parametrize("dh", [16, 64, 128, 160])
+@pytest.mark.parametrize("S", [50, 64, 257])
+@pytest.mark.parametrize("G", [1, 2, 16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_matches_plain(cuda, dtype, causal, G, S, dh):
+    gen = torch.Generator(device="cuda").manual_seed(S * dh + G)
+    q = torch.randn((2, S, 2 * G, dh), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((2, S, 2, dh), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((2, S, 2, dh), generator=gen, device=cuda).to(dtype)
+    before = sum(flops.launches.values())
+    got = flops.flash_attention(q, k, v, causal=causal)
+    want = flref.attention_gqa_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert sum(flops.launches.values()) == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        limit = 2e-4 + 2e-4 * want.abs()
+    else:
+        limit = 2.0 ** -7 * want.float().abs() + 2.0 ** -8 * v.float().abs().max()
+    assert bool((err <= limit).all()), err.max().item()
+
+
+def test_flash_refuses_unsupported_head_dims(cuda):
+    x = torch.zeros((1, 8, 2, 48), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flops.flash_attention(x, x, x)
+
+
+def test_lm_prefill_runs_k6_once_per_layer(cuda):
+    """The optimized prefill launches K6 once per layer and decode never,
+    and its logits match the same prefill with the plain attention."""
+    from repro_torch import configs
+    from repro_torch.models.lm import LM, OPTIMIZED
+
+    cfg = configs.smoke("glm4_9b")
+    lm = LM(cfg, q_block=16, perf=OPTIMIZED, device=cuda, seed=0)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=cuda,
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    before = sum(flops.launches.values())
+    cache, lg = lm.prefill({"tokens": toks}, max_len=41)
+    assert sum(flops.launches.values()) == before + cfg.n_layers
+    lm.decode_step(cache, lg[:, 0].argmax(-1), 40)
+    assert sum(flops.launches.values()) == before + cfg.n_layers
+    lm._serving_causal = lambda q, k, v: flref.attention_gqa_ref(q, k, v, causal=True)
+    _, lg_plain = lm.prefill({"tokens": toks}, max_len=41)
+    rel = ((lg - lg_plain).norm() / lg_plain.norm()).item()
+    assert rel < 6e-2, rel

@@ -1,6 +1,7 @@
 """The port stands alone and runs on the card unless asked otherwise: its
-modules import neither jax nor the reference package, its mesh defaults to
-CUDA and raises without a card, and its config maps the reference's.
+modules import neither jax nor the reference package, its mesh, its LM and
+its serving CLI default to CUDA and raise without a card, and its config
+maps the reference's.
 """
 
 import dataclasses
@@ -27,7 +28,9 @@ def _port_modules() -> tuple[str, ...]:
 
 def test_port_imports_neither_jax_nor_reference():
     modules = _port_modules()
-    for want in ("repro_torch.robustness.runner", "repro_torch.kernels.transpose.ops"):
+    for want in ("repro_torch.robustness.runner", "repro_torch.kernels.transpose.ops",
+                 "repro_torch.kernels.flash.ops", "repro_torch.launch.serve_lm",
+                 "repro_torch.configs.glm4_9b"):
         assert want in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -52,6 +55,7 @@ def test_make_mesh_defaults_to_cuda_and_raises_without_a_card():
 def test_kernel_wrappers_refuse_non_cuda_tensors():
     from repro_torch.kernels.exchange import kernel as xkernel
     from repro_torch.kernels.fft import kernel as fkernel
+    from repro_torch.kernels.flash import kernel as flkernel
     from repro_torch.kernels.transpose import kernel as tkernel
 
     with pytest.raises(ValueError):
@@ -61,6 +65,21 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
                        layout=xkernel.CHUNK_MAJOR, guard=True)
     with pytest.raises(ValueError):
         tkernel.transpose01(torch.zeros(2, 3, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        flkernel.flash_attention(*(torch.zeros(1, 8, 2, 16),) * 3, causal=True)
+
+
+def test_serving_defaults_to_cuda_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from repro_torch import configs
+    from repro_torch.launch import serve_lm
+    from repro_torch.models.lm import LM
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_lm.main(["--arch", "glm4_9b", "--preset", "smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LM(configs.smoke("glm4_9b"))
 
 
 @pytest.mark.parametrize("fields,expect", [
