@@ -9,12 +9,15 @@ non-zero):
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
    source, started together) and print the card's name and power limit;
 2. every kernel mode against its plain torch version on seeded inputs, with
-   CUDA-event times (one ``{"kernel_sweep": [...]}`` line): K4, K1 (both
-   layouts, both codecs, guard mode and the saturation divisor), K2/K3, K5,
-   and K6 (flash attention) over dtype x causal x GQA group x S x head dim;
+   CUDA-event times (one ``{"kernel_sweep": [...]}`` line): K4 (each record
+   names the design that ran: ``"tc"``, 3xTF32 tensor cores, or
+   ``"general"``), K1 (both layouts, both codecs, guard mode and the
+   saturation divisor), K2/K3, K5, and K6 (flash attention) over dtype x
+   causal x GQA group x S x head dim;
 3. the port's paths on a 1-rank NCCL group and a (1, 1) mesh, each driven
    with the launch counters set to 0 just before it and read just after
-   (one ``{"paths": ...}`` line):
+   (one ``{"paths": ...}`` line; at 512^3 every K4 launch of a plan must
+   have run the tensor-core design):
    "slice" — (a) the quickstart plan ``(42, 63, 64)``, ``method="fused"``,
    against ``np.fft.fftn``; (b) the slice configuration (``impl="matmul"``,
    ``exchange_impl="cuda"``, ``comm_dtype="bf16"``) at ``(42, 63, 64)`` and
@@ -33,8 +36,10 @@ non-zero):
    the same weights' prefill with the plain attention, and 3 teacher-forced
    decode steps must match a prefill of S + 3 tokens (one ``{"lm": ...}``
    line);
-4. the kernels at the main path's shapes (512^3; K6 at the serving
-   prefill's, and once at the prefill_32k length): launches from their path,
+4. the kernels at the main path's shapes (512^3, where K4 runs its
+   tensor-core design; K4's general design at the quickstart shape; K6 at
+   the serving prefill's, and once at the prefill_32k length): launches
+   from their path,
    error against the plain version, kernel / plain / library times and the
    bound (one ``{"kernels": [...]}`` line), the serving times beside their
    bounds (one ``{"lm_breakdown": ...}`` line), then the result line.
@@ -57,12 +62,13 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, fp32 (non-tensor) flop/s,
-# bf16 tensor-core flop/s (dense)
+# bf16 and TF32 tensor-core flop/s (dense)
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
+TF32_TC_FLOPS = 495e12
 
-TOL_K4 = 1e-5          # max |kernel - plain| / max |plain|, f32 FMA in another order
+TOL_K4 = 1e-5          # max |kernel - plain| / max |plain|: f32 FMA or 3xTF32, another order
 SHAPE_BIG = (512, 512, 512)
 SHAPE_QS = (42, 63, 64)
 # relative L2 of the 512^3 forward vs torch.fft.fftn, and of the round trip:
@@ -211,7 +217,7 @@ def kernel_sweep(torch):
     from repro_torch.kernels.transpose import ops as tops, ref as tref
 
     out = []
-    for n in (42, 63, 64, 256, 512):
+    for n in (42, 63, 64, 256, 512, 1024, 4096):
         n1, n2 = fops.plan_factors(n)
         x = _randn(torch, (4096, n), n)
         xr = x.real.contiguous()
@@ -226,12 +232,12 @@ def kernel_sweep(torch):
                      lambda: torch.fft.rfft(xr, dim=-1)),
         }
         for mode, (kern, plain, lib) in modes.items():
-            got, want = kern(), plain()
+            (got, design), want = _k4_design(torch, kern), plain()
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             if err > TOL_K4 * float(want.abs().max()):
                 fail(f"fourstep {mode} n={n}: max err {err} above {TOL_K4} of max |y|")
-            out.append({"name": f"fourstep:{mode}:n{n}", "max_abs_err": err,
+            out.append({"name": f"fourstep:{mode}:n{n}", "design": design, "max_abs_err": err,
                         "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
                         "library_ms": cuda_ms(torch, lib)})
 
@@ -262,6 +268,19 @@ def kernel_sweep(torch):
                         "plain_ms": cuda_ms(torch, lambda: tref.transpose01_ref(x)),
                         "library_ms": cuda_ms(torch, lambda: x.transpose(0, 1).contiguous())})
     return out + _flash_sweep(torch)
+
+
+def _k4_design(torch, fn):
+    """``(fn(), design)``: the K4 design (``"tc"`` or ``"general"``) that
+    each K4 launch of one call of ``fn`` ran; fails on a mix."""
+    from repro_torch.kernels.fft import ops as fops
+
+    before = dict(fops.design_launches)
+    out = fn()
+    ran = {d.split(":")[0] for d, k in fops.design_launches.items() if k != before.get(d, 0)}
+    if len(ran) != 1:
+        fail(f"one K4 call ran the designs {ran}")
+    return out, ran.pop()
 
 
 def _check_attention(torch, name, got, want, v):
@@ -389,7 +408,7 @@ def _counters():
     from repro_torch.kernels.flash import ops as flops
     from repro_torch.kernels.transpose import ops as tops
 
-    return fops.launches, xops.launches, tops.launches, flops.launches
+    return fops.launches, fops.design_launches, xops.launches, tops.launches, flops.launches
 
 
 def _drive(torch, name, fn, *args):
@@ -464,21 +483,25 @@ def slice_path(torch, mesh):
         _run_plan(torch, mesh, shape, cfg, ParallelFFT, fops, xops)
 
 
-def _launches_of(torch, comm, fn):
+def _launches_of(torch, comm, fn, shape):
     """``(fn(), launches)``: the K4, encode (K1) and decode (K3) kernel
-    launches at ``comm`` that one call of ``fn`` made."""
+    launches at ``comm`` that one call of ``fn`` made.  At ``SHAPE_BIG``
+    every K4 launch must have run the tensor-core design."""
     from repro_torch.kernels.exchange import ops as xops
     from repro_torch.kernels.fft import ops as fops
 
     def totals():
         return (sum(fops.launches.values()), xops.launches[f"pack_chunks:{comm}"],
-                xops.launches[f"unpack_chunks:{comm}"])
+                xops.launches[f"unpack_chunks:{comm}"],
+                sum(k for d, k in fops.design_launches.items() if d.startswith("tc:")))
 
     before = totals()
     out = fn()
     torch.cuda.synchronize()
-    return out, dict(zip(("fourstep", "encode", "decode"),
-                         (b - a for a, b in zip(before, totals()))))
+    k4, enc, dec, tc = (b - a for a, b in zip(before, totals()))
+    if tuple(shape) == SHAPE_BIG and tc != k4:
+        fail(f"{shape} {comm}: {k4 - tc} of {k4} K4 launches ran the general design, not 'tc'")
+    return out, {"fourstep": k4, "encode": enc, "decode": dec}
 
 
 def _want_launches(plan, comm):
@@ -499,7 +522,7 @@ def _run_plan(torch, mesh, shape, cfg, ParallelFFT, fops, xops):
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn(shape, dtype=torch.complex64, device="cuda", generator=gen)
     ref = torch.fft.fftn(x)
-    y, per_fwd = _launches_of(torch, cfg.comm_dtype, lambda: plan.forward_padded(x))
+    y, per_fwd = _launches_of(torch, cfg.comm_dtype, lambda: plan.forward_padded(x), shape)
     # two exchanges per 3-D pencil forward; an int8 encode is two kernel launches
     if per_fwd != _want_launches(plan, cfg.comm_dtype):
         fail(f"{shape} {cfg.comm_dtype}: one forward launched {per_fwd}")
@@ -555,8 +578,8 @@ def engines_path(torch, mesh):
             name = f"{method}@{comm}"
             # each engine runs the path's kernels: K4 per stage and slice,
             # K1 and K3 per collective on a lossy wire
-            y, per_fwd = _launches_of(torch, comm, lambda: plan.forward_padded(x))
-            back, per_bwd = _launches_of(torch, comm, lambda: plan.backward_padded(y))
+            y, per_fwd = _launches_of(torch, comm, lambda: plan.forward_padded(x), SHAPE_BIG)
+            back, per_bwd = _launches_of(torch, comm, lambda: plan.backward_padded(y), SHAPE_BIG)
             want = _want_launches(plan, comm)
             if per_fwd != want or per_bwd != want:
                 fail(f"{name}: forward launched {per_fwd}, backward {per_bwd}, want {want} each")
@@ -836,7 +859,11 @@ def main_path_kernels(torch, paths):
     kernels = []
     counts = paths["slice"]
 
-    k4_flops = batch * (8.0 * n * (n1 + n2) + 6.0 * n)
+    # the tensor-core design: 3 TF32 products of (2 n1)^2 n2 and (2 n2)^2 n1
+    # multiply-adds a row (the twiddle's 6 n fp32 flops are below 1 %)
+    if not fops.tensor_core_design(n1, n2):
+        fail(f"K4 at n = {n}: the path's length is not on the tensor-core design")
+    k4_flops = batch * 3 * 2.0 * ((2 * n1) ** 2 * n2 + (2 * n2) ** 2 * n1)
     k4_bytes = 2 * rows.numel() * 8
     for mode, kern, plain, lib in (
             ("fft", lambda: fops.fft_matmul(rows), lambda: fref.fourstep_ref(rows, n1, n2),
@@ -844,16 +871,42 @@ def main_path_kernels(torch, paths):
             ("ifft", lambda: fops.fft_matmul(rows, inverse=True),
              lambda: fref.fourstep_ref(rows.conj(), n1, n2).conj() / n,
              lambda: torch.fft.ifft(rows, dim=-1))):
-        got, want = kern(), plain()
+        (got, design), want = _k4_design(torch, kern), plain()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if err > TOL_K4 * float(want.abs().max()):
             fail(f"fourstep {mode} at {SHAPE_BIG}: max err {err}")
+        if design != "tc":
+            fail(f"fourstep {mode} at {SHAPE_BIG}: ran the {design} design")
         del got, want
         kernels.append(_record(f"fourstep_dft[{mode}]", "fourstep.cu",
-                               "src/repro/kernels/fft/kernel.py:87", "slice", counts.get(mode, 0),
+                               "src/repro/kernels/fft/kernel.py:87", "slice",
+                               counts.get(f"tc:{mode}", 0),
                                err, cuda_ms(torch, kern), cuda_ms(torch, plain),
-                               bound_ms(k4_bytes, k4_flops), cuda_ms(torch, lib)))
+                               bound_ms(k4_bytes, k4_flops, TF32_TC_FLOPS), cuda_ms(torch, lib),
+                               design=design))
+
+    # the general design on the slice path: the quickstart shape's last axis
+    # (42 * 63 rows of n = 64, one direct DFT), fp32 FMA
+    qn = SHAPE_QS[-1]
+    q1, q2 = fops.plan_factors(qn)
+    qrows = _randn(torch, (SHAPE_QS[0] * SHAPE_QS[1], qn), 3)
+    (got, design), want = _k4_design(torch, lambda: fops.fft_matmul(qrows)), \
+        fref.fourstep_ref(qrows, q1, q2)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if err > TOL_K4 * float(want.abs().max()) or design != "general":
+        fail(f"fourstep fft at {SHAPE_QS}: max err {err}, design {design}")
+    kernels.append(_record("fourstep_dft[fft,quickstart]", "fourstep.cu",
+                           "src/repro/kernels/fft/kernel.py:87", "slice",
+                           counts.get("general:fft", 0), err,
+                           cuda_ms(torch, lambda: fops.fft_matmul(qrows)),
+                           cuda_ms(torch, lambda: fref.fourstep_ref(qrows, q1, q2)),
+                           bound_ms(2 * qrows.numel() * 8,
+                                    qrows.shape[0] * (8.0 * qn * (q1 + q2) + 6.0 * qn)),
+                           cuda_ms(torch, lambda: torch.fft.fft(qrows, dim=-1)),
+                           design=design, shape=list(qrows.shape)))
+    del got, want, qrows
 
     # the first forward exchange: v = 2 -> w = 1 over a group of 1
     v, w, m = 2, 1, 1

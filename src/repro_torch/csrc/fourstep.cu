@@ -9,29 +9,60 @@
 // the twiddles, step 3 contracts n2 with the DFT-n2 matrix, and step 4 is
 // the output index k = k1 + n1 * k2, so the result lands in natural order.
 // The inverse uses the conjugate roots and divides by n at the end, which
-// is the reference's conj(fft(conj(x))) / n.
+// is the reference's conj(fft(conj(x))) / n.  Two designs, chosen by shape
+// (the caller's ops.tensor_core_design applies the same rule):
 //
-// What bounds it on the H100: fp32 FMA (no tensor cores, no TF32), about
-// 8 n (n1 + n2) flops per row against 16 n bytes moved: for n = 512 that is
-// ~24 flops per byte, above the card's fp32 ridge (~20), so the kernel is
-// bound by operations, and at n <= 256 (a direct DFT) much more so.  This
-// first version reaches ~5 % of that bound: each complex FMA reads two
-// float2 values from shared memory, so shared-memory loads limit it.
+// Tensor-core design (fourstep_tc_kernel), for n1, n2 multiples of 8 and at
+// most 64 (512 = 32 * 16, 1024, 2048, 4096).  The least time it could take
+// is HBM's, 16 n bytes a row (0.64 ms for 2^27 complex64 at 3.35 TB/s):
+// its 3 * 2 * ((2 n1)^2 n2 + (2 n2)^2 n1) TF32 operations a row take 0.31 ms
+// at 512^3 at the dense TF32 peak.  mma.sync does not reach that peak:
+// the three passes' mma issue sets its pace (PERF.md), and wgmma is the
+// next step.  Both contractions are one shape, a constant real matrix F
+// (the DFT matrix in block form [[Fr, -Fi], [Fi, Fr]]) times a tile
+// already in shared memory, so one warp routine (contract) serves both on
+// mma.sync m16n8k8 TF32:
+//  - 3xTF32: the caller splits F on the host (float64 -> fp32 -> big =
+//    tf32(f), small = tf32(f - big)) and the kernel splits each data value
+//    as it reads it, big = its truncation to TF32 (one op, NaN and Inf
+//    kept non-finite), small = tf32(x - big); big.small + small.big +
+//    big.big summed in fp32 keeps fp32 accuracy (1xTF32 is ~3e-4 off, over
+//    the 1e-5 limit).  The split's integer ops, not the mma, are a large
+//    share of the issue slots.
+//  - The contracted index j of F's columns is ordered (Re j0..j0+3,
+//    Im j0..j0+3) within a k-step of 8 and F's rows (Re k0..k0+7,
+//    Im k0..k0+7) within an m-tile of 16, so a thread's B fragment is one
+//    complex value (one 8-byte load) and its accumulators hold the real and
+//    imaginary parts of the same outputs: the twiddle multiply and the
+//    output stores happen in registers.
+//  - A persistent block (as many as fit on the SMs) first gathers F1's
+//    and F2's fragments from the caller's block-form tables into shared
+//    memory in fragment order (one 16-byte load a fragment, 16 (n1^2 +
+//    n2^2) bytes), then walks groups of R whole rows (R <= 8, about 110 KB
+//    of shared memory, so two blocks share an SM at n <= 1024).  A group
+//    is copied with cp.async, all in flight at once, into a padded
+//    (row, j, column) tile (4 complex of pad a j-line spread the fragment
+//    loads over all banks); step 1 writes the twiddled (row, i2, k1) tile;
+//    the next group's copy is issued into the freed input tile and
+//    overlaps step 3, which writes y[row][k1 + n1 k2] straight from its
+//    accumulators, the first nout bins only (the inverse times 1/n).  A
+//    warp carries 8 n-tiles per A fragment (4 where the n-tiles are not a
+//    multiple of 8).  The twiddles are read through the read-only cache.
+//  - The kernel computes no roots: the tables come from the caller.
 //
-// Design: the Pallas kernel holds F1, F2 and the twiddles whole in VMEM; at
-// n = 256 F1 alone would be 512 KB, more than a block's shared memory.  Here
-// every entry of F1, F2 and the twiddle matrix is a power of one root of
-// unity, so a block keeps only the table w[t] = exp(-2 pi i t / n) of n
-// complex values (computed in double, rounded to float) and indexes it with
-// (k1 * i1 mod n1) * n2, (i2 * k2 mod n2) * n1 and k1 * i2.  A block
-// transforms `rows` whole rows held in shared memory (input tile, step-1
-// tile, table); odd and prime lengths need no padding because each thread
-// loops over exact extents.  Input and output are interleaved re/im
-// (complex64 as float2), so no plane split or merge pass is needed.
-// Karatsuba is not used: fp32 FMA has no reason to trade a multiply for
-// two adds.  The kernel allocates nothing and does not synchronise.
+// General design (fourstep_kernel), every other length: fp32 FMA, each
+// thread one output bin over a shared n-entry root table w[t] =
+// exp(-2 pi i t / n) (computed in double) indexed with (k1 i1 mod n1) n2,
+// (i2 k2 mod n2) n1 and k1 i2; a block transforms `rows` whole rows in
+// shared memory; odd and prime lengths loop over exact extents.  It is
+// bound by shared-memory loads: its table reads at a stride of n2 or n1
+// roots put a warp's lanes on one bank (a redesign is queued).
+//
+// Neither design allocates memory or synchronises the device.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -117,16 +148,271 @@ constexpr int kThreads = 256;
 constexpr size_t kSmemDefault = 48 * 1024;
 constexpr size_t kSmemMax = 232448;  // 227 KB, the most one block may use
 
+
+// ---------------------------------------------------------------------------
+// tensor-core design
+// ---------------------------------------------------------------------------
+
+constexpr int kPad = 4;      // complex pad after each j-line of a tile
+constexpr int kTcThreads = 256;
+constexpr int kTcRowsMax = 8;
+constexpr size_t kTcSmemTarget = 110 * 1024;  // two blocks an SM where the tables allow
+
+// f rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero, as cvt.rna.tf32.f32 does for finite f (and ref.tf32_round), in two
+// integer ops.  For the small parts only: a NaN there may carry into the
+// sign and come out as -0, but then the big part holds the NaN or Inf.
+__device__ __forceinline__ uint32_t to_tf32(float f) {
+  return (__float_as_uint(f) + 0x1000u) & 0xFFFFE000u;
+}
+
+// f truncated to TF32 (ref.tf32_trunc), one op: the big part of a data
+// value.  NaN and Inf stay non-finite and keep their sign; f - big is exact
+// and below 2^-10 |f|, and its rounding to TF32 keeps the split's error
+// near 2^-21 |f|.
+__device__ __forceinline__ uint32_t tf32_trunc(float f) {
+  return __float_as_uint(f) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// an asynchronous copy of 8 bytes (or 4) from global to shared memory
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool eight) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  if (eight)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+}
+
+// i / d for 0 <= i < 2^16 and 1 <= d < 2^16: __umulhi(i, ceil(2^32 / d)) is
+// exact there (its error i / 2^32 stays below 1 / d).
+struct FastDiv {
+  uint32_t d, m;
+  __device__ explicit FastDiv(uint32_t d_) : d(d_), m(0xFFFFFFFFu / d_ + 1u) {}
+  __device__ uint32_t operator()(uint32_t i) const { return d == 1 ? i : __umulhi(i, m); }
+};
+
+// The A fragments of the m x m DFT matrix in real block form (2m x 2m,
+// split into TF32 big and small), gathered into fragment order:
+// fa[(mt * m / 4 + ks) * 32 + lane] = {Fr, Fi big; Fr, Fi small} at
+// k = 8 mt + lane / 4, j = 4 ks + lane % 4.  The fragment is
+// {Fr, Fi, -Fi, Fr}: rows k (real) and k + 8 (imaginary) of the m-tile,
+// columns j (real part of the input) and j + 4 (imaginary).
+__device__ void gather_fragments(float4* fa, const float* __restrict__ big,
+                                 const float* __restrict__ small, int m) {
+  const int ld = 2 * m, ksteps = m / 4;
+  for (int e = threadIdx.x; e < m * m; e += blockDim.x) {
+    const int lane = e & 31, ks = (e >> 5) % ksteps, mt = (e >> 5) / ksteps;
+    const int k = 8 * mt + (lane >> 2), j = 4 * ks + (lane & 3);
+    fa[e] = make_float4(big[k * ld + j], big[(m + k) * ld + j], small[k * ld + j],
+                        small[(m + k) * ld + j]);
+  }
+}
+
+// out[k][c] = sum_j F[k][j] src[c][j] over a tile of `rows` rows: F is the
+// complex m x m matrix whose fragments fa holds (gather_fragments),
+// src[r * m * stride + j * stride + cc] the complex input of column
+// c = r * inner + cc.  Each warp takes work items of one m-tile (outputs
+// k0..k0+7, real and imaginary) by kTileN n-tiles and calls
+// ep(acc, k, r, cc) with acc = {Re out[k][cc], Re out[k][cc + 1],
+// Im out[k][cc], Im out[k][cc + 1]}.  The products have no branch, so the
+// tiles' mma chains interleave: an n-tile past the last is computed from
+// column 0 and dropped.
+template <int kTileN, class Epilogue>
+__device__ __forceinline__ void contract(const float4* fa, int m, const float2* src, int inner,
+                                         int stride, int rows, Epilogue ep) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int ntiles = rows * inner / 8, groups = (ntiles + kTileN - 1) / kTileN;
+  const int mtiles = m / 8, ksteps = m / 4;
+  const FastDiv div_inner(inner), div_groups(groups);  // operands < 2^16
+  for (int item = warp; item < mtiles * groups; item += nwarps) {
+    const int mt = div_groups(item), j0 = (item - mt * groups) * kTileN;
+    float acc[kTileN][4];
+    int boff[kTileN];
+#pragma unroll
+    for (int t = 0; t < kTileN; ++t) {
+      const int c = j0 + t < ntiles ? 8 * (j0 + t) : 0, r = div_inner(c);
+      boff[t] = r * m * stride + (c - r * inner) + g;
+      acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
+    }
+    const float4* fm = fa + mt * ksteps * 32 + lane;
+#pragma unroll 4
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const float4 f = fm[ks * 32];
+      const uint32_t rb = __float_as_uint(f.x), ib = __float_as_uint(f.y);
+      const uint32_t rs = __float_as_uint(f.z), is = __float_as_uint(f.w);
+      const uint32_t ab[4] = {rb, ib, ib ^ 0x80000000u, rb};
+      const uint32_t as[4] = {rs, is, is ^ 0x80000000u, rs};
+      const int j = ks * 4 + q;
+#pragma unroll
+      for (int t = 0; t < kTileN; ++t) {
+        const float2 v = src[boff[t] + j * stride];
+        const uint32_t br = tf32_trunc(v.x), bi = tf32_trunc(v.y);
+        const uint32_t sr = to_tf32(v.x - __uint_as_float(br));
+        const uint32_t si = to_tf32(v.y - __uint_as_float(bi));
+        mma_tf32(acc[t], as, br, bi);
+        mma_tf32(acc[t], ab, sr, si);
+        mma_tf32(acc[t], ab, br, bi);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kTileN; ++t) {
+      if (j0 + t < ntiles) {
+        const int c = 8 * (j0 + t) + 2 * q, r = div_inner(c);
+        ep(acc[t], mt * 8 + g, r, c - r * inner);
+      }
+    }
+  }
+}
+
+// mats: F1 big, F1 small (2 n1 x 2 n1), F2 big, F2 small (2 n2 x 2 n2), the
+// twiddles T[k1][i2] (n1 x n2 complex), all float32.  A persistent block
+// walks groups of `rows` rows blockIdx.x, + gridDim.x, ...; the next
+// group's copy overlaps step 3 of the current one.
+__global__ void __launch_bounds__(kTcThreads)
+    fourstep_tc_kernel(const float* __restrict__ x, float2* __restrict__ y,
+                       const float* __restrict__ mats, long long batch, int n, int n1, int n2,
+                       int rows, int inverse, int real_input, int nout) {
+  extern __shared__ float4 smem4[];
+  const int sx = n2 + kPad, sc = n1 + kPad;
+  float4* fa1 = smem4;                  // n1^2 fragments of F1
+  float4* fa2 = fa1 + n1 * n1;          // n2^2 fragments of F2
+  float2* xs = reinterpret_cast<float2*>(fa2 + n2 * n2);  // rows x (i1, i2), j-lines of sx
+  float2* cs = xs + rows * n1 * sx;     // rows x (i2, k1), j-lines of sc
+  const float* f1b = mats;
+  const float* f1s = f1b + 4 * n1 * n1;
+  const float* f2b = f1s + 4 * n1 * n1;
+  const float* f2s = f2b + 4 * n2 * n2;
+  const float2* tw = reinterpret_cast<const float2*>(f2s + 4 * n2 * n2);
+  const long long ngroups = (batch + rows - 1) / rows;
+  const FastDiv div_n(n), div_n2(n2);
+  const float scale = inverse ? 1.0f / (float)n : 1.0f;
+
+  // the rows of one group into the padded tile, every copy in flight at
+  // once; the missing rows of the last group as zeros
+  auto load = [&](long long grp) {
+    const long long row0 = grp * rows;
+    const int nrows = (int)min((long long)rows, batch - row0);
+    for (int i = threadIdx.x; i < rows * n; i += blockDim.x) {  // rows * n < 2^16
+      const int r = div_n(i), rem = i - r * n;
+      const int i1 = div_n2(rem), i2 = rem - i1 * n2;
+      float2* dst = xs + (r * n1 + i1) * sx + i2;
+      if (r >= nrows) {
+        *dst = make_float2(0.0f, 0.0f);
+      } else if (real_input) {
+        cp_async(&dst->x, x + row0 * n + i, false);
+        dst->y = 0.0f;
+      } else {
+        cp_async(dst, reinterpret_cast<const float2*>(x) + row0 * n + i, true);
+      }
+    }
+  };
+
+  if ((long long)blockIdx.x < ngroups) load(blockIdx.x);
+  gather_fragments(fa1, f1b, f1s, n1);
+  gather_fragments(fa2, f2b, f2s, n2);
+  for (long long grp = blockIdx.x; grp < ngroups; grp += gridDim.x) {
+    const long long row0 = grp * rows;
+    const int nrows = (int)min((long long)rows, batch - row0);
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+
+    // steps 1-2: cs[r][i2][k1] = T[k1][i2] * sum_i1 F1[k1][i1] x[r][i1][i2]
+    auto twiddle = [&](const float (&a)[4], int k1, int r, int i2) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(tw + k1 * n2 + i2));
+      cs[(r * n2 + i2) * sc + k1] =
+          make_float2(a[0] * t.x - a[2] * t.y, a[0] * t.y + a[2] * t.x);
+      cs[(r * n2 + i2 + 1) * sc + k1] =
+          make_float2(a[1] * t.z - a[3] * t.w, a[1] * t.w + a[3] * t.z);
+    };
+    if (rows * n2 % 64 == 0)  // n-tiles a multiple of 8: no tile is wasted
+      contract<8>(fa1, n1, xs, n2, sx, rows, twiddle);
+    else
+      contract<4>(fa1, n1, xs, n2, sx, rows, twiddle);
+    __syncthreads();
+    if (grp + gridDim.x < ngroups) load(grp + gridDim.x);  // xs is free again
+
+    // steps 3-4: y[r][k1 + n1 k2] = sum_i2 F2[k2][i2] cs[r][i2][k1]
+    auto store = [&](const float (&a)[4], int k2, int r, int k1) {
+      if (r >= nrows) return;
+      float v[4] = {a[0], a[2], a[1], a[3]};  // (re, im) of bins k and k + 1
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] *= scale;
+      const int k = k1 + n1 * k2;
+      float2* yr = y + (row0 + r) * nout;
+      if (nout == n) {
+        *reinterpret_cast<float4*>(yr + k) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+        if (k < nout) yr[k] = make_float2(v[0], v[1]);
+        if (k + 1 < nout) yr[k + 1] = make_float2(v[2], v[3]);
+      }
+    };
+    if (rows * n1 % 64 == 0)
+      contract<8>(fa2, n2, cs, n1, sc, rows, store);
+    else
+      contract<4>(fa2, n2, cs, n1, sc, rows, store);
+  }
+}
+
+bool tc_shape(int n1, int n2) {
+  return n2 > 1 && n1 % 8 == 0 && n2 % 8 == 0 && n1 <= 64 && n2 <= 64;
+}
+
+int launch_tc(const void* x, void* y, const void* mats, long long batch, int n, int n1, int n2,
+              int inverse, int real_input, int nout, cudaStream_t stream) {
+  const size_t tables = ((size_t)n1 * n1 + (size_t)n2 * n2) * sizeof(float4);
+  const size_t row_bytes = ((size_t)n1 * (n2 + kPad) + (size_t)n2 * (n1 + kPad)) * sizeof(float2);
+  long long rows = kTcSmemTarget > tables ? (long long)((kTcSmemTarget - tables) / row_bytes) : 0;
+  if (rows > kTcRowsMax) rows = kTcRowsMax;
+  if (rows < 1) rows = 1;
+  if (rows > batch) rows = batch;
+  const size_t smem = tables + (size_t)rows * row_bytes;
+  if (smem > kSmemMax || rows * n >= 65536) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(fourstep_tc_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fourstep_tc_kernel, kTcThreads,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long groups = (batch + rows - 1) / rows;
+  const long long blocks = groups < (long long)sms * per_sm ? groups : (long long)sms * per_sm;
+  fourstep_tc_kernel<<<(unsigned)blocks, kTcThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<float2*>(y), static_cast<const float*>(mats),
+      batch, n, n1, n2, (int)rows, inverse, real_input, nout);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x: (batch, n) complex64, or float32 when real_input; y: (batch, nout)
-// complex64 with nout <= n (the first nout bins).  Returns cudaGetLastError(),
-// or cudaErrorInvalidValue when one row of length n does not fit in a block's
-// shared memory.
+// complex64 with nout <= n (the first nout bins).  mats: the tensor-core
+// design's tables (see fourstep_tc_kernel) when tc_shape(n1, n2), else
+// null; a mismatch is refused.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue when the arguments are refused or one row does not
+// fit in a block's shared memory.
 extern "C" int fourstep_dft(const void* x, void* y, long long batch, int n, int n1, int n2,
-                            int inverse, int real_input, int nout, void* stream) {
+                            int inverse, int real_input, int nout, const void* mats,
+                            void* stream) {
   if (n1 * n2 != n || nout < 1 || nout > n) return (int)cudaErrorInvalidValue;
+  if (tc_shape(n1, n2) != (mats != nullptr)) return (int)cudaErrorInvalidValue;
   if (batch == 0) return (int)cudaSuccess;
+  if (mats != nullptr)
+    return launch_tc(x, y, mats, batch, n, n1, n2, inverse, real_input, nout,
+                     (cudaStream_t)stream);
   const size_t row_bytes = 2 * (size_t)n * sizeof(float2);
   const size_t table = (size_t)n * sizeof(float2);
   long long rows = kSmemDefault > table ? (long long)((kSmemDefault - table) / row_bytes) : 0;

@@ -19,16 +19,18 @@ _i = ctypes.c_int
 
 def _lib() -> ctypes.CDLL:
     lib = _build.library("fourstep")
-    lib.fourstep_dft.argtypes = [_c, _c, _ll, _i, _i, _i, _i, _i, _i, _c]
+    lib.fourstep_dft.argtypes = [_c, _c, _ll, _i, _i, _i, _i, _i, _i, _c, _c]
     lib.fourstep_dft.restype = _i
     return lib
 
 
 def fourstep(x: torch.Tensor, n1: int, n2: int, *, inverse: bool = False,
-             nout: int | None = None) -> torch.Tensor:
+             nout: int | None = None, mats: torch.Tensor | None = None) -> torch.Tensor:
     """DFT of every row of a contiguous CUDA ``(batch, n)`` tensor, complex64
     (or float32: real input) -> ``(batch, nout)`` complex64, the first
-    ``nout`` bins (all ``n`` by default), ``n = n1 * n2``."""
+    ``nout`` bins (all ``n`` by default), ``n = n1 * n2``.  ``mats`` is
+    ``ops.tc_matrices(n1, n2, inverse)`` for the lengths of the tensor-core
+    design and None for the others; the kernel refuses a mismatch."""
     if not x.is_cuda or not x.is_contiguous() or x.dim() != 2:
         raise ValueError("fourstep needs a contiguous 2-D CUDA tensor")
     if x.dtype not in (torch.complex64, torch.float32):
@@ -36,10 +38,14 @@ def fourstep(x: torch.Tensor, n1: int, n2: int, *, inverse: bool = False,
     batch, n = x.shape
     if n1 * n2 != n:
         raise ValueError(f"length {n} != {n1} * {n2}")
+    if mats is not None and (not mats.is_cuda or mats.dtype != torch.float32
+                             or not mats.is_contiguous()):
+        raise ValueError("fourstep's tables must be a contiguous float32 CUDA tensor")
     nout = n if nout is None else nout
     y = torch.empty((batch, nout), dtype=torch.complex64, device=x.device)
     rc = _lib().fourstep_dft(x.data_ptr(), y.data_ptr(), batch, n, n1, n2, int(inverse),
                              int(x.dtype == torch.float32), nout,
+                             None if mats is None else mats.data_ptr(),
                              torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fourstep_dft failed with CUDA error {rc} at length {n} "

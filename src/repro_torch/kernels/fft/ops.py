@@ -10,8 +10,12 @@
 
 A tensor on the CPU takes the plain version (:mod:`.ref`); a CUDA tensor
 launches the kernel (:mod:`.kernel`).  ``launches`` counts kernel launches
-per mode.  A transform along an axis that is not last is a
-``movedim().contiguous()`` copy in and out of the kernel.
+per mode, ``design_launches`` the same launches by design and mode
+(``"tc:fft"``, ``"general:rfft"``, ...): ``tc`` is 3xTF32 on the tensor
+cores, for the lengths :func:`tensor_core_design` accepts, with the tables
+of :func:`tc_matrices`; ``general`` every other length.  A
+transform along an axis that is not last is a ``movedim().contiguous()``
+copy in and out of the kernel.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 import math
 from collections import Counter
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.fft import ref
@@ -27,6 +32,10 @@ _SINGLE_MATMUL_MAX = 256  # below this, one (N, N) DFT beats two steps
 
 #: kernel launches per mode ("fft", "ifft", "rfft")
 launches: Counter = Counter()
+#: the same launches per design and mode ("tc:fft", "general:ifft", ...)
+design_launches: Counter = Counter()
+
+_tc_cache: dict = {}
 
 
 def plan_factors(n: int) -> tuple[int, int]:
@@ -39,6 +48,29 @@ def plan_factors(n: int) -> tuple[int, int]:
             best = (n // n2, n2)
             break
     return best
+
+
+def tensor_core_design(n1: int, n2: int) -> bool:
+    """Whether ``csrc/fourstep.cu`` runs the 3xTF32 tensor-core design for
+    ``(n1, n2)``: both factors multiples of 8 (whole ``m16n8k8`` tiles) and
+    ``n1 <= 64`` (the row tiles fit in shared memory; :func:`plan_factors`
+    gives ``n2 <= n1``).  The kernel applies the same rule."""
+    return n2 > 1 and n1 % 8 == 0 and n2 % 8 == 0 and n1 <= 64 and n2 <= 64
+
+
+def tc_matrices(n1: int, n2: int, inverse: bool, device) -> torch.Tensor:
+    """The tensor-core design's tables in one float32 buffer on ``device``,
+    built once per ``(n1, n2, inverse, device)`` in float64 on the host
+    (:func:`.ref.tc_tables`): F1 big, F1 small (2 n1 x 2 n1 each), F2 big,
+    F2 small (2 n2 x 2 n2), then the twiddles (n1 x n2, re/im
+    interleaved)."""
+    key = (n1, n2, bool(inverse), torch.device(device))
+    if key not in _tc_cache:
+        t = ref.tc_tables(n1, n2, inverse)
+        flat = np.concatenate([t["f1_big"].ravel(), t["f1_small"].ravel(), t["f2_big"].ravel(),
+                               t["f2_small"].ravel(), t["tw"].view(np.float32).ravel()])
+        _tc_cache[key] = torch.from_numpy(flat).to(device)
+    return _tc_cache[key]
 
 
 def _rows(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -61,8 +93,11 @@ def _run(rows: torch.Tensor, *, inverse: bool, nout: int, mode: str) -> torch.Te
     if rows.is_cuda:
         from repro_torch.kernels.fft import kernel
 
-        y = kernel.fourstep(rows, n1, n2, inverse=inverse, nout=nout)
+        tc = tensor_core_design(n1, n2)
+        mats = tc_matrices(n1, n2, inverse, rows.device) if tc else None
+        y = kernel.fourstep(rows, n1, n2, inverse=inverse, nout=nout, mats=mats)
         launches[mode] += 1
+        design_launches[f"{'tc' if tc else 'general'}:{mode}"] += 1
         return y
     if rows.device.type != "cpu":
         raise ValueError(f"no four-step DFT for device {rows.device}")

@@ -5,6 +5,11 @@ numpy copies of the reference's tables (``repro/kernels/fft/ref.py``), equal
 to them bit for bit.  ``fourstep_ref`` is the four-step algorithm in plain
 torch (the kernel's arithmetic without its tiling) and ``fft_ref`` the
 ``torch.fft`` ground truth.
+
+``tc_tables`` builds the tensor-core design's tables (the DFT matrices in
+real block form, split into TF32 ``big + small``, and the twiddles) and
+``fourstep_tf32_ref`` emulates that design's 3xTF32 arithmetic; the tests
+use it to show the split is needed and enough.
 """
 
 from __future__ import annotations
@@ -73,3 +78,81 @@ def fourstep_ref(x: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
     a2 = a1 * tw                         # twiddle
     a3 = torch.matmul(a2, f2)            # DFT over n2: (..., k1, k2)
     return a3.transpose(-1, -2).reshape(*batch, n)  # (k2, k1) row-major
+
+
+def tf32_round(a: np.ndarray) -> np.ndarray:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` for finite values: the low 13
+    bits become 0."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_trunc(a: np.ndarray) -> np.ndarray:
+    """float32 truncated to TF32 (the low 13 bits cleared): how the kernel
+    takes the big part of a data value; NaN and Inf stay non-finite."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split_tf32(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``(big, small)``: TF32 values with ``big + small`` = float32 ``a``
+    to within 2^-22 of ``|a|`` (``a - big`` is exact in float32)."""
+    a = np.asarray(a, dtype=np.float32)
+    big = tf32_round(a)
+    return big, tf32_round(a - big)
+
+
+def _roots(k: np.ndarray, n: int, inverse: bool) -> np.ndarray:
+    """exp(-+2 pi i k / n) in float64, with k reduced mod n first."""
+    return np.exp((2j if inverse else -2j) * np.pi * (k % n) / n)
+
+
+def dft_block(n: int, inverse: bool = False) -> np.ndarray:
+    """The DFT-n matrix F in real block form ``[[Fr, -Fi], [Fi, Fr]]``,
+    float32 from float64: rows are (Re k, Im k), columns (Re j, Im j)."""
+    k = np.arange(n)
+    f = _roots(np.outer(k, k), n, inverse)
+    return np.block([[f.real, -f.imag], [f.imag, f.real]]).astype(np.float32)
+
+
+def tc_tables(n1: int, n2: int, inverse: bool = False) -> dict[str, np.ndarray]:
+    """The tensor-core four-step's tables: F1 (2 n1 x 2 n1) and F2
+    (2 n2 x 2 n2) in block form, each split into TF32 ``*_big`` and
+    ``*_small``, and the twiddles T[k1, i2] (n1 x n2, complex64); the
+    roots are conjugated for the inverse."""
+    f1b, f1s = split_tf32(dft_block(n1, inverse))
+    f2b, f2s = split_tf32(dft_block(n2, inverse))
+    tw = _roots(np.outer(np.arange(n1), np.arange(n2)), n1 * n2, inverse).astype(np.complex64)
+    return {"f1_big": f1b, "f1_small": f1s, "f2_big": f2b, "f2_small": f2s, "tw": tw}
+
+
+def _mm_tf32(big: torch.Tensor, small: torch.Tensor, x: torch.Tensor,
+             split: bool) -> torch.Tensor:
+    """``F @ x`` as the kernel forms it: x split as it is read (big its
+    TF32 truncation, small the rounding of the rest),
+    ``big.small + small.big + big.big`` (or only ``big.big``), fp32 sums.
+    A TF32 product is exact in fp32, so fp32 matmuls of the parts emulate
+    the tensor cores."""
+    xb = torch.from_numpy(tf32_trunc(x.numpy()))
+    if not split:
+        return big @ xb
+    xs = torch.from_numpy(tf32_round((x - xb).numpy()))
+    return big @ xs + small @ xb + big @ xb
+
+
+def fourstep_tf32_ref(x: torch.Tensor, n1: int, n2: int, *, inverse: bool = False,
+                      split: bool = True) -> torch.Tensor:
+    """The tensor-core four-step on the CPU: a complex64 ``(batch, n1 n2)``
+    tensor -> its DFT (inverse: conjugate roots and 1/n), every contraction
+    in 3xTF32 (``split=False``: 1xTF32).  Tests only."""
+    t = {k: torch.from_numpy(v) for k, v in tc_tables(n1, n2, inverse).items()}
+    batch = x.shape[0]
+    a = x.reshape(batch, n1, n2)
+    c = _mm_tf32(t["f1_big"], t["f1_small"], torch.cat([a.real, a.imag], dim=-2), split)
+    c = torch.complex(c[:, :n1], c[:, n1:]) * t["tw"]           # (batch, k1, i2)
+    ct = c.transpose(-1, -2)                                     # (batch, i2, k1)
+    y = _mm_tf32(t["f2_big"], t["f2_small"],
+                 torch.cat([ct.real, ct.imag], dim=-2).contiguous(), split)
+    y = torch.complex(y[:, :n2], y[:, n2:]).reshape(batch, n1 * n2)  # k = k1 + n1 k2
+    return y / (n1 * n2) if inverse else y

@@ -5,8 +5,10 @@ Marked ``gpu``: each test skips where ``torch.cuda.is_available()`` is false
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 
 Tolerances: bf16 payloads and decodes are bitwise; int8 scales are equal and
-payloads within one quantum; the four-step DFT is f32 FMA arithmetic in
-another order than the plain matmuls, held to 1e-5 of the output's max.
+payloads within one quantum; the four-step DFT is f32 FMA (general
+design) or 3xTF32 tensor-core arithmetic (n1, n2 multiples of 8, at most
+64) in another order than the plain matmuls, held to 1e-5 of the output's
+max.
 The encode's guard mode (counts and ``scale_div``) is held to the plain
 version exactly: same payload and scale bits, same counts.  The transpose
 moves values, so it is bitwise.  The flash attention (K6) is held to
@@ -65,18 +67,73 @@ def _rand(shape, iscomplex, seed, device):
     return torch.from_numpy(x).to(device)
 
 
-@pytest.mark.parametrize("n", [1, 7, 42, 63, 64, 256, 257, 512, 4096])
+def _fourstep_plain(x, inverse=False):
+    n = x.shape[-1]
+    n1, n2 = fops.plan_factors(n)
+    xc = x.conj() if inverse else x
+    want = fref.fourstep_ref(xc.to(torch.complex64), n1, n2)
+    return want.conj() / n if inverse else want
+
+
+def _assert_k4(got, want):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("n", [1, 7, 42, 63, 64, 256, 257, 512, 1024, 2048, 4096])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_fourstep_matches_plain(cuda, n, inverse):
     x = _rand((33, n), True, n, cuda)
-    got = fops.fft_matmul(x, inverse=inverse)
-    n1, n2 = fops.plan_factors(n)
-    xc = x.conj() if inverse else x
-    want = fref.fourstep_ref(xc, n1, n2)
-    want = want.conj() / n if inverse else want
+    _assert_k4(fops.fft_matmul(x, inverse=inverse), _fourstep_plain(x, inverse))
+
+
+@pytest.mark.parametrize("n", [512, 4096])
+def test_fourstep_rfft_first_bins(cuda, n):
+    """Real input and nout = n // 2 + 1 < n on the tensor-core design."""
+    x = _rand((33, n), False, n + 1, cuda)
+    _assert_k4(fops.rfft_matmul(x), _fourstep_plain(x)[:, : n // 2 + 1])
+
+
+@pytest.mark.parametrize("batch", [1, 13])
+@pytest.mark.parametrize("n", [512, 1024])
+def test_fourstep_ragged_batch(cuda, n, batch):
+    """A batch that is no multiple of the rows a group takes (8 at 512, 4
+    at 1024): the last group's missing rows write nothing."""
+    x = _rand((batch, n), True, n + batch, cuda)
+    _assert_k4(fops.fft_matmul(x), _fourstep_plain(x))
+    _assert_k4(fops.fft_matmul(x, inverse=True), _fourstep_plain(x, True))
+
+
+@pytest.mark.parametrize("n", [512, 4096, 257])
+def test_fourstep_propagates_nonfinite(cuda, n):
+    """A NaN or Inf in a row leaves that row non-finite and the others as
+    they were (a guarded plan relies on it): NaN bit patterns with a high
+    mantissa must not round to a finite TF32 value."""
+    x = _rand((9, n), True, n + 2, cuda)
+    want = fops.fft_matmul(x)
+    bad = torch.view_as_real(x).view(torch.int32)
+    bad[2, 5, 0] = 0x7FFFFFFF                # NaN, all mantissa bits set
+    bad[4, 0, 1] = 0x7F800000                # +Inf
+    bad[6, n - 1, 0] = -4096                 # 0xFFFFF000: a NaN that + 0x1000 wraps to +0
+    got = fops.fft_matmul(x)
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    assert err <= 1e-5 * want.abs().max().item(), err
+    finite = torch.isfinite(torch.view_as_real(got)).all(dim=-1).all(dim=-1)
+    assert not finite[2] and not finite[4] and not finite[6]
+    ok = [0, 1, 3, 5, 7, 8]
+    assert torch.equal(got[ok], want[ok])
+
+
+@pytest.mark.parametrize("n,design", [(512, "tc"), (4096, "tc"), (257, "general"),
+                                      (1000, "general")])
+def test_fourstep_design_by_length(cuda, n, design):
+    x = _rand((4, n), True, n, cuda)
+    before = Counter(fops.design_launches)
+    fops.fft_matmul(x)
+    fops.rfft_matmul(x.real.contiguous())
+    torch.cuda.synchronize()
+    assert fops.design_launches - before == Counter({f"{design}:fft": 1, f"{design}:rfft": 1})
 
 
 @pytest.mark.parametrize("axis", [0, 1, 2])
