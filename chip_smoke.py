@@ -13,7 +13,8 @@ non-zero):
    names the design that ran: ``"tc"``, 3xTF32 tensor cores, or
    ``"general"``), K1 (both layouts, both codecs, guard mode and the
    saturation divisor), K2/K3, K5, and K6 (flash attention) over dtype x
-   causal x GQA group x S x head dim;
+   causal x GQA group x S x head dim (each record names the design that
+   ran: ``"tc"``, bf16 mma.sync, for bf16; ``"fma"`` for fp32);
 3. the port's paths on a 1-rank NCCL group and a (1, 1) mesh, each driven
    with the launch counters set to 0 just before it and read just after
    (one ``{"paths": ...}`` line; at 512^3 every K4 launch of a plan must
@@ -32,7 +33,8 @@ non-zero):
    ``repro_torch.launch.serve_lm.main``: GLM-4-9B at full width and depth
    (40 layers, bf16, seeded weights), 4 prompts of 2048 tokens and 32 greedy
    decode steps under the optimized flags; K6 must launch exactly once per
-   layer per prefill and never in decode, the prefill's logits must match
+   layer per prefill and never in decode, every launch on its tensor-core
+   design, the prefill's logits must match
    the same weights' prefill with the plain attention, and 3 teacher-forced
    decode steps must match a prefill of S + 3 tokens (one ``{"lm": ...}``
    line);
@@ -232,7 +234,7 @@ def kernel_sweep(torch):
                      lambda: torch.fft.rfft(xr, dim=-1)),
         }
         for mode, (kern, plain, lib) in modes.items():
-            (got, design), want = _k4_design(torch, kern), plain()
+            (got, design), want = _ran_design(fops.design_launches, kern, "K4"), plain()
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             if err > TOL_K4 * float(want.abs().max()):
@@ -270,16 +272,15 @@ def kernel_sweep(torch):
     return out + _flash_sweep(torch)
 
 
-def _k4_design(torch, fn):
-    """``(fn(), design)``: the K4 design (``"tc"`` or ``"general"``) that
-    each K4 launch of one call of ``fn`` ran; fails on a mix."""
-    from repro_torch.kernels.fft import ops as fops
-
-    before = dict(fops.design_launches)
+def _ran_design(counter, fn, what):
+    """``(fn(), design)``: the design that each launch of one call of ``fn``
+    ran, read from the kernel's ``design_launches`` ``counter`` (K4:
+    ``"tc"`` or ``"general"``; K6: ``"tc"`` or ``"fma"``); fails on a mix."""
+    before = dict(counter)
     out = fn()
-    ran = {d.split(":")[0] for d, k in fops.design_launches.items() if k != before.get(d, 0)}
+    ran = {d.split(":")[0] for d, k in counter.items() if k != before.get(d, 0)}
     if len(ran) != 1:
-        fail(f"one K4 call ran the designs {ran}")
+        fail(f"one {what} call ran the designs {ran}")
     return out, ran.pop()
 
 
@@ -328,9 +329,13 @@ def _flash_sweep(torch):
                         plain = lambda: flref.attention_gqa_ref(q, k, v, causal=causal)
                         name = (f"flash:{'bf16' if dtype == torch.bfloat16 else 'f32'}:"
                                 f"{'causal' if causal else 'full'}:G{G}:S{S}:dh{dh}")
-                        err = _check_attention(torch, name, kern(), plain(), v)
+                        got, design = _ran_design(flops.design_launches, kern, "K6")
+                        if design != flops.design(dtype):
+                            fail(f"{name}: ran the {design} design")
+                        err = _check_attention(torch, name, got, plain(), v)
                         out.append({"name": name, "replaces": "flash/kernel.py:80",
-                                    "max_abs_err": err, "ms": cuda_ms(torch, kern, reps=3),
+                                    "design": design, "max_abs_err": err,
+                                    "ms": cuda_ms(torch, kern, reps=3),
                                     "plain_ms": cuda_ms(torch, plain, reps=3),
                                     "library_ms": cuda_ms(torch, _sdpa(torch, q, k, v, causal),
                                                           reps=3)})
@@ -408,7 +413,8 @@ def _counters():
     from repro_torch.kernels.flash import ops as flops
     from repro_torch.kernels.transpose import ops as tops
 
-    return fops.launches, fops.design_launches, xops.launches, tops.launches, flops.launches
+    return (fops.launches, fops.design_launches, xops.launches, tops.launches, flops.launches,
+            flops.design_launches)
 
 
 def _drive(torch, name, fn, *args):
@@ -736,6 +742,9 @@ def lm_path(torch, info):
     if per_prefill != L or any(per_decode):
         fail(f"lm: K6 launches per prefill {per_prefill} (want {L}), per decode step "
              f"{per_decode} (want 0)")
+    if dict(flops.design_launches) != {"tc:bfloat16": k6()}:
+        fail(f"lm: K6 launches by design {dict(flops.design_launches)}, want all "
+             f"{k6()} on the tensor-core design")
     finite = bool(torch.isfinite(lg_prefill).all() and torch.isfinite(lg_dec).all())
     rel_plain, rel_dec = rel_l2(torch, lg_prefill, lg_plain), rel_l2(torch, lg_dec, lg_full)
     agree_plain = float((lg_prefill.argmax(-1) == lg_plain.argmax(-1)).float().mean())
@@ -795,7 +804,7 @@ def _device_time(torch, fn):
     classes = {"k6": 0.0, "matmul": 0.0, "other": 0.0}
     for name, ms, _ in kernels:
         low = name.lower()
-        cls = ("k6" if "flash_kernel" in low else
+        cls = ("k6" if "flash_tc_kernel" in low or "flash_kernel" in low else
                "matmul" if any(w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
                else "other")
         classes[cls] += ms
@@ -871,7 +880,7 @@ def main_path_kernels(torch, paths):
             ("ifft", lambda: fops.fft_matmul(rows, inverse=True),
              lambda: fref.fourstep_ref(rows.conj(), n1, n2).conj() / n,
              lambda: torch.fft.ifft(rows, dim=-1))):
-        (got, design), want = _k4_design(torch, kern), plain()
+        (got, design), want = _ran_design(fops.design_launches, kern, "K4"), plain()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if err > TOL_K4 * float(want.abs().max()):
@@ -891,8 +900,8 @@ def main_path_kernels(torch, paths):
     qn = SHAPE_QS[-1]
     q1, q2 = fops.plan_factors(qn)
     qrows = _randn(torch, (SHAPE_QS[0] * SHAPE_QS[1], qn), 3)
-    (got, design), want = _k4_design(torch, lambda: fops.fft_matmul(qrows)), \
-        fref.fourstep_ref(qrows, q1, q2)
+    (got, design), want = _ran_design(fops.design_launches, lambda: fops.fft_matmul(qrows),
+                                      "K4"), fref.fourstep_ref(qrows, q1, q2)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     if err > TOL_K4 * float(want.abs().max()) or design != "general":
@@ -985,22 +994,24 @@ def _flash_records(torch, paths):
         def head(h):  # the plain version of q head h
             return flref.attention_gqa_ref(q[:, :, h:h + 1], k[:, :, h // G:h // G + 1],
                                            v[:, :, h // G:h // G + 1], causal=True)
+        got, design = _ran_design(flops.design_launches, kern, "K6")
+        if design != "tc":
+            fail(f"flash at {(B, S, Hq, Hkv, dh)}: ran the {design} design")
         if reduced is None:
             plain = lambda: flref.attention_gqa_ref(q, k, v, causal=True)
-            err = _check_attention(torch, f"flash at {(B, S, Hq, Hkv, dh)}", kern(), plain(), v)
+            err = _check_attention(torch, f"flash at {(B, S, Hq, Hkv, dh)}", got, plain(), v)
         else:
             plain = lambda: [head(h) for h in range(Hq)]
-            got = kern()
             err = max(_check_attention(torch, f"flash at {(B, S, Hq, Hkv, dh)} head {h}",
                                        got[:, :, h:h + 1].contiguous(), head(h), v)
                       for h in range(Hq))
-            del got
+        del got
         flop = 4.0 * dh * B * Hq * S * (S + 1) / 2
         nbytes = 2 * (2 * B * S * Hq * dh + 2 * B * S * Hkv * dh)
         reps = 5 if reduced is None else 3
         ms = cuda_ms(torch, kern, reps)
         extra = {"shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "dh": dh, "dtype": "bf16",
-                           "causal": True}, "tflops": flop / (ms * 1e9)}
+                           "causal": True}, "design": design, "tflops": flop / (ms * 1e9)}
         plain_ms = cuda_ms(torch, plain, reps)
         lib_ms = cuda_ms(torch, _sdpa(torch, q, k, v, True), reps)
         if reduced is not None:

@@ -12,32 +12,70 @@
 // Differences of form, not of result: q head h reads kv head h / G where the
 // reference repeats k and v G times; keys past Skv and queries past Sq are
 // masked here where the reference pads; the tiles are this kernel's own.
+// Both designs below visit no tile strictly above the diagonal, so the work
+// is the triangular one at 64 x 64 granularity, heaviest causal tiles
+// first; neither allocates memory or synchronises the device.
 //
 // What bounds it on the H100: operations.  At the serving prefill's shape
 // (B 4, S 2048, 32 q heads, dh 128, bf16) the exact causal product is
-// 4 * dh * B * Hq * S (S + 1) / 2 = 1.4e11 FLOP, 0.14 ms at the bf16 tensor
-// rate, against 0.04 ms for the 143 MB it must move.
+// 4 * dh * B * Hq * S (S + 1) / 2 = 1.375e11 FLOP, 0.139 ms at the dense
+// bf16 tensor rate, against 0.043 ms for the 143 MB it must move.
 //
-// Design (simple and right first; the tensor cores, TMA and warp
-// specialisation are for a later change): one block of 128 threads per
-// (64-query tile, batch x q head), heaviest causal tiles first.  The query
-// tile is staged once in shared memory as fp32, transposed (Qt[d][row]); each
-// 64-key tile of K is staged transposed (Kt[d][key]) and then V (Vs[key][d])
-// into the same buffer.  Products of bf16 values are exact in fp32, so
-// fp32 FMA arithmetic on the widened operands is the reference's mixed
-// precision up to summation order.  Thread (r, c), r = tid / 16, c = tid % 16,
-// owns query rows 8r .. 8r+7: for the scores, keys c + 16 j (j < 4); for the
-// accumulator, the head-dim columns c * W + 16 W j; its m and partial l
-// stay in registers, and a row's max is reduced over the 16 lanes that share
-// it.  p goes through shared memory (Pt[key][row]) to the p . v product.
-// Tiles strictly above the diagonal are never visited, so the work is the
-// triangular one at 64 x 64 granularity.  The kernel allocates nothing and
-// does not synchronise.
+// bf16: the tensor-core design (flash_tc_kernel), mma.sync m16n8k16 bf16
+// with fp32 accumulation for both products.  A bf16 product is exact in
+// fp32, so this is the reference's mixed precision up to summation order.
+//  - Tiles: one block of 4 warps per (64-query tile, batch x q head); warp w
+//    owns query rows 16w .. 16w+15 and the block loops over 64-key tiles.
+//  - Shared memory holds bf16, rows padded by 16 bytes (a row of DH + 8
+//    elements) so that the 8 rows of every ldmatrix 8x8 fall on 8 distinct
+//    16-byte bank groups at each head dim: the Q tile and two buffers each
+//    of K and V, 5 * 64 * (DH + 8) * 2 bytes: 85 KB at dh 128, where ptxas
+//    gives 238 registers a thread, so shared memory and registers each
+//    allow two blocks (8 warps) an SM; 105 KB and 255 registers (52 bytes
+//    spilled) at dh 160, two blocks; 7.5-25 KB below.  Tiles arrive by
+//    cp.async, 16 bytes a thread, rows past Sq or Skv zero-filled (source
+//    size 0, never read); the next tile's K and V are in flight while the
+//    current one computes, so one __syncthreads a tile suffices.
+//  - S = Q K^T: Q's A fragments are read once (ldmatrix.x4) and stay in
+//    registers (dh / 16 k-steps); K's B fragments by ldmatrix.x4 (K is
+//    [key][d], already the col-major B operand), two n8 key tiles a load.
+//    Scale, and mask only where the tile crosses the diagonal or Skv.
+//  - The online softmax stays in registers: a row's 64 scores lie in one
+//    quad of lanes, so its max and sum take two __shfl_xor_sync; expf as
+//    the reference writes it (no fast math, no exp2 folding).  l sums the
+//    fp32 p per lane and is finished over the quad at the end.
+//  - p is rounded to bf16 in registers (cvt.rn.bf16x2.f32, round to nearest
+//    even as the reference's dtype cast) straight into A fragments: the C
+//    fragments of two adjacent n8 score tiles are the A fragment of one
+//    k16 step of P V, so p never touches shared memory.
+//  - O += P V: V's B fragments by ldmatrix.x4.trans (V is [key][d]), the
+//    fp32 accumulator 16 x dh a warp in registers (dh / 2 floats a lane).
+//  - Epilogue: out = acc / max(l, 1e-30) rounded to bf16, staged through
+//    the warp's own rows of the Q tile and stored 16 bytes a lane; rows
+//    past Sq are not stored.
+//  It runs at about a fifth of the dense bf16 peak (PERF.md).  What it
+//  lacks against that peak: wgmma (mma.sync does not reach the full
+//  tensor rate), and overlap of one tile's softmax (expf between the two
+//  products) with another tile's products; wgmma, TMA and warp
+//  specialisation are the next step.
+//
+// fp32: the FMA design (flash_kernel), fp32 FMA on fp32 operands.  The
+// reference's fp32 kernel does fp32 dots; TF32 tensor cores would leave the
+// 2e-4 fp32 limit, so fp32 stays off the tensor cores.  One block of 128
+// threads per (64-query tile, batch x q head).  The query tile is staged
+// once in shared memory transposed (Qt[d][row]); each 64-key tile of K is
+// staged transposed (Kt[d][key]) and then V (Vs[key][d]) into the same
+// buffer.  Thread (r, c), r = tid / 16, c = tid % 16, owns query rows
+// 8r .. 8r+7: for the scores, keys c + 16 j (j < 4); for the accumulator,
+// the head-dim columns c * W + 16 W j; its m and partial l stay in
+// registers, and a row's max is reduced over the 16 lanes that share it.
+// p goes through shared memory (Pt[key][row]) to the p . v product.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -49,36 +87,15 @@ constexpr int kCols = kBK / 16; // score columns per thread
 constexpr int kPStride = kBQ + 4;  // Pt row stride: float4 stores land on distinct banks
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// p rounded to the value dtype (round to nearest even, as a dtype cast)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
-
-// 16 bytes of T widened to fp32
-template <typename T>
+// 16 bytes of fp32 (zeros where !valid)
 struct Vec {
-  static constexpr int n = 16 / sizeof(T);
-  __device__ __forceinline__ static void load(const T* p, bool valid, float* out) {
-    if (!valid) {
-#pragma unroll
-      for (int j = 0; j < n; ++j) out[j] = 0.f;
-      return;
-    }
-    uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int j = 0; j < n; ++j) out[j] = to_f(e[j]);
+  static constexpr int n = 4;
+  __device__ __forceinline__ static void load(const float* p, bool valid, float* out) {
+    const float4 t = valid ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+    out[0] = t.x;
+    out[1] = t.y;
+    out[2] = t.z;
+    out[3] = t.w;
   }
 };
 
@@ -96,13 +113,14 @@ __device__ __forceinline__ void lds(const float* p, float* out) {
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int Sq, int Skv, int Hq, int Hkv, int causal, float scale) {
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv, int Hq,
+             int Hkv, int causal, float scale) {
   constexpr int DC = DH / 16;                               // accumulator columns per thread
   constexpr int W = DC % 4 == 0 ? 4 : (DC % 2 == 0 ? 2 : 1);  // their vector width
-  constexpr int NV = DH / Vec<T>::n;                        // 16-byte vectors per row
+  constexpr int NV = DH / Vec::n;                        // 16-byte vectors per row
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);              // [DH][kBQ]
   float* KV = Qt + DH * kBQ;                                // Kt [DH][kBK], then Vs [kBK][DH]
@@ -117,18 +135,18 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int qt = n_qt - 1 - (int)blockIdx.y;                // heaviest causal tiles first
   const int q0 = qt * kBQ;
   const long long q_row = (long long)Hq * DH, kv_row = (long long)Hkv * DH;
-  const T* qb = q + ((long long)b * Sq * Hq + h) * DH;
-  const T* kb = k + ((long long)b * Skv * Hkv + hk) * DH;
-  const T* vb = v + ((long long)b * Skv * Hkv + hk) * DH;
+  const float* qb = q + ((long long)b * Sq * Hq + h) * DH;
+  const float* kb = k + ((long long)b * Skv * Hkv + hk) * DH;
+  const float* vb = v + ((long long)b * Skv * Hkv + hk) * DH;
 
   // stage the query tile: row fastest across threads, so the transposed
   // stores of one instruction fall on consecutive words
   for (int i = tid; i < kBQ * NV; i += kThreads) {
     const int row = i % kBQ, vi = i / kBQ;
-    float e[Vec<T>::n];
-    Vec<T>::load(qb + (q0 + row) * q_row + vi * Vec<T>::n, q0 + row < Sq, e);
+    float e[Vec::n];
+    Vec::load(qb + (q0 + row) * q_row + vi * Vec::n, q0 + row < Sq, e);
 #pragma unroll
-    for (int j = 0; j < Vec<T>::n; ++j) Qt[(vi * Vec<T>::n + j) * kBQ + row] = e[j];
+    for (int j = 0; j < Vec::n; ++j) Qt[(vi * Vec::n + j) * kBQ + row] = e[j];
   }
 
   float m[kRows], l[kRows], acc[kRows][DC];
@@ -147,10 +165,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     __syncthreads();  // the previous tile's V and P are no longer read
     for (int i = tid; i < kBK * NV; i += kThreads) {
       const int row = i % kBK, vi = i / kBK;
-      float e[Vec<T>::n];
-      Vec<T>::load(kb + (k0 + row) * kv_row + vi * Vec<T>::n, k0 + row < Skv, e);
+      float e[Vec::n];
+      Vec::load(kb + (k0 + row) * kv_row + vi * Vec::n, k0 + row < Skv, e);
 #pragma unroll
-      for (int j = 0; j < Vec<T>::n; ++j) KV[(vi * Vec<T>::n + j) * kBK + row] = e[j];
+      for (int j = 0; j < Vec::n; ++j) KV[(vi * Vec::n + j) * kBK + row] = e[j];
     }
     __syncthreads();
 
@@ -172,7 +190,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
         for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
-    // scale, mask, online softmax; p (rounded to T) to shared memory
+    // scale, mask, online softmax; p to shared memory (fp32 v: p is not rounded)
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int qpos = q0 + r * kRows + i;
@@ -194,7 +212,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       for (int j = 0; j < kCols; ++j) {
         const float p = expf(s[i][j] - m_new);
         psum += p;
-        s[i][j] = round_to<T>(p);
+        s[i][j] = p;
       }
       l[i] = l[i] * alpha + psum;
       m[i] = m_new;
@@ -211,11 +229,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
     for (int i = tid; i < kBK * NV; i += kThreads) {
       const int row = i / NV, vi = i % NV;
-      float e[Vec<T>::n];
-      Vec<T>::load(vb + (k0 + row) * kv_row + vi * Vec<T>::n, k0 + row < Skv, e);
-      float4* dst = reinterpret_cast<float4*>(KV + row * DH + vi * Vec<T>::n);
+      float e[Vec::n];
+      Vec::load(vb + (k0 + row) * kv_row + vi * Vec::n, k0 + row < Skv, e);
+      float4* dst = reinterpret_cast<float4*>(KV + row * DH + vi * Vec::n);
 #pragma unroll
-      for (int j = 0; j < Vec<T>::n / 4; ++j)
+      for (int j = 0; j < Vec::n / 4; ++j)
         dst[j] = make_float4(e[4 * j], e[4 * j + 1], e[4 * j + 2], e[4 * j + 3]);
     }
     __syncthreads();
@@ -242,51 +260,290 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     const int qpos = q0 + r * kRows + i;
     if (qpos >= Sq) continue;
     const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
-    T* orow = o + (((long long)b * Sq + qpos) * Hq + h) * DH;
+    float* orow = o + (((long long)b * Sq + qpos) * Hq + h) * DH;
 #pragma unroll
     for (int j = 0; j < DC / W; ++j)
 #pragma unroll
       for (int w = 0; w < W; ++w)
-        orow[c * W + 16 * W * j + w] = from_f<T>(acc[i][j * W + w] * inv_l);
+        orow[c * W + 16 * W * j + w] = acc[i][j * W + w] * inv_l;
   }
 }
 
-template <typename T, int DH>
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core design
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcWarps = 4;                 // 16 query rows each
+constexpr int kTcThreads = 32 * kTcWarps;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, zero-filled (nothing read) where !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a . b on one m16n8k16 tile: bf16 operands, fp32 accumulator
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 rounded to bf16 (nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// rows r0 .. r0+63 of one head (rows `stride` elements apart) into a padded
+// [64][DH + 8] tile at shared address dst; rows at or past n are zero-filled
+template <int DH>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, long long stride,
+                                          int r0, int n, int tid) {
+  constexpr int CH = DH / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int it = 0; it < kBQ * CH / kTcThreads; ++it) {
+    const int i = tid + it * kTcThreads;
+    const int r = i / CH, c = i % CH;
+    const bool valid = r0 + r < n;
+    cp_async16(dst + (uint32_t)((r * (DH + 8) + c * 8) * sizeof(bf16)),
+               src + (valid ? r0 + r : 0) * stride + c * 8, valid);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Skv, int Hq,
+                int Hkv, int causal, float scale) {
+  static_assert(kBQ == 16 * kTcWarps && kBK == 64, "a warp owns 16 rows; 8 n8 key tiles");
+  constexpr int STR = DH + 8;              // padded row, elements
+  constexpr uint32_t TILE = kBQ * STR * sizeof(bf16);  // bytes of one tile
+  constexpr int KS = DH / 16;              // k16 steps of Q K^T
+  constexpr int ND = DH / 8;               // n8 tiles of O
+  extern __shared__ uint4 smem_tc[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_tc);
+  const uint32_t aQ = smem_addr(sQ), aK = aQ + TILE, aV = aQ + 3 * TILE;  // K, V: 2 tiles each
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;    // a fragment's row group, column pair
+  const int bh = blockIdx.x;
+  const int b = bh / Hq, h = bh % Hq;
+  const int hk = h / (Hq / Hkv);
+  const int qt = (int)gridDim.y - 1 - (int)blockIdx.y;  // heaviest causal tiles first
+  const int q0 = qt * kBQ;
+  const long long q_row = (long long)Hq * DH, kv_row = (long long)Hkv * DH;
+  const bf16* qb = q + ((long long)b * Sq * Hq + h) * DH;
+  const bf16* kb = k + ((long long)b * Skv * Hkv + hk) * DH;
+  const bf16* vb = v + ((long long)b * Skv * Hkv + hk) * DH;
+
+  const int n_kt_all = (Skv + kBK - 1) / kBK;
+  const int n_kt = causal ? min(n_kt_all, (q0 + kBQ - 1) / kBK + 1) : n_kt_all;
+
+  load_tile<DH>(aQ, qb, q_row, q0, Sq, tid);
+  load_tile<DH>(aK, kb, kv_row, 0, Skv, tid);
+  load_tile<DH>(aV, vb, kv_row, 0, Skv, tid);
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  // this lane's ldmatrix row addresses (bytes from a tile's start):
+  // Q, A fragment: matrices (rows 0-7 | 8-15) x (cols 0-7 | 8-15)
+  const uint32_t offQ = ((warp * 16 + lane % 16) * STR + lane / 16 * 8) * sizeof(bf16);
+  // K, B fragments of two n8 key tiles: (keys 0-7, d 0-7 | 8-15), (keys 8-15, ...)
+  const uint32_t offK = ((lane / 16 * 8 + lane % 8) * STR + lane / 8 % 2 * 8) * sizeof(bf16);
+  // V, transposed B fragments of two n8 d tiles: (keys 0-7 | 8-15) x (d 0-7 | 8-15)
+  const uint32_t offV = ((lane / 8 % 2 * 8 + lane % 8) * STR + lane / 16 * 8) * sizeof(bf16);
+
+  uint32_t qf[KS][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows g and g + 8
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBK;
+    const uint32_t buf = (uint32_t)(kt % 2) * TILE;
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // tile kt has landed; tile kt - 1's buffers are no longer read
+    if (kt + 1 < n_kt) {
+      load_tile<DH>(aK + (TILE - buf), kb, kv_row, k0 + kBK, Skv, tid);
+      load_tile<DH>(aV + (TILE - buf), vb, kv_row, k0 + kBK, Skv, tid);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) ldsm_x4(aQ + offQ + kk * 32, qf[kk]);
+    }
+
+    // s = q . k^T: 8 n8 tiles of 64 keys; C fragment: rows g, g + 8, keys 8j + 2t, +1
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t bk[4];
+        ldsm_x4(aK + buf + offK + (jj * 16 * STR + kk * 16) * sizeof(bf16), bk);
+        mma_bf16(s[2 * jj], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * jj + 1], qf[kk], bk[2], bk[3]);
+      }
+
+    // scale, mask where the tile crosses the diagonal or Skv, row max
+    const bool masked = k0 + kBK > Skv || (causal && k0 + kBK - 1 > q0);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale;
+        if (masked) {
+          const int kpos = k0 + 8 * j + 2 * t + e % 2;
+          const int qpos = q0 + warp * 16 + g + e / 2 * 8;
+          if (kpos >= Skv || (causal && kpos > qpos)) x = kNegInf;
+        }
+        s[j][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+
+    // p = exp(s - m_new), rounded to bf16 into the A fragments of P . V:
+    // score tiles 2kk and 2kk + 1 are k16 step kk
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p0 = expf(s[j][0] - m[0]), p1 = expf(s[j][1] - m[0]);
+      const float p2 = expf(s[j][2] - m[1]), p3 = expf(s[j][3] - m[1]);
+      psum[0] += p0 + p1;
+      psum[1] += p2 + p3;
+      pa[j / 2][j % 2 * 2] = pack_bf16(p0, p1);
+      pa[j / 2][j % 2 * 2 + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // acc += p . v
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int jj = 0; jj < ND / 2; ++jj) {
+        uint32_t bv[4];
+        ldsm_x4_trans(aV + buf + offV + (kk * 16 * STR + jj * 16) * sizeof(bf16), bv);
+        mma_bf16(acc[2 * jj], pa[kk], bv[0], bv[1]);
+        mma_bf16(acc[2 * jj + 1], pa[kk], bv[2], bv[3]);
+      }
+  }
+
+  // l over the quad; out = acc / max(l, 1e-30) in bf16, staged through this
+  // warp's own rows of the Q tile (only this warp read them), then 16 bytes
+  // a lane to rows below Sq
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    den[r] = fmaxf(l[r], 1e-30f);
+  }
+  uint32_t* row0 = reinterpret_cast<uint32_t*>(sQ + (warp * 16 + g) * STR + 2 * t);
+  uint32_t* row8 = reinterpret_cast<uint32_t*>(sQ + (warp * 16 + g + 8) * STR + 2 * t);
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    row0[4 * j] = pack_bf16(acc[j][0] / den[0], acc[j][1] / den[0]);
+    row8[4 * j] = pack_bf16(acc[j][2] / den[1], acc[j][3] / den[1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < ND / 2; ++it) {
+    const int i = lane + 32 * it;
+    const int r = i / ND, c = i % ND;
+    const int qpos = q0 + warp * 16 + r;
+    if (qpos < Sq)
+      *reinterpret_cast<uint4*>(o + (((long long)b * Sq + qpos) * Hq + h) * DH + c * 8) =
+          *reinterpret_cast<const uint4*>(sQ + (warp * 16 + r) * STR + c * 8);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int Hq,
-           int Hkv, int causal, cudaStream_t st) {
-  const size_t smem = sizeof(float) * ((size_t)DH * kBQ + (size_t)DH * kBK + (size_t)kBK * kPStride);
-  auto kern = flash_kernel<T, DH>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
+           int Hkv, int causal, int is_bf16, cudaStream_t st) {
   const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + kBQ - 1) / kBQ));
   // the division here matches the reference's 1.0 / math.sqrt(dh), rounded once to fp32
   const float scale = (float)(1.0 / sqrt((double)DH));
-  kern<<<grid, kThreads, smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                     static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, Hq,
-                                     Hkv, causal, scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int Hq,
-             int Hkv, int dh, int causal, cudaStream_t st) {
-  switch (dh) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, st);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, st);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, st);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, st);
-    case 160: return launch<T, 160>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, st);
-    default: return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (is_bf16) {
+    const size_t smem = 5 * sizeof(bf16) * (size_t)kBQ * (DH + 8);  // Q, 2 K, 2 V tiles
+    auto kern = flash_tc_kernel<DH>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kTcThreads, smem, st>>>(static_cast<const bf16*>(q),
+                                         static_cast<const bf16*>(k),
+                                         static_cast<const bf16*>(v), static_cast<bf16*>(o),
+                                         Sq, Skv, Hq, Hkv, causal, scale);
+  } else {
+    const size_t smem =
+        sizeof(float) * ((size_t)DH * kBQ + (size_t)DH * kBK + (size_t)kBK * kPStride);
+    auto kern = flash_kernel<DH>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kThreads, smem, st>>>(static_cast<const float*>(q),
+                                       static_cast<const float*>(k),
+                                       static_cast<const float*>(v), static_cast<float*>(o), Sq,
+                                       Skv, Hq, Hkv, causal, scale);
   }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B, Sq, Hq, dh), k and v (B, Skv, Hkv, dh), o (B, Sq, Hq, dh): contiguous,
-// 16-byte aligned, all float32 (is_bf16 = 0) or all bfloat16 (is_bf16 = 1);
-// Hq a multiple of Hkv; dh in {16, 32, 64, 128, 160}.  Returns a CUDA error
-// code (cudaGetLastError() after the launch).
+// 16-byte aligned, all float32 (is_bf16 = 0: the FMA design) or all bfloat16
+// (is_bf16 = 1: the tensor-core design); Hq a multiple of Hkv; dh in
+// {16, 32, 64, 128, 160}.  Returns a CUDA error code (cudaGetLastError()
+// after the launch).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
                                    int Sq, int Skv, int Hq, int Hkv, int dh, int causal,
                                    int is_bf16, void* stream) {
@@ -295,6 +552,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
   if ((Sq + kBQ - 1) / kBQ > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = (cudaStream_t)stream;
-  return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, dh, causal, st)
-                 : dispatch<float>(q, k, v, o, B, Sq, Skv, Hq, Hkv, dh, causal, st);
+  switch (dh) {
+    case 16: return launch<16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, is_bf16, st);
+    case 32: return launch<32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, is_bf16, st);
+    case 64: return launch<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, is_bf16, st);
+    case 128: return launch<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, is_bf16, st);
+    case 160: return launch<160>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, is_bf16, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -26,8 +26,9 @@ def _lib() -> ctypes.CDLL:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool) -> torch.Tensor:
     """Attention of CUDA (B, Sq, Hq, dh) queries over (B, Skv, Hkv, dh) keys
-    and values, all float32 or all bfloat16, into a new (B, Sq, Hq, dh)
-    tensor of v's dtype.  Non-contiguous or misaligned inputs are copied."""
+    and values, all float32 (the FMA design) or all bfloat16 (the
+    tensor-core design), into a new (B, Sq, Hq, dh) tensor of v's dtype.
+    Non-contiguous or misaligned inputs are copied."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.dim() != 4:
             raise ValueError(f"flash_attention needs 4-D CUDA tensors, got {name} "

@@ -11,7 +11,11 @@ for the one rule they carry: a non-causal call whose Skv exceeds
 ``block_k`` and is not a multiple of it raises, as the reference does; the
 kernel tiles by its own sizes.  With Sq > Skv and causal the two differ: the
 reference's zero-padded keys are visible to queries past Skv, the port's
-masked ones are not.  ``launches`` counts kernel launches per dtype.
+masked ones are not.  ``launches`` counts kernel launches per dtype,
+``design_launches`` the same launches by design and dtype: bf16 runs the
+tensor-core design (``"tc:bfloat16"``, ``mma.sync`` with p kept in
+registers), fp32 the FMA design (``"fma:float32"``); the dtype alone
+chooses.
 """
 
 from __future__ import annotations
@@ -24,6 +28,14 @@ from repro_torch.kernels.flash import ref
 
 #: kernel launches per "flash_attention:<dtype>"
 launches: Counter = Counter()
+#: the same launches per design and dtype ("tc:bfloat16", "fma:float32")
+design_launches: Counter = Counter()
+
+
+def design(dtype: torch.dtype) -> str:
+    """The design ``csrc/flash.cu`` runs for ``dtype``: ``"tc"`` (bf16 on the
+    tensor cores) or ``"fma"`` (fp32)."""
+    return "tc" if dtype == torch.bfloat16 else "fma"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -41,5 +53,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     from repro_torch.kernels.flash import kernel
 
     o = kernel.flash_attention(q, k, v, causal=causal)
-    launches[f"flash_attention:{str(q.dtype).removeprefix('torch.')}"] += 1
+    dtype = str(q.dtype).removeprefix("torch.")
+    launches[f"flash_attention:{dtype}"] += 1
+    design_launches[f"{design(q.dtype)}:{dtype}"] += 1
     return o

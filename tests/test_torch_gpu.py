@@ -15,10 +15,11 @@ moves values, so it is bitwise.  The flash attention (K6) is held to
 2e-4 in fp32 (``tests/test_flash.py``'s own limit) and in bf16 to
 2^-7 |plain| + 2^-8 max|v|: one bf16 ulp of the output plus twice the
 bound of the kernel's rounding of p to bf16, which the plain version does
-not round.  The traditional engine's transposed-out
-exchange with ``impl="cuda"`` on a 1-rank NCCL group launches the pack and
-unpack kernels and matches the plain codec's path (bf16 bitwise, int8
-within one quantum, equal stats).
+not round; bf16 runs the tensor-core design, fp32 the FMA design, and
+the bf16 kernel is also held to the CPU emulation of its tiles.  The
+traditional engine's transposed-out exchange with ``impl="cuda"`` on a
+1-rank NCCL group launches the pack and unpack kernels and matches the
+plain codec's path (bf16 bitwise, int8 within one quantum, equal stats).
 """
 
 from collections import Counter
@@ -262,7 +263,14 @@ def test_traditional_transposed_out_takes_the_kernels(mesh1, codec, v, w, group)
         assert st[key].item() == st_want[key].item()
 
 
-@pytest.mark.parametrize("dh", [16, 64, 128, 160])
+def _flash_limit(want, v):
+    """K6's limit: 2e-4 in fp32, 2^-7 |want| + 2^-8 max|v| in bf16."""
+    if want.dtype == torch.float32:
+        return 2e-4 + 2e-4 * want.abs()
+    return 2.0 ** -7 * want.float().abs() + 2.0 ** -8 * v.float().abs().max()
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64, 128, 160])
 @pytest.mark.parametrize("S", [50, 64, 257])
 @pytest.mark.parametrize("G", [1, 2, 16])
 @pytest.mark.parametrize("causal", [True, False])
@@ -272,18 +280,32 @@ def test_flash_matches_plain(cuda, dtype, causal, G, S, dh):
     q = torch.randn((2, S, 2 * G, dh), generator=gen, device=cuda).to(dtype)
     k = torch.randn((2, S, 2, dh), generator=gen, device=cuda).to(dtype)
     v = torch.randn((2, S, 2, dh), generator=gen, device=cuda).to(dtype)
-    before = sum(flops.launches.values())
+    before, designs = sum(flops.launches.values()), Counter(flops.design_launches)
     got = flops.flash_attention(q, k, v, causal=causal)
     want = flref.attention_gqa_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert sum(flops.launches.values()) == before + 1
+    tag = "tc:bfloat16" if dtype == torch.bfloat16 else "fma:float32"
+    assert flops.design_launches - designs == Counter({tag: 1})
     assert got.shape == want.shape and got.dtype == dtype
     err = (got.float() - want.float()).abs()
-    if dtype == torch.float32:
-        limit = 2e-4 + 2e-4 * want.abs()
-    else:
-        limit = 2.0 ** -7 * want.float().abs() + 2.0 ** -8 * v.float().abs().max()
-    assert bool((err <= limit).all()), err.max().item()
+    assert bool((err <= _flash_limit(want, v)).all()), err.max().item()
+
+
+@pytest.mark.parametrize("S,Hkv,G,dh,causal", [
+    (50, 2, 1, 16, True), (130, 1, 16, 128, True), (77, 1, 2, 160, True),
+    (192, 2, 2, 32, False), (257, 1, 16, 64, True),
+])
+def test_flash_bf16_matches_tile_emulation(cuda, S, Hkv, G, dh, causal):
+    """The tensor-core design against the CPU emulation of its order of work
+    (``ref.attention_tiles_ref``), at the bf16 limit."""
+    rng = np.random.default_rng(S * dh + G)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, S, h, dh)).astype(np.float32))
+               .to(torch.bfloat16) for h in (Hkv * G, Hkv, Hkv))
+    got = flops.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), causal=causal).cpu()
+    want = flref.attention_tiles_ref(q, k, v, causal=causal)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= _flash_limit(want, v)).all()), err.max().item()
 
 
 def test_flash_refuses_unsupported_head_dims(cuda):
@@ -302,11 +324,12 @@ def test_lm_prefill_runs_k6_once_per_layer(cuda):
     lm = LM(cfg, q_block=16, perf=OPTIMIZED, device=cuda, seed=0)
     toks = torch.randint(0, cfg.vocab, (2, 40), device=cuda,
                          generator=torch.Generator(device="cuda").manual_seed(1))
-    before = sum(flops.launches.values())
+    before, designs = sum(flops.launches.values()), Counter(flops.design_launches)
     cache, lg = lm.prefill({"tokens": toks}, max_len=41)
     assert sum(flops.launches.values()) == before + cfg.n_layers
     lm.decode_step(cache, lg[:, 0].argmax(-1), 40)
     assert sum(flops.launches.values()) == before + cfg.n_layers
+    assert flops.design_launches - designs == Counter({"tc:bfloat16": cfg.n_layers})
     lm._serving_causal = lambda q, k, v: flref.attention_gqa_ref(q, k, v, causal=True)
     _, lg_plain = lm.prefill({"tokens": toks}, max_len=41)
     rel = ((lg - lg_plain).norm() / lg_plain.norm()).item()
