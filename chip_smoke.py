@@ -12,13 +12,16 @@ non-zero):
    CUDA-event times (one ``{"kernel_sweep": [...]}`` line): K4 (each record
    names the design that ran: ``"tc"``, 3xTF32 tensor cores, or
    ``"general"``), K1 (both layouts, both codecs, guard mode and the
-   saturation divisor), K2/K3, K5, and K6 (flash attention) over dtype x
-   causal x GQA group x S x head dim (each record names the design that
-   ran: ``"tc"``, bf16 mma.sync, for bf16; ``"fma"`` for fp32);
+   saturation divisor; each record names the design that ran: ``"vec"``,
+   16-byte loads, or ``"scalar"``; both must run), K2/K3, K5, and K6
+   (flash attention) over dtype x causal x GQA group x S x head dim (each
+   record names the design that ran: ``"tc"``, bf16 mma.sync, for bf16;
+   ``"fma"`` for fp32);
 3. the port's paths on a 1-rank NCCL group and a (1, 1) mesh, each driven
    with the launch counters set to 0 just before it and read just after
-   (one ``{"paths": ...}`` line; at 512^3 every K4 launch of a plan must
-   have run the tensor-core design):
+   (one ``{"paths": ...}`` line, K1's launches also by design; at 512^3
+   every K4 launch of a plan must have run the tensor-core design, and
+   every K1 launch of the FFT paths the vec design):
    "slice" — (a) the quickstart plan ``(42, 63, 64)``, ``method="fused"``,
    against ``np.fft.fftn``; (b) the slice configuration (``impl="matmul"``,
    ``exchange_impl="cuda"``, ``comm_dtype="bf16"``) at ``(42, 63, 64)`` and
@@ -39,7 +42,8 @@ non-zero):
    decode steps must match a prefill of S + 3 tokens (one ``{"lm": ...}``
    line);
 4. the kernels at the main path's shapes (512^3, where K4 runs its
-   tensor-core design; K4's general design at the quickstart shape; K6 at
+   tensor-core design and K1 its vec design, as at the pipelined slice;
+   K4's general design at the quickstart shape; K6 at
    the serving prefill's, and once at the prefill_32k length): launches
    from their path,
    error against the plain version, kernel / plain / library times and the
@@ -243,18 +247,27 @@ def kernel_sweep(torch):
                         "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
                         "library_ms": cuda_ms(torch, lib)})
 
-    # complex64 blocks over F, M and both scatter orders, and two float32
-    # blocks (one plane, as an r2c plan's real stages ship)
-    cases = [(F, M, vw, True) for F in (1, 3) for M in (1, 4) for vw in ((0, 2), (2, 0))]
-    cases += [(1, 4, (2, 0), False), (3, 4, (0, 2), False)]
+    # complex64 blocks over F, M and both scatter orders, two float32 blocks
+    # (one plane, as an r2c plan's real stages ship), and K1's two designs:
+    # (64, 48, 35) along axis 2 has odd S (the scalar design), and along
+    # axis 1 a scale block of 30 tiles gets its max |x| in the last tile
+    cases = [(F, M, vw, True, (64, 48, 40)) for F in (1, 3) for M in (1, 4)
+             for vw in ((0, 2), (2, 0))]
+    cases += [(1, 4, (2, 0), False, (64, 48, 40)), (3, 4, (0, 2), False, (64, 48, 40)),
+              (1, 1, (2, 0), True, (64, 48, 35)), (1, 1, (1, 0), True, (64, 48, 40))]
     for codec in ("bf16", "int8"):
-        for F, M, (v, w), iscomplex in cases:
+        for F, M, (v, w), iscomplex, tail in cases:
             nb = 1 if F > 1 else 0
-            shape = ((F,) if nb else ()) + (64, 48, 40)
+            shape = ((F,) if nb else ()) + tail
             y = _randn(torch, shape, 7 * F + M + v, iscomplex)
             tag = (f"{codec}:F{F}:M{M}:{'w>v' if w > v else 'w<v'}"
-                   f"{'' if iscomplex else ':f32'}")
+                   f"{'' if iscomplex else ':f32'}{'' if tail[-1] == 40 else ':S35'}")
+            if (M, v) == (1, 1):
+                y.view(-1)[-2] = 50.0
+                tag += ":max_last_tile"
             out += _exchange_modes(torch, xops, xref, y, codec, v, w, v + nb, M, nb, tag)
+    if not {r["design"] for r in out if r["name"].startswith("encode:")} >= {"vec", "scalar"}:
+        fail("the K1 sweep did not run both encode designs")
 
     for shape in ((24, 24, 8), (7, 13, 3), (64, 48, 40), (512, 33, 1)):
         for iscomplex in (True, False):
@@ -275,7 +288,8 @@ def kernel_sweep(torch):
 def _ran_design(counter, fn, what):
     """``(fn(), design)``: the design that each launch of one call of ``fn``
     ran, read from the kernel's ``design_launches`` ``counter`` (K4:
-    ``"tc"`` or ``"general"``; K6: ``"tc"`` or ``"fma"``); fails on a mix."""
+    ``"tc"`` or ``"general"``; K6: ``"tc"`` or ``"fma"``; K1: ``"vec"`` or
+    ``"scalar"``); fails on a mix."""
     before = dict(counter)
     out = fn()
     ran = {d.split(":")[0] for d, k in counter.items() if k != before.get(d, 0)}
@@ -348,29 +362,32 @@ def _exchange_modes(torch, xops, xref, y, codec, v, w, bv, M, nb, tag):
     kw = dict(m=M, nbatch=nb, codec=codec)
     recs = []
 
-    def rec(name, replaces, err, kern, plain, lib):
+    def rec(name, replaces, err, kern, plain, lib, **extra):
         recs.append({"name": f"{name}:{tag}", "replaces": replaces, "max_abs_err": err,
                      "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
-                     "library_ms": cuda_ms(torch, lib) if lib is not None else None})
+                     "library_ms": cuda_ms(torch, lib) if lib is not None else None, **extra})
 
     flat = torch.view_as_real(y) if iscomplex else y
     cast = (lambda: flat.to(torch.bfloat16)) if codec == "bf16" else None
     for wrapper, plain_fn, replaces in (
             (xops.pack_chunks, xref.pack_chunks_ref, "kernel.py:89 (pack=True)"),
             (xops.encode_payload, xref.encode_payload_ref, "kernel.py:89")):
-        q, s, _ = wrapper(y, axis=bv, **kw)
+        (q, s, _), design = _ran_design(xops.design_launches,
+                                        lambda wrapper=wrapper: wrapper(y, axis=bv, **kw), "K1")
         qr, sr, _ = plain_fn(y, axis=bv, **kw)
         err = _check_codec(torch, f"{wrapper.__name__}:{tag}", q, qr, codec)
         if codec == "int8" and not torch.equal(s, sr):
             fail(f"{wrapper.__name__}:{tag}: int8 scales differ from the plain version")
         rec(f"encode:{wrapper.__name__}", replaces, err,
             lambda wrapper=wrapper: wrapper(y, axis=bv, **kw),
-            lambda plain_fn=plain_fn: plain_fn(y, axis=bv, **kw), cast)
+            lambda plain_fn=plain_fn: plain_fn(y, axis=bv, **kw), cast, design=design)
         # guard mode (and for int8 the saturation fault's divisor): the same
         # payload as above where undivided, and the plain version's counts
         for sd in ((None, 64.0) if codec == "int8" else (None,)):
             gkw = dict(axis=bv, guard=True, scale_div=sd, **kw)
-            q, s, st = wrapper(y, **gkw)
+            (q, s, st), gdesign = _ran_design(xops.design_launches,
+                                              lambda wrapper=wrapper, gkw=gkw: wrapper(y, **gkw),
+                                              "K1")
             qr, sr, str_ = plain_fn(y, **gkw)
             err = _check_codec(torch, f"{wrapper.__name__}:guard:{tag}", q, qr, codec)
             if codec == "int8" and not torch.equal(s, sr):
@@ -380,7 +397,7 @@ def _exchange_modes(torch, xops, xref, y, codec, v, w, bv, M, nb, tag):
             rec(f"encode:{wrapper.__name__}:guard{'' if sd is None else ':sat64'}",
                 replaces + " (guard=True)", err,
                 lambda wrapper=wrapper, gkw=gkw: wrapper(y, **gkw),
-                lambda plain_fn=plain_fn, gkw=gkw: plain_fn(y, **gkw), cast)
+                lambda plain_fn=plain_fn, gkw=gkw: plain_fn(y, **gkw), cast, design=gdesign)
 
     qr, sr, _ = xref.pack_chunks_ref(y, axis=bv, **kw)
     dkw = dict(v=v, w=w, scale=sr, iscomplex=iscomplex, **kw)
@@ -413,8 +430,8 @@ def _counters():
     from repro_torch.kernels.flash import ops as flops
     from repro_torch.kernels.transpose import ops as tops
 
-    return (fops.launches, fops.design_launches, xops.launches, tops.launches, flops.launches,
-            flops.design_launches)
+    return (fops.launches, fops.design_launches, xops.launches, xops.design_launches,
+            tops.launches, flops.launches, flops.design_launches)
 
 
 def _drive(torch, name, fn, *args):
@@ -448,6 +465,11 @@ def run_paths(torch, lm_info):
         torch.cuda.empty_cache()
         paths["guard"] = _drive(torch, "guard", guard_path, mesh)
         torch.cuda.empty_cache()
+        # every exchange of these paths has S % 4 == 0: K1 runs its vec design
+        for name in ("slice", "engines", "guard"):
+            scalar = {k: n for k, n in paths[name].items() if k.startswith("scalar:")}
+            if scalar:
+                fail(f"{name}: K1 ran the scalar design {scalar}")
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -924,7 +946,7 @@ def main_path_kernels(torch, paths):
     for codec, wire in (("bf16", 2), ("int8", 1)):
         enc = lambda: xops.pack_chunks(x, axis=v, m=m, codec=codec)
         enc_plain = lambda: xref.pack_chunks_ref(x, axis=v, m=m, codec=codec)
-        (q, s, _), (qr, sr, _) = enc(), enc_plain()
+        ((q, s, _), design), (qr, sr, _) = _k1_vec(xops, enc, f"{codec} {SHAPE_BIG}"), enc_plain()
         err = _check_codec(torch, f"pack_chunks {codec} {SHAPE_BIG}", q, qr, codec)
         if codec == "int8" and not torch.equal(s, sr):
             fail("pack_chunks int8 at 512^3: scales differ from the plain version")
@@ -933,7 +955,7 @@ def main_path_kernels(torch, paths):
                                "src/repro/kernels/exchange/kernel.py:89", "slice",
                                counts.get(f"pack_chunks:{codec}", 0), err, cuda_ms(torch, enc),
                                cuda_ms(torch, enc_plain),
-                               bound_ms(elems * 8 + elems * 2 * wire, 0), cast))
+                               bound_ms(elems * 8 + elems * 2 * wire, 0), cast, design=design))
         del q, s
         dkw = dict(v=v, w=w, m=m, scale=sr, codec=codec, iscomplex=True)
         dec = lambda: xops.unpack_chunks(qr, **dkw)
@@ -1028,6 +1050,14 @@ def _flash_records(torch, paths):
     return recs
 
 
+def _k1_vec(xops, enc, what):
+    """``(enc(), "vec")``; fails unless K1 ran its vec design."""
+    out, design = _ran_design(xops.design_launches, enc, "K1")
+    if design != "vec":
+        fail(f"K1 {what}: ran the {design} design")
+    return out, design
+
+
 def _pipelined_slice_records(torch, x, xops, xref, counts):
     """K1 and K3 at the pipelined engine's shapes: slice 0 of 4 of the first
     forward exchange (v = 2 -> w = 1, M = 1), ``(512, 512, 1, 128)`` made
@@ -1041,7 +1071,8 @@ def _pipelined_slice_records(torch, x, xops, xref, counts):
         kw = dict(axis=2, m=1, codec=codec)
         enc = lambda kw=kw: xops.pack_chunks(piece, **kw)
         enc_plain = lambda kw=kw: xref.pack_chunks_ref(piece, **kw)
-        (q, s, _), (qr, sr, _) = enc(), enc_plain()
+        ((q, s, _), design), (qr, sr, _) = (_k1_vec(xops, enc, f"{codec} pipelined slice"),
+                                            enc_plain())
         err = _check_codec(torch, f"pack_chunks {codec} pipelined slice", q, qr, codec)
         if codec == "int8" and not torch.equal(s, sr):
             fail("pack_chunks int8 at the pipelined slice: scales differ from the plain version")
@@ -1050,7 +1081,7 @@ def _pipelined_slice_records(torch, x, xops, xref, counts):
                             "exchange.cu", "src/repro/kernels/exchange/kernel.py:89", "engines",
                             counts.get(f"pack_chunks:{codec}", 0), err, cuda_ms(torch, enc),
                             cuda_ms(torch, enc_plain), bound_ms(elems * 8 + elems * 2 * wire, 0),
-                            cast))
+                            cast, design=design))
         del q, s
         dkw = dict(v=2, w=1, m=1, scale=sr, codec=codec, iscomplex=True)
         dec = lambda dkw=dkw: xops.unpack_chunks(qr, **dkw)
@@ -1078,7 +1109,9 @@ def _guard_mode_records(torch, x, xops, xref, counts):
     recs = []
     for codec, wire, sd in (("bf16", 2, None), ("int8", 1, None), ("int8", 1, 64.0)):
         kw = dict(axis=2, m=1, codec=codec, guard=True, scale_div=sd)
-        (q, s, st), (qr, sr, _) = xops.pack_chunks(xg, **kw), xref.pack_chunks_ref(xg, **kw)
+        ((q, s, st), design), (qr, sr, _) = (
+            _k1_vec(xops, lambda kw=kw: xops.pack_chunks(xg, **kw), f"guard {codec} {sd}"),
+            xref.pack_chunks_ref(xg, **kw))
         torch.cuda.synchronize()
         if codec == "int8":
             same = torch.equal(q, qr) and torch.equal(s, sr)
@@ -1106,7 +1139,7 @@ def _guard_mode_records(torch, x, xops, xref, counts):
                             counts.get(f"pack_chunks:{codec}:guard", 0), err,
                             cuda_ms(torch, lambda kw=kw: xops.pack_chunks(xg, **kw)),
                             cuda_ms(torch, lambda kw=kw: xref.pack_chunks_ref(xg, **kw)),
-                            bound_ms(elems * 8 + elems * 2 * wire, 0), cast))
+                            bound_ms(elems * 8 + elems * 2 * wire, 0), cast, design=design))
     return recs
 
 

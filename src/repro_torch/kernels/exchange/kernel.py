@@ -3,7 +3,10 @@
 Both entry points take the block as its ``(F, O, M, S, P)`` float view and
 the payload in one of two layouts (``IN_PLACE``: ``(P, F, O, M, S)``;
 ``CHUNK_MAJOR``: ``(M, P, F, O, S)``).  The library is built and loaded at
-the first launch, never at import.  ``encode(guard=True)`` also returns the
+the first launch, never at import.  ``encode`` picks its design with
+:func:`.ref.encode_design` (``"vec"`` or ``"scalar"``), passes it to
+``exchange_encode`` as its ``design`` argument (the C side refuses ``"vec"``
+where the rule fails) and returns it; with ``guard=True`` it also returns the
 per-(field, chunk) ``(nonfinite, saturated)`` counts, laid out like the
 scales with a trailing pair.
 """
@@ -15,9 +18,11 @@ import ctypes
 import torch
 
 from repro_torch import _build
+from repro_torch.kernels.exchange.ref import encode_design
 
 IN_PLACE, CHUNK_MAJOR = 0, 1
 _CODECS = {"bf16": 0, "int8": 1}
+_DESIGNS = {"scalar": 0, "vec": 1}
 _WIRE = {"bf16": torch.bfloat16, "int8": torch.int8}
 
 _c = ctypes.c_void_p
@@ -28,7 +33,8 @@ _f = ctypes.c_float
 
 def _lib() -> ctypes.CDLL:
     lib = _build.library("exchange")
-    lib.exchange_encode.argtypes = [_c, _c, _c, _c, _c, _i, _i, _ll, _ll, _ll, _ll, _i, _f, _c]
+    lib.exchange_encode.argtypes = [_c, _c, _c, _c, _c, _i, _i, _ll, _ll, _ll, _ll, _i, _f, _i,
+                                    _c]
     lib.exchange_encode.restype = _i
     lib.exchange_decode.argtypes = [_c, _c, _c, _i, _i, _ll, _ll, _ll, _ll, _i, _c]
     lib.exchange_decode.restype = _i
@@ -51,8 +57,8 @@ def encode(block: torch.Tensor, F: int, O: int, M: int, S: int, *, codec: str, l
     """Encode ``block`` (viewed ``(F, O, M, S)``) into a new payload of
     ``layout``; returns ``(payload, scales, counts)`` with the payload flat in
     its layout, for int8 the ``(F, M)`` or ``(M, F)`` f32 scales (each divided
-    by ``scale_div``), and with ``guard`` the f32 counts of the same layout
-    with a trailing ``(nonfinite, saturated)`` pair."""
+    by ``scale_div``), with ``guard`` the f32 counts of the same layout with a
+    trailing ``(nonfinite, saturated)`` pair, and the design that ran."""
     x = _floats(block)
     P = 2 if block.is_complex() else 1
     if x.numel() != F * O * M * S * P:
@@ -66,14 +72,15 @@ def encode(block: torch.Tensor, F: int, O: int, M: int, S: int, *, codec: str, l
         amax = torch.zeros(F * M, dtype=torch.int32, device=dev)
     if guard:
         counts = torch.zeros((*blocks, 2), dtype=torch.int64, device=dev)
+    design = encode_design(F, O, M, S, P, layout, x.data_ptr(), q.data_ptr())
     rc = _lib().exchange_encode(
         x.data_ptr(), q.data_ptr(), 0 if scales is None else scales.data_ptr(),
         0 if amax is None else amax.data_ptr(), 0 if counts is None else counts.data_ptr(),
-        _CODECS[codec], layout, F, O, M, S, P, float(scale_div),
+        _CODECS[codec], layout, F, O, M, S, P, float(scale_div), _DESIGNS[design],
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"exchange_encode failed with CUDA error {rc}")
-    return q, scales, None if counts is None else counts.to(torch.float32)
+        raise RuntimeError(f"exchange_encode ({design} design) failed with CUDA error {rc}")
+    return q, scales, None if counts is None else counts.to(torch.float32), design
 
 
 def decode(payload: torch.Tensor, scales: torch.Tensor | None, out: torch.Tensor,

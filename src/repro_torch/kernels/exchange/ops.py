@@ -18,6 +18,9 @@ A tensor on the CPU takes the plain version (:mod:`.ref`); a CUDA tensor
 launches the kernel (:mod:`.kernel`).  ``launches`` counts kernel launches
 per wrapper and codec (``"<wrapper>:<codec>"``, with ``":guard"`` appended
 for a guarded encode): an int8 encode is two (max-abs, then quantize).
+``design_launches`` counts the encode's launches again by the design that
+ran (``"<design>:<codec>"``: ``"vec"``, 16-byte loads, or ``"scalar"``, one
+float a step; :func:`.ref.encode_design` is the rule).
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from repro_torch.kernels.exchange import ref
 
 #: kernel launches per "<wrapper>:<codec>"
 launches: Counter = Counter()
+#: the encode's launches per design and codec ("vec:bf16", "scalar:int8", ...)
+design_launches: Counter = Counter()
 #: kernels one encode launches per codec: int8 runs a max-abs pass, then the quantize pass
 ENCODE_KERNELS = {"bf16": 1, "int8": 2}
 
@@ -71,10 +76,11 @@ def _encode(y, axis, m, nbatch, codec, guard, scale_div, layout, wrapper):
     from repro_torch.kernels.exchange import kernel
 
     y = y.contiguous()
-    q, scales, counts = kernel.encode(
+    q, scales, counts, design = kernel.encode(
         y, *_chunk_view(y.shape, axis, m, nbatch), codec=codec, layout=layout, guard=guard,
         scale_div=1.0 if scale_div is None else scale_div)
     launches[f"{wrapper}:{codec}{':guard' if guard else ''}"] += ENCODE_KERNELS[codec]
+    design_launches[f"{design}:{codec}"] += ENCODE_KERNELS[codec]
     return y, q, scales, _stats_dict(counts)
 
 

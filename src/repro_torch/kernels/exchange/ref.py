@@ -109,3 +109,110 @@ def unpack_chunks_ref(p, *, v, w, m, nbatch=0, scale, codec, iscomplex):
     final = list(s)
     final[bw] = M * s[bw]
     return _from_planes(out.reshape((P, *final)), iscomplex)
+
+
+# ---------------------------------------------------------------------------
+# K1's order of work (csrc/exchange.cu, enc_amax_kernel and enc_kernel)
+# ---------------------------------------------------------------------------
+
+#: the encode kernel's threads per block and floats per tile (kThreads, kEncTile)
+THREADS, TILE = 256, 8192
+
+
+def encode_design(F, O, M, S, P, layout, x_ptr: int, q_ptr: int) -> str:  # noqa: ARG001
+    """The encode's design for the ``(F, O, M, S, P)`` view in ``layout``
+    with the block at address ``x_ptr`` and the payload at ``q_ptr``:
+    ``"vec"`` (4 complex or 4 reals a step, 16-byte loads) where ``S % 4 ==
+    0`` (no vector straddles a run; every run and wire-plane start is
+    aligned), the block is 16-byte and the payload 8-byte aligned, else
+    ``"scalar"``.  ``exchange_encode`` refuses ``"vec"`` where this fails."""
+    return "vec" if S % 4 == 0 and x_ptr % 16 == 0 and q_ptr % 8 == 0 else "scalar"
+
+
+def encode_tile_map(F, O, M, S, P, layout, design):
+    """Where each float the encode moves comes from and goes, in the
+    kernel's order of work (scale block, tile, step, thread, float of the
+    vector), computed with the kernel's own offset formulas (``enc_tile``,
+    ``enc_locate``).  Returns ``(fm, src, dst)``: the scale block ``f * M +
+    m``, the block-side float index and the flat payload index, one entry
+    per float moved."""
+    V = 4 * P if design == "vec" else 1
+    L, n = S * P, O * S * P
+    tiles = -(-n // TILE)
+    steps = TILE // (THREADS * V)
+    fm = torch.arange(F * M).view(-1, 1, 1, 1, 1)
+    t = torch.arange(tiles).view(1, -1, 1, 1, 1)
+    u = torch.arange(steps).view(1, 1, -1, 1, 1)
+    thr = torch.arange(THREADS).view(1, 1, 1, -1, 1)
+    k = torch.arange(V).view(1, 1, 1, 1, -1)
+    i = (u * THREADS + thr) * V  # the vector's first float in the tile
+    f, m = fm // M, fm % M
+    e0 = t * TILE
+    bbase = (f * O * M + m) * L
+    wbase = (m * P * F + f) * O * S if layout == 1 else (f * O * M + m) * S
+    pstride = F * O * S if layout == 1 else F * O * M * S
+    if M == 1 or O == 1:  # contiguous: a shift
+        xt, wt = bbase + e0, wbase + e0 // P
+        xo, wo, p0 = i, i // P, i % P
+    else:  # one 32-bit division per vector
+        bstride, wstride = M * L, (S if layout == 1 else M * S)
+        o0 = e0 // L
+        j0 = e0 - o0 * L
+        xt, wt = bbase + o0 * bstride, wbase + o0 * wstride
+        e = j0 + i
+        d = e // L
+        j = e - d * L
+        xo, wo, p0 = d * bstride + j, d * wstride + j // P, j % P
+    if V == 1:
+        src, dst = xt + xo + 0 * k, wt + p0 * pstride + wo + 0 * k
+    else:  # plane p holds floats p, P + p, 2P + p, 3P + p of the vector
+        src, dst = xt + xo + k, wt + (k % P) * pstride + wo + k // P
+    live = (i < torch.clamp(n - e0, max=TILE)).expand(src.shape)
+    fm = fm.expand(src.shape)
+    return fm[live], src[live], dst[live]
+
+
+def encode_tiles_ref(x: torch.Tensor, F, O, M, S, P, *, codec, layout, design,
+                     guard=False, scale_div=None):
+    """The encode as the kernel orders it (:func:`encode_tile_map`): the
+    flat float block ``x`` (``F * O * M * S * P`` floats) in, ``(payload,
+    scales, counts, reads, writes)`` out, with the payload flat in
+    ``layout``, the int8 scales and the guard counts laid out as the
+    kernel's (``(F, M)`` in place, ``(M, F)`` chunk-major, counts with a
+    trailing ``(nonfinite, saturated)`` pair), and how many times the map
+    read each block float and wrote each payload element."""
+    fm, src, dst = encode_tile_map(F, O, M, S, P, layout, design)
+    N = F * O * M * S * P
+    reads = torch.bincount(src, minlength=N)
+    writes = torch.bincount(dst, minlength=N)
+    a = x.reshape(-1)[src]
+    finite = torch.isfinite(a)
+    nonfinite = torch.zeros(F * M, dtype=torch.float32).index_add_(0, fm, (~finite).float())
+    saturated = torch.zeros(F * M, dtype=torch.float32)
+    scales = None
+    if codec == "bf16":
+        q = torch.empty(N, dtype=torch.bfloat16)
+        q[dst] = quant.encode_bf16(a)
+    else:
+        xf = torch.where(finite, a, torch.zeros((), dtype=a.dtype))
+        amax = torch.zeros(F * M, dtype=torch.float32).scatter_reduce_(0, fm, xf.abs(), "amax")
+        scale = torch.clamp_min(amax, quant._EPS) / torch.full_like(amax, 127.0)
+        if scale_div is not None:
+            scale = scale / torch.full_like(scale, scale_div)
+        r = torch.clamp(torch.round(xf / scale[fm]), -127, 127)
+        q = torch.empty(N, dtype=torch.int8)
+        q[dst] = r.to(torch.int8)
+        saturated.index_add_(0, fm, (r.abs() == 127).float())
+        scales = scale
+    counts = torch.stack([nonfinite, saturated], -1) if guard else None
+    if layout == 1:  # (F, M) -> (M, F)
+        if scales is not None:
+            scales = scales.view(F, M).T.contiguous()
+        if counts is not None:
+            counts = counts.view(F, M, 2).transpose(0, 1).contiguous()
+    else:
+        if scales is not None:
+            scales = scales.view(F, M)
+        if counts is not None:
+            counts = counts.view(F, M, 2)
+    return q, scales, counts, reads, writes

@@ -148,6 +148,32 @@ def test_fourstep_axes_and_rfft(cuda, axis):
     assert (back - x).abs().max().item() <= 1e-5 * x.abs().max().item()
 
 
+# K1's tiles and designs: a scale block of 7 tiles (the last ragged) and one
+# of 3 tiles with runs 720 floats apart that cross tile edges, both "vec";
+# odd S and S * P below one vector, both "scalar"
+K1_SHAPES = [((40, 33, 20), 1, 0, 1, 0), ((24, 40, 36), 1, 0, 4, 0),
+             ((6, 5, 7), 1, 0, 1, 0), ((16, 3, 1), 2, 0, 1, 0)]
+
+
+def _k1_last_tile(y, m, v, nbatch):
+    """Put the block's max |x| in the last tile of the last scale block
+    where a scale block spans several tiles; returns the design the wrapper
+    should pick (``xref.encode_design`` on a fresh, aligned block)."""
+    P = 2 if y.is_complex() else 1
+    F, O, M, S = xops._chunk_view(y.shape, v + nbatch, m, nbatch)
+    if O * S * P > xref.TILE:
+        flat = y.view(-1)
+        flat[-2] = 50.0
+    return xref.encode_design(F, O, M, S, P, 1, 0, 0)
+
+
+def _k1_designs(fn):
+    """``(fn(), designs)``: the encode designs that one call of ``fn`` ran."""
+    before = Counter(xops.design_launches)
+    out = fn()
+    return out, {d.split(":")[0] for d in xops.design_launches - before}
+
+
 def _assert_codec(got, want, codec, quantum):
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.dtype == want.dtype
@@ -164,14 +190,17 @@ def _assert_codec(got, want, codec, quantum):
     ((6, 10, 8), 2, 0, 2, 0),
     ((3, 8, 6, 10), 0, 1, 4, 1),
     ((4, 8, 5), 1, 0, 1, 0),
-])
+] + K1_SHAPES)
 def test_exchange_kernels_match_plain(cuda, codec, iscomplex, shape, v, w, m, nbatch):
     y = _rand(shape, iscomplex, v * 10 + w, cuda)
+    design = _k1_last_tile(y, m, v, nbatch)
     bv = v + nbatch
     quantum = torch.view_as_real(y).abs().max().item() / 127.0 if iscomplex else \
         y.abs().max().item() / 127.0
 
-    q, s, _ = xops.pack_chunks(y, axis=bv, m=m, nbatch=nbatch, codec=codec)
+    (q, s, _), ran = _k1_designs(
+        lambda: xops.pack_chunks(y, axis=bv, m=m, nbatch=nbatch, codec=codec))
+    assert ran == {design}
     qr, sr, _ = xref.pack_chunks_ref(y, axis=bv, m=m, nbatch=nbatch, codec=codec)
     _assert_codec(q.float(), qr.float(), codec, 1.0)
     if codec == "int8":
@@ -182,7 +211,9 @@ def test_exchange_kernels_match_plain(cuda, codec, iscomplex, shape, v, w, m, nb
                                   iscomplex=iscomplex)
     _assert_codec(out, want, "bf16", quantum)  # same payload: decode is exact
 
-    q, s, _ = xops.encode_payload(y, axis=bv, m=m, nbatch=nbatch, codec=codec)
+    (q, s, _), ran = _k1_designs(
+        lambda: xops.encode_payload(y, axis=bv, m=m, nbatch=nbatch, codec=codec))
+    assert ran == {design}
     qr, sr, _ = xref.encode_payload_ref(y, axis=bv, m=m, nbatch=nbatch, codec=codec)
     _assert_codec(q.float(), qr.float(), codec, 1.0)
     if codec == "int8":
@@ -202,18 +233,22 @@ def test_exchange_kernels_match_plain(cuda, codec, iscomplex, shape, v, w, m, nb
     ((6, 10, 8), 2, 0, 2, 0),
     ((3, 8, 6, 10), 0, 1, 4, 1),
     ((4, 8, 5), 1, 0, 1, 0),
-])
+] + K1_SHAPES)
 def test_exchange_guard_mode_matches_plain(cuda, codec, iscomplex, shape, v, w, m, nbatch,
                                            scale_div):
     y = _rand(shape, iscomplex, v * 10 + w + 1, cuda)
+    design = _k1_last_tile(y, m, v, nbatch)
     flat = y.view(-1)
     flat[3] = float("nan")
     flat[-1] = float("inf")
+    if flat.numel() > 2 * xref.TILE:  # a NaN in the last tile too, not an Inf
+        flat[3], flat[-3] = 0.5, float("nan")
     bv = v + nbatch
     kw = dict(axis=bv, m=m, nbatch=nbatch, codec=codec, scale_div=scale_div)
     for wrapper, plain in ((xops.pack_chunks, xref.pack_chunks_ref),
                            (xops.encode_payload, xref.encode_payload_ref)):
-        q, s, st = wrapper(y, guard=True, **kw)
+        (q, s, st), ran = _k1_designs(lambda wrapper=wrapper: wrapper(y, guard=True, **kw))
+        assert ran == {design}
         q0, s0, st0 = wrapper(y, guard=False, **kw)
         qr, sr, str_ = plain(y, guard=True, **kw)
         torch.cuda.synchronize()
@@ -228,6 +263,27 @@ def test_exchange_guard_mode_matches_plain(cuda, codec, iscomplex, shape, v, w, 
             assert st[key].dtype == torch.float32
             assert st[key].item() == str_[key].item(), (wrapper.__name__, key)
         assert st["nonfinite"].item() == 2
+
+
+@pytest.mark.parametrize("codec", ["bf16", "int8"])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float32])
+def test_exchange_encode_unaligned_block_runs_scalar(cuda, codec, dtype):
+    """A contiguous block at a storage offset off 16-byte alignment: the
+    wrapper picks the scalar design, whose payload is the plain version's."""
+    shape = (8, 6, 16)
+    y0 = _rand(shape, dtype == torch.complex64, 11, cuda)
+    base = torch.empty(y0.numel() + 1, dtype=dtype, device=cuda)
+    y = base[1:].view(shape)
+    y.copy_(y0)
+    assert y.is_contiguous() and y.data_ptr() % 16 != 0
+    for wrapper, plain in ((xops.pack_chunks, xref.pack_chunks_ref),
+                           (xops.encode_payload, xref.encode_payload_ref)):
+        (q, s, _), ran = _k1_designs(lambda wrapper=wrapper: wrapper(y, axis=1, m=2, codec=codec))
+        qr, sr, _ = plain(y0, axis=1, m=2, codec=codec)
+        assert ran == {"scalar"}
+        _assert_codec(q.float(), qr.float(), codec, 1.0)
+        if codec == "int8":
+            assert torch.equal(s, sr)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
