@@ -9,19 +9,22 @@ non-zero):
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
    source, started together) and print the card's name and power limit;
 2. every kernel mode against its plain torch version on seeded inputs, with
-   CUDA-event times (one ``{"kernel_sweep": [...]}`` line): K4 (each record
-   names the design that ran: ``"tc"``, 3xTF32 tensor cores, or
-   ``"general"``), K1 (both layouts, both codecs, guard mode and the
-   saturation divisor; each record names the design that ran: ``"vec"``,
-   16-byte loads, or ``"scalar"``; both must run), K2/K3, K5, and K6
-   (flash attention) over dtype x causal x GQA group x S x head dim (each
-   record names the design that ran: ``"tc"``, bf16 mma.sync, for bf16;
-   ``"fma"`` for fp32);
+   CUDA-event times (one ``{"kernel_sweep": [...]}`` line; ``cuda_ms``
+   times runs of back-to-back calls): K4 (each record names the design that
+   ran: ``"tc"``, 3xTF32 tensor cores, or ``"general"``), K1 (both layouts,
+   both codecs, guard mode and the saturation divisor; each record names the
+   design that ran: ``"vec"``, 16-byte accesses, or ``"scalar"``; both must
+   run), K2/K3 (each decode by its wrapper and into a block at an odd
+   storage offset, which runs ``"scalar"``; each record names its design,
+   both must run, all bitwise), K5, and K6 (flash attention) over dtype x
+   causal x GQA group x S x head dim (each record names the design that
+   ran: ``"tc"``, bf16 mma.sync, for bf16; ``"fma"`` for fp32);
 3. the port's paths on a 1-rank NCCL group and a (1, 1) mesh, each driven
    with the launch counters set to 0 just before it and read just after
-   (one ``{"paths": ...}`` line, K1's launches also by design; at 512^3
-   every K4 launch of a plan must have run the tensor-core design, and
-   every K1 launch of the FFT paths the vec design):
+   (one ``{"paths": ...}`` line, K1's and K3's launches also by design,
+   K3's keyed ``"decode:<design>:<codec>"``; at 512^3 every K4 launch of a
+   plan must have run the tensor-core design, and every K1 and K3 launch
+   of the FFT paths the vec design):
    "slice" — (a) the quickstart plan ``(42, 63, 64)``, ``method="fused"``,
    against ``np.fft.fftn``; (b) the slice configuration (``impl="matmul"``,
    ``exchange_impl="cuda"``, ``comm_dtype="bf16"``) at ``(42, 63, 64)`` and
@@ -42,7 +45,7 @@ non-zero):
    decode steps must match a prefill of S + 3 tokens (one ``{"lm": ...}``
    line);
 4. the kernels at the main path's shapes (512^3, where K4 runs its
-   tensor-core design and K1 its vec design, as at the pipelined slice;
+   tensor-core design and K1-K3 their vec designs, as at the pipelined slice;
    K4's general design at the quickstart shape; K6 at
    the serving prefill's, and once at the prefill_32k length): launches
    from their path,
@@ -56,6 +59,7 @@ result and exits non-zero.
 
 import gc
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -102,19 +106,53 @@ def fail(msg):
 
 
 def cuda_ms(torch, fn, reps=5):
-    """Median of ``reps`` CUDA-event times of ``fn`` after one warm-up."""
+    """Device ms of one call of ``fn``: the median over ``reps`` runs of n
+    back-to-back calls between two CUDA events, divided by n, after one
+    warm-up.  n makes a run span ~2 ms of device time (at most 200).  Each
+    run is enqueued behind a spin kernel (``torch.cuda._sleep``) that lasts
+    longer than the host takes to enqueue the run, so the device runs the n
+    calls without waiting on the host: a small shape measures the device,
+    not the enqueue."""
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    n = max(1, min(200, math.ceil(2.0 / max(_run_ms(torch, fn, 1, host_s), 1e-3))))
+    return statistics.median(_run_ms(torch, fn, n, host_s) / n for _ in range(reps))
+
+
+def one_call_ms(torch, fn, reps=5):
+    """Median of ``reps`` CUDA-event times of one call of ``fn`` after a
+    warm-up, the host's enqueue inside: beside ``cuda_ms`` on a few records,
+    it shows what the enqueue adds to one call."""
+    fn()
+    torch.cuda.synchronize()
+    return statistics.median(_events_ms(torch, fn) for _ in range(reps))
+
+
+_SPIN_HZ = []  # torch.cuda._sleep's cycles per second, measured once
+
+
+def _run_ms(torch, fn, n, host_s):
+    """Event ms of ``n`` calls of ``fn`` enqueued behind a spin of 1.5 times
+    the host time ``host_s`` of n calls (at most 0.2 s)."""
+    if not _SPIN_HZ:
+        torch.cuda._sleep(1000)
+        _SPIN_HZ.append(1e7 / (_events_ms(torch, lambda: torch.cuda._sleep(10**7)) / 1e3))
+    torch.cuda._sleep(int(min(1.5 * host_s * n + 1e-4, 0.2) * _SPIN_HZ[0]))
+    return _events_ms(torch, lambda: [fn() for _ in range(n)])
+
+
+def _events_ms(torch, fn):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def bound_ms(nbytes, flops, peak=FP32_FLOPS):
@@ -266,8 +304,9 @@ def kernel_sweep(torch):
                 y.view(-1)[-2] = 50.0
                 tag += ":max_last_tile"
             out += _exchange_modes(torch, xops, xref, y, codec, v, w, v + nb, M, nb, tag)
-    if not {r["design"] for r in out if r["name"].startswith("encode:")} >= {"vec", "scalar"}:
-        fail("the K1 sweep did not run both encode designs")
+    for what in ("encode", "decode"):
+        if not {r["design"] for r in out if r["name"].startswith(what)} >= {"vec", "scalar"}:
+            fail(f"the codec sweep did not run both {what} designs")
 
     for shape in ((24, 24, 8), (7, 13, 3), (64, 48, 40), (512, 33, 1)):
         for iscomplex in (True, False):
@@ -358,6 +397,8 @@ def _flash_sweep(torch):
 
 def _exchange_modes(torch, xops, xref, y, codec, v, w, bv, M, nb, tag):
     """Both encode layouts and both decode layouts of one block ``y``."""
+    from repro_torch.kernels.exchange import kernel as xkernel
+
     iscomplex = y.is_complex()
     kw = dict(m=M, nbatch=nb, codec=codec)
     recs = []
@@ -399,23 +440,35 @@ def _exchange_modes(torch, xops, xref, y, codec, v, w, bv, M, nb, tag):
                 lambda wrapper=wrapper, gkw=gkw: wrapper(y, **gkw),
                 lambda plain_fn=plain_fn, gkw=gkw: plain_fn(y, **gkw), cast, design=gdesign)
 
+    def decodes(name, replaces, kern, plain, q, s, axis, layout):
+        """The decode by its wrapper (the rule's design) and into a block at
+        an odd storage offset (the scalar design), each bitwise the plain
+        version."""
+        want = plain()
+        got, design = _ran_design(xops.decode_design_launches, kern, "K3")
+        widen = (lambda: q.float()) if codec == "bf16" else None
+        rec(name, replaces, _check_codec(torch, f"{name}:{tag}", got, want, "bf16"), kern, plain,
+            widen, design=design)
+        out = torch.empty(want.numel() + 1, dtype=want.dtype, device=want.device)[1:]
+        out = out.view(want.shape)
+        view = xops._chunk_view(want.shape, axis, M, nb)
+        qc = q.contiguous()
+        odd = lambda: xkernel.decode(qc, s, out, *view, codec=codec, layout=layout)
+        got, design = odd()
+        if design != "scalar":
+            fail(f"{name}:{tag}: a decode into an odd offset ran the {design} design")
+        rec(f"{name}:odd_offset", replaces,
+            _check_codec(torch, f"{name}:odd_offset:{tag}", got, want, "bf16"), odd, plain, widen,
+            design=design)
+
     qr, sr, _ = xref.pack_chunks_ref(y, axis=bv, **kw)
     dkw = dict(v=v, w=w, scale=sr, iscomplex=iscomplex, **kw)
-    got = xops.unpack_chunks(qr, **dkw)
-    want = xref.unpack_chunks_ref(qr, **dkw)
-    err = _check_codec(torch, f"unpack_chunks:{tag}", got, want, "bf16")
-    widen = (lambda: qr.float()) if codec == "bf16" else None
-    rec("decode:unpack_chunks", "kernel.py:173", err, lambda: xops.unpack_chunks(qr, **dkw),
-        lambda: xref.unpack_chunks_ref(qr, **dkw), widen)
-
-    qr, sr, _ = xref.encode_payload_ref(y, axis=bv, **kw)
-    dkw = dict(axis=bv, scale=sr, iscomplex=iscomplex, **kw)
-    got = xops.decode_payload(qr, **dkw)
-    want = xref.decode_payload_ref(qr, **dkw)
-    err = _check_codec(torch, f"decode_payload:{tag}", got, want, "bf16")
-    widen = (lambda: qr.float()) if codec == "bf16" else None
-    rec("decode:decode_payload", "kernel.py:144", err, lambda: xops.decode_payload(qr, **dkw),
-        lambda: xref.decode_payload_ref(qr, **dkw), widen)
+    decodes("decode:unpack_chunks", "kernel.py:173", lambda: xops.unpack_chunks(qr, **dkw),
+            lambda: xref.unpack_chunks_ref(qr, **dkw), qr, sr, w + nb, xkernel.CHUNK_MAJOR)
+    qr2, sr2, _ = xref.encode_payload_ref(y, axis=bv, **kw)
+    dkw2 = dict(axis=bv, scale=sr2, iscomplex=iscomplex, **kw)
+    decodes("decode:decode_payload", "kernel.py:144", lambda: xops.decode_payload(qr2, **dkw2),
+            lambda: xref.decode_payload_ref(qr2, **dkw2), qr2, sr2, bv, xkernel.IN_PLACE)
     return recs
 
 
@@ -425,13 +478,16 @@ def _exchange_modes(torch, xops, xref, y, codec, v, w, bv, M, nb, tag):
 
 
 def _counters():
+    """Every launch counter, by the prefix its keys take in a path's counts
+    (the decode's designs under "decode:", apart from the encode's)."""
     from repro_torch.kernels.exchange import ops as xops
     from repro_torch.kernels.fft import ops as fops
     from repro_torch.kernels.flash import ops as flops
     from repro_torch.kernels.transpose import ops as tops
 
-    return (fops.launches, fops.design_launches, xops.launches, xops.design_launches,
-            tops.launches, flops.launches, flops.design_launches)
+    return [("", c) for c in (fops.launches, fops.design_launches, xops.launches,
+                              xops.design_launches, tops.launches, flops.launches,
+                              flops.design_launches)] + [("decode:", xops.decode_design_launches)]
 
 
 def _drive(torch, name, fn, *args):
@@ -439,11 +495,11 @@ def _drive(torch, name, fn, *args):
     the counts read just after."""
     counters = _counters()
     torch.cuda.synchronize()
-    for c in counters:
+    for _, c in counters:
         c.clear()
     fn(torch, *args)
     torch.cuda.synchronize()
-    counts = {k: v for c in counters for k, v in c.items()}
+    counts = {pre + k: v for pre, c in counters for k, v in c.items()}
     print(f"path {name}: launches {counts}")
     return counts
 
@@ -465,11 +521,18 @@ def run_paths(torch, lm_info):
         torch.cuda.empty_cache()
         paths["guard"] = _drive(torch, "guard", guard_path, mesh)
         torch.cuda.empty_cache()
-        # every exchange of these paths has S % 4 == 0: K1 runs its vec design
+        # every exchange of these paths has S % 4 == 0: K1 and K3 run their
+        # vec designs, every launch
         for name in ("slice", "engines", "guard"):
-            scalar = {k: n for k, n in paths[name].items() if k.startswith("scalar:")}
+            counts = paths[name]
+            scalar = {k: n for k, n in counts.items()
+                      if k.startswith(("scalar:", "decode:scalar:"))}
             if scalar:
-                fail(f"{name}: K1 ran the scalar design {scalar}")
+                fail(f"{name}: K1 or K3 ran the scalar design {scalar}")
+            dec = sum(n for k, n in counts.items() if k.startswith("unpack_chunks:"))
+            vec = sum(n for k, n in counts.items() if k.startswith("decode:vec:"))
+            if dec < 1 or vec != dec:
+                fail(f"{name}: {vec} of {dec} K3 launches ran the vec design")
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -568,6 +631,8 @@ def _run_plan(torch, mesh, shape, cfg, ParallelFFT, fops, xops):
     print(json.dumps({"plan": "slice", "shape": shape, "comm_dtype": d, "impl": cfg.impl,
                       "exchange_impl": cfg.exchange_impl, "rel_l2_fwd_vs_fftn": fwd_err,
                       "rel_l2_roundtrip": back_err, "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+                      "forward_one_call_ms": one_call_ms(torch, lambda: plan.forward_padded(x),
+                                                         reps=7),
                       "launches_per_forward": per_fwd,
                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}))
 
@@ -915,7 +980,7 @@ def main_path_kernels(torch, paths):
                                counts.get(f"tc:{mode}", 0),
                                err, cuda_ms(torch, kern), cuda_ms(torch, plain),
                                bound_ms(k4_bytes, k4_flops, TF32_TC_FLOPS), cuda_ms(torch, lib),
-                               design=design))
+                               design=design, one_call_ms=one_call_ms(torch, kern)))
 
     # the general design on the slice path: the quickstart shape's last axis
     # (42 * 63 rows of n = 64, one direct DFT), fp32 FMA
@@ -936,7 +1001,10 @@ def main_path_kernels(torch, paths):
                            bound_ms(2 * qrows.numel() * 8,
                                     qrows.shape[0] * (8.0 * qn * (q1 + q2) + 6.0 * qn)),
                            cuda_ms(torch, lambda: torch.fft.fft(qrows, dim=-1)),
-                           design=design, shape=list(qrows.shape)))
+                           design=design, shape=list(qrows.shape),
+                           one_call_ms=one_call_ms(torch, lambda: fops.fft_matmul(qrows)),
+                           library_one_call_ms=one_call_ms(
+                               torch, lambda: torch.fft.fft(qrows, dim=-1))))
     del got, want, qrows
 
     # the first forward exchange: v = 2 -> w = 1 over a group of 1
@@ -946,7 +1014,8 @@ def main_path_kernels(torch, paths):
     for codec, wire in (("bf16", 2), ("int8", 1)):
         enc = lambda: xops.pack_chunks(x, axis=v, m=m, codec=codec)
         enc_plain = lambda: xref.pack_chunks_ref(x, axis=v, m=m, codec=codec)
-        ((q, s, _), design), (qr, sr, _) = _k1_vec(xops, enc, f"{codec} {SHAPE_BIG}"), enc_plain()
+        (q, s, _), design = _vec(xops.design_launches, enc, f"K1 {codec} {SHAPE_BIG}")
+        qr, sr, _ = enc_plain()
         err = _check_codec(torch, f"pack_chunks {codec} {SHAPE_BIG}", q, qr, codec)
         if codec == "int8" and not torch.equal(s, sr):
             fail("pack_chunks int8 at 512^3: scales differ from the plain version")
@@ -955,18 +1024,22 @@ def main_path_kernels(torch, paths):
                                "src/repro/kernels/exchange/kernel.py:89", "slice",
                                counts.get(f"pack_chunks:{codec}", 0), err, cuda_ms(torch, enc),
                                cuda_ms(torch, enc_plain),
-                               bound_ms(elems * 8 + elems * 2 * wire, 0), cast, design=design))
+                               bound_ms(elems * 8 + elems * 2 * wire, 0), cast, design=design,
+                               one_call_ms=one_call_ms(torch, enc)))
         del q, s
         dkw = dict(v=v, w=w, m=m, scale=sr, codec=codec, iscomplex=True)
         dec = lambda: xops.unpack_chunks(qr, **dkw)
         dec_plain = lambda: xref.unpack_chunks_ref(qr, **dkw)
-        err = _check_codec(torch, f"unpack_chunks {codec} {SHAPE_BIG}", dec(), dec_plain(), "bf16")
+        got, design = _vec(xops.decode_design_launches, dec, f"K3 {codec} {SHAPE_BIG}")
+        err = _check_codec(torch, f"unpack_chunks {codec} {SHAPE_BIG}", got, dec_plain(), "bf16")
+        del got
         kernels.append(_record(f"exchange_decode[scatter_w,{codec}]", "exchange.cu",
                                "src/repro/kernels/exchange/kernel.py:173", "slice",
                                counts.get(f"unpack_chunks:{codec}", 0), err, cuda_ms(torch, dec),
                                cuda_ms(torch, dec_plain),
                                bound_ms(elems * 2 * wire + elems * 8, 0),
-                               cuda_ms(torch, lambda: qr.float()) if codec == "bf16" else None))
+                               cuda_ms(torch, lambda: qr.float()) if codec == "bf16" else None,
+                               design=design, one_call_ms=one_call_ms(torch, dec)))
         del qr, sr
 
     kernels += _pipelined_slice_records(torch, x, xops, xref, paths["engines"])
@@ -1033,7 +1106,8 @@ def _flash_records(torch, paths):
         reps = 5 if reduced is None else 3
         ms = cuda_ms(torch, kern, reps)
         extra = {"shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "dh": dh, "dtype": "bf16",
-                           "causal": True}, "design": design, "tflops": flop / (ms * 1e9)}
+                           "causal": True}, "design": design, "tflops": flop / (ms * 1e9),
+                 "one_call_ms": one_call_ms(torch, kern, reps)}
         plain_ms = cuda_ms(torch, plain, reps)
         lib_ms = cuda_ms(torch, _sdpa(torch, q, k, v, True), reps)
         if reduced is not None:
@@ -1050,11 +1124,13 @@ def _flash_records(torch, paths):
     return recs
 
 
-def _k1_vec(xops, enc, what):
-    """``(enc(), "vec")``; fails unless K1 ran its vec design."""
-    out, design = _ran_design(xops.design_launches, enc, "K1")
+def _vec(counter, fn, what):
+    """``(fn(), "vec")``; fails unless the kernel ran its vec design (K1:
+    ``counter`` is ``xops.design_launches``; K2/K3:
+    ``xops.decode_design_launches``)."""
+    out, design = _ran_design(counter, fn, what)
     if design != "vec":
-        fail(f"K1 {what}: ran the {design} design")
+        fail(f"{what}: ran the {design} design")
     return out, design
 
 
@@ -1071,8 +1147,8 @@ def _pipelined_slice_records(torch, x, xops, xref, counts):
         kw = dict(axis=2, m=1, codec=codec)
         enc = lambda kw=kw: xops.pack_chunks(piece, **kw)
         enc_plain = lambda kw=kw: xref.pack_chunks_ref(piece, **kw)
-        ((q, s, _), design), (qr, sr, _) = (_k1_vec(xops, enc, f"{codec} pipelined slice"),
-                                            enc_plain())
+        (q, s, _), design = _vec(xops.design_launches, enc, f"K1 {codec} pipelined slice")
+        qr, sr, _ = enc_plain()
         err = _check_codec(torch, f"pack_chunks {codec} pipelined slice", q, qr, codec)
         if codec == "int8" and not torch.equal(s, sr):
             fail("pack_chunks int8 at the pipelined slice: scales differ from the plain version")
@@ -1086,13 +1162,16 @@ def _pipelined_slice_records(torch, x, xops, xref, counts):
         dkw = dict(v=2, w=1, m=1, scale=sr, codec=codec, iscomplex=True)
         dec = lambda dkw=dkw: xops.unpack_chunks(qr, **dkw)
         dec_plain = lambda dkw=dkw: xref.unpack_chunks_ref(qr, **dkw)
-        err = _check_codec(torch, f"unpack_chunks {codec} pipelined slice", dec(), dec_plain(),
+        got, design = _vec(xops.decode_design_launches, dec, f"K3 {codec} pipelined slice")
+        err = _check_codec(torch, f"unpack_chunks {codec} pipelined slice", got, dec_plain(),
                            "bf16")
+        del got
         recs.append(_record(f"exchange_decode[scatter_w,{codec},pipelined_slice]",
                             "exchange.cu", "src/repro/kernels/exchange/kernel.py:173", "engines",
                             counts.get(f"unpack_chunks:{codec}", 0), err, cuda_ms(torch, dec),
                             cuda_ms(torch, dec_plain), bound_ms(elems * 2 * wire + elems * 8, 0),
-                            cuda_ms(torch, lambda: qr.float()) if codec == "bf16" else None))
+                            cuda_ms(torch, lambda: qr.float()) if codec == "bf16" else None,
+                            design=design))
         del qr, sr
     return recs
 
@@ -1110,7 +1189,8 @@ def _guard_mode_records(torch, x, xops, xref, counts):
     for codec, wire, sd in (("bf16", 2, None), ("int8", 1, None), ("int8", 1, 64.0)):
         kw = dict(axis=2, m=1, codec=codec, guard=True, scale_div=sd)
         ((q, s, st), design), (qr, sr, _) = (
-            _k1_vec(xops, lambda kw=kw: xops.pack_chunks(xg, **kw), f"guard {codec} {sd}"),
+            _vec(xops.design_launches, lambda kw=kw: xops.pack_chunks(xg, **kw),
+                 f"K1 guard {codec} {sd}"),
             xref.pack_chunks_ref(xg, **kw))
         torch.cuda.synchronize()
         if codec == "int8":
@@ -1152,16 +1232,19 @@ def _in_place_decode_records(torch, x, xops, xref, paths):
     for codec, wire in (("bf16", 2), ("int8", 1)):
         qr, sr, _ = xref.encode_payload_ref(x, axis=2, m=1, codec=codec)
         dkw = dict(axis=1, m=1, scale=sr, codec=codec, iscomplex=True)
-        err = _check_codec(torch, f"decode_payload {codec} {SHAPE_BIG}",
-                           xops.decode_payload(qr, **dkw), xref.decode_payload_ref(qr, **dkw),
-                           "bf16")
+        got, design = _vec(xops.decode_design_launches, lambda: xops.decode_payload(qr, **dkw),
+                           f"K2 {codec} {SHAPE_BIG}")
+        err = _check_codec(torch, f"decode_payload {codec} {SHAPE_BIG}", got,
+                           xref.decode_payload_ref(qr, **dkw), "bf16")
+        del got
         recs.append(_record(f"exchange_decode[in_place,{codec}]", "exchange.cu",
                             "src/repro/kernels/exchange/kernel.py:144", None,
                             _launched(paths, f"decode_payload:{codec}"), err,
                             cuda_ms(torch, lambda: xops.decode_payload(qr, **dkw)),
                             cuda_ms(torch, lambda: xref.decode_payload_ref(qr, **dkw)),
                             bound_ms(elems * 2 * wire + elems * 8, 0),
-                            cuda_ms(torch, lambda: qr.float()) if codec == "bf16" else None))
+                            cuda_ms(torch, lambda: qr.float()) if codec == "bf16" else None,
+                            design=design))
         del qr, sr
     return recs
 

@@ -3,11 +3,11 @@
 Both entry points take the block as its ``(F, O, M, S, P)`` float view and
 the payload in one of two layouts (``IN_PLACE``: ``(P, F, O, M, S)``;
 ``CHUNK_MAJOR``: ``(M, P, F, O, S)``).  The library is built and loaded at
-the first launch, never at import.  ``encode`` picks its design with
-:func:`.ref.encode_design` (``"vec"`` or ``"scalar"``), passes it to
-``exchange_encode`` as its ``design`` argument (the C side refuses ``"vec"``
-where the rule fails) and returns it; with ``guard=True`` it also returns the
-per-(field, chunk) ``(nonfinite, saturated)`` counts, laid out like the
+the first launch, never at import.  ``encode`` and ``decode`` pick their
+design with :func:`.ref.tile_design` (``"vec"`` or ``"scalar"``), pass it
+to the kernel as its ``design`` argument (the C side refuses ``"vec"`` where
+the rule fails) and return it; with ``guard=True`` ``encode`` also returns
+the per-(field, chunk) ``(nonfinite, saturated)`` counts, laid out like the
 scales with a trailing pair.
 """
 
@@ -18,7 +18,7 @@ import ctypes
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels.exchange.ref import encode_design
+from repro_torch.kernels.exchange.ref import tile_design
 
 IN_PLACE, CHUNK_MAJOR = 0, 1
 _CODECS = {"bf16": 0, "int8": 1}
@@ -36,7 +36,7 @@ def _lib() -> ctypes.CDLL:
     lib.exchange_encode.argtypes = [_c, _c, _c, _c, _c, _i, _i, _ll, _ll, _ll, _ll, _i, _f, _i,
                                     _c]
     lib.exchange_encode.restype = _i
-    lib.exchange_decode.argtypes = [_c, _c, _c, _i, _i, _ll, _ll, _ll, _ll, _i, _c]
+    lib.exchange_decode.argtypes = [_c, _c, _c, _i, _i, _ll, _ll, _ll, _ll, _i, _i, _c]
     lib.exchange_decode.restype = _i
     return lib
 
@@ -72,7 +72,7 @@ def encode(block: torch.Tensor, F: int, O: int, M: int, S: int, *, codec: str, l
         amax = torch.zeros(F * M, dtype=torch.int32, device=dev)
     if guard:
         counts = torch.zeros((*blocks, 2), dtype=torch.int64, device=dev)
-    design = encode_design(F, O, M, S, P, layout, x.data_ptr(), q.data_ptr())
+    design = tile_design(F, O, M, S, P, layout, x.data_ptr(), q.data_ptr())
     rc = _lib().exchange_encode(
         x.data_ptr(), q.data_ptr(), 0 if scales is None else scales.data_ptr(),
         0 if amax is None else amax.data_ptr(), 0 if counts is None else counts.data_ptr(),
@@ -84,10 +84,10 @@ def encode(block: torch.Tensor, F: int, O: int, M: int, S: int, *, codec: str, l
 
 
 def decode(payload: torch.Tensor, scales: torch.Tensor | None, out: torch.Tensor,
-           F: int, O: int, M: int, S: int, *, codec: str, layout: int) -> torch.Tensor:
+           F: int, O: int, M: int, S: int, *, codec: str, layout: int):
     """Decode ``payload`` (``layout``) into the preallocated block ``out``
     (viewed ``(F, O, M, S)``), chunk ``m`` of field ``f`` with its sender's
-    scale for int8.  Returns ``out``."""
+    scale for int8.  Returns ``(out, design)``."""
     y = _floats(out)
     P = 2 if out.is_complex() else 1
     if payload.dtype != _WIRE[codec] or not payload.is_cuda or not payload.is_contiguous():
@@ -98,9 +98,11 @@ def decode(payload: torch.Tensor, scales: torch.Tensor | None, out: torch.Tensor
         if scales is None or scales.numel() != F * M or not scales.is_contiguous():
             raise ValueError("int8 decode needs F * M contiguous scales")
         scales = scales.to(torch.float32)
+    design = tile_design(F, O, M, S, P, layout, y.data_ptr(), payload.data_ptr())
     rc = _lib().exchange_decode(
         payload.data_ptr(), 0 if scales is None else scales.data_ptr(), y.data_ptr(),
-        _CODECS[codec], layout, F, O, M, S, P, torch.cuda.current_stream(out.device).cuda_stream)
+        _CODECS[codec], layout, F, O, M, S, P, _DESIGNS[design],
+        torch.cuda.current_stream(out.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"exchange_decode failed with CUDA error {rc}")
-    return out
+        raise RuntimeError(f"exchange_decode ({design} design) failed with CUDA error {rc}")
+    return out, design

@@ -19,8 +19,9 @@ launches the kernel (:mod:`.kernel`).  ``launches`` counts kernel launches
 per wrapper and codec (``"<wrapper>:<codec>"``, with ``":guard"`` appended
 for a guarded encode): an int8 encode is two (max-abs, then quantize).
 ``design_launches`` counts the encode's launches again by the design that
-ran (``"<design>:<codec>"``: ``"vec"``, 16-byte loads, or ``"scalar"``, one
-float a step; :func:`.ref.encode_design` is the rule).
+ran (``"<design>:<codec>"``: ``"vec"``, 16-byte block accesses, or
+``"scalar"``, one float a step; :func:`.ref.tile_design` is the rule), and
+``decode_design_launches`` the decode's the same way.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ from repro_torch.kernels.exchange import ref
 launches: Counter = Counter()
 #: the encode's launches per design and codec ("vec:bf16", "scalar:int8", ...)
 design_launches: Counter = Counter()
+#: the decode's launches per design and codec, keyed as ``design_launches``
+decode_design_launches: Counter = Counter()
 #: kernels one encode launches per codec: int8 runs a max-abs pass, then the quantize pass
 ENCODE_KERNELS = {"bf16": 1, "int8": 2}
 
@@ -109,9 +112,10 @@ def decode_payload(p: torch.Tensor, *, axis: int, m: int, nbatch: int = 0, scale
 
     s = tuple(p.shape[1:])
     out = torch.empty(s, dtype=_block_dtype(iscomplex), device=p.device)
-    kernel.decode(p.contiguous(), scale, out, *_chunk_view(s, axis, m, nbatch),
-                  codec=codec, layout=kernel.IN_PLACE)
+    _, design = kernel.decode(p.contiguous(), scale, out, *_chunk_view(s, axis, m, nbatch),
+                              codec=codec, layout=kernel.IN_PLACE)
     launches[f"decode_payload:{codec}"] += 1
+    decode_design_launches[f"{design}:{codec}"] += 1
     return out
 
 
@@ -149,7 +153,8 @@ def unpack_chunks(p: torch.Tensor, *, v: int, w: int, m: int, nbatch: int = 0, s
     final = list(s)
     final[bw] *= m
     out = torch.empty(final, dtype=_block_dtype(iscomplex), device=p.device)
-    kernel.decode(p.contiguous(), scale, out, F, O, m, S, codec=codec,
-                  layout=kernel.CHUNK_MAJOR)
+    _, design = kernel.decode(p.contiguous(), scale, out, F, O, m, S, codec=codec,
+                              layout=kernel.CHUNK_MAJOR)
     launches[f"unpack_chunks:{codec}"] += 1
+    decode_design_launches[f"{design}:{codec}"] += 1
     return out

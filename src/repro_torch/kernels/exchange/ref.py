@@ -112,30 +112,33 @@ def unpack_chunks_ref(p, *, v, w, m, nbatch=0, scale, codec, iscomplex):
 
 
 # ---------------------------------------------------------------------------
-# K1's order of work (csrc/exchange.cu, enc_amax_kernel and enc_kernel)
+# the kernels' order of work (csrc/exchange.cu: enc_amax_kernel, enc_kernel
+# and decode_kernel share one tile map)
 # ---------------------------------------------------------------------------
 
-#: the encode kernel's threads per block and floats per tile (kThreads, kEncTile)
+#: the codec kernels' threads per block and floats per tile (kThreads, kTile)
 THREADS, TILE = 256, 8192
 
 
-def encode_design(F, O, M, S, P, layout, x_ptr: int, q_ptr: int) -> str:  # noqa: ARG001
-    """The encode's design for the ``(F, O, M, S, P)`` view in ``layout``
-    with the block at address ``x_ptr`` and the payload at ``q_ptr``:
-    ``"vec"`` (4 complex or 4 reals a step, 16-byte loads) where ``S % 4 ==
-    0`` (no vector straddles a run; every run and wire-plane start is
-    aligned), the block is 16-byte and the payload 8-byte aligned, else
-    ``"scalar"``.  ``exchange_encode`` refuses ``"vec"`` where this fails."""
-    return "vec" if S % 4 == 0 and x_ptr % 16 == 0 and q_ptr % 8 == 0 else "scalar"
+def tile_design(F, O, M, S, P, layout, block_ptr: int, payload_ptr: int) -> str:  # noqa: ARG001
+    """The codec kernels' design, encode and decode alike, for the ``(F, O,
+    M, S, P)`` view in ``layout`` with the block at address ``block_ptr``
+    and the payload at ``payload_ptr``: ``"vec"`` (4 complex or 4 reals a
+    step, 16-byte block accesses) where ``S % 4 == 0`` (no vector straddles
+    a run; every run and wire-plane start is aligned), the block is 16-byte
+    and the payload 8-byte aligned, else ``"scalar"``.  ``exchange_encode``
+    and ``exchange_decode`` refuse ``"vec"`` where this fails."""
+    return "vec" if S % 4 == 0 and block_ptr % 16 == 0 and payload_ptr % 8 == 0 else "scalar"
 
 
-def encode_tile_map(F, O, M, S, P, layout, design):
-    """Where each float the encode moves comes from and goes, in the
-    kernel's order of work (scale block, tile, step, thread, float of the
-    vector), computed with the kernel's own offset formulas (``enc_tile``,
-    ``enc_locate``).  Returns ``(fm, src, dst)``: the scale block ``f * M +
-    m``, the block-side float index and the flat payload index, one entry
-    per float moved."""
+def tile_map(F, O, M, S, P, layout, design):
+    """Which block float and which payload element each step of the codec
+    kernels pairs, in their order of work (scale block, tile, step, thread,
+    float of the vector), computed with the kernels' own offset formulas
+    (``tile_of``, ``locate``).  The encode reads the block float and writes
+    the payload element; the decode reads the element and writes the float.
+    Returns ``(fm, src, dst)``: the scale block ``f * M + m``, the block-side
+    float index and the flat payload index, one entry per float moved."""
     V = 4 * P if design == "vec" else 1
     L, n = S * P, O * S * P
     tiles = -(-n // TILE)
@@ -174,14 +177,14 @@ def encode_tile_map(F, O, M, S, P, layout, design):
 
 def encode_tiles_ref(x: torch.Tensor, F, O, M, S, P, *, codec, layout, design,
                      guard=False, scale_div=None):
-    """The encode as the kernel orders it (:func:`encode_tile_map`): the
+    """The encode as the kernel orders it (:func:`tile_map`): the
     flat float block ``x`` (``F * O * M * S * P`` floats) in, ``(payload,
     scales, counts, reads, writes)`` out, with the payload flat in
     ``layout``, the int8 scales and the guard counts laid out as the
     kernel's (``(F, M)`` in place, ``(M, F)`` chunk-major, counts with a
     trailing ``(nonfinite, saturated)`` pair), and how many times the map
     read each block float and wrote each payload element."""
-    fm, src, dst = encode_tile_map(F, O, M, S, P, layout, design)
+    fm, src, dst = tile_map(F, O, M, S, P, layout, design)
     N = F * O * M * S * P
     reads = torch.bincount(src, minlength=N)
     writes = torch.bincount(dst, minlength=N)
@@ -216,3 +219,28 @@ def encode_tiles_ref(x: torch.Tensor, F, O, M, S, P, *, codec, layout, design,
         if counts is not None:
             counts = counts.view(F, M, 2)
     return q, scales, counts, reads, writes
+
+
+def decode_tiles_ref(payload: torch.Tensor, scales, F, O, M, S, P, *, codec, layout, design):
+    """The decode as the kernel orders it (:func:`tile_map`, the encode's
+    map read backwards): the flat payload (bf16 or int8, ``layout``) and for
+    int8 its scales (``(F, M)`` in place, ``(M, F)`` chunk-major) in,
+    ``(block, reads, writes)`` out: the flat float block and how many times
+    the map read each payload element and wrote each block float.  bf16
+    widens as the kernel does, the bits shifted up 16; int8 is one multiply
+    by the scale of the element's ``(f, m)``.  (The kernel's P = 2 vec
+    design hands each 16-byte piece of a warp step's 32 vectors to another
+    lane of the warp to store; which float each element lands in is the
+    map's.)"""
+    fm, src, dst = tile_map(F, O, M, S, P, layout, design)
+    N = F * O * M * S * P
+    q = payload.reshape(-1)[dst]
+    if codec == "bf16":
+        a = (q.view(torch.int16).to(torch.int32) << 16).view(torch.float32)
+    else:
+        f, m = fm // M, fm % M
+        sidx = m * F + f if layout == 1 else f * M + m
+        a = q.to(torch.float32) * scales.reshape(-1)[sidx]
+    block = torch.empty(N, dtype=torch.float32)
+    block[src] = a
+    return block, torch.bincount(dst, minlength=N), torch.bincount(src, minlength=N)

@@ -1,20 +1,28 @@
-"""K1's order of work on the CPU (no kernel here).
+"""The codec kernels' order of work on the CPU (no kernel here): K1's
+encode and K2/K3's decode.
 
-The encode (``csrc/exchange.cu``, ``enc_amax_kernel`` and ``enc_kernel``)
-runs one block per (scale block, tile of 8192 floats) and moves 4 complex
-or 4 reals a step (the ``"vec"`` design) or one float (``"scalar"``), with
-offsets from the kernel's own formulas.  ``ref.encode_tile_map`` and
-``ref.encode_tiles_ref`` emulate that map with index tensors.  Here: (a)
-the emulation reads every block float once and writes every payload
-element once; (b) its payload, scales and guard counts equal the plain
-versions' (``encode_payload_ref`` / ``pack_chunks_ref``) exactly: bf16 and
-int8 payloads bit for bit, int8 scales equal, counts equal (the same
-arithmetic in another order of work); (c) it matches the reference's
-``encode_pallas_call`` in interpret mode (bf16 bitwise; int8 payloads within
-one quantum and scales within 1 ULP, as ``tests/test_torch_exchange_kernels.py``
-holds XLA's division); (d) ``ref.encode_design`` gives ``"vec"`` on every
-view of the port's paths and ``"scalar"`` off its conditions; (e) the
-tile and thread constants are the kernel's.
+Both directions (``csrc/exchange.cu``: ``enc_amax_kernel`` and
+``enc_kernel``; ``decode_kernel``) run one block per (scale block, tile of
+8192 floats) and move 4 complex or 4 reals a step (the ``"vec"`` design) or
+one float (``"scalar"``), with offsets from one map, the kernels' own
+formulas; the decode reads the encode's map backwards.  ``ref.tile_map``,
+``ref.encode_tiles_ref`` and ``ref.decode_tiles_ref`` emulate that map
+with index tensors.  Here: (a) the encode's emulation reads every block
+float once and writes every payload element once, and the decode's reads
+every payload element once and writes every block float once; (b) the
+encode's payload, scales and guard counts equal the plain versions'
+(``encode_payload_ref`` / ``pack_chunks_ref``) exactly: bf16 and int8
+payloads bit for bit, int8 scales equal, counts equal (the same arithmetic
+in another order of work), and the decode's block equals
+``decode_payload_ref`` / ``unpack_chunks_ref`` bit for bit (the kernel's
+bf16 widening is a 16-bit shift, its int8 decode one multiply, as the
+plain codec's); (c) both match the reference's Pallas kernels in interpret
+mode (encode: bf16 bitwise, int8 payloads within one quantum and scales
+within 1 ULP, as ``tests/test_torch_exchange_kernels.py`` holds XLA's
+division; decode: bf16 bitwise, int8 within 1 ULP); (d) ``ref.tile_design``
+gives ``"vec"`` on every view of the port's paths, encode and decode, and
+``"scalar"`` off its conditions; (e) the tile and thread constants and the
+one map are the kernels'.
 """
 
 import re
@@ -24,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.exchange import ops, ref
+from repro_torch.kernels.exchange import kernel, ops, ref
 
 CU = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc" / "exchange.cu"
 
@@ -76,7 +84,7 @@ def _bits(q):
 
 
 def _design(view, design):
-    return ref.encode_design(*view, 1, 0, 0) if design == "rule" else design
+    return ref.tile_design(*view, 1, 0, 0) if design == "rule" else design
 
 
 @pytest.mark.parametrize("design", ["rule", "scalar"])
@@ -127,22 +135,115 @@ def test_tile_order_matches_reference_kernel(name, shape, axis, m, nbatch, iscom
             np.testing.assert_array_max_ulp(s.numpy(), np.asarray(js), maxulp=1)
 
 
+def _payload(n, codec, seed):
+    """A flat received payload: bf16 of normal values with a NaN and both
+    infinities, or int8 over the whole of [-127, 127]."""
+    rng = np.random.default_rng(seed)
+    if codec == "int8":
+        return torch.from_numpy(rng.integers(-127, 128, n).astype(np.int8))
+    q = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(torch.bfloat16)
+    q[[1, n // 2, n - 1]] = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                                         dtype=torch.bfloat16)
+    return q
+
+
+def _scales(F, M, layout, seed):
+    rng = np.random.default_rng(seed)
+    s = torch.from_numpy(rng.uniform(1e-3, 2.0, F * M).astype(np.float32))
+    return s.view(M, F) if layout == 1 else s.view(F, M)
+
+
+def _decode_plain(plain, q, sc, shape, axis, m, nbatch, iscomplex, codec, layout):
+    """The plain decode of flat payload ``q`` into the block ``shape``, whose
+    ``axis`` holds the ``m`` chunks (the in-place payload's chunked axis, or
+    the chunk-major payload's scatter axis w, with v another axis)."""
+    P = 2 if iscomplex else 1
+    if layout == 0:
+        return plain[0](q.reshape(P, *shape), axis=axis, m=m, nbatch=nbatch, scale=sc,
+                        codec=codec, iscomplex=iscomplex)
+    s = list(shape)
+    s[axis] //= m
+    w = axis - nbatch
+    return plain[1](q.reshape(m, P, *s), v=0 if w else 1, w=w, m=m, nbatch=nbatch, scale=sc,
+                    codec=codec, iscomplex=iscomplex)
+
+
+@pytest.mark.parametrize("design", ["rule", "scalar"])
+@pytest.mark.parametrize("layout", [0, 1])
+@pytest.mark.parametrize("codec", ["bf16", "int8"])
+@pytest.mark.parametrize("name,shape,axis,m,nbatch,iscomplex", VIEWS, ids=[v[0] for v in VIEWS])
+def test_decode_tile_order_matches_plain(name, shape, axis, m, nbatch, iscomplex, codec, layout,
+                                         design):
+    P = 2 if iscomplex else 1
+    view = (*ops._chunk_view(shape, axis, m, nbatch), P)
+    F, O, M, S, _ = view
+    q = _payload(F * O * M * S * P, codec, len(name))
+    sc = _scales(F, M, layout, len(name)) if codec == "int8" else None
+    y, reads, writes = ref.decode_tiles_ref(q, sc, *view, codec=codec, layout=layout,
+                                            design=_design(view, design))
+    assert torch.all(reads == 1) and torch.all(writes == 1)
+    want = _decode_plain((ref.decode_payload_ref, ref.unpack_chunks_ref), q, sc, shape, axis, m,
+                         nbatch, iscomplex, codec, layout)
+    assert torch.equal(y.view(torch.int32), _floats(want).view(torch.int32))
+
+
+@pytest.mark.parametrize("codec", ["bf16", "int8"])
+@pytest.mark.parametrize("name,shape,axis,m,nbatch,iscomplex",
+                         [v for v in VIEWS if v[0] in ("odd_S", "F3_M2", "real_M4", "ragged")],
+                         ids=["odd_S", "F3_M2", "real_M4", "ragged"])
+def test_decode_tile_order_matches_reference_kernel(name, shape, axis, m, nbatch, iscomplex,
+                                                    codec):
+    import jax.numpy as jnp
+
+    from repro.kernels import exchange as jx
+
+    P = 2 if iscomplex else 1
+    view = (*ops._chunk_view(shape, axis, m, nbatch), P)
+    F, O, M, S, _ = view
+    q = _payload(F * O * M * S * P, codec, len(name) + 1)
+    for layout in (0, 1):
+        sc = _scales(F, M, layout, layout) if codec == "int8" else None
+        y, _, _ = ref.decode_tiles_ref(q, sc, *view, codec=codec, layout=layout,
+                                       design=_design(view, "rule"))
+        jq = jnp.asarray(q.view(torch.int16).numpy().view(jnp.bfloat16) if codec == "bf16"
+                         else q.numpy())
+        jsc = None if sc is None else jnp.asarray(sc.numpy())
+        want = _decode_plain(
+            (lambda *a, **k: jx.decode_payload(*a, interpret=True, **k),
+             lambda *a, **k: jx.unpack_chunks(*a, interpret=True, **k)),
+            jq, jsc, shape, axis, m, nbatch, iscomplex, codec, layout)
+        want = np.asarray(want)
+        want = np.stack([want.real, want.imag], -1) if iscomplex else want
+        want = want.astype(np.float32).reshape(-1)
+        if codec == "bf16":
+            np.testing.assert_array_equal(y.numpy().view(np.uint32), want.view(np.uint32))
+        else:
+            np.testing.assert_array_max_ulp(y.numpy(), want, maxulp=1)
+
+
 def test_design_rule():
     for shape, axis in PATH_VIEWS:
         view = (*ops._chunk_view(shape, axis, 1, 0), 2)
         for layout in (0, 1):
-            assert ref.encode_design(*view, layout, 1 << 21, 1 << 22) == "vec", (shape, axis)
+            assert ref.tile_design(*view, layout, 1 << 21, 1 << 22) == "vec", (shape, axis)
+    # the decodes of the path exchanges: the same view cut at the scatter
+    # axis w, any axis of the path shapes
+    for shape in {shape for shape, _ in PATH_VIEWS}:
+        for w in range(len(shape)):
+            view = (*ops._chunk_view(shape, w, 1, 0), 2)
+            for layout in (0, 1):
+                assert ref.tile_design(*view, layout, 1 << 21, 1 << 22) == "vec", (shape, w)
     view = (1, 8, 1, 512, 2)
-    assert ref.encode_design(*view, 1, 8, 0) == "scalar"   # block 8-byte aligned only
-    assert ref.encode_design(*view, 1, 16, 4) == "scalar"  # payload 4-byte aligned only
+    assert ref.tile_design(*view, 1, 8, 0) == "scalar"   # block 8-byte aligned only
+    assert ref.tile_design(*view, 1, 16, 4) == "scalar"  # payload 4-byte aligned only
     for S in (1, 2, 35, 510):
-        assert ref.encode_design(1, 8, 1, S, 2, 1, 0, 0) == "scalar"
+        assert ref.tile_design(1, 8, 1, S, 2, 1, 0, 0) == "scalar"
 
 
 def test_the_map_reads_in_vectors():
     """A vec step reads 4 P consecutive, aligned floats of one run."""
     F, O, M, S, P = 2, 24, 4, 360, 2
-    _, src, _ = ref.encode_tile_map(F, O, M, S, P, 1, "vec")
+    _, src, _ = ref.tile_map(F, O, M, S, P, 1, "vec")
     v = src.view(-1, 4 * P)
     assert torch.all(v[:, 0] % (4 * P) == 0)
     assert torch.all(v - v[:, :1] == torch.arange(4 * P))
@@ -152,4 +253,13 @@ def test_the_map_reads_in_vectors():
 def test_constants_are_the_kernels():
     src = CU.read_text()
     assert re.search(rf"constexpr int kThreads = {ref.THREADS};", src)
-    assert re.search(rf"constexpr int kEncTile = {ref.TILE};", src)
+    assert re.search(rf"constexpr int kTile = {ref.TILE};", src)
+    assert re.search(rf"constexpr int kVecDesign = {kernel._DESIGNS['vec']};", src)
+    # one map: every kernel places its tile with tile_of and its vectors
+    # with locate, and the decode keeps no index map of its own
+    for name in ("enc_amax_kernel", "enc_kernel", "decode_kernel"):
+        body = src[src.index(f"    {name}("):]
+        body = body[:body.index("\n}\n")]
+        assert "tile_of<P, kContig>(" in body and "locate<P, kContig>(" in body, name
+    for gone in ("wire_index", "run_of", "struct View", "make_view"):
+        assert gone not in src, gone

@@ -5,7 +5,8 @@ Marked ``gpu``: each test skips where ``torch.cuda.is_available()`` is false
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 
 Tolerances: bf16 payloads and decodes are bitwise; int8 scales are equal and
-payloads within one quantum; the four-step DFT is f32 FMA (general
+payloads within one quantum; a decode of one payload is bitwise in both
+codecs and both designs; the four-step DFT is f32 FMA (general
 design) or 3xTF32 tensor-core arithmetic (n1, n2 multiples of 8, at most
 64) in another order than the plain matmuls, held to 1e-5 of the output's
 max.
@@ -28,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.exchange import ops as xops, ref as xref
+from repro_torch.kernels.exchange import kernel as xkernel, ops as xops, ref as xref
 from repro_torch.kernels.fft import ops as fops, ref as fref
 from repro_torch.kernels.flash import ops as flops, ref as flref
 from repro_torch.kernels.transpose import ops as tops
@@ -158,20 +159,26 @@ K1_SHAPES = [((40, 33, 20), 1, 0, 1, 0), ((24, 40, 36), 1, 0, 4, 0),
 def _k1_last_tile(y, m, v, nbatch):
     """Put the block's max |x| in the last tile of the last scale block
     where a scale block spans several tiles; returns the design the wrapper
-    should pick (``xref.encode_design`` on a fresh, aligned block)."""
+    should pick (``xref.tile_design`` on a fresh, aligned block)."""
     P = 2 if y.is_complex() else 1
     F, O, M, S = xops._chunk_view(y.shape, v + nbatch, m, nbatch)
     if O * S * P > xref.TILE:
         flat = y.view(-1)
         flat[-2] = 50.0
-    return xref.encode_design(F, O, M, S, P, 1, 0, 0)
+    return xref.tile_design(F, O, M, S, P, 1, 0, 0)
 
 
-def _k1_designs(fn):
-    """``(fn(), designs)``: the encode designs that one call of ``fn`` ran."""
-    before = Counter(xops.design_launches)
+def _k1_designs(fn, counter=None):
+    """``(fn(), designs)``: the encode designs that one call of ``fn`` ran
+    (the decode's with ``counter=xops.decode_design_launches``)."""
+    counter = xops.design_launches if counter is None else counter
+    before = Counter(counter)
     out = fn()
-    return out, {d.split(":")[0] for d in xops.design_launches - before}
+    return out, {d.split(":")[0] for d in counter - before}
+
+
+def _k3_designs(fn):
+    return _k1_designs(fn, xops.decode_design_launches)
 
 
 def _assert_codec(got, want, codec, quantum):
@@ -205,8 +212,11 @@ def test_exchange_kernels_match_plain(cuda, codec, iscomplex, shape, v, w, m, nb
     _assert_codec(q.float(), qr.float(), codec, 1.0)
     if codec == "int8":
         assert torch.equal(s, sr)
-    out = xops.unpack_chunks(qr, v=v, w=w, m=m, nbatch=nbatch, scale=sr, codec=codec,
-                             iscomplex=iscomplex)
+    out, ran = _k3_designs(lambda: xops.unpack_chunks(qr, v=v, w=w, m=m, nbatch=nbatch,
+                                                      scale=sr, codec=codec, iscomplex=iscomplex))
+    P = 2 if iscomplex else 1
+    assert ran == {xref.tile_design(*xops._chunk_view(out.shape, w + nbatch, m, nbatch), P, 1, 0,
+                                    0)}
     want = xref.unpack_chunks_ref(qr, v=v, w=w, m=m, nbatch=nbatch, scale=sr, codec=codec,
                                   iscomplex=iscomplex)
     _assert_codec(out, want, "bf16", quantum)  # same payload: decode is exact
@@ -218,8 +228,9 @@ def test_exchange_kernels_match_plain(cuda, codec, iscomplex, shape, v, w, m, nb
     _assert_codec(q.float(), qr.float(), codec, 1.0)
     if codec == "int8":
         assert torch.equal(s, sr)
-    out = xops.decode_payload(qr, axis=bv, m=m, nbatch=nbatch, scale=sr, codec=codec,
-                              iscomplex=iscomplex)
+    out, ran = _k3_designs(lambda: xops.decode_payload(qr, axis=bv, m=m, nbatch=nbatch, scale=sr,
+                                                       codec=codec, iscomplex=iscomplex))
+    assert ran == {design}
     want = xref.decode_payload_ref(qr, axis=bv, m=m, nbatch=nbatch, scale=sr, codec=codec,
                                    iscomplex=iscomplex)
     _assert_codec(out, want, "bf16", quantum)
@@ -284,6 +295,47 @@ def test_exchange_encode_unaligned_block_runs_scalar(cuda, codec, dtype):
         _assert_codec(q.float(), qr.float(), codec, 1.0)
         if codec == "int8":
             assert torch.equal(s, sr)
+
+
+@pytest.mark.parametrize("layout", [0, 1])
+@pytest.mark.parametrize("codec", ["bf16", "int8"])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float32])
+def test_exchange_decode_unaligned_block_runs_scalar(cuda, codec, dtype, layout):
+    """A decode into a block at a storage offset off 16-byte alignment runs
+    the scalar design, and its block is the plain version's, bit for bit."""
+    shape, axis, m = (8, 6, 16), 1, 2
+    y = _rand(shape, dtype == torch.complex64, 13, cuda)
+    if layout == 0:
+        q, s, _ = xref.encode_payload_ref(y, axis=axis, m=m, codec=codec)
+        want = xref.decode_payload_ref(q, axis=axis, m=m, scale=s, codec=codec,
+                                       iscomplex=y.is_complex())
+    else:
+        q, s, _ = xref.pack_chunks_ref(y, axis=2, m=m, codec=codec)
+        want = xref.unpack_chunks_ref(q, v=2, w=axis, m=m, scale=s, codec=codec,
+                                      iscomplex=y.is_complex())
+    base = torch.empty(want.numel() + 1, dtype=dtype, device=cuda)
+    out = base[1:].view(want.shape)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    got, design = xkernel.decode(q.contiguous(), s, out, *xops._chunk_view(want.shape, axis, m, 0),
+                                 codec=codec, layout=layout)
+    torch.cuda.synchronize()
+    assert design == "scalar" and got is out
+    assert torch.equal(torch.view_as_real(got) if got.is_complex() else got,
+                       torch.view_as_real(want) if want.is_complex() else want)
+
+
+@pytest.mark.parametrize("codec", ["bf16", "int8"])
+def test_exchange_decode_refuses_vec_off_its_rule(cuda, codec, monkeypatch):
+    """``design=vec`` where S % 4 != 0: ``exchange_decode`` returns an error
+    and the wrapper raises it (no fallback to another design)."""
+    y = _rand((6, 5, 7), True, 17, cuda)
+    q, s, _ = xref.encode_payload_ref(y, axis=1, m=1, codec=codec)
+    F, O, M, S = xops._chunk_view(y.shape, 1, 1, 0)
+    assert S % 4 != 0
+    monkeypatch.setattr(xkernel, "tile_design", lambda *a: "vec")
+    with pytest.raises(RuntimeError, match=r"exchange_decode \(vec design\) failed"):
+        xkernel.decode(q.contiguous(), s, torch.empty_like(y), F, O, M, S, codec=codec,
+                       layout=xkernel.IN_PLACE)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
