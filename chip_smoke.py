@@ -7,7 +7,10 @@ Phases, in one process (any failed check raises and the script exits
 non-zero):
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-   source, started together) and print the card's name and power limit;
+   source, started together), print the SASS census of K4's general design
+   (``fourstep_kernel``: instructions, loops, shared loads, FFMAs, called
+   subroutines; one ``{"sass_census"}`` line) and the card's name and power
+   limit;
 2. every kernel mode against its plain torch version on seeded inputs, with
    CUDA-event times (one ``{"kernel_sweep": [...]}`` line; ``cuda_ms``
    times runs of back-to-back calls): K4 (each record names the design that
@@ -50,7 +53,9 @@ non-zero):
    the serving prefill's, and once at the prefill_32k length): launches
    from their path,
    error against the plain version, kernel / plain / library times and the
-   bound (one ``{"kernels": [...]}`` line), the serving times beside their
+   bound (one ``{"kernels": [...]}`` line; before it, K4's general design at
+   n = 64 by row count against ``torch.fft.fft``, one
+   ``{"k4_general_rows"}`` line), the serving times beside their
    bounds (one ``{"lm_breakdown": ...}`` line), then the result line.
 
 Without a CUDA device, or outside a checkout of the repository, it prints no
@@ -97,6 +102,9 @@ LM_ARGV = ["--arch", "glm4_9b", "--preset", "full", "--opt", "--batch", "4",
 # optimized flags (tests/test_models.py, 6e-2 elementwise there); a wrong
 # mask, RoPE pairing or cache slot gives a rel. L2 of order 1
 TOL_LM = 6e-2
+# K4's general design at the quickstart's last axis by row count: the
+# quickstart's 42 * 63 rows, the sweep's 4096 and eight times that
+K4_GENERAL_CASES = ((64, 2646), (64, 4096), (64, 32768))
 # K6 at the serving prefill's shape and at the prefill_32k length (batch cut)
 K6_SHAPES = (((4, 2048, 32, 2, 128), None), ((1, 32768, 32, 2, 128), "batch 32->1"))
 
@@ -191,6 +199,11 @@ def main():
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    from repro_torch import sass_census
+
+    print(json.dumps({"sass_census": sass_census.select(
+        sass_census.library_sass(_build.library_path("fourstep")), "fourstep_kernel")}))
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
@@ -205,6 +218,7 @@ def main():
     print(json.dumps({"paths": paths}))
 
     kernels = main_path_kernels(torch, paths)
+    print(json.dumps({"k4_general_rows": k4_general_rows(torch)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"lm_breakdown": lm_breakdown(kernels, lm_info)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -261,7 +275,7 @@ def kernel_sweep(torch):
     from repro_torch.kernels.transpose import ops as tops, ref as tref
 
     out = []
-    for n in (42, 63, 64, 256, 512, 1024, 4096):
+    for n in (42, 63, 64, 97, 251, 256, 512, 1024, 4096, 8192):
         n1, n2 = fops.plan_factors(n)
         x = _randn(torch, (4096, n), n)
         xr = x.real.contiguous()
@@ -322,6 +336,29 @@ def kernel_sweep(torch):
                         "plain_ms": cuda_ms(torch, lambda: tref.transpose01_ref(x)),
                         "library_ms": cuda_ms(torch, lambda: x.transpose(0, 1).contiguous())})
     return out + _flash_sweep(torch)
+
+
+def k4_general_rows(torch, cases=K4_GENERAL_CASES):
+    """K4's general design (forward) at each ``(n, rows)`` of ``cases``, held
+    to the plain version: kernel and ``torch.fft.fft`` ``cuda_ms``."""
+    from repro_torch.kernels.fft import ops as fops, ref as fref
+
+    out = []
+    for n, rows in cases:
+        n1, n2 = fops.plan_factors(n)
+        x = _randn(torch, (rows, n), rows + n)
+        kern = lambda: fops.fft_matmul(x)
+        (got, design), want = _ran_design(fops.design_launches, kern, "K4"), \
+            fref.fourstep_ref(x, n1, n2)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if err > TOL_K4 * float(want.abs().max()) or design != "general":
+            fail(f"fourstep fft n={n} rows={rows}: max err {err}, design {design}")
+        out.append({"n": n, "rows": rows, "design": design, "max_abs_err": err,
+                    "ms": cuda_ms(torch, kern),
+                    "library_ms": cuda_ms(torch, lambda: torch.fft.fft(x, dim=-1))})
+        del x, got, want
+    return out
 
 
 def _ran_design(counter, fn, what):
@@ -983,9 +1020,11 @@ def main_path_kernels(torch, paths):
                                design=design, one_call_ms=one_call_ms(torch, kern)))
 
     # the general design on the slice path: the quickstart shape's last axis
-    # (42 * 63 rows of n = 64, one direct DFT), fp32 FMA
+    # (42 * 63 rows of n = 64), fp32 FMA over its own split (8 * 8): bound by
+    # 16 bytes and 8 n (g1 + g2) + 6 n fp32 operations a row
     qn = SHAPE_QS[-1]
     q1, q2 = fops.plan_factors(qn)
+    g1, g2 = fref.general_split(qn)
     qrows = _randn(torch, (SHAPE_QS[0] * SHAPE_QS[1], qn), 3)
     (got, design), want = _ran_design(fops.design_launches, lambda: fops.fft_matmul(qrows),
                                       "K4"), fref.fourstep_ref(qrows, q1, q2)
@@ -999,9 +1038,9 @@ def main_path_kernels(torch, paths):
                            cuda_ms(torch, lambda: fops.fft_matmul(qrows)),
                            cuda_ms(torch, lambda: fref.fourstep_ref(qrows, q1, q2)),
                            bound_ms(2 * qrows.numel() * 8,
-                                    qrows.shape[0] * (8.0 * qn * (q1 + q2) + 6.0 * qn)),
+                                    qrows.shape[0] * (8.0 * qn * (g1 + g2) + 6.0 * qn)),
                            cuda_ms(torch, lambda: torch.fft.fft(qrows, dim=-1)),
-                           design=design, shape=list(qrows.shape),
+                           design=design, shape=list(qrows.shape), split=[g1, g2],
                            one_call_ms=one_call_ms(torch, lambda: fops.fft_matmul(qrows)),
                            library_one_call_ms=one_call_ms(
                                torch, lambda: torch.fft.fft(qrows, dim=-1))))

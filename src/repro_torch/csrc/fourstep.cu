@@ -4,13 +4,13 @@
 // Replaces: the Pallas TPU kernel of fourstep_pallas_call (with
 // fourstep_kernel, _cmatmul and _cmatmul2) in src/repro/kernels/fft/kernel.py.
 //
-// Algorithm: n = n1 * n2 (plan_factors; n <= 256 gives (n, 1), one direct
-// DFT).  Step 1 contracts n1 with the DFT-n1 matrix, step 2 multiplies by
-// the twiddles, step 3 contracts n2 with the DFT-n2 matrix, and step 4 is
-// the output index k = k1 + n1 * k2, so the result lands in natural order.
-// The inverse uses the conjugate roots and divides by n at the end, which
-// is the reference's conj(fft(conj(x))) / n.  Two designs, chosen by shape
-// (the caller's ops.tensor_core_design applies the same rule):
+// Algorithm: n = n1 * n2.  Step 1 contracts n1 with the DFT-n1 matrix, step
+// 2 multiplies by the twiddles, step 3 contracts n2 with the DFT-n2 matrix,
+// and step 4 is the output index k = k1 + n1 * k2, so the result lands in
+// natural order.  The inverse uses the conjugate roots and multiplies by
+// 1/n at the end, which is the reference's conj(fft(conj(x))) / n.  Two
+// designs, chosen by the caller's split (plan_factors; ops.tensor_core_design
+// applies the same rule):
 //
 // Tensor-core design (fourstep_tc_kernel), for n1, n2 multiples of 8 and at
 // most 64 (512 = 32 * 16, 1024, 2048, 4096).  The least time it could take
@@ -50,103 +50,299 @@
 //    multiple of 8).  The twiddles are read through the read-only cache.
 //  - The kernel computes no roots: the tables come from the caller.
 //
-// General design (fourstep_kernel), every other length: fp32 FMA, each
-// thread one output bin over a shared n-entry root table w[t] =
-// exp(-2 pi i t / n) (computed in double) indexed with (k1 i1 mod n1) n2,
-// (i2 k2 mod n2) n1 and k1 i2; a block transforms `rows` whole rows in
-// shared memory; odd and prime lengths loop over exact extents.  It is
-// bound by shared-memory loads: its table reads at a stride of n2 or n1
-// roots put a warp's lanes on one bank (a redesign is queued).
+// General design (fourstep_kernel), every other length, on the FMA cores in
+// fp32, with its own split (general_split: n2 the largest divisor of n at
+// most sqrt(n), so 64 = 8 * 8 and a prime stays one direct DFT; for n > 256
+// that is plan_factors' split), so a length up to 256 costs n (n1 + n2)
+// complex multiply-adds a row, not n^2.  What it is built around:
+//  - Registers: a thread owns one column and accumulates 8 bins in
+//    registers (dft_bins), 16 independent FMA chains, so one data read
+//    serves 8 bins.
+//  - Warp-uniform roots: the lanes of a warp take the rows of one column
+//    (then the next), so they all need the same root at once and its read
+//    is a broadcast: a float4 of two roots from the DFT matrices in shared
+//    memory for n1 <= 32, else the n-th root at an index carried from one
+//    term to the next (no division); the twiddle w[k1 i2] once a bin.
+//  - Conflict-free data: rows innermost in shared memory, (j, r) at
+//    j * (rows | 1) + r, so steps 1 and 3 read and write consecutive words
+//    and the copies in (cp.async, in flight while the roots are computed)
+//    and out (coalesced) stride an odd number of words.
+//  - Parallelism: up to 16 rows a block, fewer while the grid would hold
+//    under two blocks an SM (the quickstart's 2646 rows: 8 rows a block,
+//    331 blocks) or a block would pass 48 KB, and a thread a work item;
+//    a row of up to 9685 (3 * 8n bytes with the roots) fits in a block.
+//  - The n roots of unity are computed once a block in double (sincospi,
+//    n a block), amortised over its rows, and the DFT matrices gathered
+//    from them; no runtime division is left in a loop over terms.
 //
 // Neither design allocates memory or synchronises the device.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
 
-__global__ void fourstep_kernel(const float* __restrict__ x, float2* __restrict__ y,
-                                long long batch, int n, int n1, int n2, int rows,
-                                int inverse, int real_input, int nout) {
-  extern __shared__ float2 smem[];
-  float2* w = smem;             // n roots
-  float2* xs = w + n;           // rows x n input
-  float2* cs = xs + rows * n;   // rows x (n2, n1) after steps 1-2
-  const long long row0 = (long long)blockIdx.x * rows;
-  const int nrows = (int)min((long long)rows, batch - row0);
+constexpr size_t kSmemDefault = 48 * 1024;
+constexpr size_t kSmemMax = 232448;  // 227 KB, the most one block may use
 
+// an asynchronous copy of 8 bytes (or 4) from global to shared memory
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool eight) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  if (eight)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+}
+
+// i / d for 0 <= i < 2^16 and 1 <= d < 2^16: __umulhi(i, ceil(2^32 / d)) is
+// exact there (its error i / 2^32 stays below 1 / d).
+struct FastDiv {
+  uint32_t d, m;
+  __device__ explicit FastDiv(uint32_t d_) : d(d_), m(0xFFFFFFFFu / d_ + 1u) {}
+  __device__ uint32_t operator()(uint32_t i) const { return d == 1 ? i : __umulhi(i, m); }
+};
+
+
+// ---------------------------------------------------------------------------
+// general design
+// ---------------------------------------------------------------------------
+
+constexpr int kBins = 8;          // bins a thread accumulates in registers
+constexpr int kTableMax = 32;     // n1 up to this reads whole root matrices
+constexpr int kLogRowsMax = 4;    // at most 16 rows a block
+constexpr int kGenThreads = 256;
+
+// The general design's split n = n1 * n2: n2 the largest divisor of n at
+// most sqrt(n), so n1 >= n2 and both as near sqrt(n) as n's divisors allow
+// (64 = 8 * 8, 63 = 9 * 7, 42 = 7 * 6; a prime gives (n, 1)).  For n > 256
+// it is plan_factors' split; ref.general_split is its Python twin.
+void general_split(int n, int* n1, int* n2) {
+  int d = 1;
+  while ((long long)(d + 1) * (d + 1) <= n) ++d;
+  while (n % d != 0) --d;
+  *n1 = n / d;
+  *n2 = d;
+}
+
+// the n-th roots w[t] = exp(-+2 pi i t / n), t < n, in float32 from sincospi
+// in double (its argument t * (2 / n): one division a thread)
+__device__ __forceinline__ void roots_of_unity(float2* w, int n, int inverse) {
+  const double step = 2.0 / (double)n;
   for (int t = threadIdx.x; t < n; t += blockDim.x) {
     double s, c;
-    sincospi(2.0 * (double)t / (double)n, &s, &c);
+    sincospi((double)t * step, &s, &c);
     w[t] = make_float2((float)c, inverse ? (float)s : (float)-s);
-  }
-  const int total = nrows * n;
-  if (real_input) {
-    const float* xr = x + row0 * n;
-    for (int i = threadIdx.x; i < total; i += blockDim.x) xs[i] = make_float2(xr[i], 0.0f);
-  } else {
-    const float2* xc = reinterpret_cast<const float2*>(x) + row0 * n;
-    for (int i = threadIdx.x; i < total; i += blockDim.x) xs[i] = xc[i];
-  }
-  __syncthreads();
-
-  // steps 1-2: cs[r][i2 * n1 + k1] = T[k1, i2] * sum_i1 F1[k1, i1] x[r][i1 * n2 + i2]
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int r = idx / n;
-    const int rem = idx - r * n;
-    const int i2 = rem / n1;
-    const int k1 = rem - i2 * n1;
-    const float2* xr = xs + r * n + i2;
-    float ar = 0.0f, ai = 0.0f;
-    int e = 0;  // k1 * i1 mod n1
-    for (int i1 = 0; i1 < n1; ++i1) {
-      const float2 a = xr[i1 * n2];
-      const float2 f = w[e * n2];
-      ar = fmaf(a.x, f.x, ar);
-      ar = fmaf(-a.y, f.y, ar);
-      ai = fmaf(a.x, f.y, ai);
-      ai = fmaf(a.y, f.x, ai);
-      e += k1;
-      if (e >= n1) e -= n1;
-    }
-    const float2 t = w[k1 * i2];
-    cs[r * n + i2 * n1 + k1] = make_float2(ar * t.x - ai * t.y, ar * t.y + ai * t.x);
-  }
-  __syncthreads();
-
-  // steps 3-4: y[r][k1 + n1 * k2] = sum_i2 cs[r][i2 * n1 + k1] F2[i2, k2]
-  const int ototal = nrows * nout;
-  float2* yr = y + row0 * nout;
-  for (int idx = threadIdx.x; idx < ototal; idx += blockDim.x) {
-    const int r = idx / nout;
-    const int k = idx - r * nout;
-    const int k2 = k / n1;
-    const int k1 = k - k2 * n1;
-    const float2* cr = cs + r * n + k1;
-    float br = 0.0f, bi = 0.0f;
-    int e = 0;  // i2 * k2 mod n2
-    for (int i2 = 0; i2 < n2; ++i2) {
-      const float2 c = cr[i2 * n1];
-      const float2 f = w[e * n1];
-      br = fmaf(c.x, f.x, br);
-      br = fmaf(-c.y, f.y, br);
-      bi = fmaf(c.x, f.y, bi);
-      bi = fmaf(c.y, f.x, bi);
-      e += k2;
-      if (e >= n2) e -= n2;
-    }
-    if (inverse) {
-      br = br / (float)n;
-      bi = bi / (float)n;
-    }
-    yr[idx] = make_float2(br, bi);
   }
 }
 
-constexpr int kThreads = 256;
-constexpr size_t kSmemDefault = 48 * 1024;
-constexpr size_t kSmemMax = 232448;  // 227 KB, the most one block may use
+// acc += a * (fr + i fi): four FMAs in a fixed order (ref.fourstep_general_ref
+// repeats it)
+__device__ __forceinline__ void cmac(float2& acc, float2 a, float fr, float fi) {
+  acc.x = fmaf(a.x, fr, acc.x);
+  acc.x = fmaf(-a.y, fi, acc.x);
+  acc.y = fmaf(a.x, fi, acc.y);
+  acc.y = fmaf(a.y, fr, acc.y);
+}
+
+// acc[j] = sum_{i < m} src[i * step] * F[k0 + j][i] for j < kBins, F the
+// DFT-m matrix: with kTable its rows k0.. of the table f[i * ld + k]
+// (roots = f + k0), else the n-th roots w = roots at (k i mod m) * ld
+// (ld = n / m), the index carried from one i to the next.  Every lane of a
+// warp runs the same i and, but where a warp spans two bin blocks, the
+// same k0, so a root read is a broadcast.
+template <bool kTable>
+__device__ __forceinline__ void dft_bins(float2 (&acc)[kBins], const float2* src, int step,
+                                         int m, const float2* roots, int ld, int k0, int n) {
+#pragma unroll
+  for (int j = 0; j < kBins; ++j) acc[j] = make_float2(0.0f, 0.0f);
+  if constexpr (kTable) {
+    const float4* f = reinterpret_cast<const float4*>(roots);
+#pragma unroll 2
+    for (int i = 0; i < m; ++i, src += step, f += ld / 2) {
+      const float2 a = *src;
+#pragma unroll
+      for (int h = 0; h < kBins / 2; ++h) {
+        const float4 w = f[h];
+        cmac(acc[2 * h], a, w.x, w.y);
+        cmac(acc[2 * h + 1], a, w.z, w.w);
+      }
+    }
+  } else {
+    int e[kBins], inc[kBins];
+#pragma unroll
+    for (int j = 0; j < kBins; ++j) {
+      inc[j] = (k0 + j < m ? k0 + j : 0) * ld;  // < n; a bin past m reads w[0]
+      e[j] = 0;
+    }
+#pragma unroll 2
+    for (int i = 0; i < m; ++i, src += step) {
+      const float2 a = *src;
+#pragma unroll
+      for (int j = 0; j < kBins; ++j) {
+        const float2 w = roots[e[j]];
+        cmac(acc[j], a, w.x, w.y);
+        const unsigned s = (unsigned)(e[j] + inc[j]);  // < 2n: one wrap, no division
+        e[j] = (int)min(s, s - (unsigned)n);
+      }
+    }
+  }
+}
+
+// A block transforms 2^log_rows whole rows.  Shared memory holds the roots,
+// then the input xs and step 1's output cs, both (j, r) at j * rs + r with
+// rs = rows | 1: rows innermost, so a warp's lanes (the rows of one column,
+// then the next column) read and write consecutive words in steps 1 and 3,
+// and the odd stride keeps the copies in and out (lanes along j) off one
+// bank.  Step 3 writes the output over xs in the same layout.  The roots:
+// the n-th roots w[t] (n sincospi a block), the twiddles T[k1][i2] =
+// w[k1 i2], and
+//  - kTable (n1 <= kTableMax): the matrices F1[i1][k1] = w[(k1 i1 mod n1)
+//    n2] (n1 x ld1) and F2[i2][k2] = w[(k2 i2 mod n2) n1] (n2 x ld2)
+//    gathered from w, ld = the factor rounded up to kBins, 0 past it;
+//  - else F1 and F2 read from w at an index carried from term to term.
+// Step 1: a thread owns one column (r, i2) and kBins bins k1, and writes
+// cs[(i2 n1 + k1) rs + r] = T[k1][i2] sum_i1 F1[k1][i1] x[r][i1 n2 + i2].
+// Step 3: a thread owns (r, k1) and kBins bins k2, and writes
+// y[r][k1 + n1 k2] = sum_i2 F2[k2][i2] cs[.][k1] (times 1/n for the inverse).
+template <bool kTable>
+__global__ void __launch_bounds__(kGenThreads)
+    fourstep_kernel(const float* __restrict__ x, float2* __restrict__ y, long long batch, int n,
+                    int n1, int n2, int log_rows, int inverse, int real_input, int nout) {
+  extern __shared__ float4 smem_general[];
+  const int rows = 1 << log_rows, rs = rows | 1;
+  const int ld1 = (n1 + kBins - 1) / kBins * kBins, ld2 = (n2 + kBins - 1) / kBins * kBins;
+  float2* f1 = reinterpret_cast<float2*>(smem_general);  // kTable: F1, F2
+  float2* f2 = f1 + (kTable ? n1 * ld1 : 0);
+  float2* w = f2 + (kTable ? n2 * ld2 : 0);
+  float2* xs = w + n;
+  float2* cs = xs + n * rs;
+  const long long row0 = (long long)blockIdx.x * rows;
+  const int nrows = (int)min((long long)rows, batch - row0);
+
+  // the rows into xs, every copy in flight while the roots are computed;
+  // a ragged block's missing rows as zeros (rows * n < 2^16: 16 bytes of
+  // shared memory an element)
+  const FastDiv div_n(n), div_n1(n1), div_n2(n2);
+  for (int i = threadIdx.x; i < rows * n; i += blockDim.x) {
+    const int r = div_n(i), j = i - r * n;
+    float2* dst = xs + j * rs + r;
+    if (r >= nrows) {
+      *dst = make_float2(0.0f, 0.0f);
+    } else if (real_input) {
+      cp_async(&dst->x, x + row0 * n + i, false);
+      dst->y = 0.0f;
+    } else {
+      cp_async(dst, reinterpret_cast<const float2*>(x) + row0 * n + i, true);
+    }
+  }
+  roots_of_unity(w, n, inverse);
+  if constexpr (kTable) {
+    __syncthreads();
+    const FastDiv div_ld1(ld1), div_ld2(ld2);  // operands < 2^16
+    for (int t = threadIdx.x; t < n1 * ld1 + n2 * ld2; t += blockDim.x) {
+      float2 v = make_float2(0.0f, 0.0f);
+      if (t < n1 * ld1) {
+        const int i = div_ld1(t), k = t - i * ld1, e = i * k - div_n1(i * k) * n1;
+        if (k < n1) v = w[e * n2];
+      } else {
+        const int u = t - n1 * ld1, i = div_ld2(u), k = u - i * ld2;
+        const int e = i * k - div_n2(i * k) * n2;
+        if (k < n2) v = w[e * n1];
+      }
+      f1[t] = v;
+    }
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+
+  // steps 1-2; a work item is (bin block, i2, r), r fastest
+  const int nb1 = ld1 / kBins, nb2 = ld2 / kBins;
+  for (int it = threadIdx.x; it < (rows * n2 * nb1); it += blockDim.x) {
+    const int r = it & (rows - 1), col = it >> log_rows;
+    const int kb = div_n2(col), i2 = col - kb * n2, k0 = kb * kBins;
+    float2 acc[kBins];
+    dft_bins<kTable>(acc, xs + i2 * rs + r, n2 * rs, n1, kTable ? f1 + k0 : w,
+                     kTable ? ld1 : n2, k0, n);
+    float2 t[kBins];  // the twiddles, all read before any store
+#pragma unroll
+    for (int j = 0; j < kBins; ++j) t[j] = w[k0 + j < n1 ? (k0 + j) * i2 : 0];
+    float2* out = cs + (i2 * n1 + k0) * rs + r;
+#pragma unroll
+    for (int j = 0; j < kBins; ++j) {
+      float2 c = make_float2(0.0f, 0.0f);
+      cmac(c, acc[j], t[j].x, t[j].y);
+      if (k0 + j < n1) out[j * rs] = c;
+    }
+  }
+  __syncthreads();
+
+  // steps 3-4; a work item is (bin block, k1, r), r fastest; the output
+  // (k, r) over xs
+  const float scale = inverse ? 1.0f / (float)n : 1.0f;
+  for (int it = threadIdx.x; it < (rows * n1 * nb2); it += blockDim.x) {
+    const int r = it & (rows - 1), col = it >> log_rows;
+    const int kb = div_n1(col), k1 = col - kb * n1, k0 = kb * kBins;
+    float2 acc[kBins];
+    dft_bins<kTable>(acc, cs + k1 * rs + r, n1 * rs, n2, kTable ? f2 + k0 : w,
+                     kTable ? ld2 : n1, k0, n);
+#pragma unroll
+    for (int j = 0; j < kBins; ++j) {
+      const int k = k1 + n1 * (k0 + j);
+      if (k0 + j < n2 && k < nout)
+        xs[k * rs + r] = make_float2(acc[j].x * scale, acc[j].y * scale);
+    }
+  }
+  __syncthreads();
+
+  // the output rows out, coalesced
+  const FastDiv div_out(nout);
+  float2* yr = y + row0 * nout;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nrows * nout; i += blockDim.x) {
+    const int r = div_out(i), k = i - r * nout;
+    yr[i] = xs[k * rs + r];
+  }
+}
+
+int launch_general(const void* x, void* y, long long batch, int n, int inverse, int real_input,
+                   int nout, cudaStream_t stream) {
+  int n1, n2;
+  general_split(n, &n1, &n2);
+  const bool table = n1 <= kTableMax;
+  const size_t ld1 = (n1 + kBins - 1) / kBins * kBins, ld2 = (n2 + kBins - 1) / kBins * kBins;
+  const size_t roots = (table ? n1 * ld1 + n2 * ld2 : 0) + (size_t)n;
+  auto smem_of = [&](int log_rows) {
+    return (roots + 2 * (size_t)n * ((1 << log_rows) | 1)) * sizeof(float2);
+  };
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return (int)err;
+  // rows a block: at most 16, halved while a block would pass 48 KB or the
+  // grid would hold fewer than two blocks an SM
+  int log_rows = kLogRowsMax;
+  while (log_rows > 0 && (smem_of(log_rows) > kSmemDefault ||
+                          ((batch + (1 << log_rows) - 1) >> log_rows) < 2LL * sms))
+    --log_rows;
+  const size_t smem = smem_of(log_rows);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  const long long blocks = (batch + (1 << log_rows) - 1) >> log_rows;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  const int items = (1 << log_rows) * (int)std::max(n2 * (ld1 / kBins), n1 * (ld2 / kBins));
+  const int threads = std::min(kGenThreads, (items + 31) / 32 * 32);
+  auto kernel = table ? fourstep_kernel<true> : fourstep_kernel<false>;
+  if (smem > kSmemDefault) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<float2*>(y), batch, n, n1, n2, log_rows, inverse,
+      real_input, nout);
+  return (int)cudaGetLastError();
+}
 
 
 // ---------------------------------------------------------------------------
@@ -182,23 +378,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-
-// an asynchronous copy of 8 bytes (or 4) from global to shared memory
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool eight) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  if (eight)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
-}
-
-// i / d for 0 <= i < 2^16 and 1 <= d < 2^16: __umulhi(i, ceil(2^32 / d)) is
-// exact there (its error i / 2^32 stays below 1 / d).
-struct FastDiv {
-  uint32_t d, m;
-  __device__ explicit FastDiv(uint32_t d_) : d(d_), m(0xFFFFFFFFu / d_ + 1u) {}
-  __device__ uint32_t operator()(uint32_t i) const { return d == 1 ? i : __umulhi(i, m); }
-};
 
 // The A fragments of the m x m DFT matrix in real block form (2m x 2m,
 // split into TF32 big and small), gathered into fragment order:
@@ -399,9 +578,11 @@ int launch_tc(const void* x, void* y, const void* mats, long long batch, int n, 
 }  // namespace
 
 // x: (batch, n) complex64, or float32 when real_input; y: (batch, nout)
-// complex64 with nout <= n (the first nout bins).  mats: the tensor-core
-// design's tables (see fourstep_tc_kernel) when tc_shape(n1, n2), else
-// null; a mismatch is refused.  Returns cudaGetLastError(), or
+// complex64 with nout <= n (the first nout bins).  (n1, n2): the caller's
+// split (plan_factors), which picks the design; the general design then
+// runs its own (general_split).  mats: the tensor-core design's tables (see
+// fourstep_tc_kernel) when tc_shape(n1, n2), else null; a mismatch is
+// refused.  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue when the arguments are refused or one row does not
 // fit in a block's shared memory.
 extern "C" int fourstep_dft(const void* x, void* y, long long batch, int n, int n1, int n2,
@@ -413,23 +594,8 @@ extern "C" int fourstep_dft(const void* x, void* y, long long batch, int n, int 
   if (mats != nullptr)
     return launch_tc(x, y, mats, batch, n, n1, n2, inverse, real_input, nout,
                      (cudaStream_t)stream);
-  const size_t row_bytes = 2 * (size_t)n * sizeof(float2);
-  const size_t table = (size_t)n * sizeof(float2);
-  long long rows = kSmemDefault > table ? (long long)((kSmemDefault - table) / row_bytes) : 0;
-  if (rows > 16) rows = 16;
-  if (rows < 1) rows = 1;
-  if (rows > batch) rows = batch;
-  const size_t smem = table + (size_t)rows * row_bytes;
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  if (smem > kSmemDefault) {
-    cudaError_t err = cudaFuncSetAttribute(fourstep_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long blocks = (batch + rows - 1) / rows;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  fourstep_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(x), static_cast<float2*>(y), batch, n, n1, n2, (int)rows,
-      inverse, real_input, nout);
-  return (int)cudaGetLastError();
+  return launch_general(x, y, batch, n, inverse, real_input, nout, (cudaStream_t)stream);
 }
+
+// The general design's split of n (general_split), for the tests.
+extern "C" void fourstep_general_split(int n, int* n1, int* n2) { general_split(n, n1, n2); }

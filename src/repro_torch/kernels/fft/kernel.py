@@ -21,7 +21,17 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("fourstep")
     lib.fourstep_dft.argtypes = [_c, _c, _ll, _i, _i, _i, _i, _i, _i, _c, _c]
     lib.fourstep_dft.restype = _i
+    lib.fourstep_general_split.argtypes = [_i, ctypes.POINTER(_i), ctypes.POINTER(_i)]
+    lib.fourstep_general_split.restype = None
     return lib
+
+
+def general_split(n: int) -> tuple[int, int]:
+    """The general design's split of ``n`` as the C side computes it (the
+    twin of ``ref.general_split``)."""
+    n1, n2 = _i(), _i()
+    _lib().fourstep_general_split(n, ctypes.byref(n1), ctypes.byref(n2))
+    return n1.value, n2.value
 
 
 def fourstep(x: torch.Tensor, n1: int, n2: int, *, inverse: bool = False,

@@ -9,10 +9,14 @@ torch (the kernel's arithmetic without its tiling) and ``fft_ref`` the
 ``tc_tables`` builds the tensor-core design's tables (the DFT matrices in
 real block form, split into TF32 ``big + small``, and the twiddles) and
 ``fourstep_tf32_ref`` emulates that design's 3xTF32 arithmetic; the tests
-use it to show the split is needed and enough.
+use it to show the split is needed and enough.  ``general_split`` is the
+general design's split of a length and ``fourstep_general_ref`` emulates
+that design's order of work (its tables and its fp32 FMA chains).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -156,3 +160,68 @@ def fourstep_tf32_ref(x: torch.Tensor, n1: int, n2: int, *, inverse: bool = Fals
                  torch.cat([ct.real, ct.imag], dim=-2).contiguous(), split)
     y = torch.complex(y[:, :n2], y[:, n2:]).reshape(batch, n1 * n2)  # k = k1 + n1 k2
     return y / (n1 * n2) if inverse else y
+
+
+def general_split(n: int) -> tuple[int, int]:
+    """The general design's ``(n1, n2)``, ``n = n1 * n2`` (``general_split``
+    in ``csrc/fourstep.cu``): ``n2`` the largest divisor of ``n`` at most
+    sqrt(n), so ``n1 >= n2``; a prime gives ``(n, 1)``.  For ``n > 256`` it
+    is ``ops.plan_factors``' split; below, that one gives ``(n, 1)``."""
+    d = math.isqrt(n)
+    while n % d:
+        d -= 1
+    return n // d, d
+
+
+def _fma(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """``fmaf(a, b, c)`` on float32 arrays: the exact product plus ``c``,
+    rounded to float32 (through float64, so a double rounding may move the
+    last bit, rarely)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _cmac(acc: tuple, a: tuple, f: tuple) -> tuple:
+    """The kernel's ``cmac``: ``acc + a * f`` as four FMAs in its order."""
+    re = _fma(-a[1], f[1], _fma(a[0], f[0], acc[0]))
+    im = _fma(a[1], f[0], _fma(a[0], f[1], acc[1]))
+    return re, im
+
+
+def _f32_roots(p: np.ndarray, q: int, inverse: bool) -> tuple[np.ndarray, np.ndarray]:
+    w = _roots(p, q, inverse).astype(np.complex64)
+    return w.real.copy(), w.imag.copy()
+
+
+def fourstep_general_ref(x: torch.Tensor, inverse: bool = False,
+                         nout: int | None = None) -> torch.Tensor:
+    """The general design on the CPU: a ``(batch, n)`` complex64 (or
+    float32: real input) tensor -> the first ``nout`` bins of its DFT
+    (inverse: conjugate roots and 1/n), complex64.  Its split
+    (:func:`general_split`), its float32 roots of the DFT-n1, DFT-n2 and
+    twiddle tables, and its FMA chains: each bin summed over the terms in
+    ascending order, the twiddle a product into zero, the inverse one
+    multiply by float32 1/n.  Tests only."""
+    n = x.shape[-1]
+    n1, n2 = general_split(n)
+    xc = x.to(torch.complex64).numpy().reshape(-1, n1, n2)
+    a = (xc.real.copy(), xc.imag.copy())                  # (batch, i1, i2)
+    zero = np.zeros((xc.shape[0], n1, n2), np.float32)
+    k1, i2 = np.arange(n1)[:, None], np.arange(n2)[None, :]
+    f1 = _f32_roots(np.outer(np.arange(n1), np.arange(n1)) % n1, n1, inverse)  # [k1, i1]
+    acc = (zero, zero)                                    # (batch, k1, i2)
+    for i in range(n1):
+        acc = _cmac(acc, (a[0][:, None, i, :], a[1][:, None, i, :]),
+                    (f1[0][:, i, None], f1[1][:, i, None]))
+    tw = _f32_roots(k1 * i2, n, inverse)                  # [k1, i2]
+    c = _cmac((zero, zero), acc, tw)
+    f2 = _f32_roots(np.outer(np.arange(n2), np.arange(n2)) % n2, n2, inverse)  # [k2, i2]
+    acc = (zero, zero)                                    # (batch, k1, k2)
+    for i in range(n2):
+        acc = _cmac(acc, (c[0][:, :, i, None], c[1][:, :, i, None]),
+                    (f2[0][None, :, i], f2[1][None, :, i]))
+    re, im = acc
+    if inverse:
+        s = np.float32(1.0) / np.float32(n)
+        re, im = re * s, im * s
+    y = (re + 1j * im).astype(np.complex64).transpose(0, 2, 1).reshape(x.shape)  # k1 + n1 k2
+    return torch.from_numpy(np.ascontiguousarray(y[..., : n if nout is None else nout]))

@@ -8,11 +8,11 @@ into a temporary directory, disassembles the library with ``cuobjdump
 of ``--match``'s comma-separated names (every kernel without it): the
 instruction count, the count of each opcode family, and each loop (a
 branch back to an earlier address) with the instructions it spans, its
-global loads and stores, and the subroutines it calls (a 64-bit division
-is one such call) with their sizes.  A loop's instructions are its
-per-iteration issue cost; a called subroutine's are added per call taken
-(a slow path, such as an IEEE division's, is called only for some
-operands).  Needs the CUDA toolkit (``nvcc``,
+global loads and stores, its shared loads and FFMAs, and the subroutines
+it calls (a 64-bit division is one such call) with their sizes.  A loop's
+instructions are its per-iteration issue cost; a called subroutine's are
+added per call taken (a slow path, such as an IEEE division's, is called
+only for some operands).  Needs the CUDA toolkit (``nvcc``,
 ``cuobjdump``).
 """
 
@@ -46,8 +46,7 @@ def disassemble(source: Path, workdir: Path) -> str:
     lib = workdir / f"{source.stem}-{abs(hash(str(source)))}.so"
     subprocess.run([_tool("nvcc"), *_build.NVCC_FLAGS, "-o", str(lib), str(source)],
                    check=True, capture_output=True, text=True)
-    return subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], check=True,
-                          capture_output=True, text=True).stdout
+    return library_sass(lib)
 
 
 def functions(sass: str) -> dict[str, list[str]]:
@@ -100,9 +99,12 @@ def census(lines: list[str]) -> dict:
         for _, op, operands in insns[lo:hi + 1]:
             if op.startswith("CALL"):
                 calls[operands.strip()] += 1
+        n_of = Counter(ops)
         return {"instructions": hi - lo + 1,
-                "global_loads": {o: n for o, n in Counter(ops).items() if o.startswith("LDG")},
-                "global_stores": {o: n for o, n in Counter(ops).items() if o.startswith("STG")},
+                "global_loads": {o: n for o, n in n_of.items() if o.startswith("LDG")},
+                "global_stores": {o: n for o, n in n_of.items() if o.startswith("STG")},
+                "shared_loads": {o: n for o, n in n_of.items() if o.startswith("LDS")},
+                "ffma": sum(n for o, n in n_of.items() if o.startswith("FFMA")),
                 "calls": {c: {"count": n, "subroutine_instructions": sub_size.get(c)}
                           for c, n in calls.items()}}
 
@@ -119,6 +121,19 @@ def census(lines: list[str]) -> dict:
             "body": span(0, end - 1), "subroutines": sub_size}
 
 
+def select(sass: str, match: str) -> list[dict]:
+    """The census of each function of ``sass`` whose mangled name contains
+    one of ``match``'s comma-separated names."""
+    return [{"kernel": name, **census(lines)} for name, lines in functions(sass).items()
+            if any(m in name for m in match.split(","))]
+
+
+def library_sass(lib: Path) -> str:
+    """The SASS of a built library (``cuobjdump -sass``)."""
+    return subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("sources", nargs="+", type=Path)
@@ -126,9 +141,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     with tempfile.TemporaryDirectory(prefix="sass_census_") as tmp:
         for src in args.sources:
-            for name, lines in functions(disassemble(src.resolve(), Path(tmp))).items():
-                if any(m in name for m in args.match.split(",")):
-                    print(json.dumps({"source": str(src), "kernel": name, **census(lines)}))
+            for rec in select(disassemble(src.resolve(), Path(tmp)), args.match):
+                print(json.dumps({"source": str(src), **rec}))
     return 0
 
 

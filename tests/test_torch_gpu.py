@@ -84,7 +84,8 @@ def _assert_k4(got, want):
     assert err <= 1e-5 * want.abs().max().item(), err
 
 
-@pytest.mark.parametrize("n", [1, 7, 42, 63, 64, 256, 257, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("n", [1, 7, 42, 63, 64, 256, 257, 512, 1024, 2048, 4096,
+                               97, 202, 251, 1000, 8192])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_fourstep_matches_plain(cuda, n, inverse):
     x = _rand((33, n), True, n, cuda)
@@ -98,17 +99,18 @@ def test_fourstep_rfft_first_bins(cuda, n):
     _assert_k4(fops.rfft_matmul(x), _fourstep_plain(x)[:, : n // 2 + 1])
 
 
-@pytest.mark.parametrize("batch", [1, 13])
-@pytest.mark.parametrize("n", [512, 1024])
+@pytest.mark.parametrize("batch", [1, 13, 2646, 5000])
+@pytest.mark.parametrize("n", [512, 1024, 63, 64])
 def test_fourstep_ragged_batch(cuda, n, batch):
     """A batch that is no multiple of the rows a group takes (8 at 512, 4
-    at 1024): the last group's missing rows write nothing."""
+    at 1024; the general design's 8 rows a block at 2646 rows, 16 at 5000):
+    the last group's missing rows write nothing."""
     x = _rand((batch, n), True, n + batch, cuda)
     _assert_k4(fops.fft_matmul(x), _fourstep_plain(x))
     _assert_k4(fops.fft_matmul(x, inverse=True), _fourstep_plain(x, True))
 
 
-@pytest.mark.parametrize("n", [512, 4096, 257])
+@pytest.mark.parametrize("n", [512, 4096, 257, 64])
 def test_fourstep_propagates_nonfinite(cuda, n):
     """A NaN or Inf in a row leaves that row non-finite and the others as
     they were (a guarded plan relies on it): NaN bit patterns with a high
@@ -128,7 +130,7 @@ def test_fourstep_propagates_nonfinite(cuda, n):
 
 
 @pytest.mark.parametrize("n,design", [(512, "tc"), (4096, "tc"), (257, "general"),
-                                      (1000, "general")])
+                                      (1000, "general"), (64, "general"), (8192, "general")])
 def test_fourstep_design_by_length(cuda, n, design):
     x = _rand((4, n), True, n, cuda)
     before = Counter(fops.design_launches)
@@ -136,6 +138,47 @@ def test_fourstep_design_by_length(cuda, n, design):
     fops.rfft_matmul(x.real.contiguous())
     torch.cuda.synchronize()
     assert fops.design_launches - before == Counter({f"{design}:fft": 1, f"{design}:rfft": 1})
+
+
+def test_fourstep_nonfinite_stays_in_its_row(cuda):
+    """The general design at the quickstart's 2646 rows of n = 64 takes 8
+    rows a block: a NaN and an Inf in two rows of the first block leave
+    the block's other rows bitwise as they were."""
+    x = _rand((2646, 64), True, 5, cuda)
+    want = fops.fft_matmul(x)
+    bad = torch.view_as_real(x).view(torch.int32)
+    bad[2, 9, 1] = 0x7FC00000                # NaN
+    bad[5, 63, 0] = -8388608                 # 0xFF800000: -Inf
+    got = fops.fft_matmul(x)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(torch.view_as_real(got)).all(dim=-1).all(dim=-1)
+    assert not finite[2] and not finite[5]
+    ok = torch.ones(2646, dtype=torch.bool, device=cuda)
+    ok[2] = ok[5] = False
+    assert torch.equal(got[ok], want[ok])
+
+
+def test_fourstep_general_split_matches_c(cuda):
+    """The C side's split of every length a general block holds is
+    ``ref.general_split``'s."""
+    from repro_torch.kernels.fft import kernel as fkernel
+
+    for n in range(1, 9686):
+        assert fkernel.general_split(n) == fref.general_split(n), n
+
+
+@pytest.mark.parametrize("n", [42, 63, 64, 97, 256, 1000])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fourstep_general_matches_its_emulation(cuda, n, inverse):
+    """The general design against ``ref.fourstep_general_ref``, the CPU
+    emulation of its split, roots and FMA order, within 1e-6 of max |y|:
+    a root may round the other way in its last bit (numpy's exp against
+    the card's sincospi) and the emulation's FMA rounds twice."""
+    x = _rand((21, n), True, n + 3, cuda)
+    got = fops.fft_matmul(x, inverse=inverse)
+    want = fref.fourstep_general_ref(x.cpu(), inverse).to(cuda)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
 
 
 @pytest.mark.parametrize("axis", [0, 1, 2])
