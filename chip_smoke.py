@@ -9,8 +9,9 @@ non-zero):
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
    source, started together), print the SASS census of K4's general design
    (``fourstep_kernel``: instructions, loops, shared loads, FFMAs, called
-   subroutines; one ``{"sass_census"}`` line) and the card's name and power
-   limit;
+   subroutines) and of K5's two designs (``rows_kernel``, ``tile_kernel``:
+   instructions a 16-byte vector or an element, divisions; one
+   ``{"sass_census"}`` line) and the card's name and power limit;
 2. every kernel mode against its plain torch version on seeded inputs, with
    CUDA-event times (one ``{"kernel_sweep": [...]}`` line; ``cuda_ms``
    times runs of back-to-back calls): K4 (each record names the design that
@@ -19,7 +20,10 @@ non-zero):
    design that ran: ``"vec"``, 16-byte accesses, or ``"scalar"``; both must
    run), K2/K3 (each decode by its wrapper and into a block at an odd
    storage offset, which runs ``"scalar"``; each record names its design,
-   both must run, all bitwise), K5, and K6 (flash attention) over dtype x
+   both must run, all bitwise), K5 (each record names the design that
+   ran: ``"rows"``, 16-byte vectors straight from x to y, or ``"tile"``,
+   through shared memory; both must run, one input at an odd storage offset;
+   all bitwise), and K6 (flash attention) over dtype x
    causal x GQA group x S x head dim (each record names the design that
    ran: ``"tc"``, bf16 mma.sync, for bf16; ``"fma"`` for fp32);
 3. the port's paths on a 1-rank NCCL group and a (1, 1) mesh, each driven
@@ -49,8 +53,10 @@ non-zero):
    line);
 4. the kernels at the main path's shapes (512^3, where K4 runs its
    tensor-core design and K1-K3 their vec designs, as at the pipelined slice;
-   K4's general design at the quickstart shape; K6 at
-   the serving prefill's, and once at the prefill_32k length): launches
+   K4's general design at the quickstart shape; K5 at three 1 GiB
+   complex64 shapes: 512^3, the traditional pack of 512^3 into 4 chunks and
+   a 2-D transpose; K6 at the serving prefill's, and once at the
+   prefill_32k length, and its fp32 design at the prefill's shape): launches
    from their path,
    error against the plain version, kernel / plain / library times and the
    bound (one ``{"kernels": [...]}`` line; before it, K4's general design at
@@ -107,6 +113,14 @@ TOL_LM = 6e-2
 K4_GENERAL_CASES = ((64, 2646), (64, 4096), (64, 32768))
 # K6 at the serving prefill's shape and at the prefill_32k length (batch cut)
 K6_SHAPES = (((4, 2048, 32, 2, 128), None), ((1, 32768, 32, 2, 128), "batch 32->1"))
+# K5's sweep: the old sweep's shapes, then 131072 rows of 32 to 256 bytes
+# (float32 and complex64 at C = 8, 16, 24, 32) across the rows design's least
+# row of 128 bytes
+K5_SWEEP = ((24, 24, 8), (7, 13, 3), (64, 48, 40), (512, 33, 1), (4096, 32, 8), (4096, 32, 16),
+            (4096, 32, 24), (4096, 32, 32))
+# K5 at 1 GiB of complex64: 512^3, the traditional pack of 512^3 into M = 4
+# chunks along its last axis, and a 2-D transpose
+K5_BIG = ((SHAPE_BIG, ""), ((262144, 4, 128), ",traditional_pack"), ((16384, 8192, 1), ",2d"))
 
 
 def fail(msg):
@@ -202,7 +216,8 @@ def main():
     from repro_torch import sass_census
 
     print(json.dumps({"sass_census": sass_census.select(
-        sass_census.library_sass(_build.library_path("fourstep")), "fourstep_kernel")}))
+        sass_census.library_sass(_build.library_path("fourstep")), "fourstep_kernel")
+        + k5_census(sass_census, _build)}))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -272,7 +287,6 @@ def _check_codec(torch, name, got, want, codec):
 def kernel_sweep(torch):
     from repro_torch.kernels.exchange import ops as xops, ref as xref
     from repro_torch.kernels.fft import ops as fops, ref as fref
-    from repro_torch.kernels.transpose import ops as tops, ref as tref
 
     out = []
     for n in (42, 63, 64, 97, 251, 256, 512, 1024, 4096, 8192):
@@ -322,20 +336,64 @@ def kernel_sweep(torch):
         if not {r["design"] for r in out if r["name"].startswith(what)} >= {"vec", "scalar"}:
             fail(f"the codec sweep did not run both {what} designs")
 
-    for shape in ((24, 24, 8), (7, 13, 3), (64, 48, 40), (512, 33, 1)):
-        for iscomplex in (True, False):
-            x = _randn(torch, shape, sum(shape), iscomplex)
-            got, want = tops.transpose01(x), tref.transpose01_ref(x)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                fail(f"transpose01 {shape} {x.dtype}: not bitwise equal to the plain version")
-            out.append({"name": f"transpose01:{'c64' if iscomplex else 'f32'}:{shape}",
-                        "replaces": "transpose/kernel.py:24",
-                        "max_abs_err": _max_err(torch, got, want),
-                        "ms": cuda_ms(torch, lambda: tops.transpose01(x)),
-                        "plain_ms": cuda_ms(torch, lambda: tref.transpose01_ref(x)),
-                        "library_ms": cuda_ms(torch, lambda: x.transpose(0, 1).contiguous())})
-    return out + _flash_sweep(torch)
+    k5 = k5_cases(torch)
+    if {r["design"] for r in k5} != {"rows", "tile"}:
+        fail("the K5 sweep did not run both designs")
+    return out + k5 + _flash_sweep(torch)
+
+
+def k5_cases(torch, shapes=K5_SWEEP, offset_shape=(64, 48, 40)):
+    """K5 (``ops.transpose01``) at each of ``shapes`` in complex64 and
+    float32, and at ``offset_shape`` with x one element off its storage's
+    start, held bitwise to the plain version: each record's name, design
+    (``"rows"`` or ``"tile"``; None where the wrapper counts no design, as
+    in a tree from before the two designs), ``cuda_ms`` and the library
+    call's and the plain version's.  It imports the port from ``sys.path``,
+    so an older tree's archive put first there is timed alike."""
+    from repro_torch.kernels.transpose import ops as tops, ref as tref
+
+    counter = getattr(tops, "design_launches", None)
+    cases = [(shape, iscomplex, 0) for shape in shapes for iscomplex in (True, False)]
+    cases += [(offset_shape, True, 1), (offset_shape, False, 1)]
+    out = []
+    for shape, iscomplex, offset in cases:
+        x0 = _randn(torch, shape, sum(shape), iscomplex)
+        x = torch.empty(x0.numel() + offset, dtype=x0.dtype, device="cuda")[offset:].view(shape)
+        x.copy_(x0)
+        kern = lambda: tops.transpose01(x)
+        got, design = _ran_design(counter, kern, "K5", field=1) if counter is not None \
+            else (kern(), None)
+        torch.cuda.synchronize()
+        if not torch.equal(got, x0.transpose(0, 1).contiguous()):
+            fail(f"transpose01 {shape} {x.dtype} offset {offset}: not bitwise equal to the plain "
+                 "version")
+        out.append({"name": f"transpose01:{'c64' if iscomplex else 'f32'}:{shape}"
+                            f"{':offset1' if offset else ''}",
+                    "replaces": "transpose/kernel.py:24", "design": design,
+                    "max_abs_err": _max_err(torch, got, x0.transpose(0, 1)),
+                    "ms": cuda_ms(torch, kern),
+                    "plain_ms": cuda_ms(torch, lambda: tref.transpose01_ref(x)),
+                    "library_ms": cuda_ms(torch, lambda: x.transpose(0, 1).contiguous())})
+        del got, x, x0
+    return out
+
+
+def k5_census(sass_census, _build):
+    """The SASS census of K5's kernels, with the instructions a thread
+    issues for each 16-byte vector (rows: ``ROW_VECS`` a thread) or element
+    (tile: ``TILE_THREAD_BYTES / size`` a thread) it moves; neither kernel
+    has a loop."""
+    from repro_torch.kernels.transpose import ref as tref
+
+    out = sass_census.select(sass_census.library_sass(_build.library_path("transpose")),
+                             "rows_kernel,tile_kernel")
+    for rec in out:
+        if "rows_kernel" in rec["kernel"]:
+            rec["instructions_per_vector"] = rec["instructions"] / tref.ROW_VECS
+        else:
+            elem = 4 if "tile_kernelIj" in rec["kernel"] else 8
+            rec["instructions_per_element"] = rec["instructions"] / (tref.TILE_THREAD_BYTES // elem)
+    return out
 
 
 def k4_general_rows(torch, cases=K4_GENERAL_CASES):
@@ -361,14 +419,15 @@ def k4_general_rows(torch, cases=K4_GENERAL_CASES):
     return out
 
 
-def _ran_design(counter, fn, what):
+def _ran_design(counter, fn, what, field=0):
     """``(fn(), design)``: the design that each launch of one call of ``fn``
-    ran, read from the kernel's ``design_launches`` ``counter`` (K4:
-    ``"tc"`` or ``"general"``; K6: ``"tc"`` or ``"fma"``; K1: ``"vec"`` or
-    ``"scalar"``); fails on a mix."""
+    ran, read from the kernel's ``design_launches`` ``counter`` at the
+    ``field``-th ``:``-separated place of its keys (K4: ``"tc"`` or
+    ``"general"``; K6: ``"tc"`` or ``"fma"``; K1: ``"vec"`` or ``"scalar"``;
+    K5, field 1: ``"rows"`` or ``"tile"``); fails on a mix."""
     before = dict(counter)
     out = fn()
-    ran = {d.split(":")[0] for d, k in counter.items() if k != before.get(d, 0)}
+    ran = {d.split(":")[field] for d, k in counter.items() if k != before.get(d, 0)}
     if len(ran) != 1:
         fail(f"one {what} call ran the designs {ran}")
     return out, ran.pop()
@@ -523,8 +582,9 @@ def _counters():
     from repro_torch.kernels.transpose import ops as tops
 
     return [("", c) for c in (fops.launches, fops.design_launches, xops.launches,
-                              xops.design_launches, tops.launches, flops.launches,
-                              flops.design_launches)] + [("decode:", xops.decode_design_launches)]
+                              xops.design_launches, tops.launches, tops.design_launches,
+                              flops.launches, flops.design_launches)] + [
+        ("decode:", xops.decode_design_launches)]
 
 
 def _drive(torch, name, fn, *args):
@@ -982,7 +1042,6 @@ def _record(name, source, replaces, path, launches, err, ms, plain_ms, bound, li
 def main_path_kernels(torch, paths):
     from repro_torch.kernels.exchange import ops as xops, ref as xref
     from repro_torch.kernels.fft import ops as fops, ref as fref
-    from repro_torch.kernels.transpose import ops as tops, ref as tref
 
     n = SHAPE_BIG[-1]
     n1, n2 = fops.plan_factors(n)
@@ -1085,23 +1144,11 @@ def main_path_kernels(torch, paths):
     kernels += _guard_mode_records(torch, x, xops, xref, paths["guard"])
     kernels += _in_place_decode_records(torch, x, xops, xref, paths)
 
-    # K5 at (512, 512, 512) complex64: on no path, in either package
-    got, want = tops.transpose01(x), tref.transpose01_ref(x)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail("transpose01 at 512^3: not bitwise equal to the plain version")
-    err = _max_err(torch, got, want)
-    del got, want
-    plain_ms = cuda_ms(torch, lambda: tref.transpose01_ref(x))
-    kernels.append(_record("transpose01[complex64]", "transpose.cu",
-                           "src/repro/kernels/transpose/kernel.py:24", None,
-                           _launched(paths, "transpose01:complex64"), err,
-                           cuda_ms(torch, lambda: tops.transpose01(x)), plain_ms,
-                           bound_ms(2 * elems * 8, 0),
-                           cuda_ms(torch, lambda: x.transpose(0, 1).contiguous())))
+    kernels += _transpose_records(torch, x, paths)
     del x, rows
     torch.cuda.empty_cache()
     kernels += _flash_records(torch, paths)
+    kernels.append(_flash_fp32_record(torch, paths))
 
     for k in kernels:
         if k["path"] is not None and k["launches"] < 1:
@@ -1161,6 +1208,64 @@ def _flash_records(torch, paths):
         del q, k, v
         torch.cuda.empty_cache()
     return recs
+
+
+def _transpose_records(torch, x, paths):
+    """K5 at ``K5_BIG``'s 1 GiB complex64 shapes (views of the 512^3 block
+    ``x``) against the plain version and the library call; on no path, in
+    either package."""
+    from repro_torch.kernels.transpose import ops as tops, ref as tref
+
+    recs = []
+    for shape, tag in K5_BIG:
+        xs = x.view(shape)
+        (got, design), want = (_ran_design(tops.design_launches, lambda: tops.transpose01(xs),
+                                           "K5", field=1), tref.transpose01_ref(xs))
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"transpose01 at {shape}: not bitwise equal to the plain version")
+        err = _max_err(torch, got, want)
+        del got, want
+        recs.append(_record(f"transpose01[complex64{tag}]", "transpose.cu",
+                            "src/repro/kernels/transpose/kernel.py:24", None,
+                            _launched(paths, "transpose01:complex64"), err,
+                            cuda_ms(torch, lambda: tops.transpose01(xs)),
+                            cuda_ms(torch, lambda: tref.transpose01_ref(xs)),
+                            bound_ms(2 * xs.numel() * 8, 0),
+                            cuda_ms(torch, lambda: xs.transpose(0, 1).contiguous()),
+                            design=design, shape=list(shape)))
+    return recs
+
+
+def _flash_fp32_record(torch, paths):
+    """K6's fp32 design (``flash_kernel``, FMA) at the serving prefill's
+    shape in fp32, causal, against the plain version and SDPA in fp32; on
+    no path (the serving path is bf16).  Bound: its operations at the fp32
+    (non-tensor) peak."""
+    from repro_torch.kernels.flash import ops as flops, ref as flref
+
+    (B, S, Hq, Hkv, dh), _ = K6_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(S + 1)
+    q, k, v = (torch.randn((B, S, h, dh), generator=gen, device="cuda") for h in (Hq, Hkv, Hkv))
+    kern = lambda: flops.flash_attention(q, k, v, causal=True)
+    plain = lambda: flref.attention_gqa_ref(q, k, v, causal=True)
+    got, design = _ran_design(flops.design_launches, kern, "K6")
+    if design != "fma":
+        fail(f"flash fp32 at {(B, S, Hq, Hkv, dh)}: ran the {design} design")
+    err = _check_attention(torch, f"flash fp32 at {(B, S, Hq, Hkv, dh)}", got, plain(), v)
+    del got
+    flop = 4.0 * dh * B * Hq * S * (S + 1) / 2
+    nbytes = 4 * (2 * B * S * Hq * dh + 2 * B * S * Hkv * dh)
+    ms = cuda_ms(torch, kern, 3)
+    rec = _record(f"flash_attention[causal,f32,B{B},S{S}]", "flash.cu",
+                  "src/repro/kernels/flash/kernel.py:80", None,
+                  _launched(paths, "flash_attention:float32"), err, ms, cuda_ms(torch, plain, 3),
+                  bound_ms(nbytes, flop, FP32_FLOPS), cuda_ms(torch, _sdpa(torch, q, k, v, True), 3),
+                  shape={"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "dh": dh, "dtype": "f32",
+                         "causal": True}, design=design, tflops=flop / (ms * 1e9))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _vec(counter, fn, what):

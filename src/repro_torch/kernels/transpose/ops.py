@@ -3,9 +3,11 @@
 leading axes of a rank-3 float32 or complex64 tensor.
 
 A tensor on the CPU takes the plain version (:mod:`.ref`); a CUDA tensor
-launches the kernel (:mod:`.kernel`).  ``launches`` counts kernel launches.
-No plan path calls it, in either package: the traditional engines pack with
-``movedim`` as the reference's does with ``jnp.moveaxis``.
+launches the kernel (:mod:`.kernel`).  ``launches`` counts kernel launches,
+``design_launches`` the same launches by design (``"rows"`` or ``"tile"``,
+:func:`.ref.transpose_design`).  No plan path calls it, in either package:
+the traditional engines pack with ``movedim`` as the reference's does with
+``jnp.moveaxis``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from repro_torch.kernels.transpose import ref
 
 #: kernel launches per "transpose01:<dtype>"
 launches: Counter = Counter()
+#: the same launches per "transpose01:<design>:<dtype>"
+design_launches: Counter = Counter()
 
 
 def transpose01(x: torch.Tensor) -> torch.Tensor:
@@ -30,6 +34,10 @@ def transpose01(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no transpose kernel for device {x.device}")
     from repro_torch.kernels.transpose import kernel
 
-    y = kernel.transpose01(x.contiguous())
-    launches[f"transpose01:{str(x.dtype).removeprefix('torch.')}"] += 1
+    xc = x.contiguous()
+    y = kernel.transpose01(xc)
+    if y.numel():
+        dtype = str(x.dtype).removeprefix("torch.")
+        launches[f"transpose01:{dtype}"] += 1
+        design_launches[f"transpose01:{kernel.design_of(xc, y)}:{dtype}"] += 1
     return y

@@ -9,10 +9,12 @@ of ``--match``'s comma-separated names (every kernel without it): the
 instruction count, the count of each opcode family, and each loop (a
 branch back to an earlier address) with the instructions it spans, its
 global loads and stores, its shared loads and FFMAs, and the subroutines
-it calls (a 64-bit division is one such call) with their sizes.  A loop's
-instructions are its per-iteration issue cost; a called subroutine's are
-added per call taken (a slow path, such as an IEEE division's, is called
-only for some operands).  Needs the CUDA toolkit (``nvcc``,
+it calls (a 64-bit division is one such call) with their sizes, and its
+``divisions``: each ``MUFU.RCP`` (which a 32-bit integer or a float
+division inlines) and each call.  A loop's instructions are its
+per-iteration issue cost; a called subroutine's are added per call taken
+(a slow path, such as an IEEE division's, is called only for some
+operands).  Needs the CUDA toolkit (``nvcc``,
 ``cuobjdump``).
 """
 
@@ -105,6 +107,8 @@ def census(lines: list[str]) -> dict:
                 "global_stores": {o: n for o, n in n_of.items() if o.startswith("STG")},
                 "shared_loads": {o: n for o, n in n_of.items() if o.startswith("LDS")},
                 "ffma": sum(n for o, n in n_of.items() if o.startswith("FFMA")),
+                "divisions": sum(n for o, n in n_of.items() if o.startswith("MUFU.RCP"))
+                + sum(calls.values()),
                 "calls": {c: {"count": n, "subroutine_instructions": sub_size.get(c)}
                           for c, n in calls.items()}}
 

@@ -32,7 +32,7 @@ import torch
 from repro_torch.kernels.exchange import kernel as xkernel, ops as xops, ref as xref
 from repro_torch.kernels.fft import ops as fops, ref as fref
 from repro_torch.kernels.flash import ops as flops, ref as flref
-from repro_torch.kernels.transpose import ops as tops
+from repro_torch.kernels.transpose import ops as tops, ref as tref
 
 pytestmark = pytest.mark.gpu
 
@@ -381,15 +381,73 @@ def test_exchange_decode_refuses_vec_off_its_rule(cuda, codec, monkeypatch):
                        layout=xkernel.IN_PLACE)
 
 
+def _k5_design(fn):
+    """``(fn(), design)``: the one K5 design that ``fn``'s launch ran."""
+    before = Counter(tops.design_launches)
+    out = fn()
+    ran = {k.split(":")[1] for k in (Counter(tops.design_launches) - before)}
+    assert len(ran) == 1, ran
+    return out, ran.pop()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
 @pytest.mark.parametrize("shape", [(1, 1, 1), (24, 24, 8), (7, 13, 3), (64, 48, 40),
-                                   (512, 33, 1), (5, 7, 1025), (3, 2, 5000)])
+                                   (512, 33, 1), (5, 7, 1025), (3, 2, 5000), (64, 4, 128),
+                                   (8, 8, 512), (128, 64, 1), (9, 9, 16), (9, 9, 14),
+                                   (70, 33, 35), (2, 3, 300000)])
 def test_transpose01_matches_plain(cuda, dtype, shape):
+    """Both designs, each where ``ref.transpose_design`` puts it, bitwise."""
     x = _rand(shape, dtype == torch.complex64, sum(shape), cuda)
-    got = tops.transpose01(x)
+    got, design = _k5_design(lambda: tops.transpose01(x))
     torch.cuda.synchronize()
     assert got.shape == (shape[1], shape[0], shape[2]) and got.dtype == dtype
+    assert design == tref.transpose_design(*shape, x.element_size(), x.data_ptr() % 16,
+                                           got.data_ptr() % 16)
     assert torch.equal(got, x.transpose(0, 1).contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+@pytest.mark.parametrize("shape", [(512, 64, 32), (16, 16, 512)])
+def test_transpose01_unaligned_runs_tile(cuda, dtype, shape):
+    """x at an odd storage offset (off 16-byte alignment): the tile design,
+    bitwise, on shapes whose aligned x runs rows."""
+    x0 = _rand(shape, dtype == torch.complex64, 3, cuda)
+    base = torch.empty(x0.numel() + 1, dtype=dtype, device=cuda)
+    x = base[1:].view(shape)
+    x.copy_(x0)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert tref.transpose_design(*shape, x.element_size(), 0, 0) == "rows"
+    got, design = _k5_design(lambda: tops.transpose01(x))
+    torch.cuda.synchronize()
+    assert design == "tile" and torch.equal(got, x0.transpose(0, 1).contiguous())
+
+
+def test_transpose01_refuses_rows_off_its_rule(cuda, monkeypatch):
+    """``design=rows`` on 64-byte rows: ``transpose01`` returns an error
+    and the wrapper raises it (no fallback to the other design)."""
+    from repro_torch.kernels.transpose import kernel as tkernel
+
+    x = _rand((24, 24, 8), True, 5, cuda)
+    monkeypatch.setattr(tkernel, "transpose_design", lambda *a: "rows")
+    with pytest.raises(RuntimeError, match=r"transpose01 \(rows design\) failed"):
+        tkernel.transpose01(x)
+
+
+def test_transpose01_c_rule_and_plan_match_ref(cuda):
+    """The C side's rule and launch are ``ref.transpose_design``'s and
+    ``ref.transpose_plan``'s over a grid that crosses every boundary."""
+    from repro_torch.kernels.transpose import kernel as tkernel
+
+    for A, B in ((1, 1), (9, 9), (512, 33), (2 ** 14, 2 ** 14 - 1), (2 ** 14, 2 ** 14)):
+        for C in (1, 2, 3, 5, 14, 16, 17, 18, 28, 32, 33, 35, 36, 40, 128, 512, 1025, 5000,
+                  2 ** 20, 2 ** 32 - 2, 2 ** 32):
+            for elem in (4, 8):
+                for xm, ym in ((0, 0), (8, 0), (4, 0), (0, 8)):
+                    want = tref.transpose_design(A, B, C, elem, xm, ym)
+                    assert tkernel.c_design(A, B, C, elem, xm, ym) == want, (A, B, C, elem, xm)
+                for design in {"tile", tref.transpose_design(A, B, C, elem, 0, 0)}:
+                    assert tkernel.c_plan(A, B, C, elem, design) == \
+                        tref.transpose_plan(A, B, C, elem, design), (A, B, C, elem, design)
 
 
 @pytest.mark.parametrize("codec", ["bf16", "int8"])
