@@ -42,6 +42,17 @@ non-zero):
    "guard" — ``guard="strict"`` clean runs at 512^3 (bitwise equal to the
    unguarded plan, guarded and unguarded times), then faults under
    ``guard="degrade"`` and ``"strict"`` that must end as the reference's do;
+   "many" — batched multi-field execution: examples/navier_stokes.py's plan
+   at 384^3 (256 retained modes), a 3-field ``forward_many`` and a 9-field
+   ``backward_many`` under each ``batch_fusion`` with complex64 (bitwise
+   equal to the per-field loop) and bf16 wires, each call's K4 designs,
+   K1/K3 designs (``ref.tile_design`` on the plan's views) and
+   ``all_to_all_single`` calls (``model_collective_launches``) checked and
+   its time set beside N single-field calls, one across-fields call
+   traced; 3 stacked 512^3 fields through an int8 wire (field 1 at 1e3);
+   the traditional engine's int8 exchange of stacked fields against the
+   plain codec; guarded batches (one ``{"many": [...]}`` line, each record
+   with the card's name and power limit);
    "lm" — after the FFT paths' buffers are freed, LM serving through
    ``repro_torch.launch.serve_lm.main``: GLM-4-9B at full width and depth
    (40 layers, bf16, seeded weights), 4 prompts of 2048 tokens and 32 greedy
@@ -55,8 +66,10 @@ non-zero):
    tensor-core design and K1-K3 their vec designs, as at the pipelined slice;
    K4's general design at the quickstart shape; K5 at three 1 GiB
    complex64 shapes: 512^3, the traditional pack of 512^3 into 4 chunks and
-   a 2-D transpose; K6 at the serving prefill's, and once at the
-   prefill_32k length, and its fp32 design at the prefill's shape): launches
+   a 2-D transpose; K1/K3 on 3 stacked 512^3 fields and K4 at the DNS
+   plan's rows, the many path's shapes; K6 at the serving prefill's, and
+   once at the prefill_32k length, and its fp32 design at the prefill's
+   shape): launches
    from their path,
    error against the plain version, kernel / plain / library times and the
    bound (one ``{"kernels": [...]}`` line; before it, K4's general design at
@@ -118,6 +131,10 @@ K6_SHAPES = (((4, 2048, 32, 2, 128), None), ((1, 32768, 32, 2, 128), "batch 32->
 # row of 128 bytes
 K5_SWEEP = ((24, 24, 8), (7, 13, 3), (64, 48, 40), (512, 33, 1), (4096, 32, 8), (4096, 32, 16),
             (4096, 32, 24), (4096, 32, 32))
+# the many path: examples/navier_stokes.py's plan at a size one card holds,
+# 256 retained modes per axis on the 3/2-rule grid of 384
+DNS_N, DNS_M = 256, 384
+BATCH_FUSIONS = ("stacked", "pipelined-across-fields", "per-field")
 # K5 at 1 GiB of complex64: 512^3, the traditional pack of 512^3 into M = 4
 # chunks along its last axis, and a 2-D transpose
 K5_BIG = ((SHAPE_BIG, ""), ((262144, 4, 128), ",traditional_pack"), ((16384, 8192, 1), ",2d"))
@@ -221,16 +238,18 @@ def main():
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
     sweep = kernel_sweep(torch)
     print(json.dumps({"kernel_sweep": sweep}))
 
-    lm_info = {}
-    paths = run_paths(torch, lm_info)
+    lm_info, many = {}, []
+    paths = run_paths(torch, lm_info, many)
     print(json.dumps({"paths": paths}))
+    print(json.dumps({"many": [{**r, "card": card} for r in many]}))
 
     kernels = main_path_kernels(torch, paths)
     print(json.dumps({"k4_general_rows": k4_general_rows(torch)}))
@@ -601,9 +620,10 @@ def _drive(torch, name, fn, *args):
     return counts
 
 
-def run_paths(torch, lm_info):
-    """Drive the three FFT paths on a 1-rank NCCL group, then the LM path
-    (which fills ``lm_info``); returns each path's kernel launch counts."""
+def run_paths(torch, lm_info, many):
+    """Drive the four FFT paths on a 1-rank NCCL group (the many path fills
+    ``many`` with its records), then the LM path (which fills
+    ``lm_info``); returns each path's kernel launch counts."""
     import torch.distributed as dist
 
     from repro_torch.core.meshutil import make_mesh
@@ -617,6 +637,9 @@ def run_paths(torch, lm_info):
         paths["engines"] = _drive(torch, "engines", engines_path, mesh)
         torch.cuda.empty_cache()
         paths["guard"] = _drive(torch, "guard", guard_path, mesh)
+        torch.cuda.empty_cache()
+        paths["many"] = _drive(torch, "many", many_path, mesh, many)
+        gc.collect()
         torch.cuda.empty_cache()
         # every exchange of these paths has S % 4 == 0: K1 and K3 run their
         # vec designs, every launch
@@ -885,6 +908,317 @@ def guard_path(torch, mesh):
                               "tripped": list(e.report.tripped)}))
 
 
+def _dns_plan(mesh, comm, fusion):
+    """examples/navier_stokes.py's plan at DNS_M^3: pruned(DNS_N) on the
+    first two axes, r2c keeping DNS_N / 2 + 1 bins on the last."""
+    from repro_torch.core.fftcore import TransformSpec
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig
+
+    return ParallelFFT(mesh, (DNS_M,) * 3, ("p0", "p1"),
+                       config=PlanConfig(method="fused", impl="matmul", exchange_impl="cuda",
+                                         comm_dtype=comm, batch_fusion=fusion),
+                       transforms=(TransformSpec.pruned(DNS_N), TransformSpec.pruned(DNS_N),
+                                   TransformSpec.r2c(n_keep=DNS_N // 2 + 1)))
+
+
+def _codec_designs(torch, plan, direction, nfields, codec):
+    """The K1 and K3 launches by design that one ``nfields``-field call of
+    ``plan`` must make: per exchange, the design ``ref.tile_design`` gives
+    the encode's and the decode's ``(F, O, M, S)`` view (fresh, aligned
+    storage), once for the stack or once per field by the plan's
+    ``batch_fusion``; keyed as the path's counts."""
+    from collections import Counter
+
+    from repro_torch.core.meshutil import axis_size
+    from repro_torch.core.pfft import ExchangeStage
+    from repro_torch.kernels.exchange import ops as xops, ref as xref
+
+    stages, pencils, _, _ = plan._walk(direction)
+    dtypes = plan.dtype_trace if direction == "forward" else plan.dtype_trace[::-1]
+    stacked = plan.config.batch_fusion == "stacked" or nfields == 1
+    nb, calls = (1, 1) if stacked else (0, nfields)
+    want = Counter()
+    for i, st in enumerate(stages):
+        if not isinstance(st, ExchangeStage):
+            continue
+        m = axis_size(plan.mesh, st.group)
+        shape = ((nfields,) if nb else ()) + pencils[i].local_shape
+        P = 2 if dtypes[i] == torch.complex64 else 1
+        F, O, M, S = xops._chunk_view(shape, st.v + nb, m, nb)
+        chunk = list(shape)
+        chunk[st.v + nb] //= m
+        bw = st.w + nb
+        dec = xref.tile_design(math.prod(chunk[:nb]), math.prod(chunk[nb:bw]), m,
+                               math.prod(chunk[bw:]), P, 1, 0, 0)
+        want[f"{xref.tile_design(F, O, M, S, P, 1, 0, 0)}:{codec}"] += (
+            calls * xops.ENCODE_KERNELS[codec])
+        want[f"decode:{dec}:{codec}"] += calls
+    return want
+
+
+class _CountedCollectives:
+    """Counts ``torch.distributed.all_to_all_single`` calls while active."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.n, self._real = 0, dist.all_to_all_single
+
+        def counted(*args, **kwargs):
+            self.n += 1
+            return self._real(*args, **kwargs)
+
+        dist.all_to_all_single = counted
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_to_all_single = self._real
+
+
+def _many_call(torch, fn, want_designs, want_collectives, k4_design, what):
+    """``(fn(), launches)``: one batched call with its K4 launches (each on
+    ``k4_design``), its K1/K3 launches by design (exactly
+    ``want_designs``) and its ``all_to_all_single`` calls (exactly
+    ``want_collectives``) checked."""
+    from repro_torch.kernels.exchange import ops as xops
+    from repro_torch.kernels.fft import ops as fops
+
+    k4, designs = dict(fops.design_launches), {k: dict(c) for k, c in (
+        ("enc", xops.design_launches), ("dec", xops.decode_design_launches))}
+    with _CountedCollectives() as cc:
+        out = fn()
+        torch.cuda.synchronize()
+    k4_ran = {k: n - k4.get(k, 0) for k, n in fops.design_launches.items() if n != k4.get(k, 0)}
+    ran = {k: n - designs["enc"].get(k, 0) for k, n in xops.design_launches.items()
+           if n != designs["enc"].get(k, 0)}
+    ran.update({f"decode:{k}": n - designs["dec"].get(k, 0)
+                for k, n in xops.decode_design_launches.items()
+                if n != designs["dec"].get(k, 0)})
+    if not k4_ran or any(not k.startswith(f"{k4_design}:") for k in k4_ran):
+        fail(f"{what}: K4 ran {k4_ran}, want every launch on the {k4_design} design")
+    if ran != dict(want_designs):
+        fail(f"{what}: K1/K3 ran {ran}, the tile rule gives {dict(want_designs)}")
+    if cc.n != want_collectives:
+        fail(f"{what}: {cc.n} all_to_all_single calls, want {want_collectives}")
+    return out, {"fourstep": k4_ran, "codec": ran, "collectives": cc.n}
+
+
+def many_path(torch, mesh, records):
+    """Batched multi-field execution: (a) examples/navier_stokes.py's plan
+    at DNS_M^3, a 3-field forward_many and a 9-field backward_many under
+    each batch_fusion, bitwise equal to the per-field loop of the same wire
+    (lossless and bf16) and bf16 within tolerance of the lossless loop, each
+    timed against N single-field calls, one across-fields call traced; (b) 3
+    stacked fields at 512^3 with an int8 wire, field 1 at 1e3, each bitwise
+    equal to its own single-field forward and within tolerance of
+    torch.fft.fftn, and the traditional engine's int8
+    exchange of stacked fields (plain and transposed out) against the plain
+    codec; (c) guarded batches."""
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig
+    from repro_torch.kernels.fft import ops as fops
+
+    k4_dns = "tc" if fops.tensor_core_design(*fops.plan_factors(DNS_M)) else "general"
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    u3 = torch.randn((3,) + (DNS_M,) * 3, device="cuda", generator=gen)
+    s9 = torch.randn((9, DNS_N, DNS_N, DNS_N // 2 + 1), dtype=torch.complex64, device="cuda",
+                     generator=gen)
+    lossless = {}
+    for comm in ("complex64", "bf16"):
+        base = _dns_plan(mesh, comm, "stacked")
+        loop = {"forward": torch.stack([base.forward(u) for u in u3]),
+                "backward": torch.stack([base.backward(s) for s in s9])}
+        single_ms = {"forward": cuda_ms(torch, lambda: base.forward_padded(u3[0])),
+                     "backward": cuda_ms(torch, lambda: base.backward_padded(s9[0]))}
+        if comm == "complex64":
+            lossless = loop
+        for fusion in BATCH_FUSIONS:
+            plan = _dns_plan(mesh, comm, fusion)
+            for direction, x, tol in (("forward", u3, TOL_FWD), ("backward", s9, TOL_BACK)):
+                nf = x.shape[0]
+                what = f"many dns {direction} {comm} {fusion}"
+                many = getattr(plan, f"{direction}_many")
+                y, launches = _many_call(
+                    torch, lambda: many(x), _codec_designs(torch, plan, direction, nf, comm)
+                    if comm != "complex64" else {},
+                    plan.model_collective_launches(nfields=nf, direction=direction), k4_dns, what)
+                bitwise = torch.equal(y, loop[direction])
+                errs = [rel_l2(torch, a, b) for a, b in zip(y, lossless[direction])]
+                if not bitwise:  # bf16 too: one codec per element, the same per field
+                    fail(f"{what}: not bitwise equal to the per-field loop")
+                if max(errs) > tol[comm]:
+                    fail(f"{what}: rel L2 vs the lossless loop {max(errs)} (<= {tol[comm]})")
+                del y
+                fn = getattr(plan, f"{direction}_many_padded")(nf)
+                ms = cuda_ms(torch, lambda: fn(x))
+                records.append({"case": "dns", "direction": direction, "comm_dtype": comm,
+                                "batch_fusion": fusion, "nfields": nf,
+                                "shape": [DNS_M] * 3, "spectral": [DNS_N, DNS_N, DNS_N // 2 + 1],
+                                "bitwise_equal_loop": bitwise, "max_rel_l2_vs_lossless": max(errs),
+                                "launches_per_call": launches,
+                                "model_collective_launches": plan.model_collective_launches(
+                                    nfields=nf, direction=direction),
+                                "ms": ms, "single_ms": single_ms[direction],
+                                "n_x_single_ms": nf * single_ms[direction],
+                                "over_n_x_single": ms / (nf * single_ms[direction])})
+        del loop
+    records.append({"case": "dns_trace", **_across_fields_trace(torch, mesh, u3)})
+    del u3, s9, lossless
+    torch.cuda.empty_cache()
+
+    # (b) 3 stacked fields at 512^3 through an int8 wire, field 1 at 1e3
+    x3 = torch.randn((3,) + SHAPE_BIG, dtype=torch.complex64, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(6))
+    x3[1] *= 1e3
+    cfg = PlanConfig(method="fused", impl="matmul", exchange_impl="cuda", comm_dtype="int8")
+    plan = ParallelFFT(mesh, SHAPE_BIG, ("p0", "p1"), config=cfg)
+    fn = plan.forward_many_padded(3)
+    y3, launches = _many_call(torch, lambda: fn(x3), _codec_designs(torch, plan, "forward", 3, "int8"),
+                              2 * plan.model_collective_launches(nfields=3), "tc",
+                              "many 512^3 int8 stacked")
+    errs, exact, same = [], [], []
+    for f in range(3):
+        single = plan.forward_padded(x3[f])
+        errs.append(rel_l2(torch, y3[f], single))
+        same.append(torch.equal(y3[f], single))
+        del single
+        exact.append(rel_l2(torch, y3[f], torch.fft.fftn(x3[f])))
+    # one scale per (field, chunk): each field is quantized as in its own
+    # single-field call, so the stack is bitwise equal to the three calls
+    if not all(same) or max(exact) > TOL_FWD["int8"]:
+        fail(f"many 512^3 int8 stacked: bitwise equal to each field's single forward {same} "
+             f"(rel L2 {errs}), rel L2 vs fftn {exact} (<= {TOL_FWD['int8']})")
+    del y3
+    many_ms = cuda_ms(torch, lambda: fn(x3))
+    single_ms = cuda_ms(torch, lambda: plan.forward_padded(x3[0]))
+    records.append({"case": "stacked_int8", "shape": list(SHAPE_BIG), "nfields": 3,
+                    "field_scales": [1.0, 1e3, 1.0], "launches_per_call": launches,
+                    "rel_l2_vs_single_forward": errs, "bitwise_equal_single_forward": same,
+                    "rel_l2_vs_fftn": exact, "ms": many_ms,
+                    "single_ms": single_ms, "n_x_single_ms": 3 * single_ms,
+                    "over_n_x_single": many_ms / (3 * single_ms)})
+    records.append({"case": "traditional_int8_stacked", **_traditional_int8_stacked(torch, mesh)})
+
+    # (c) guarded batches: strict clean = unguarded; bf16 corrupted wire degrades
+    yu = fn(x3)
+    strict = ParallelFFT(mesh, SHAPE_BIG, ("p0", "p1"), config=cfg.replace(guard="strict"))
+    yg, rep = strict.forward_many(x3)
+    if not rep.ok or rep.transitions or rep.nfields != 3 or not torch.equal(yg, yu):
+        fail(f"many guard strict: ok={rep.ok} nfields={rep.nfields} transitions="
+             f"{rep.transitions} equal={torch.equal(yg, yu)}")
+    del yg
+    guarded = strict.guarded_padded("forward", nfields=3)
+    g_ms = cuda_ms(torch, lambda: guarded(x3))
+    records.append({"case": "guard_strict", "comm_dtype": "int8", "nfields": rep.nfields,
+                    "ok": rep.ok, "bitwise_equal_unguarded": True, "guarded_ms": g_ms,
+                    "unguarded_ms": many_ms, "stages": [st.to_dict() for st in rep.stages]})
+    clean = ParallelFFT(mesh, SHAPE_BIG, ("p0", "p1"), config=cfg.replace(comm_dtype="complex64"))
+    yc = clean.forward_many_padded(3)(x3)
+    from repro_torch.robustness import FaultPlan
+
+    deg = ParallelFFT(mesh, SHAPE_BIG, ("p0", "p1"),
+                      config=cfg.replace(comm_dtype="bf16", guard="degrade"))
+    with FaultPlan().corrupt_wire(engine="fused", codec="bf16"):
+        yd, rep = deg.forward_many(x3)
+    err = rel_l2(torch, yd, yc)
+    if not rep.ok or not rep.transitions or rep.nfields != 3 or err > 1e-5:
+        fail(f"many guard degrade: ok={rep.ok} transitions={rep.transitions} "
+             f"nfields={rep.nfields} rel L2 vs lossless {err}")
+    records.append({"case": "guard_degrade_corrupt_wire_bf16", "nfields": rep.nfields,
+                    "ok": rep.ok, "attempts": rep.attempts,
+                    "schedule": [list(e) for e in rep.schedule],
+                    "transitions": [t.get("tripped") for t in rep.transitions],
+                    "rel_l2_vs_lossless": err})
+    del x3, yu, yc, yd
+
+
+def _traditional_int8_stacked(torch, mesh):
+    """The traditional engine's int8 exchange of 3 stacked fields (field 1
+    at 1e3), plain and transposed out, through the kernels (K1, K3) against
+    the plain codec: within one quantum of each field."""
+    from repro_torch.core.redistribute import exchange_shard
+    from repro_torch.kernels.exchange import ops as xops
+
+    x = _randn(torch, (3, 64, 48, 40), 8)
+    x[1] *= 1e3
+    out = {}
+    for tout in (False, True):
+        before = sum(xops.launches.values())
+        kw = dict(mesh=mesh, method="traditional", comm_dtype="int8", nbatch=1,
+                  transposed_out=tout)
+        got = exchange_shard(x, 2, 1, "p1", impl="cuda", **kw)
+        torch.cuda.synchronize()
+        kernels = sum(xops.launches.values()) - before
+        want = exchange_shard(x, 2, 1, "p1", impl="torch", **kw)
+        fa = 1 if tout else 0
+        errs = []
+        for f in range(3):
+            xf = x[f]
+            quantum = float(torch.view_as_real(xf).abs().max()) / 127.0
+            errs.append(_max_err(torch, got.select(fa, f), want.select(fa, f)) / quantum)
+        if got.shape != want.shape or max(errs) > 1.0 or kernels != 3:
+            fail(f"traditional int8 stacked (transposed_out={tout}): shape {tuple(got.shape)} vs "
+                 f"{tuple(want.shape)}, {max(errs)} quanta from the plain codec, "
+                 f"{kernels} kernel launches (want 3)")
+        out[f"transposed_out={tout}"] = {"shape": list(got.shape), "max_quanta": max(errs)}
+    return out
+
+
+def _across_fields_trace(torch, mesh, u3):
+    """One traced 3-field bf16 forward_many of the DNS plan under
+    "pipelined-across-fields" and under "per-field": each exchange stage's
+    collective of field f against field f - 1's K4 launch.  On one rank
+    the all-to-all is NCCL's self-copy, a device-to-device copy (or an NCCL
+    kernel), on the collective's stream when issued with ``async_op=True``.
+    Across fields, field f's collective can start before field f - 1's
+    FFT starts; per field it comes after.  ``order`` spells the device
+    events in time order: F a K4, E a K1, D a K3, A a collective's copy or
+    kernel, . anything else.  A record, not a check: the host's issue order
+    is held on the CPU (tests/test_torch_many.py)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for fusion in ("pipelined-across-fields", "per-field"):
+        fn = _dns_plan(mesh, "bf16", fusion).forward_many_padded(3)
+        fn(u3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(u3)
+            torch.cuda.synchronize()
+        path = Path(tempfile.mkdtemp(prefix="chip_smoke_trace_")) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = [e for e in json.loads(path.read_text())["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy")]
+        shutil.rmtree(path.parent, ignore_errors=True)
+        events.sort(key=lambda e: e["ts"])
+
+        def label(e):
+            if "nccl" in e["name"].lower() or e["cat"] == "gpu_memcpy":
+                return "A"
+            return ("F" if "fourstep" in e["name"] else "E" if "enc_" in e["name"]
+                    else "D" if "decode" in e["name"] else ".")
+
+        order = "".join(label(e) for e in events)
+        coll = [e for e, c in zip(events, order) if c == "A"]
+        k4 = [e for e in events if "fourstep" in e["name"]][1:]  # after the stacked first stage
+        rec = {"collectives": len(coll), "k4_after_first_stage": len(k4),
+               "collective_streams": sorted({str(e.get("tid")) for e in coll}),
+               "k4_streams": sorted({str(e.get("tid")) for e in k4}), "order": order}
+        if len(coll) == len(k4) == 6:
+            # stage s, field f: collective 3s + f against K4 3s + f - 1
+            lead = [coll[3 * st + f]["ts"] - k4[3 * st + f - 1]["ts"]
+                    for st in range(2) for f in (1, 2)]
+            rec["collective_start_minus_prev_fft_start_us"] = lead
+            rec["collective_before_prev_fft"] = all(t < 0 for t in lead)
+        else:
+            rec["collective_before_prev_fft"] = None  # the trace does not show them all
+        out[fusion] = rec
+    return out
+
+
 def lm_path(torch, info):
     """GLM-4-9B served through ``serve_lm.main`` (one warm-up round, then a
     timed prefill and 32 decode steps), then on the same weights: the K6
@@ -1144,8 +1478,12 @@ def main_path_kernels(torch, paths):
     kernels += _guard_mode_records(torch, x, xops, xref, paths["guard"])
     kernels += _in_place_decode_records(torch, x, xops, xref, paths)
 
-    kernels += _transpose_records(torch, x, paths)
     del x, rows
+    torch.cuda.empty_cache()
+    kernels += _many_records(torch, paths["many"])
+    x = _big_input(torch, seed=2)
+    kernels += _transpose_records(torch, x, paths)
+    del x
     torch.cuda.empty_cache()
     kernels += _flash_records(torch, paths)
     kernels.append(_flash_fp32_record(torch, paths))
@@ -1154,6 +1492,168 @@ def main_path_kernels(torch, paths):
         if k["path"] is not None and k["launches"] < 1:
             fail(f"{k['name']} was never launched on the {k['path']} path")
     return kernels
+
+
+def _many_records(torch, counts):
+    """The many path's kernels at its shapes, launches from the many path:
+    K4 (tensor-core design) on 3 stacked 512^3 fields' rows; K1 and K3 on 3
+    stacked 512^3 fields through an int8 wire (F = 3 scale blocks, field 1
+    at 1e3); the bf16 codec at the DNS plan's views, where the rule gives
+    the scalar design to the S = 129 side (the first forward exchange's
+    encode, the last backward exchange's decode) and vec to the other; and
+    K4 at n = DNS_M on the DNS plan's rows: the first forward stage's r2c,
+    the next stage's c2c of 3 fields, the 9-field backward's middle ifft
+    and its c2r stage."""
+    from repro_torch.kernels.exchange import ops as xops, ref as xref
+    from repro_torch.kernels.fft import ops as fops, ref as fref
+
+    recs = []
+    n = SHAPE_BIG[-1]
+    n1, n2 = fops.plan_factors(n)
+    rows = torch.randn((3 * n * n, n), dtype=torch.complex64, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(7))
+    recs.append(_k4_record(torch, fops, fref, "fft,F3", rows, counts, lambda: fops.fft_matmul(rows),
+                           lambda: fref.fourstep_ref(rows, n1, n2),
+                           lambda: torch.fft.fft(rows, dim=-1), 2 * rows.numel() * 8))
+    del rows
+    torch.cuda.empty_cache()
+
+    x3 = torch.randn((3,) + SHAPE_BIG, dtype=torch.complex64, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(6))
+    x3[1] *= 1e3
+    elems = x3.numel()
+    kw = dict(axis=3, m=1, nbatch=1, codec="int8")
+    (q, s, _), design = _vec(xops.design_launches, lambda: xops.pack_chunks(x3, **kw),
+                             "K1 int8 stacked")
+    qr, sr, _ = xref.pack_chunks_ref(x3, **kw)
+    err = _check_codec(torch, "pack_chunks int8 stacked", q, qr, "int8")
+    if s.shape != (1, 3) or not torch.equal(s, sr):
+        fail(f"pack_chunks int8 stacked: scales {tuple(s.shape)} differ from the plain version's")
+    del q, s
+    recs.append(_record("exchange_encode[chunk_major,int8,F3]", "exchange.cu",
+                        "src/repro/kernels/exchange/kernel.py:89", "many",
+                        counts.get("pack_chunks:int8", 0), err,
+                        cuda_ms(torch, lambda: xops.pack_chunks(x3, **kw)),
+                        cuda_ms(torch, lambda: xref.pack_chunks_ref(x3, **kw)),
+                        bound_ms(elems * 8 + elems * 2 + 12, 0), None, design=design,
+                        shape=list(x3.shape)))
+    del x3
+    dkw = dict(v=2, w=1, m=1, nbatch=1, scale=sr, codec="int8", iscomplex=True)
+    got, design = _vec(xops.decode_design_launches, lambda: xops.unpack_chunks(qr, **dkw),
+                       "K3 int8 stacked")
+    err = _check_codec(torch, "unpack_chunks int8 stacked", got,
+                       xref.unpack_chunks_ref(qr, **dkw), "bf16")
+    del got
+    recs.append(_record("exchange_decode[scatter_w,int8,F3]", "exchange.cu",
+                        "src/repro/kernels/exchange/kernel.py:173", "many",
+                        counts.get("unpack_chunks:int8", 0), err,
+                        cuda_ms(torch, lambda: xops.unpack_chunks(qr, **dkw)),
+                        cuda_ms(torch, lambda: xref.unpack_chunks_ref(qr, **dkw)),
+                        bound_ms(elems * 2 + 12 + elems * 8, 0), None, design=design))
+    del qr, sr
+    torch.cuda.empty_cache()
+
+    # the bf16 codec at the DNS plan's exchanges (a stacked block, M = 1):
+    # the first forward exchange (v = 2 -> w = 1) of 3 fields after the r2c
+    # stage, the last backward exchange (v = 1 -> w = 2) of 9 fields
+    nr = DNS_N // 2 + 1
+    for tag, nf, v, w, enc_design, dec_design in (
+            ("dns_fwd_first", 3, 2, 1, "scalar", "vec"),
+            ("dns_back_last", 9, 1, 2, "vec", "scalar")):
+        y = torch.randn((nf, DNS_M, DNS_M, nr), dtype=torch.complex64, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(10 + nf))
+        elems = y.numel()
+        kw = dict(axis=v + 1, m=1, nbatch=1, codec="bf16")
+        (q, _, _), design = _vec(xops.design_launches, lambda kw=kw: xops.pack_chunks(y, **kw),
+                                 f"K1 bf16 {tag}", enc_design)
+        qr, _, _ = xref.pack_chunks_ref(y, **kw)
+        err = _check_codec(torch, f"pack_chunks bf16 {tag}", q, qr, "bf16")
+        del q
+        recs.append(_record(f"exchange_encode[chunk_major,bf16,{tag}]", "exchange.cu",
+                            "src/repro/kernels/exchange/kernel.py:89", "many",
+                            counts.get(f"{enc_design}:bf16", 0), err,
+                            cuda_ms(torch, lambda kw=kw: xops.pack_chunks(y, **kw)),
+                            cuda_ms(torch, lambda kw=kw: xref.pack_chunks_ref(y, **kw)),
+                            bound_ms(elems * 8 + elems * 4, 0),
+                            cuda_ms(torch, lambda: torch.view_as_real(y).to(torch.bfloat16)),
+                            design=design, shape=list(y.shape)))
+        del y
+        dkw = dict(v=v, w=w, m=1, nbatch=1, scale=None, codec="bf16", iscomplex=True)
+        got, design = _vec(xops.decode_design_launches,
+                           lambda dkw=dkw: xops.unpack_chunks(qr, **dkw), f"K3 bf16 {tag}",
+                           dec_design)
+        err = _check_codec(torch, f"unpack_chunks bf16 {tag}", got,
+                           xref.unpack_chunks_ref(qr, **dkw), "bf16")
+        del got
+        recs.append(_record(f"exchange_decode[scatter_w,bf16,{tag}]", "exchange.cu",
+                            "src/repro/kernels/exchange/kernel.py:173", "many",
+                            counts.get(f"decode:{dec_design}:bf16", 0), err,
+                            cuda_ms(torch, lambda dkw=dkw: xops.unpack_chunks(qr, **dkw)),
+                            cuda_ms(torch, lambda dkw=dkw: xref.unpack_chunks_ref(qr, **dkw)),
+                            bound_ms(elems * 4 + elems * 8, 0), cuda_ms(torch, lambda: qr.float()),
+                            design=design))
+        del qr
+        torch.cuda.empty_cache()
+
+    n = DNS_M
+    n1, n2 = fops.plan_factors(n)
+    nh = n // 2 + 1
+
+    def c2r_plain(x):  # irfft_matmul's Hermitian extension, then the plain inverse
+        full = torch.cat([x, torch.flip(torch.conj(x[:, 1: n - n // 2]), dims=(-1,))], dim=-1)
+        return (fref.fourstep_ref(full.conj(), n1, n2).conj() / n).real
+
+    for mode, shape, iscomplex in (("rfft", (3 * n * n, n), False),
+                                   ("fft", (3 * n * nr, n), True),
+                                   ("ifft", (9 * n * nr, n), True),
+                                   ("c2r", (9 * n * n, nh), True)):
+        rows = torch.randn(shape, dtype=torch.complex64 if iscomplex else torch.float32,
+                           device="cuda", generator=torch.Generator(device="cuda").manual_seed(9))
+        if mode == "rfft":
+            kern = lambda: fops.rfft_matmul(rows)
+            plain = lambda: fref.fourstep_ref(rows.to(torch.complex64), n1, n2)[:, :nh]
+            lib = lambda: torch.fft.rfft(rows, dim=-1)
+            nbytes = rows.numel() * 4 + shape[0] * nh * 8
+        elif mode == "fft":
+            kern = lambda: fops.fft_matmul(rows)
+            plain = lambda: fref.fourstep_ref(rows, n1, n2)
+            lib = lambda: torch.fft.fft(rows, dim=-1)
+            nbytes = 2 * rows.numel() * 8
+        elif mode == "ifft":
+            kern = lambda: fops.fft_matmul(rows, inverse=True)
+            plain = lambda: fref.fourstep_ref(rows.conj(), n1, n2).conj() / n
+            lib = lambda: torch.fft.ifft(rows, dim=-1)
+            nbytes = 2 * rows.numel() * 8
+        else:  # the c2r stage: the Hermitian extension and K4's inverse
+            kern = lambda: fops.irfft_matmul(rows, n=n)
+            plain = lambda: c2r_plain(rows)
+            lib = lambda: torch.fft.irfft(rows, n=n, dim=-1)
+            nbytes = rows.numel() * 8 + shape[0] * n * 4
+        recs.append(_k4_record(torch, fops, fref, f"{mode},dns", rows, counts, kern, plain, lib,
+                               nbytes, length=n))
+        del rows
+    return recs
+
+
+def _k4_record(torch, fops, fref, tag, rows, counts, kern, plain, lib, nbytes, length=None):
+    """K4's record on the many path: one call of ``kern`` on the
+    tensor-core design within TOL_K4 of ``plain``; the bound counts the
+    design's three TF32 products a row of ``length``."""
+    n = length or rows.shape[-1]
+    n1, n2 = fops.plan_factors(n)
+    (got, design), want = _ran_design(fops.design_launches, kern, "K4"), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if err > TOL_K4 * float(want.abs().max()) or design != "tc":
+        fail(f"fourstep {tag} at {tuple(rows.shape)}: max err {err}, design {design}")
+    del got, want
+    mode = tag.split(",")[0]
+    tc_ops = 3 * 2.0 * ((2 * n1) ** 2 * n2 + (2 * n2) ** 2 * n1)
+    return _record(f"fourstep_dft[{tag}]", "fourstep.cu", "src/repro/kernels/fft/kernel.py:87",
+                   "many", counts.get(f"tc:{'ifft' if mode == 'c2r' else mode}", 0), err,
+                   cuda_ms(torch, kern), cuda_ms(torch, plain),
+                   bound_ms(nbytes, rows.shape[0] * tc_ops, TF32_TC_FLOPS), cuda_ms(torch, lib),
+                   design=design, shape=list(rows.shape))
 
 
 def _flash_records(torch, paths):
@@ -1268,13 +1768,13 @@ def _flash_fp32_record(torch, paths):
     return rec
 
 
-def _vec(counter, fn, what):
-    """``(fn(), "vec")``; fails unless the kernel ran its vec design (K1:
-    ``counter`` is ``xops.design_launches``; K2/K3:
+def _vec(counter, fn, what, want="vec"):
+    """``(fn(), want)``; fails unless the kernel ran its ``want`` design
+    (K1: ``counter`` is ``xops.design_launches``; K2/K3:
     ``xops.decode_design_launches``)."""
     out, design = _ran_design(counter, fn, what)
-    if design != "vec":
-        fail(f"{what}: ran the {design} design")
+    if design != want:
+        fail(f"{what}: ran the {design} design, want {want}")
     return out, design
 
 

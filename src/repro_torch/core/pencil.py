@@ -12,7 +12,10 @@ torch runs one process per rank, so where the reference pads and slices one
 global array, the port works on this rank's block: :func:`scatter_global`
 pads the logical global array and cuts out one rank's block, and
 :func:`assemble_blocks` / :func:`gather_blocks` put every rank's block back
-into the logical global array.
+into the logical global array.  Each of these takes ``nbatch`` leading field
+axes (stacked multi-field execution), replicated on every rank as the
+reference's ``batched_spec()`` has them: padded, cut and gathered along the
+array axes only.
 
 Only single-name groups (one mesh dimension per distributed axis) are
 supported; a composed group such as a slab over ``("p0", "p1")`` raises
@@ -145,48 +148,61 @@ def make_pencil(mesh: DeviceMesh, logical: tuple[int, ...],
                   placement=tuple(placement))
 
 
-def pad_global(x: torch.Tensor, pencil: Pencil) -> torch.Tensor:
-    """Zero-pad a logical global tensor to the pencil's physical extents."""
-    if tuple(x.shape) == pencil.physical:
+def _lead(nbatch: int) -> tuple[slice, ...]:
+    return (slice(None),) * nbatch
+
+
+def pad_global(x: torch.Tensor, pencil: Pencil, *, nbatch: int = 0) -> torch.Tensor:
+    """Zero-pad a logical global tensor to the pencil's physical extents
+    (``nbatch`` leading field axes left as they are)."""
+    lead = tuple(x.shape[:nbatch])
+    if tuple(x.shape[nbatch:]) == pencil.physical:
         return x
-    out = torch.zeros(pencil.physical, dtype=x.dtype, device=x.device)
-    out[tuple(slice(0, l) for l in pencil.logical)] = x
+    out = torch.zeros(lead + pencil.physical, dtype=x.dtype, device=x.device)
+    out[_lead(nbatch) + tuple(slice(0, l) for l in pencil.logical)] = x
     return out
 
 
-def unpad_global(x: torch.Tensor, pencil: Pencil) -> torch.Tensor:
+def unpad_global(x: torch.Tensor, pencil: Pencil, *, nbatch: int = 0) -> torch.Tensor:
     """Slice a physical global tensor back to its logical extents."""
     if pencil.logical == pencil.physical:
         return x
-    return x[tuple(slice(0, l) for l in pencil.logical)]
+    return x[_lead(nbatch) + tuple(slice(0, l) for l in pencil.logical)]
 
 
-def scatter_global(x, pencil: Pencil, rank: int) -> torch.Tensor:
+def scatter_global(x, pencil: Pencil, rank: int, *, nbatch: int = 0) -> torch.Tensor:
     """Global ``rank``'s padded block of the logical global array ``x``
-    (numpy array or tensor), contiguous, on ``x``'s device."""
+    (numpy array or tensor, ``nbatch`` leading field axes kept whole),
+    contiguous, on ``x``'s device."""
     xt = torch.as_tensor(x)
-    if tuple(xt.shape) != pencil.logical:
-        raise ValueError(f"global shape {tuple(xt.shape)} != pencil logical {pencil.logical}")
-    return pad_global(xt, pencil)[pencil.block_slices(rank)].contiguous()
+    if tuple(xt.shape[nbatch:]) != pencil.logical or xt.dim() != nbatch + pencil.ndim:
+        raise ValueError(f"global shape {tuple(xt.shape)} != {nbatch} field axes + pencil "
+                         f"logical {pencil.logical}")
+    padded = pad_global(xt, pencil, nbatch=nbatch)
+    return padded[_lead(nbatch) + pencil.block_slices(rank)].contiguous()
 
 
-def assemble_blocks(blocks, pencil: Pencil) -> torch.Tensor:
+def assemble_blocks(blocks, pencil: Pencil, *, nbatch: int = 0) -> torch.Tensor:
     """The logical global tensor from every rank's block (``blocks[r]`` is
-    global rank ``r``'s)."""
-    out = torch.empty(pencil.physical, dtype=blocks[0].dtype, device=blocks[0].device)
+    global rank ``r``'s, with ``nbatch`` leading field axes)."""
+    b0 = blocks[0]
+    out = torch.empty(tuple(b0.shape[:nbatch]) + pencil.physical, dtype=b0.dtype,
+                      device=b0.device)
     for rank, blk in enumerate(blocks):
-        out[pencil.block_slices(rank)] = blk
-    return unpad_global(out, pencil)
+        out[_lead(nbatch) + pencil.block_slices(rank)] = blk
+    return unpad_global(out, pencil, nbatch=nbatch)
 
 
-def gather_blocks(blocks, pencil: Pencil) -> np.ndarray:
+def gather_blocks(blocks, pencil: Pencil, *, nbatch: int = 0) -> np.ndarray:
     """:func:`assemble_blocks` as a numpy array."""
-    return assemble_blocks([torch.as_tensor(b).cpu() for b in blocks], pencil).numpy()
+    return assemble_blocks([torch.as_tensor(b).cpu() for b in blocks], pencil,
+                           nbatch=nbatch).numpy()
 
 
-def allgather_global(block: torch.Tensor, pencil: Pencil) -> torch.Tensor:
+def allgather_global(block: torch.Tensor, pencil: Pencil, *, nbatch: int = 0) -> torch.Tensor:
     """The logical global tensor on every rank, from each rank's ``block``
-    (one all-gather over the default group, which the mesh must cover)."""
+    (``nbatch`` leading field axes; one all-gather over the default group,
+    which the mesh must cover)."""
     world = dist.get_world_size()
     if pencil.mesh.size() != world:
         raise ValueError(f"mesh of {pencil.mesh.size()} ranks does not cover the world of {world}")
@@ -198,4 +214,4 @@ def allgather_global(block: torch.Tensor, pencil: Pencil) -> torch.Tensor:
     gathered = gathered.reshape(world, *flat.shape)
     if block.is_complex():
         gathered = torch.view_as_complex(gathered)
-    return assemble_blocks(list(gathered.unbind(0)), pencil)
+    return assemble_blocks(list(gathered.unbind(0)), pencil, nbatch=nbatch)

@@ -22,8 +22,28 @@ slice's next-stage FFT issued before the wait of the next slice); the tuned
 through :func:`repro_torch.robustness.runner.run_guarded` and returns
 ``(result, HealthReport)``; the guarded executor sums its stat vector over
 the plan's world with one ``all_reduce``, the one collective the
-reference's single controller does not need.  Plans run single-field blocks
-(``forward_many``, ROADMAP).
+reference's single controller does not need.
+
+Batched multi-field execution (``forward_many``/``backward_many``, and
+``forward``/``backward`` of a ``d+1``-dim input): N fields go through the
+plan as one stacked block with a leading field axis, replicated on every
+rank.  FFT stages transform all fields in one call; each exchange stage
+follows its schedule entry's ``batch_fusion``:
+
+``"stacked"`` (default)       — one collective per exchange ships every
+    field (one per slice when pipelined); a lossy codec runs once over the
+    stack, int8 with one scale per (field, chunk).
+``"pipelined-across-fields"`` — per-field collectives, field ``f``'s issued
+    (``async_op=True``, :func:`~repro_torch.core.redistribute.exchange_shard_start`)
+    before field ``f - 1``'s FFT is launched and waited for after it, so the
+    card can run the one under the other.  The traditional and pipelined
+    engines exchange each field to completion, as the reference does.
+``"per-field"``               — N serialized exchange + FFT pairs.
+
+Every mode is bitwise equal to the per-field loop for a lossless wire.
+``forward_many`` takes a tensor with a leading field axis, or a list, tuple
+or dict of logical-shape fields, and returns the same structure; other
+containers are not taken.
 """
 
 from __future__ import annotations
@@ -43,7 +63,8 @@ from repro_torch.core.meshutil import mesh_device
 from repro_torch.core.pencil import (Group, Pencil, allgather_global, group_size, make_pencil,
                                      scatter_global)
 from repro_torch.core.planconfig import PlanConfig, StageEntry
-from repro_torch.core.redistribute import exchange_shard, exchange_shard_sliced
+from repro_torch.core.redistribute import (exchange_collective_launches, exchange_shard,
+                                           exchange_shard_sliced, exchange_shard_start)
 from repro_torch.robustness import faults, health
 
 
@@ -178,6 +199,15 @@ class ParallelFFT:
         entry = self.config.stage_entry()._replace(batch_fusion="stacked").validate()
         return (entry,) * self.n_exchanges
 
+    def batched_schedule(self, nfields: int) -> tuple[StageEntry, ...]:
+        """:class:`StageEntry` per exchange stage of an ``nfields``-field
+        execution, forward order: the plan's uniform ``batch_fusion`` (one
+        field: ``"stacked"``).  ``method="auto"`` is refused at
+        construction until the tuner is ported."""
+        if nfields <= 1:
+            return self.schedule
+        return (self.config.stage_entry().validate(),) * self.n_exchanges
+
     # -- executors on this rank's padded block -------------------------------
 
     def _walk(self, direction: str):
@@ -189,12 +219,12 @@ class ParallelFFT:
             return stages, pencils, fftcore.BACKWARD, self.output_pencil
         raise ValueError(f"unknown direction {direction!r}")
 
-    def _execute(self, block, direction: str, schedule, guard: bool):
+    def _execute(self, block, direction: str, schedule, guard: bool, nbatch: int = 0):
         stages, pencils, sign, pen = self._walk(direction)
-        self._check_block(block, pen)
+        self._check_block(block, pen, nbatch)
         sched = schedule if direction == "forward" else schedule[::-1]
         return _run_stages(block, stages=stages, pencils=pencils, schedule=sched,
-                           impl=self.impl, sign=sign, mesh=self.mesh, guard=guard)
+                           impl=self.impl, sign=sign, mesh=self.mesh, nbatch=nbatch, guard=guard)
 
     def forward_padded(self, block: torch.Tensor) -> torch.Tensor:
         """Forward transform of this rank's padded block (input pencil)."""
@@ -204,39 +234,62 @@ class ParallelFFT:
         """Backward transform of this rank's padded block (output pencil)."""
         return self._execute(block, "backward", self.schedule, guard=False)
 
-    def guarded_padded(self, direction: str = "forward", *, schedule=None):
-        """Guarded executor on this rank's padded block: ``fn(block) ->
-        (block, stats)``, ``stats`` the packed guard-stat vector
+    def forward_many_padded(self, nfields: int):
+        """Batched forward on this rank's stacked padded block ``(nfields,
+        *local_shape)``: ``fn(block) -> block``."""
+        return self._many_padded(nfields, "forward")
+
+    def backward_many_padded(self, nfields: int):
+        return self._many_padded(nfields, "backward")
+
+    def _many_padded(self, nfields: int, direction: str):
+        schedule = self.batched_schedule(nfields)
+
+        def fn(block):
+            if block.shape[0] != nfields:
+                raise ValueError(f"stacked block of {block.shape[0]} fields, need {nfields}")
+            return self._execute(block, direction, schedule, guard=False, nbatch=1)
+
+        return fn
+
+    def guarded_padded(self, direction: str = "forward", *, schedule=None, nfields: int = 1):
+        """Guarded executor on this rank's padded block (stacked
+        ``(nfields, ...)`` when ``nfields > 1``): ``fn(block) -> (block,
+        stats)``, ``stats`` the packed guard-stat vector
         (:func:`repro_torch.robustness.health.pack_stats`) summed over the
         plan's world by one ``all_reduce``, in float64.  ``schedule``
         (forward order) overrides the plan's own; the degradation ladder
         runs through here with widened entries."""
-        schedule = self.schedule if schedule is None else tuple(schedule)
+        schedule = self.batched_schedule(nfields) if schedule is None else tuple(schedule)
+        nbatch = 1 if nfields > 1 else 0
         world = dist.get_world_size()
         if self.mesh.size() != world:
             raise ValueError(f"a guarded plan's mesh of {self.mesh.size()} ranks must cover "
                              f"the world of {world}")
 
         def fn(block):
-            y, vec = self._execute(block, direction, schedule, guard=True)
+            y, vec = self._execute(block, direction, schedule, guard=True, nbatch=nbatch)
             vec = vec.to(torch.float64)
             dist.all_reduce(vec, op=dist.ReduceOp.SUM)
             return y, vec
 
         return fn
 
-    def warm(self, directions=("forward", "backward")) -> int:
+    def warm(self, directions=("forward", "backward"), *, nfields: int = 1) -> int:
         """Run each requested direction once on a zero block (through the
-        guarded executor when the plan is guarded), so that the kernels'
-        build and the first launches happen before the first real call.
-        Returns the number of executors run."""
+        guarded executor when the plan is guarded; stacked when ``nfields >
+        1``), so that the kernels' build and the first launches happen before
+        the first real call.  Returns the number of executors run."""
         n = 0
         for direction in directions:
             _, _, _, pen = self._walk(direction)
             dt = self.input_dtype if direction == "forward" else self.spectral_dtype
-            block = torch.zeros(pen.local_shape, dtype=dt, device=self.device)
+            lead = (nfields,) if nfields > 1 else ()
+            block = torch.zeros(lead + pen.local_shape, dtype=dt, device=self.device)
             if self.guard != "off":
-                self.guarded_padded(direction)(block)
+                self.guarded_padded(direction, nfields=nfields)(block)
+            elif nfields > 1:
+                self._many_padded(nfields, direction)(block)
             else:
                 self._execute(block, direction, self.schedule, guard=False)
             n += 1
@@ -244,9 +297,10 @@ class ParallelFFT:
             torch.cuda.synchronize(self.device)
         return n
 
-    def _check_block(self, block: torch.Tensor, pencil: Pencil):
-        if tuple(block.shape) != pencil.local_shape:
-            raise ValueError(f"block shape {tuple(block.shape)} != local shape {pencil.local_shape}")
+    def _check_block(self, block: torch.Tensor, pencil: Pencil, nbatch: int = 0):
+        if tuple(block.shape[nbatch:]) != pencil.local_shape or block.dim() != nbatch + self.d:
+            raise ValueError(f"block shape {tuple(block.shape)} != {nbatch} field axes + local "
+                             f"shape {pencil.local_shape}")
         if block.device != self.device:
             raise ValueError(f"block on {block.device}, plan on {self.device}")
 
@@ -256,14 +310,25 @@ class ParallelFFT:
         """Forward transform of the logical global array ``x`` (every rank
         passes the same array); returns the logical global spectrum on the
         plan's device, with the :class:`~repro_torch.robustness.health.HealthReport`
-        when the plan is guarded."""
-        return self._global(x, "forward", self.input_dtype, self.output_pencil)
+        when the plan is guarded.  A ``d+1``-dim ``x`` is a stack of fields
+        and goes through :meth:`forward_many`."""
+        if torch.as_tensor(x).dim() == self.d + 1:
+            return self.forward_many(x)
+        return self._global(x, "forward")
 
     def backward(self, x):
-        return self._global(x, "backward", self.spectral_dtype, self.input_pencil)
+        if torch.as_tensor(x).dim() == self.d + 1:
+            return self.backward_many(x)
+        return self._global(x, "backward")
 
-    def _global(self, x, direction: str, dtype, out_pen: Pencil):
-        _, _, _, in_pen = self._walk(direction)
+    def _pencils(self, direction: str):
+        """(input pencil, output pencil, input dtype) of ``direction``."""
+        if direction == "forward":
+            return self.input_pencil, self.output_pencil, self.input_dtype
+        return self.output_pencil, self.input_pencil, self.spectral_dtype
+
+    def _global(self, x, direction: str):
+        in_pen, out_pen, dtype = self._pencils(direction)
         xt = torch.as_tensor(x).to(device=self.device, dtype=dtype)
         block = scatter_global(xt, in_pen, dist.get_rank())
         if self.guard != "off":
@@ -273,6 +338,108 @@ class ParallelFFT:
             return allgather_global(y, out_pen), report
         return allgather_global(self._execute(block, direction, self.schedule, guard=False),
                                 out_pen)
+
+    def forward_many(self, xs):
+        """Transform N fields through one batched execution.  ``xs`` is a
+        tensor (or numpy array) with a leading field axis, ``(N, *shape)``,
+        or a list, tuple or dict of N logical-shape fields; the result has
+        the same structure (with the HealthReport when guarded).  Each
+        exchange stage ships the fields by its ``batch_fusion`` mode: one
+        collective per stage under ``"stacked"`` instead of the N of a
+        per-field loop."""
+        return self._apply_many(xs, "forward")
+
+    def backward_many(self, xs):
+        return self._apply_many(xs, "backward")
+
+    def _apply_many(self, xs, direction: str):
+        in_pen, out_pen, dtype = self._pencils(direction)
+        if isinstance(xs, dict):
+            keys, leaves = list(xs), list(xs.values())
+        elif isinstance(xs, (list, tuple)):
+            keys, leaves = None, list(xs)
+        else:
+            keys, leaves = None, None
+        if leaves is None:
+            stacked = torch.as_tensor(xs).to(device=self.device, dtype=dtype)
+            if stacked.dim() != self.d + 1:
+                raise ValueError(f"stacked {direction} input must be (nfields, *{in_pen.logical});"
+                                 f" got {stacked.dim()} dims for a d={self.d} plan")
+        elif not leaves:
+            raise ValueError(f"{direction}_many needs at least one field")
+        else:
+            stacked = torch.stack([torch.as_tensor(f).to(device=self.device, dtype=dtype)
+                                   for f in leaves])
+        nfields = stacked.shape[0]
+        block = scatter_global(stacked, in_pen, dist.get_rank(), nbatch=1)
+        report = None
+        if self.guard != "off":
+            from repro_torch.robustness import runner
+
+            if nfields == 1:  # the guarded executors take a stack only for nfields > 1
+                y, report = runner.run_guarded(self, block[0], direction)
+                y = y[None]
+            else:
+                y, report = runner.run_guarded(self, block, direction, nfields)
+        else:
+            y = self._many_padded(nfields, direction)(block)
+        y = allgather_global(y, out_pen, nbatch=1)
+        if leaves is not None:
+            fields = list(y.unbind(0))
+            if keys is not None:
+                y = dict(zip(keys, fields))
+            else:
+                y = type(xs)(fields)
+        return y if report is None else (y, report)
+
+    # -- counts of the plan (pure arithmetic, the reference's values) --------
+
+    def model_flops(self, nfields: int = 1) -> float:
+        """5 n log2 n per 1-D transform summed over the plan (transforms of
+        real data, r2c and dct/dst on a still-real block, counted as half);
+        ``nfields`` scales the whole plan."""
+        return nfields * sum(self._stage_flops_at(i) for i, st in enumerate(self.stages)
+                             if isinstance(st, FFTStage))
+
+    def _stage_flops_at(self, i: int, stages=None, pencils=None, dtypes=None) -> float:
+        """Nominal flops of FFT stage ``i``: 5 n log2 n per transform times
+        the other axes' current logical extents (from the pencil trace)."""
+        stages = self.stages if stages is None else stages
+        pencils = self.pencil_trace if pencils is None else pencils
+        dtypes = self.dtype_trace if dtypes is None else dtypes
+        st = stages[i]
+        batch = 1.0
+        for ax, ext in enumerate(pencils[i].logical):
+            if ax != st.axis:
+                batch *= ext
+        flops = 5.0 * st.n * math.log2(max(st.n, 2)) * batch
+        if st.spec.kind == "r2c" or dtypes[i] == torch.float32:
+            flops *= 0.5
+        return flops
+
+    def model_collective_launches(self, *, nfields: int = 1, schedule=None,
+                                  batch_fusion: str | None = None,
+                                  direction: str = "forward") -> int:
+        """Payload collectives one transform issues under its schedule
+        (:func:`~repro_torch.core.redistribute.exchange_collective_launches`
+        per exchange; int8's scale collectives not counted)."""
+        if schedule is None:
+            schedule = self.batched_schedule(nfields)
+        if direction == "backward":
+            schedule = tuple(schedule)[::-1]
+        elif direction != "forward":
+            raise ValueError(f"unknown direction {direction!r}")
+        total, ex_i = 0, 0
+        for i, st in enumerate(self.stages):
+            if not isinstance(st, ExchangeStage):
+                continue
+            entry = StageEntry(*schedule[ex_i])
+            ex_i += 1
+            fusion = batch_fusion if batch_fusion is not None else entry.batch_fusion
+            total += exchange_collective_launches(
+                self.pencil_trace[i], st.v, st.w, method=entry.method, chunks=entry.chunks,
+                nfields=nfields, batch_fusion=fusion)
+        return total
 
 
 def _repad(pencil: Pencil, axis: int, divisor: int) -> Pencil:
@@ -299,11 +466,14 @@ def _reverse_plan(stages, pencils):
     return tuple(rev_stages), tuple(rev_pencils)
 
 
-def _run_stages(block, *, stages, pencils, schedule, impl, sign, mesh, guard=False):
+def _run_stages(block, *, stages, pencils, schedule, impl, sign, mesh, nbatch=0, guard=False):
     """Execute the plan on this rank's block; each exchange is followed by
-    the FFT of its newly aligned axis.  ``guard=True`` also returns this
+    the FFT of its newly aligned axis.  ``nbatch=1``: a stacked multi-field
+    block; FFT stages transform every field in one call and exchange stages
+    follow their entry's ``batch_fusion``.  ``guard=True`` also returns this
     rank's packed guard-stat vector: the output probe always, the Parseval
-    energy bracket and the per-stage counts for lossy schedules."""
+    energy bracket and the per-stage counts (summed over fields) for lossy
+    schedules."""
     lossy = guard and health.schedule_is_lossy(schedule)
     zero = torch.zeros((), dtype=torch.float32, device=block.device)
     energy_in = health.block_energy(block) if lossy else zero
@@ -317,74 +487,141 @@ def _run_stages(block, *, stages, pencils, schedule, impl, sign, mesh, guard=Fal
             block, stats = _run_exchange_stage(
                 block, st, fft_st, pencils[i + 1],
                 pencils[i + 2] if fft_st is not None else None,
-                schedule[ex_i], impl=impl, sign=sign, mesh=mesh, guard=guard, stage_index=ex_i)
+                schedule[ex_i], impl=impl, sign=sign, mesh=mesh, nbatch=nbatch, guard=guard,
+                stage_index=ex_i)
             per_stage.append(stats)
             ex_i += 1
             i += 2 if fft_st is not None else 1
         else:
-            block = _fft_padded_axis(block, st, pencils[i], pencils[i + 1], impl=impl, sign=sign)
+            block = _fft_padded_axis(block, st, pencils[i], pencils[i + 1], impl=impl, sign=sign,
+                                     nbatch=nbatch)
             i += 1
     if not guard:
         return block
     energy_out = health.block_energy(block) if lossy else zero
     last = stages[-1]
-    probe = health.output_probe(block, last.axis if isinstance(last, FFTStage) else None)
+    probe = health.output_probe(block, last.axis + nbatch if isinstance(last, FFTStage) else None)
     return block, health.pack_stats(per_stage, energy_in, energy_out, probe)
 
 
 def _run_exchange_stage(block, ex: ExchangeStage, fft_st: FFTStage | None, mid: Pencil,
-                        after: Pencil | None, entry: StageEntry, *, impl, sign, mesh,
+                        after: Pencil | None, entry: StageEntry, *, impl, sign, mesh, nbatch=0,
                         guard=False, stage_index=None):
     """One exchange stage (+ the FFT of its newly aligned axis) under one
     schedule entry; returns ``(block, stats)``, ``stats`` None unless
-    ``guard``.  The fault taps return their input when no FaultPlan is
-    armed."""
-    method, chunks, comm_dtype, ex_impl, _ = entry
+    ``guard``.  A stacked block (``nbatch=1``) goes through the entry's
+    ``batch_fusion`` mode (module docstring).  The fault taps return their
+    input when no FaultPlan is armed."""
+    method, chunks, comm_dtype, ex_impl, fusion = entry
     with faults.stage_context(stage_index, method, comm_dtype):
         faults.check_compile(method, comm_dtype)
         block = faults.tap_stage_input(block)
-        if fft_st is not None and method == "pipelined" and chunks > 1:
-            return _exchange_then_fft(block, ex, fft_st, mid, after, chunks=chunks,
-                                      comm_dtype=comm_dtype, exchange_impl=ex_impl, impl=impl,
-                                      sign=sign, mesh=mesh, guard=guard)
-        res = exchange_shard(block, ex.v, ex.w, ex.group, mesh=mesh, method=method,
-                             chunks=chunks, comm_dtype=comm_dtype, impl=ex_impl, guard=guard)
-        block, stats = res if guard else (res, None)
-        if fft_st is not None:
-            block = _fft_padded_axis(block, fft_st, mid, after, impl=impl, sign=sign)
-        return block, stats
+        if nbatch and fusion != "stacked":
+            return _run_fields(block, ex, fft_st, mid, after, method=method, chunks=chunks,
+                               comm_dtype=comm_dtype, exchange_impl=ex_impl, fusion=fusion,
+                               impl=impl, sign=sign, mesh=mesh, guard=guard)
+        return _exchange_and_fft(block, ex, fft_st, mid, after, method=method, chunks=chunks,
+                                 comm_dtype=comm_dtype, exchange_impl=ex_impl, impl=impl,
+                                 sign=sign, mesh=mesh, nbatch=nbatch, guard=guard)
+
+
+def _exchange_and_fft(block, ex: ExchangeStage, fft_st: FFTStage | None, mid: Pencil,
+                      after: Pencil | None, *, method, chunks, comm_dtype, exchange_impl, impl,
+                      sign, mesh, nbatch, guard):
+    """One exchange of ``block`` (every field of a stacked block at once),
+    then the FFT of its newly aligned axis; a chunked pipelined engine
+    interleaves its slices with that FFT.  Returns ``(block, stats)``."""
+    if fft_st is not None and method == "pipelined" and chunks > 1:
+        return _exchange_then_fft(block, ex, fft_st, mid, after, chunks=chunks,
+                                  comm_dtype=comm_dtype, exchange_impl=exchange_impl, impl=impl,
+                                  sign=sign, mesh=mesh, nbatch=nbatch, guard=guard)
+    res = exchange_shard(block, ex.v, ex.w, ex.group, mesh=mesh, method=method, chunks=chunks,
+                         comm_dtype=comm_dtype, nbatch=nbatch, impl=exchange_impl, guard=guard)
+    block, stats = res if guard else (res, None)
+    if fft_st is not None:
+        block = _fft_padded_axis(block, fft_st, mid, after, impl=impl, sign=sign, nbatch=nbatch)
+    return block, stats
+
+
+def _run_fields(block, ex: ExchangeStage, fft_st: FFTStage | None, mid: Pencil,
+                after: Pencil | None, *, method, chunks, comm_dtype, exchange_impl, fusion, impl,
+                sign, mesh, guard):
+    """The per-field exchange modes of a stacked block, the stats summed
+    over fields.  ``"per-field"``: each field's exchange and FFT in turn (a
+    chunked pipelined engine interleaves its slices with the FFT as for one
+    field).  ``"pipelined-across-fields"``: field ``f``'s exchange is
+    started before field ``f - 1``'s FFT is launched, and finished after it."""
+    stats = health.zero_stats(block.device) if guard else None
+
+    def add(s):
+        nonlocal stats
+        if guard:
+            stats = health.add_stats(stats, s)
+
+    def fft(b):
+        if fft_st is None:
+            return b
+        return _fft_padded_axis(b, fft_st, mid, after, impl=impl, sign=sign)
+
+    outs = []
+    if fusion == "per-field":
+        for fb in block.unbind(0):
+            out, s = _exchange_and_fft(fb, ex, fft_st, mid, after, method=method, chunks=chunks,
+                                       comm_dtype=comm_dtype, exchange_impl=exchange_impl,
+                                       impl=impl, sign=sign, mesh=mesh, nbatch=0, guard=guard)
+            add(s)
+            outs.append(out)
+    elif fusion == "pipelined-across-fields":
+        pending = None
+        for fb in block.unbind(0):
+            finish, s = exchange_shard_start(fb, ex.v, ex.w, ex.group, mesh=mesh, method=method,
+                                             chunks=chunks, comm_dtype=comm_dtype,
+                                             impl=exchange_impl, guard=guard, async_op=True)
+            add(s)
+            if pending is not None:  # field f's collective is issued; now f - 1's FFT
+                outs.append(fft(pending()))
+            pending = finish
+        outs.append(fft(pending()))
+    else:
+        raise ValueError(f"unknown batch_fusion {fusion!r}")
+    return torch.stack(outs), stats
 
 
 def _exchange_then_fft(block, ex: ExchangeStage, fft_st: FFTStage, mid: Pencil, after: Pencil,
-                       *, chunks, comm_dtype, exchange_impl, impl, sign, mesh, guard):
+                       *, chunks, comm_dtype, exchange_impl, impl, sign, mesh, nbatch=0, guard):
     """Pipelined exchange fused with the next stage's 1-D FFT: every
     slice's collective is issued, then each slice's FFT is issued right
     after its wait, before the wait of the next slice, so the card can run
     slice ``i + 1``'s collective under slice ``i``'s FFT.  Slicing commutes
     with the FFT along ``w``, so the concat equals the unpipelined result
-    (bitwise for lossless payloads)."""
+    (bitwise for lossless payloads).  With ``nbatch=1`` each slice carries
+    every field's sub-range."""
     res = exchange_shard_sliced(
         block, ex.v, ex.w, ex.group, mesh=mesh, chunks=chunks, comm_dtype=comm_dtype,
-        guard=guard, impl=exchange_impl,
-        then=lambda p: _fft_padded_axis(p, fft_st, mid, after, impl=impl, sign=sign))
+        nbatch=nbatch, guard=guard, impl=exchange_impl,
+        then=lambda p: _fft_padded_axis(p, fft_st, mid, after, impl=impl, sign=sign,
+                                        nbatch=nbatch))
     out, stats = res if guard else (res, None)
-    out = out[0] if len(out) == 1 else torch.cat(out, dim=ex.v)
+    out = out[0] if len(out) == 1 else torch.cat(out, dim=ex.v + nbatch)
     return out, stats
 
 
-def _fft_padded_axis(block, st: FFTStage, cur: Pencil, nxt: Pencil, *, impl, sign):
+def _fft_padded_axis(block, st: FFTStage, cur: Pencil, nxt: Pencil, *, impl, sign, nbatch=0):
     """One transform stage along a locally complete axis: slice to the
     logical extent, transform at the true length, zero-pad to the next
-    physical extent."""
-    axis = st.axis
-    n_log_in = cur.logical[axis]
-    if block.shape[axis] != cur.physical[axis]:
+    physical extent.  ``st.axis`` is field-relative; ``nbatch`` leading
+    field axes transform in the same call."""
+    axis = st.axis + nbatch
+    n_log_in = cur.logical[st.axis]
+    if block.shape[axis] != cur.physical[st.axis]:
         raise AssertionError(
-            f"axis {axis}: local extent {block.shape[axis]} != physical {cur.physical[axis]}")
+            f"axis {st.axis}: local extent {block.shape[axis]} != physical "
+            f"{cur.physical[st.axis]}")
     if n_log_in != block.shape[axis]:
         block = torch.narrow(block, axis, 0, n_log_in)
-    block = fftcore.local_transform(block, axis, sign, st.spec, n=st.n, impl=impl)
-    n_phys_out = nxt.physical[axis]
+    block = fftcore.local_transform(block, st.axis, sign, st.spec, n=st.n, impl=impl,
+                                    nbatch=nbatch)
+    n_phys_out = nxt.physical[st.axis]
     if block.shape[axis] != n_phys_out:
         shape = list(block.shape)
         shape[axis] = n_phys_out - block.shape[axis]

@@ -31,6 +31,18 @@ concat axis:
     wait of slice ``i + 1``.  Lossless slices join to the fused output
     bitwise; lossy slices quantize independently.
 
+Stacked fields (``nbatch`` leading axes, ``v``/``w`` field-relative): every
+engine ships all fields in its one collective (per slice when pipelined),
+and int8 keeps one scale per (field, chunk), ``(M, F)`` chunk-major on the
+wire, so a field never shares a max-abs with another.  The traditional
+engine's materialized pack puts the chunk axis in front of the fields; its
+int8 codec then views the packed block with the fields first, so its scales
+are per (chunk, field) as the reference's.  Transposed out, the output is
+``(m, fields..., ...)``: the chunk axis leads and the fields follow it.
+:func:`exchange_shard_start` splits the fused exchange into an issue and a
+``finish()`` (asynchronous for ``batch_fusion="pipelined-across-fields"``);
+:func:`exchange_shard` issues its fused exchanges through it.
+
 ``guard=True`` makes every engine return ``(out, stats)``: the
 ``{"nonfinite", "saturated"}`` counts of its lossy payload (from the codec
 kernel's guard mode, or :func:`~repro_torch.robustness.health.payload_stats`
@@ -43,14 +55,16 @@ element 0, the element the reference's taps corrupt.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core.decomp import local_lengths
 from repro_torch.core.meshutil import axis_size
-from repro_torch.core.pencil import Group, group_name
-from repro_torch.core.quant import canonical_comm_dtype
+from repro_torch.core.pencil import Group, Pencil, group_name, group_size
+from repro_torch.core.quant import canonical_comm_dtype, wire_ratio
 from repro_torch.kernels.exchange import ops as xops, ref as xref
 from repro_torch.robustness import faults, health
 
@@ -152,21 +166,22 @@ def exchange_shard(block: torch.Tensor, v: int, w: int, group: Group, *, mesh: D
         raise ValueError(f"unknown method {method!r}")
     pg, m = _group(mesh, group)
     d = canonical_comm_dtype(comm_dtype)
-    chunk_out = method == "traditional" and transposed_out
-    if method == "traditional" and d == "int8" and nbatch and (transposed_out or impl != "cuda"):
-        raise NotImplementedError(
-            "stacked fields through the traditional int8 transposed-out or plain path "
-            "(ROADMAP: forward_many)")
     if method == "fused" or (impl == "cuda" and d != "complex64"):
         # traditional with the kernels: one kernel packs chunk-major and
         # encodes, the unpack kernel scatters and decodes, as the fused
-        # engine's (Eqs. 15-17 cost no extra pass).  Transposed out, the
-        # scatter goes into a new leading axis of extent 1, so received chunk
-        # j lands at index j of the chunk-major output.
-        y, sa, ca, nb = (block.unsqueeze(0), bv + 1, 0, 0) if chunk_out else (block, bv, bw, nbatch)
-        finish, stats = _start_comm(y, pg, m, split_axis=sa, concat_axis=ca, comm_dtype=d,
-                                    nbatch=nb, impl=impl, guard=guard)
-        out = finish()
+        # engine's (Eqs. 15-17 cost no extra pass).
+        if method == "traditional" and transposed_out:
+            # the scatter goes into a new axis of extent 1 just behind the
+            # fields, so received chunk j lands at index j of it; that chunk
+            # axis then moves in front of the fields (a view when nbatch > 0)
+            finish, stats = _start_comm(block.unsqueeze(nbatch), pg, m, split_axis=bv + 1,
+                                        concat_axis=nbatch, comm_dtype=d, nbatch=nbatch,
+                                        impl=impl, guard=guard)
+            out = torch.movedim(finish(), nbatch, 0)
+        else:
+            finish, stats = exchange_shard_start(block, v, w, group, mesh=mesh, comm_dtype=d,
+                                                 nbatch=nbatch, guard=guard, impl=impl)
+            out = finish()
         return (out, stats) if guard else out
     nv = block.shape[bv]
     if nv % m != 0:
@@ -176,9 +191,18 @@ def exchange_shard(block: torch.Tensor, v: int, w: int, group: Group, *, mesh: D
     shape = list(block.shape)
     shape[bv: bv + 1] = [m, nv // m]
     y = torch.movedim(block.reshape(shape), bv, 0).contiguous()
-    finish, stats = _start_comm(y, pg, m, split_axis=0, concat_axis=0, comm_dtype=d,
-                                impl=impl, guard=guard)
-    y = finish()
+    if nbatch and d == "int8":
+        # one int8 scale per (chunk, field), as the reference blocks them:
+        # the codec sees (fields, 1, m, ...) and cuts the m axis into m
+        # chunks of 1, which land in the extent-1 axis
+        z = torch.movedim(y, 0, nbatch).unsqueeze(nbatch)
+        finish, stats = _start_comm(z, pg, m, split_axis=nbatch + 1, concat_axis=nbatch,
+                                    comm_dtype=d, nbatch=nbatch, impl=impl, guard=guard)
+        y = torch.movedim(finish().squeeze(nbatch + 1), nbatch, 0)
+    else:
+        finish, stats = _start_comm(y, pg, m, split_axis=0, concat_axis=0, comm_dtype=d,
+                                    impl=impl, guard=guard)
+        y = finish()
     if not transposed_out:
         # Eq. 17: chunk q carries peer q's w shard; insert the chunk axis
         # before w and merge (m, w_shard) -> w_full: the second copy
@@ -187,6 +211,34 @@ def exchange_shard(block: torch.Tensor, v: int, w: int, group: Group, *, mesh: D
         shape[bw: bw + 2] = [shape[bw] * shape[bw + 1]]
         y = z.reshape(shape)
     return (y, stats) if guard else y
+
+
+def exchange_shard_start(block: torch.Tensor, v: int, w: int, group: Group, *,
+                         mesh: DeviceMesh, method: str = "fused", chunks: int = 1,
+                         comm_dtype=None, nbatch: int = 0, guard: bool = False,
+                         impl: str = "torch", async_op: bool = False):
+    """Start this rank's v->w exchange; returns ``(finish, stats)``,
+    ``finish()`` giving the exchanged block and ``stats`` None unless
+    ``guard``.
+
+    With ``method="fused"`` the encode runs and the collective (with int8's
+    scale collective) is issued here, asynchronously with ``async_op=True``;
+    ``finish()`` waits for it and decodes, so work launched in between (the
+    previous field's FFT under ``batch_fusion="pipelined-across-fields"``)
+    is queued ahead of the wait.  The traditional and pipelined engines run
+    to completion here, as :func:`exchange_shard` (the reference's per-field
+    exchange), and ``finish()`` returns their result."""
+    if v == w:
+        raise ValueError("exchange requires v != w (paper Alg. 3)")
+    if method != "fused":
+        res = exchange_shard(block, v, w, group, mesh=mesh, method=method, chunks=chunks,
+                             comm_dtype=comm_dtype, nbatch=nbatch, guard=guard, impl=impl)
+        out, stats = res if guard else (res, None)
+        return (lambda: out), stats
+    pg, m = _group(mesh, group)
+    return _start_comm(block, pg, m, split_axis=v + nbatch, concat_axis=w + nbatch,
+                       comm_dtype=comm_dtype, nbatch=nbatch, impl=impl, guard=guard,
+                       async_op=async_op)
 
 
 def exchange_shard_sliced(block: torch.Tensor, v: int, w: int, group: Group, *,
@@ -233,3 +285,55 @@ def exchange_shard_sliced(block: torch.Tensor, v: int, w: int, group: Group, *,
         p = p.reshape(pshape)
         out.append(p if then is None else then(p))
     return (out, stats) if guard else out
+
+
+# ---------------------------------------------------------------------------
+# counts of the plan's exchanges (pure arithmetic, the reference's values)
+# ---------------------------------------------------------------------------
+
+
+def exchange_cost_bytes(src: Pencil, v: int, w: int) -> int:  # noqa: ARG001
+    """Elements each rank sends in the exchange (itemsize excluded): the
+    local block minus the chunk it keeps.  The same for every engine."""
+    m = group_size(src.mesh, src.placement[w])
+    return math.prod(src.local_shape) * (m - 1) // m
+
+
+def exchange_wire_bytes(src: Pencil, v: int, w: int, *, itemsize: int = 8, comm_dtype=None,
+                        nfields: int = 1, slices: int = 1) -> int:
+    """Bytes each rank puts on the wire: the exchanged elements of
+    ``nfields`` stacked fields at the payload's width (bf16 itemsize / 2,
+    int8 itemsize / 4), and for int8 one f32 scale per (field, destination)
+    for each of the ``slices`` collectives of a pipelined engine."""
+    d = canonical_comm_dtype(comm_dtype)
+    total = exchange_cost_bytes(src, v, w) * nfields * itemsize // wire_ratio(d)
+    if d == "int8":
+        m = group_size(src.mesh, src.placement[w])
+        total += 4 * (m - 1) * nfields * max(1, slices)
+    return total
+
+
+def pipeline_slices(src: Pencil, v: int, w: int, *, chunks: int) -> int:
+    """Collectives the pipelined engine issues for this exchange: the
+    nonempty pieces of the post-exchange shard ``b = n_v / m`` that
+    :func:`exchange_shard_sliced` cuts."""
+    m = group_size(src.mesh, src.placement[w])
+    b = src.local_shape[v] // m
+    return len([n for n in local_lengths(b, max(1, min(chunks, b))) if n > 0])
+
+
+def exchange_collective_launches(src: Pencil, v: int, w: int, *, method: str = "fused",
+                                 chunks: int = 1, nfields: int = 1,
+                                 batch_fusion: str = "stacked") -> int:  # noqa: ARG001
+    """Payload collectives this exchange issues for ``nfields`` fields (the
+    int8 scale collective is not counted, as in the reference): ``chunks``
+    for a chunked pipelined engine, else one; ``"stacked"`` (or one field)
+    issues that once, ``"per-field"`` and ``"pipelined-across-fields"`` once
+    per field."""
+    per_exchange = chunks if method == "pipelined" and chunks > 1 else 1
+    n = max(1, nfields)
+    if n == 1 or batch_fusion == "stacked":
+        return per_exchange
+    if batch_fusion in ("per-field", "pipelined-across-fields"):
+        return n * per_exchange
+    raise ValueError(f"unknown batch_fusion {batch_fusion!r}")

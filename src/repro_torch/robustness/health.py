@@ -16,6 +16,10 @@ Two halves:
     the block-energy Parseval bracket, per-stage non-finite counts over bf16
     payloads and the int8 saturation count (from the codec itself).
 
+  A stacked multi-field block goes through the same reductions: the
+  executor shifts the probe's axis past the field axis, so the plane holds
+  index 0 of every field, and the energies sum over all fields.
+
   Each rank packs its own vector (:func:`pack_stats`); the guarded executor
   sums the vectors over the plan's world with one ``all_reduce``, so every
   rank evaluates the same totals.

@@ -1,9 +1,11 @@
 """Guarded plan execution: evaluate the guards, degrade, retry — the port of
-``repro/robustness/runner.py`` for single-field plans.
+``repro/robustness/runner.py``.
 
-:func:`run_guarded` is what ``ParallelFFT.forward/backward`` route through
-when ``guard != "off"``.  One attempt runs the plan's guarded executor on
-this rank's block under the current schedule; the executor sums the stat
+:func:`run_guarded` is what ``ParallelFFT.forward/backward`` and
+``forward_many/backward_many`` route through when ``guard != "off"``.  One
+attempt runs the plan's guarded executor on this rank's block (a stack of
+``nfields`` fields when ``nfields > 1``) under the current schedule; the
+executor sums the stat
 vector over the ranks, so every rank builds the same
 :class:`~.health.HealthReport` and takes the same step below.
 
@@ -85,16 +87,19 @@ def degrade_schedule(schedule, stages=None):
     return tuple(out) if moved else None
 
 
-def run_guarded(plan, xpad, direction: str):
-    """Run ``plan`` on this rank's padded block ``xpad`` under its guard
-    mode; returns ``(ypad, HealthReport)``."""
+def run_guarded(plan, xpad, direction: str, nfields: int = 1, *, schedule=None):
+    """Run ``plan`` on this rank's padded block ``xpad`` (``(nfields, ...)``
+    stacked when ``nfields > 1``) under its guard mode; returns ``(ypad,
+    HealthReport)``.  The schedule is ``plan.batched_schedule(nfields)``
+    unless ``schedule`` (forward order) forces where the ladder starts."""
     strict = plan.guard == "strict"
-    schedule = plan.schedule
+    schedule = (plan.batched_schedule(nfields) if schedule is None
+                else tuple(StageEntry(*e).validate() for e in schedule))
     transitions: list[dict] = []
     report = None
     for attempt in range(1, MAX_ATTEMPTS + 1):
         try:
-            y, raw = plan.guarded_padded(direction, schedule=schedule)(xpad)
+            y, raw = plan.guarded_padded(direction, schedule=schedule, nfields=nfields)(xpad)
         except faults.FaultInjected as err:
             log.warning("guarded %s execution failed (attempt %d): %r",
                         direction, attempt, err)
@@ -113,7 +118,7 @@ def run_guarded(plan, xpad, direction: str):
 
         stats = health.unpack_partials(raw.cpu().numpy(), len(schedule))
         report = health.build_report(
-            plan, direction=direction, nfields=1, schedule=schedule, stats=stats,
+            plan, direction=direction, nfields=nfields, schedule=schedule, stats=stats,
             guard=plan.guard, transitions=transitions, attempts=attempt,
             fired_faults=tuple(faults._ACTIVE.fired) if faults._ACTIVE else ())
         if report.ok:

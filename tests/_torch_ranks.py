@@ -1,6 +1,6 @@
 """Four CPU (gloo) ranks running the port's exchanges and plans, for
-tests/test_torch_pfft.py, tests/test_torch_engines.py and
-tests/test_torch_guard.py.
+tests/test_torch_pfft.py, tests/test_torch_engines.py,
+tests/test_torch_guard.py and tests/test_torch_many.py.
 
 The cases and their numpy-seeded inputs are plain data here, so the JAX side
 of the comparison (a subprocess with 4 virtual devices) builds the very same
@@ -57,8 +57,8 @@ ENGINE_PLANS = {
 GUARD_SHAPE = (16, 8, 8)
 
 #: case -> (guard, comm_dtype, [(injector, kwargs)], direction): the matrix of
-#: tests/test_robustness.py without its tuner and batched cases, plus an
-#: injected compile failure
+#: tests/test_robustness.py without its tuner case, plus an injected compile
+#: failure; direction "forward_many" runs the three fields of guard_fields()
 GUARD_CASES = {
     "clean_strict": ("strict", "complex64", [], "forward"),
     "clean_bf16": ("strict", "bf16", [], "forward"),
@@ -82,7 +82,13 @@ GUARD_CASES = {
     "exhausted": ("degrade", "complex64", [("nan_input", {})], "forward"),
     "fail_compile_degrade": ("degrade", "complex64", [("fail_compile", {"engine": "fused"})],
                              "forward"),
+    "batched_clean": ("strict", "complex64", [], "forward_many"),
 }
+
+
+def guard_fields(x: np.ndarray) -> np.ndarray:
+    """The batched_clean case's three fields (tests/test_robustness.py)."""
+    return np.stack([x, 2 * x, x - 1])
 
 #: (reference exchange_impl, cases) the matrix runs: every case with the plain
 #: codec, the lossy ones again through the exchange kernels
@@ -301,8 +307,9 @@ def run_guard_rank(rank: int, init_file: str, out_dir: str):
                 getattr(fp, name)(**kw)
             with fp:
                 plan = ParallelFFT(mesh, GUARD_SHAPE, ("p0", "p1"), config=cfg)
+                arg = {"forward": x, "backward": y_ref, "forward_many": guard_fields(x)}
                 try:
-                    y, rep = getattr(plan, direction)(x if direction == "forward" else y_ref)
+                    y, rep = getattr(plan, direction)(arg[direction])
                 except GuardError as e:
                     outcomes[key] = {"raised": True,
                                      "tripped": list(e.report.tripped) if e.report else []}
@@ -337,8 +344,322 @@ def report_outcome(rep) -> dict:
     """The parts of a HealthReport both packages' matrices compare (the
     schedule with the reference's implementation names)."""
     names = {"torch": "jnp", "cuda": "pallas"}
-    return {"raised": False, "ok": rep.ok, "tripped": list(rep.tripped),
+    return {"raised": False, "ok": rep.ok, "nfields": rep.nfields, "tripped": list(rep.tripped),
             "kinds": [t["kind"] for t in rep.transitions], "attempts": rep.attempts,
             "schedule": [[e[0], e[1], e[2], names.get(e[3], e[3]), e[4]] for e in rep.schedule],
             "has_energy": rep.energy_in is not None, "rel_err": rep.parseval_rel_err,
             "tol": rep.parseval_tol, "direction": rep.direction}
+
+
+# ---------------------------------------------------------------------------
+# batched multi-field execution (tests/test_torch_many.py)
+# ---------------------------------------------------------------------------
+
+#: tests/test_batched.py's field shape and field count, on a (2, 2) mesh
+MANY_SHAPE = (16, 12, 20)
+NFIELDS = 3
+
+#: plan -> (grid, reference PlanConfig fields, transforms): the four plans of
+#: tests/test_batched.py (slab c2c, pencil c2c, pencil r2c, pipelined)
+MANY_PLANS = {
+    "slab": (("p0",), {}, None),
+    "pencil": (("p0", "p1"), {}, None),
+    "pencil_r2c": (("p0", "p1"), {}, ("c2c", "c2c", "r2c")),
+    "pipelined": (("p0", "p1"), {"method": "pipelined", "chunks": 2}, None),
+}
+
+BATCH_FUSIONS = ("stacked", "pipelined-across-fields", "per-field")
+
+#: (fusion, comm_dtype) of the pencil plan's forward_many held against the
+#: JAX package (lossy wires through the exchange kernels on both sides)
+MANY_REFERENCE_CASES = tuple((f, c) for f in ("stacked", "per-field") for c in COMM_DTYPES)
+
+#: (key, layout, transposed_out) of the traditional int8 exchanges of a
+#: stacked block held against the JAX package (its plain codec)
+TRAD_INT8_CASES = tuple((f"{lay}-tout{int(t)}", lay, t)
+                        for lay in ("slab_w_before_v", "pencil_w_after_v") for t in (False, True))
+
+#: (engine, method, options) of the stacked exchange_shard cases
+MANY_ENGINES = (("fused", "fused", {}), ("trad", "traditional", {}),
+                ("trad_tout", "traditional", {"transposed_out": True}),
+                ("pipe2", "pipelined", {"chunks": 2}))
+
+
+def many_fields(plan_name: str, real: bool) -> np.ndarray:
+    """The ``NFIELDS`` global fields a plan's forward_many transforms."""
+    rng = np.random.default_rng(500 + list(MANY_PLANS).index(plan_name))
+    x = rng.standard_normal((NFIELDS, *MANY_SHAPE)).astype(np.float32)
+    if real:
+        return x
+    return (x + 1j * rng.standard_normal((NFIELDS, *MANY_SHAPE))).astype(np.complex64)
+
+
+def many_reference_input() -> np.ndarray:
+    """The pencil plan's fields held against the JAX package, field 1 a
+    thousand times the others (int8 scales must be per field)."""
+    x = many_fields("pencil", real=False)
+    x[1] *= 1e3
+    return x
+
+
+def stacked_exchange_input(lay: str) -> np.ndarray:
+    """``NFIELDS`` stacked fields of a layout, field 1 a thousand times the
+    others (int8 scales must be per field)."""
+    x = _complex(np.random.default_rng(700 + list(EXCHANGE_LAYOUTS).index(lay)),
+                 (NFIELDS, *EXCHANGE_LAYOUTS[lay][2]))
+    x[1] *= 1e3
+    return x
+
+
+def many_counts(plan, exchange_stage, fusions=BATCH_FUSIONS) -> dict:
+    """The plan's batch-aware counts, keyed the same for both packages:
+    ``model_flops``, ``model_collective_launches`` (each field count,
+    fusion and direction), and per exchange stage ``exchange_cost_bytes``,
+    ``exchange_wire_bytes`` (each payload, field count and slice count) and
+    ``pipeline_slices``.  ``exchange_stage`` is the package's class."""
+    from importlib import import_module
+
+    red = import_module(type(plan).__module__.replace("pfft", "redistribute"))
+    out = {}
+    for nf in (1, NFIELDS):
+        out[f"flops:{nf}"] = plan.model_flops(nf)
+        for fusion in fusions:
+            for direction in ("forward", "backward"):
+                out[f"launches:{nf}:{fusion}:{direction}"] = plan.model_collective_launches(
+                    nfields=nf, batch_fusion=fusion, direction=direction)
+    for i, st in enumerate(plan.stages):
+        if not isinstance(st, exchange_stage):
+            continue
+        src = plan.pencil_trace[i]
+        out[f"cost:{i}"] = red.exchange_cost_bytes(src, st.v, st.w)
+        for chunks in (1, 2, 3, 8):
+            out[f"slices:{i}:{chunks}"] = red.pipeline_slices(src, st.v, st.w, chunks=chunks)
+        for comm in COMM_DTYPES:
+            for nf in (1, NFIELDS):
+                for slices in (1, 2):
+                    out[f"wire:{i}:{comm}:{nf}:{slices}"] = red.exchange_wire_bytes(
+                        src, st.v, st.w, itemsize=8, comm_dtype=comm, nfields=nf,
+                        slices=slices)
+        for method, chunks in (("fused", 1), ("pipelined", 2)):
+            for fusion in fusions:
+                out[f"ex_launches:{i}:{method}:{fusion}"] = red.exchange_collective_launches(
+                    src, st.v, st.w, method=method, chunks=chunks, nfields=NFIELDS,
+                    batch_fusion=fusion)
+    return {k: float(v) for k, v in out.items()}
+
+
+def many_issue_order(mesh, fusion: str) -> str:
+    """The host's order of work in one 3-field forward of the pencil plan:
+    ``A`` a collective issued, ``W`` a wait on an asynchronous one, ``F``
+    a 1-D transform stage called."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import fftcore
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import config_from_reference
+
+    seq = []
+    a2a, transform = dist.all_to_all_single, fftcore.local_transform
+
+    class Work:
+        def __init__(self, work):
+            self.work = work
+
+        def wait(self):
+            seq.append("W")
+            return self.work.wait()
+
+    def traced_a2a(*args, **kwargs):
+        seq.append("A")
+        work = a2a(*args, **kwargs)
+        return None if work is None else Work(work)
+
+    def traced_transform(*args, **kwargs):
+        seq.append("F")
+        return transform(*args, **kwargs)
+
+    plan = ParallelFFT(mesh, MANY_SHAPE, ("p0", "p1"),
+                       config=config_from_reference({"batch_fusion": fusion}))
+    block = torch.zeros((NFIELDS, *plan.input_pencil.local_shape), dtype=torch.complex64)
+    dist.all_to_all_single, fftcore.local_transform = traced_a2a, traced_transform
+    try:
+        plan.forward_many_padded(NFIELDS)(block)
+    finally:
+        dist.all_to_all_single, fftcore.local_transform = a2a, transform
+    return "".join(seq)
+
+
+def run_many_rank(rank: int, init_file: str, out_dir: str):
+    """One rank: the four plans' forward_many/backward_many under every
+    batch_fusion against the per-field loop, with every
+    ``all_to_all_single`` call counted; the structures forward_many takes;
+    stacked exchanges of every engine against the per-field loop; guarded
+    batches; the batch-aware counts.  Rank 0 saves the global arrays
+    (``many.npz``) and the counts and flags (``many.json``)."""
+    from collections import Counter
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.meshutil import make_mesh
+    from repro_torch.core.pencil import (allgather_global, gather_blocks, make_pencil,
+                                         scatter_global)
+    from repro_torch.core.pfft import ExchangeStage, ParallelFFT
+    from repro_torch.core.planconfig import config_from_reference
+    from repro_torch.core.redistribute import exchange_shard
+    from repro_torch.robustness import FaultPlan, runner
+
+    calls = Counter()
+    _count_calls(dist, ("all_to_all_single",), calls)
+    _init(rank, init_file)
+    try:
+        mesh = make_mesh((2, 2), ("p0", "p1"), device="cpu")
+        arrays, info = {}, {"counts": {}, "model": {}, "plan_counts": {}}
+
+        def collectives(fn, *args):
+            calls.clear()
+            out = fn(*args)
+            return out, calls["all_to_all_single"]
+
+        for name, (grid, cfg, transforms) in MANY_PLANS.items():
+            plans = {f: ParallelFFT(mesh, MANY_SHAPE, grid, transforms=transforms,
+                                    config=config_from_reference({**cfg, "batch_fusion": f}))
+                     for f in BATCH_FUSIONS}
+            base = plans["stacked"]
+            x = many_fields(name, real=base.input_dtype == torch.float32)
+            loop = torch.stack([base.forward(f) for f in x])
+            arrays[f"{name}:loop:fwd"] = loop.numpy()
+            arrays[f"{name}:loop:back"] = torch.stack([base.backward(y) for y in loop]).numpy()
+            info["plan_counts"][name] = many_counts(base, ExchangeStage)
+            for fusion, plan in plans.items():
+                y = plan.forward_many(torch.from_numpy(x))
+                arrays[f"{name}:{fusion}:fwd"] = y.numpy()
+                arrays[f"{name}:{fusion}:back"] = plan.backward_many(loop).numpy()
+                for direction, pen, dt in (("forward", plan.input_pencil, plan.input_dtype),
+                                           ("backward", plan.output_pencil,
+                                            plan.spectral_dtype)):
+                    block = torch.zeros((NFIELDS, *pen.local_shape), dtype=dt)
+                    fn = getattr(plan, f"{direction}_many_padded")(NFIELDS)
+                    _, n = collectives(fn, block)
+                    key = f"{name}:{fusion}:{direction}"
+                    info["counts"][key] = n
+                    info["model"][key] = plan.model_collective_launches(
+                        nfields=NFIELDS, direction=direction)
+            # one field of the per-field loop issues the stacked count
+            _, n = collectives(base.forward_padded,
+                               torch.zeros(base.input_pencil.local_shape, dtype=base.input_dtype))
+            info["counts"][f"{name}:single:forward"] = n
+
+        info["issue_order"] = {f: many_issue_order(mesh, f) for f in BATCH_FUSIONS}
+
+        # the structures forward_many takes and returns
+        plan = ParallelFFT(mesh, MANY_SHAPE, ("p0", "p1"))
+        x = many_fields("pencil", real=False)
+        stacked = plan.forward_many(x)
+        as_dict = plan.forward_many({"u": x[0], "v": x[1], "w": x[2]})
+        as_list = plan.forward_many([x[0], x[1], x[2]])
+        as_tuple = plan.backward_many(tuple(stacked.unbind(0)))
+        info["structures"] = {
+            "dict_keys": list(as_dict),
+            "dict_equal": all(torch.equal(as_dict[k], stacked[i]) for i, k in
+                              enumerate(("u", "v", "w"))),
+            "list": type(as_list).__name__,
+            "list_equal": all(torch.equal(a, b) for a, b in zip(as_list, stacked)),
+            "tuple": type(as_tuple).__name__,
+            "tuple_equal": all(torch.equal(a, b) for a, b in
+                               zip(as_tuple, plan.backward_many(stacked))),
+            "forward_routes": torch.equal(plan.forward(x), stacked),
+            "backward_routes": torch.equal(plan.backward(stacked), plan.backward_many(stacked)),
+            "one_field": torch.equal(plan.forward_many(x[:1])[0], plan.forward(x[0])),
+        }
+        arrays["structures:stacked"] = stacked.numpy()
+        pen = plan.input_pencil
+        qs = make_pencil(mesh, QS_SHAPE, ("p0", "p1", None))
+        xq = np.stack([inputs()["quickstart"]] * 2)
+        info["structures"]["gather_nbatch"] = bool(np.array_equal(
+            gather_blocks([scatter_global(xq, qs, r, nbatch=1) for r in range(WORLD)], qs,
+                          nbatch=1), xq))
+        info["structures"]["allgather_nbatch"] = bool(np.array_equal(
+            allgather_global(scatter_global(xq, qs, rank, nbatch=1), qs, nbatch=1).numpy(), xq))
+
+        # the pencil plan against the reference: forward_many, lossy wires
+        # through the exchange kernels (their plain versions here)
+        xr = many_reference_input()
+        for fusion, comm in MANY_REFERENCE_CASES:
+            p = ParallelFFT(mesh, MANY_SHAPE, ("p0", "p1"), config=config_from_reference(
+                {"batch_fusion": fusion, "comm_dtype": comm, "exchange_impl": "pallas"}))
+            arrays[f"ref:{fusion}:{comm}"] = p.forward_many(xr).numpy()
+            if comm == "int8":  # scale collectives ride beside the payload's
+                _, n = collectives(p.forward_many_padded(NFIELDS),
+                                   torch.zeros((NFIELDS, *pen.local_shape), dtype=torch.complex64))
+                info["counts"][f"int8:{fusion}"] = n
+                info["model"][f"int8:{fusion}"] = p.model_collective_launches(nfields=NFIELDS)
+
+        # stacked exchanges of every engine against the per-field loop
+        for lay in EXCHANGE_LAYOUTS:
+            mshape, names, fshape, placement, v, w = EXCHANGE_LAYOUTS[lay]
+            m = mesh if mshape == (2, 2) else make_mesh(mshape, names, device="cpu")
+            pin = make_pencil(m, fshape, placement)
+            xs = stacked_exchange_input(lay)
+            block = scatter_global(xs, pin, rank, nbatch=1)
+            arrays[f"ex:{lay}:input"] = xs
+            for eng, method, opts in MANY_ENGINES:
+                for impl in ("torch", "cuda"):
+                    for comm in COMM_DTYPES:
+                        kw = dict(mesh=m, method=method, comm_dtype=comm, impl=impl, **opts)
+                        got = exchange_shard(block, v, w, placement[w], nbatch=1, **kw)
+                        field_axis = 1 if opts.get("transposed_out") else 0
+                        want = torch.stack([exchange_shard(f, v, w, placement[w], **kw)
+                                            for f in block.unbind(0)], dim=field_axis)
+                        lossless = torch.stack(
+                            [exchange_shard(f, v, w, placement[w],
+                                            **{**kw, "comm_dtype": "complex64"})
+                             for f in block.unbind(0)], dim=field_axis)
+                        key = f"ex:{lay}:{eng}:{impl}:{comm}"
+                        info.setdefault("exchange", {})[key] = {
+                            "shape": list(got.shape), "want_shape": list(want.shape),
+                            "equal_loop": torch.equal(got, want),
+                            "rel_vs_lossless": [
+                                float(torch.linalg.vector_norm(g - e) / torch.linalg.vector_norm(e))
+                                for g, e in zip(got.unbind(field_axis),
+                                                lossless.unbind(field_axis))]}
+            for key, tlay, tout in TRAD_INT8_CASES:
+                if tlay == lay:  # the global result (per rank: its block)
+                    y = exchange_shard(block, v, w, placement[w], mesh=m, method="traditional",
+                                       comm_dtype="int8", nbatch=1, impl="torch",
+                                       transposed_out=tout)
+                    gathered = [torch.empty_like(y) for _ in range(WORLD)]
+                    dist.all_gather(gathered, y.contiguous())
+                    arrays[f"trad_int8:{key}"] = torch.stack(gathered).numpy()
+
+        # guarded batches: strict clean equals the unguarded run; a bf16 wire
+        # corrupted under degrade ends ok after degrading
+        gx = many_fields("pencil", real=False)
+        strict = ParallelFFT(mesh, MANY_SHAPE, ("p0", "p1"),
+                             config=config_from_reference({"guard": "strict"}))
+        ys, rep = strict.forward_many(gx)
+        info["guard_strict"] = {"ok": rep.ok, "nfields": rep.nfields,
+                                "equal_unguarded": torch.equal(ys, plan.forward_many(gx))}
+        for fusion in BATCH_FUSIONS:
+            deg = ParallelFFT(mesh, MANY_SHAPE, ("p0", "p1"), config=config_from_reference(
+                {"guard": "degrade", "comm_dtype": "bf16", "batch_fusion": fusion}))
+            with FaultPlan().corrupt_wire(engine="fused", codec="bf16"):
+                yd, rep = deg.forward_many(gx)
+            info[f"guard_degrade:{fusion}"] = {
+                "ok": rep.ok, "nfields": rep.nfields,
+                "kinds": [t["kind"] for t in rep.transitions],
+                "schedule": [list(e) for e in rep.schedule],
+                "rel": float(torch.linalg.vector_norm(yd - ys) / torch.linalg.vector_norm(ys))}
+        forced = (("traditional", 1, "complex64", "torch", "per-field"),) * strict.n_exchanges
+        block = scatter_global(torch.from_numpy(gx), strict.input_pencil, rank, nbatch=1)
+        yf, rep = runner.run_guarded(strict, block, "forward", NFIELDS, schedule=forced)
+        info["guard_forced"] = {
+            "ok": rep.ok, "nfields": rep.nfields, "schedule": [list(e) for e in rep.schedule],
+            "equal": torch.equal(allgather_global(yf, strict.output_pencil, nbatch=1), ys)}
+        info["warm"] = [strict.warm(nfields=NFIELDS), plan.warm(("forward",), nfields=NFIELDS)]
+        if rank == 0:
+            np.savez(Path(out_dir) / "many.npz", **arrays)
+            (Path(out_dir) / "many.json").write_text(json.dumps(info))
+    finally:
+        dist.destroy_process_group()

@@ -20,7 +20,12 @@ not round; bf16 runs the tensor-core design, fp32 the FMA design, and
 the bf16 kernel is also held to the CPU emulation of its tiles.  The
 traditional engine's transposed-out exchange with ``impl="cuda"`` on a
 1-rank NCCL group launches the pack and unpack kernels and matches the
-plain codec's path (bf16 bitwise, int8 within one quantum, equal stats).
+plain codec's path (bf16 bitwise, int8 within one quantum, equal stats);
+so does its int8 exchange of stacked fields, each field within one of its
+own quanta.  Batched plans: the DNS plan's stacked and per-field forwards
+are bitwise equal (lossless), 3 stacked 512^3 fields through int8 stay
+within the plan's 3e-2 bound each with one field at 1e3, and every K1/K3
+launch of a stacked 512^3 forward is ``vec``.
 """
 
 from collections import Counter
@@ -470,6 +475,98 @@ def test_traditional_transposed_out_takes_the_kernels(mesh1, codec, v, w, group)
     _assert_codec(got, want, codec, quantum)
     for key in ("nonfinite", "saturated"):
         assert st[key].item() == st_want[key].item()
+
+
+@pytest.mark.parametrize("tout", [False, True])
+def test_traditional_int8_stacked_fields_take_the_kernels(mesh1, tout):
+    """The traditional engine's int8 exchange of 3 stacked fields (field 1
+    at 1e3), plain and transposed out, through K1 and K3: one scale per
+    (chunk, field), each field within one of its quanta of the plain codec."""
+    from repro_torch.core.redistribute import exchange_shard
+
+    y = _rand((3, 8, 6, 12), True, 21, "cuda")
+    y[1] *= 1e3
+    kw = dict(mesh=mesh1, method="traditional", transposed_out=tout, comm_dtype="int8",
+              nbatch=1)
+    before = Counter(xops.launches)
+    got = exchange_shard(y, 2, 1, "p1", impl="cuda", **kw)
+    torch.cuda.synchronize()
+    launched = {k: n - before[k] for k, n in xops.launches.items() if n != before[k]}
+    assert launched == {"pack_chunks:int8": 2, "unpack_chunks:int8": 1}
+    want = exchange_shard(y, 2, 1, "p1", impl="torch", **kw)
+    assert got.shape == want.shape == ((1, 3, 8, 6, 12) if tout else (3, 8, 6, 12))
+    for f in range(3):
+        quantum = torch.view_as_real(y[f]).abs().max().item() / 127.0
+        _assert_codec(got.select(int(tout), f), want.select(int(tout), f), "int8", quantum)
+
+
+def _dns_plan(mesh, fusion, comm="complex64"):
+    """examples/navier_stokes.py's plan at 384^3 with 256 retained modes."""
+    from repro_torch.core.fftcore import TransformSpec
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig
+
+    return ParallelFFT(mesh, (384, 384, 384), ("p0", "p1"),
+                       config=PlanConfig(impl="matmul", exchange_impl="cuda", comm_dtype=comm,
+                                         batch_fusion=fusion),
+                       transforms=(TransformSpec.pruned(256), TransformSpec.pruned(256),
+                                   TransformSpec.r2c(n_keep=129)))
+
+
+def test_dns_plan_stacked_equals_per_field(mesh1):
+    """Lossless: the 3-field stacked and per-field forwards of the DNS plan
+    are bitwise equal, and equal to the single-field forwards."""
+    u = torch.randn((3, 384, 384, 384), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    stacked = _dns_plan(mesh1, "stacked")
+    a = stacked.forward_many_padded(3)(u)
+    b = _dns_plan(mesh1, "per-field").forward_many_padded(3)(u)
+    assert a.shape == (3, 256, 256, 129)
+    assert torch.equal(a, b)
+    assert torch.equal(a[2], stacked.forward_padded(u[2]))
+
+
+def _stacked_512(scale_1=1e3):
+    x = torch.randn((3, 512, 512, 512), dtype=torch.complex64, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    x[1] *= scale_1
+    return x
+
+
+def test_int8_stacked_forward_keeps_per_field_scales(mesh1):
+    """3 stacked 512^3 fields, field 1 at 1e3, through an int8 wire: each
+    field within the int8 plan bound (3e-2 relative L2, chip_smoke's
+    TOL_FWD) of torch.fft.fftn and of its own single-field forward."""
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig
+
+    x = _stacked_512()
+    plan = ParallelFFT(mesh1, (512, 512, 512), ("p0", "p1"),
+                       config=PlanConfig(impl="matmul", exchange_impl="cuda", comm_dtype="int8"))
+    y = plan.forward_many_padded(3)(x)
+    for f in range(3):
+        for want in (torch.fft.fftn(x[f]), plan.forward_padded(x[f])):
+            rel = (torch.linalg.vector_norm(y[f] - want) / torch.linalg.vector_norm(want)).item()
+            assert rel <= 3e-2, (f, rel)
+
+
+@pytest.mark.parametrize("codec", ["bf16", "int8"])
+def test_stacked_512_codec_launches_are_vec(mesh1, codec):
+    """Every K1 and K3 launch of a 3-field stacked 512^3 forward runs the
+    vec design (S % 4 == 0, fresh aligned storage)."""
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig
+
+    x = _stacked_512(1.0)
+    plan = ParallelFFT(mesh1, (512, 512, 512), ("p0", "p1"),
+                       config=PlanConfig(impl="matmul", exchange_impl="cuda", comm_dtype=codec))
+    enc, dec = Counter(xops.design_launches), Counter(xops.decode_design_launches)
+    plan.forward_many_padded(3)(x)
+    torch.cuda.synchronize()
+    enc = {k: n - enc[k] for k, n in xops.design_launches.items() if n != enc[k]}
+    dec = {k: n - dec[k] for k, n in xops.decode_design_launches.items() if n != dec[k]}
+    assert enc == {f"vec:{codec}": 2 * xops.ENCODE_KERNELS[codec]}
+    assert dec == {f"vec:{codec}": 2}
 
 
 def _flash_limit(want, v):

@@ -4,7 +4,7 @@ package: the fault matrix of tests/test_robustness.py on 4 gloo ranks and on
 reductions and the fault taps.
 
 Each matrix case must agree with the reference on raised or not, the trip
-codes, the transition kinds and the final schedule (``"pallas"`` and
+codes, the field count, the transition kinds and the final schedule (``"pallas"`` and
 ``"jnp"`` read as the port's ``"cuda"`` and ``"torch"``), and every rank on
 one outcome.  Outputs: within the reference matrix's own tolerances of the
 reference's output (1e-5 relative L2 where the run ends lossless, 1e-4 after
@@ -60,8 +60,10 @@ for key, impl, case in R.guard_keys():
         plan = ParallelFFT(mesh, R.GUARD_SHAPE, ("p0", "p1"),
                            config=PlanConfig(method="fused", guard=guard, comm_dtype=comm,
                                              exchange_impl=impl))
+        arg = {{"forward": x, "backward": y_ref,
+               "forward_many": jnp.asarray(R.guard_fields(np.asarray(x)))}}
         try:
-            y, rep = getattr(plan, direction)(x if direction == "forward" else y_ref)
+            y, rep = getattr(plan, direction)(arg[direction])
         except GuardError as e:
             outcomes[key] = {{"raised": True,
                              "tripped": list(e.report.tripped) if e.report else []}}
@@ -104,7 +106,7 @@ def test_fault_case_matches_reference(runs, key, case):
     assert got["tripped"] == want["tripped"]
     if got["raised"]:
         return
-    for field in ("ok", "kinds", "schedule", "has_energy", "direction"):
+    for field in ("ok", "nfields", "kinds", "schedule", "has_energy", "direction"):
         assert got[field] == want[field], field
     assert got["ok"]
     comm = R.GUARD_CASES[case][1]
@@ -131,6 +133,11 @@ def test_fault_matrix_outcomes(runs):
     assert out["jnp:exhausted"]["raised"]
     assert out["pallas:saturate_degrade"]["kinds"] == ["degrade"]
     assert out["jnp:fail_compile_degrade"]["kinds"] == ["degrade"]
+    b = out["jnp:batched_clean"]
+    assert b["ok"] and b["nfields"] == 3 and not b["kinds"]
+    ys = runs[0][1]["jnp:batched_clean"]
+    y1 = ys[1] / 2  # field 1 is 2x: its spectrum is twice field 0's
+    assert _rel(y1, ys[0]) < 1e-5
 
 
 def test_runner_lets_kernel_errors_through(runs):
