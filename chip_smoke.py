@@ -53,6 +53,24 @@ non-zero):
    the traditional engine's int8 exchange of stacked fields against the
    plain codec; guarded batches (one ``{"many": [...]}`` line, each record
    with the card's name and power limit);
+   then the time model's constants measured on this card (one
+   ``{"coeffs"}`` line: a 1 GiB device copy, ``torch.fft.fft`` on 262144
+   rows of 512, one 4 KiB ``all_to_all_single`` on the device alone, by the
+   host clock and by events, each the median of 7 rounds beside their least
+   and greatest; core/hardware.py holds them);
+   "tune" — the schedule tuner (``method="auto"``) with its own cache
+   directory: the quickstart with an int8 budget and the exchange kernels
+   swept, against ``np.fft.fftn`` and replayed by a second plan with no
+   timing, bitwise; 512^3 with a bf16 budget, its forward and backward
+   timed beside every uniform explicit config (fused, traditional,
+   pipelined(4) x complex64, bf16 x torch, cuda; those with the kernels as
+   the slice and engines paths timed them) and ``model_time_s`` at this
+   card's constants, and no slower than 1.25 x the fastest uniform; the DNS
+   plan at 384^3, bf16 budget, 3 fields, its ``all_to_all_single`` calls
+   against ``model_collective_launches``; a poisoned pipelined cache entry
+   under a pipelined compile fault, ``guard="degrade"``: one quarantine, a
+   retune, ok (one ``{"tune": [...]}`` line); K1, K3 and K4 must each launch,
+   and their launches are logged by the arguments of each call;
    "lm" — after the FFT paths' buffers are freed, LM serving through
    ``repro_torch.launch.serve_lm.main``: GLM-4-9B at full width and depth
    (40 layers, bf16, seeded weights), 4 prompts of 2048 tokens and 32 greedy
@@ -69,7 +87,8 @@ non-zero):
    a 2-D transpose; K1/K3 on 3 stacked 512^3 fields and K4 at the DNS
    plan's rows, the many path's shapes; K6 at the serving prefill's, and
    once at the prefill_32k length, and its fp32 design at the prefill's
-   shape): launches
+   shape; K1, K3 and K4 at every shape the tune path launched them at, one
+   record per call signature with that signature's launches): launches
    from their path,
    error against the plain version, kernel / plain / library times and the
    bound (one ``{"kernels": [...]}`` line; before it, K4's general design at
@@ -135,6 +154,11 @@ K5_SWEEP = ((24, 24, 8), (7, 13, 3), (64, 48, 40), (512, 33, 1), (4096, 32, 8), 
 # 256 retained modes per axis on the 3/2-rule grid of 384
 DNS_N, DNS_M = 256, 384
 BATCH_FUSIONS = ("stacked", "pipelined-across-fields", "per-field")
+# the coeffs phase: a copy of 1 GiB of complex64, torch.fft.fft on 262144 rows of 512,
+# each reading taken in COEFF_ROUNDS rounds
+COEFF_COPY_ELEMS = 2**27
+COEFF_FFT_ROWS = 262144
+COEFF_ROUNDS = 7
 # K5 at 1 GiB of complex64: 512^3, the traditional pack of 512^3 into M = 4
 # chunks along its last axis, and a 2-D transpose
 K5_BIG = ((SHAPE_BIG, ""), ((262144, 4, 128), ",traditional_pack"), ((16384, 8192, 1), ",2d"))
@@ -246,12 +270,13 @@ def main():
     sweep = kernel_sweep(torch)
     print(json.dumps({"kernel_sweep": sweep}))
 
-    lm_info, many = {}, []
-    paths = run_paths(torch, lm_info, many)
+    lm_info, many, tune, tune_shapes = {}, [], [], {}
+    paths = run_paths(torch, lm_info, many, tune, tune_shapes, card)
     print(json.dumps({"paths": paths}))
     print(json.dumps({"many": [{**r, "card": card} for r in many]}))
+    print(json.dumps({"tune": [{**r, "card": card} for r in tune]}))
 
-    kernels = main_path_kernels(torch, paths)
+    kernels = main_path_kernels(torch, paths, tune_shapes)
     print(json.dumps({"k4_general_rows": k4_general_rows(torch)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"lm_breakdown": lm_breakdown(kernels, lm_info)}))
@@ -620,10 +645,13 @@ def _drive(torch, name, fn, *args):
     return counts
 
 
-def run_paths(torch, lm_info, many):
+def run_paths(torch, lm_info, many, tune, tune_shapes, card):
     """Drive the four FFT paths on a 1-rank NCCL group (the many path fills
-    ``many`` with its records), then the LM path (which fills
-    ``lm_info``); returns each path's kernel launch counts."""
+    ``many`` with its records), measure the time model's coefficients (one
+    ``{"coeffs"}`` line), drive the tune path on the same group (it fills
+    ``tune`` and, with its launches by call, ``tune_shapes``), then the LM
+    path (which fills ``lm_info``); returns each path's kernel launch
+    counts."""
     import torch.distributed as dist
 
     from repro_torch.core.meshutil import make_mesh
@@ -632,15 +660,31 @@ def run_paths(torch, lm_info, many):
     try:
         dist.init_process_group("nccl", init_method=f"file://{pg_dir}/pg", rank=0, world_size=1)
         mesh = make_mesh((1, 1), ("p0", "p1"))
-        paths = {"slice": _drive(torch, "slice", slice_path, mesh)}
+        uniform = {}  # 512^3 forward ms of each uniform explicit config, by the paths
+        paths = {"slice": _drive(torch, "slice", slice_path, mesh, uniform)}
         torch.cuda.empty_cache()
-        paths["engines"] = _drive(torch, "engines", engines_path, mesh)
+        paths["engines"] = _drive(torch, "engines", engines_path, mesh, uniform)
         torch.cuda.empty_cache()
         paths["guard"] = _drive(torch, "guard", guard_path, mesh)
         torch.cuda.empty_cache()
         paths["many"] = _drive(torch, "many", many_path, mesh, many)
         gc.collect()
         torch.cuda.empty_cache()
+        print(json.dumps({"coeffs": {**measure_coeffs(torch), "card": card}}))
+        torch.cuda.empty_cache()
+        paths["tune"] = _drive(torch, "tune", tune_path, mesh, tune, uniform, tune_shapes)
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts = paths["tune"]
+        k1 = sum(n for k, n in counts.items() if k.startswith("pack_chunks:"))
+        k3 = sum(n for k, n in counts.items() if k.startswith("unpack_chunks:"))
+        k4 = sum(n for k, n in counts.items() if k.startswith(("tc:", "general:")))
+        if min(k1, k3, k4) < 1:
+            fail(f"tune: K1 {k1}, K3 {k3}, K4 {k4} launches; each must be >= 1")
+        by_call = [sum(r["launches"] for (k, *_), r in tune_shapes.items() if k == kern)
+                   for kern in ("K1", "K3", "K4")]
+        if by_call != [k1, k3, k4]:
+            fail(f"tune: launches by call {by_call} != the counters' {[k1, k3, k4]}")
         # every exchange of these paths has S % 4 == 0: K1 and K3 run their
         # vec designs, every launch
         for name in ("slice", "engines", "guard"):
@@ -663,9 +707,10 @@ def run_paths(torch, lm_info, many):
     return paths
 
 
-def slice_path(torch, mesh):
+def slice_path(torch, mesh, uniform):
     """The slice path: the quickstart, and the slice configuration
-    at the quickstart shape and at 512^3 (bf16, int8)."""
+    at the quickstart shape and at 512^3 (bf16, int8); the 512^3 forward
+    times go into ``uniform``."""
     import numpy as np
 
     from repro_torch.core.pfft import ParallelFFT
@@ -691,7 +736,9 @@ def slice_path(torch, mesh):
     # (b) the slice at the quickstart shape and at 512^3; (c) int8 at 512^3
     for shape, cfg in ((SHAPE_QS, slice_cfg), (SHAPE_BIG, slice_cfg),
                        (SHAPE_BIG, slice_cfg.replace(comm_dtype="int8"))):
-        _run_plan(torch, mesh, shape, cfg, ParallelFFT, fops, xops)
+        fwd_ms = _run_plan(torch, mesh, shape, cfg, ParallelFFT, fops, xops)
+        if shape == SHAPE_BIG:
+            uniform[f"fused@{cfg.comm_dtype}@cuda"] = fwd_ms
 
 
 def _launches_of(torch, comm, fn, shape):
@@ -755,6 +802,7 @@ def _run_plan(torch, mesh, shape, cfg, ParallelFFT, fops, xops):
                                                          reps=7),
                       "launches_per_forward": per_fwd,
                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}))
+    return fwd_ms
 
 
 def _big_input(torch, seed=1):
@@ -768,10 +816,11 @@ def _check_finite(torch, name, y, shape):
         fail(f"{name}: output not finite or of the wrong shape")
 
 
-def engines_path(torch, mesh):
+def engines_path(torch, mesh, uniform):
     """The traditional and pipelined engines at 512^3 for each comm_dtype,
-    against torch.fft.fftn and (lossless) bitwise against the fused engine;
-    then each engine's first forward exchange timed alone."""
+    against torch.fft.fftn and (lossless) bitwise against the fused engine,
+    their forward times into ``uniform``; then each engine's first forward
+    exchange timed alone."""
     from repro_torch.core.pfft import ParallelFFT
     from repro_torch.core.planconfig import PlanConfig
     from repro_torch.core.redistribute import exchange_shard
@@ -809,6 +858,7 @@ def engines_path(torch, mesh):
             del back
             fwd_ms = cuda_ms(torch, lambda: plan.forward_padded(x))
             bwd_ms = cuda_ms(torch, lambda: plan.backward_padded(y))
+            uniform[f"{method}@{comm}@cuda"] = fwd_ms
             print(json.dumps({"plan": "engine", "method": method,
                               "chunks": plan.schedule[0].chunks, "comm_dtype": comm,
                               "shape": SHAPE_BIG, "rel_l2_fwd_vs_fftn": fwd_err,
@@ -908,16 +958,17 @@ def guard_path(torch, mesh):
                               "tripped": list(e.report.tripped)}))
 
 
-def _dns_plan(mesh, comm, fusion):
+def _dns_plan(mesh, comm, fusion, **config):
     """examples/navier_stokes.py's plan at DNS_M^3: pruned(DNS_N) on the
-    first two axes, r2c keeping DNS_N / 2 + 1 bins on the last."""
+    first two axes, r2c keeping DNS_N / 2 + 1 bins on the last (``config``
+    overrides the plan's other fields)."""
     from repro_torch.core.fftcore import TransformSpec
     from repro_torch.core.pfft import ParallelFFT
     from repro_torch.core.planconfig import PlanConfig
 
+    cfg = {"method": "fused", "impl": "matmul", "exchange_impl": "cuda", **config}
     return ParallelFFT(mesh, (DNS_M,) * 3, ("p0", "p1"),
-                       config=PlanConfig(method="fused", impl="matmul", exchange_impl="cuda",
-                                         comm_dtype=comm, batch_fusion=fusion),
+                       config=PlanConfig(comm_dtype=comm, batch_fusion=fusion, **cfg),
                        transforms=(TransformSpec.pruned(DNS_N), TransformSpec.pruned(DNS_N),
                                    TransformSpec.r2c(n_keep=DNS_N // 2 + 1)))
 
@@ -976,6 +1027,56 @@ class _CountedCollectives:
         import torch.distributed as dist
 
         dist.all_to_all_single = self._real
+
+
+class _LaunchesByShape:
+    """While active, the launches of K1 (``pack_chunks``), K3
+    (``unpack_chunks``) and K4 (``fops._run``, under every FFT wrapper) by
+    the arguments of the call that made them: ``calls`` maps ``(kernel,
+    signature)`` to ``{"launches": n, "designs": {...}}``, each read from
+    the wrappers' own counters around the call."""
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def _wrap(self, module, name, counter, designs, key):
+        real = getattr(module, name)
+
+        def logged(*args, **kwargs):
+            before, dbefore = sum(counter.values()), dict(designs)
+            out = real(*args, **kwargs)
+            n = sum(counter.values()) - before
+            if n:
+                rec = self.calls.setdefault(key(*args, **kwargs),
+                                            {"launches": 0, "designs": set()})
+                rec["launches"] += n
+                rec["designs"] |= {d.split(":")[0] for d, k in designs.items()
+                                   if k != dbefore.get(d, 0)}
+            return out
+
+        self._saved.append((module, name, real))
+        setattr(module, name, logged)
+
+    def __enter__(self):
+        from repro_torch.kernels.exchange import ops as xops
+        from repro_torch.kernels.fft import ops as fops
+
+        self._saved = []
+        self._wrap(xops, "pack_chunks", xops.launches, xops.design_launches,
+                   lambda y, *, axis, m, nbatch=0, codec, guard=False, scale_div=None: (
+                       "K1", tuple(y.shape), str(y.dtype), axis, m, nbatch, codec, guard,
+                       scale_div))
+        self._wrap(xops, "unpack_chunks", xops.launches, xops.decode_design_launches,
+                   lambda p, *, v, w, m, nbatch=0, scale, codec, iscomplex: (
+                       "K3", tuple(p.shape), v, w, m, nbatch, codec, iscomplex))
+        self._wrap(fops, "_run", fops.launches, fops.design_launches,
+                   lambda rows, *, inverse, nout, mode: (
+                       "K4", tuple(rows.shape), str(rows.dtype), inverse, nout, mode))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, real in self._saved:
+            setattr(module, name, real)
 
 
 def _many_call(torch, fn, want_designs, want_collectives, k4_design, what):
@@ -1219,6 +1320,287 @@ def _across_fields_trace(torch, mesh, u3):
     return out
 
 
+def measure_coeffs(torch, rounds=COEFF_ROUNDS):
+    """The time model's constants on this card (core/hardware.py holds
+    them), each the median of ``rounds`` readings with their least and
+    greatest beside it: HBM bytes/s of a device-to-device copy of 1 GiB of
+    complex64 (its read and write counted); the local FFT's flop/s,
+    ``torch.fft.fft`` on 262144 rows of n = 512 counted 5 n log2 n a row as
+    the plan counts; and the per-call cost of one ``all_to_all_single`` of
+    4 KiB on the 1-rank NCCL group, three ways: the host clock over 200
+    calls to a synchronize, CUDA events around 200 calls enqueued as the
+    host goes (both host-bound: they should agree), and the device's own
+    time of one call (``cuda_ms``, the calls queued behind a spin).  The
+    model's latency constant is the device's reading: the host-bound ones
+    spread several-fold between processes.  One card cannot measure a
+    collective across cards or their bandwidth.  The SM and memory clocks
+    are read before and after."""
+    import torch.distributed as dist
+
+    from repro_torch.core import hardware
+
+    def spread(xs):
+        return {"median": statistics.median(xs), "min": min(xs), "max": max(xs), "n": len(xs)}
+
+    def clocks():
+        return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,"
+                               "clocks.max.mem", "--format=csv,noheader"], capture_output=True,
+                              text=True, check=True).stdout.strip()
+
+    clock_before = clocks()
+    n = COEFF_COPY_ELEMS
+    src = torch.randn(n, dtype=torch.complex64, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms = [cuda_ms(torch, lambda: dst.copy_(src)) for _ in range(rounds)]
+    del src, dst
+    rows = torch.randn((COEFF_FFT_ROWS, 512), dtype=torch.complex64, device="cuda")
+    fft_ms = [cuda_ms(torch, lambda: torch.fft.fft(rows, dim=-1)) for _ in range(rounds)]
+    flops = 5.0 * 512 * math.log2(512) * rows.shape[0]
+    del rows
+    t = torch.zeros(512, dtype=torch.float64, device="cuda")
+    out = torch.empty_like(t)
+
+    def a2a():
+        dist.all_to_all_single(out, t)
+
+    for _ in range(20):
+        a2a()
+    torch.cuda.synchronize()
+    host, events = [], []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(200):
+            a2a()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) / 200)
+        events.append(_events_ms(torch, lambda: [a2a() for _ in range(200)]) / 200 / 1e3)
+    device = [cuda_ms(torch, a2a) / 1e3 for _ in range(rounds)]
+    hbm = [2 * n * 8 / (ms / 1e3) for ms in copy_ms]
+    fft = [flops / (ms / 1e3) for ms in fft_ms]
+    return {"hbm_bw": statistics.median(hbm), "hbm_bw_rounds": spread(hbm),
+            "copy_1gib_ms": spread(copy_ms),
+            "peak_flops": statistics.median(fft), "peak_flops_rounds": spread(fft),
+            "fft_262144x512_ms": spread(fft_ms), "fft_flops": flops,
+            "ici_latency_s": statistics.median(device), "a2a_4kib_device_s": spread(device),
+            "a2a_4kib_host_s": spread(host), "a2a_4kib_events_s": spread(events),
+            "clocks_sm_max_mem_max": [clock_before, clocks()],
+            "ici_bw": hardware.ICI_BW, "ici_bw_source": "NVLink 4 data sheet, unmeasured: one card",
+            "code_constants": {"hbm_bw": hardware.HBM_BW, "peak_flops": hardware.PEAK_FLOPS,
+                               "ici_latency_s": hardware.ICI_LATENCY_S,
+                               "ici_bw": hardware.ICI_BW, "card": hardware.CARD}}
+
+
+def _lossiest(schedule):
+    return max((e.comm_dtype for e in schedule), key=COMM_DTYPES.index)
+
+
+def _timings_ms(cache, plan, nfields=1):
+    """The tuned entry's stage times in ms (refusals and pruned keys kept as
+    written)."""
+    from repro_torch.core import tuner
+
+    entry = tuner.load_cache(cache)[tuner.plan_key(plan, nfields=nfields)]
+    return {st: {k: (v * 1e3 if isinstance(v, float) else v) for k, v in per.items()}
+            for st, per in entry["timings"].items()}
+
+
+def tune_path(torch, mesh, records, uniform, shapes):
+    """The schedule tuner (``method="auto"``) on the card, with its own
+    cache directory: (a) the quickstart with an int8 budget and the
+    exchange kernels swept (25 candidates a stage), checked against
+    ``np.fft.fftn`` and replayed by a second plan with no timing, bitwise;
+    (b) 512^3 with a bf16 budget (15 a stage), its forward and backward
+    timed beside every uniform explicit config (``uniform``: the earlier
+    paths' times of the exchange_impl="cuda" ones) and the model's time; (c)
+    the DNS plan at 384^3, bf16 budget, 3 fields (45 batch-aware candidates
+    a stage), its collectives counted against the model; (d) a poisoned
+    pipelined entry under a pipelined compile fault, guard="degrade":
+    quarantined once, retuned, ok.  ``shapes`` gets the path's K1, K3 and
+    K4 launches by the arguments of each call (``_LaunchesByShape``)."""
+    import numpy as np
+
+    from repro_torch.core import modelfit, tuner
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig
+    from repro_torch.robustness import FaultPlan
+
+    cache_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_tune_"))
+    timed = [0]
+    real_time_stage = tuner._time_stage
+
+    def counted(*args, **kwargs):
+        timed[0] += 1
+        return real_time_stage(*args, **kwargs)
+
+    def resolve(fn):
+        """``(fn(), _time_stage calls, seconds)`` of one schedule resolve."""
+        timed[0] = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, timed[0], time.perf_counter() - t0
+
+    tuner._time_stage = counted
+    try:
+        with _LaunchesByShape(shapes):
+            base = dict(method="auto", impl="matmul", exchange_impl="cuda")
+
+            # (a) the quickstart, int8 budget
+            cache = cache_dir / "quickstart.json"
+            cfg = PlanConfig(comm_dtype="int8", tuner_cache=str(cache), **base)
+            rng = np.random.default_rng(0)
+            u = (rng.standard_normal(SHAPE_QS) + 1j * rng.standard_normal(SHAPE_QS)).astype(
+                np.complex64)
+            want = torch.from_numpy(np.fft.fftn(u)).cuda()
+            plan = ParallelFFT(mesh, SHAPE_QS, ("p0", "p1"), config=cfg)
+            sched, n_timed, tune_s = resolve(lambda: plan.schedule)
+            per_stage = len(tuner.candidates_for("int8", "cuda"))
+            if n_timed != plan.n_exchanges * per_stage:
+                fail(f"tune quickstart: {n_timed} stage timings, want {plan.n_exchanges} x {per_stage}")
+            uh = plan.forward(u)
+            _check_finite(torch, "tune quickstart", uh, SHAPE_QS)
+            worst = _lossiest(sched)
+            err = rel_l2(torch, uh, want)
+            if err > TOL_FWD[worst]:
+                fail(f"tune quickstart: rel L2 vs fftn {err} (<= {TOL_FWD[worst]}, {worst})")
+            tuner._MEMO.clear()
+            again = ParallelFFT(mesh, SHAPE_QS, ("p0", "p1"), config=cfg)
+            sched2, replay_timed, _ = resolve(lambda: again.schedule)
+            uh2 = again.forward(u)
+            if replay_timed or sched2 != sched or not torch.equal(uh2, uh):
+                fail(f"tune quickstart replay: {replay_timed} timings, schedule {sched2} vs {sched}, "
+                     f"bitwise {torch.equal(uh2, uh)}")
+            records.append({"case": "quickstart", "shape": list(SHAPE_QS), "budget": "int8",
+                            "exchange_impl": "cuda", "candidates_a_stage": per_stage,
+                            "schedule": [list(e) for e in sched], "timings_ms": _timings_ms(cache, plan),
+                            "time_stage_calls": n_timed, "tune_s": tune_s,
+                            "rel_l2_fwd_vs_fftn": err, "tol": TOL_FWD[worst],
+                            "replay_time_stage_calls": replay_timed, "replay_bitwise_equal": True})
+            del want, uh, uh2
+
+            # (b) 512^3, bf16 budget, against every uniform explicit config
+            cache = cache_dir / "big.json"
+            x = _big_input(torch)
+            plan = ParallelFFT(mesh, SHAPE_BIG, ("p0", "p1"),
+                               config=PlanConfig(comm_dtype="bf16", tuner_cache=str(cache), **base))
+            sched, n_timed, tune_s = resolve(lambda: plan.schedule)
+            per_stage = len(tuner.candidates_for("bf16", "cuda"))
+            if n_timed != plan.n_exchanges * per_stage:
+                fail(f"tune 512^3: {n_timed} stage timings, want {plan.n_exchanges} x {per_stage}")
+            y = plan.forward_padded(x)
+            _check_finite(torch, "tune 512^3", y, SHAPE_BIG)
+            worst = _lossiest(sched)
+            err = rel_l2(torch, y, torch.fft.fftn(x))
+            if err > TOL_FWD[worst]:
+                fail(f"tune 512^3: rel L2 vs fftn {err} (<= {TOL_FWD[worst]}, {worst})")
+            fwd_ms = cuda_ms(torch, lambda: plan.forward_padded(x))
+            bwd_ms = cuda_ms(torch, lambda: plan.backward_padded(y))
+            del y
+            model = {"forward": plan.model_time_s() * 1e3,
+                     "backward": plan.model_time_s(direction="backward") * 1e3}
+            # the slice and engines paths timed every exchange_impl="cuda"
+            # config in this run; a lossless exchange runs no codec, so its
+            # time stands for both impls; the torch codec is timed here
+            configs = {}
+            for method in ("fused", "traditional", "pipelined"):
+                for comm, impl in (("complex64", "cuda"), ("bf16", "cuda"), ("bf16", "torch")):
+                    p = ParallelFFT(mesh, SHAPE_BIG, ("p0", "p1"), config=PlanConfig(
+                        method=method, chunks=4, impl="matmul", exchange_impl=impl,
+                        comm_dtype=comm))
+                    if impl == "cuda":
+                        ms, timed_by = uniform[f"{method}@{comm}@cuda"], (
+                            "slice" if method == "fused" and comm != "complex64" else "engines")
+                    else:
+                        ms, timed_by = cuda_ms(torch, lambda: p.forward_padded(x)), "tune"
+                    m_ms = p.model_time_s() * 1e3
+                    configs[f"{method}@{comm}" + ("" if comm == "complex64" else f"@{impl}")] = {
+                        "forward_ms": ms, "timed_by": timed_by, "model_ms": m_ms,
+                        "measured_over_model": ms / m_ms}
+            best = min(configs, key=lambda k: configs[k]["forward_ms"])
+            if fwd_ms > 1.25 * configs[best]["forward_ms"]:
+                fail(f"tune 512^3: tuned forward {fwd_ms} ms > 1.25 x the fastest uniform "
+                     f"{best} {configs[best]['forward_ms']} ms")
+            records.append({"case": "512^3", "shape": list(SHAPE_BIG), "budget": "bf16",
+                            "exchange_impl": "cuda", "candidates_a_stage": per_stage,
+                            "schedule": [list(e) for e in sched],
+                            "timings_ms": _timings_ms(cache, plan), "time_stage_calls": n_timed,
+                            "tune_s": tune_s, "rel_l2_fwd_vs_fftn": err, "tol": TOL_FWD[worst],
+                            "forward_ms": fwd_ms, "backward_ms": bwd_ms, "model_ms": model,
+                            "measured_over_model": {"forward": fwd_ms / model["forward"],
+                                                    "backward": bwd_ms / model["backward"]},
+                            "uniform_forward": configs, "fastest_uniform": best,
+                            # modelfit's flag: a point the model misses by more than 2x
+                            "model_misses_2x": sorted(
+                                k for k, v in configs.items()
+                                if not 1 / modelfit.DEFAULT_MISS_FACTOR <= v["measured_over_model"]
+                                <= modelfit.DEFAULT_MISS_FACTOR),
+                            "tuned_over_fastest_uniform": fwd_ms / configs[best]["forward_ms"]})
+            del x
+            torch.cuda.empty_cache()
+
+            # (c) the DNS plan, bf16 budget, 3 fields
+            cache = cache_dir / "dns.json"
+            plan = _dns_plan(mesh, "bf16", "stacked", method="auto", tuner_cache=str(cache))
+            u3 = torch.randn((3,) + (DNS_M,) * 3, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(5))
+            bsched, n_timed, tune_s = resolve(lambda: plan.batched_schedule(3))
+            cands = tuner.batched_candidates_for("bf16", "cuda")
+            if n_timed != plan.n_exchanges * len(cands) or any(e not in cands for e in bsched):
+                fail(f"tune dns: {n_timed} stage timings (want {plan.n_exchanges} x {len(cands)}), "
+                     f"schedule {bsched}")
+            with _CountedCollectives() as cc:
+                y3 = plan.forward_many(u3)
+                torch.cuda.synchronize()
+            want_colls = plan.model_collective_launches(nfields=3)
+            if cc.n != want_colls:
+                fail(f"tune dns: {cc.n} all_to_all_single calls, the model counts {want_colls}")
+            lossless = _dns_plan(mesh, "complex64", "stacked").forward_many(u3)
+            worst = _lossiest(bsched)
+            errs = [rel_l2(torch, a, b) for a, b in zip(y3, lossless)]
+            if max(errs) > TOL_FWD[worst]:
+                fail(f"tune dns: rel L2 vs the lossless stacked forward {errs} (<= {TOL_FWD[worst]})")
+            del y3, lossless
+            fn = plan.forward_many_padded(3)
+            ms = cuda_ms(torch, lambda: fn(u3))
+            m_ms = plan.model_time_s(nfields=3) * 1e3
+            records.append({"case": "dns_3_fields", "shape": [DNS_M] * 3, "budget": "bf16",
+                            "nfields": 3, "candidates_a_stage": len(cands),
+                            "schedule": [list(e) for e in bsched],
+                            "timings_ms": _timings_ms(cache, plan, 3), "time_stage_calls": n_timed,
+                            "tune_s": tune_s, "collectives": cc.n,
+                            "model_collective_launches": want_colls,
+                            "max_rel_l2_vs_lossless": max(errs), "forward_many_ms": ms,
+                            "model_ms": m_ms, "measured_over_model": ms / m_ms})
+            del u3
+            torch.cuda.empty_cache()
+
+            # (d) the reference's poison_auto case on the card
+            cache = cache_dir / "poisoned.json"
+            p = ParallelFFT(mesh, SHAPE_QS, ("p0", "p1"), config=PlanConfig(
+                method="auto", impl="matmul", exchange_impl="cuda", guard="degrade",
+                tuner_cache=str(cache)))
+            poisoned = (("pipelined", 2, "complex64", "torch", "stacked"),) * p.n_exchanges
+            FaultPlan.poison_cache(cache, p, poisoned)
+            clean = ParallelFFT(mesh, SHAPE_QS, ("p0", "p1"),
+                                config=PlanConfig(impl="matmul", exchange_impl="cuda")).forward(u)
+            with FaultPlan().fail_compile(engine="pipelined"):
+                yq, rep = p.forward(u)
+            disk = tuner.load_cache(cache)
+            quarantines = [e.get("quarantines") for e in disk.values()
+                           if isinstance(e, dict) and e.get("quarantines")]
+            kinds = [t["kind"] for t in rep.transitions]
+            err = rel_l2(torch, yq, clean)
+            if not rep.ok or "retune" not in kinds or quarantines != [1] or err > TOL_FWD["complex64"]:
+                fail(f"tune poison: ok={rep.ok} transitions={kinds} quarantines={quarantines} "
+                     f"rel L2 {err}")
+            records.append({"case": "poison_auto", "ok": rep.ok, "transitions": kinds,
+                            "quarantines": quarantines, "schedule": [list(e) for e in rep.schedule],
+                            "rel_l2_vs_clean": err, "attempts": rep.attempts})
+    finally:
+        tuner._time_stage = real_time_stage
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
 def lm_path(torch, info):
     """GLM-4-9B served through ``serve_lm.main`` (one warm-up round, then a
     timed prefill and 32 decode steps), then on the same weights: the K6
@@ -1373,7 +1755,7 @@ def _record(name, source, replaces, path, launches, err, ms, plain_ms, bound, li
             "library_ms": library_ms, **extra}
 
 
-def main_path_kernels(torch, paths):
+def main_path_kernels(torch, paths, tune_shapes):
     from repro_torch.kernels.exchange import ops as xops, ref as xref
     from repro_torch.kernels.fft import ops as fops, ref as fref
 
@@ -1487,11 +1869,132 @@ def main_path_kernels(torch, paths):
     torch.cuda.empty_cache()
     kernels += _flash_records(torch, paths)
     kernels.append(_flash_fp32_record(torch, paths))
+    kernels += _tune_records(torch, tune_shapes)
 
     for k in kernels:
         if k["path"] is not None and k["launches"] < 1:
             fail(f"{k['name']} was never launched on the {k['path']} path")
     return kernels
+
+
+def _tune_records(torch, shapes):
+    """The tune path's kernels at every shape it launched them at (``shapes``
+    from ``_LaunchesByShape``: the candidates' stage views, each plan's
+    full block and every pipelined slice), one record per call signature
+    with that signature's launches: a seeded input of the shape through the
+    wrapper, on the design the tune path ran there, against the plain
+    version and, where one exists, the library call."""
+    recs = []
+    for key in sorted(shapes, key=str):
+        rec = shapes[key]
+        if len(rec["designs"]) != 1:
+            fail(f"tune {key}: the path ran the designs {rec['designs']}")
+        maker = {"K1": _tune_encode, "K3": _tune_decode, "K4": _tune_fourstep}[key[0]]
+        recs.append(maker(torch, key, rec["launches"], next(iter(rec["designs"]))))
+        torch.cuda.empty_cache()
+    return recs
+
+
+def _tag(shape):
+    return "x".join(map(str, shape))
+
+
+def _dev_randn(torch, shape, seed, iscomplex):
+    return torch.randn(shape, dtype=torch.complex64 if iscomplex else torch.float32,
+                       device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+
+
+def _tune_encode(torch, key, launches, want):
+    from repro_torch.kernels.exchange import ops as xops, ref as xref
+
+    _, shape, dtype, axis, m, nbatch, codec, guard, scale_div = key
+    y = _dev_randn(torch, shape, 21, dtype == "torch.complex64")
+    kw = dict(axis=axis, m=m, nbatch=nbatch, codec=codec, guard=guard, scale_div=scale_div)
+    name = f"K1 {codec} tune {shape} axis {axis}"
+    (q, s, _), design = _vec(xops.design_launches, lambda: xops.pack_chunks(y, **kw), name, want)
+    qr, sr, _ = xref.pack_chunks_ref(y, **kw)
+    err = _check_codec(torch, name, q, qr, codec)
+    if codec == "int8" and not torch.equal(s, sr):
+        fail(f"{name}: scales differ from the plain version")
+    del q, s
+    wire = 2 if codec == "bf16" else 1
+    planes = 2 if y.is_complex() else 1
+    scale_bytes = 0 if sr is None else sr.numel() * sr.element_size()
+    cast = (cuda_ms(torch, lambda: torch.view_as_real(y).to(torch.bfloat16) if y.is_complex()
+                    else y.to(torch.bfloat16)) if codec == "bf16" else None)
+    return _record(f"exchange_encode[chunk_major,{codec},tune,{_tag(shape)},a{axis}]",
+                   "exchange.cu", "src/repro/kernels/exchange/kernel.py:89", "tune", launches,
+                   err, cuda_ms(torch, lambda: xops.pack_chunks(y, **kw)),
+                   cuda_ms(torch, lambda: xref.pack_chunks_ref(y, **kw)),
+                   bound_ms(y.numel() * y.element_size() + planes * y.numel() * wire
+                            + scale_bytes, 0), cast, design=design, shape=list(shape))
+
+
+def _tune_decode(torch, key, launches, want):
+    from repro_torch.kernels.exchange import ops as xops, ref as xref
+
+    _, pshape, v, w, m, nbatch, codec, iscomplex = key
+    block = list(pshape[2:])
+    block[v + nbatch] *= m
+    y = _dev_randn(torch, block, 22, iscomplex)
+    qr, sr, _ = xref.pack_chunks_ref(y, axis=v + nbatch, m=m, nbatch=nbatch, codec=codec)
+    elems = y.numel()
+    del y
+    dkw = dict(v=v, w=w, m=m, nbatch=nbatch, scale=sr, codec=codec, iscomplex=iscomplex)
+    name = f"K3 {codec} tune {pshape} v {v} w {w}"
+    got, design = _vec(xops.decode_design_launches, lambda: xops.unpack_chunks(qr, **dkw), name,
+                       want)
+    err = _check_codec(torch, name, got, xref.unpack_chunks_ref(qr, **dkw), "bf16")
+    del got
+    scale_bytes = 0 if sr is None else sr.numel() * sr.element_size()
+    return _record(f"exchange_decode[scatter_w,{codec},tune,{_tag(pshape)},v{v}w{w}]",
+                   "exchange.cu", "src/repro/kernels/exchange/kernel.py:173", "tune", launches,
+                   err, cuda_ms(torch, lambda: xops.unpack_chunks(qr, **dkw)),
+                   cuda_ms(torch, lambda: xref.unpack_chunks_ref(qr, **dkw)),
+                   bound_ms(qr.numel() * qr.element_size() + scale_bytes
+                            + elems * (8 if iscomplex else 4), 0),
+                   cuda_ms(torch, lambda: qr.float()) if codec == "bf16" else None,
+                   design=design, shape=list(pshape))
+
+
+def _tune_fourstep(torch, key, launches, want):
+    from repro_torch.kernels.fft import ops as fops, ref as fref
+
+    _, shape, dtype, inverse, nout, mode = key
+    batch, n = shape
+    n1, n2 = fops.plan_factors(n)
+    rows = _dev_randn(torch, shape, 23, dtype == "torch.complex64")
+    if mode == "rfft":
+        kern = lambda: fops.rfft_matmul(rows)
+        plain = lambda: fref.fourstep_ref(rows.to(torch.complex64), n1, n2)[:, :nout]
+        lib = lambda: torch.fft.rfft(rows, dim=-1)
+    elif inverse:
+        kern = lambda: fops.fft_matmul(rows, inverse=True)
+        plain = lambda: fref.fourstep_ref(rows.conj(), n1, n2).conj() / n
+        lib = lambda: torch.fft.ifft(rows, dim=-1)
+    else:
+        kern = lambda: fops.fft_matmul(rows)
+        plain = lambda: fref.fourstep_ref(rows, n1, n2)
+        lib = lambda: torch.fft.fft(rows, dim=-1)
+    if mode not in ("fft", "ifft", "rfft") or (mode != "rfft" and nout != n):
+        fail(f"K4 tune {shape}: no record for mode {mode} with nout {nout}")
+    (got, design), wanted = _ran_design(fops.design_launches, kern, f"K4 tune {shape}"), plain()
+    torch.cuda.synchronize()
+    err = float((got - wanted).abs().max())
+    if err > TOL_K4 * float(wanted.abs().max()) or design != want:
+        fail(f"fourstep {mode} tune at {shape}: max err {err}, design {design} (path: {want})")
+    del got, wanted
+    nbytes = rows.numel() * rows.element_size() + batch * nout * 8
+    if design == "tc":  # three TF32 products a row
+        bound = bound_ms(nbytes, batch * 3 * 2.0 * ((2 * n1) ** 2 * n2 + (2 * n2) ** 2 * n1),
+                         TF32_TC_FLOPS)
+    else:  # fp32 FMA over the general design's own split
+        g1, g2 = fref.general_split(n)
+        bound = bound_ms(nbytes, batch * (8.0 * n * (g1 + g2) + 6.0 * n))
+    return _record(f"fourstep_dft[{mode},tune,{_tag(shape)}]", "fourstep.cu",
+                   "src/repro/kernels/fft/kernel.py:87", "tune", launches, err,
+                   cuda_ms(torch, kern), cuda_ms(torch, plain), bound, cuda_ms(torch, lib),
+                   design=design, shape=list(shape))
 
 
 def _many_records(torch, counts):

@@ -15,10 +15,11 @@ logical-shape global tensor that every rank holds, cut out this rank's
 block, run, and all-gather the result.
 
 ``method`` is ``"fused"`` (the paper's single all-to-all), ``"traditional"``
-(pack + all-to-all + unpack) or ``"pipelined"`` (sliced exchanges, each
-slice's next-stage FFT issued before the wait of the next slice); the tuned
-``"auto"`` raises ``NotImplementedError`` until the tuner is ported
-(ROADMAP).  ``guard="strict"|"degrade"`` routes ``forward``/``backward``
+(pack + all-to-all + unpack), ``"pipelined"`` (sliced exchanges, each
+slice's next-stage FFT issued before the wait of the next slice) or
+``"auto"``, a per-stage schedule timed on this plan's stages and cached on
+disk (:mod:`repro_torch.core.tuner`; every rank resolves the same one).
+``guard="strict"|"degrade"`` routes ``forward``/``backward``
 through :func:`repro_torch.robustness.runner.run_guarded` and returns
 ``(result, HealthReport)``; the guarded executor sums its stat vector over
 the plan's world with one ``all_reduce``, the one collective the
@@ -62,9 +63,14 @@ from repro_torch.core.fftcore import TransformSpec, as_spec
 from repro_torch.core.meshutil import mesh_device
 from repro_torch.core.pencil import (Group, Pencil, allgather_global, group_size, make_pencil,
                                      scatter_global)
-from repro_torch.core.planconfig import PlanConfig, StageEntry
-from repro_torch.core.redistribute import (exchange_collective_launches, exchange_shard,
-                                           exchange_shard_sliced, exchange_shard_start)
+from repro_torch.core.hardware import HBM_BW, ICI_BW, ICI_LATENCY_S, PEAK_FLOPS
+from repro_torch.core.planconfig import PlanConfig, StageEntry, as_schedule
+from repro_torch.core.quant import canonical_comm_dtype
+from repro_torch.core.redistribute import (exchange_collective_launches,
+                                           exchange_local_copy_elems, exchange_shard,
+                                           exchange_shard_sliced, exchange_shard_start,
+                                           exchange_time_model, exchange_wire_bytes,
+                                           pipeline_slices)
 from repro_torch.robustness import faults, health
 
 
@@ -106,10 +112,6 @@ class ParallelFFT:
         if not 1 <= k <= d - 1:
             raise ValueError(f"need 1 <= len(grid)={k} <= d-1={d - 1}")
         config = PlanConfig() if config is None else config
-        if config.method == "auto":
-            raise NotImplementedError(
-                "method='auto' needs the schedule tuner (core/tuner.py), not ported yet "
-                "(ROADMAP); pass method='fused', 'traditional' or 'pipelined'")
         if transforms is not None:
             specs = tuple(as_spec(s) for s in transforms)
             if len(specs) != d:
@@ -132,7 +134,8 @@ class ParallelFFT:
         self.config = config
         self.method, self.chunks, self.guard = config.method, config.chunks, config.guard
         self.impl, self.exchange_impl = config.impl, config.exchange_impl
-        self.comm_dtype = config.comm_dtype
+        self.comm_dtype, self.tuner_cache = config.comm_dtype, config.tuner_cache
+        self._batched_sched_memo: dict[int, tuple[StageEntry, ...]] = {}
         self.d, self.k = d, k
         self.device = mesh_device(mesh)
 
@@ -195,18 +198,34 @@ class ParallelFFT:
 
     @cached_property
     def schedule(self) -> tuple[StageEntry, ...]:
-        """:class:`StageEntry` per exchange stage, forward order."""
+        """:class:`StageEntry` per exchange stage, forward order: uniform for
+        the explicit methods; for ``method="auto"`` tuned within the plan's
+        ``comm_dtype`` and ``exchange_impl`` budgets and cached on disk
+        (``tuner_cache``), the same on every rank."""
+        if self.method == "auto":
+            from repro_torch.core import tuner
+
+            return as_schedule(tuner.get_or_tune(self, cache_path=self.tuner_cache))
         entry = self.config.stage_entry()._replace(batch_fusion="stacked").validate()
         return (entry,) * self.n_exchanges
 
     def batched_schedule(self, nfields: int) -> tuple[StageEntry, ...]:
         """:class:`StageEntry` per exchange stage of an ``nfields``-field
         execution, forward order: the plan's uniform ``batch_fusion`` (one
-        field: ``"stacked"``).  ``method="auto"`` is refused at
-        construction until the tuner is ported."""
+        field: ``"stacked"``); ``method="auto"`` tunes the batch-aware
+        candidates, cached per field count."""
         if nfields <= 1:
-            return self.schedule
-        return (self.config.stage_entry().validate(),) * self.n_exchanges
+            return tuple(e._replace(batch_fusion="stacked") for e in self.schedule)
+        if nfields not in self._batched_sched_memo:
+            if self.method == "auto":
+                from repro_torch.core import tuner
+
+                sched = as_schedule(tuner.get_or_tune(self, cache_path=self.tuner_cache,
+                                                      nfields=nfields))
+            else:
+                sched = (self.config.stage_entry().validate(),) * self.n_exchanges
+            self._batched_sched_memo[nfields] = sched
+        return self._batched_sched_memo[nfields]
 
     # -- executors on this rank's padded block -------------------------------
 
@@ -276,10 +295,12 @@ class ParallelFFT:
         return fn
 
     def warm(self, directions=("forward", "backward"), *, nfields: int = 1) -> int:
-        """Run each requested direction once on a zero block (through the
+        """Resolve the schedule (the tuner's sweep for ``method="auto"``),
+        then run each requested direction once on a zero block (through the
         guarded executor when the plan is guarded; stacked when ``nfields >
         1``), so that the kernels' build and the first launches happen before
         the first real call.  Returns the number of executors run."""
+        self.batched_schedule(nfields)
         n = 0
         for direction in directions:
             _, _, _, pen = self._walk(direction)
@@ -392,7 +413,8 @@ class ParallelFFT:
                 y = type(xs)(fields)
         return y if report is None else (y, report)
 
-    # -- counts of the plan (pure arithmetic, the reference's values) --------
+    # -- counts and the time model: pure arithmetic, the reference's values ---
+    # (the local copies are the port's: redistribute.exchange_local_copy_elems)
 
     def model_flops(self, nfields: int = 1) -> float:
         """5 n log2 n per 1-D transform summed over the plan (transforms of
@@ -417,6 +439,103 @@ class ParallelFFT:
             flops *= 0.5
         return flops
 
+    def _stage_itemsize(self, i: int, dtypes=None) -> int:
+        dtypes = self.dtype_trace if dtypes is None else dtypes
+        return 8 if dtypes[i] == torch.complex64 else 4
+
+    def comm_bytes_per_device(self, itemsize: int | None = None, *, method: str | None = None,
+                              comm_dtype=None, nfields: int = 1) -> int:
+        """Wire bytes each rank sends over all exchanges, at each stage's
+        payload width: the plan's resolved schedule by default (the tuned
+        payloads of ``method="auto"`` once resolved), or a uniform
+        ``comm_dtype``.  ``method`` adds that engine's local copies
+        (:func:`~repro_torch.core.redistribute.exchange_local_copy_elems`);
+        ``itemsize=None`` prices each stage at its dtype (complex64 8, a
+        still-real float32 stage 4); ``nfields`` stacks fields.  Pure
+        arithmetic: a byte count never triggers the tuner."""
+        if comm_dtype is None:
+            batched = self._batched_sched_memo.get(nfields) if nfields > 1 else None
+            if batched is not None:
+                entries = [tuple(e)[:3] for e in batched]
+            elif self.method == "auto" and "schedule" not in self.__dict__:
+                # no schedule resolved yet: price the uniform budget
+                entries = [("fused", 1, self.comm_dtype)] * self.n_exchanges
+            else:
+                entries = [tuple(e)[:3] for e in self.schedule]
+        else:
+            entries = [("fused", 1, canonical_comm_dtype(comm_dtype))] * self.n_exchanges
+        total, ex_i = 0, 0
+        for i, st in enumerate(self.stages):
+            if not isinstance(st, ExchangeStage):
+                continue
+            isz = itemsize if itemsize is not None else self._stage_itemsize(i)
+            e_method, e_chunks, e_dtype = entries[ex_i]
+            src = self.pencil_trace[i]
+            slices = (pipeline_slices(src, st.v, st.w, chunks=e_chunks)
+                      if e_method == "pipelined" else 1)
+            total += exchange_wire_bytes(src, st.v, st.w, itemsize=isz, comm_dtype=e_dtype,
+                                         nfields=nfields, slices=slices)
+            ex_i += 1
+            if method is not None:
+                total += exchange_local_copy_elems(src, st.v, st.w, method=method) * isz * nfields
+        return total
+
+    def model_time_s(self, *, itemsize: int | None = None, peak_flops: float = PEAK_FLOPS,
+                     ici_bw: float = ICI_BW, hbm_bw: float = HBM_BW,
+                     ici_latency_s: float | None = None, schedule=None,
+                     direction: str = "forward", nfields: int = 1,
+                     batch_fusion: str | None = None, exchange_only: bool = False) -> float:
+        """Modeled seconds of one transform at this card's constants
+        (:mod:`repro_torch.core.hardware`) unless given: FFT stages at
+        ``peak_flops``, each exchange by
+        :func:`~repro_torch.core.redistribute.exchange_time_model` with the
+        FFT after it as its overlap partner.  ``schedule`` defaults to the
+        plan's (resolved; ``method="auto"`` tunes); ``direction="backward"``
+        walks the reversed plan; ``nfields`` prices a batched execution, each
+        stage's fusion from its entry or uniformly ``batch_fusion``;
+        ``exchange_only`` prices the exchanges alone.  The coefficients are
+        free so :mod:`repro_torch.core.modelfit` can fit them."""
+        if ici_latency_s is None:
+            ici_latency_s = ICI_LATENCY_S
+        if schedule is None:
+            schedule = self.batched_schedule(nfields)
+        schedule = as_schedule(schedule)
+        if direction == "forward":
+            stages, pencils, dtypes = self.stages, self.pencil_trace, self.dtype_trace
+        elif direction == "backward":
+            stages, pencils = _reverse_plan(self.stages, self.pencil_trace)
+            dtypes = self.dtype_trace[::-1]
+            schedule = schedule[::-1]
+        else:
+            raise ValueError(f"unknown direction {direction!r}")
+        ndev = math.prod(group_size(self.mesh, g) for g in self.grid)
+        total, ex_i, i = 0.0, 0, 0
+        while i < len(stages):
+            st = stages[i]
+            if isinstance(st, ExchangeStage):
+                method, chunks, comm_dtype, ex_impl, fusion = schedule[ex_i]
+                if batch_fusion is not None:
+                    fusion = batch_fusion
+                ex_i += 1
+                src_pen = pencils[i]  # the block before this exchange
+                isz = itemsize if itemsize is not None else self._stage_itemsize(i, dtypes)
+                nxt = stages[i + 1] if i + 1 < len(stages) else None
+                fft_s = 0.0
+                if isinstance(nxt, FFTStage) and nxt.axis == st.w:
+                    if not exchange_only:
+                        fft_s = (self._stage_flops_at(i + 1, stages, pencils, dtypes)
+                                 / ndev / peak_flops)
+                    i += 1  # folded into the exchange's term
+                total += exchange_time_model(
+                    src_pen, st.v, st.w, itemsize=isz, method=method, chunks=chunks,
+                    comm_dtype=comm_dtype, impl=ex_impl, ici_bw=ici_bw, hbm_bw=hbm_bw,
+                    ici_latency_s=ici_latency_s, overlap_compute_s=fft_s, nfields=nfields,
+                    batch_fusion=fusion)
+            elif not exchange_only:
+                total += nfields * self._stage_flops_at(i, stages, pencils, dtypes) / ndev / peak_flops
+            i += 1
+        return total
+
     def model_collective_launches(self, *, nfields: int = 1, schedule=None,
                                   batch_fusion: str | None = None,
                                   direction: str = "forward") -> int:
@@ -433,7 +552,7 @@ class ParallelFFT:
         for i, st in enumerate(self.stages):
             if not isinstance(st, ExchangeStage):
                 continue
-            entry = StageEntry(*schedule[ex_i])
+            entry = StageEntry.make(schedule[ex_i])
             ex_i += 1
             fusion = batch_fusion if batch_fusion is not None else entry.batch_fusion
             total += exchange_collective_launches(

@@ -10,6 +10,8 @@ port's own implementation names:
 ``exchange_impl`` exchange-local codec/pack: ``"torch"`` (plain tensor code,
                   :mod:`repro_torch.kernels.exchange.ref`) or ``"cuda"`` (the
                   hand-written exchange kernels, :mod:`repro_torch.kernels.exchange`).
+                  For ``method="auto"`` it is a candidate budget: the tuner
+                  sweeps the kernels (on lossy payloads) only under ``"cuda"``.
 
 :func:`config_from_reference` maps a JAX config's fields
 (``dataclasses.asdict``) onto this one, so a test can build both plans from
@@ -50,6 +52,26 @@ class StageEntry(NamedTuple):
     impl: str = "torch"
     batch_fusion: str = "stacked"
 
+    @classmethod
+    def make(cls, entry) -> "StageEntry":
+        """Normalize any schedule-entry form into a validated StageEntry: a
+        StageEntry, a legacy ``(method, chunks, comm_dtype)`` or ``(...,
+        batch_fusion)`` row, or a full 5-tuple.  A legacy 4-tuple's last
+        field is classified by vocabulary (``impl`` and ``batch_fusion``
+        values are disjoint)."""
+        if isinstance(entry, cls):
+            return entry.validate()
+        t = tuple(entry)
+        if len(t) == 3:
+            return cls(t[0], int(t[1]), t[2]).validate()
+        if len(t) == 4:
+            if t[3] in BATCH_FUSIONS:
+                return cls(t[0], int(t[1]), t[2], "torch", t[3]).validate()
+            return cls(t[0], int(t[1]), t[2], t[3]).validate()
+        if len(t) == 5:
+            return cls(t[0], int(t[1]), t[2], t[3], t[4]).validate()
+        raise ValueError(f"schedule entry {entry!r} has {len(t)} fields; expected 3-5")
+
     def validate(self) -> "StageEntry":
         if self.method not in METHODS:
             raise ValueError(f"unknown method {self.method!r}; expected one of {METHODS}")
@@ -64,6 +86,13 @@ class StageEntry(NamedTuple):
         return self if d == self.comm_dtype else self._replace(comm_dtype=d)
 
 
+def as_schedule(entries) -> tuple[StageEntry, ...]:
+    """Normalize an iterable of schedule entries (any legacy form) into a
+    tuple of :class:`StageEntry`: the one normalizer every consumer of a
+    user- or disk-provided schedule shares."""
+    return tuple(StageEntry.make(e) for e in entries)
+
+
 @dataclass(frozen=True)
 class PlanConfig:
     """Validated execution config for one ParallelFFT (fields as in the
@@ -75,7 +104,7 @@ class PlanConfig:
     chunks: int = 4
     comm_dtype: str | None = None
     batch_fusion: str = "stacked"
-    tuner_cache: str | None = None
+    tuner_cache: str | None = None  # schedule-cache path for method="auto"
     guard: str = "off"
 
     def __post_init__(self):

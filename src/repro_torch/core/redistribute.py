@@ -62,11 +62,15 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core.decomp import local_lengths
+from repro_torch.core.hardware import HBM_BW, ICI_BW, ICI_LATENCY_S  # noqa: F401 (re-exported)
 from repro_torch.core.meshutil import axis_size
 from repro_torch.core.pencil import Group, Pencil, group_name, group_size
 from repro_torch.core.quant import canonical_comm_dtype, wire_ratio
 from repro_torch.kernels.exchange import ops as xops, ref as xref
 from repro_torch.robustness import faults, health
+
+#: chunk counts the tuner sweeps for the pipelined method
+PIPELINE_CHUNK_CANDIDATES = (2, 4, 8)
 
 
 def _exchange_dim0(t: torch.Tensor, pg, *, async_op: bool = False):
@@ -288,7 +292,8 @@ def exchange_shard_sliced(block: torch.Tensor, v: int, w: int, group: Group, *,
 
 
 # ---------------------------------------------------------------------------
-# counts of the plan's exchanges (pure arithmetic, the reference's values)
+# counts and the time model of the plan's exchanges (pure arithmetic; the
+# reference's values, but the local copies of exchange_local_copy_elems)
 # ---------------------------------------------------------------------------
 
 
@@ -336,4 +341,85 @@ def exchange_collective_launches(src: Pencil, v: int, w: int, *, method: str = "
         return per_exchange
     if batch_fusion in ("per-field", "pipelined-across-fields"):
         return n * per_exchange
+    raise ValueError(f"unknown batch_fusion {batch_fusion!r}")
+
+
+def exchange_local_copy_elems(src: Pencil, v: int, w: int, *, method: str = "fused",
+                              comm_dtype=None, impl: str = "torch") -> int:
+    """Elements of local copies the engine pays on top of the wire payload
+    and the codec, counting the port's copies: traditional's pack and
+    unpack touch the local block twice, pipelined's concat of its slices
+    once, fused none; with ``impl="cuda"`` and a lossy payload the codec
+    kernels do traditional's pack and unpack (pipelined's concat remains).
+
+    One case differs from the reference's count: a lossless (complex64)
+    fused or pipelined exchange over ``M > 1`` ranks packs with
+    ``movedim(...).contiguous()`` into chunk-major order and scatters with a
+    ``movedim``/``reshape``, two more passes over the local block (at
+    ``M = 1`` both are views).  ``all_to_all_single`` splits dim 0 only,
+    where the reference's all-to-all takes the split axis itself.  Every
+    other case equals the reference's count."""
+    local = math.prod(src.local_shape)
+    d = canonical_comm_dtype(comm_dtype)
+    if impl == "cuda" and d != "complex64":
+        return {"fused": 0, "pipelined": local, "traditional": 0}.get(method, 0)
+    copies = {"fused": 0, "pipelined": local, "traditional": 2 * local}.get(method, 0)
+    if d == "complex64" and method in ("fused", "pipelined") and \
+            group_size(src.mesh, src.placement[w]) > 1:
+        copies += 2 * local
+    return copies
+
+
+def exchange_time_model(src: Pencil, v: int, w: int, *, itemsize: int = 8,
+                        method: str = "fused", chunks: int = 1, comm_dtype=None,
+                        ici_bw: float = ICI_BW, hbm_bw: float = HBM_BW,
+                        overlap_compute_s: float = 0.0, nfields: int = 1,
+                        batch_fusion: str = "stacked", ici_latency_s: float = ICI_LATENCY_S,
+                        impl: str = "torch") -> float:
+    """Modeled seconds of one exchange and the 1-D FFT stage after it (whose
+    per-field time the caller passes as ``overlap_compute_s``), at this
+    card's constants unless given (:mod:`repro_torch.core.hardware`).
+
+    fused/traditional serialize the collective and the FFT; pipelined with
+    c slices exposes only the first slice's collective and the last
+    slice's FFT:
+
+        T = c·T_lat + T_comm/c + max(T_comm, T_fft)·(c-1)/c + T_fft/c
+
+    A lossy ``comm_dtype`` shrinks T_comm to :func:`exchange_wire_bytes`
+    and adds the codec's HBM passes over the local block, one lean pass a
+    side with ``impl="cuda"`` (read wide, write narrow and back), and a
+    full-width plane stack more a side with the plain codec.  ``nfields``
+    fields ship by ``batch_fusion``: ``"stacked"`` one collective for all
+    (one latency, N× bytes and FFT), ``"pipelined-across-fields"`` N
+    collectives with field i's hidden under field i-1's FFT, ``"per-field"``
+    N serialized exchange + FFT pairs.  The reference's formula, with the
+    port's local copies (:func:`exchange_local_copy_elems`)."""
+    d = canonical_comm_dtype(comm_dtype)
+    comm_s = exchange_wire_bytes(src, v, w, itemsize=itemsize, comm_dtype=d) / ici_bw
+    copy_s = (exchange_local_copy_elems(src, v, w, method=method, comm_dtype=d, impl=impl)
+              * itemsize / hbm_bw)
+    if d != "complex64":
+        local = math.prod(src.local_shape)
+        per_side = itemsize + itemsize // wire_ratio(d)
+        if impl != "cuda":
+            per_side += itemsize
+        copy_s += 2 * local * per_side / hbm_bw
+
+    def one(comm, fft):
+        if method == "pipelined" and chunks > 1:
+            c = chunks
+            return c * ici_latency_s + comm / c + max(comm, fft) * (c - 1) / c + fft / c
+        return ici_latency_s + comm + fft
+
+    n = max(1, nfields)
+    if n == 1 or batch_fusion == "stacked":
+        return one(comm_s * n, overlap_compute_s * n) + copy_s * n
+    if batch_fusion == "per-field":
+        return n * (one(comm_s, overlap_compute_s) + copy_s)
+    if batch_fusion == "pipelined-across-fields":
+        launches = n * (chunks if method == "pipelined" and chunks > 1 else 1)
+        fft = overlap_compute_s
+        return (launches * ici_latency_s + comm_s + (n - 1) * max(comm_s, fft)
+                + fft + n * copy_s)
     raise ValueError(f"unknown batch_fusion {batch_fusion!r}")

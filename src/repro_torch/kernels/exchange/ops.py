@@ -31,6 +31,7 @@ from collections import Counter
 
 import torch
 
+from repro_torch.core.quant import canonical_comm_dtype
 from repro_torch.kernels.exchange import ref
 
 #: kernel launches per "<wrapper>:<codec>"
@@ -41,6 +42,16 @@ design_launches: Counter = Counter()
 decode_design_launches: Counter = Counter()
 #: kernels one encode launches per codec: int8 runs a max-abs pass, then the quantize pass
 ENCODE_KERNELS = {"bf16": 1, "int8": 2}
+
+
+def cuda_applicable(method: str, comm_dtype) -> bool:  # noqa: ARG001
+    """Whether ``impl="cuda"`` changes anything for a stage of ``method``
+    shipping ``comm_dtype``: true for a lossy payload only (the codec gives
+    the kernels their work).  A lossless stage runs the same plain pack and
+    scatter under either impl, so the tuner sweeps no lossless ``"cuda"``
+    candidate.  ``method`` is taken as the reference's ``pallas_applicable``
+    takes it."""
+    return canonical_comm_dtype(comm_dtype) != "complex64"
 
 
 def _prod(xs) -> int:

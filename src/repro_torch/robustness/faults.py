@@ -17,9 +17,10 @@ Injectors: :meth:`FaultPlan.corrupt_wire` (exponent burst on element 0 of
 a received wire buffer; int8 payloads flip a magnitude bit, so target
 ``label="scale"`` for a detectable int8 hit), :meth:`FaultPlan.nan_input`
 (a NaN/Inf element 0 in a stage's input block), :meth:`FaultPlan.saturate`
-(divides the int8 codec's scale so the payload clips) and
+(divides the int8 codec's scale so the payload clips),
 :meth:`FaultPlan.fail_compile` (raises :class:`FaultInjected` at the start
-of a matching stage).
+of a matching stage) and :meth:`FaultPlan.poison_cache` (a tuner-cache
+entry naming a schedule the tuner never timed).
 
 The reference injects while it traces an executor, so a fault lives in the
 compiled artifact; the port runs eagerly and its taps act on every call.
@@ -82,6 +83,20 @@ class FaultPlan:
     def fail_compile(self, *, stage=None, engine=None, codec=None):
         self._faults.append(_Fault("compile_fail", stage, engine, codec))
         return self
+
+    @staticmethod
+    def poison_cache(path, plan, schedule, *, nfields: int = 1) -> str:
+        """Write a well-formed tuner-cache entry for ``plan``'s key naming
+        ``schedule``, which the tuner never timed; returns the key.  Paired
+        with :meth:`fail_compile` on that schedule's engine, it is a cache
+        entry that replays but cannot run.  Call it on one rank (the cache
+        reader) or on each: the entry is the same."""
+        from repro_torch.core import tuner
+
+        key = tuner.plan_key(plan, nfields=nfields)
+        tuner.save_cache(path, {key: {"schedule": [list(s) for s in schedule],
+                                      "timings": {"poisoned": {}}}})
+        return key
 
     def __enter__(self):
         global _ACTIVE

@@ -17,8 +17,12 @@ again, at most :data:`MAX_ATTEMPTS` times.  A tripped stage widens that
 stage's wire payload one rung (int8 -> bf16 -> complex64), then drops the
 CUDA exchange kernels for the plain torch codec (cuda -> torch), then falls
 back through the engines (pipelined -> fused -> traditional); a global trip
-(Parseval, non-finite output) degrades every stage.  A ladder with no rung
-left raises :class:`GuardError`.
+(Parseval, non-finite output) degrades every stage.  A ``method="auto"``
+plan whose schedule fails to execute instead quarantines the cache entry
+that produced it (:func:`repro_torch.core.tuner.quarantine`) and retunes,
+at most :data:`~repro_torch.core.tuner.MAX_QUARANTINE_RETUNES` times; rank
+0 quarantines and every rank drops its memos and agrees on the count.  A
+ladder with no rung left raises :class:`GuardError`.
 
 Unlike the reference, which degrades on any exception, the runner degrades
 only on :class:`~.faults.FaultInjected` and on a tripped guard.  A kernel
@@ -31,7 +35,7 @@ from __future__ import annotations
 
 import logging
 
-from repro_torch.core.planconfig import StageEntry
+from repro_torch.core.planconfig import StageEntry, as_schedule
 from repro_torch.robustness import faults, health
 
 log = logging.getLogger("repro_torch.robustness")
@@ -62,7 +66,7 @@ def degrade_entry(entry) -> StageEntry | None:
     the CUDA exchange kernels for the plain torch codec, then fall back
     through the engines; None at the bottom (traditional @ complex64 @
     torch)."""
-    e = StageEntry(*entry).validate()
+    e = StageEntry.make(entry)
     if e.comm_dtype in DTYPE_LADDER:
         return e._replace(comm_dtype=DTYPE_LADDER[e.comm_dtype])
     if e.impl == "cuda":
@@ -87,24 +91,59 @@ def degrade_schedule(schedule, stages=None):
     return tuple(out) if moved else None
 
 
+def _quarantine_and_retune(plan, nfields: int, err) -> int:
+    """Mark the plan's cache entry bad (rank 0), drop every rank's copies of
+    the schedule it produced, and return the entry's quarantine count, the
+    same on every rank; the retune happens at the next resolve."""
+    from repro_torch.core import tuner
+
+    key = tuner.plan_key(plan, nfields=nfields)
+    n = None
+    if tuner.is_root(plan):
+        n = tuner.quarantine(plan.tuner_cache or tuner.default_cache_path(), key,
+                             repr(err)[:300])
+    else:
+        tuner.forget(key)
+    plan.__dict__.pop("schedule", None)  # the cached_property
+    plan._batched_sched_memo.pop(nfields, None)
+    return tuner.broadcast(plan, n)
+
+
 def run_guarded(plan, xpad, direction: str, nfields: int = 1, *, schedule=None):
     """Run ``plan`` on this rank's padded block ``xpad`` (``(nfields, ...)``
     stacked when ``nfields > 1``) under its guard mode; returns ``(ypad,
-    HealthReport)``.  The schedule is ``plan.batched_schedule(nfields)``
-    unless ``schedule`` (forward order) forces where the ladder starts."""
+    HealthReport)``.  The schedule is ``plan.batched_schedule(nfields)``,
+    resolved inside the attempt loop, unless ``schedule`` (forward order)
+    forces where the ladder starts; a forced schedule that fails walks the
+    ladder and never quarantines the tuner cache (it is not the cache's)."""
+    from repro_torch.core import tuner
+
     strict = plan.guard == "strict"
-    schedule = (plan.batched_schedule(nfields) if schedule is None
-                else tuple(StageEntry(*e).validate() for e in schedule))
+    forced = schedule is not None
+    if forced:
+        schedule = as_schedule(schedule)
     transitions: list[dict] = []
     report = None
     for attempt in range(1, MAX_ATTEMPTS + 1):
         try:
+            if schedule is None:
+                schedule = plan.batched_schedule(nfields)
             y, raw = plan.guarded_padded(direction, schedule=schedule, nfields=nfields)(xpad)
         except faults.FaultInjected as err:
             log.warning("guarded %s execution failed (attempt %d): %r",
                         direction, attempt, err)
             if strict:
                 raise GuardError(f"schedule failed to execute: {err!r}") from err
+            if plan.method == "auto" and not forced:
+                n = _quarantine_and_retune(plan, nfields, err)
+                if n > tuner.MAX_QUARANTINE_RETUNES:
+                    raise GuardError(f"cache entry quarantined {n}x and still failing: "
+                                     f"{err!r}") from err
+                transitions.append({"attempt": attempt, "kind": "retune", "quarantines": n,
+                                    "reason": repr(err)[:200]})
+                log.warning("quarantined tuner cache entry (count %d); retuning", n)
+                schedule = None
+                continue
             new = degrade_schedule(schedule)
             if new is None:
                 raise GuardError(

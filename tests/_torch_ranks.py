@@ -1,6 +1,7 @@
 """Four CPU (gloo) ranks running the port's exchanges and plans, for
 tests/test_torch_pfft.py, tests/test_torch_engines.py,
-tests/test_torch_guard.py and tests/test_torch_many.py.
+tests/test_torch_guard.py, tests/test_torch_many.py and
+tests/test_torch_tuner.py.
 
 The cases and their numpy-seeded inputs are plain data here, so the JAX side
 of the comparison (a subprocess with 4 virtual devices) builds the very same
@@ -12,6 +13,7 @@ from __future__ import annotations
 import datetime
 import json
 import multiprocessing as mp
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -661,5 +663,243 @@ def run_many_rank(rank: int, init_file: str, out_dir: str):
         if rank == 0:
             np.savez(Path(out_dir) / "many.npz", **arrays)
             (Path(out_dir) / "many.json").write_text(json.dumps(info))
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the schedule tuner (tests/test_torch_tuner.py)
+# ---------------------------------------------------------------------------
+
+#: the port's exchange implementation names -> the reference's
+REFERENCE_IMPLS = {"torch": "jnp", "cuda": "pallas"}
+
+#: the plans of tests/test_pfft.py:17-42 by name: (mesh shape, mesh names,
+#: shape, grid, transforms); the slab on a composed group is left out (the
+#: port supports one mesh dimension per distributed axis)
+MODEL_PLANS = {
+    "slab": ((2, 4), ("p0", "p1"), (16, 12, 20), ("p0",), None),
+    "pencil": ((2, 4), ("p0", "p1"), (16, 12, 20), ("p0", "p1"), None),
+    "pencil_r2c": ((2, 4), ("p0", "p1"), (16, 12, 20), ("p0", "p1"), ("c2c", "c2c", "r2c")),
+    "nondiv": ((2, 4), ("p0", "p1"), (13, 9, 11), ("p0", "p1"), None),
+    "nondiv_r2c": ((2, 4), ("p0", "p1"), (13, 9, 11), ("p0", "p1"), ("c2c", "c2c", "r2c")),
+    "4d_on_2d": ((2, 4), ("p0", "p1"), (8, 6, 10, 12), ("p0", "p1"), None),
+    "4d_on_3d": ((2, 2, 2), ("a", "b", "c"), (8, 8, 8, 8), ("a", "b", "c"), None),
+}
+
+#: coefficients both packages' models are priced at (passed explicitly)
+MODEL_COEFFS = {"peak_flops": 1.1e13, "ici_bw": 3.3e11, "hbm_bw": 2.2e12, "ici_latency_s": 7e-6}
+
+#: the overlap seconds passed to exchange_time_model
+MODEL_OVERLAP_S = 1e-4
+
+#: (budget, reference exchange_impl) of the candidate sets compared
+CANDIDATE_BUDGETS = tuple((b, i) for b in ("complex64", "bf16", "int8") for i in ("jnp", "pallas"))
+
+
+def as_reference_rows(schedule) -> list[list]:
+    """Schedule rows with the reference's implementation names."""
+    return [[e[0], int(e[1]), e[2], REFERENCE_IMPLS.get(e[3], e[3]), e[4]] for e in schedule]
+
+
+def fake_stage_seconds(si, method, chunks, comm_dtype, impl="jnp", batch_fusion="stacked", *,
+                       repeats=None, inner=None, nfields=1) -> float:
+    """A deterministic stand-in for the tuner's ``_time_stage(plan, si,
+    ...)`` (the plan dropped): the same seconds in both packages, the
+    implementation read by its reference name."""
+    tag = "@".join(map(str, (si, method, chunks, comm_dtype, REFERENCE_IMPLS.get(impl, impl),
+                             batch_fusion, nfields)))
+    return 1e-3 * (1.0 + (zlib.crc32(tag.encode()) % 1000) / 1000.0)
+
+
+def model_numbers(plan, exchange_stage, candidates) -> dict:
+    """The plan's priced models, keyed the same for both packages:
+    ``model_time_s`` of each candidate as the uniform schedule (both
+    directions, 1 and 3 fields, and exchanges only), ``exchange_time_model``
+    of each exchange stage under each candidate, and ``comm_bytes_per_device``
+    for each payload, engine, itemsize and field count.  ``candidates`` are
+    the package's ``batched_candidates_for("int8", <kernels>)``, in order."""
+    from importlib import import_module
+
+    red = import_module(type(plan).__module__.replace("pfft", "redistribute"))
+    out = {}
+    n = plan.n_exchanges
+    for c, e in enumerate(candidates):
+        for nf in (1, 3):
+            for direction in ("forward", "backward"):
+                out[f"time:{c}:{nf}:{direction}"] = plan.model_time_s(
+                    schedule=(e,) * n, direction=direction, nfields=nf, **MODEL_COEFFS)
+            out[f"time_ex:{c}:{nf}"] = plan.model_time_s(schedule=(e,) * n, nfields=nf,
+                                                         exchange_only=True, **MODEL_COEFFS)
+            for i, st in enumerate(plan.stages):
+                if isinstance(st, exchange_stage):
+                    out[f"ex:{c}:{i}:{nf}"] = red.exchange_time_model(
+                        plan.pencil_trace[i], st.v, st.w, itemsize=plan._stage_itemsize(i),
+                        method=e.method, chunks=e.chunks, comm_dtype=e.comm_dtype,
+                        impl=e.impl, nfields=nf, batch_fusion=e.batch_fusion,
+                        overlap_compute_s=MODEL_OVERLAP_S, **{k: v for k, v in MODEL_COEFFS.items()
+                                                              if k != "peak_flops"})
+    for nf in (1, 3):
+        for comm in (None, "complex64", "bf16", "int8"):
+            for method in (None, "fused", "traditional", "pipelined"):
+                for isz in (None, 8):
+                    out[f"bytes:{nf}:{comm}:{method}:{isz}"] = plan.comm_bytes_per_device(
+                        isz, method=method, comm_dtype=comm, nfields=nf)
+    return {k: float(v) for k, v in out.items()}
+
+
+#: the tuned plan of the ranks: tests/test_robustness.py's guard plan
+TUNE_SHAPE = GUARD_SHAPE
+
+
+def rank_skewed_seconds(rank: int):
+    """A stand-in ``_time_stage`` under which each rank alone would pick a
+    different lossless engine: candidate i of 5 takes 1 + ((i + rank) % 5)
+    / 10 seconds, so rank r's own fastest is (5 - r) % 5; the slowest
+    rank's times make candidate 0 (fused) the winner on every rank."""
+    order = [("fused", 1), ("traditional", 1), ("pipelined", 2), ("pipelined", 4),
+             ("pipelined", 8)]
+
+    def fake(plan, si, method, chunks, *args, **kwargs):
+        i = order.index((method, chunks))
+        return 1.0 + ((i + rank) % 5) / 10.0
+
+    return fake
+
+
+def run_tune_rank(rank: int, init_file: str, out_dir: str):
+    """One rank: the tuned lossless plan (the cache it leaves, its forward
+    and ``forward_many`` against the explicit plan under its schedule), a
+    replay from the cache, the int8 budget, stale and corrupt caches, a
+    rank-skewed stand-in timer, and the poisoned entry under a compile
+    fault; with the ``_time_stage`` calls and cache writes of each.  Each
+    rank saves its outcomes (``tune<rank>.json``), rank 0 the global
+    arrays (``tune.npz``)."""
+    from collections import Counter
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import tuner
+    from repro_torch.core.meshutil import make_mesh
+    from repro_torch.core.pencil import allgather_global, scatter_global
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig
+    from repro_torch.robustness import FaultPlan
+
+    calls = Counter()
+    _count_calls(tuner, ("_time_stage", "save_cache"), calls)
+    _init(rank, init_file)
+    try:
+        mesh = make_mesh((2, 2), ("p0", "p1"), device="cpu")
+        out, arrays = {}, {}
+        x = inputs()["guard"]
+        d = Path(out_dir)
+        cache = d / "tune.json"
+
+        def auto(path=cache, **kw):
+            return ParallelFFT(mesh, TUNE_SHAPE, ("p0", "p1"),
+                               config=PlanConfig(method="auto", tuner_cache=str(path), **kw))
+
+        def resolved(plan, nfields=1):
+            calls.clear()
+            sched = plan.batched_schedule(nfields)
+            return {"schedule": [list(e) for e in sched], "time_stage": calls["_time_stage"],
+                    "saves": calls["save_cache"]}
+
+        def entry(path, plan, nfields=1):
+            """Rank 0's disk entry of the plan (None elsewhere)."""
+            return tuner.load_cache(path).get(tuner.plan_key(plan, nfields=nfields)) \
+                if rank == 0 else None
+
+        # the lossless budget: tune, then run against the explicit plan
+        plan = auto()
+        out["tuned"] = resolved(plan)
+        out["tuned"]["entry"] = entry(cache, plan)
+        out["tuned"]["key"] = tuner.plan_key(plan)
+        explicit = ParallelFFT(mesh, TUNE_SHAPE, ("p0", "p1"))
+        sched = plan.schedule
+        block = scatter_global(torch.from_numpy(x), explicit.input_pencil, rank)
+        want = allgather_global(explicit._execute(block, "forward", sched, guard=False),
+                                explicit.output_pencil)
+        y = plan.forward(x)
+        out["tuned"]["forward_equal"] = torch.equal(y, want)
+        arrays["auto_forward"] = y.numpy()
+        xs = guard_fields(x)
+        out["batched"] = resolved(plan, NFIELDS)
+        bsched = plan.batched_schedule(NFIELDS)
+        stacked = scatter_global(torch.from_numpy(xs), explicit.input_pencil, rank, nbatch=1)
+        want = allgather_global(explicit._execute(stacked, "forward", bsched, guard=False,
+                                                  nbatch=1), explicit.output_pencil, nbatch=1)
+        ym = plan.forward_many(xs)
+        out["batched"]["forward_many_equal"] = torch.equal(ym, want)
+        arrays["auto_forward_many"] = ym.numpy()
+        out["warm"] = plan.warm(nfields=NFIELDS)
+
+        # a second plan with the same key replays from the cache: no timing
+        tuner._MEMO.clear()
+        again = auto()
+        out["replay"] = resolved(again)
+        out["replay"]["forward_equal"] = torch.equal(again.forward(x), y)
+
+        # the int8 budget, and its replay
+        p8 = auto(comm_dtype="int8")
+        out["int8"] = resolved(p8)
+        out["int8"]["entry"] = entry(cache, p8)
+        tuner._MEMO.clear()
+        out["int8_replay"] = resolved(auto(comm_dtype="int8"))
+
+        # stale or corrupt caches are ignored and rewritten, never raised on
+        stale = d / "stale.json"
+        key = tuner.plan_key(plan)
+        payloads = ["{ not json", "[1, 2, 3]",
+                    json.dumps({'{"schema": 3, "mesh": []}': {
+                        "schedule": [["fused", 1, "complex64"]], "timings": {}}})]
+        bad_entries = ["garbage", {"schedule": "garbage"}, {"schedule": [["x"]]},
+                       {"schedule": [["fused", 1, "complex64"]]},
+                       {"schedule": [["bogus", 1, "complex64"], ["fused", 1, "complex64"]]},
+                       {"schedule": [["fused", 1, "float8"], ["fused", 1, "complex64"]]},
+                       {"schedule": [["pipelined", 16, "complex64"], ["fused", 1, "complex64"]]},
+                       {"schedule": [["fused", 1, "int8"], ["fused", 1, "complex64"]]}]
+        out["stale"] = []
+        for text in payloads + [json.dumps({key: e}) for e in bad_entries]:
+            if rank == 0:
+                stale.write_text(text)
+            tuner._MEMO.clear()
+            got = resolved(auto(stale))
+            got["entry"] = entry(stale, plan)
+            out["stale"].append(got)
+
+        # a rank-skewed timer: the ranks still agree on one winner
+        tuner._STAGE_MEMO.clear()
+        real, tuner._time_stage = tuner._time_stage, rank_skewed_seconds(rank)
+        try:
+            skewed = d / "skewed.json"
+            out["skewed"] = resolved(auto(skewed))
+            out["skewed"]["entry"] = entry(skewed, plan)
+        finally:
+            tuner._time_stage = real
+
+        # the reference's poison_auto case (tests/test_robustness.py)
+        poisoned_cache = d / "poisoned.json"
+        p = auto(poisoned_cache, guard="degrade")
+        poisoned = (("pipelined", 2, "complex64", "torch", "stacked"),) * p.n_exchanges
+        if rank == 0:
+            FaultPlan.poison_cache(poisoned_cache, p, poisoned)
+        y_ref = explicit.forward(x)
+        with FaultPlan().fail_compile(engine="pipelined"):
+            yp, rep = p.forward(x)
+        disk = tuner.load_cache(poisoned_cache)
+        out["poison_auto"] = {
+            "ok": rep.ok, "kinds": [t["kind"] for t in rep.transitions],
+            "rel": float(torch.linalg.vector_norm(yp - y_ref) / torch.linalg.vector_norm(y_ref)),
+            "quarantines": [e.get("quarantines") for e in disk.values()
+                            if isinstance(e, dict) and e.get("quarantines")],
+            "fired": sorted({f["kind"] for f in rep.fired_faults}),
+            "schedule": [list(e) for e in rep.schedule]}
+        dist.barrier()
+        (d / f"tune{rank}.json").write_text(json.dumps(out))
+        if rank == 0:
+            np.savez(d / "tune.npz", **arrays)
     finally:
         dist.destroy_process_group()

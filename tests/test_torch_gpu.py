@@ -640,3 +640,35 @@ def test_lm_prefill_runs_k6_once_per_layer(cuda):
     _, lg_plain = lm.prefill({"tokens": toks}, max_len=41)
     rel = ((lg - lg_plain).norm() / lg_plain.norm()).item()
     assert rel < 6e-2, rel
+
+
+@pytest.mark.parametrize("budget", ["bf16", "int8"])
+def test_auto_plan_equals_explicit_under_its_schedule(mesh1, tmp_path, budget):
+    """An auto plan tunes on the card with the exchange kernels swept
+    (``exchange_impl="cuda"``, a lossy budget); its forward and backward are
+    bitwise equal to the explicit plan run under the tuned schedule, and a
+    second plan on the same cache replays that schedule without timing."""
+    from repro_torch.core import tuner
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig
+
+    shape = (42, 63, 64)
+    cfg = PlanConfig(method="auto", impl="matmul", exchange_impl="cuda", comm_dtype=budget,
+                     tuner_cache=str(tmp_path / "t.json"))
+    plan = ParallelFFT(mesh1, shape, ("p0", "p1"), config=cfg)
+    explicit = ParallelFFT(mesh1, shape, ("p0", "p1"),
+                           config=PlanConfig(impl="matmul", exchange_impl="cuda"))
+    sched = plan.schedule
+    assert len(sched) == 2 and all(e in tuner.candidates_for(budget, "cuda") for e in sched)
+    x = _rand(plan.input_pencil.local_shape, True, 11, "cuda")
+    y = plan.forward_padded(x)
+    assert torch.equal(y, explicit._execute(x, "forward", sched, guard=False))
+    assert torch.equal(plan.backward_padded(y), explicit._execute(y, "backward", sched,
+                                                                  guard=False))
+    tuner._MEMO.clear()
+    real, tuner.tune_plan = tuner.tune_plan, None  # a replay must not sweep
+    try:
+        again = ParallelFFT(mesh1, shape, ("p0", "p1"), config=cfg)
+        assert again.schedule == sched
+    finally:
+        tuner.tune_plan = real

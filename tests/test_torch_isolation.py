@@ -113,9 +113,30 @@ def test_port_vocabulary():
                                                                "stacked")
 
 
-def test_auto_method_names_the_tuner():
+def test_auto_method_names_the_tuner(monkeypatch):
+    """``method="auto"`` builds (it raised before the tuner was ported), and
+    its schedules come from the tuner, with the plan's cache path and field
+    count."""
+    from repro_torch.core import tuner
     from repro_torch.core.pfft import ParallelFFT
-    from repro_torch.core.planconfig import PlanConfig
+    from repro_torch.core.planconfig import PlanConfig, StageEntry
 
-    with pytest.raises(NotImplementedError, match="tuner"):
-        ParallelFFT(None, (4, 4, 4), ("p0", "p1"), config=PlanConfig(method="auto"))
+    class Mesh:  # the attributes a plan's arithmetic reads
+        device_type, shape, mesh_dim_names = "cpu", (1, 1), ("p0", "p1")
+
+        def size(self, dim=None):
+            return 1
+
+    asked = []
+
+    def tuned(plan, *, cache_path=None, nfields=1):
+        asked.append((cache_path, nfields))
+        fusion = "per-field" if nfields > 1 else "stacked"
+        return (StageEntry("traditional", 1, "complex64", "torch", fusion),) * 2
+
+    monkeypatch.setattr(tuner, "get_or_tune", tuned)
+    plan = ParallelFFT(Mesh(), (4, 4, 4), ("p0", "p1"),
+                       config=PlanConfig(method="auto", tuner_cache="t.json"))
+    assert plan.schedule == (StageEntry("traditional", 1, "complex64"),) * 2
+    assert plan.batched_schedule(3)[0].batch_fusion == "per-field"
+    assert asked == [("t.json", 1), ("t.json", 3)]
