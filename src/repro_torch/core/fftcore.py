@@ -13,6 +13,14 @@ Local FFT implementations:
                     ``jnp.fft``.
 ``impl="matmul"`` — the four-step DFT kernel (:mod:`repro_torch.kernels.fft`);
                     DCT/DST axes run as one transform-matrix ``torch.matmul``.
+
+Each row's result must not depend on the other axes' extents: a stacked
+block of fields and a pipelined slice transform the same rows as one
+field's block, and the lossless contracts (batched = the per-field loop,
+pipelined = fused) are bitwise.  ``torch.fft`` along a strided axis rounds
+by the other axes' extents on the devices in
+:data:`CONTIGUOUS_FFT_DEVICES`; there ``impl="torch"`` moves the axis last
+and makes it contiguous first.
 """
 
 from __future__ import annotations
@@ -24,6 +32,11 @@ import torch
 
 FORWARD = -1
 BACKWARD = +1
+
+#: device types whose ``torch.fft`` along a strided axis rounds by the other
+#: axes' extents (pocketfft on the CPU): there a transform runs on a
+#: contiguous last axis, one copy in
+CONTIGUOUS_FFT_DEVICES = frozenset({"cpu"})
 
 _KINDS = ("c2c", "r2c", "dct", "dst")
 
@@ -152,10 +165,21 @@ def _check_impl(impl):
         raise ValueError(f"unknown fft impl {impl!r}")
 
 
+def _along(x, axis, fn):
+    """``fn(x, axis)``, on the devices of :data:`CONTIGUOUS_FFT_DEVICES`
+    as ``fn`` of ``axis`` moved last and made contiguous, moved back."""
+    axis = axis % x.dim()
+    if x.device.type not in CONTIGUOUS_FFT_DEVICES or (axis == x.dim() - 1
+                                                      and x.is_contiguous()):
+        return fn(x, axis)
+    return torch.movedim(fn(torch.movedim(x, axis, -1).contiguous(), -1), -1, axis)
+
+
 def _fft(x, axis, sign, impl):
     _check_impl(impl)
     if impl == "torch":
-        return torch.fft.fft(x, dim=axis) if sign == FORWARD else torch.fft.ifft(x, dim=axis)
+        op = torch.fft.fft if sign == FORWARD else torch.fft.ifft
+        return _along(x, axis, lambda t, a: op(t, dim=a))
     from repro_torch.kernels.fft import ops as fft_ops
 
     return fft_ops.fft_matmul(x, axis=axis, inverse=(sign == BACKWARD))
@@ -164,7 +188,7 @@ def _fft(x, axis, sign, impl):
 def _rfft(x, axis, impl):
     _check_impl(impl)
     if impl == "torch":
-        return torch.fft.rfft(x, dim=axis)
+        return _along(x, axis, lambda t, a: torch.fft.rfft(t, dim=a))
     from repro_torch.kernels.fft import ops as fft_ops
 
     return fft_ops.rfft_matmul(x, axis=axis)
@@ -173,7 +197,7 @@ def _rfft(x, axis, impl):
 def _irfft(x, axis, n, impl):
     _check_impl(impl)
     if impl == "torch":
-        return torch.fft.irfft(x, n=n, dim=axis)
+        return _along(x, axis, lambda t, a: torch.fft.irfft(t, n=n, dim=a))
     from repro_torch.kernels.fft import ops as fft_ops
 
     return fft_ops.irfft_matmul(x, n=n, axis=axis)
@@ -259,6 +283,8 @@ def _dct_real(x, axis, trig_type, impl):
         return fft_ops.dct_matmul(x, axis=axis, trig_type=trig_type)
     n = x.shape[axis]
     xl = torch.movedim(x, axis, -1)
+    if x.device.type in CONTIGUOUS_FFT_DEVICES:  # the FFT below runs along xl's last axis
+        xl = xl.contiguous()
     k = torch.arange(n, device=x.device, dtype=torch.float32)
     if trig_type == 2:
         # permute to v = [x0, x2, ..., x5, x3, x1], one length-n FFT

@@ -4,9 +4,10 @@
 ``fft_matmul(x, axis, inverse)`` — complex-to-complex, any axis.
 ``rfft_matmul(x, axis)``         — real input, Hermitian-reduced output.
 ``irfft_matmul(x, n, axis)``     — inverse of the above.
-``dct_matmul`` / ``dst_matmul``  — a DCT/DST axis as one ``torch.matmul``
-                                   with the transform matrix (the reference
-                                   leaves these to XLA, outside any kernel).
+``dct_matmul`` / ``dst_matmul``  — a DCT/DST axis as ``torch.matmul`` with
+                                   the transform matrix, in fixed blocks of
+                                   rows (the reference leaves these to XLA,
+                                   outside any kernel).
 
 A tensor on the CPU takes the plain version (:mod:`.ref`); a CUDA tensor
 launches the kernel (:mod:`.kernel`).  ``launches`` counts kernel launches
@@ -148,6 +149,24 @@ def dst_matmul(x: torch.Tensor, *, axis: int = -1, trig_type: int = 2) -> torch.
     return _trig_matmul(x, axis, ref.dst_matrix(x.shape[axis % x.dim()], trig_type))
 
 
+#: rows of one DCT/DST matmul call: every call has this shape (the last block
+#: zero-padded), since a GEMM's rounding of a row can depend on how many
+#: rows share the call (a lone row takes another code path, and the BLAS
+#: picks its blocking by the row count)
+TRIG_ROWS = 1024
+
+
+def _trig_rows(rows: torch.Tensor, mt: torch.Tensor) -> torch.Tensor:
+    """``rows @ mt`` in calls of :data:`TRIG_ROWS` rows each, so each row's
+    result is the same whatever the other rows are."""
+    r = rows.shape[0]
+    pad = -r % TRIG_ROWS
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros(pad, rows.shape[1])])
+    out = torch.cat([torch.matmul(b, mt) for b in rows.split(TRIG_ROWS)])
+    return out[:r]
+
+
 def _trig_matmul(x, axis, mat):
     # full f32, as the reference's Precision.HIGHEST: a TF32 product keeps
     # ~3 decimal digits, so refuse to run under allow_tf32
@@ -157,8 +176,8 @@ def _trig_matmul(x, axis, mat):
     axis = axis % x.dim()
 
     def apply(real_block):
-        y = torch.movedim(real_block.to(torch.float32), axis, -1)
-        return torch.movedim(torch.matmul(y, m.T), -1, axis)
+        rows = _rows(real_block.to(torch.float32), axis)
+        return _unrows(_trig_rows(rows, m.T), real_block.shape, axis, m.shape[0])
 
     if x.is_complex():
         return torch.complex(apply(x.real), apply(x.imag))

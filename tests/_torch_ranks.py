@@ -903,3 +903,106 @@ def run_tune_rank(rank: int, init_file: str, out_dir: str):
             np.savez(d / "tune.npz", **arrays)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the bitwise contracts (tests/test_torch_bitwise.py)
+# ---------------------------------------------------------------------------
+
+#: plan -> (global shape, grid, transform tags or specs): the pruned plans,
+#: the r2c plans with odd trailing extents, the 4-D plan and the DCT/DST
+#: plans of tests/test_pfft.py and tests/test_transforms.py
+BITWISE_PLANS = {
+    "pruned": ((12, 12, 12), ("p0", "p1"), (("pruned", 8),) * 3),
+    "pruned_r2c": ((12, 12, 12), ("p0", "p1"), (("pruned", 8), ("pruned", 8), ("r2c", 5))),
+    "r2c_12_10_9": ((12, 10, 9), ("p0", "p1"), ("c2c", "c2c", "r2c")),
+    "r2c_8_6_11": ((8, 6, 11), ("p0", "p1"), ("c2c", "c2c", "r2c")),
+    "r2c_8_6_11_slab": ((8, 6, 11), ("p0",), ("c2c", "c2c", "r2c")),
+    "c2c_4d": ((8, 6, 10, 12), ("p0", "p1"), None),
+    "dct2": ((16, 12, 20), ("p0", "p1"), ("dct2", "dct2", "dct2")),
+    "dst2": ((16, 12, 20), ("p0", "p1"), ("dst2", "dst2", "dst2")),
+    "dct3_dst3_dct2": ((16, 12, 20), ("p0", "p1"), ("dct3", "dst3", "dct2")),
+    "dct2_c2c_r2c": ((16, 12, 20), ("p0", "p1"), ("dct2", "c2c", "r2c")),
+    "c2c_r2c_dst2": ((16, 12, 20), ("p0", "p1"), ("c2c", "r2c", "dst2")),
+}
+
+BITWISE_IMPLS = ("torch", "matmul")
+
+#: pipelined chunk counts held bitwise against the fused engine
+BITWISE_CHUNKS = (2, 3, 4)
+
+
+def bitwise_transforms(tags):
+    """The TransformSpecs of a BITWISE_PLANS entry (None: all c2c)."""
+    from repro_torch.core.fftcore import TransformSpec, as_spec
+
+    if tags is None:
+        return None
+    out = []
+    for t in tags:
+        if isinstance(t, tuple):
+            kind, keep = t
+            out.append(TransformSpec.pruned(keep) if kind == "pruned"
+                       else TransformSpec.r2c(n_keep=keep))
+        else:
+            out.append(as_spec(t))
+    return tuple(out)
+
+
+def bitwise_fields(name: str, real: bool) -> np.ndarray:
+    """Two global fields of a BITWISE_PLANS plan."""
+    shape = BITWISE_PLANS[name][0]
+    rng = np.random.default_rng(900 + list(BITWISE_PLANS).index(name))
+    if real:
+        return rng.standard_normal((2, *shape)).astype(np.float32)
+    return _complex(rng, (2, *shape))
+
+
+def run_bitwise_rank(rank: int, init_file: str, out_dir: str):
+    """One rank: each plan under each FFT impl, forward and backward, the
+    lossless traditional and pipelined engines against the fused one, and
+    two-field forward_many/backward_many under every batch_fusion (lossless
+    and int8) against the per-field loop; rank 0 saves, per comparison,
+    whether it is bitwise equal (``bitwise.json``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.meshutil import make_mesh
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig
+
+    torch.set_num_threads(1)  # four ranks share the host's cores
+    _init(rank, init_file)
+    try:
+        mesh = make_mesh((2, 2), ("p0", "p1"), device="cpu")
+        out = {}
+        for name, (shape, grid, tags) in BITWISE_PLANS.items():
+            transforms = bitwise_transforms(tags)
+            for impl in BITWISE_IMPLS:
+                def plan(**kw):
+                    return ParallelFFT(mesh, shape, grid, transforms=transforms,
+                                       config=PlanConfig(impl=impl, **kw))
+
+                fused = plan(method="fused")
+                x = bitwise_fields(name, real=fused.input_dtype == torch.float32)
+                y = fused.forward(x[0])
+                b = fused.backward(y)
+                eng = {"traditional": plan(method="traditional")}
+                eng.update({f"pipelined{c}": plan(method="pipelined", chunks=c)
+                            for c in BITWISE_CHUNKS})
+                for ename, p in eng.items():
+                    out[f"{name}:{impl}:engine:{ename}"] = (torch.equal(p.forward(x[0]), y)
+                                                            and torch.equal(p.backward(y), b))
+                for comm in ("complex64", "int8"):
+                    base = plan(comm_dtype=comm)
+                    loop_f = torch.stack([base.forward(f) for f in x])
+                    loop_b = torch.stack([base.backward(f) for f in loop_f])
+                    for fusion in BATCH_FUSIONS:
+                        p = plan(comm_dtype=comm, batch_fusion=fusion)
+                        out[f"{name}:{impl}:many:{comm}:{fusion}"] = (
+                            torch.equal(p.forward_many(x), loop_f)
+                            and torch.equal(p.backward_many(loop_f), loop_b))
+        if rank == 0:
+            (Path(out_dir) / "bitwise.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
