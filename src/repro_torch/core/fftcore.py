@@ -34,9 +34,11 @@ FORWARD = -1
 BACKWARD = +1
 
 #: device types whose ``torch.fft`` along a strided axis rounds by the other
-#: axes' extents (pocketfft on the CPU): there a transform runs on a
-#: contiguous last axis, one copy in
-CONTIGUOUS_FFT_DEVICES = frozenset({"cpu"})
+#: axes' extents, so a transform there runs on a contiguous last axis (one
+#: copy in): pocketfft on the CPU at lengths with the factors 4 * 3; cuFFT
+#: on an H100 (CUDA 12.8) along axis 0 of a 384^3 block, though not at
+#: (12, 10, 6) nor along axis 1 (``chip_smoke.py``'s ``{"strided_fft"}``)
+CONTIGUOUS_FFT_DEVICES = frozenset({"cpu", "cuda"})
 
 _KINDS = ("c2c", "r2c", "dct", "dst")
 

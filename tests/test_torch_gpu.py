@@ -526,6 +526,41 @@ def test_dns_plan_stacked_equals_per_field(mesh1):
     assert torch.equal(a[2], stacked.forward_padded(u[2]))
 
 
+@pytest.mark.parametrize("method", ["pipelined", "traditional"])
+def test_impl_torch_lossless_contracts_at_384(mesh1, method):
+    """Under ``impl="torch"`` (cuFFT) at n = 384, where cuFFT along a strided
+    axis rounds by the other axes' extents: the lossless engine equals the
+    fused one bitwise (4 slices when pipelined), and a 2-field batch equals
+    the per-field loop bitwise under every batch_fusion."""
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig
+
+    shape = (384, 384, 384)
+    x = torch.randn((2, *shape), dtype=torch.complex64, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    fused = ParallelFFT(mesh1, shape, ("p0", "p1"), config=PlanConfig(impl="torch"))
+    plan = ParallelFFT(mesh1, shape, ("p0", "p1"),
+                       config=PlanConfig(impl="torch", method=method, chunks=4))
+    y = fused.forward_padded(x[0])
+    assert torch.equal(plan.forward_padded(x[0]), y)
+    assert torch.equal(plan.backward_padded(y), fused.backward_padded(y))
+    loop = torch.stack([plan.forward_padded(f) for f in x])
+    for fusion in ("stacked", "pipelined-across-fields", "per-field"):
+        p = ParallelFFT(mesh1, shape, ("p0", "p1"),
+                        config=PlanConfig(impl="torch", method=method, chunks=4,
+                                          batch_fusion=fusion))
+        assert torch.equal(p.forward_many_padded(2)(x), loop), fusion
+
+
+def test_trig_matmul_rows_independent_of_row_count_on_the_card(cuda):
+    """cuBLAS rounds a row of a plain matmul by the row count; the DCT/DST
+    matmul's fixed blocks of rows give each row the same bits."""
+    x = torch.randn(5000, 384, device=cuda, generator=torch.Generator(device=cuda).manual_seed(4))
+    whole = fops.dct_matmul(x, axis=-1)
+    for lo, hi in ((0, 1), (3, 700), (1000, 5000), (4999, 5000)):
+        assert torch.equal(fops.dct_matmul(x[lo:hi], axis=-1), whole[lo:hi]), (lo, hi)
+
+
 def _stacked_512(scale_1=1e3):
     x = torch.randn((3, 512, 512, 512), dtype=torch.complex64, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(1))
