@@ -12,7 +12,10 @@ non-zero):
    subroutines) and of K5's two designs (``rows_kernel``, ``tile_kernel``:
    instructions a 16-byte vector or an element, divisions; one
    ``{"sass_census"}`` line) and the card's name and power limit;
-2. every kernel mode against its plain torch version on seeded inputs, with
+2. whether cuFFT along a strided axis rounds by the other axes' extents, and
+   what ``fftcore``'s copy to a contiguous last axis costs (one
+   ``{"strided_fft"}`` line, after the sweep below); every kernel mode
+   against its plain torch version on seeded inputs, with
    CUDA-event times (one ``{"kernel_sweep": [...]}`` line; ``cuda_ms``
    times runs of back-to-back calls): K4 (each record names the design that
    ran: ``"tc"``, 3xTF32 tensor cores, or ``"general"``), K1 (both layouts,
@@ -38,7 +41,10 @@ non-zero):
    at 512^3 complex64, forward and backward timed; (c) 512^3 with int8;
    "engines" — the traditional and pipelined (``chunks=4``) engines at 512^3
    for each ``comm_dtype``, lossless ones bitwise equal to the fused engine,
-   plus each engine's single exchange timed alone;
+   plus each engine's single exchange timed alone; then under
+   ``impl="torch"`` (cuFFT) the lossless engines bitwise equal to fused at
+   512^3 and 384^3, and the 512^3 forward with and without ``fftcore``'s
+   copy to a contiguous last axis (one ``{"engines_torch"}`` line);
    "guard" — ``guard="strict"`` clean runs at 512^3 (bitwise equal to the
    unguarded plan, guarded and unguarded times), then faults under
    ``guard="degrade"`` and ``"strict"`` that must end as the reference's do;
@@ -49,7 +55,8 @@ non-zero):
    K1/K3 designs (``ref.tile_design`` on the plan's views) and
    ``all_to_all_single`` calls (``model_collective_launches``) checked and
    its time set beside N single-field calls, one across-fields call
-   traced; 3 stacked 512^3 fields through an int8 wire (field 1 at 1e3);
+   traced; the same calls under ``impl="torch"``, every mode bitwise equal
+   to the loop; 3 stacked 512^3 fields through an int8 wire (field 1 at 1e3);
    the traditional engine's int8 exchange of stacked fields against the
    plain codec; guarded batches (one ``{"many": [...]}`` line, each record
    with the card's name and power limit);
@@ -71,6 +78,18 @@ non-zero):
    under a pipelined compile fault, ``guard="degrade"``: one quarantine, a
    retune, ok (one ``{"tune": [...]}`` line); K1, K3 and K4 must each launch,
    and their launches are logged by the arguments of each call;
+   "serve" — the spectral server (``repro_torch.serve``): (a) 12 seeded
+   float32 fields alternating 512^3 and the quickstart shape through the
+   bf16 guarded server plan (``impl="matmul"``, ``exchange_impl="cuda"``),
+   coalesced up to 4, all ``ok``, each bitwise equal to the plan's own
+   ``forward`` and within 3e-3 of ``torch.fft.fftn``, then one coalesced
+   4 x 512^3 group timed beside ``forward_many_padded``; (b) a strict plan
+   under a bf16 wire fault: the breaker trips, every request ``degraded``
+   through the lossless fallback; (c) a crash after a stall: ``ok`` after
+   one retry; (d) overload: instant sheds; (e) an auto plan whose cache is
+   torn under a 2x burst: all resolve, the cache is rebuilt (one
+   ``{"serve": [...]}`` line); K1 (guard mode), K3 and K4 (both designs)
+   must launch, logged by the arguments of each call;
    "lm" — after the FFT paths' buffers are freed, LM serving through
    ``repro_torch.launch.serve_lm.main``: GLM-4-9B at full width and depth
    (40 layers, bf16, seeded weights), 4 prompts of 2048 tokens and 32 greedy
@@ -93,7 +112,8 @@ non-zero):
    error against the plain version, kernel / plain / library times and the
    bound (one ``{"kernels": [...]}`` line; before it, K4's general design at
    n = 64 by row count against ``torch.fft.fft``, one
-   ``{"k4_general_rows"}`` line), the serving times beside their
+   ``{"k4_general_rows"}`` line; K1, K3 and K4 also at every shape the
+   serve path launched them at), the serving times beside their
    bounds (one ``{"lm_breakdown": ...}`` line), then the result line.
 
 Without a CUDA device, or outside a checkout of the repository, it prints no
@@ -154,6 +174,14 @@ K5_SWEEP = ((24, 24, 8), (7, 13, 3), (64, 48, 40), (512, 33, 1), (4096, 32, 8), 
 # 256 retained modes per axis on the 3/2-rule grid of 384
 DNS_N, DNS_M = 256, 384
 BATCH_FUSIONS = ("stacked", "pipelined-across-fields", "per-field")
+# the serve path: the server plan's shapes, alternating 512^3 (K4 tc) and the
+# quickstart's (K4 general), 12 requests coalesced up to 4
+SERVE_SHAPES = (SHAPE_BIG, SHAPE_QS)
+SERVE_REQUESTS = 12
+SERVE_MAX_BATCH = 4
+# the strided-FFT check: the DNS grid's n = 384 = 128 * 3 (one field, as the
+# many path's FFT stages see it) and n = 12 = 4 * 3
+STRIDED_FFT_CASES = ((384, (384, 384, 384)), (12, (12, 10, 6)))
 # the coeffs phase: a copy of 1 GiB of complex64, torch.fft.fft on 262144 rows of 512,
 # each reading taken in COEFF_ROUNDS rounds
 COEFF_COPY_ELEMS = 2**27
@@ -269,14 +297,16 @@ def main():
 
     sweep = kernel_sweep(torch)
     print(json.dumps({"kernel_sweep": sweep}))
+    print(json.dumps({"strided_fft": {**strided_fft_check(torch), "card": card}}))
 
-    lm_info, many, tune, tune_shapes = {}, [], [], {}
-    paths = run_paths(torch, lm_info, many, tune, tune_shapes, card)
+    lm_info, many, tune, tune_shapes, serve, serve_shapes = {}, [], [], {}, [], {}
+    paths = run_paths(torch, lm_info, many, tune, tune_shapes, serve, serve_shapes, card)
     print(json.dumps({"paths": paths}))
     print(json.dumps({"many": [{**r, "card": card} for r in many]}))
     print(json.dumps({"tune": [{**r, "card": card} for r in tune]}))
+    print(json.dumps({"serve": [{**r, "card": card} for r in serve]}))
 
-    kernels = main_path_kernels(torch, paths, tune_shapes)
+    kernels = main_path_kernels(torch, paths, tune_shapes, serve_shapes)
     print(json.dumps({"k4_general_rows": k4_general_rows(torch)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"lm_breakdown": lm_breakdown(kernels, lm_info)}))
@@ -638,20 +668,36 @@ def _drive(torch, name, fn, *args):
     torch.cuda.synchronize()
     for _, c in counters:
         c.clear()
+    t0 = time.perf_counter()
     fn(torch, *args)
     torch.cuda.synchronize()
     counts = {pre + k: v for pre, c in counters for k, v in c.items()}
-    print(f"path {name}: launches {counts}")
+    print(f"path {name}: {time.perf_counter() - t0:.1f} s, launches {counts}")
     return counts
 
 
-def run_paths(torch, lm_info, many, tune, tune_shapes, card):
+def _by_call(paths, shapes, name):
+    """Check that a path's K1, K3 and K4 each launched and that its launches
+    by call (``_LaunchesByShape``) add up to its counters."""
+    counts = paths[name]
+    k1 = sum(n for k, n in counts.items() if k.startswith("pack_chunks:"))
+    k3 = sum(n for k, n in counts.items() if k.startswith("unpack_chunks:"))
+    k4 = sum(n for k, n in counts.items() if k.startswith(("tc:", "general:")))
+    if min(k1, k3, k4) < 1:
+        fail(f"{name}: K1 {k1}, K3 {k3}, K4 {k4} launches; each must be >= 1")
+    by_call = [sum(r["launches"] for (k, *_), r in shapes.items() if k == kern)
+               for kern in ("K1", "K3", "K4")]
+    if by_call != [k1, k3, k4]:
+        fail(f"{name}: launches by call {by_call} != the counters' {[k1, k3, k4]}")
+
+
+def run_paths(torch, lm_info, many, tune, tune_shapes, serve, serve_shapes, card):
     """Drive the four FFT paths on a 1-rank NCCL group (the many path fills
     ``many`` with its records), measure the time model's coefficients (one
     ``{"coeffs"}`` line), drive the tune path on the same group (it fills
-    ``tune`` and, with its launches by call, ``tune_shapes``), then the LM
-    path (which fills ``lm_info``); returns each path's kernel launch
-    counts."""
+    ``tune`` and, with its launches by call, ``tune_shapes``), the serve path
+    (``serve``, ``serve_shapes`` likewise), then the LM path (which fills
+    ``lm_info``); returns each path's kernel launch counts."""
     import torch.distributed as dist
 
     from repro_torch.core.meshutil import make_mesh
@@ -675,16 +721,17 @@ def run_paths(torch, lm_info, many, tune, tune_shapes, card):
         paths["tune"] = _drive(torch, "tune", tune_path, mesh, tune, uniform, tune_shapes)
         gc.collect()
         torch.cuda.empty_cache()
-        counts = paths["tune"]
-        k1 = sum(n for k, n in counts.items() if k.startswith("pack_chunks:"))
-        k3 = sum(n for k, n in counts.items() if k.startswith("unpack_chunks:"))
-        k4 = sum(n for k, n in counts.items() if k.startswith(("tc:", "general:")))
-        if min(k1, k3, k4) < 1:
-            fail(f"tune: K1 {k1}, K3 {k3}, K4 {k4} launches; each must be >= 1")
-        by_call = [sum(r["launches"] for (k, *_), r in tune_shapes.items() if k == kern)
-                   for kern in ("K1", "K3", "K4")]
-        if by_call != [k1, k3, k4]:
-            fail(f"tune: launches by call {by_call} != the counters' {[k1, k3, k4]}")
+        _by_call(paths, tune_shapes, "tune")
+        paths["serve"] = _drive(torch, "serve", serve_path, mesh, serve, serve_shapes)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _by_call(paths, serve_shapes, "serve")
+        designs = {k.split(":")[0] for k, n in paths["serve"].items()
+                   if k.startswith(("tc:", "general:")) and n}
+        guard = sum(n for k, n in paths["serve"].items()
+                    if k.startswith("pack_chunks:") and k.endswith(":guard"))
+        if designs != {"tc", "general"} or guard < 1:
+            fail(f"serve: K4 ran the designs {designs}, want both; K1 guard launches {guard}")
         # every exchange of these paths has S % 4 == 0: K1 and K3 run their
         # vec designs, every launch
         for name in ("slice", "engines", "guard"):
@@ -881,6 +928,110 @@ def engines_path(torch, mesh, uniform):
     pack_m4 = cuda_ms(torch, lambda: torch.movedim(x.reshape(n0, n1, 4, n2 // 4), 2, 0)
                       .contiguous())
     print(json.dumps({"exchange_alone_ms": alone, "movedim_pack_copy_m4_ms": pack_m4}))
+    print(json.dumps({"engines_torch": _engines_torch_bitwise(torch, mesh, x)}))
+
+
+def _engines_torch_bitwise(torch, mesh, x):
+    """Under ``impl="torch"`` (cuFFT), the lossless traditional and
+    pipelined (4 slices) engines against the fused one, forward and
+    backward, bitwise, at 512^3 and at n = 384; and the 512^3 fused forward
+    with and without ``fftcore``'s copy to a contiguous last axis."""
+    from repro_torch.core import fftcore
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig
+
+    base = PlanConfig(method="fused", impl="torch", chunks=4)
+    out = {"bitwise_equal_fused": {}}
+    for shape in (SHAPE_BIG, (DNS_M,) * 3):
+        xs = x if shape == SHAPE_BIG else torch.randn(
+            shape, dtype=torch.complex64, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(7))
+        fused = ParallelFFT(mesh, shape, ("p0", "p1"), config=base)
+        y = fused.forward_padded(xs)
+        b = fused.backward_padded(y)
+        for method in ("traditional", "pipelined"):
+            plan = ParallelFFT(mesh, shape, ("p0", "p1"), config=base.replace(method=method))
+            same = (torch.equal(plan.forward_padded(xs), y)
+                    and torch.equal(plan.backward_padded(y), b))
+            out["bitwise_equal_fused"][f"{method}@{shape[0]}"] = same
+            if not same:
+                fail(f"engines impl=torch {shape} {method}: lossless output is not bitwise "
+                     f"equal to the fused engine's")
+        if shape == SHAPE_BIG:
+            if rel_l2(torch, y, torch.fft.fftn(xs)) > TOL_FWD["complex64"]:
+                fail("engines impl=torch 512^3: forward off torch.fft.fftn")
+            out["forward_ms_with_copy"] = cuda_ms(torch, lambda: fused.forward_padded(xs))
+            real = fftcore.CONTIGUOUS_FFT_DEVICES
+            fftcore.CONTIGUOUS_FFT_DEVICES = real - {"cuda"}
+            try:
+                out["forward_ms_without_copy"] = cuda_ms(torch, lambda: fused.forward_padded(xs))
+            finally:
+                fftcore.CONTIGUOUS_FFT_DEVICES = real
+        del xs, y, b
+    return out
+
+
+def _fft_along(torch, x, axis, inverse, contiguous):
+    """torch.fft's (i)fft of ``x`` along ``axis``: in place of a strided
+    axis, or of ``axis`` moved last and made contiguous (and moved back)."""
+    op = torch.fft.ifft if inverse else torch.fft.fft
+    if not contiguous:
+        return op(x, dim=axis)
+    return torch.movedim(op(torch.movedim(x, axis, -1).contiguous(), dim=-1), -1, axis)
+
+
+def strided_fft_check(torch):
+    """Whether ``torch.fft`` (cuFFT) on the card rounds a transform along a
+    strided axis by the other axes' extents, as the CPU's FFT does at
+    lengths with the factors 4 * 3: at each of ``STRIDED_FFT_CASES``, fft
+    and ifft along axes 0 and 1 of one block against the same axis of a
+    stack of two blocks and of a slice along the last axis (a batched and
+    a pipelined engine's views), in place and on a contiguous last axis
+    (``fftcore``'s copy); the ms of that copy beside the transform's.  Then
+    whether the DCT/DST matmul (fixed blocks of rows) gives a row the same
+    bits whatever rows share the call, and whether a plain matmul does."""
+    from repro_torch.core import fftcore
+    from repro_torch.kernels.fft import ops as fops
+
+    out = {"copy_on": sorted(fftcore.CONTIGUOUS_FFT_DEVICES), "cases": []}
+    for n, shape in STRIDED_FFT_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        a = torch.randn(shape, dtype=torch.complex64, device="cuda", generator=gen)
+        s = torch.stack([a, torch.randn(shape, dtype=torch.complex64, device="cuda",
+                                        generator=gen)])
+        half = shape[-1] // 2
+        rec = {"n": n, "shape": list(shape)}
+        for contiguous in (False, True):
+            same = {}
+            for axis in (0, 1):
+                for inverse in (False, True):
+                    one = _fft_along(torch, a, axis, inverse, contiguous)
+                    tag = f"{'ifft' if inverse else 'fft'}:axis{axis}"
+                    same[f"{tag}:stacked"] = torch.equal(
+                        one, _fft_along(torch, s, axis + 1, inverse, contiguous)[0])
+                    same[f"{tag}:slice"] = torch.equal(
+                        one[..., :half], _fft_along(torch, a[..., :half], axis, inverse,
+                                                    contiguous))
+                    del one
+            rec["contiguous" if contiguous else "strided"] = same
+        rec["copy_ms"] = cuda_ms(torch, lambda: torch.movedim(a, 0, -1).contiguous())
+        rec["fft_axis0_ms"] = cuda_ms(torch, lambda: torch.fft.fft(a, dim=0))
+        rec["fft_axis0_contiguous_ms"] = cuda_ms(torch, lambda: _fft_along(torch, a, 0, False,
+                                                                           True))
+        out["cases"].append(rec)
+        del a, s
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = torch.randn(5000, 384, device="cuda", generator=gen)
+    m = torch.randn(384, 384, device="cuda", generator=gen)
+    whole = fops.dct_matmul(rows, axis=-1)
+    parts = ((0, 1), (3, 700), (1000, 5000), (4999, 5000))
+    out["trig_matmul_rows_bitwise"] = all(
+        torch.equal(fops.dct_matmul(rows[lo:hi], axis=-1), whole[lo:hi]) for lo, hi in parts)
+    full = rows @ m.T
+    out["plain_matmul_rows_bitwise"] = all(torch.equal(rows[lo:hi] @ m.T, full[lo:hi])
+                                           for lo, hi in parts)
+    return out
 
 
 def guard_path(torch, mesh):
@@ -1167,7 +1318,21 @@ def many_path(torch, mesh, records):
                                 "over_n_x_single": ms / (nf * single_ms[direction])})
         del loop
     records.append({"case": "dns_trace", **_across_fields_trace(torch, mesh, u3)})
-    del u3, s9, lossless
+    # impl="torch" (cuFFT): every batch_fusion bitwise equal to the per-field loop
+    base = _dns_plan(mesh, "complex64", "stacked", impl="torch")
+    loop = {"forward": torch.stack([base.forward(u) for u in u3]),
+            "backward": torch.stack([base.backward(s) for s in s9])}
+    same = {}
+    for fusion in BATCH_FUSIONS:
+        plan = _dns_plan(mesh, "complex64", fusion, impl="torch")
+        for direction, x in (("forward", u3), ("backward", s9)):
+            same[f"{direction}:{fusion}"] = torch.equal(getattr(plan, f"{direction}_many")(x),
+                                                        loop[direction])
+    if not all(same.values()):
+        fail(f"many dns impl=torch: not bitwise equal to the per-field loop: {same}")
+    records.append({"case": "dns_impl_torch", "comm_dtype": "complex64",
+                    "bitwise_equal_loop": same})
+    del u3, s9, lossless, loop
     torch.cuda.empty_cache()
 
     # (b) 3 stacked fields at 512^3 through an int8 wire, field 1 at 1e3
@@ -1601,6 +1766,178 @@ def tune_path(torch, mesh, records, uniform, shapes):
         shutil.rmtree(cache_dir, ignore_errors=True)
 
 
+def _serve_wave(torch, srv, waves, grace):
+    """Submit each wave of fields in turn to ``srv`` (a wave's results are
+    awaited before the next is submitted); returns the outcomes and the
+    seconds."""
+    t0 = time.perf_counter()
+    outs = []
+    for fields in waves:
+        futs = [srv.submit(x) for x in fields]
+        outs += [f.result(grace=grace) for f in futs]
+    return outs, time.perf_counter() - t0
+
+
+def _serve_record(name, outs, seconds, stats):
+    lat = sorted(o.latency_s for o in outs)
+    return {"wave": name, "statuses": [o.status for o in outs], "trips": [o.trip for o in outs],
+            "retries": [o.retries for o in outs], "batch_sizes": [o.batched for o in outs],
+            "latency_p50_s": statistics.median(lat), "latency_max_s": lat[-1],
+            "seconds": seconds, "stats": {k: v for k, v in stats.items() if k != "registry"},
+            "registry": stats["registry"]}
+
+
+def serve_path(torch, mesh, records, shapes):
+    """The spectral server (``repro_torch.serve``) on the 1-rank group: (a)
+    a clean wave of 12 float32 fields, alternating 512^3 (K4 tc) and the
+    quickstart shape (K4 general), through the bf16 guarded server plan
+    (K1 in its guard mode, K3, K4), coalesced up to 4, each served value
+    bitwise equal to the plan's own forward of that field and within the
+    bf16 limit of ``torch.fft.fftn``; then the time of one coalesced group
+    of 4 x 512^3 beside ``forward_many_padded`` and the guarded executor of
+    the same stack; (b) a strict bf16 plan under a bf16 wire fault: the
+    breaker trips and every request is served, degraded, through the
+    lossless fallback; (c) a crash after a stall: one retry; (d) overload:
+    a queue of 2 sheds at once; (e) an auto plan (quickstart, int8 budget)
+    whose cache is torn mid-flight under a 2x burst: every request resolves
+    and the cache is rebuilt.  ``shapes`` gets the path's K1, K3 and K4
+    launches by the arguments of each call (``_LaunchesByShape``)."""
+    from repro_torch.core import tuner
+    from repro_torch.core.planconfig import PlanConfig
+    from repro_torch.robustness import FaultPlan, faults
+    from repro_torch.serve import OUTCOME_STATUSES, ServeConfig, SpectralServer
+
+    grid = ("p0", "p1")
+    cfg = PlanConfig(method="fused", impl="matmul", exchange_impl="cuda", comm_dtype="bf16",
+                     guard="degrade")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    cache_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    try:
+        with _LaunchesByShape(shapes):
+            # (a) the clean wave
+            fields = [torch.randn(SERVE_SHAPES[i % len(SERVE_SHAPES)], device="cuda",
+                                  generator=gen) for i in range(SERVE_REQUESTS)]
+            sc = ServeConfig(deadline_s=120.0, max_batch=SERVE_MAX_BATCH)
+            with SpectralServer(mesh, grid, plan_config=cfg, config=sc) as srv:
+                outs, secs = _serve_wave(torch, srv, [fields], sc.grace_s)
+                stats = srv.stats()
+                if [o.status for o in outs] != ["ok"] * len(outs) or stats["coalesced_batches"] < 1:
+                    fail(f"serve clean: {[o.status for o in outs]}, {stats['coalesced_batches']} "
+                         f"coalesced batches")
+                rec = _serve_record("clean", outs, secs, stats)
+                errs, bitwise = [], []
+                for x, o in zip(fields, outs):
+                    _, plan = srv.registry.get(tuple(x.shape))
+                    y, _ = plan.forward(x)
+                    bitwise.append(torch.equal(o.value, y))
+                    errs.append(rel_l2(torch, o.value, torch.fft.fftn(x)))
+                    del y
+                if not all(bitwise) or max(errs) > TOL_FWD["bf16"]:
+                    fail(f"serve clean: bitwise equal to the plan's forward {bitwise}, "
+                         f"rel L2 vs fftn {errs} (<= {TOL_FWD['bf16']})")
+                rec.update(bitwise_equal_plan_forward=bitwise, rel_l2_vs_fftn=errs)
+                records.append(rec)
+                del outs, fields
+                torch.cuda.empty_cache()
+
+                # one coalesced group of 4 x 512^3, held behind a stalled
+                # quickstart request so that the four queue together
+                group = [torch.randn(SHAPE_BIG, device="cuda", generator=gen)
+                         for _ in range(SERVE_MAX_BATCH)]
+                with FaultPlan().slow_collective(seconds=0.3, times=1):
+                    blocker = srv.submit(torch.randn(SHAPE_QS, device="cuda", generator=gen))
+                    futs = [srv.submit(x) for x in group]
+                    b = blocker.result()
+                    outs = [f.result() for f in futs]
+                if [o.batched for o in outs] != [SERVE_MAX_BATCH] * SERVE_MAX_BATCH or any(
+                        o.status != "ok" for o in outs + [b]):
+                    fail(f"serve group: batched {[o.batched for o in outs]}, statuses "
+                         f"{[o.status for o in outs + [b]]}")
+                done = b.latency_s + 0.0
+                group_s = max(o.latency_s for o in outs) - done
+                del outs
+                _, plan = srv.registry.get(SHAPE_BIG)
+                stack = torch.stack(group).to(torch.complex64)
+                del group
+                many = plan.forward_many_padded(SERVE_MAX_BATCH)
+                guarded = plan.guarded_padded("forward", nfields=SERVE_MAX_BATCH)
+                t0 = time.perf_counter()
+                plan._apply_many(stack, "forward")
+                torch.cuda.synchronize()
+                apply_s = time.perf_counter() - t0
+                records.append({"wave": "group_4x512", "nfields": SERVE_MAX_BATCH,
+                                "shape": list(SHAPE_BIG), "server_group_ms": group_s * 1e3,
+                                "apply_many_ms": apply_s * 1e3,
+                                "guarded_padded_ms": cuda_ms(torch, lambda: guarded(stack)),
+                                "forward_many_padded_ms": cuda_ms(torch, lambda: many(stack)),
+                                "stack_ms": cuda_ms(torch, lambda: stack.clone())})
+                del stack, many, guarded
+            torch.cuda.empty_cache()
+
+            # (b) the breaker: a strict bf16 plan under a bf16 wire fault
+            x = torch.randn(SHAPE_QS, device="cuda", generator=gen)
+            want = torch.fft.fftn(x)
+            sc = ServeConfig(deadline_s=120.0, breaker_threshold=2, breaker_cooldown_s=60.0,
+                             max_retries=0, grace_s=5.0)
+            with FaultPlan().corrupt_wire(codec="bf16"):
+                with SpectralServer(mesh, grid, plan_config=cfg.replace(guard="strict"),
+                                    config=sc) as srv:
+                    outs, secs = _serve_wave(torch, srv, [[x]] * 4, sc.grace_s)
+                    stats = srv.stats()
+            errs = [rel_l2(torch, o.value, want) for o in outs if o.value is not None]
+            trips = [o.trip for o in outs]
+            if ([o.status for o in outs] != ["degraded"] * 4 or trips[0] != "guard-error"
+                    or set(trips[2:]) != {"circuit-open"} or len(errs) != 4
+                    or max(errs) > TOL_FWD["complex64"]):
+                fail(f"serve breaker: {[o.status for o in outs]} trips {trips} rel L2 {errs}")
+            records.append({**_serve_record("breaker", outs, secs, stats), "rel_l2_vs_fftn": errs})
+
+            # (c) a crash after a stall: one retry recovers
+            with FaultPlan().executor_crash(times=1).slow_collective(seconds=0.05, times=2):
+                with SpectralServer(mesh, grid, plan_config=cfg,
+                                    config=ServeConfig(deadline_s=120.0,
+                                                       backoff_base_s=0.01)) as srv:
+                    outs, secs = _serve_wave(torch, srv, [[x]], 0.25)
+                    stats = srv.stats()
+            if [o.status for o in outs] != ["ok"] or outs[0].retries != 1:
+                fail(f"serve transient: {[o.status for o in outs]} retries {outs[0].retries}")
+            records.append(_serve_record("transient", outs, secs, stats))
+
+            # (d) overload: a queue of 2 while each dispatch stalls
+            with FaultPlan().slow_collective(seconds=0.2, times=100):
+                with SpectralServer(mesh, grid, plan_config=cfg,
+                                    config=ServeConfig(deadline_s=120.0, max_queue=2,
+                                                       max_batch=1)) as srv:
+                    outs, secs = _serve_wave(torch, srv, [[x] * 8], 0.25)
+                    stats = srv.stats()
+            shed = [o.latency_s for o in outs if o.status == "shed"]
+            if not shed or max(shed) >= 0.1 or any(o.status not in ("ok", "shed") for o in outs):
+                fail(f"serve overload: {[o.status for o in outs]}, shed latencies {shed}")
+            records.append(_serve_record("overload", outs, secs, stats))
+
+            # (e) an auto plan whose cache is torn mid-flight, under a 2x burst
+            cache = cache_dir / "serve.json"
+            auto = PlanConfig(method="auto", impl="matmul", exchange_impl="cuda",
+                              comm_dtype="int8", guard="degrade", tuner_cache=str(cache))
+            xs = [torch.randn(SHAPE_QS, device="cuda", generator=gen) for _ in range(6)]
+            with FaultPlan().cache_corruption(mode="garbage").request_burst(factor=2):
+                n = 3 * faults.serve_burst()
+                with SpectralServer(mesh, grid, plan_config=auto,
+                                    config=ServeConfig(deadline_s=120.0,
+                                                       max_batch=SERVE_MAX_BATCH)) as srv:
+                    outs, secs = _serve_wave(torch, srv, [xs[:n]], 0.25)
+                    stats = srv.stats()
+            disk = tuner.load_cache(cache)
+            if (len(outs) != 6 or any(o.status not in OUTCOME_STATUSES for o in outs)
+                    or not disk):
+                fail(f"serve cache corruption: {[o.status for o in outs]}, cache entries "
+                     f"{len(disk)}")
+            records.append({**_serve_record("cache_corruption", outs, secs, stats),
+                            "cache_entries": len(disk)})
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
 def lm_path(torch, info):
     """GLM-4-9B served through ``serve_lm.main`` (one warm-up round, then a
     timed prefill and 32 decode steps), then on the same weights: the K6
@@ -1755,7 +2092,7 @@ def _record(name, source, replaces, path, launches, err, ms, plain_ms, bound, li
             "library_ms": library_ms, **extra}
 
 
-def main_path_kernels(torch, paths, tune_shapes):
+def main_path_kernels(torch, paths, tune_shapes, serve_shapes):
     from repro_torch.kernels.exchange import ops as xops, ref as xref
     from repro_torch.kernels.fft import ops as fops, ref as fref
 
@@ -1869,7 +2206,8 @@ def main_path_kernels(torch, paths, tune_shapes):
     torch.cuda.empty_cache()
     kernels += _flash_records(torch, paths)
     kernels.append(_flash_fp32_record(torch, paths))
-    kernels += _tune_records(torch, tune_shapes)
+    kernels += _shape_records(torch, tune_shapes, "tune")
+    kernels += _shape_records(torch, serve_shapes, "serve")
 
     for k in kernels:
         if k["path"] is not None and k["launches"] < 1:
@@ -1877,20 +2215,21 @@ def main_path_kernels(torch, paths, tune_shapes):
     return kernels
 
 
-def _tune_records(torch, shapes):
-    """The tune path's kernels at every shape it launched them at (``shapes``
-    from ``_LaunchesByShape``: the candidates' stage views, each plan's
-    full block and every pipelined slice), one record per call signature
-    with that signature's launches: a seeded input of the shape through the
-    wrapper, on the design the tune path ran there, against the plain
-    version and, where one exists, the library call."""
+def _shape_records(torch, shapes, path):
+    """A path's kernels at every shape it launched them at (``shapes`` from
+    ``_LaunchesByShape``: the tune path's candidate stage views, each plan's
+    full block and every pipelined slice; the serve path's coalesced
+    stacks), one record per call signature with that signature's launches:
+    a seeded input of the shape through the wrapper, on the design the path
+    ran there, against the plain version and, where one exists, the library
+    call."""
     recs = []
     for key in sorted(shapes, key=str):
         rec = shapes[key]
         if len(rec["designs"]) != 1:
-            fail(f"tune {key}: the path ran the designs {rec['designs']}")
-        maker = {"K1": _tune_encode, "K3": _tune_decode, "K4": _tune_fourstep}[key[0]]
-        recs.append(maker(torch, key, rec["launches"], next(iter(rec["designs"]))))
+            fail(f"{path} {key}: the path ran the designs {rec['designs']}")
+        maker = {"K1": _shape_encode, "K3": _shape_decode, "K4": _shape_fourstep}[key[0]]
+        recs.append(maker(torch, key, rec["launches"], next(iter(rec["designs"])), path))
         torch.cuda.empty_cache()
     return recs
 
@@ -1904,13 +2243,13 @@ def _dev_randn(torch, shape, seed, iscomplex):
                        device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
 
 
-def _tune_encode(torch, key, launches, want):
+def _shape_encode(torch, key, launches, want, path):
     from repro_torch.kernels.exchange import ops as xops, ref as xref
 
     _, shape, dtype, axis, m, nbatch, codec, guard, scale_div = key
     y = _dev_randn(torch, shape, 21, dtype == "torch.complex64")
     kw = dict(axis=axis, m=m, nbatch=nbatch, codec=codec, guard=guard, scale_div=scale_div)
-    name = f"K1 {codec} tune {shape} axis {axis}"
+    name = f"K1 {codec} {path} {shape} axis {axis}"
     (q, s, _), design = _vec(xops.design_launches, lambda: xops.pack_chunks(y, **kw), name, want)
     qr, sr, _ = xref.pack_chunks_ref(y, **kw)
     err = _check_codec(torch, name, q, qr, codec)
@@ -1922,15 +2261,16 @@ def _tune_encode(torch, key, launches, want):
     scale_bytes = 0 if sr is None else sr.numel() * sr.element_size()
     cast = (cuda_ms(torch, lambda: torch.view_as_real(y).to(torch.bfloat16) if y.is_complex()
                     else y.to(torch.bfloat16)) if codec == "bf16" else None)
-    return _record(f"exchange_encode[chunk_major,{codec},tune,{_tag(shape)},a{axis}]",
-                   "exchange.cu", "src/repro/kernels/exchange/kernel.py:89", "tune", launches,
+    guarded = ",guard" if guard else ""
+    return _record(f"exchange_encode[chunk_major,{codec}{guarded},{path},{_tag(shape)},a{axis}]",
+                   "exchange.cu", "src/repro/kernels/exchange/kernel.py:89", path, launches,
                    err, cuda_ms(torch, lambda: xops.pack_chunks(y, **kw)),
                    cuda_ms(torch, lambda: xref.pack_chunks_ref(y, **kw)),
                    bound_ms(y.numel() * y.element_size() + planes * y.numel() * wire
                             + scale_bytes, 0), cast, design=design, shape=list(shape))
 
 
-def _tune_decode(torch, key, launches, want):
+def _shape_decode(torch, key, launches, want, path):
     from repro_torch.kernels.exchange import ops as xops, ref as xref
 
     _, pshape, v, w, m, nbatch, codec, iscomplex = key
@@ -1941,14 +2281,14 @@ def _tune_decode(torch, key, launches, want):
     elems = y.numel()
     del y
     dkw = dict(v=v, w=w, m=m, nbatch=nbatch, scale=sr, codec=codec, iscomplex=iscomplex)
-    name = f"K3 {codec} tune {pshape} v {v} w {w}"
+    name = f"K3 {codec} {path} {pshape} v {v} w {w}"
     got, design = _vec(xops.decode_design_launches, lambda: xops.unpack_chunks(qr, **dkw), name,
                        want)
     err = _check_codec(torch, name, got, xref.unpack_chunks_ref(qr, **dkw), "bf16")
     del got
     scale_bytes = 0 if sr is None else sr.numel() * sr.element_size()
-    return _record(f"exchange_decode[scatter_w,{codec},tune,{_tag(pshape)},v{v}w{w}]",
-                   "exchange.cu", "src/repro/kernels/exchange/kernel.py:173", "tune", launches,
+    return _record(f"exchange_decode[scatter_w,{codec},{path},{_tag(pshape)},v{v}w{w}]",
+                   "exchange.cu", "src/repro/kernels/exchange/kernel.py:173", path, launches,
                    err, cuda_ms(torch, lambda: xops.unpack_chunks(qr, **dkw)),
                    cuda_ms(torch, lambda: xref.unpack_chunks_ref(qr, **dkw)),
                    bound_ms(qr.numel() * qr.element_size() + scale_bytes
@@ -1957,7 +2297,7 @@ def _tune_decode(torch, key, launches, want):
                    design=design, shape=list(pshape))
 
 
-def _tune_fourstep(torch, key, launches, want):
+def _shape_fourstep(torch, key, launches, want, path):
     from repro_torch.kernels.fft import ops as fops, ref as fref
 
     _, shape, dtype, inverse, nout, mode = key
@@ -1977,12 +2317,12 @@ def _tune_fourstep(torch, key, launches, want):
         plain = lambda: fref.fourstep_ref(rows, n1, n2)
         lib = lambda: torch.fft.fft(rows, dim=-1)
     if mode not in ("fft", "ifft", "rfft") or (mode != "rfft" and nout != n):
-        fail(f"K4 tune {shape}: no record for mode {mode} with nout {nout}")
-    (got, design), wanted = _ran_design(fops.design_launches, kern, f"K4 tune {shape}"), plain()
+        fail(f"K4 {path} {shape}: no record for mode {mode} with nout {nout}")
+    (got, design), wanted = _ran_design(fops.design_launches, kern, f"K4 {path} {shape}"), plain()
     torch.cuda.synchronize()
     err = float((got - wanted).abs().max())
     if err > TOL_K4 * float(wanted.abs().max()) or design != want:
-        fail(f"fourstep {mode} tune at {shape}: max err {err}, design {design} (path: {want})")
+        fail(f"fourstep {mode} {path} at {shape}: max err {err}, design {design} (path: {want})")
     del got, wanted
     nbytes = rows.numel() * rows.element_size() + batch * nout * 8
     if design == "tc":  # three TF32 products a row
@@ -1991,8 +2331,8 @@ def _tune_fourstep(torch, key, launches, want):
     else:  # fp32 FMA over the general design's own split
         g1, g2 = fref.general_split(n)
         bound = bound_ms(nbytes, batch * (8.0 * n * (g1 + g2) + 6.0 * n))
-    return _record(f"fourstep_dft[{mode},tune,{_tag(shape)}]", "fourstep.cu",
-                   "src/repro/kernels/fft/kernel.py:87", "tune", launches, err,
+    return _record(f"fourstep_dft[{mode},{path},{_tag(shape)}]", "fourstep.cu",
+                   "src/repro/kernels/fft/kernel.py:87", path, launches, err,
                    cuda_ms(torch, kern), cuda_ms(torch, plain), bound, cuda_ms(torch, lib),
                    design=design, shape=list(shape))
 

@@ -1,6 +1,5 @@
-"""Deterministic fault injection for guarded-execution testing — the port of
-``repro/robustness/faults.py`` (the plan-level injectors; the serving
-engine's injectors come with ``serve/``).
+"""Deterministic fault injection for guarded-execution and serving tests —
+the port of ``repro/robustness/faults.py``.
 
 :class:`FaultPlan` is a context manager that arms injectors; the plan
 executor calls tap functions at fixed points of every exchange stage (wire
@@ -27,12 +26,27 @@ compiled artifact; the port runs eagerly and its taps act on every call.
 Tests build fresh plans inside ``with FaultPlan()`` in both packages, so the
 outcomes agree.  Each rank arms its own FaultPlan: every rank's block gets
 the same fault, as every shard's does in the reference.
+
+Serve-level injectors (:mod:`repro_torch.serve`) act on the host side of the
+serving engine's request lifecycle: :meth:`FaultPlan.slow_collective` (a
+plan execution stalls ``seconds``), :meth:`FaultPlan.executor_crash` (an
+execution attempt raises :class:`FaultInjected`), :meth:`FaultPlan.cache_corruption`
+(the schedule cache is scribbled over between dispatches: ``"garbage"``
+bytes or an empty file) and :meth:`FaultPlan.request_burst` (the load
+harness multiplies its offered load).  Each takes ``times`` (``None``:
+unlimited); a fault disarms itself after firing that many times.
+
+The stage context the taps match is kept per thread, so a thread that runs
+one schedule never sees another thread's (stage, engine, codec).
 """
 
 from __future__ import annotations
 
+import threading
+import time as _time
 from contextlib import contextmanager
 from dataclasses import dataclass
+from pathlib import Path
 
 import torch
 
@@ -45,18 +59,27 @@ class FaultInjected(RuntimeError):
 @dataclass
 class _Fault:
     kind: str                 # corrupt_wire | nan_input | saturate | compile_fail
+                              # | slow_collective | executor_crash
+                              # | cache_corruption | request_burst
     stage: int | None = None  # exchange index (execution order); None = any
     engine: str | None = None
     codec: str | None = None
-    label: str | None = None  # corrupt_wire: "payload" | "scale"
+    label: str | None = None  # corrupt_wire: "payload" | "scale"; cache_corruption: mode
     value: float = 0.0
+    times: int | None = None  # fires left before the fault disarms (None: unlimited)
 
 
 #: the armed FaultPlan (one at a time)
 _ACTIVE: "FaultPlan | None" = None
 
-#: the (stage, engine, codec) the executor is running
-_CTX = {"stage": None, "engine": None, "codec": None}
+#: the (stage, engine, codec) the executor is running, per thread
+_CTX_LOCAL = threading.local()
+
+
+def _ctx() -> dict:
+    if not hasattr(_CTX_LOCAL, "ctx"):
+        _CTX_LOCAL.ctx = {"stage": None, "engine": None, "codec": None}
+    return _CTX_LOCAL.ctx
 
 
 class FaultPlan:
@@ -82,6 +105,34 @@ class FaultPlan:
 
     def fail_compile(self, *, stage=None, engine=None, codec=None):
         self._faults.append(_Fault("compile_fail", stage, engine, codec))
+        return self
+
+    # -- serve-level injectors (host side of the request lifecycle) ---------
+
+    def slow_collective(self, *, seconds=1.0, times=None):
+        """Stall plan executions by ``seconds`` (a slow collective as the
+        serving engine sees it)."""
+        self._faults.append(_Fault("slow_collective", value=seconds, times=times))
+        return self
+
+    def executor_crash(self, *, times=1):
+        """Raise :class:`FaultInjected` from ``times`` plan execution
+        attempts (a crashed executor; the retry path's hook)."""
+        self._faults.append(_Fault("executor_crash", times=times))
+        return self
+
+    def cache_corruption(self, *, mode="garbage", times=1):
+        """Corrupt the schedule cache between dispatches: ``"garbage"``
+        writes unparseable bytes, ``"truncate"`` empties the file."""
+        if mode not in ("garbage", "truncate"):
+            raise ValueError(f"unknown cache_corruption mode {mode!r}")
+        self._faults.append(_Fault("cache_corruption", label=mode, times=times))
+        return self
+
+    def request_burst(self, *, factor=4, times=1):
+        """Tell the load harness to multiply its offered load by ``factor``
+        for ``times`` waves."""
+        self._faults.append(_Fault("request_burst", value=float(factor), times=times))
         return self
 
     @staticmethod
@@ -113,27 +164,32 @@ class FaultPlan:
 
 @contextmanager
 def stage_context(stage, engine, codec):
-    """Executor hook: scope the (stage, engine, codec) the taps match."""
-    prev = dict(_CTX)
-    _CTX.update(stage=stage, engine=engine, codec=codec)
+    """Executor hook: scope the (stage, engine, codec) the taps match, in
+    this thread."""
+    ctx = _ctx()
+    prev = dict(ctx)
+    ctx.update(stage=stage, engine=engine, codec=codec)
     try:
         yield
     finally:
-        _CTX.update(prev)
+        ctx.update(prev)
 
 
 def _matching(kind: str, label: str | None = None):
     if _ACTIVE is None:
         return []
     out = []
+    ctx = _ctx()
     for f in _ACTIVE._faults:
         if f.kind != kind:
             continue
-        if f.stage is not None and f.stage != _CTX["stage"]:
+        if f.times is not None and f.times <= 0:
+            continue  # a bounded fault that has used up its fires
+        if f.stage is not None and f.stage != ctx["stage"]:
             continue
-        if f.engine is not None and f.engine != _CTX["engine"]:
+        if f.engine is not None and f.engine != ctx["engine"]:
             continue
-        if f.codec is not None and f.codec != _CTX["codec"]:
+        if f.codec is not None and f.codec != ctx["codec"]:
             continue
         if label is not None and f.label is not None and f.label != label:
             continue
@@ -142,7 +198,9 @@ def _matching(kind: str, label: str | None = None):
 
 
 def _fire(f: _Fault, **note):
-    _ACTIVE.fired.append({"kind": f.kind, **_CTX, **note})
+    if f.times is not None:
+        f.times -= 1
+    _ACTIVE.fired.append({"kind": f.kind, **_ctx(), **note})
 
 
 # -- taps (each returns its input untouched when nothing matches) -----------
@@ -155,7 +213,7 @@ def check_compile(engine: str, codec: str):
         _fire(f)
         raise FaultInjected(
             f"injected schedule-compile failure (engine={engine!r}, "
-            f"codec={codec!r}, stage={_CTX['stage']})")
+            f"codec={codec!r}, stage={_ctx()['stage']})")
 
 
 def tap_stage_input(block: torch.Tensor) -> torch.Tensor:
@@ -206,3 +264,43 @@ def _burst(x: torch.Tensor) -> torch.Tensor:
     else:
         u[0] |= mask  # stuck-at-ones exponent burst -> Inf/NaN
     return x
+
+
+# -- serve-level taps (host side; no-ops when nothing matches) ---------------
+
+
+def tap_serve_execute():
+    """Serving-engine hook at the start of every plan execution attempt: an
+    armed ``slow_collective`` stalls, then an armed ``executor_crash``
+    raises :class:`FaultInjected` (after any stall, so arming both models a
+    slow executor that then dies)."""
+    for f in _matching("slow_collective"):
+        _fire(f, seconds=f.value)
+        _time.sleep(f.value)
+    for f in _matching("executor_crash"):
+        _fire(f)
+        raise FaultInjected("injected executor crash")
+
+
+def tap_serve_cache(path) -> bool:
+    """Serving-engine hook between dispatches: an armed ``cache_corruption``
+    scribbles over the schedule cache at ``path`` (the torn write a crashed
+    replica could leave).  Returns whether a corruption fired."""
+    fired = False
+    for f in _matching("cache_corruption"):
+        _fire(f, mode=f.label, path=str(path))
+        p = Path(path)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_text("" if f.label == "truncate" else '{"schema": 6, "trunca')
+        fired = True
+    return fired
+
+
+def serve_burst() -> int:
+    """Load-harness hook: the offered-load multiplier armed
+    ``request_burst`` faults impose this wave (1 when none match)."""
+    factor = 1.0
+    for f in _matching("request_burst"):
+        _fire(f, factor=f.value)
+        factor *= f.value
+    return max(1, int(factor))

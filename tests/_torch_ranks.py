@@ -1,7 +1,8 @@
-"""Four CPU (gloo) ranks running the port's exchanges and plans, for
+"""CPU (gloo) ranks running the port's exchanges, plans and server, for
 tests/test_torch_pfft.py, tests/test_torch_engines.py,
-tests/test_torch_guard.py, tests/test_torch_many.py and
-tests/test_torch_tuner.py.
+tests/test_torch_guard.py, tests/test_torch_many.py,
+tests/test_torch_tuner.py, tests/test_torch_bitwise.py (four ranks each)
+and tests/test_torch_serve.py (two).
 
 The cases and their numpy-seeded inputs are plain data here, so the JAX side
 of the comparison (a subprocess with 4 virtual devices) builds the very same
@@ -139,12 +140,12 @@ def inputs() -> dict[str, np.ndarray]:
     return out
 
 
-def start(target, out_dir: Path):
-    """Start ``target(rank, init_file, out_dir)`` on ``WORLD`` spawned ranks;
+def start(target, out_dir: Path, world: int = WORLD):
+    """Start ``target(rank, init_file, out_dir)`` on ``world`` spawned ranks;
     returns a function that waits for them and checks their exit codes."""
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=target, args=(r, str(out_dir / "pg"), str(out_dir)))
-             for r in range(WORLD)]
+             for r in range(world)]
     for p in procs:
         p.start()
 
@@ -156,16 +157,16 @@ def start(target, out_dir: Path):
                 p.terminate()
                 p.join(10)
         codes = [p.exitcode for p in procs]
-        assert codes == [0] * WORLD, f"rank exit codes {codes}"
+        assert codes == [0] * world, f"rank exit codes {codes}"
 
     return join
 
 
-def _init(rank: int, init_file: str):
+def _init(rank: int, init_file: str, world: int = WORLD):
     import torch.distributed as dist
 
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
-                            world_size=WORLD, timeout=datetime.timedelta(seconds=120))
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
 
 
 def run_rank(rank: int, init_file: str, out_dir: str):
@@ -1004,5 +1005,205 @@ def run_bitwise_rank(rank: int, init_file: str, out_dir: str):
                             and torch.equal(p.backward_many(loop_f), loop_b))
         if rank == 0:
             (Path(out_dir) / "bitwise.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the spectral server (tests/test_torch_serve.py)
+# ---------------------------------------------------------------------------
+
+SERVE_WORLD = 2
+SERVE_SHAPE = (16, 16, 16)
+
+#: the LRU case's request shapes, one at a time through a capacity-1 registry
+SERVE_LRU_SHAPES = ((16, 16, 16), (8, 16, 16), (16, 16, 16))
+
+#: the soak's deadline and grace (tests/test_serve.py)
+SOAK_DEADLINE, SOAK_GRACE = 120.0, 5.0
+
+
+def serve_inputs() -> dict[str, np.ndarray]:
+    """The clean case's five fields and the LRU case's three, float32."""
+    rng = np.random.default_rng(0)
+    out = {f"clean{i}": rng.standard_normal(SERVE_SHAPE).astype(np.float32) for i in range(5)}
+    for i, shape in enumerate(SERVE_LRU_SHAPES):
+        out[f"lru{i}"] = rng.standard_normal(shape).astype(np.float32)
+    return out
+
+
+def _serve(rank, mesh, grid, pc, sc, fault, make_fields):
+    """One server over ``mesh`` with ``fault`` armed on this rank.  Rank 0
+    asks the load harness's burst factor, submits each wave of fields that
+    ``make_fields(burst)`` lists (a wave's results are awaited before the
+    next is submitted) and returns the outcomes, the stats and the fired
+    faults; the other ranks follow and return None."""
+    from repro_torch.robustness import FaultPlan, faults
+    from repro_torch.serve import SpectralServer
+
+    fp = fault if fault is not None else FaultPlan()
+    with fp:
+        burst = 1 if rank else faults.serve_burst()
+        with SpectralServer(mesh, grid, plan_config=pc, config=sc) as srv:
+            if rank:
+                srv.follow()
+                return None
+            waves = make_fields(burst)
+            outs = []
+            for wave in waves:
+                futs = [srv.submit(x) for x in wave]
+                outs += [f.result(grace=sc.grace_s) for f in futs]
+            stats = srv.stats()
+    return outs, stats, list(fp.fired)
+
+
+def _summary(outs, stats) -> dict:
+    return {"statuses": [o.status for o in outs], "trips": [o.trip for o in outs],
+            "retries": [o.retries for o in outs], "batched": [o.batched for o in outs],
+            "latency": [o.latency_s for o in outs], "stats": stats}
+
+
+def run_serve_rank(rank: int, init_file: str, out_dir: str):
+    """One of two ranks: the engine cases of tests/test_serve.py (clean
+    coalescing, LRU eviction, overload shed, breaker, crash retry) and the
+    soak's waves, each a fresh server over a slab of both ranks; rank 0
+    saves the outcomes (``serve.json``) and the served spectra beside the
+    plain plan's forward of each field (``serve.npz``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import tuner
+    from repro_torch.core.meshutil import make_mesh
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig
+    from repro_torch.robustness import FaultPlan
+    from repro_torch.serve import OUTCOME_STATUSES, ServeConfig
+
+    torch.set_num_threads(1)
+    _init(rank, init_file, world=SERVE_WORLD)
+    try:
+        mesh, grid = make_mesh((SERVE_WORLD,), ("p0",), device="cpu"), ("p0",)
+        data = serve_inputs()
+        info, arrays = {}, {}
+        degrade = PlanConfig(method="fused", guard="degrade")
+
+        # clean coalescing: five same-shape requests
+        xs = [data[f"clean{i}"] for i in range(5)]
+        res = _serve(rank, mesh, grid, degrade, ServeConfig(deadline_s=120.0, max_batch=8),
+                     None, lambda _: [xs])
+        plain = ParallelFFT(mesh, SERVE_SHAPE, grid, config=PlanConfig(method="fused"))
+        want = [plain.forward(x) for x in xs]
+        if res is not None:
+            outs, stats, _ = res
+            info["clean"] = _summary(outs, stats)
+            info["clean"]["bitwise_plan_forward"] = [torch.equal(o.value, w)
+                                                     for o, w in zip(outs, want)]
+            for i, o in enumerate(outs):
+                arrays[f"clean{i}"] = o.value.numpy()
+
+        # LRU eviction: capacity 1, three shapes in turn
+        lru = [[data[f"lru{i}"]] for i in range(len(SERVE_LRU_SHAPES))]
+        res = _serve(rank, mesh, grid, degrade, ServeConfig(deadline_s=120.0, capacity=1),
+                     None, lambda _: lru)
+        want = [ParallelFFT(mesh, s, grid, config=PlanConfig(method="fused")).forward(x[0])
+                for s, x in zip(SERVE_LRU_SHAPES, lru)]
+        if res is not None:
+            outs, stats, _ = res
+            info["lru"] = _summary(outs, stats)
+            info["lru"]["shapes"] = [list(o.value.shape) for o in outs]
+            info["lru"]["bitwise_plan_forward"] = [torch.equal(o.value, w)
+                                                   for o, w in zip(outs, want)]
+            for i, o in enumerate(outs):
+                arrays[f"lru{i}"] = o.value.numpy()
+
+        x = data["clean0"]
+        # overload: a 4x burst against a queue of 2 while each dispatch stalls
+        res = _serve(rank, mesh, grid, degrade,
+                     ServeConfig(deadline_s=120.0, max_queue=2, max_batch=1),
+                     FaultPlan().slow_collective(seconds=0.4, times=100)
+                     .request_burst(factor=4, times=1), lambda burst: [[x] * (2 * burst)])
+        if res is not None:
+            outs, stats, fired = res
+            info["shed"] = _summary(outs, stats)
+            info["shed"]["burst"] = sum(f["kind"] == "request_burst" for f in fired) * 4
+
+        # breaker: persistent bf16 wire corruption on a strict plan
+        strict = PlanConfig(method="fused", comm_dtype="bf16", guard="strict")
+        sc = ServeConfig(deadline_s=120.0, breaker_threshold=2, breaker_cooldown_s=60.0,
+                         max_retries=0, grace_s=5.0)
+        res = _serve(rank, mesh, grid, strict, sc, FaultPlan().corrupt_wire(codec="bf16"),
+                     lambda _: [[x]] * 4)
+        clean = plain.forward(x)
+        if res is not None:
+            outs, stats, _ = res
+            info["breaker"] = _summary(outs, stats)
+            info["breaker"]["rel_vs_lossless"] = [
+                float(torch.linalg.vector_norm(o.value - clean) / torch.linalg.vector_norm(clean))
+                for o in outs]
+
+        # a crash that fires once, after a stall: one retry recovers
+        res = _serve(rank, mesh, grid, degrade,
+                     ServeConfig(deadline_s=120.0, backoff_base_s=0.01),
+                     FaultPlan().executor_crash(times=1).slow_collective(seconds=0.05, times=2),
+                     lambda _: [[x]])
+        if res is not None:
+            outs, stats, _ = res
+            info["crash"] = _summary(outs, stats)
+            info["crash"]["bitwise_plan_forward"] = torch.equal(outs[0].value, clean)
+
+        # the chaos soak: fresh servers per wave over one schedule cache
+        cache = str(Path(out_dir) / "soak_cache.json")
+        auto = PlanConfig(method="auto", comm_dtype="bf16", guard="degrade", tuner_cache=cache)
+        strict_auto = auto.replace(guard="strict")
+        gen = np.random.default_rng(1)
+
+        def poison():
+            # a well-formed bf16 entry the tuner never timed, so that the
+            # strict wave's primary schedule meets the bf16 wire fault;
+            # every rank drops its memo of the key
+            probe = ParallelFFT(mesh, SERVE_SHAPE, grid, config=strict_auto)
+            if rank == 0:
+                FaultPlan.poison_cache(cache, probe, [("fused", 1, "bf16", "torch", "stacked")])
+            tuner.forget(tuner.plan_key(probe))
+
+        waves = [
+            ("clean", auto, None, 4, 4, None),
+            ("transient", auto, FaultPlan().executor_crash(times=1)
+             .slow_collective(seconds=0.05, times=2), 4, 4, None),
+            ("corrupt-degrade", auto, FaultPlan().corrupt_wire(codec="bf16"), 3, 4, None),
+            ("breaker-strict", strict_auto, FaultPlan().corrupt_wire(codec="bf16"), 4, 1,
+             poison),
+            ("cache-corruption-burst", auto, FaultPlan().cache_corruption(mode="garbage", times=1)
+             .request_burst(factor=2, times=1), 3, 4, None),
+        ]
+        soak, trips = {}, 0
+        for name, pc, fp, n, mb, setup in waves:
+            if setup is not None:
+                setup()
+            sc = ServeConfig(deadline_s=SOAK_DEADLINE, grace_s=SOAK_GRACE, max_batch=mb,
+                             max_queue=16, backoff_base_s=0.01, breaker_threshold=2,
+                             breaker_cooldown_s=60.0)
+            fields = [gen.standard_normal(SERVE_SHAPE).astype(np.float32) for _ in range(2 * n)]
+            res = _serve(rank, mesh, grid, pc, sc, fp, lambda burst: [fields[:n * burst]])
+            if res is None:
+                continue
+            outs, stats, fired = res
+            trips += stats["registry"]["breaker_trips"]
+            soak[name] = {
+                "n": len(outs), "statuses": [o.status for o in outs],
+                "trips": [o.trip for o in outs], "unresolved": sum(o is None for o in outs),
+                "bad_status": [o.status for o in outs if o.status not in OUTCOME_STATUSES],
+                "over_deadline": [o.latency_s for o in outs
+                                  if o.latency_s > SOAK_DEADLINE + SOAK_GRACE + 1.0],
+                "errors": stats["error"], "breaker_trips": stats["registry"]["breaker_trips"],
+                "retunes": stats["retunes"], "fired": len(fired)}
+        if rank == 0:
+            disk = tuner.load_cache(cache)
+            info["soak"] = {"waves": soak, "total_breaker_trips": trips,
+                            "total_quarantines": sum(v.get("quarantines", 0) for v in disk.values()
+                                                     if isinstance(v, dict)),
+                            "cache_well_formed": bool(disk)}
+            (Path(out_dir) / "serve.json").write_text(json.dumps(info))
+            np.savez(Path(out_dir) / "serve.npz", **arrays)
     finally:
         dist.destroy_process_group()

@@ -1,7 +1,7 @@
 """The port stands alone and runs on the card unless asked otherwise: its
 modules import neither jax nor the reference package, its mesh, its LM and
-its serving CLI default to CUDA and raise without a card, and its config
-maps the reference's.
+its serving CLIs (``serve_lm`` and ``python -m repro_torch.serve``) default
+to CUDA and raise without a card, and its config maps the reference's.
 """
 
 import dataclasses
@@ -30,7 +30,8 @@ def test_port_imports_neither_jax_nor_reference():
     modules = _port_modules()
     for want in ("repro_torch.robustness.runner", "repro_torch.kernels.transpose.ops",
                  "repro_torch.kernels.flash.ops", "repro_torch.launch.serve_lm",
-                 "repro_torch.configs.glm4_9b"):
+                 "repro_torch.configs.glm4_9b", "repro_torch.serve.engine",
+                 "repro_torch.serve.__main__", "repro_torch.launch.serve"):
         assert want in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -80,6 +81,27 @@ def test_serving_defaults_to_cuda_and_raises_without_a_card():
         serve_lm.main(["--arch", "glm4_9b", "--preset", "smoke"])
     with pytest.raises(RuntimeError, match="CUDA"):
         LM(configs.smoke("glm4_9b"))
+
+
+def test_spectral_server_cli_defaults_to_cuda_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from repro_torch.serve import __main__ as serve_cli
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_cli.main(["--shapes", "16,16,16", "--requests", "2"])
+
+
+def test_spectral_server_cli_on_the_cpu(tmp_path):
+    """``python -m repro_torch.serve --device cpu`` serves every request on a
+    one-rank gloo group it starts itself."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), HOME=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.serve", "--device", "cpu",
+                           "--shapes", "16,16,16", "--requests", "6"], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert '"unresolved": 0' in proc.stdout
+    assert '"ok": 6' in proc.stdout
 
 
 @pytest.mark.parametrize("fields,expect", [
