@@ -114,7 +114,8 @@ non-zero):
    n = 64 by row count against ``torch.fft.fft``, one
    ``{"k4_general_rows"}`` line; K1, K3 and K4 also at every shape the
    serve path launched them at), the serving times beside their
-   bounds (one ``{"lm_breakdown": ...}`` line), then the result line.
+   bounds (one ``{"lm_breakdown": ...}`` line), the seconds of each phase
+   (one ``{"phase_s"}`` line), then the result line.
 
 Without a CUDA device, or outside a checkout of the repository, it prints no
 result and exits non-zero.
@@ -174,6 +175,10 @@ K5_SWEEP = ((24, 24, 8), (7, 13, 3), (64, 48, 40), (512, 33, 1), (4096, 32, 8), 
 # 256 retained modes per axis on the 3/2-rule grid of 384
 DNS_N, DNS_M = 256, 384
 BATCH_FUSIONS = ("stacked", "pipelined-across-fields", "per-field")
+# the per-signature records of the tune and serve paths (several hundred, most
+# at the quickstart's microsecond shapes, where a timing run is host-bound):
+# the median of SHAPE_REPS runs each
+SHAPE_REPS = 3
 # the serve path: the server plan's shapes, alternating 512^3 (K4 tc) and the
 # quickstart's (K4 general), 12 requests coalesced up to 4
 SERVE_SHAPES = (SHAPE_BIG, SHAPE_QS)
@@ -276,7 +281,8 @@ def main():
 
     t0 = time.perf_counter()
     logs = _build.build(["fourstep", "exchange", "transpose", "flash"])
-    print(f"built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
+    print(f"built {sorted(logs) or 'nothing (cached)'} in {build_s:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
@@ -295,21 +301,33 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    sweep = kernel_sweep(torch)
+    phases = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phases[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    sweep = phase("kernel_sweep", kernel_sweep, torch)
     print(json.dumps({"kernel_sweep": sweep}))
-    print(json.dumps({"strided_fft": {**strided_fft_check(torch), "card": card}}))
+    print(json.dumps({"strided_fft": {**phase("strided_fft", strided_fft_check, torch),
+                                      "card": card}}))
 
     lm_info, many, tune, tune_shapes, serve, serve_shapes = {}, [], [], {}, [], {}
-    paths = run_paths(torch, lm_info, many, tune, tune_shapes, serve, serve_shapes, card)
+    paths = phase("paths", run_paths, torch, lm_info, many, tune, tune_shapes, serve,
+                  serve_shapes, card)
     print(json.dumps({"paths": paths}))
     print(json.dumps({"many": [{**r, "card": card} for r in many]}))
     print(json.dumps({"tune": [{**r, "card": card} for r in tune]}))
     print(json.dumps({"serve": [{**r, "card": card} for r in serve]}))
 
-    kernels = main_path_kernels(torch, paths, tune_shapes, serve_shapes)
-    print(json.dumps({"k4_general_rows": k4_general_rows(torch)}))
+    kernels = phase("kernels", main_path_kernels, torch, paths, tune_shapes, serve_shapes)
+    print(json.dumps({"k4_general_rows": phase("k4_general_rows", k4_general_rows, torch)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"lm_breakdown": lm_breakdown(kernels, lm_info)}))
+    print(json.dumps({"phase_s": {"build": round(build_s, 1), **phases,
+                                  "total": round(time.perf_counter() - t0, 1)}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -1922,9 +1940,9 @@ def serve_path(torch, mesh, records, shapes):
             xs = [torch.randn(SHAPE_QS, device="cuda", generator=gen) for _ in range(6)]
             with FaultPlan().cache_corruption(mode="garbage").request_burst(factor=2):
                 n = 3 * faults.serve_burst()
+                # groups of at most 2: the plan sweeps at 1 and 2 fields
                 with SpectralServer(mesh, grid, plan_config=auto,
-                                    config=ServeConfig(deadline_s=120.0,
-                                                       max_batch=SERVE_MAX_BATCH)) as srv:
+                                    config=ServeConfig(deadline_s=120.0, max_batch=2)) as srv:
                     outs, secs = _serve_wave(torch, srv, [xs[:n]], 0.25)
                     stats = srv.stats()
             disk = tuner.load_cache(cache)
@@ -2243,6 +2261,10 @@ def _dev_randn(torch, shape, seed, iscomplex):
                        device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
 
 
+def _shape_ms(torch, fn):
+    return cuda_ms(torch, fn, reps=SHAPE_REPS)
+
+
 def _shape_encode(torch, key, launches, want, path):
     from repro_torch.kernels.exchange import ops as xops, ref as xref
 
@@ -2259,13 +2281,13 @@ def _shape_encode(torch, key, launches, want, path):
     wire = 2 if codec == "bf16" else 1
     planes = 2 if y.is_complex() else 1
     scale_bytes = 0 if sr is None else sr.numel() * sr.element_size()
-    cast = (cuda_ms(torch, lambda: torch.view_as_real(y).to(torch.bfloat16) if y.is_complex()
+    cast = (_shape_ms(torch, lambda: torch.view_as_real(y).to(torch.bfloat16) if y.is_complex()
                     else y.to(torch.bfloat16)) if codec == "bf16" else None)
     guarded = ",guard" if guard else ""
     return _record(f"exchange_encode[chunk_major,{codec}{guarded},{path},{_tag(shape)},a{axis}]",
                    "exchange.cu", "src/repro/kernels/exchange/kernel.py:89", path, launches,
-                   err, cuda_ms(torch, lambda: xops.pack_chunks(y, **kw)),
-                   cuda_ms(torch, lambda: xref.pack_chunks_ref(y, **kw)),
+                   err, _shape_ms(torch, lambda: xops.pack_chunks(y, **kw)),
+                   _shape_ms(torch, lambda: xref.pack_chunks_ref(y, **kw)),
                    bound_ms(y.numel() * y.element_size() + planes * y.numel() * wire
                             + scale_bytes, 0), cast, design=design, shape=list(shape))
 
@@ -2289,11 +2311,11 @@ def _shape_decode(torch, key, launches, want, path):
     scale_bytes = 0 if sr is None else sr.numel() * sr.element_size()
     return _record(f"exchange_decode[scatter_w,{codec},{path},{_tag(pshape)},v{v}w{w}]",
                    "exchange.cu", "src/repro/kernels/exchange/kernel.py:173", path, launches,
-                   err, cuda_ms(torch, lambda: xops.unpack_chunks(qr, **dkw)),
-                   cuda_ms(torch, lambda: xref.unpack_chunks_ref(qr, **dkw)),
+                   err, _shape_ms(torch, lambda: xops.unpack_chunks(qr, **dkw)),
+                   _shape_ms(torch, lambda: xref.unpack_chunks_ref(qr, **dkw)),
                    bound_ms(qr.numel() * qr.element_size() + scale_bytes
                             + elems * (8 if iscomplex else 4), 0),
-                   cuda_ms(torch, lambda: qr.float()) if codec == "bf16" else None,
+                   _shape_ms(torch, lambda: qr.float()) if codec == "bf16" else None,
                    design=design, shape=list(pshape))
 
 
@@ -2333,7 +2355,7 @@ def _shape_fourstep(torch, key, launches, want, path):
         bound = bound_ms(nbytes, batch * (8.0 * n * (g1 + g2) + 6.0 * n))
     return _record(f"fourstep_dft[{mode},{path},{_tag(shape)}]", "fourstep.cu",
                    "src/repro/kernels/fft/kernel.py:87", path, launches, err,
-                   cuda_ms(torch, kern), cuda_ms(torch, plain), bound, cuda_ms(torch, lib),
+                   _shape_ms(torch, kern), _shape_ms(torch, plain), bound, _shape_ms(torch, lib),
                    design=design, shape=list(shape))
 
 

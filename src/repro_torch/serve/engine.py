@@ -15,7 +15,8 @@ deadline     — per request; the future self-resolves ``deadline-exceeded``,
 retry        — transient failures (injected crashes, other exceptions)
                re-dispatch with exponential backoff and deterministic
                jitter, bounded by ``max_retries`` and the group's earliest
-               deadline.
+               deadline (a kernel that fails to build or launch ends there,
+               as an ``error`` outcome: the fallback does not serve it).
 breaker      — terminal ``GuardError`` failures count against the plan's
                circuit breaker; a trip serves the group through the bottom
                of the degradation ladder (:func:`~repro_torch.serve.registry.
@@ -268,7 +269,7 @@ class SpectralServer:
                     if self._retune is not None:
                         msg, self._retune = self._bcast(self._retune), None
                         self._run_retune(msg)
-                except BaseException as e:  # the worker must never die silently
+                except Exception as e:  # the worker must never die silently
                     log.exception("dispatch group failed terminally: %r", e)
                     for r in group:
                         self._resolve(r, Outcome("error", r.future.request_id,

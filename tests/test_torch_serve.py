@@ -196,6 +196,53 @@ def test_follow_is_for_the_other_ranks_and_submit_for_rank_0():
         srv.submit(torch.zeros(4, 4))
 
 
+def test_concurrent_submitters_lose_no_request(tmp_path):
+    """16 threads submit to one server (a 1-rank gloo group in this
+    process) with a tiny switch interval: every request resolves, and the
+    counters add up to what was submitted."""
+    import sys
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.meshutil import make_mesh
+    from repro_torch.serve import ServeConfig, SpectralServer
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg", rank=0, world_size=1)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        mesh = make_mesh((1,), ("p0",), device="cpu")
+        x = torch.randn(8, 8, 8, generator=torch.Generator().manual_seed(0))
+        futs, lock = [], threading.Lock()
+        with SpectralServer(mesh, ("p0",), config=ServeConfig(max_queue=8, max_batch=4,
+                                                              deadline_s=60.0)) as srv:
+            def submitter():
+                for _ in range(10):
+                    f = srv.submit(x)
+                    with lock:
+                        futs.append(f)
+
+            threads = [threading.Thread(target=submitter) for _ in range(16)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60.0)
+            assert not any(t.is_alive() for t in threads)
+            outs = [f.result() for f in futs]
+            assert srv.drain(timeout=60.0)
+            stats = srv.stats()
+    finally:
+        sys.setswitchinterval(interval)
+        dist.destroy_process_group()
+    statuses = [o.status for o in outs]
+    assert len(outs) == 160 and set(statuses) <= {"ok", "shed"}
+    assert stats["submitted"] == 160
+    assert (stats["ok"], stats["shed"]) == (statuses.count("ok"), statuses.count("shed"))
+    assert stats["late_results"] == 0
+    assert stats["batched_requests"] <= statuses.count("ok")
+
+
 # -- engine cases on 2 gloo ranks, beside the JAX package --------------------
 
 _REFERENCE = """
