@@ -184,6 +184,8 @@ SHAPE_REPS = 3
 SERVE_SHAPES = (SHAPE_BIG, SHAPE_QS)
 SERVE_REQUESTS = 12
 SERVE_MAX_BATCH = 4
+# the coalesced 4 x 512^3 group and its _apply_many, host clock: the median of
+SERVE_GROUP_REPS = 3
 # the strided-FFT check: the DNS grid's n = 384 = 128 * 3 (one field, as the
 # many path's FFT stages see it) and n = 12 = 4 * 3
 STRIDED_FFT_CASES = ((384, (384, 384, 384)), (12, (12, 10, 6)))
@@ -1823,7 +1825,7 @@ def serve_path(torch, mesh, records, shapes):
     from repro_torch.core import tuner
     from repro_torch.core.planconfig import PlanConfig
     from repro_torch.robustness import FaultPlan, faults
-    from repro_torch.serve import OUTCOME_STATUSES, ServeConfig, SpectralServer
+    from repro_torch.serve import ServeConfig, SpectralServer
 
     grid = ("p0", "p1")
     cfg = PlanConfig(method="fused", impl="matmul", exchange_impl="cuda", comm_dtype="bf16",
@@ -1859,33 +1861,43 @@ def serve_path(torch, mesh, records, shapes):
                 torch.cuda.empty_cache()
 
                 # one coalesced group of 4 x 512^3, held behind a stalled
-                # quickstart request so that the four queue together
+                # quickstart request so that the four queue together; the
+                # group's time runs from the blocker's resolve to the last
+                # of the four's (monotonic clock), SERVE_GROUP_REPS times
                 group = [torch.randn(SHAPE_BIG, device="cuda", generator=gen)
                          for _ in range(SERVE_MAX_BATCH)]
-                with FaultPlan().slow_collective(seconds=0.3, times=1):
-                    blocker = srv.submit(torch.randn(SHAPE_QS, device="cuda", generator=gen))
-                    futs = [srv.submit(x) for x in group]
-                    b = blocker.result()
-                    outs = [f.result() for f in futs]
-                if [o.batched for o in outs] != [SERVE_MAX_BATCH] * SERVE_MAX_BATCH or any(
-                        o.status != "ok" for o in outs + [b]):
-                    fail(f"serve group: batched {[o.batched for o in outs]}, statuses "
-                         f"{[o.status for o in outs + [b]]}")
-                done = b.latency_s + 0.0
-                group_s = max(o.latency_s for o in outs) - done
-                del outs
+                blocker_x = torch.randn(SHAPE_QS, device="cuda", generator=gen)
+                group_ms = []
+                for _ in range(SERVE_GROUP_REPS):
+                    with FaultPlan().slow_collective(seconds=0.3, times=1):
+                        blocker = srv.submit(blocker_x)
+                        futs = [srv.submit(x) for x in group]
+                        b = blocker.result()
+                        outs = [f.result() for f in futs]
+                    if [o.batched for o in outs] != [SERVE_MAX_BATCH] * SERVE_MAX_BATCH or any(
+                            o.status != "ok" for o in outs + [b]):
+                        fail(f"serve group: batched {[o.batched for o in outs]}, statuses "
+                             f"{[o.status for o in outs + [b]]}")
+                    done = max(f.submitted + o.latency_s for f, o in zip(futs, outs))
+                    group_ms.append((done - blocker.submitted - b.latency_s) * 1e3)
+                    del outs
                 _, plan = srv.registry.get(SHAPE_BIG)
                 stack = torch.stack(group).to(torch.complex64)
                 del group
                 many = plan.forward_many_padded(SERVE_MAX_BATCH)
                 guarded = plan.guarded_padded("forward", nfields=SERVE_MAX_BATCH)
-                t0 = time.perf_counter()
-                plan._apply_many(stack, "forward")
-                torch.cuda.synchronize()
-                apply_s = time.perf_counter() - t0
+                apply_ms = []
+                for _ in range(SERVE_GROUP_REPS):
+                    t0 = time.perf_counter()
+                    plan._apply_many(stack, "forward")
+                    torch.cuda.synchronize()
+                    apply_ms.append((time.perf_counter() - t0) * 1e3)
                 records.append({"wave": "group_4x512", "nfields": SERVE_MAX_BATCH,
-                                "shape": list(SHAPE_BIG), "server_group_ms": group_s * 1e3,
-                                "apply_many_ms": apply_s * 1e3,
+                                "shape": list(SHAPE_BIG),
+                                "server_group_ms": statistics.median(group_ms),
+                                "server_group_ms_runs": group_ms,
+                                "apply_many_ms": statistics.median(apply_ms),
+                                "apply_many_ms_runs": apply_ms,
                                 "guarded_padded_ms": cuda_ms(torch, lambda: guarded(stack)),
                                 "forward_many_padded_ms": cuda_ms(torch, lambda: many(stack)),
                                 "stack_ms": cuda_ms(torch, lambda: stack.clone())})
@@ -1946,7 +1958,9 @@ def serve_path(torch, mesh, records, shapes):
                     outs, secs = _serve_wave(torch, srv, [xs[:n]], 0.25)
                     stats = srv.stats()
             disk = tuner.load_cache(cache)
-            if (len(outs) != 6 or any(o.status not in OUTCOME_STATUSES for o in outs)
+            # every request resolves, served: an ``error`` (a kernel that failed
+            # to build or launch ends there) or a missed deadline fails the run
+            if (len(outs) != 6 or any(o.status not in ("ok", "degraded") for o in outs)
                     or not disk):
                 fail(f"serve cache corruption: {[o.status for o in outs]}, cache entries "
                      f"{len(disk)}")
