@@ -12,9 +12,10 @@ non-zero):
    subroutines) and of K5's two designs (``rows_kernel``, ``tile_kernel``:
    instructions a 16-byte vector or an element, divisions; one
    ``{"sass_census"}`` line) and the card's name and power limit;
-2. whether cuFFT along a strided axis rounds by the other axes' extents, and
-   what ``fftcore``'s copy to a contiguous last axis costs (one
-   ``{"strided_fft"}`` line, after the sweep below); every kernel mode
+2. whether cuFFT along each axis rounds by the other axes' extents, what
+   ``fftcore``'s copy to a contiguous last axis costs, and the DCT/DST
+   matmul's blocks of rows against one matmul (one ``{"strided_fft"}``
+   line, after the sweep below); every kernel mode
    against its plain torch version on seeded inputs, with
    CUDA-event times (one ``{"kernel_sweep": [...]}`` line; ``cuda_ms``
    times runs of back-to-back calls): K4 (each record names the design that
@@ -88,8 +89,10 @@ non-zero):
    through the lossless fallback; (c) a crash after a stall: ``ok`` after
    one retry; (d) overload: instant sheds; (e) an auto plan whose cache is
    torn under a 2x burst: all resolve, the cache is rebuilt (one
-   ``{"serve": [...]}`` line); K1 (guard mode), K3 and K4 (both designs)
-   must launch, logged by the arguments of each call;
+   ``{"serve": [...]}`` line); its launches are the server's own, read
+   around each wave (the harness's checks and timings between waves not
+   counted), logged by the arguments of each call; the group's warm
+   dispatches alone must launch K1 (guard mode), K3 and K4 (both designs);
    "lm" — after the FFT paths' buffers are freed, LM serving through
    ``repro_torch.launch.serve_lm.main``: GLM-4-9B at full width and depth
    (40 layers, bf16, seeded weights), 4 prompts of 2048 tokens and 32 greedy
@@ -186,9 +189,11 @@ SERVE_REQUESTS = 12
 SERVE_MAX_BATCH = 4
 # the coalesced 4 x 512^3 group and its _apply_many, host clock: the median of
 SERVE_GROUP_REPS = 3
-# the strided-FFT check: the DNS grid's n = 384 = 128 * 3 (one field, as the
-# many path's FFT stages see it) and n = 12 = 4 * 3
-STRIDED_FFT_CASES = ((384, (384, 384, 384)), (12, (12, 10, 6)))
+# the strided-FFT check: the slice's n = 512, the DNS grid's n = 384 = 128 * 3
+# (one field, as the many path's FFT stages see it) and n = 12 = 4 * 3, along
+# every axis a stage transforms; the DCT/DST matmul at the DNS grid's rows
+STRIDED_FFT_CASES = ((512, SHAPE_BIG), (384, (384, 384, 384)), (12, (12, 10, 6)))
+TRIG_TIMING_ROWS = 384 * 384
 # the coeffs phase: a copy of 1 GiB of complex64, torch.fft.fft on 262144 rows of 512,
 # each reading taken in COEFF_ROUNDS rounds
 COEFF_COPY_ELEMS = 2**27
@@ -696,6 +701,36 @@ def _drive(torch, name, fn, *args):
     return counts
 
 
+def _count_snapshot():
+    return {pre + k: v for pre, c in _counters() for k, v in c.items()}
+
+
+class _ServerLaunches:
+    """While active, the launches of the server's own work: the growth of
+    every counter over the window goes into each dict of ``counts``, and
+    K1, K3 and K4's launches by their call's arguments into ``calls``
+    (``_LaunchesByShape``).  A window holds a wave's submits, its results
+    and the worker's drain, so the harness's checks and timings between
+    windows are not counted."""
+
+    def __init__(self, torch, calls, *counts):
+        self.torch, self.calls, self.counts = torch, calls, counts
+
+    def __enter__(self):
+        self.torch.cuda.synchronize()
+        self._before = _count_snapshot()
+        self._log = _LaunchesByShape(self.calls).__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._log.__exit__(*exc)
+        self.torch.cuda.synchronize()
+        for k, v in _count_snapshot().items():
+            if v != self._before.get(k, 0):
+                for c in self.counts:
+                    c[k] = c.get(k, 0) + v - self._before.get(k, 0)
+
+
 def _by_call(paths, shapes, name):
     """Check that a path's K1, K3 and K4 each launched and that its launches
     by call (``_LaunchesByShape``) add up to its counters."""
@@ -742,7 +777,10 @@ def run_paths(torch, lm_info, many, tune, tune_shapes, serve, serve_shapes, card
         gc.collect()
         torch.cuda.empty_cache()
         _by_call(paths, tune_shapes, "tune")
-        paths["serve"] = _drive(torch, "serve", serve_path, mesh, serve, serve_shapes)
+        # the serve path's launches are the server's own (``_ServerLaunches``)
+        paths["serve"] = {}
+        _drive(torch, "serve", serve_path, mesh, serve, serve_shapes, paths["serve"])
+        print(f"path serve: the server's own launches {paths['serve']}")
         gc.collect()
         torch.cuda.empty_cache()
         _by_call(paths, serve_shapes, "serve")
@@ -954,9 +992,8 @@ def engines_path(torch, mesh, uniform):
 def _engines_torch_bitwise(torch, mesh, x):
     """Under ``impl="torch"`` (cuFFT), the lossless traditional and
     pipelined (4 slices) engines against the fused one, forward and
-    backward, bitwise, at 512^3 and at n = 384; and the 512^3 fused forward
-    with and without ``fftcore``'s copy to a contiguous last axis."""
-    from repro_torch.core import fftcore
+    backward, bitwise, at 512^3 and at n = 384; and the 512^3 fused
+    forward's ms."""
     from repro_torch.core.pfft import ParallelFFT
     from repro_torch.core.planconfig import PlanConfig
 
@@ -980,13 +1017,7 @@ def _engines_torch_bitwise(torch, mesh, x):
         if shape == SHAPE_BIG:
             if rel_l2(torch, y, torch.fft.fftn(xs)) > TOL_FWD["complex64"]:
                 fail("engines impl=torch 512^3: forward off torch.fft.fftn")
-            out["forward_ms_with_copy"] = cuda_ms(torch, lambda: fused.forward_padded(xs))
-            real = fftcore.CONTIGUOUS_FFT_DEVICES
-            fftcore.CONTIGUOUS_FFT_DEVICES = real - {"cuda"}
-            try:
-                out["forward_ms_without_copy"] = cuda_ms(torch, lambda: fused.forward_padded(xs))
-            finally:
-                fftcore.CONTIGUOUS_FFT_DEVICES = real
+            out["forward_ms"] = cuda_ms(torch, lambda: fused.forward_padded(xs))
         del xs, y, b
     return out
 
@@ -1001,46 +1032,50 @@ def _fft_along(torch, x, axis, inverse, contiguous):
 
 
 def strided_fft_check(torch):
-    """Whether ``torch.fft`` (cuFFT) on the card rounds a transform along a
-    strided axis by the other axes' extents, as the CPU's FFT does at
-    lengths with the factors 4 * 3: at each of ``STRIDED_FFT_CASES``, fft
-    and ifft along axes 0 and 1 of one block against the same axis of a
-    stack of two blocks and of a slice along the last axis (a batched and
-    a pipelined engine's views), in place and on a contiguous last axis
-    (``fftcore``'s copy); the ms of that copy beside the transform's.  Then
-    whether the DCT/DST matmul (fixed blocks of rows) gives a row the same
-    bits whatever rows share the call, and whether a plain matmul does."""
-    from repro_torch.core import fftcore
-    from repro_torch.kernels.fft import ops as fops
+    """Whether ``torch.fft`` (cuFFT) on the card rounds a transform by the
+    other axes' extents: at each of ``STRIDED_FFT_CASES``, fft and ifft
+    along every axis of one block against the same axis of a stack of two
+    blocks and of a half slice along another axis (a batched and a
+    pipelined engine's views), in place and on a contiguous last axis
+    (``fftcore``'s copy); along each leading axis, the ms of that copy, of
+    the ``fft`` in place and of the ``fft`` through the copy.  Then whether
+    the DCT/DST matmul (fixed blocks of rows) gives a row the same bits
+    whatever rows share the call, and whether one plain matmul does; and
+    at the DNS grid's rows the ms of both, on the device alone and with the
+    host's enqueue (the blocks are a loop of calls)."""
+    from repro_torch.kernels.fft import ops as fops, ref as fref
 
-    out = {"copy_on": sorted(fftcore.CONTIGUOUS_FFT_DEVICES), "cases": []}
+    out = {"cases": []}
     for n, shape in STRIDED_FFT_CASES:
         gen = torch.Generator(device="cuda").manual_seed(11)
         a = torch.randn(shape, dtype=torch.complex64, device="cuda", generator=gen)
         s = torch.stack([a, torch.randn(shape, dtype=torch.complex64, device="cuda",
                                         generator=gen)])
-        half = shape[-1] // 2
         rec = {"n": n, "shape": list(shape)}
         for contiguous in (False, True):
             same = {}
-            for axis in (0, 1):
+            for axis in range(a.dim()):
+                cut = a.dim() - 1 if axis != a.dim() - 1 else 0
+                half = torch.narrow(a, cut, 0, shape[cut] // 2)
                 for inverse in (False, True):
                     one = _fft_along(torch, a, axis, inverse, contiguous)
                     tag = f"{'ifft' if inverse else 'fft'}:axis{axis}"
                     same[f"{tag}:stacked"] = torch.equal(
                         one, _fft_along(torch, s, axis + 1, inverse, contiguous)[0])
                     same[f"{tag}:slice"] = torch.equal(
-                        one[..., :half], _fft_along(torch, a[..., :half], axis, inverse,
-                                                    contiguous))
+                        torch.narrow(one, cut, 0, shape[cut] // 2),
+                        _fft_along(torch, half, axis, inverse, contiguous))
                     del one
             rec["contiguous" if contiguous else "strided"] = same
-        rec["copy_ms"] = cuda_ms(torch, lambda: torch.movedim(a, 0, -1).contiguous())
-        rec["fft_axis0_ms"] = cuda_ms(torch, lambda: torch.fft.fft(a, dim=0))
-        rec["fft_axis0_contiguous_ms"] = cuda_ms(torch, lambda: _fft_along(torch, a, 0, False,
-                                                                           True))
+        for axis in range(a.dim() - 1):
+            rec[f"axis{axis}_ms"] = {
+                "copy": cuda_ms(torch, lambda: torch.movedim(a, axis, -1).contiguous()),
+                "fft_in_place": cuda_ms(torch, lambda: torch.fft.fft(a, dim=axis)),
+                "fft_through_copy": cuda_ms(torch, lambda: _fft_along(torch, a, axis, False,
+                                                                      True))}
         out["cases"].append(rec)
-        del a, s
-    torch.cuda.empty_cache()
+        del a, s, half
+        torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(12)
     rows = torch.randn(5000, 384, device="cuda", generator=gen)
     m = torch.randn(384, 384, device="cuda", generator=gen)
@@ -1051,6 +1086,17 @@ def strided_fft_check(torch):
     full = rows @ m.T
     out["plain_matmul_rows_bitwise"] = all(torch.equal(rows[lo:hi] @ m.T, full[lo:hi])
                                            for lo, hi in parts)
+    rows = torch.randn(TRIG_TIMING_ROWS, 384, device="cuda", generator=gen)
+    mt = torch.from_numpy(fref.dct_matrix(384, 2)).to("cuda").T
+    if not torch.equal(fops.dct_matmul(rows, axis=-1), fops._trig_rows(rows, mt)):
+        fail("dct_matmul: not the blocked product of its matrix")
+    out["trig_matmul"] = {
+        "rows": TRIG_TIMING_ROWS, "n": 384, "block_rows": fops.TRIG_ROWS,
+        "blocks_ms": cuda_ms(torch, lambda: fops._trig_rows(rows, mt)),
+        "one_call_ms": cuda_ms(torch, lambda: rows @ mt),
+        "blocks_enqueued_ms": one_call_ms(torch, lambda: fops._trig_rows(rows, mt)),
+        "one_call_enqueued_ms": one_call_ms(torch, lambda: rows @ mt),
+        "bound_ms": bound_ms(2 * rows.numel() * 4, 2 * rows.numel() * 384)[0]}
     return out
 
 
@@ -1786,16 +1832,20 @@ def tune_path(torch, mesh, records, uniform, shapes):
         shutil.rmtree(cache_dir, ignore_errors=True)
 
 
-def _serve_wave(torch, srv, waves, grace):
+def _serve_wave(torch, srv, waves, grace, window):
     """Submit each wave of fields in turn to ``srv`` (a wave's results are
-    awaited before the next is submitted); returns the outcomes and the
-    seconds."""
-    t0 = time.perf_counter()
-    outs = []
-    for fields in waves:
-        futs = [srv.submit(x) for x in fields]
-        outs += [f.result(grace=grace) for f in futs]
-    return outs, time.perf_counter() - t0
+    awaited before the next is submitted) inside ``window`` (the server's
+    launches), then drain the worker; returns the outcomes and the seconds
+    to the last result."""
+    with window:
+        t0 = time.perf_counter()
+        outs = []
+        for fields in waves:
+            futs = [srv.submit(x) for x in fields]
+            outs += [f.result(grace=grace) for f in futs]
+        secs = time.perf_counter() - t0
+        srv.drain()
+    return outs, secs
 
 
 def _serve_record(name, outs, seconds, stats):
@@ -1807,7 +1857,7 @@ def _serve_record(name, outs, seconds, stats):
             "registry": stats["registry"]}
 
 
-def serve_path(torch, mesh, records, shapes):
+def serve_path(torch, mesh, records, shapes, served):
     """The spectral server (``repro_torch.serve``) on the 1-rank group: (a)
     a clean wave of 12 float32 fields, alternating 512^3 (K4 tc) and the
     quickstart shape (K4 general), through the bf16 guarded server plan
@@ -1820,8 +1870,11 @@ def serve_path(torch, mesh, records, shapes):
     lossless fallback; (c) a crash after a stall: one retry; (d) overload:
     a queue of 2 sheds at once; (e) an auto plan (quickstart, int8 budget)
     whose cache is torn mid-flight under a 2x burst: every request resolves
-    and the cache is rebuilt.  ``shapes`` gets the path's K1, K3 and K4
-    launches by the arguments of each call (``_LaunchesByShape``)."""
+    and the cache is rebuilt.  ``served`` gets the launches the server made
+    while it served the waves and the group, ``shapes`` its K1, K3 and K4
+    launches by the arguments of each call (``_ServerLaunches``); the
+    group's dispatches on warm plans alone must launch K1 in its guard
+    mode, K3 and both designs of K4."""
     from repro_torch.core import tuner
     from repro_torch.core.planconfig import PlanConfig
     from repro_torch.robustness import FaultPlan, faults
@@ -1832,140 +1885,154 @@ def serve_path(torch, mesh, records, shapes):
                      guard="degrade")
     gen = torch.Generator(device="cuda").manual_seed(31)
     cache_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
-    try:
-        with _LaunchesByShape(shapes):
-            # (a) the clean wave
-            fields = [torch.randn(SERVE_SHAPES[i % len(SERVE_SHAPES)], device="cuda",
-                                  generator=gen) for i in range(SERVE_REQUESTS)]
-            sc = ServeConfig(deadline_s=120.0, max_batch=SERVE_MAX_BATCH)
-            with SpectralServer(mesh, grid, plan_config=cfg, config=sc) as srv:
-                outs, secs = _serve_wave(torch, srv, [fields], sc.grace_s)
-                stats = srv.stats()
-                if [o.status for o in outs] != ["ok"] * len(outs) or stats["coalesced_batches"] < 1:
-                    fail(f"serve clean: {[o.status for o in outs]}, {stats['coalesced_batches']} "
-                         f"coalesced batches")
-                rec = _serve_record("clean", outs, secs, stats)
-                errs, bitwise = [], []
-                for x, o in zip(fields, outs):
-                    _, plan = srv.registry.get(tuple(x.shape))
-                    y, _ = plan.forward(x)
-                    bitwise.append(torch.equal(o.value, y))
-                    errs.append(rel_l2(torch, o.value, torch.fft.fftn(x)))
-                    del y
-                if not all(bitwise) or max(errs) > TOL_FWD["bf16"]:
-                    fail(f"serve clean: bitwise equal to the plan's forward {bitwise}, "
-                         f"rel L2 vs fftn {errs} (<= {TOL_FWD['bf16']})")
-                rec.update(bitwise_equal_plan_forward=bitwise, rel_l2_vs_fftn=errs)
-                records.append(rec)
-                del outs, fields
-                torch.cuda.empty_cache()
 
-                # one coalesced group of 4 x 512^3, held behind a stalled
-                # quickstart request so that the four queue together; the
-                # group's time runs from the blocker's resolve to the last
-                # of the four's (monotonic clock), SERVE_GROUP_REPS times
-                group = [torch.randn(SHAPE_BIG, device="cuda", generator=gen)
-                         for _ in range(SERVE_MAX_BATCH)]
-                blocker_x = torch.randn(SHAPE_QS, device="cuda", generator=gen)
-                group_ms = []
-                for _ in range(SERVE_GROUP_REPS):
-                    with FaultPlan().slow_collective(seconds=0.3, times=1):
-                        blocker = srv.submit(blocker_x)
-                        futs = [srv.submit(x) for x in group]
-                        b = blocker.result()
-                        outs = [f.result() for f in futs]
-                    if [o.batched for o in outs] != [SERVE_MAX_BATCH] * SERVE_MAX_BATCH or any(
-                            o.status != "ok" for o in outs + [b]):
-                        fail(f"serve group: batched {[o.batched for o in outs]}, statuses "
-                             f"{[o.status for o in outs + [b]]}")
-                    done = max(f.submitted + o.latency_s for f, o in zip(futs, outs))
-                    group_ms.append((done - blocker.submitted - b.latency_s) * 1e3)
-                    del outs
-                _, plan = srv.registry.get(SHAPE_BIG)
-                stack = torch.stack(group).to(torch.complex64)
-                del group
-                many = plan.forward_many_padded(SERVE_MAX_BATCH)
-                guarded = plan.guarded_padded("forward", nfields=SERVE_MAX_BATCH)
-                apply_ms = []
-                for _ in range(SERVE_GROUP_REPS):
-                    t0 = time.perf_counter()
-                    plan._apply_many(stack, "forward")
-                    torch.cuda.synchronize()
-                    apply_ms.append((time.perf_counter() - t0) * 1e3)
-                records.append({"wave": "group_4x512", "nfields": SERVE_MAX_BATCH,
-                                "shape": list(SHAPE_BIG),
-                                "server_group_ms": statistics.median(group_ms),
-                                "server_group_ms_runs": group_ms,
-                                "apply_many_ms": statistics.median(apply_ms),
-                                "apply_many_ms_runs": apply_ms,
-                                "guarded_padded_ms": cuda_ms(torch, lambda: guarded(stack)),
-                                "forward_many_padded_ms": cuda_ms(torch, lambda: many(stack)),
-                                "stack_ms": cuda_ms(torch, lambda: stack.clone())})
-                del stack, many, guarded
+    def window(*more):
+        return _ServerLaunches(torch, shapes, served, *more)
+
+    try:
+        # (a) the clean wave
+        fields = [torch.randn(SERVE_SHAPES[i % len(SERVE_SHAPES)], device="cuda",
+                              generator=gen) for i in range(SERVE_REQUESTS)]
+        sc = ServeConfig(deadline_s=120.0, max_batch=SERVE_MAX_BATCH)
+        with SpectralServer(mesh, grid, plan_config=cfg, config=sc) as srv:
+            outs, secs = _serve_wave(torch, srv, [fields], sc.grace_s, window())
+            stats = srv.stats()
+            if [o.status for o in outs] != ["ok"] * len(outs) or stats["coalesced_batches"] < 1:
+                fail(f"serve clean: {[o.status for o in outs]}, {stats['coalesced_batches']} "
+                     f"coalesced batches")
+            rec = _serve_record("clean", outs, secs, stats)
+            errs, bitwise = [], []
+            for x, o in zip(fields, outs):
+                _, plan = srv.registry.get(tuple(x.shape))
+                y, _ = plan.forward(x)
+                bitwise.append(torch.equal(o.value, y))
+                errs.append(rel_l2(torch, o.value, torch.fft.fftn(x)))
+                del y
+            if not all(bitwise) or max(errs) > TOL_FWD["bf16"]:
+                fail(f"serve clean: bitwise equal to the plan's forward {bitwise}, "
+                     f"rel L2 vs fftn {errs} (<= {TOL_FWD['bf16']})")
+            rec.update(bitwise_equal_plan_forward=bitwise, rel_l2_vs_fftn=errs)
+            records.append(rec)
+            del outs, fields
             torch.cuda.empty_cache()
 
-            # (b) the breaker: a strict bf16 plan under a bf16 wire fault
-            x = torch.randn(SHAPE_QS, device="cuda", generator=gen)
-            want = torch.fft.fftn(x)
-            sc = ServeConfig(deadline_s=120.0, breaker_threshold=2, breaker_cooldown_s=60.0,
-                             max_retries=0, grace_s=5.0)
-            with FaultPlan().corrupt_wire(codec="bf16"):
-                with SpectralServer(mesh, grid, plan_config=cfg.replace(guard="strict"),
-                                    config=sc) as srv:
-                    outs, secs = _serve_wave(torch, srv, [[x]] * 4, sc.grace_s)
-                    stats = srv.stats()
-            errs = [rel_l2(torch, o.value, want) for o in outs if o.value is not None]
-            trips = [o.trip for o in outs]
-            if ([o.status for o in outs] != ["degraded"] * 4 or trips[0] != "guard-error"
-                    or set(trips[2:]) != {"circuit-open"} or len(errs) != 4
-                    or max(errs) > TOL_FWD["complex64"]):
-                fail(f"serve breaker: {[o.status for o in outs]} trips {trips} rel L2 {errs}")
-            records.append({**_serve_record("breaker", outs, secs, stats), "rel_l2_vs_fftn": errs})
+            # one coalesced group of 4 x 512^3, held behind a stalled
+            # quickstart request so that the four queue together; the
+            # group's time runs from the blocker's resolve to the last
+            # of the four's (monotonic clock), SERVE_GROUP_REPS times
+            group = [torch.randn(SHAPE_BIG, device="cuda", generator=gen)
+                     for _ in range(SERVE_MAX_BATCH)]
+            blocker_x = torch.randn(SHAPE_QS, device="cuda", generator=gen)
+            group_ms, dispatch = [], {}
+            for _ in range(SERVE_GROUP_REPS):
+                with FaultPlan().slow_collective(seconds=0.3, times=1), window(dispatch):
+                    blocker = srv.submit(blocker_x)
+                    futs = [srv.submit(x) for x in group]
+                    b = blocker.result()
+                    outs = [f.result() for f in futs]
+                    srv.drain()
+                if [o.batched for o in outs] != [SERVE_MAX_BATCH] * SERVE_MAX_BATCH or any(
+                        o.status != "ok" for o in outs + [b]):
+                    fail(f"serve group: batched {[o.batched for o in outs]}, statuses "
+                         f"{[o.status for o in outs + [b]]}")
+                done = max(f.submitted + o.latency_s for f, o in zip(futs, outs))
+                group_ms.append((done - blocker.submitted - b.latency_s) * 1e3)
+                del outs
+            # the dispatches of warm plans (the blocker's quickstart, the
+            # group's 512^3) alone launch every kernel of the path
+            k4 = {k.split(":")[0] for k, v in dispatch.items()
+                  if k.startswith(("tc:", "general:")) and v}
+            if (k4 != {"tc", "general"} or min(
+                    sum(v for k, v in dispatch.items() if k.startswith(pre) and k.endswith(end))
+                    for pre, end in (("pack_chunks:", ":guard"), ("unpack_chunks:", ""))) < 1):
+                fail(f"serve group: the dispatches' launches {dispatch}: want K1 guard mode, "
+                     f"K3 and K4 tc and general each >= 1")
+            _, plan = srv.registry.get(SHAPE_BIG)
+            stack = torch.stack(group).to(torch.complex64)
+            del group
+            many = plan.forward_many_padded(SERVE_MAX_BATCH)
+            guarded = plan.guarded_padded("forward", nfields=SERVE_MAX_BATCH)
+            apply_ms = []
+            for _ in range(SERVE_GROUP_REPS):
+                t0 = time.perf_counter()
+                plan._apply_many(stack, "forward")
+                torch.cuda.synchronize()
+                apply_ms.append((time.perf_counter() - t0) * 1e3)
+            records.append({"wave": "group_4x512", "nfields": SERVE_MAX_BATCH,
+                            "shape": list(SHAPE_BIG),
+                            "server_group_ms": statistics.median(group_ms),
+                            "server_group_ms_runs": group_ms,
+                            "apply_many_ms": statistics.median(apply_ms),
+                            "apply_many_ms_runs": apply_ms,
+                            "guarded_padded_ms": cuda_ms(torch, lambda: guarded(stack)),
+                            "forward_many_padded_ms": cuda_ms(torch, lambda: many(stack)),
+                            "stack_ms": cuda_ms(torch, lambda: stack.clone()),
+                            "dispatch_launches": dispatch})
+            del stack, many, guarded
+        torch.cuda.empty_cache()
 
-            # (c) a crash after a stall: one retry recovers
-            with FaultPlan().executor_crash(times=1).slow_collective(seconds=0.05, times=2):
-                with SpectralServer(mesh, grid, plan_config=cfg,
-                                    config=ServeConfig(deadline_s=120.0,
-                                                       backoff_base_s=0.01)) as srv:
-                    outs, secs = _serve_wave(torch, srv, [[x]], 0.25)
-                    stats = srv.stats()
-            if [o.status for o in outs] != ["ok"] or outs[0].retries != 1:
-                fail(f"serve transient: {[o.status for o in outs]} retries {outs[0].retries}")
-            records.append(_serve_record("transient", outs, secs, stats))
+        # (b) the breaker: a strict bf16 plan under a bf16 wire fault
+        x = torch.randn(SHAPE_QS, device="cuda", generator=gen)
+        want = torch.fft.fftn(x)
+        sc = ServeConfig(deadline_s=120.0, breaker_threshold=2, breaker_cooldown_s=60.0,
+                         max_retries=0, grace_s=5.0)
+        with FaultPlan().corrupt_wire(codec="bf16"):
+            with SpectralServer(mesh, grid, plan_config=cfg.replace(guard="strict"),
+                                config=sc) as srv:
+                outs, secs = _serve_wave(torch, srv, [[x]] * 4, sc.grace_s, window())
+                stats = srv.stats()
+        errs = [rel_l2(torch, o.value, want) for o in outs if o.value is not None]
+        trips = [o.trip for o in outs]
+        if ([o.status for o in outs] != ["degraded"] * 4 or trips[0] != "guard-error"
+                or set(trips[2:]) != {"circuit-open"} or len(errs) != 4
+                or max(errs) > TOL_FWD["complex64"]):
+            fail(f"serve breaker: {[o.status for o in outs]} trips {trips} rel L2 {errs}")
+        records.append({**_serve_record("breaker", outs, secs, stats), "rel_l2_vs_fftn": errs})
 
-            # (d) overload: a queue of 2 while each dispatch stalls
-            with FaultPlan().slow_collective(seconds=0.2, times=100):
-                with SpectralServer(mesh, grid, plan_config=cfg,
-                                    config=ServeConfig(deadline_s=120.0, max_queue=2,
-                                                       max_batch=1)) as srv:
-                    outs, secs = _serve_wave(torch, srv, [[x] * 8], 0.25)
-                    stats = srv.stats()
-            shed = [o.latency_s for o in outs if o.status == "shed"]
-            if not shed or max(shed) >= 0.1 or any(o.status not in ("ok", "shed") for o in outs):
-                fail(f"serve overload: {[o.status for o in outs]}, shed latencies {shed}")
-            records.append(_serve_record("overload", outs, secs, stats))
+        # (c) a crash after a stall: one retry recovers
+        with FaultPlan().executor_crash(times=1).slow_collective(seconds=0.05, times=2):
+            with SpectralServer(mesh, grid, plan_config=cfg,
+                                config=ServeConfig(deadline_s=120.0,
+                                                   backoff_base_s=0.01)) as srv:
+                outs, secs = _serve_wave(torch, srv, [[x]], 0.25, window())
+                stats = srv.stats()
+        if [o.status for o in outs] != ["ok"] or outs[0].retries != 1:
+            fail(f"serve transient: {[o.status for o in outs]} retries {outs[0].retries}")
+        records.append(_serve_record("transient", outs, secs, stats))
 
-            # (e) an auto plan whose cache is torn mid-flight, under a 2x burst
-            cache = cache_dir / "serve.json"
-            auto = PlanConfig(method="auto", impl="matmul", exchange_impl="cuda",
-                              comm_dtype="int8", guard="degrade", tuner_cache=str(cache))
-            xs = [torch.randn(SHAPE_QS, device="cuda", generator=gen) for _ in range(6)]
-            with FaultPlan().cache_corruption(mode="garbage").request_burst(factor=2):
-                n = 3 * faults.serve_burst()
-                # groups of at most 2: the plan sweeps at 1 and 2 fields
-                with SpectralServer(mesh, grid, plan_config=auto,
-                                    config=ServeConfig(deadline_s=120.0, max_batch=2)) as srv:
-                    outs, secs = _serve_wave(torch, srv, [xs[:n]], 0.25)
-                    stats = srv.stats()
-            disk = tuner.load_cache(cache)
-            # every request resolves, served: an ``error`` (a kernel that failed
-            # to build or launch ends there) or a missed deadline fails the run
-            if (len(outs) != 6 or any(o.status not in ("ok", "degraded") for o in outs)
-                    or not disk):
-                fail(f"serve cache corruption: {[o.status for o in outs]}, cache entries "
-                     f"{len(disk)}")
-            records.append({**_serve_record("cache_corruption", outs, secs, stats),
-                            "cache_entries": len(disk)})
+        # (d) overload: a queue of 2 while each dispatch stalls
+        with FaultPlan().slow_collective(seconds=0.2, times=100):
+            with SpectralServer(mesh, grid, plan_config=cfg,
+                                config=ServeConfig(deadline_s=120.0, max_queue=2,
+                                                   max_batch=1)) as srv:
+                outs, secs = _serve_wave(torch, srv, [[x] * 8], 0.25, window())
+                stats = srv.stats()
+        shed = [o.latency_s for o in outs if o.status == "shed"]
+        if not shed or max(shed) >= 0.1 or any(o.status not in ("ok", "shed") for o in outs):
+            fail(f"serve overload: {[o.status for o in outs]}, shed latencies {shed}")
+        records.append(_serve_record("overload", outs, secs, stats))
+
+        # (e) an auto plan whose cache is torn mid-flight, under a 2x burst
+        cache = cache_dir / "serve.json"
+        auto = PlanConfig(method="auto", impl="matmul", exchange_impl="cuda",
+                          comm_dtype="int8", guard="degrade", tuner_cache=str(cache))
+        xs = [torch.randn(SHAPE_QS, device="cuda", generator=gen) for _ in range(6)]
+        with FaultPlan().cache_corruption(mode="garbage").request_burst(factor=2):
+            n = 3 * faults.serve_burst()
+            # groups of at most 2: the plan sweeps at 1 and 2 fields
+            with SpectralServer(mesh, grid, plan_config=auto,
+                                config=ServeConfig(deadline_s=120.0, max_batch=2)) as srv:
+                outs, secs = _serve_wave(torch, srv, [xs[:n]], 0.25, window())
+                stats = srv.stats()
+        disk = tuner.load_cache(cache)
+        # every request resolves, served: an ``error`` (a kernel that failed
+        # to build or launch ends there) or a missed deadline fails the run
+        if (len(outs) != 6 or any(o.status not in ("ok", "degraded") for o in outs)
+                or not disk):
+            fail(f"serve cache corruption: {[o.status for o in outs]}, cache entries "
+                 f"{len(disk)}")
+        records.append({**_serve_record("cache_corruption", outs, secs, stats),
+                        "cache_entries": len(disk)})
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
 

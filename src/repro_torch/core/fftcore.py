@@ -17,9 +17,13 @@ Local FFT implementations:
 Each row's result must not depend on the other axes' extents: a stacked
 block of fields and a pipelined slice transform the same rows as one
 field's block, and the lossless contracts (batched = the per-field loop,
-pipelined = fused) are bitwise.  ``torch.fft`` along a strided axis rounds
-by the other axes' extents on the devices in
-:data:`CONTIGUOUS_FFT_DEVICES`; there ``impl="torch"`` moves the axis last
+pipelined = fused) are bitwise.  ``torch.fft`` hands a transform along an
+axis whose other axes collapse to one stride (the leading axis of a
+contiguous block) to the FFT library as a strided transform, and copies any
+other axis to a contiguous last axis first; the two round differently
+(pocketfft at lengths with the factors 4 * 3, cuFFT along axis 0 of a 384^3
+block), and a stacked block or a pipelined slice of that axis takes the
+copy.  So ``impl="torch"`` moves every axis but a contiguous last one last
 and makes it contiguous first.
 """
 
@@ -32,13 +36,6 @@ import torch
 
 FORWARD = -1
 BACKWARD = +1
-
-#: device types whose ``torch.fft`` along a strided axis rounds by the other
-#: axes' extents, so a transform there runs on a contiguous last axis (one
-#: copy in): pocketfft on the CPU at lengths with the factors 4 * 3; cuFFT
-#: on an H100 (CUDA 12.8) along axis 0 of a 384^3 block, though not at
-#: (12, 10, 6) nor along axis 1 (``chip_smoke.py``'s ``{"strided_fft"}``)
-CONTIGUOUS_FFT_DEVICES = frozenset({"cpu", "cuda"})
 
 _KINDS = ("c2c", "r2c", "dct", "dst")
 
@@ -168,11 +165,10 @@ def _check_impl(impl):
 
 
 def _along(x, axis, fn):
-    """``fn(x, axis)``, on the devices of :data:`CONTIGUOUS_FFT_DEVICES`
-    as ``fn`` of ``axis`` moved last and made contiguous, moved back."""
+    """``fn(x, axis)`` as ``fn`` of ``axis`` moved last and made contiguous,
+    moved back."""
     axis = axis % x.dim()
-    if x.device.type not in CONTIGUOUS_FFT_DEVICES or (axis == x.dim() - 1
-                                                      and x.is_contiguous()):
+    if axis == x.dim() - 1 and x.is_contiguous():
         return fn(x, axis)
     return torch.movedim(fn(torch.movedim(x, axis, -1).contiguous(), -1), -1, axis)
 
@@ -284,9 +280,7 @@ def _dct_real(x, axis, trig_type, impl):
 
         return fft_ops.dct_matmul(x, axis=axis, trig_type=trig_type)
     n = x.shape[axis]
-    xl = torch.movedim(x, axis, -1)
-    if x.device.type in CONTIGUOUS_FFT_DEVICES:  # the FFT below runs along xl's last axis
-        xl = xl.contiguous()
+    xl = torch.movedim(x, axis, -1).contiguous()  # the FFT below runs along its last axis
     k = torch.arange(n, device=x.device, dtype=torch.float32)
     if trig_type == 2:
         # permute to v = [x0, x2, ..., x5, x3, x1], one length-n FFT

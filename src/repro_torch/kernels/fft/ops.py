@@ -153,18 +153,23 @@ def dst_matmul(x: torch.Tensor, *, axis: int = -1, trig_type: int = 2) -> torch.
 #: zero-padded), since a GEMM's rounding of a row can depend on how many
 #: rows share the call (a lone row takes another code path, and the BLAS
 #: picks its blocking by the row count)
-TRIG_ROWS = 1024
+TRIG_ROWS = 16384
 
 
 def _trig_rows(rows: torch.Tensor, mt: torch.Tensor) -> torch.Tensor:
     """``rows @ mt`` in calls of :data:`TRIG_ROWS` rows each, so each row's
-    result is the same whatever the other rows are."""
+    result is the same whatever the other rows are; each full block is
+    written in place, only the last one is padded."""
     r = rows.shape[0]
-    pad = -r % TRIG_ROWS
-    if pad:
-        rows = torch.cat([rows, rows.new_zeros(pad, rows.shape[1])])
-    out = torch.cat([torch.matmul(b, mt) for b in rows.split(TRIG_ROWS)])
-    return out[:r]
+    out = rows.new_empty(r, mt.shape[1])
+    full = r - r % TRIG_ROWS
+    for i in range(0, full, TRIG_ROWS):
+        torch.matmul(rows[i:i + TRIG_ROWS], mt, out=out[i:i + TRIG_ROWS])
+    if full < r:
+        tail = rows.new_zeros(TRIG_ROWS, rows.shape[1])
+        tail[:r - full] = rows[full:]
+        out[full:] = torch.matmul(tail, mt)[:r - full]
+    return out
 
 
 def _trig_matmul(x, axis, mat):

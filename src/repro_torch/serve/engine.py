@@ -34,13 +34,14 @@ the stacked global fields (``broadcast``) — and the other ranks run
 :meth:`SpectralServer.follow`, which executes each message until the stop
 message :meth:`~SpectralServer.close` sends.  Building and warming a plan
 (``registry.get``) is collective, so it runs on every rank as part of the
-group.  After each primary or fallback attempt the ranks agree on its
-status (``all_reduce(MAX)`` of ok / transient / guard error); rank 0 alone
-then picks the next step (retry, fallback, retune, done) and broadcasts
-it, so a fault armed on every rank fires on every rank while only rank 0's
-clock decides deadlines and backoff.  The retune after a trip is a control
-message of its own, between groups, on every rank: no collective of it runs
-beside a dispatch.  An exception that one rank alone raises in the middle
+group.  The ranks agree (``all_reduce(MAX)`` of ok / transient / guard
+error) on every step that can fail on one rank alone: the build, staging
+the group's fields on each rank's device (the cast, the receiving block)
+and each primary or fallback attempt.  Rank 0 alone then picks the next
+step (retry, fallback, retune, done) and broadcasts it, so a fault armed on
+every rank fires on every rank while only rank 0's clock decides deadlines
+and backoff.  The retune after a trip is a control message of its own,
+between groups, on every rank: no collective of it runs beside a dispatch.  An exception that one rank alone raises in the middle
 of a collective leaves the others waiting in it; the faults this engine
 recovers from fire before a collective, on every rank.
 
@@ -354,10 +355,17 @@ class SpectralServer:
                                   error=f"plan build failed: {build_err!r}"[:300])
             return
         dtype = plan.input_dtype if direction == "forward" else plan.spectral_dtype
-        if lead:
-            stacked = stacked.to(device=plan.device, dtype=dtype)
-        else:
-            stacked = torch.empty((n, *shape), dtype=dtype, device=plan.device)
+        try:
+            stacked = self._stage(stacked, (n, *shape), dtype, plan.device)
+            stage_err = None
+        except Exception as e:  # out of device memory, on this rank alone
+            stacked, stage_err = None, e
+        if self._agree(_OK if stage_err is None else _TRANSIENT) != _OK:
+            if lead:
+                where = repr(stage_err) if stage_err is not None else "on another rank"
+                self._resolve_all(reqs, "error",
+                                  error=f"staging the fields failed: {where}"[:300])
+            return
         self._bcast_tensor(stacked)
 
         breaker = self.registry.breaker(key) if lead else None
@@ -424,6 +432,14 @@ class SpectralServer:
         if step == "fallback":
             self._serve_fallback(reqs, plan, stacked, direction, n, trip=trip,
                                  retries=attempt, cause=cause)
+
+    @staticmethod
+    def _stage(stacked, shape, dtype, device):
+        """The group's fields on this rank's device: rank 0's ``stacked``
+        cast, elsewhere an empty block of ``shape`` for the broadcast."""
+        if stacked is not None:
+            return stacked.to(device=device, dtype=dtype)
+        return torch.empty(shape, dtype=dtype, device=device)
 
     def _serve_fallback(self, reqs, plan, stacked, direction, n, *, trip, retries=0,
                         cause=None):

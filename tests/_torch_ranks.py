@@ -1057,6 +1057,35 @@ def _serve(rank, mesh, grid, pc, sc, fault, make_fields):
     return outs, stats, list(fp.fired)
 
 
+class _StageFault:
+    """While active on an ``armed`` rank, the next staging of a group's
+    fields there (rank 0's cast to the device, another rank's receiving
+    block) raises once, as running out of device memory would."""
+
+    def __init__(self, armed: bool):
+        self.armed = armed
+
+    def __enter__(self):
+        from repro_torch.serve.engine import SpectralServer
+
+        real, left = SpectralServer._stage, [int(self.armed)]
+
+        def stage(*args):
+            if left[0]:
+                left[0] -= 1
+                raise RuntimeError("out of device memory (injected while staging)")
+            return real(*args)
+
+        self._real = real
+        SpectralServer._stage = staticmethod(stage)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serve.engine import SpectralServer
+
+        SpectralServer._stage = staticmethod(self._real)
+
+
 def _summary(outs, stats) -> dict:
     return {"statuses": [o.status for o in outs], "trips": [o.trip for o in outs],
             "retries": [o.retries for o in outs], "batched": [o.batched for o in outs],
@@ -1150,6 +1179,19 @@ def run_serve_rank(rank: int, init_file: str, out_dir: str):
             outs, stats, _ = res
             info["crash"] = _summary(outs, stats)
             info["crash"]["bitwise_plan_forward"] = torch.equal(outs[0].value, clean)
+
+        # staging a group's fields fails on one rank alone: every rank leaves
+        # the group, rank 0 resolves it an error, the next group is served
+        info["stage_fault"] = {}
+        for faulty in range(SERVE_WORLD):
+            with _StageFault(rank == faulty):
+                res = _serve(rank, mesh, grid, degrade, ServeConfig(deadline_s=120.0), None,
+                             lambda _: [[x], [x]])
+            if res is not None:
+                outs, stats, _ = res
+                info["stage_fault"][str(faulty)] = {
+                    **_summary(outs, stats), "errors": [o.error for o in outs],
+                    "bitwise_plan_forward": torch.equal(outs[1].value, clean)}
 
         # the chaos soak: fresh servers per wave over one schedule cache
         cache = str(Path(out_dir) / "soak_cache.json")

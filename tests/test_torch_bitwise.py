@@ -56,12 +56,15 @@ def test_trig_matmul_rows_independent_of_row_count():
     from repro_torch.kernels.fft import ops
 
     g = torch.Generator().manual_seed(0)
+    b = ops.TRIG_ROWS
     for n in (12, 20, 384):
-        x = torch.randn(700, n, generator=g)
+        # two full blocks and a padded third
+        x = torch.randn(2 * b + 700, n, generator=g)
         for fn in (ops.dct_matmul, ops.dst_matmul):
             for trig_type in (2, 3):
                 whole = fn(x, axis=-1, trig_type=trig_type)
-                for lo, hi in ((0, 1), (3, 5), (1, 65), (100, 700), (699, 700)):
+                for lo, hi in ((0, 1), (3, 5), (1, 65), (100, 700), (699, 700),
+                               (b - 5, b + 9), (b + 1, 2 * b + 700), (2 * b + 699, 2 * b + 700)):
                     part = fn(x[lo:hi], axis=-1, trig_type=trig_type)
                     assert torch.equal(part, whole[lo:hi]), (n, fn.__name__, trig_type, lo, hi)
                 # the same rows as the leading axis of a 3-D block

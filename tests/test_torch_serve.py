@@ -344,6 +344,18 @@ def test_serve_crash_retry_recovers(runs):
     assert out["bitwise_plan_forward"]
 
 
+@pytest.mark.parametrize("faulty", range(R.SERVE_WORLD))
+def test_serve_staging_fault_on_one_rank(runs, faulty):
+    """Staging a group's fields fails on one rank alone: the ranks agree,
+    the group ends in an error and the next group is served."""
+    out = runs[0]["stage_fault"][str(faulty)]
+    assert out["statuses"] == ["error", "ok"]
+    assert "staging the fields failed" in out["errors"][0]
+    assert ("injected" in out["errors"][0]) == (faulty == 0)
+    assert out["stats"]["error"] == 1 and out["stats"]["ok"] == 1
+    assert out["bitwise_plan_forward"]
+
+
 def test_chaos_soak_twin(runs):
     """tests/test_serve.py's soak on the port: fresh servers per wave over
     one schedule cache; every request resolves in a structured outcome
