@@ -40,6 +40,12 @@ non-zero):
    against ``np.fft.fftn``; (b) the slice configuration (``impl="matmul"``,
    ``exchange_impl="cuda"``, ``comm_dtype="bf16"``) at ``(42, 63, 64)`` and
    at 512^3 complex64, forward and backward timed; (c) 512^3 with int8;
+   "composed" — the slab plan over the composed groups ``(("p0", "p1"),)``
+   and ``(("p1", "p0"),)`` beside the one-name slab ``("p0",)`` under the
+   slice configuration with bf16, at 512^3 and the quickstart shape: each
+   forward and backward bitwise the slab's, within the bf16 limits of
+   ``torch.fft.fftn``, K1/K3/K4 launches per call exact; the 512^3
+   forwards timed (one ``{"composed": [...]}`` line);
    "engines" — the traditional and pipelined (``chunks=4``) engines at 512^3
    for each ``comm_dtype``, lossless ones bitwise equal to the fused engine,
    plus each engine's single exchange timed alone; then under
@@ -106,7 +112,8 @@ non-zero):
    tensor-core design and K1-K3 their vec designs, as at the pipelined slice;
    K4's general design at the quickstart shape; K5 at three 1 GiB
    complex64 shapes: 512^3, the traditional pack of 512^3 into 4 chunks and
-   a 2-D transpose; K1/K3 on 3 stacked 512^3 fields and K4 at the DNS
+   a 2-D transpose; K1/K3 at the composed slab's exchange and K4 at its
+   rows; K1/K3 on 3 stacked 512^3 fields and K4 at the DNS
    plan's rows, the many path's shapes; K6 at the serving prefill's, and
    once at the prefill_32k length, and its fp32 design at the prefill's
    shape; K1, K3 and K4 at every shape the tune path launched them at, one
@@ -747,8 +754,8 @@ def _by_call(paths, shapes, name):
 
 
 def run_paths(torch, lm_info, many, tune, tune_shapes, serve, serve_shapes, card):
-    """Drive the four FFT paths on a 1-rank NCCL group (the many path fills
-    ``many`` with its records), measure the time model's coefficients (one
+    """Drive the five FFT paths on a 1-rank NCCL group (the composed path
+    prints its records, the many path fills ``many`` with its), measure the time model's coefficients (one
     ``{"coeffs"}`` line), drive the tune path on the same group (it fills
     ``tune`` and, with its launches by call, ``tune_shapes``), the serve path
     (``serve``, ``serve_shapes`` likewise), then the LM path (which fills
@@ -762,7 +769,11 @@ def run_paths(torch, lm_info, many, tune, tune_shapes, serve, serve_shapes, card
         dist.init_process_group("nccl", init_method=f"file://{pg_dir}/pg", rank=0, world_size=1)
         mesh = make_mesh((1, 1), ("p0", "p1"))
         uniform = {}  # 512^3 forward ms of each uniform explicit config, by the paths
+        composed = []
         paths = {"slice": _drive(torch, "slice", slice_path, mesh, uniform)}
+        torch.cuda.empty_cache()
+        paths["composed"] = _drive(torch, "composed", composed_path, mesh, composed)
+        print(json.dumps({"composed": [{**r, "card": card} for r in composed]}))
         torch.cuda.empty_cache()
         paths["engines"] = _drive(torch, "engines", engines_path, mesh, uniform)
         torch.cuda.empty_cache()
@@ -792,7 +803,7 @@ def run_paths(torch, lm_info, many, tune, tune_shapes, serve, serve_shapes, card
             fail(f"serve: K4 ran the designs {designs}, want both; K1 guard launches {guard}")
         # every exchange of these paths has S % 4 == 0: K1 and K3 run their
         # vec designs, every launch
-        for name in ("slice", "engines", "guard"):
+        for name in ("slice", "composed", "engines", "guard"):
             counts = paths[name]
             scalar = {k: n for k, n in counts.items()
                       if k.startswith(("scalar:", "decode:scalar:"))}
@@ -846,6 +857,55 @@ def slice_path(torch, mesh, uniform):
             uniform[f"fused@{cfg.comm_dtype}@cuda"] = fwd_ms
 
 
+def composed_path(torch, mesh, records):
+    """The composed path: the slab plan over the composed groups
+    ``(("p0", "p1"),)`` and ``(("p1", "p0"),)`` beside the one-name slab
+    ``("p0",)``, under the slice configuration with bf16, at 512^3 and the
+    quickstart shape.  On one rank the three are the same work, so each
+    forward and backward must be bitwise the slab's; each within the bf16
+    limits of ``torch.fft.fftn``, with K1/K3/K4 launches per call exactly as
+    ``_want_launches`` gives; the 512^3 forwards timed (slab, composed,
+    reversed, slab), one record each into ``records``."""
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig
+
+    cfg = PlanConfig(method="fused", impl="matmul", exchange_impl="cuda", comm_dtype="bf16")
+    grids = {"slab": ("p0",), "composed": (("p0", "p1"),), "reversed": (("p1", "p0"),)}
+    for shape in (SHAPE_BIG, SHAPE_QS):
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randn(shape, dtype=torch.complex64, device="cuda", generator=gen)
+        ref = torch.fft.fftn(x)
+        plans, outs = {}, {}
+        for name, grid in grids.items():
+            plan = plans[name] = ParallelFFT(mesh, shape, grid, config=cfg)
+            y, per_fwd = _launches_of(torch, "bf16", lambda: plan.forward_padded(x), shape)
+            b, per_back = _launches_of(torch, "bf16", lambda: plan.backward_padded(y), shape)
+            want = _want_launches(plan, "bf16")
+            if per_fwd != want or per_back != want:
+                fail(f"composed {name} {shape}: forward launched {per_fwd}, backward "
+                     f"{per_back}, want {want} each")
+            _check_finite(torch, f"composed {name} {shape}", y, shape)
+            fwd_err, back_err = rel_l2(torch, y, ref), rel_l2(torch, b, x)
+            if fwd_err > TOL_FWD["bf16"] or back_err > TOL_BACK["bf16"]:
+                fail(f"composed {name} {shape}: rel L2 forward {fwd_err}, round trip {back_err}")
+            if name != "slab" and not (torch.equal(y, outs["slab"][0])
+                                       and torch.equal(b, outs["slab"][1])):
+                fail(f"composed {name} {shape}: not bitwise the slab plan's")
+            outs[name] = (y, b)
+            records.append({"grid": name, "groups": grid, "shape": list(shape), "comm_dtype": "bf16",
+                            "rel_l2_fwd_vs_fftn": fwd_err, "rel_l2_roundtrip": back_err,
+                            "bitwise_vs_slab": None if name == "slab" else True,
+                            "launches_per_forward": per_fwd, "launches_per_backward": per_back})
+        if shape == SHAPE_BIG:
+            ms = {}
+            for name in ("slab", "composed", "reversed", "slab"):
+                ms.setdefault(name, []).append(
+                    cuda_ms(torch, lambda p=plans[name]: p.forward_padded(x), reps=7))
+            for r in records[-3:]:
+                r["forward_ms"] = ms[r["grid"]]
+        del x, ref, outs, plans
+
+
 def _launches_of(torch, comm, fn, shape):
     """``(fn(), launches)``: the K4, encode (K1) and decode (K3) kernel
     launches at ``comm`` that one call of ``fn`` made.  At ``SHAPE_BIG``
@@ -868,14 +928,17 @@ def _launches_of(torch, comm, fn, shape):
 
 
 def _want_launches(plan, comm):
-    """Launches of one forward (or backward): a K4 per stage and per
-    pipelined slice, and per exchange collective one encode (an int8 encode
-    is two kernels) and one decode on a lossy wire."""
+    """Launches of one forward (or backward): a K4 per FFT stage, the stage
+    after an exchange once per pipelined slice, and per exchange collective
+    one encode (an int8 encode is two kernels) and one decode on a lossy
+    wire."""
+    from repro_torch.core.pfft import FFTStage
     from repro_torch.kernels.exchange import ops as xops
 
     colls = sum(e.chunks if e.method == "pipelined" else 1 for e in plan.schedule)
+    ffts = sum(isinstance(st, FFTStage) for st in plan.stages)
     lossy = comm != "complex64"
-    return {"fourstep": 1 + colls,
+    return {"fourstep": ffts - plan.n_exchanges + colls,
             "encode": colls * xops.ENCODE_KERNELS[comm] if lossy else 0,
             "decode": colls if lossy else 0}
 
@@ -1198,7 +1261,7 @@ def _codec_designs(torch, plan, direction, nfields, codec):
     ``batch_fusion``; keyed as the path's counts."""
     from collections import Counter
 
-    from repro_torch.core.meshutil import axis_size
+    from repro_torch.core.pencil import group_size
     from repro_torch.core.pfft import ExchangeStage
     from repro_torch.kernels.exchange import ops as xops, ref as xref
 
@@ -1210,7 +1273,7 @@ def _codec_designs(torch, plan, direction, nfields, codec):
     for i, st in enumerate(stages):
         if not isinstance(st, ExchangeStage):
             continue
-        m = axis_size(plan.mesh, st.group)
+        m = group_size(plan.mesh, st.group)
         shape = ((nfields,) if nb else ()) + pencils[i].local_shape
         P = 2 if dtypes[i] == torch.complex64 else 1
         F, O, M, S = xops._chunk_view(shape, st.v + nb, m, nb)
@@ -2292,6 +2355,7 @@ def main_path_kernels(torch, paths, tune_shapes, serve_shapes):
                                design=design, one_call_ms=one_call_ms(torch, dec)))
         del qr, sr
 
+    kernels += _composed_records(torch, x, xops, xref, kernels, paths["composed"])
     kernels += _pipelined_slice_records(torch, x, xops, xref, paths["engines"])
     kernels += _guard_mode_records(torch, x, xops, xref, paths["guard"])
     kernels += _in_place_decode_records(torch, x, xops, xref, paths)
@@ -2722,6 +2786,46 @@ def _vec(counter, fn, what, want="vec"):
     if design != want:
         fail(f"{what}: ran the {design} design, want {want}")
     return out, design
+
+
+def _composed_records(torch, x, xops, xref, slice_records, counts):
+    """The composed path's kernels: K4 at the slice records' shapes (its
+    plans transform the same rows), copied with the composed path's
+    launches; K1 and K3 with bf16 at the slab's exchange, v = 1 -> w = 0
+    over M = 1 at 512^3, against the plain version."""
+    recs = []
+    for rec in slice_records:
+        if rec["name"].startswith("fourstep_dft["):
+            mode = rec["name"][len("fourstep_dft["):-1]
+            key = "general:fft" if mode == "fft,quickstart" else f"tc:{mode}"
+            recs.append({**rec, "name": rec["name"][:-1] + ",composed]", "path": "composed",
+                         "launches": counts.get(key, 0)})
+    elems = x.numel()
+    flat = torch.view_as_real(x)
+    enc = lambda: xops.pack_chunks(x, axis=1, m=1, codec="bf16")
+    enc_plain = lambda: xref.pack_chunks_ref(x, axis=1, m=1, codec="bf16")
+    (q, _, _), design = _ran_design(xops.design_launches, enc, "K1 bf16 composed")
+    qr, _, _ = enc_plain()
+    err = _check_codec(torch, "pack_chunks bf16 composed", q, qr, "bf16")
+    del q
+    recs.append(_record("exchange_encode[chunk_major,bf16,composed]", "exchange.cu",
+                        "src/repro/kernels/exchange/kernel.py:89", "composed",
+                        counts.get("pack_chunks:bf16", 0), err, cuda_ms(torch, enc),
+                        cuda_ms(torch, enc_plain), bound_ms(elems * 8 + elems * 4, 0),
+                        cuda_ms(torch, lambda: flat.to(torch.bfloat16)), design=design))
+    dkw = dict(v=1, w=0, m=1, scale=None, codec="bf16", iscomplex=True)
+    dec = lambda: xops.unpack_chunks(qr, **dkw)
+    dec_plain = lambda: xref.unpack_chunks_ref(qr, **dkw)
+    got, design = _ran_design(xops.decode_design_launches, dec, "K3 bf16 composed")
+    err = _check_codec(torch, "unpack_chunks bf16 composed", got, dec_plain(), "bf16")
+    del got
+    recs.append(_record("exchange_decode[scatter_w,bf16,composed]", "exchange.cu",
+                        "src/repro/kernels/exchange/kernel.py:173", "composed",
+                        counts.get("unpack_chunks:bf16", 0), err, cuda_ms(torch, dec),
+                        cuda_ms(torch, dec_plain), bound_ms(elems * 4 + elems * 8, 0),
+                        cuda_ms(torch, lambda: qr.float()), design=design))
+    del qr
+    return recs
 
 
 def _pipelined_slice_records(torch, x, xops, xref, counts):

@@ -17,9 +17,14 @@ axes (stacked multi-field execution), replicated on every rank as the
 reference's ``batched_spec()`` has them: padded, cut and gathered along the
 array axes only.
 
-Only single-name groups (one mesh dimension per distributed axis) are
-supported; a composed group such as a slab over ``("p0", "p1")`` raises
-``NotImplementedError``.
+A group is one mesh dimension name or a tuple of names, a composed
+subgroup of the product of their sizes (a slab over ``("p0", "p1")``, or
+``("p1", "p0")``); a rank's block along it is cut at its composed index,
+row-major over the tuple's own order, as the JAX shard of its device is
+(:func:`repro_torch.core.meshutil.composed_coordinate`).  Building a
+Pencil over a composed group makes that group's process groups
+(:func:`~repro_torch.core.meshutil.build_subgroup`), which is collective:
+every rank builds its pencils alike.
 """
 
 from __future__ import annotations
@@ -34,25 +39,19 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core.decomp import pad_to_multiple
-from repro_torch.core.meshutil import axis_size, rank_coordinate
+from repro_torch.core.meshutil import (build_subgroup, composed_coordinate, composed_size,
+                                       rank_coordinate)
 
-#: one mesh dimension name (a tuple of names is a composed subgroup)
+#: one mesh dimension name or a tuple of names (composed subgroup)
 Group = str | tuple[str, ...]
 
 
-def group_name(group: Group) -> str:
-    """The single mesh dimension of ``group``."""
-    if isinstance(group, str):
-        return group
-    if len(group) == 1:
-        return group[0]
-    raise NotImplementedError(
-        f"composed group {group!r}: the port supports one mesh dimension per "
-        "distributed axis (ROADMAP: composed groups)")
+def group_names(group: Group) -> tuple[str, ...]:
+    return (group,) if isinstance(group, str) else tuple(group)
 
 
 def group_size(mesh: DeviceMesh, group: Group) -> int:
-    return axis_size(mesh, group_name(group))
+    return composed_size(mesh, group_names(group))
 
 
 @dataclass(frozen=True)
@@ -61,7 +60,7 @@ class Pencil:
 
     ``logical``   — true global extents.
     ``physical``  — stored global extents (padded; equal-shard policy).
-    ``placement`` — per array axis: mesh dimension name or None (aligned).
+    ``placement`` — per array axis: mesh dimension name(s) or None (aligned).
     """
 
     mesh: DeviceMesh = field(repr=False, compare=False)
@@ -74,6 +73,7 @@ class Pencil:
             raise ValueError("logical, physical and placement differ in length")
         for ext, grp in zip(self.physical, self.placement):
             if grp is not None:
+                build_subgroup(self.mesh, group_names(grp))
                 m = group_size(self.mesh, grp)
                 if ext % m != 0:
                     raise ValueError(
@@ -122,13 +122,12 @@ class Pencil:
     def block_slices(self, rank: int) -> tuple[slice, ...]:
         """Slices of the physical global array that global ``rank`` holds."""
         coord = rank_coordinate(self.mesh, rank)
-        names = self.mesh.mesh_dim_names
         out = []
         for ext, grp in zip(self.local_shape, self.placement):
             if grp is None:
                 out.append(slice(0, ext))
             else:
-                c = coord[names.index(group_name(grp))]
+                c = composed_coordinate(self.mesh, group_names(grp), coord)
                 out.append(slice(c * ext, (c + 1) * ext))
         return tuple(out)
 

@@ -99,7 +99,9 @@ class ParallelFFT:
               :func:`repro_torch.core.meshutil.make_mesh`); blocks live on
               its device.
       shape:  logical global array shape (d axes).
-      grid:   k mesh dimension names decomposing array axes 0..k-1.
+      grid:   k groups decomposing array axes 0..k-1, each a mesh dimension
+              name or a tuple of names (a composed group, e.g. a slab over
+              ``(("p0", "p1"),)``).
       config: a :class:`~repro_torch.core.planconfig.PlanConfig`
               (``None``: defaults).
       transforms: per-axis :class:`TransformSpec` or tag strings, length d

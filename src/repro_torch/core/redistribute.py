@@ -51,6 +51,13 @@ lossless stage.  The fault taps (:mod:`repro_torch.robustness.faults`) act
 on every received buffer and on the int8 scale; unarmed they return their
 input.  Element 0 of each received chunk-major buffer is the output block's
 element 0, the element the reference's taps corrupt.
+
+A group may be a tuple of mesh dimensions (:mod:`repro_torch.core.meshutil`):
+chunk ``k`` goes to the rank of composed index ``k``.  ``new_group`` orders
+a group by global rank, so a tuple out of mesh order gathers each wire
+buffer's chunks into that order before the collective and back after it
+(:func:`_exchange_dim0`, on every engine and wire alike, int8's scales
+too); a tuple in mesh order needs neither.
 """
 
 from __future__ import annotations
@@ -63,8 +70,8 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core.decomp import local_lengths
 from repro_torch.core.hardware import HBM_BW, ICI_BW, ICI_LATENCY_S  # noqa: F401 (re-exported)
-from repro_torch.core.meshutil import axis_size
-from repro_torch.core.pencil import Group, Pencil, group_name, group_size
+from repro_torch.core.meshutil import Subgroup, in_mesh_order, subgroup
+from repro_torch.core.pencil import Group, Pencil, group_names, group_size
 from repro_torch.core.quant import canonical_comm_dtype, wire_ratio
 from repro_torch.kernels.exchange import ops as xops, ref as xref
 from repro_torch.robustness import faults, health
@@ -73,45 +80,51 @@ from repro_torch.robustness import faults, health
 PIPELINE_CHUNK_CANDIDATES = (2, 4, 8)
 
 
-def _exchange_dim0(t: torch.Tensor, pg, *, async_op: bool = False):
-    """Start ``all_to_all_single`` of ``t``'s equal dim-0 chunks over ``pg``;
-    returns ``(out, work)`` (``work`` None unless ``async_op``)."""
-    t = t.contiguous()
+def _exchange_dim0(t: torch.Tensor, grp: Subgroup, *, async_op: bool = False):
+    """Start ``all_to_all_single`` of ``t``'s ``m`` dim-0 chunks over the
+    group ``grp``, chunk ``k`` to the rank of composed index ``k``; returns
+    ``receive()``, which waits and gives the received chunks with chunk
+    ``j`` from composed index ``j``.  A group out of mesh order
+    (``grp.send``) gathers the chunks into its rank order before the send,
+    in place of the ``.contiguous()`` pack, and back after the receive."""
+    t = t.contiguous() if grp.send is None else t.index_select(0, grp.send)
     out = torch.empty_like(t)
     if t.is_complex():
-        work = dist.all_to_all_single(torch.view_as_real(out), torch.view_as_real(t), group=pg,
-                                      async_op=async_op)
+        work = dist.all_to_all_single(torch.view_as_real(out), torch.view_as_real(t),
+                                      group=grp.pg, async_op=async_op)
     else:
-        work = dist.all_to_all_single(out, t, group=pg, async_op=async_op)
-    return out, work
+        work = dist.all_to_all_single(out, t, group=grp.pg, async_op=async_op)
+
+    def receive():
+        if work is not None:
+            work.wait()
+        return out if grp.recv is None else out.index_select(0, grp.recv)
+
+    return receive
 
 
-def _wait(work):
-    if work is not None:
-        work.wait()
-
-
-def _start_comm(y: torch.Tensor, pg, m: int, *, split_axis: int, concat_axis: int,
+def _start_comm(y: torch.Tensor, grp: Subgroup, *, split_axis: int, concat_axis: int,
                 comm_dtype=None, nbatch: int = 0, impl: str = "torch", guard: bool = False,
                 async_op: bool = False):
-    """Issue the tiled all-to-all of ``y`` over ``pg`` (``m`` ranks):
-    ``split_axis`` is cut into ``m`` chunks, chunk ``j`` goes to group rank
-    ``j``, and the chunk received from rank ``j`` lands in slot ``j`` of
-    ``concat_axis``; the payload travels as ``comm_dtype``.  Returns
-    ``(finish, stats)``: ``finish()`` waits for the collectives, applies the
-    wire taps and decodes; ``stats`` is None unless ``guard``."""
+    """Issue the tiled all-to-all of ``y`` over the group ``grp`` (``m``
+    ranks): ``split_axis`` is cut into ``m`` chunks, chunk ``j`` goes to the
+    rank of composed index ``j``, and the chunk received from index ``j``
+    lands in slot ``j`` of ``concat_axis``; the payload travels as
+    ``comm_dtype``.  Returns ``(finish, stats)``: ``finish()`` waits for the
+    collectives, applies the wire taps and decodes; ``stats`` is None unless
+    ``guard``."""
+    m = grp.size
     d = canonical_comm_dtype(comm_dtype)
     if y.shape[split_axis] % m != 0:
         raise ValueError(f"split axis extent {y.shape[split_axis]} not divisible by group size {m}")
     if d == "complex64":
         shape = list(y.shape)
         shape[split_axis: split_axis + 1] = [m, shape[split_axis] // m]
-        recv, work = _exchange_dim0(torch.movedim(y.reshape(shape), split_axis, 0), pg,
-                                    async_op=async_op)
+        receive = _exchange_dim0(torch.movedim(y.reshape(shape), split_axis, 0), grp,
+                                 async_op=async_op)
 
         def finish():
-            _wait(work)
-            out = torch.movedim(faults.tap_wire(recv, "payload"), 0, concat_axis)
+            out = torch.movedim(faults.tap_wire(receive(), "payload"), 0, concat_axis)
             oshape = list(out.shape)
             oshape[concat_axis: concat_axis + 2] = [oshape[concat_axis] * oshape[concat_axis + 1]]
             return out.reshape(oshape)
@@ -126,14 +139,12 @@ def _start_comm(y: torch.Tensor, pg, m: int, *, split_axis: int, concat_axis: in
     sd = faults.scale_div() if d == "int8" else None
     payload, scale, stats = pack(y, axis=split_axis, m=m, nbatch=nbatch, codec=d, guard=guard,
                                  scale_div=sd)
-    recv, work = _exchange_dim0(payload, pg, async_op=async_op)
-    scale_recv, swork = (None, None) if scale is None else _exchange_dim0(scale, pg,
-                                                                          async_op=async_op)
+    receive = _exchange_dim0(payload, grp, async_op=async_op)
+    receive_scale = None if scale is None else _exchange_dim0(scale, grp, async_op=async_op)
 
     def finish():
-        _wait(work)
-        _wait(swork)
-        s = None if scale_recv is None else faults.tap_wire(scale_recv, "scale")
+        recv = receive()
+        s = None if receive_scale is None else faults.tap_wire(receive_scale(), "scale")
         return unpack(faults.tap_wire(recv, "payload"), v=split_axis - nbatch,
                       w=concat_axis - nbatch, m=m, nbatch=nbatch, scale=s, codec=d,
                       iscomplex=y.is_complex())
@@ -141,16 +152,16 @@ def _start_comm(y: torch.Tensor, pg, m: int, *, split_axis: int, concat_axis: in
     return finish, stats
 
 
-def _group(mesh: DeviceMesh, group: Group):
-    name = group_name(group)
-    return mesh.get_group(name), axis_size(mesh, name)
+def _group(mesh: DeviceMesh, group: Group) -> Subgroup:
+    return subgroup(mesh, group_names(group))
 
 
 def exchange_shard(block: torch.Tensor, v: int, w: int, group: Group, *, mesh: DeviceMesh,
                    method: str = "fused", chunks: int = 1, transposed_out: bool = False,
                    comm_dtype=None, nbatch: int = 0, guard: bool = False,
                    impl: str = "torch"):
-    """This rank's v->w exchange over the mesh dimension ``group``.
+    """This rank's v->w exchange over ``group``: a mesh dimension, or a
+    tuple of them (a composed group, indexed row-major in its own order).
 
     Input block: axis ``v`` full, axis ``w`` this rank's shard.  Output
     block: axis ``v`` this rank's shard, axis ``w`` full.  ``nbatch``
@@ -168,7 +179,8 @@ def exchange_shard(block: torch.Tensor, v: int, w: int, group: Group, *, mesh: D
         return (out, stats) if guard else out
     if method not in ("fused", "traditional"):
         raise ValueError(f"unknown method {method!r}")
-    pg, m = _group(mesh, group)
+    grp = _group(mesh, group)
+    m = grp.size
     d = canonical_comm_dtype(comm_dtype)
     if method == "fused" or (impl == "cuda" and d != "complex64"):
         # traditional with the kernels: one kernel packs chunk-major and
@@ -178,7 +190,7 @@ def exchange_shard(block: torch.Tensor, v: int, w: int, group: Group, *, mesh: D
             # the scatter goes into a new axis of extent 1 just behind the
             # fields, so received chunk j lands at index j of it; that chunk
             # axis then moves in front of the fields (a view when nbatch > 0)
-            finish, stats = _start_comm(block.unsqueeze(nbatch), pg, m, split_axis=bv + 1,
+            finish, stats = _start_comm(block.unsqueeze(nbatch), grp, split_axis=bv + 1,
                                         concat_axis=nbatch, comm_dtype=d, nbatch=nbatch,
                                         impl=impl, guard=guard)
             out = torch.movedim(finish(), nbatch, 0)
@@ -200,11 +212,11 @@ def exchange_shard(block: torch.Tensor, v: int, w: int, group: Group, *, mesh: D
         # the codec sees (fields, 1, m, ...) and cuts the m axis into m
         # chunks of 1, which land in the extent-1 axis
         z = torch.movedim(y, 0, nbatch).unsqueeze(nbatch)
-        finish, stats = _start_comm(z, pg, m, split_axis=nbatch + 1, concat_axis=nbatch,
+        finish, stats = _start_comm(z, grp, split_axis=nbatch + 1, concat_axis=nbatch,
                                     comm_dtype=d, nbatch=nbatch, impl=impl, guard=guard)
         y = torch.movedim(finish().squeeze(nbatch + 1), nbatch, 0)
     else:
-        finish, stats = _start_comm(y, pg, m, split_axis=0, concat_axis=0, comm_dtype=d,
+        finish, stats = _start_comm(y, grp, split_axis=0, concat_axis=0, comm_dtype=d,
                                     impl=impl, guard=guard)
         y = finish()
     if not transposed_out:
@@ -239,10 +251,9 @@ def exchange_shard_start(block: torch.Tensor, v: int, w: int, group: Group, *,
                              comm_dtype=comm_dtype, nbatch=nbatch, guard=guard, impl=impl)
         out, stats = res if guard else (res, None)
         return (lambda: out), stats
-    pg, m = _group(mesh, group)
-    return _start_comm(block, pg, m, split_axis=v + nbatch, concat_axis=w + nbatch,
-                       comm_dtype=comm_dtype, nbatch=nbatch, impl=impl, guard=guard,
-                       async_op=async_op)
+    return _start_comm(block, _group(mesh, group), split_axis=v + nbatch,
+                       concat_axis=w + nbatch, comm_dtype=comm_dtype, nbatch=nbatch, impl=impl,
+                       guard=guard, async_op=async_op)
 
 
 def exchange_shard_sliced(block: torch.Tensor, v: int, w: int, group: Group, *,
@@ -258,7 +269,8 @@ def exchange_shard_sliced(block: torch.Tensor, v: int, w: int, group: Group, *,
     wait; then each slice is waited for, decoded, and passed to ``then``
     (default: identity) before the next wait.  Returns the list of
     ``then(piece)``, with the stats summed over the slices when ``guard``."""
-    pg, m = _group(mesh, group)
+    grp = _group(mesh, group)
+    m = grp.size
     bv, bw = v + nbatch, w + nbatch
     nv = block.shape[bv]
     if nv % m != 0:
@@ -274,7 +286,7 @@ def exchange_shard_sliced(block: torch.Tensor, v: int, w: int, group: Group, *,
     for n in sizes:
         piece = torch.narrow(y, bv + 1, off, n)
         off += n
-        finish, s = _start_comm(piece, pg, m, split_axis=bv, concat_axis=w_eff,
+        finish, s = _start_comm(piece, grp, split_axis=bv, concat_axis=w_eff,
                                 comm_dtype=comm_dtype, nbatch=nbatch, impl=impl, guard=guard,
                                 async_op=True)
         if guard:
@@ -357,16 +369,32 @@ def exchange_local_copy_elems(src: Pencil, v: int, w: int, *, method: str = "fus
     ``movedim(...).contiguous()`` into chunk-major order and scatters with a
     ``movedim``/``reshape``, two more passes over the local block (at
     ``M = 1`` both are views).  ``all_to_all_single`` splits dim 0 only,
-    where the reference's all-to-all takes the split axis itself.  Every
-    other case equals the reference's count."""
+    where the reference's all-to-all takes the split axis itself.
+
+    The other: a composed group out of mesh order (``("p1", "p0")``, see
+    :func:`repro_torch.core.meshutil.in_mesh_order`) gathers its wire
+    buffer's chunks into the group's rank order before the send and back
+    after the receive.  On a lossy wire that is two passes over the payload
+    (``2 * local / wire_ratio`` elements of the block's width; int8's
+    ``(M, F)`` scales, a few floats, are not counted); on a lossless one the
+    send's gather takes the place of the fused and pipelined engines' pack,
+    leaving one pass, and two for traditional, whose pack comes before.
+    A group in mesh order pays nothing more.  Every other case equals the
+    reference's count."""
     local = math.prod(src.local_shape)
     d = canonical_comm_dtype(comm_dtype)
     if impl == "cuda" and d != "complex64":
-        return {"fused": 0, "pipelined": local, "traditional": 0}.get(method, 0)
-    copies = {"fused": 0, "pipelined": local, "traditional": 2 * local}.get(method, 0)
-    if d == "complex64" and method in ("fused", "pipelined") and \
-            group_size(src.mesh, src.placement[w]) > 1:
+        copies = {"fused": 0, "pipelined": local, "traditional": 0}.get(method, 0)
+    else:
+        copies = {"fused": 0, "pipelined": local, "traditional": 2 * local}.get(method, 0)
+    grp = src.placement[w]
+    if d == "complex64" and method in ("fused", "pipelined") and group_size(src.mesh, grp) > 1:
         copies += 2 * local
+    if not in_mesh_order(src.mesh, group_names(grp)):
+        if d != "complex64":
+            copies += 2 * local // wire_ratio(d)
+        else:
+            copies += 2 * local if method == "traditional" else local
     return copies
 
 

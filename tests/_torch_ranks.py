@@ -675,11 +675,25 @@ def run_many_rank(rank: int, init_file: str, out_dir: str):
 #: the port's exchange implementation names -> the reference's
 REFERENCE_IMPLS = {"torch": "jnp", "cuda": "pallas"}
 
+
+class StandInMesh:
+    """The attributes of a ``DeviceMesh`` a plan's arithmetic reads, for a
+    mesh of any shape in one process (no process group)."""
+
+    device_type = "cpu"
+
+    def __init__(self, shape, names):
+        self.shape, self.mesh_dim_names = tuple(shape), tuple(names)
+
+    def size(self, dim=None):
+        return int(np.prod(self.shape)) if dim is None else self.shape[dim]
+
 #: the plans of tests/test_pfft.py:17-42 by name: (mesh shape, mesh names,
-#: shape, grid, transforms); the slab on a composed group is left out (the
-#: port supports one mesh dimension per distributed axis)
+#: shape, grid, transforms), with the composed slab also out of mesh order
 MODEL_PLANS = {
     "slab": ((2, 4), ("p0", "p1"), (16, 12, 20), ("p0",), None),
+    "slab_composed": ((2, 4), ("p0", "p1"), (16, 12, 20), (("p0", "p1"),), None),
+    "slab_composed_reversed": ((2, 4), ("p0", "p1"), (16, 12, 20), (("p1", "p0"),), None),
     "pencil": ((2, 4), ("p0", "p1"), (16, 12, 20), ("p0", "p1"), None),
     "pencil_r2c": ((2, 4), ("p0", "p1"), (16, 12, 20), ("p0", "p1"), ("c2c", "c2c", "r2c")),
     "nondiv": ((2, 4), ("p0", "p1"), (13, 9, 11), ("p0", "p1"), None),
@@ -1247,5 +1261,319 @@ def run_serve_rank(rank: int, init_file: str, out_dir: str):
                             "cache_well_formed": bool(disk)}
             (Path(out_dir) / "serve.json").write_text(json.dumps(info))
             np.savez(Path(out_dir) / "serve.npz", **arrays)
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# composed groups and plan-level parity (tests/test_torch_composed.py)
+# ---------------------------------------------------------------------------
+
+COMPOSED_WORLD = 8
+
+#: the (2, 4) mesh of tests/test_pfft.py and tests/test_redistribute.py
+MESH_2D = ((2, 4), ("p0", "p1"))
+
+#: the (2, 2, 2) mesh of tests/test_pfft.py:37-42 and tests/test_redistribute.py:197-215
+MESH_3D = ((2, 2, 2), ("a", "b", "c"))
+
+#: a composed slab group in mesh order and out of it (JAX's index of the
+#: device at (c_p0, c_p1) is c_p1 * 2 + c_p0 for the second)
+COMPOSED_GROUPS = {"p0p1": ("p0", "p1"), "p1p0": ("p1", "p0")}
+
+#: the composed slab exchange of tests/test_redistribute.py:17-40,55-70:
+#: (global shape, placement with the group at axis 1, divisors, v, w)
+COMPOSED_EXCHANGE = ((16, 12, 10), (8, 8, 1), 0, 1)
+
+#: every engine the composed exchange runs under
+COMPOSED_ENGINES = {"fused": ("fused", {}), **ENGINES}
+
+#: tests/test_redistribute.py:197-215: (shape, placement, divisors), v=2 -> w=1
+#: and back
+ROUNDTRIP_3D = ((8, 8, 8), (("a", "b"), "c", None), (4, 4, 4))
+
+#: the composed slab plans against the reference: reference PlanConfig fields
+COMPOSED_PLAN_SHAPE = (16, 12, 20)
+COMPOSED_PLAN_CONFIGS = {
+    "default": {"method": "fused"},
+    "traditional": {"method": "traditional"},
+    "pipelined": {"method": "pipelined", "chunks": 3},
+    "slice": PLAN_CONFIGS["slice"],
+}
+
+
+def composed_placement(group: str) -> tuple:
+    return (None, COMPOSED_GROUPS[group], None)
+
+
+def composed_exchange_cases() -> list[tuple[str, str, str, str]]:
+    """``(key, group, engine, comm_dtype)`` of every composed exchange."""
+    return [(f"{g}-{eng}-{comm}", g, eng, comm)
+            for g in COMPOSED_GROUPS for eng in COMPOSED_ENGINES for comm in COMM_DTYPES]
+
+
+def composed_inputs() -> dict[str, np.ndarray]:
+    """The composed exchange's field (logical shape), the round trip's real
+    field and the composed plans' field."""
+    rng = np.random.default_rng(1100)
+    return {"exchange": _complex(rng, COMPOSED_EXCHANGE[0]),
+            "roundtrip": rng.standard_normal(ROUNDTRIP_3D[0]).astype(np.float32),
+            "plan": _complex(rng, COMPOSED_PLAN_SHAPE)}
+
+
+def padded(x: np.ndarray, divisors) -> np.ndarray:
+    """``x`` zero-padded to a multiple of ``divisors`` on every axis (a
+    pencil's physical extents, which the JAX side shards)."""
+    pads = [(0, -n % d) for n, d in zip(x.shape, divisors)]
+    return np.pad(x, pads)
+
+
+#: plan-level parity against numpy/scipy oracles.  name -> (mesh, shape,
+#: grid, transforms, kind): the matrix of tests/test_pfft.py:17-42 (the
+#: composed slab also out of mesh order), its 4-D plan on (2, 2, 2), the odd
+#: r2c extents of :169-200 and the plans of tests/test_transforms.py:149-266.
+#: ``kind`` names the oracle: "fftn" (forward vs np.fft.fftn/rfftn and the
+#: round trip), "odd_r2c" (also the backward of np.fft.rfftn), "scipy" (the
+#: scipy composition), "pruned" and "pruned_r2c" (the dealias checks)
+_TRIG_CASES = (("dct2", "dct2", "dct2"), ("dst2", "dst2", "dst2"), ("dct3", "dst3", "dct2"),
+               ("dct2", "c2c", "r2c"), ("c2c", "r2c", "dst2"))
+_GRIDS = {"slab": ("p0",), "pencil": ("p0", "p1")}
+PRUNE_N, PRUNE_M = 8, 12  # fftcore.dealias_grid(8)
+PARITY_PLANS = {
+    "slab": ("2d", (16, 12, 20), ("p0",), None, "fftn"),
+    "pencil": ("2d", (16, 12, 20), ("p0", "p1"), None, "fftn"),
+    "slab_composed": ("2d", (16, 12, 20), (("p0", "p1"),), None, "fftn"),
+    "slab_composed_reversed": ("2d", (16, 12, 20), (("p1", "p0"),), None, "fftn"),
+    "pencil_r2c": ("2d", (16, 12, 20), ("p0", "p1"), ("c2c", "c2c", "r2c"), "fftn"),
+    "nondiv": ("2d", (13, 9, 11), ("p0", "p1"), None, "fftn"),
+    "nondiv_r2c": ("2d", (13, 9, 11), ("p0", "p1"), ("c2c", "c2c", "r2c"), "fftn"),
+    "4d_on_2d": ("2d", (8, 6, 10, 12), ("p0", "p1"), None, "fftn"),
+    "4d_on_3d": ("3d", (8, 8, 8, 8), ("a", "b", "c"), None, "fftn"),
+    **{f"odd_r2c_{'_'.join(map(str, s))}_{g}": ("2d", s, grid, ("c2c", "c2c", "r2c"), "odd_r2c")
+       for s in ((8, 6, 11), (12, 10, 9), (13, 9, 7)) for g, grid in _GRIDS.items()},
+    **{f"{'_'.join(t)}_{g}": ("2d", (16, 12, 20), grid, t, "scipy")
+       for g, grid in _GRIDS.items() for t in _TRIG_CASES},
+    **{f"pruned_{g}": ("2d", (PRUNE_M,) * 3, grid, (("pruned", PRUNE_N),) * 3, "pruned")
+       for g, grid in _GRIDS.items()},
+    **{f"pruned_r2c_{g}": ("2d", (PRUNE_M,) * 3, grid,
+                           (("pruned", PRUNE_N), ("pruned", PRUNE_N), ("r2c", PRUNE_N // 2 + 1)),
+                           "pruned_r2c")
+       for g, grid in _GRIDS.items()},
+}
+
+#: (engine, method, options) each parity plan runs under
+PARITY_ENGINES = (("fused", "fused", {}), ("traditional", "traditional", {}),
+                  ("pipelined", "pipelined", {"chunks": 3}))
+
+
+def parity_inputs(name: str) -> dict[str, np.ndarray]:
+    """A parity plan's seeded inputs: ``x`` (real where the plan's first
+    transform is real-to-something) and, for the pruned plan, a spectrum
+    ``s`` of the retained modes."""
+    mesh, shape, grid, tags, kind = PARITY_PLANS[name]
+    rng = np.random.default_rng(1200 + list(PARITY_PLANS).index(name))
+    real = tags is not None and kind != "pruned"
+    out = {"x": rng.standard_normal(shape).astype(np.float32) if real else _complex(rng, shape)}
+    if kind == "pruned":
+        out["s"] = _complex(rng, (PRUNE_N,) * 3)
+    return out
+
+
+def run_composed_rank(rank: int, init_file: str, out_dir: str):
+    """One of eight ranks: the composed exchanges (each rank's output block),
+    the composed round trip on (2, 2, 2), each rank's input block of every
+    composed pencil, the composed slab plans, an auto plan under a
+    stand-in timer, ``forward_many`` under every ``batch_fusion``, guarded
+    plans and a ``PlanRegistry`` over a composed grid (``composed<rank>.npz``
+    and ``composed<rank>.json``); then every parity plan under each engine
+    and wire (rank 0: ``parity.npz``)."""
+    from collections import Counter
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import tuner
+    from repro_torch.core.meshutil import make_mesh
+    from repro_torch.core.pencil import allgather_global, make_pencil, scatter_global
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig, config_from_reference
+    from repro_torch.core.redistribute import exchange_shard
+    from repro_torch.robustness import FaultPlan
+    from repro_torch.serve.registry import PlanRegistry
+
+    torch.set_num_threads(1)  # eight ranks share the host's cores
+    calls = Counter()
+    _count_calls(dist, ("all_to_all_single",), calls)
+    _init(rank, init_file, world=COMPOSED_WORLD)
+    try:
+        d = Path(out_dir)
+        mesh = make_mesh(*MESH_2D, device="cpu")
+        mesh3 = make_mesh(*MESH_3D, device="cpu")
+        data = composed_inputs()
+        res, info = {}, {}
+
+        # the composed slab exchanges: each rank's block, every engine and wire
+        shape, divisors, v, w = COMPOSED_EXCHANGE
+        for g in COMPOSED_GROUPS:
+            pin = make_pencil(mesh, shape, composed_placement(g), divisors=divisors)
+            block = scatter_global(data["exchange"], pin, rank)
+            res[f"block:{g}"] = block.numpy()
+            for key, grp, eng, comm in composed_exchange_cases():
+                if grp != g:
+                    continue
+                method, opts = COMPOSED_ENGINES[eng]
+                y, st = exchange_shard(block, v, w, COMPOSED_GROUPS[g], mesh=mesh, method=method,
+                                       comm_dtype=comm, impl="cuda", guard=True, **opts)
+                res[key] = y.numpy()
+                res[key + ":stats"] = np.array([float(st["nonfinite"]), float(st["saturated"])])
+
+        # the round trip of a composed pencil on (2, 2, 2), every engine
+        rshape, rplace, rdiv = ROUNDTRIP_3D
+        src = make_pencil(mesh3, rshape, rplace, divisors=rdiv)
+        block = scatter_global(data["roundtrip"], src, rank)
+        res["roundtrip:block"] = block.numpy()
+        for eng, method, opts in PARITY_ENGINES:
+            y = exchange_shard(block, 2, 1, rplace[1], mesh=mesh3, method=method, **opts)
+            z = exchange_shard(y, 1, 2, rplace[1], mesh=mesh3, method=method, **opts)
+            res[f"roundtrip:{eng}:mid"] = y.numpy()
+            info[f"roundtrip:{eng}"] = torch.equal(z, block)
+
+        # the composed slab plans
+        u = data["plan"]
+        for g, grp in COMPOSED_GROUPS.items():
+            for name, cfg in COMPOSED_PLAN_CONFIGS.items():
+                plan = ParallelFFT(mesh, COMPOSED_PLAN_SHAPE, (grp,),
+                                   config=config_from_reference(cfg))
+                uh = plan.forward(u)
+                res[f"plan:{g}:{name}:fwd"] = uh.numpy()
+                res[f"plan:{g}:{name}:back"] = plan.backward(uh).numpy()
+                res[f"plan:{g}:{name}:block"] = scatter_global(u, plan.input_pencil, rank).numpy()
+
+        # an auto plan under a stand-in timer, its cache and its replay
+        timed = Counter()
+
+        def stand_in(plan, *args, **kwargs):
+            timed["calls"] += 1
+            return fake_stage_seconds(*args, **kwargs)
+
+        real_time_stage, tuner._time_stage = tuner._time_stage, stand_in
+        try:
+            for g, grp in COMPOSED_GROUPS.items():
+                cache = d / f"tune_{g}.json"
+
+                def auto(cache=cache, grp=grp):
+                    return ParallelFFT(mesh, COMPOSED_PLAN_SHAPE, (grp,), config=PlanConfig(
+                        method="auto", comm_dtype="int8", exchange_impl="cuda",
+                        tuner_cache=str(cache)))
+
+                plan = auto()
+                sched = plan.schedule
+                explicit = ParallelFFT(mesh, COMPOSED_PLAN_SHAPE, (grp,))
+                block = scatter_global(u, explicit.input_pencil, rank)
+                want = allgather_global(explicit._execute(block, "forward", sched, guard=False),
+                                        explicit.output_pencil)
+                tuner._MEMO.clear()
+                timed.clear()
+                again = auto()
+                info[f"auto:{g}"] = {
+                    "schedule": as_reference_rows(sched), "key": tuner.plan_key(plan),
+                    "forward_equal": torch.equal(plan.forward(u), want),
+                    "replay_schedule": as_reference_rows(again.schedule),
+                    "replay_timed": timed["calls"],
+                    "entry": bool(tuner.load_cache(cache).get(tuner.plan_key(plan)))
+                    if rank == 0 else None}
+        finally:
+            tuner._time_stage = real_time_stage
+            tuner._MEMO.clear()
+            tuner._STAGE_MEMO.clear()
+
+        # forward_many / backward_many under every batch_fusion, lossless and
+        # int8, against the per-field loop; the collectives of each call
+        xs = np.stack([u, 2 * u, u - 1])
+        for g, grp in COMPOSED_GROUPS.items():
+            for comm in ("complex64", "int8"):
+                base = ParallelFFT(mesh, COMPOSED_PLAN_SHAPE, (grp,),
+                                   config=PlanConfig(comm_dtype=comm, exchange_impl="cuda"))
+                loop_f = torch.stack([base.forward(f) for f in xs])
+                loop_b = torch.stack([base.backward(f) for f in loop_f])
+                for fusion in BATCH_FUSIONS:
+                    p = ParallelFFT(mesh, COMPOSED_PLAN_SHAPE, (grp,), config=PlanConfig(
+                        comm_dtype=comm, exchange_impl="cuda", batch_fusion=fusion))
+                    blk = torch.zeros((NFIELDS, *p.input_pencil.local_shape),
+                                      dtype=torch.complex64)
+                    calls.clear()
+                    p.forward_many_padded(NFIELDS)(blk)
+                    n = calls["all_to_all_single"]
+                    info[f"many:{g}:{comm}:{fusion}"] = {
+                        "equal_loop": torch.equal(p.forward_many(xs), loop_f)
+                        and torch.equal(p.backward_many(loop_f), loop_b),
+                        "collectives": n,
+                        "model": p.model_collective_launches(nfields=NFIELDS)
+                        * (2 if comm == "int8" else 1)}
+
+        # guarded plans: strict clean equals the unguarded forward; a bf16
+        # wire corrupted under degrade ends ok after degrading
+        for g, grp in COMPOSED_GROUPS.items():
+            plain = ParallelFFT(mesh, COMPOSED_PLAN_SHAPE, (grp,))
+            want = plain.forward(u)
+            strict = ParallelFFT(mesh, COMPOSED_PLAN_SHAPE, (grp,),
+                                 config=PlanConfig(guard="strict"))
+            ys, rep = strict.forward(u)
+            deg = ParallelFFT(mesh, COMPOSED_PLAN_SHAPE, (grp,), config=PlanConfig(
+                guard="degrade", comm_dtype="bf16", exchange_impl="cuda"))
+            with FaultPlan().corrupt_wire(engine="fused", codec="bf16"):
+                yd, rep_d = deg.forward(u)
+            info[f"guard:{g}"] = {
+                "strict_ok": rep.ok, "strict_equal": torch.equal(ys, want),
+                "degrade_ok": rep_d.ok, "kinds": [t["kind"] for t in rep_d.transitions],
+                "degrade_rel": float(torch.linalg.vector_norm(yd - want)
+                                     / torch.linalg.vector_norm(want))}
+
+        # a PlanRegistry over a composed grid
+        for g, grp in COMPOSED_GROUPS.items():
+            reg = PlanRegistry(mesh, (grp,), config=PlanConfig())
+            key, plan = reg.get(COMPOSED_PLAN_SHAPE)
+            again_key, again = reg.get(COMPOSED_PLAN_SHAPE)
+            direct = ParallelFFT(mesh, COMPOSED_PLAN_SHAPE, (grp,))
+            info[f"registry:{g}"] = {
+                "key_equal": key == tuner.plan_key(direct) == again_key,
+                "same_plan": again is plan, "builds": reg.builds,
+                "grid": [list(x) for x in plan.grid],
+                "forward_equal": torch.equal(plan.forward(u), direct.forward(u))}
+
+        np.savez(d / f"composed{rank}.npz", **res)
+        (d / f"composed{rank}.json").write_text(json.dumps(info))
+
+        # plan-level parity: every plan under each engine and wire
+        meshes = {"2d": mesh, "3d": mesh3}
+        arrays = {}
+        for name, (mkey, shape, grid, tags, kind) in PARITY_PLANS.items():
+            inp = parity_inputs(name)
+            x = inp["x"]
+            for eng, method, opts in PARITY_ENGINES:
+                for comm in COMM_DTYPES:
+                    plan = ParallelFFT(meshes[mkey], shape, grid,
+                                       transforms=bitwise_transforms(tags),
+                                       config=PlanConfig(method=method, comm_dtype=comm,
+                                                         exchange_impl="cuda", **opts))
+                    pre = f"{name}|{eng}|{comm}|"
+                    y = plan.forward(x)
+                    out = {"fwd": y, "back": plan.backward(y)}
+                    if kind == "odd_r2c":
+                        out["back_np"] = plan.backward(
+                            torch.from_numpy(np.fft.rfftn(x).astype(np.complex64)))
+                    if kind == "pruned":
+                        out["rt"] = plan.forward(plan.backward(torch.from_numpy(inp["s"])))
+                    if kind == "pruned_r2c":
+                        s = y.clone()
+                        s[PRUNE_N // 2, :, :] = 0
+                        s[:, PRUNE_N // 2, :] = 0
+                        out["s"] = s
+                        out["rt"] = plan.forward(plan.backward(s))
+                    if rank == 0:
+                        for k, a in out.items():
+                            arrays[pre + k] = a.numpy()
+        if rank == 0:
+            np.savez(d / "parity.npz", **arrays)
     finally:
         dist.destroy_process_group()

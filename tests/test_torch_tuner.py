@@ -5,17 +5,18 @@ package.
 
 * Unit cases ported from tests/test_tuner.py (plan keys, candidates, the
   atomic and locked cache writes, quarantine) and tests/test_scalebench.py's
-  modelfit cases; plans built over a stand-in mesh (``_Mesh``: the mesh
+  modelfit cases; plans built over a stand-in mesh (``R.StandInMesh``: the mesh
   attributes a plan's arithmetic reads), no process group.
 * Parity with the reference, computed in one JAX subprocess (8 virtual
   devices): the candidate sets in order under the name map (``"jnp"`` ->
   ``"torch"``, ``"pallas"`` -> ``"cuda"``); the models of the plans of
-  tests/test_pfft.py:17-42 (but the slab on a composed group, which the port
-  has not) at the same coefficients, passed explicitly, to 1e-12 relative,
-  both directions, 1 and 3 fields, every candidate entry as the uniform
-  schedule.  The one difference is named: a lossless fused or pipelined
-  exchange over M > 1 ranks pays two more passes over its local block in the
-  port (``exchange_local_copy_elems``), added to the reference's value
+  tests/test_pfft.py:17-42 (the slab on a composed group in mesh order and
+  out of it included) at the same coefficients, passed explicitly, to 1e-12
+  relative, both directions, 1 and 3 fields, every candidate entry as the
+  uniform schedule.  The differences are named: a lossless fused or
+  pipelined exchange over M > 1 ranks pays two more passes over its local
+  block in the port, and a composed group out of mesh order the gathers of
+  its chunks (``exchange_local_copy_elems``), added to the reference's value
   before the comparison; and ``tune_plan`` under one deterministic stand-in
   ``_time_stage`` picks the reference's schedule, also with model priors
   armed (top 6).
@@ -45,7 +46,9 @@ import torch
 import _torch_ranks as R
 from repro_torch.core import modelfit, tuner
 from repro_torch.core.pfft import ExchangeStage, ParallelFFT
-from repro_torch.core.pencil import group_size
+from repro_torch.core.meshutil import in_mesh_order
+from repro_torch.core.pencil import group_names, group_size
+from repro_torch.core.quant import wire_ratio
 from repro_torch.core.planconfig import PlanConfig, StageEntry
 
 TESTS = Path(__file__).resolve().parent
@@ -55,22 +58,9 @@ REPO = TESTS.parent
 _MODEL_RTOL = 1e-12
 
 
-class _Mesh:
-    """The attributes of a ``DeviceMesh`` a plan's arithmetic reads, for a
-    mesh of any shape in one process."""
-
-    device_type = "cpu"
-
-    def __init__(self, shape, names):
-        self.shape, self.mesh_dim_names = tuple(shape), tuple(names)
-
-    def size(self, dim=None):
-        return math.prod(self.shape) if dim is None else self.shape[dim]
-
-
 def _plan(name, **config):
     mshape, names, shape, grid, transforms = R.MODEL_PLANS[name]
-    return ParallelFFT(_Mesh(mshape, names), shape, grid, transforms=transforms,
+    return ParallelFFT(R.StandInMesh(mshape, names), shape, grid, transforms=transforms,
                        config=PlanConfig(**config))
 
 
@@ -201,13 +191,25 @@ def test_candidates_cover_the_matrix():
 
 
 def _extra_copy_elems(src, w, entry) -> int:
-    """The port's copies beyond the reference's count: a lossless fused or
-    pipelined exchange over M > 1 ranks packs and scatters its local block
-    (``exchange_local_copy_elems``)."""
-    if entry.comm_dtype == "complex64" and entry.method in ("fused", "pipelined") and \
+    """The port's copies beyond the reference's count
+    (``exchange_local_copy_elems``): a lossless fused or pipelined exchange
+    over M > 1 ranks packs and scatters its local block; a composed group
+    out of mesh order gathers its wire buffer's chunks into the group's
+    rank order and back, two passes over a lossy payload, and on a lossless
+    wire one (fused, pipelined: the send's gather is the pack) or two
+    (traditional)."""
+    local = math.prod(src.local_shape)
+    lossless = entry.comm_dtype == "complex64"
+    extra = 0
+    if lossless and entry.method in ("fused", "pipelined") and \
             group_size(src.mesh, src.placement[w]) > 1:
-        return 2 * math.prod(src.local_shape)
-    return 0
+        extra += 2 * local
+    if not in_mesh_order(src.mesh, group_names(src.placement[w])):
+        if not lossless:
+            extra += 2 * local // wire_ratio(entry.comm_dtype)
+        else:
+            extra += 2 * local if entry.method == "traditional" else local
+    return extra
 
 
 def _model_extra(plan, key, cands):
@@ -286,7 +288,7 @@ def test_model_counts_the_port_copies_only_where_named():
     assert count("traditional", "complex64") == 2 * local
     assert count("fused", "bf16") == 0 and count("pipelined", "int8") == local
     assert count("traditional", "bf16", "cuda") == 0 and count("fused", "int8", "cuda") == 0
-    one = ParallelFFT(_Mesh((1, 1), ("p0", "p1")), (16, 12, 20), ("p0", "p1"))
+    one = ParallelFFT(R.StandInMesh((1, 1), ("p0", "p1")), (16, 12, 20), ("p0", "p1"))
     src1 = one.pencil_trace[i]
     assert exchange_local_copy_elems(src1, st.v, st.w, method="fused") == 0
 
@@ -352,7 +354,7 @@ def test_plan_key_discriminates():
     """The key changes with anything that changes the stage shapes, the
     candidates or the field count, and holds the schema, backend and
     device kind."""
-    mesh = _Mesh((1, 1), ("p0", "p1"))
+    mesh = R.StandInMesh((1, 1), ("p0", "p1"))
 
     def plan(shape=(8, 8, 8), grid=("p0",), transforms=None, **kw):
         return ParallelFFT(mesh, shape, grid, transforms=transforms,
