@@ -108,15 +108,26 @@ non-zero):
    the same weights' prefill with the plain attention, and 3 teacher-forced
    decode steps must match a prefill of S + 3 tokens (one ``{"lm": ...}``
    line);
+   "moe" — after the lm path's model is freed, Phi-3.5-MoE at full width
+   (d 4096, 16 experts of 6400, top-2, GQA 32/8 heads of 128, bf16, seeded
+   weights), 28 of its 32 layers (the weights of 32 do not fit the card),
+   served through ``serve_lm.serve`` with the lm path's traffic; K6 exactly
+   once per layer per prefill, never in decode, all tc; two prefills
+   bitwise equal; the prefill against the same prefill with the plain
+   attention, and 3 teacher-forced decode steps against a prefill of S + 3,
+   both at a capacity that drops nothing and with the second run's expert
+   choices pinned to the first's, each within the limit (and unpinned,
+   reported with the choices that differ); the timed prefill's dropped share
+   of assignments per layer (one ``{"moe": ...}`` line);
 4. the kernels at the main path's shapes (512^3, where K4 runs its
    tensor-core design and K1-K3 their vec designs, as at the pipelined slice;
    K4's general design at the quickstart shape; K5 at three 1 GiB
    complex64 shapes: 512^3, the traditional pack of 512^3 into 4 chunks and
    a 2-D transpose; K1/K3 at the composed slab's exchange and K4 at its
    rows; K1/K3 on 3 stacked 512^3 fields and K4 at the DNS
-   plan's rows, the many path's shapes; K6 at the serving prefill's, and
-   once at the prefill_32k length, and its fp32 design at the prefill's
-   shape; K1, K3 and K4 at every shape the tune path launched them at, one
+   plan's rows, the many path's shapes; K6 at both serving prefills'
+   (GLM-4-9B's 2 kv heads, Phi-3.5-MoE's 8), and once at the prefill_32k
+   length, and its fp32 design at the first prefill's shape; K1, K3 and K4 at every shape the tune path launched them at, one
    record per call signature with that signature's launches): launches
    from their path,
    error against the plain version, kernel / plain / library times and the
@@ -124,7 +135,8 @@ non-zero):
    n = 64 by row count against ``torch.fft.fft``, one
    ``{"k4_general_rows"}`` line; K1, K3 and K4 also at every shape the
    serve path launched them at), the serving times beside their
-   bounds (one ``{"lm_breakdown": ...}`` line), the seconds of each phase
+   bounds (one ``{"lm_breakdown": ...}`` and one ``{"moe_breakdown": ...}``
+   line), the seconds of each phase
    (one ``{"phase_s"}`` line), then the result line.
 
 Without a CUDA device, or outside a checkout of the repository, it prints no
@@ -171,11 +183,17 @@ LM_ARGV = ["--arch", "glm4_9b", "--preset", "full", "--opt", "--batch", "4",
 # optimized flags (tests/test_models.py, 6e-2 elementwise there); a wrong
 # mask, RoPE pairing or cache slot gives a rel. L2 of order 1
 TOL_LM = 6e-2
+# the moe path: Phi-3.5-MoE at full width, its 32 layers cut to 28 (73.3 GB
+# of bf16 weights; 32 are 83.8 GB), with the lm path's traffic
+MOE_ARCH, MOE_LAYERS = "phi35_moe_42b", 28
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 2048, 32
 # K4's general design at the quickstart's last axis by row count: the
 # quickstart's 42 * 63 rows, the sweep's 4096 and eight times that
 K4_GENERAL_CASES = ((64, 2646), (64, 4096), (64, 32768))
-# K6 at the serving prefill's shape and at the prefill_32k length (batch cut)
-K6_SHAPES = (((4, 2048, 32, 2, 128), None), ((1, 32768, 32, 2, 128), "batch 32->1"))
+# K6 at the serving prefills' shapes (GLM-4-9B's 2 kv heads, Phi-3.5-MoE's 8)
+# and at the prefill_32k length (batch cut): (shape, path, cut)
+K6_SHAPES = (((4, 2048, 32, 2, 128), "lm", None), ((4, 2048, 32, 8, 128), "moe", None),
+             ((1, 32768, 32, 2, 128), None, "batch 32->1"))
 # K5's sweep: the old sweep's shapes, then 131072 rows of 32 to 256 bytes
 # (float32 and complex64 at C = 8, 16, 24, 32) across the rows design's least
 # row of 128 bytes
@@ -328,8 +346,8 @@ def main():
     print(json.dumps({"strided_fft": {**phase("strided_fft", strided_fft_check, torch),
                                       "card": card}}))
 
-    lm_info, many, tune, tune_shapes, serve, serve_shapes = {}, [], [], {}, [], {}
-    paths = phase("paths", run_paths, torch, lm_info, many, tune, tune_shapes, serve,
+    lm_info, moe_info, many, tune, tune_shapes, serve, serve_shapes = {}, {}, [], [], {}, [], {}
+    paths = phase("paths", run_paths, torch, lm_info, moe_info, many, tune, tune_shapes, serve,
                   serve_shapes, card)
     print(json.dumps({"paths": paths}))
     print(json.dumps({"many": [{**r, "card": card} for r in many]}))
@@ -339,7 +357,9 @@ def main():
     kernels = phase("kernels", main_path_kernels, torch, paths, tune_shapes, serve_shapes)
     print(json.dumps({"k4_general_rows": phase("k4_general_rows", k4_general_rows, torch)}))
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"lm_breakdown": lm_breakdown(kernels, lm_info)}))
+    print(json.dumps({"lm_breakdown": lm_breakdown(kernels, lm_info, "lm")}))
+    print(json.dumps({"moe_breakdown": {**lm_breakdown(kernels, moe_info, "moe"),
+                                        "card": card}}))
     print(json.dumps({"phase_s": {"build": round(build_s, 1), **phases,
                                   "total": round(time.perf_counter() - t0, 1)}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -753,13 +773,14 @@ def _by_call(paths, shapes, name):
         fail(f"{name}: launches by call {by_call} != the counters' {[k1, k3, k4]}")
 
 
-def run_paths(torch, lm_info, many, tune, tune_shapes, serve, serve_shapes, card):
+def run_paths(torch, lm_info, moe_info, many, tune, tune_shapes, serve, serve_shapes, card):
     """Drive the five FFT paths on a 1-rank NCCL group (the composed path
     prints its records, the many path fills ``many`` with its), measure the time model's coefficients (one
     ``{"coeffs"}`` line), drive the tune path on the same group (it fills
     ``tune`` and, with its launches by call, ``tune_shapes``), the serve path
-    (``serve``, ``serve_shapes`` likewise), then the LM path (which fills
-    ``lm_info``); returns each path's kernel launch counts."""
+    (``serve``, ``serve_shapes`` likewise), then the LM paths (which fill
+    ``lm_info`` and ``moe_info``); returns each path's kernel launch
+    counts."""
     import torch.distributed as dist
 
     from repro_torch.core.meshutil import make_mesh
@@ -818,6 +839,9 @@ def run_paths(torch, lm_info, many, tune, tune_shapes, serve, serve_shapes, card
             dist.destroy_process_group()
         shutil.rmtree(pg_dir, ignore_errors=True)
     paths["lm"] = _drive(torch, "lm", lm_path, lm_info)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["moe"] = _drive(torch, "moe", moe_path, moe_info)
     gc.collect()
     torch.cuda.empty_cache()
     return paths
@@ -2149,12 +2173,6 @@ def lm_path(torch, info):
     agree_plain = float((lg_prefill.argmax(-1) == lg_plain.argmax(-1)).float().mean())
     agree_dec = float((lg_dec.argmax(-1) == lg_full.argmax(-1)).float().mean())
     cfg = lm.cfg
-    # a decode step reads every weight once, of an untied embedding only B rows
-    param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
-    step_weight_bytes = param_bytes if cfg.tie_embeddings else (
-        param_bytes - (lm.embed.shape[0] - B) * lm.embed.shape[1] * lm.embed.element_size())
-    # the valid cache a decode step must read, at its last step
-    cache_bytes = 2 * L * B * cfg.n_kv_heads * (S + n_gen) * cfg.resolved_head_dim * 2
     out = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
            "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
            "vocab": cfg.vocab, "dtype": cfg.dtype, "params": sum(p.numel() for p in lm.parameters()),
@@ -2172,24 +2190,275 @@ def lm_path(torch, info):
     if not finite or rel_plain > TOL_LM or rel_dec > TOL_LM:
         fail(f"lm: finite {finite}, rel L2 K6 vs plain prefill {rel_plain}, teacher-forced "
              f"decode vs prefill {rel_dec} (limit {TOL_LM})")
-    info.update(out, step_weight_bytes=step_weight_bytes, cache_bytes=cache_bytes)
+    info.update(out, **_serving_bounds(lm, B, S, n_gen))
     del lg, lg_dec, lg_full, lg_plain, lg_prefill
+    _profile_serving(torch, lm, prompts, res.ids, info)
+    del res, lm, prompts
 
-    # device time of one prefill and of 4 decode steps, by kernel class
+
+def _profile_serving(torch, lm, prompts, ids, info):
+    """Device time of one prefill and of 4 decode steps, by kernel class."""
+    S = prompts.shape[1]
+    n_gen = ids.shape[1] - 1
     info["prefill_device"] = _device_time(
         torch, lambda: lm.prefill({"tokens": prompts}, max_len=S + n_gen))
     cache = lm.prefill({"tokens": prompts}, max_len=S + n_gen)[0]
-    tok = res.ids[:, 0].to(prompts.device)
+    tok = ids[:, 0].to(prompts.device)
     info["decode_device_4_steps"] = _device_time(
         torch, lambda: [lm.decode_step(cache, tok, S + t) for t in range(4)])
-    del res, lm, prompts, cache, tok
+
+
+def _serving_bounds(lm, B, S, n_gen):
+    """What a prefill of B x S tokens and a decode step must move and
+    compute: a decode step reads every weight once (every expert's: the
+    decode path runs them all; of an untied embedding only B rows) and the
+    valid cache at its last step; a prefill reads every weight once, writes
+    its cache, and does the operations of ``_prefill_flops``."""
+    cfg = lm.cfg
+    param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    step_weight_bytes = param_bytes if cfg.tie_embeddings else (
+        param_bytes - (lm.embed.shape[0] - B) * lm.embed.shape[1] * lm.embed.element_size())
+    layers = len(lm.dense0) + len(lm.blocks)
+    kv = 2 * layers * B * cfg.n_kv_heads * lm.head_dim * lm.embed.element_size()
+    return {"step_weight_bytes": step_weight_bytes, "cache_bytes": kv * (S + n_gen),
+            "prefill_bytes": param_bytes + kv * S, "prefill_flops": _prefill_flops(lm, B, S)}
+
+
+def _prefill_flops(lm, B, S):
+    """Operations of one prefill of B x S tokens, two a multiply-add: the
+    projections, causal attention over the triangle, each FFN (the experts
+    over their whole capacity buffer, as they run, the router and any shared
+    experts beside them), the last token's head."""
+    cfg = lm.cfg
+    N, d, dh = B * S, cfg.d_model, lm.head_dim
+    mult = 3 if cfg.mlp in ("swiglu", "geglu") else 2
+    attn = (2 * N * d * dh * 2 * (cfg.n_heads + cfg.n_kv_heads)
+            + 4 * dh * B * cfg.n_heads * S * (S + 1) / 2)
+
+    def ffn(p):
+        if not hasattr(p, "moe"):
+            return 2 * N * d * p.mlp["w_up"].shape[1] * mult
+        m = cfg.moe
+        cap = max(1, math.ceil(N * m.top_k * m.capacity_factor / m.n_experts))
+        return (2 * N * d * m.n_experts + 2 * m.n_experts * cap * d * m.d_ff_expert * mult
+                + 2 * N * d * m.n_shared * m.d_ff_expert * mult)
+
+    return (sum(attn + ffn(p) for p in (*lm.dense0, *lm.blocks))
+            + 2 * B * d * lm.embed.shape[0])
+
+
+def moe_path(torch, info):
+    """Phi-3.5-MoE, 28 of its 32 layers at full width, served through
+    ``serve_lm.serve`` (one warm-up round, then a timed prefill and 32
+    decode steps), then on the same weights: the K6 launches of one prefill
+    and of each decode step; the dropped share of assignments per layer of a
+    prefill of the same prompts (the timed one's function: the dispatch is
+    deterministic); a second prefill bitwise equal to it.  Then, at a
+    capacity that drops nothing (a decode step never drops): the prefill
+    against the same prefill with the plain attention, and 3 teacher-forced
+    decode steps against a prefill of S + 3 tokens.  Routing is a step
+    function of the router's margins, and at this depth with random weights
+    a rounding apart moves some of them across: each pair is compared once
+    as it routes itself, with its expert choices that differ counted, and
+    once with the second run's choices pinned to the first's (gated by its
+    own probabilities), which is the comparison held to the limit.  Fills
+    ``info``."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash import ops as flops, ref as flref
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import moe
+    from repro_torch.models.lm import LM, OPTIMIZED
+
+    def k6():
+        return sum(flops.launches.values())
+
+    cfg = dataclasses.replace(configs.get(MOE_ARCH), n_layers=MOE_LAYERS)
+    mcfg = cfg.moe
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg, q_block=512, perf=OPTIMIZED, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s, weights = time.perf_counter() - t0, torch.cuda.memory_allocated()
+    prompts = serve_lm.make_prompts(cfg.vocab, MOE_BATCH, MOE_PROMPT, "cuda", 0)
+    moe.assignments.clear()
+    res = serve_lm.serve(lm, prompts, MOE_GEN)
+    peak = torch.cuda.max_memory_allocated()
+    B, S = prompts.shape
+    L, n_gen = cfg.n_layers, res.ids.shape[1] - 1
+    served = (moe.assignments["routed"], int(moe.assignments["dropped"]))
+    if k6() != 2 * L:  # the warm-up and the timed prefill; decode launches none
+        fail(f"moe: serve launched K6 {k6()} times, want {2 * L} (two prefills)")
+
+    # each layer's dispatch counted around it, in an untimed prefill
+    dispatch, per_layer = moe.moe_apply_capacity, []
+
+    def counted(*args, **kw):
+        r0, d0 = moe.assignments["routed"], int(moe.assignments["dropped"])
+        out = dispatch(*args, **kw)
+        per_layer.append((moe.assignments["routed"] - r0, int(moe.assignments["dropped"]) - d0))
+        return out
+
+    moe.moe_apply_capacity = counted
+    try:
+        c0 = k6()
+        cache1, lg1 = lm.prefill({"tokens": prompts}, max_len=S)
+        per_prefill = k6() - c0
+    finally:
+        moe.moe_apply_capacity = dispatch
+    routed, dropped = (sum(n for n, _ in per_layer), sum(n for _, n in per_layer))
+    if len(per_layer) != L or 2 * routed != served[0] or 2 * dropped != served[1]:
+        fail(f"moe: {len(per_layer)} dispatches counted {routed} routed, {dropped} dropped; "
+             f"serve's two prefills {served}")
+    cache2, lg2 = lm.prefill({"tokens": prompts}, max_len=S)
+    bitwise = torch.equal(lg1, lg2) and all(torch.equal(cache1[g][kv], cache2[g][kv])
+                                            for g in cache1 for kv in ("k", "v"))
+    del cache1, cache2, lg2
+
+    # at a capacity of N (E / k): nothing dropped, the function decode computes
+    route = moe.route
+
+    def routed_by(fn, pinned=None):
+        """(fn(), each route call's expert ids); with ``pinned``, each call's
+        ids are taken from that list in turn and gated by the call's own
+        probabilities, renormalised."""
+        ids = []
+
+        def hook(router_w, x, top_k):
+            gates, idx, aux, z = route(router_w, x, top_k)
+            if pinned is not None:
+                idx = pinned[len(ids)]
+                probs = torch.softmax(x.float() @ router_w.float(), dim=-1).gather(1, idx)
+                gates = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)
+            ids.append(idx)
+            return gates, idx, aux, z
+
+        moe.route = hook
+        try:
+            return fn(), ids
+        finally:
+            moe.route = route
+
+    def differ(a, b):  # expert choices (a token's set in one layer) that differ
+        return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+                   for x, y in zip(a, b))
+
+    def plain(q, k, v):  # the plain attention, a batch row at a time
+        return torch.cat([flref.attention_gqa_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                                  causal=True) for b in range(q.shape[0])])
+
+    def prefill(toks, max_len=None):
+        return lm.prefill({"tokens": toks}, max_len=max_len)
+
+    extra = res.ids[:, :3].to(prompts.device)  # the first three generated ids
+    full_toks = torch.cat([prompts, extra], 1)
+
+    def decode(pinned=None):
+        """3 teacher-forced decode steps after a prefill of S; with
+        ``pinned`` (the S + 3 prefill's ids, (B (S + 3), k) a layer), the
+        prefill and each step route as the S + 3 prefill did."""
+        per_step, logits = [], []
+        cache, _ = routed_by(lambda: prefill(prompts, S + 3), pinned and [
+            p.view(B, S + 3, -1)[:, :S].reshape(B * S, -1) for p in pinned])[0]
+        for t in range(3):
+            c0 = k6()
+            step = pinned and [p.view(B, S + 3, -1)[:, S + t] for p in pinned]
+            (cache, lg), ids = routed_by(lambda: lm.decode_step(cache, extra[:, t], S + t), step)
+            per_step.append(k6() - c0)
+            logits.append(lg)
+            if pinned is None:
+                per_step_ids.append(ids)
+        return logits[-1], per_step
+
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        mcfg, capacity_factor=mcfg.n_experts / mcfg.top_k))
+    lm.cfg, d0 = nodrop, int(moe.assignments["dropped"])
+    per_step_ids = []
+    try:
+        (_, lg_k6), ids_k6 = routed_by(lambda: prefill(prompts))
+        lm._serving_causal = plain
+        try:
+            (_, lg_plain), ids_plain = routed_by(lambda: prefill(prompts))
+            lg_plain_pinned = routed_by(lambda: prefill(prompts), ids_k6)[0][1]
+        finally:
+            del lm._serving_causal
+        (_, lg_full), ids_full = routed_by(lambda: prefill(full_toks))
+        lg_dec, per_decode = decode()
+        lg_dec_pinned, _ = decode(ids_full)
+    finally:
+        lm.cfg = cfg
+    nodrop_dropped = int(moe.assignments["dropped"]) - d0
+    lg_k6, lg_plain, lg_plain_pinned, lg_full = (x[:, 0] for x in (lg_k6, lg_plain,
+                                                                    lg_plain_pinned, lg_full))
+    # the decode steps' choices against the S + 3 prefill's at positions S .. S + 2
+    dec_differ = differ([i for step in per_step_ids for i in step],
+                        [f.view(B, S + 3, -1)[:, S + t] for t in range(3) for f in ids_full])
+    if per_prefill != L or any(per_decode):
+        fail(f"moe: K6 launches per prefill {per_prefill} (want {L}), per decode step "
+             f"{per_decode} (want 0)")
+    if dict(flops.design_launches) != {"tc:bfloat16": k6()}:
+        fail(f"moe: K6 launches by design {dict(flops.design_launches)}, want all "
+             f"{k6()} on the tensor-core design")
+    finite = bool(torch.isfinite(lg1).all() and torch.isfinite(lg_dec).all())
+    rel_plain = rel_l2(torch, lg_k6, lg_plain_pinned)
+    rel_dec = rel_l2(torch, lg_dec_pinned, lg_full)
+
+    def agree(a, b):
+        return float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+    out = {"arch": cfg.name, "layers": L, "published_layers": configs.get(MOE_ARCH).n_layers,
+           "reduced": f"n_layers {configs.get(MOE_ARCH).n_layers}->{L}: the weights of all "
+                      f"layers do not fit the card",
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.resolved_head_dim, "n_experts": mcfg.n_experts, "top_k": mcfg.top_k,
+           "d_ff_expert": mcfg.d_ff_expert, "capacity_factor": mcfg.capacity_factor,
+           "capacity": max(1, math.ceil(B * S * mcfg.top_k * mcfg.capacity_factor
+                                        / mcfg.n_experts)),
+           "vocab": cfg.vocab, "dtype": cfg.dtype,
+           "params": sum(p.numel() for p in lm.parameters()), "weights_gib": weights / 2**30,
+           "init_s": init_s, "batch": B, "prompt_len": S, "gen": n_gen,
+           "prefill_ms": res.prefill_s * 1e3, "prefill_tok_s": B * S / res.prefill_s,
+           "decode_ms_per_step": res.decode_s * 1e3 / n_gen,
+           "decode_tok_s": B * n_gen / res.decode_s,
+           "max_memory_allocated_gib": peak / 2**30, "ids": res.ids[0][:12].tolist(),
+           "k6_launches_per_prefill": per_prefill, "k6_launches_per_decode_step": per_decode,
+           "dropped_share": dropped / routed,
+           "dropped_share_per_layer": [n / r for r, n in per_layer],
+           "two_prefills_bitwise": bitwise, "nodrop_dropped": nodrop_dropped,
+           "rel_l2_k6_vs_plain_prefill": rel_plain, "limit": TOL_LM,
+           "argmax_agree_k6_vs_plain": agree(lg_k6, lg_plain_pinned),
+           "rel_l2_teacher_forced_decode_vs_nodrop_prefill": rel_dec,
+           "argmax_agree_teacher_forced": agree(lg_dec_pinned, lg_full),
+           "unpinned": {
+               "rel_l2_k6_vs_plain_prefill": rel_l2(torch, lg_k6, lg_plain),
+               "argmax_agree_k6_vs_plain": agree(lg_k6, lg_plain),
+               "expert_choices_differ_k6_vs_plain_by_layer": [
+                   differ([a], [b]) for a, b in zip(ids_k6, ids_plain)],
+               "expert_choices_k6_vs_plain": L * B * S,
+               "rel_l2_teacher_forced_decode_vs_nodrop_prefill": rel_l2(torch, lg_dec, lg_full),
+               "argmax_agree_teacher_forced": agree(lg_dec, lg_full),
+               "expert_choices_differ_decode_vs_prefill": dec_differ,
+               "expert_choices_decode_vs_prefill": 3 * L * B},
+           "finite": finite}
+    print(json.dumps({"moe": out}))
+    if not (finite and bitwise) or nodrop_dropped or rel_plain > TOL_LM or rel_dec > TOL_LM:
+        fail(f"moe: finite {finite}, two prefills bitwise {bitwise}, dropped at capacity N "
+             f"{nodrop_dropped}, rel L2 K6 vs plain prefill {rel_plain}, teacher-forced decode "
+             f"vs prefill {rel_dec} (routing pinned; limit {TOL_LM})")
+    info.update(out, **_serving_bounds(lm, B, S, n_gen))
+    del lg1, lg_dec, lg_dec_pinned, lg_full, lg_plain, lg_plain_pinned, lg_k6
+    _profile_serving(torch, lm, prompts, res.ids, info)
+    del res, lm, prompts
 
 
 def _device_time(torch, fn):
     """Device time of ``fn`` from a torch.profiler trace: the sum of kernel
     and copy times on the card (one stream, so no overlap), split into
-    K6, matrix products and the rest, and the five largest kernels.  None
-    where the trace holds no device time."""
+    K6, matrix products, indexing and sorting (the MoE dispatch's and
+    combine's gathers, scatters, sorts and searches; the embedding lookup)
+    and the rest, and the five largest kernels.  None where the trace holds
+    no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2200,11 +2469,13 @@ def _device_time(torch, fn):
                if e.self_device_time_total > 0 and e.device_type.name == "CUDA"]
     if not kernels:
         return None
-    classes = {"k6": 0.0, "matmul": 0.0, "other": 0.0}
+    classes = {"k6": 0.0, "matmul": 0.0, "index_sort": 0.0, "other": 0.0}
     for name, ms, _ in kernels:
         low = name.lower()
         cls = ("k6" if "flash_tc_kernel" in low or "flash_kernel" in low else
                "matmul" if any(w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
+               else "index_sort" if any(w in low for w in ("sort", "index", "gather", "scatter",
+                                                           "searchsorted"))
                else "other")
         classes[cls] += ms
     top = sorted(kernels, key=lambda k: -k[1])[:5]
@@ -2213,14 +2484,18 @@ def _device_time(torch, fn):
             "top": [{"name": n[:80], "ms": ms, "count": c} for n, ms, c in top]}
 
 
-def lm_breakdown(kernels, info):
-    """The serving times beside K6's share and the decode step's byte bound."""
-    k6 = next(k for k in kernels if k["name"].startswith("flash_attention") and k["path"] == "lm")
+def lm_breakdown(kernels, info, path):
+    """A serving path's times beside K6's share, the prefill's bound and the
+    decode step's byte bound."""
+    k6 = next(k for k in kernels if k["name"].startswith("flash_attention") and k["path"] == path)
+    pre_bound, pre_by = bound_ms(info["prefill_bytes"], info["prefill_flops"], BF16_TC_FLOPS)
     k6_total = k6["ms"] * info["layers"]
     decode_bytes = info["step_weight_bytes"] + info["cache_bytes"]
     out = {"prefill_ms": info["prefill_ms"], "k6_ms_x_layers": k6_total,
            "k6_share_of_prefill": k6_total / info["prefill_ms"],
            "prefill_rest_ms": info["prefill_ms"] - k6_total,
+           "prefill_tflop": info["prefill_flops"] / 1e12, "prefill_bound_ms": pre_bound,
+           "prefill_bound_by": pre_by,
            "decode_ms_per_step": info["decode_ms_per_step"],
            "decode_bound_ms": decode_bytes / HBM_BPS * 1e3, "decode_bound_by": "bytes",
            "decode_bytes": decode_bytes,
@@ -2667,14 +2942,15 @@ def _k4_record(torch, fops, fref, tag, rows, counts, kern, plain, lib, nbytes, l
 
 
 def _flash_records(torch, paths):
-    """K6 at the serving prefill's shape (launches from the lm path) and at
-    the prefill_32k length, bf16, causal, against the plain version (at 32k
+    """K6 at the serving prefills' shapes (launches from the lm and moe
+    paths) and at the prefill_32k length, bf16, causal, against the plain
+    version (at 32k
     one q head at a time: the whole (S, S) fp32 score matrix of 32 heads
     would not fit) and SDPA."""
     from repro_torch.kernels.flash import ops as flops, ref as flref
 
     recs = []
-    for (B, S, Hq, Hkv, dh), reduced in K6_SHAPES:
+    for (B, S, Hq, Hkv, dh), path, reduced in K6_SHAPES:
         t0 = time.perf_counter()
         G = Hq // Hkv
         gen = torch.Generator(device="cuda").manual_seed(S)
@@ -2709,10 +2985,9 @@ def _flash_records(torch, paths):
         if reduced is not None:
             extra["reduced"] = reduced
         extra["record_s"] = time.perf_counter() - t0
-        recs.append(_record(f"flash_attention[causal,bf16,B{B},S{S}]", "flash.cu",
-                            "src/repro/kernels/flash/kernel.py:80",
-                            "lm" if reduced is None else None,
-                            paths["lm"].get("flash_attention:bfloat16", 0) if reduced is None
+        recs.append(_record(f"flash_attention[causal,bf16,B{B},S{S},Hkv{Hkv}]", "flash.cu",
+                            "src/repro/kernels/flash/kernel.py:80", path,
+                            paths[path].get("flash_attention:bfloat16", 0) if path
                             else _launched(paths, "flash_attention:bfloat16"), err, ms, plain_ms,
                             bound_ms(nbytes, flop, BF16_TC_FLOPS), lib_ms, **extra))
         del q, k, v
@@ -2754,7 +3029,7 @@ def _flash_fp32_record(torch, paths):
     (non-tensor) peak."""
     from repro_torch.kernels.flash import ops as flops, ref as flref
 
-    (B, S, Hq, Hkv, dh), _ = K6_SHAPES[0]
+    (B, S, Hq, Hkv, dh), _, _ = K6_SHAPES[0]
     gen = torch.Generator(device="cuda").manual_seed(S + 1)
     q, k, v = (torch.randn((B, S, h, dh), generator=gen, device="cuda") for h in (Hq, Hkv, Hkv))
     kern = lambda: flops.flash_attention(q, k, v, causal=True)

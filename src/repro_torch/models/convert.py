@@ -3,10 +3,13 @@
 ``lm_params_from_reference(cfg, params)`` takes the pytree of the
 reference's ``LM.init_params`` with numpy (or array-like) leaves and returns
 the state dict that the port's ``LM.load_state_dict(..., strict=True)``
-takes: the leading layer axis of ``blocks`` is unstacked into
-``blocks.<i>.<...>``.  bf16 arrives as numpy's ``bfloat16`` extension dtype,
-which ``torch.from_numpy`` refuses; it is recognised by name and carried
-bit for bit through ``uint16``, so this module needs no extension package.
+takes: the leading layer axis of ``blocks`` (and of the MoE family's
+``dense0``) is unstacked into ``blocks.<i>.<...>``.  Leaves keep their
+dtype: the MoE router stays fp32, the expert stacks (E, d_in, d_out) are
+one tensor a layer as in the port.  bf16 arrives as numpy's ``bfloat16``
+extension dtype, which ``torch.from_numpy`` refuses; it is recognised by
+name and carried bit for bit through ``uint16``, so this module needs no
+extension package.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.lm import not_ported
 
 
 def to_tensor(a) -> torch.Tensor:
@@ -34,16 +38,19 @@ def _flatten(tree, prefix: str = ""):
 
 
 def lm_params_from_reference(cfg: ArchConfig, params: dict) -> dict[str, torch.Tensor]:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"only the dense family is ported, not {cfg.family!r}")
+    why = not_ported(cfg)
+    if why:
+        raise NotImplementedError(f"not ported: {why}")
+    n_dense = cfg.moe.first_k_dense if cfg.moe else 0
+    layers = {"dense0": n_dense, "blocks": cfg.n_layers - n_dense}
     out = {}
-    for name, leaf in _flatten({k: v for k, v in params.items() if k != "blocks"}):
+    for name, leaf in _flatten({k: v for k, v in params.items() if k not in layers}):
         out[name] = to_tensor(leaf)
-    for name, leaf in _flatten(params["blocks"]):
-        stacked = to_tensor(leaf)
-        if stacked.shape[0] != cfg.n_layers:
-            raise ValueError(f"blocks.{name}: {stacked.shape[0]} layers, config has "
-                             f"{cfg.n_layers}")
-        for i in range(cfg.n_layers):
-            out[f"blocks.{i}.{name}"] = stacked[i].clone()
+    for group, n in layers.items():
+        for name, leaf in _flatten(params.get(group, {})):
+            stacked = to_tensor(leaf)
+            if stacked.shape[0] != n:
+                raise ValueError(f"{group}.{name}: {stacked.shape[0]} layers, config has {n}")
+            for i in range(n):
+                out[f"{group}.{i}.{name}"] = stacked[i].clone()
     return out

@@ -1,20 +1,28 @@
-"""The LM for serving, dense family (the port of ``repro/models/lm.py``).
+"""The LM for serving, dense and MoE families (the port of
+``repro/models/lm.py``).
 
 ``LM`` is an ``nn.Module`` that holds the parameters of one card:
-``embed``, ``final_norm``, ``lm_head`` (unless tied) and ``blocks``, one
-per layer (the reference stacks them on a leading axis and scans).  Its
-entry points:
+``embed``, ``final_norm``, ``lm_head`` (unless tied), ``dense0`` (the MoE
+family's ``first_k_dense`` leading dense blocks, width ``dense_ff or
+d_ff``) and ``blocks``, one per layer, each with an ``mlp`` or, in the MoE
+family, a ``moe`` (the reference stacks each group on a leading axis and
+scans).  Its entry points:
 
   ``prefill(batch, *, max_len)``          -> (cache, last-token fp32 logits (B, 1, V))
   ``decode_step(cache, token, cur_len)``  -> (cache, fp32 logits (B, V))
 
-The cache is ``{"blocks": {"k": ..., "v": ...}}`` with a leading layer axis,
+The cache is ``{"blocks": {"k": ..., "v": ...}}`` (and ``"dense0"`` alike
+where the model has leading dense blocks) with a leading layer axis,
 (L, B, Hkv, M, dh) under ``hmajor_cache`` and (L, B, M, Hkv, dh) otherwise,
 allocated at ``max_len`` by the prefill and written in place by each decode
 step at ``cur_len`` (the reference donates it instead).  There is no mesh:
 one card holds the model, so the vocabulary is not padded (``vocab_padded
 == vocab``).  Under ``exact_causal_prefill`` the prefill's attention is the
-flash kernel (K6).  Families other than ``dense`` are not ported yet.
+flash kernel (K6).  An expert block's prefill runs the capacity dispatch
+(``moe.moe_apply_capacity``, which drops assignments past capacity) and a
+decode step every expert on its tokens (``moe.moe_apply_local``), as the
+reference does at tp = 1.  MLA (DeepSeek-V2) and the other families are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import dense_init, layernorm, mlp_apply, mlp_init, rmsnorm
 
@@ -55,8 +64,11 @@ OPTIMIZED = PerfFlags(bf16_attention=True, exact_causal_prefill=True,
                       remat_policy="dots", hmajor_cache=True)
 
 
-def _params(tensors: dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False) for k, t in tensors.items()})
+def _params(tensors: dict) -> nn.ParameterDict:
+    """A (nested) dict of tensors as frozen parameters, indexed as the dict."""
+    return nn.ParameterDict({k: _params(t) if isinstance(t, dict)
+                             else nn.Parameter(t, requires_grad=False)
+                             for k, t in tensors.items()})
 
 
 def _norm_init(cfg: ArchConfig, d: int, device) -> nn.ParameterDict:
@@ -73,9 +85,11 @@ def _norm_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 
 class Block(nn.Module):
-    """One pre-norm decoder layer: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """One pre-norm decoder layer: ``ln1``, ``attn``, ``ln2``, and ``mlp``
+    of width ``ff`` (default ``d_ff``) or, with ``use_moe``, ``moe``."""
 
-    def __init__(self, cfg: ArchConfig, gen: torch.Generator, dtype: torch.dtype):
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator, dtype: torch.dtype, *,
+                 use_moe: bool = False, ff: int | None = None):
         super().__init__()
         d = cfg.d_model
         self.ln1 = _norm_init(cfg, d, gen.device)
@@ -83,11 +97,23 @@ class Block(nn.Module):
         self.attn = _params(attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
                                           cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
                                           dtype=dtype))
-        self.mlp = _params(mlp_init(gen, d, cfg.d_ff, cfg.mlp, dtype))
+        if use_moe:
+            self.moe = _params(moe.moe_init(gen, d, cfg.moe, cfg.mlp, dtype))
+        else:
+            self.mlp = _params(mlp_init(gen, d, ff or cfg.d_ff, cfg.mlp, dtype))
+
+
+def not_ported(cfg: ArchConfig) -> str | None:
+    """Why the port cannot run ``cfg`` yet, or None."""
+    if cfg.family not in ("dense", "moe"):
+        return f"{cfg.name} is {cfg.family!r}"
+    if cfg.mla is not None:
+        return f"{cfg.name} uses MLA attention"
+    return None
 
 
 class LM(nn.Module):
-    """A dense decoder LM on one device, weights drawn from ``seed``.
+    """A dense or MoE decoder LM on one device, weights drawn from ``seed``.
 
     ``device`` defaults to CUDA and raises without a card; pass ``"cpu"``
     to run on the CPU (every kernel then takes its plain version).
@@ -96,9 +122,10 @@ class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, q_block: int = 512, perf: PerfFlags | None = None,
                  device: str | torch.device = "cuda", seed: int = 0):
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(f"the port's LM runs the dense family; {cfg.name} is "
-                                      f"{cfg.family!r}, still to port (ROADMAP.md §1)")
+        why = not_ported(cfg)
+        if why:
+            raise NotImplementedError(f"the port's LM runs the dense and MoE families "
+                                      f"without MLA; {why}, still to port (ROADMAP.md §1)")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LM defaults to CUDA and no CUDA device is available; "
@@ -115,7 +142,11 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(dense_init(gen, d, self.vocab_padded, self.dtype),
                                         requires_grad=False)
-        self.blocks = nn.ModuleList(Block(cfg, gen, self.dtype) for _ in range(cfg.n_layers))
+        n_dense = cfg.moe.first_k_dense if cfg.moe else 0
+        ff0 = (cfg.moe.dense_ff or cfg.d_ff) if cfg.moe else cfg.d_ff
+        self.dense0 = nn.ModuleList(Block(cfg, gen, self.dtype, ff=ff0) for _ in range(n_dense))
+        self.blocks = nn.ModuleList(Block(cfg, gen, self.dtype, use_moe=cfg.moe is not None)
+                                    for _ in range(cfg.n_layers - n_dense))
 
     @property
     def head_dim(self) -> int:
@@ -175,17 +206,31 @@ class LM(nn.Module):
                                   bf16_compute=self.perf.bf16_attention)
         return x + o.reshape(B, 1, -1) @ p.attn["wo"]
 
-    def _ffn_block(self, p, x):
-        return x + mlp_apply(p.mlp, _norm_apply(self.cfg, p.ln2, x), self.cfg.mlp)
+    def _ffn_block(self, p, x, *, use_moe: bool, decode: bool):
+        """The FFN sub-block: the layer's MLP, or its experts through the
+        capacity dispatch (prefill) or all of them on each token (decode)."""
+        h = _norm_apply(self.cfg, p.ln2, x)
+        if not use_moe:
+            return x + mlp_apply(p.mlp, h, self.cfg.mlp)
+        fn = moe.moe_apply_local if decode else moe.moe_apply_capacity
+        y, _, _ = fn(p.moe, h, cfg=self.cfg.moe, mlp_kind=self.cfg.mlp)
+        return x + y
+
+    def _groups(self):
+        """(cache key, blocks, whether they hold experts) in the order the
+        layers run."""
+        return [(name, g, use_moe) for name, g, use_moe in (
+            ("dense0", self.dense0, False), ("blocks", self.blocks, self.cfg.moe is not None))
+            if len(g)]
 
     def _new_cache(self, batch: int, max_len: int) -> dict:
-        """A zeroed cache of ``max_len`` positions."""
+        """A zeroed cache of ``max_len`` positions for every layer group."""
         cfg = self.cfg
         per_layer = ((batch, cfg.n_kv_heads, max_len, self.head_dim) if self.perf.hmajor_cache
                      else (batch, max_len, cfg.n_kv_heads, self.head_dim))
-        shape = (cfg.n_layers, *per_layer)
-        return {"blocks": {name: torch.zeros(shape, dtype=self.dtype, device=self.device)
-                           for name in ("k", "v")}}
+        return {name: {kv: torch.zeros((len(g), *per_layer), dtype=self.dtype,
+                                       device=self.device) for kv in ("k", "v")}
+                for name, g, _ in self._groups()}
 
     # -- serving ----------------------------------------------------------------
 
@@ -201,10 +246,11 @@ class LM(nn.Module):
         x = self.embed[tokens]
         positions = torch.arange(S, device=self.device).expand(B, S)
         cache = self._new_cache(B, M)
-        ks, vs = cache["blocks"]["k"], cache["blocks"]["v"]
-        for i, p in enumerate(self.blocks):
-            x = self._attn_prefill(p, x, positions, ks[i], vs[i])
-            x = self._ffn_block(p, x)
+        for name, group, use_moe in self._groups():
+            ks, vs = cache[name]["k"], cache[name]["v"]
+            for i, p in enumerate(group):
+                x = self._attn_prefill(p, x, positions, ks[i], vs[i])
+                x = self._ffn_block(p, x, use_moe=use_moe, decode=False)
         return cache, self._last_logits(x)
 
     @torch.no_grad()
@@ -212,12 +258,14 @@ class LM(nn.Module):
         """token: (B,) ids; cur_len: the cache's current length.  Returns
         (the cache, written in place, and fp32 logits (B, V))."""
         cur_len = int(cur_len)
-        ks, vs = cache["blocks"]["k"], cache["blocks"]["v"]
+        ks = next(iter(cache.values()))["k"]
         max_len = ks.shape[3] if self.perf.hmajor_cache else ks.shape[2]
         if not 0 <= cur_len < max_len:
             raise ValueError(f"cur_len {cur_len} outside a cache of {max_len} positions")
         x = self.embed[token.to(self.device)[:, None]]
-        for i, p in enumerate(self.blocks):
-            x = self._attn_decode(p, x, ks[i], vs[i], cur_len)
-            x = self._ffn_block(p, x)
+        for name, group, use_moe in self._groups():
+            ks, vs = cache[name]["k"], cache[name]["v"]
+            for i, p in enumerate(group):
+                x = self._attn_decode(p, x, ks[i], vs[i], cur_len)
+                x = self._ffn_block(p, x, use_moe=use_moe, decode=True)
         return cache, self._last_logits(x)[:, 0]

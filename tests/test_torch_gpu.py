@@ -680,6 +680,33 @@ def test_lm_prefill_runs_k6_once_per_layer(cuda):
     assert rel < 6e-2, rel
 
 
+def test_moe_lm_prefill_runs_k6_once_per_layer_and_repeats_bitwise(cuda):
+    """Phi-3.5-MoE's smoke config on the card: K6 once per layer in the
+    prefill and never in decode; at a capacity that drops, two prefills are
+    bitwise equal and the dropped count is read from the card."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models.lm import LM, OPTIMIZED
+
+    cfg = configs.smoke("phi35_moe_42b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    lm = LM(cfg, q_block=16, perf=OPTIMIZED, device=cuda, seed=0)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=cuda,
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    before = sum(flops.launches.values())
+    moe.assignments.clear()
+    cache, lg = lm.prefill({"tokens": toks}, max_len=41)
+    assert sum(flops.launches.values()) == before + cfg.n_layers
+    dropped = int(moe.assignments["dropped"])
+    assert 0 < dropped < moe.assignments["routed"]
+    lm.decode_step(cache, lg[:, 0].argmax(-1), 40)
+    assert sum(flops.launches.values()) == before + cfg.n_layers
+    _, lg2 = lm.prefill({"tokens": toks}, max_len=41)
+    assert torch.equal(lg, lg2) and int(moe.assignments["dropped"]) == 2 * dropped
+
+
 @pytest.mark.parametrize("budget", ["bf16", "int8"])
 def test_auto_plan_equals_explicit_under_its_schedule(mesh1, tmp_path, budget):
     """An auto plan tunes on the card with the exchange kernels swept

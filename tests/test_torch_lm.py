@@ -133,7 +133,8 @@ def test_dense_smoke_configs_serve(arch):
 
 
 @pytest.mark.parametrize("arch", [a for a in configs.ARCH_NAMES
-                                  if configs.get(a).family != "dense"])
+                                  if configs.get(a).family != "dense"
+                                  and lm.not_ported(configs.get(a))])
 def test_other_families_are_refused_naming_the_roadmap(arch):
     cfg = configs.smoke(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
