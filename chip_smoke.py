@@ -28,8 +28,10 @@ non-zero):
    ran: ``"rows"``, 16-byte vectors straight from x to y, or ``"tile"``,
    through shared memory; both must run, one input at an odd storage offset;
    all bitwise), and K6 (flash attention) over dtype x
-   causal x GQA group x S x head dim (each record names the design that
-   ran: ``"tc"``, bf16 mma.sync, for bf16; ``"fma"`` for fp32);
+   causal x GQA group x S x head dims (one for q, k and v, and MLA's 192
+   for q and k beside 128 for v; each record names the design that ran:
+   ``"tc"``, bf16 mma.sync, for bf16; ``"fma"`` for fp32, and the backend
+   SDPA picked);
 3. the port's paths on a 1-rank NCCL group and a (1, 1) mesh, each driven
    with the launch counters set to 0 just before it and read just after
    (one ``{"paths": ...}`` line, K1's and K3's launches also by design,
@@ -119,14 +121,24 @@ non-zero):
    choices pinned to the first's, each within the limit (and unpinned,
    reported with the choices that differ); the timed prefill's dropped share
    of assignments per layer (one ``{"moe": ...}`` line);
+   "mla" — after the moe path's model is freed, DeepSeek-V2-Lite whole (27
+   layers at full width: MLA of rank 512 with heads of 128 + 64 and values
+   of 128, 64 experts of 1408, top-6, beside 2 shared, one leading dense
+   block, bf16, seeded weights) through ``serve_lm.main`` with the lm path's
+   traffic; K6 exactly once per layer per prefill at q (4, 2048, 16, 192)
+   and v (4, 2048, 16, 128), never in decode, all tc; two prefills bitwise
+   equal (logits and the latent cache); the moe path's pinned comparisons;
+   one absorbed decode step against the expanded one, routing pinned; the
+   dropped share per layer (one ``{"mla": ...}`` line);
 4. the kernels at the main path's shapes (512^3, where K4 runs its
    tensor-core design and K1-K3 their vec designs, as at the pipelined slice;
    K4's general design at the quickstart shape; K5 at three 1 GiB
    complex64 shapes: 512^3, the traditional pack of 512^3 into 4 chunks and
    a 2-D transpose; K1/K3 at the composed slab's exchange and K4 at its
    rows; K1/K3 on 3 stacked 512^3 fields and K4 at the DNS
-   plan's rows, the many path's shapes; K6 at both serving prefills'
-   (GLM-4-9B's 2 kv heads, Phi-3.5-MoE's 8), and once at the prefill_32k
+   plan's rows, the many path's shapes; K6 at the three serving prefills'
+   (GLM-4-9B's 2 kv heads, Phi-3.5-MoE's 8, DeepSeek-V2-Lite's MLA at
+   (192, 128)), and once at the prefill_32k
    length, and its fp32 design at the first prefill's shape; K1, K3 and K4 at every shape the tune path launched them at, one
    record per call signature with that signature's launches): launches
    from their path,
@@ -135,8 +147,8 @@ non-zero):
    n = 64 by row count against ``torch.fft.fft``, one
    ``{"k4_general_rows"}`` line; K1, K3 and K4 also at every shape the
    serve path launched them at), the serving times beside their
-   bounds (one ``{"lm_breakdown": ...}`` and one ``{"moe_breakdown": ...}``
-   line), the seconds of each phase
+   bounds (one ``{"lm_breakdown": ...}``, one ``{"moe_breakdown": ...}``
+   and one ``{"mla_breakdown": ...}`` line), the seconds of each phase
    (one ``{"phase_s"}`` line), then the result line.
 
 Without a CUDA device, or outside a checkout of the repository, it prints no
@@ -187,13 +199,19 @@ TOL_LM = 6e-2
 # of bf16 weights; 32 are 83.8 GB), with the lm path's traffic
 MOE_ARCH, MOE_LAYERS = "phi35_moe_42b", 28
 MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 2048, 32
+# the mla path: DeepSeek-V2-Lite whole (27 layers, 29.3 GiB of bf16 weights),
+# served through serve_lm as a user calls it, with the lm path's traffic
+MLA_ARGV = ["--arch", "deepseek_v2_lite_16b", "--preset", "full", "--opt", "--batch", "4",
+            "--prompt-len", "2048", "--gen", "32"]
 # K4's general design at the quickstart's last axis by row count: the
 # quickstart's 42 * 63 rows, the sweep's 4096 and eight times that
 K4_GENERAL_CASES = ((64, 2646), (64, 4096), (64, 32768))
-# K6 at the serving prefills' shapes (GLM-4-9B's 2 kv heads, Phi-3.5-MoE's 8)
-# and at the prefill_32k length (batch cut): (shape, path, cut)
-K6_SHAPES = (((4, 2048, 32, 2, 128), "lm", None), ((4, 2048, 32, 8, 128), "moe", None),
-             ((1, 32768, 32, 2, 128), None, "batch 32->1"))
+# K6 at the serving prefills' shapes (GLM-4-9B's 2 kv heads, Phi-3.5-MoE's 8,
+# DeepSeek-V2-Lite's MLA: 16 heads, q and k of 192, v of 128) and at the
+# prefill_32k length (batch cut): ((B, S, Hq, Hkv, dqk, dv), path, cut)
+K6_SHAPES = (((4, 2048, 32, 2, 128, 128), "lm", None), ((4, 2048, 32, 8, 128, 128), "moe", None),
+             ((4, 2048, 16, 16, 192, 128), "mla", None),
+             ((1, 32768, 32, 2, 128, 128), None, "batch 32->1"))
 # K5's sweep: the old sweep's shapes, then 131072 rows of 32 to 256 bytes
 # (float32 and complex64 at C = 8, 16, 24, 32) across the rows design's least
 # row of 128 bytes
@@ -317,7 +335,9 @@ def main():
     print(f"built {sorted(logs) or 'nothing (cached)'} in {build_s:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
+            if "Function properties for" in line:  # the kernel the next two lines are of
+                print(f"  {name}: {line.split(' for ', 1)[1].strip()[:100]}")
+            elif "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
     from repro_torch import sass_census
@@ -346,9 +366,10 @@ def main():
     print(json.dumps({"strided_fft": {**phase("strided_fft", strided_fft_check, torch),
                                       "card": card}}))
 
-    lm_info, moe_info, many, tune, tune_shapes, serve, serve_shapes = {}, {}, [], [], {}, [], {}
-    paths = phase("paths", run_paths, torch, lm_info, moe_info, many, tune, tune_shapes, serve,
-                  serve_shapes, card)
+    lm_info, moe_info, mla_info = {}, {}, {}
+    many, tune, tune_shapes, serve, serve_shapes = [], [], {}, [], {}
+    paths = phase("paths", run_paths, torch, lm_info, moe_info, mla_info, many, tune,
+                  tune_shapes, serve, serve_shapes, card)
     print(json.dumps({"paths": paths}))
     print(json.dumps({"many": [{**r, "card": card} for r in many]}))
     print(json.dumps({"tune": [{**r, "card": card} for r in tune]}))
@@ -359,6 +380,8 @@ def main():
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"lm_breakdown": lm_breakdown(kernels, lm_info, "lm")}))
     print(json.dumps({"moe_breakdown": {**lm_breakdown(kernels, moe_info, "moe"),
+                                        "card": card}}))
+    print(json.dumps({"mla_breakdown": {**lm_breakdown(kernels, mla_info, "mla"),
                                         "card": card}}))
     print(json.dumps({"phase_s": {"build": round(build_s, 1), **phases,
                                   "total": round(time.perf_counter() - t0, 1)}}))
@@ -578,14 +601,27 @@ def _check_attention(torch, name, got, want, v):
     return float(err.max())
 
 
-def _sdpa(torch, q, k, v, causal):
-    """The library call K6 is timed against: one SDPA call on (B, H, S, dh)
-    views, GQA by ``enable_gqa``."""
+def _sdpa_ms(torch, q, k, v, causal, reps=5):
+    """The library call K6 is timed against, one SDPA call on (B, H, S, dh)
+    copies, GQA by ``enable_gqa``: (its ms, the backend it picks) on K6's
+    inputs; (None, why) where it refuses them."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
 
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                  enable_gqa=True)
+    fn = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    try:
+        choice = torch._fused_sdp_choice(qt, kt, vt, None, 0.0, causal, scale=None,
+                                         enable_gqa=True)
+        backend = {int(b): n for n, b in SDPBackend.__members__.items()}.get(int(choice),
+                                                                           str(choice))
+    except (AttributeError, RuntimeError, TypeError) as e:
+        backend = f"unknown ({type(e).__name__})"
+    try:
+        fn()
+    except RuntimeError as e:
+        return None, f"refused: {str(e).splitlines()[0][:160]}"
+    return cuda_ms(torch, fn, reps), backend
 
 
 def _flash_sweep(torch):
@@ -596,24 +632,26 @@ def _flash_sweep(torch):
         for causal in (True, False):
             for G in (1, 2, 16):
                 for S in (50, 64, 257):  # S <= block_k: the reference takes non-causal too
-                    for dh in (16, 64, 128, 160):
+                    # (q/k, v) head dims: one for all three, and MLA's (192, 128)
+                    for dh, dv in ((16, 16), (64, 64), (128, 128), (160, 160), (192, 128)):
                         gen = torch.Generator(device="cuda").manual_seed(S * dh + G)
-                        q, k, v = (torch.randn((2, S, h, dh), generator=gen, device="cuda")
-                                   .to(dtype) for h in (2 * G, 2, 2))
+                        q, k, v = (torch.randn((2, S, h, d), generator=gen, device="cuda")
+                                   .to(dtype) for h, d in ((2 * G, dh), (2, dh), (2, dv)))
                         kern = lambda: flops.flash_attention(q, k, v, causal=causal)
                         plain = lambda: flref.attention_gqa_ref(q, k, v, causal=causal)
                         name = (f"flash:{'bf16' if dtype == torch.bfloat16 else 'f32'}:"
-                                f"{'causal' if causal else 'full'}:G{G}:S{S}:dh{dh}")
+                                f"{'causal' if causal else 'full'}:G{G}:S{S}:dh{dh}"
+                                + (f":dv{dv}" if dv != dh else ""))
                         got, design = _ran_design(flops.design_launches, kern, "K6")
                         if design != flops.design(dtype):
                             fail(f"{name}: ran the {design} design")
                         err = _check_attention(torch, name, got, plain(), v)
+                        lib_ms, lib = _sdpa_ms(torch, q, k, v, causal, reps=3)
                         out.append({"name": name, "replaces": "flash/kernel.py:80",
                                     "design": design, "max_abs_err": err,
                                     "ms": cuda_ms(torch, kern, reps=3),
                                     "plain_ms": cuda_ms(torch, plain, reps=3),
-                                    "library_ms": cuda_ms(torch, _sdpa(torch, q, k, v, causal),
-                                                          reps=3)})
+                                    "library_ms": lib_ms, "library": lib})
     return out
 
 
@@ -773,14 +811,15 @@ def _by_call(paths, shapes, name):
         fail(f"{name}: launches by call {by_call} != the counters' {[k1, k3, k4]}")
 
 
-def run_paths(torch, lm_info, moe_info, many, tune, tune_shapes, serve, serve_shapes, card):
+def run_paths(torch, lm_info, moe_info, mla_info, many, tune, tune_shapes, serve, serve_shapes,
+              card):
     """Drive the five FFT paths on a 1-rank NCCL group (the composed path
     prints its records, the many path fills ``many`` with its), measure the time model's coefficients (one
     ``{"coeffs"}`` line), drive the tune path on the same group (it fills
     ``tune`` and, with its launches by call, ``tune_shapes``), the serve path
     (``serve``, ``serve_shapes`` likewise), then the LM paths (which fill
-    ``lm_info`` and ``moe_info``); returns each path's kernel launch
-    counts."""
+    ``lm_info``, ``moe_info`` and ``mla_info``); returns each path's kernel
+    launch counts."""
     import torch.distributed as dist
 
     from repro_torch.core.meshutil import make_mesh
@@ -842,6 +881,9 @@ def run_paths(torch, lm_info, moe_info, many, tune, tune_shapes, serve, serve_sh
     gc.collect()
     torch.cuda.empty_cache()
     paths["moe"] = _drive(torch, "moe", moe_path, moe_info)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["mla"] = _drive(torch, "mla", mla_path, mla_info)
     gc.collect()
     torch.cuda.empty_cache()
     return paths
@@ -2219,7 +2261,10 @@ def _serving_bounds(lm, B, S, n_gen):
     step_weight_bytes = param_bytes if cfg.tie_embeddings else (
         param_bytes - (lm.embed.shape[0] - B) * lm.embed.shape[1] * lm.embed.element_size())
     layers = len(lm.dense0) + len(lm.blocks)
-    kv = 2 * layers * B * cfg.n_kv_heads * lm.head_dim * lm.embed.element_size()
+    # a token's cache a layer: K and V of every kv head, or MLA's latents
+    width = (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim if cfg.mla is not None
+             else 2 * cfg.n_kv_heads * lm.head_dim)
+    kv = layers * B * width * lm.embed.element_size()
     return {"step_weight_bytes": step_weight_bytes, "cache_bytes": kv * (S + n_gen),
             "prefill_bytes": param_bytes + kv * S, "prefill_flops": _prefill_flops(lm, B, S)}
 
@@ -2230,10 +2275,18 @@ def _prefill_flops(lm, B, S):
     over their whole capacity buffer, as they run, the router and any shared
     experts beside them), the last token's head."""
     cfg = lm.cfg
-    N, d, dh = B * S, cfg.d_model, lm.head_dim
+    N, d, dh, H = B * S, cfg.d_model, lm.head_dim, cfg.n_heads
     mult = 3 if cfg.mlp in ("swiglu", "geglu") else 2
-    attn = (2 * N * d * dh * 2 * (cfg.n_heads + cfg.n_kv_heads)
-            + 4 * dh * B * cfg.n_heads * S * (S + 1) / 2)
+    if cfg.mla is not None:  # wq, w_dkv, w_uk, w_uv, wo; q.k over dn + dr, p.v over dv
+        m = cfg.mla
+        dqk = m.qk_nope_dim + m.qk_rope_dim
+        attn = (2 * N * (d * H * dqk + d * (m.kv_lora_rank + m.qk_rope_dim)
+                         + m.kv_lora_rank * H * (m.qk_nope_dim + m.v_head_dim)
+                         + H * m.v_head_dim * d)
+                + 2 * (dqk + m.v_head_dim) * B * H * S * (S + 1) / 2)
+    else:
+        attn = (2 * N * d * dh * 2 * (H + cfg.n_kv_heads)
+                + 4 * dh * B * H * S * (S + 1) / 2)
 
     def ffn(p):
         if not hasattr(p, "moe"):
@@ -2266,7 +2319,7 @@ def moe_path(torch, info):
     import dataclasses
 
     from repro_torch import configs
-    from repro_torch.kernels.flash import ops as flops, ref as flref
+    from repro_torch.kernels.flash import ops as flops
     from repro_torch.launch import serve_lm
     from repro_torch.models import moe
     from repro_torch.models.lm import LM, OPTIMIZED
@@ -2291,122 +2344,21 @@ def moe_path(torch, info):
     if k6() != 2 * L:  # the warm-up and the timed prefill; decode launches none
         fail(f"moe: serve launched K6 {k6()} times, want {2 * L} (two prefills)")
 
-    # each layer's dispatch counted around it, in an untimed prefill
-    dispatch, per_layer = moe.moe_apply_capacity, []
-
-    def counted(*args, **kw):
-        r0, d0 = moe.assignments["routed"], int(moe.assignments["dropped"])
-        out = dispatch(*args, **kw)
-        per_layer.append((moe.assignments["routed"] - r0, int(moe.assignments["dropped"]) - d0))
-        return out
-
-    moe.moe_apply_capacity = counted
-    try:
-        c0 = k6()
-        cache1, lg1 = lm.prefill({"tokens": prompts}, max_len=S)
-        per_prefill = k6() - c0
-    finally:
-        moe.moe_apply_capacity = dispatch
+    cache1, lg1, per_layer, per_prefill, _ = _counted_prefill(torch, lm, prompts, served, "moe")
     routed, dropped = (sum(n for n, _ in per_layer), sum(n for _, n in per_layer))
-    if len(per_layer) != L or 2 * routed != served[0] or 2 * dropped != served[1]:
-        fail(f"moe: {len(per_layer)} dispatches counted {routed} routed, {dropped} dropped; "
-             f"serve's two prefills {served}")
-    cache2, lg2 = lm.prefill({"tokens": prompts}, max_len=S)
-    bitwise = torch.equal(lg1, lg2) and all(torch.equal(cache1[g][kv], cache2[g][kv])
-                                            for g in cache1 for kv in ("k", "v"))
-    del cache1, cache2, lg2
-
-    # at a capacity of N (E / k): nothing dropped, the function decode computes
-    route = moe.route
-
-    def routed_by(fn, pinned=None):
-        """(fn(), each route call's expert ids); with ``pinned``, each call's
-        ids are taken from that list in turn and gated by the call's own
-        probabilities, renormalised."""
-        ids = []
-
-        def hook(router_w, x, top_k):
-            gates, idx, aux, z = route(router_w, x, top_k)
-            if pinned is not None:
-                idx = pinned[len(ids)]
-                probs = torch.softmax(x.float() @ router_w.float(), dim=-1).gather(1, idx)
-                gates = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)
-            ids.append(idx)
-            return gates, idx, aux, z
-
-        moe.route = hook
-        try:
-            return fn(), ids
-        finally:
-            moe.route = route
-
-    def differ(a, b):  # expert choices (a token's set in one layer) that differ
-        return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
-                   for x, y in zip(a, b))
-
-    def plain(q, k, v):  # the plain attention, a batch row at a time
-        return torch.cat([flref.attention_gqa_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1],
-                                                  causal=True) for b in range(q.shape[0])])
-
-    def prefill(toks, max_len=None):
-        return lm.prefill({"tokens": toks}, max_len=max_len)
+    bitwise = _prefill_repeats_bitwise(torch, lm, prompts, cache1, lg1)
+    del cache1
 
     extra = res.ids[:, :3].to(prompts.device)  # the first three generated ids
-    full_toks = torch.cat([prompts, extra], 1)
-
-    def decode(pinned=None):
-        """3 teacher-forced decode steps after a prefill of S; with
-        ``pinned`` (the S + 3 prefill's ids, (B (S + 3), k) a layer), the
-        prefill and each step route as the S + 3 prefill did."""
-        per_step, logits = [], []
-        cache, _ = routed_by(lambda: prefill(prompts, S + 3), pinned and [
-            p.view(B, S + 3, -1)[:, :S].reshape(B * S, -1) for p in pinned])[0]
-        for t in range(3):
-            c0 = k6()
-            step = pinned and [p.view(B, S + 3, -1)[:, S + t] for p in pinned]
-            (cache, lg), ids = routed_by(lambda: lm.decode_step(cache, extra[:, t], S + t), step)
-            per_step.append(k6() - c0)
-            logits.append(lg)
-            if pinned is None:
-                per_step_ids.append(ids)
-        return logits[-1], per_step
-
-    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
-        mcfg, capacity_factor=mcfg.n_experts / mcfg.top_k))
-    lm.cfg, d0 = nodrop, int(moe.assignments["dropped"])
-    per_step_ids = []
-    try:
-        (_, lg_k6), ids_k6 = routed_by(lambda: prefill(prompts))
-        lm._serving_causal = plain
-        try:
-            (_, lg_plain), ids_plain = routed_by(lambda: prefill(prompts))
-            lg_plain_pinned = routed_by(lambda: prefill(prompts), ids_k6)[0][1]
-        finally:
-            del lm._serving_causal
-        (_, lg_full), ids_full = routed_by(lambda: prefill(full_toks))
-        lg_dec, per_decode = decode()
-        lg_dec_pinned, _ = decode(ids_full)
-    finally:
-        lm.cfg = cfg
-    nodrop_dropped = int(moe.assignments["dropped"]) - d0
-    lg_k6, lg_plain, lg_plain_pinned, lg_full = (x[:, 0] for x in (lg_k6, lg_plain,
-                                                                    lg_plain_pinned, lg_full))
-    # the decode steps' choices against the S + 3 prefill's at positions S .. S + 2
-    dec_differ = differ([i for step in per_step_ids for i in step],
-                        [f.view(B, S + 3, -1)[:, S + t] for t in range(3) for f in ids_full])
+    pc = _pinned_comparisons(torch, lm, prompts, extra)
+    per_decode = pc["k6_launches_per_decode_step"]
     if per_prefill != L or any(per_decode):
         fail(f"moe: K6 launches per prefill {per_prefill} (want {L}), per decode step "
              f"{per_decode} (want 0)")
     if dict(flops.design_launches) != {"tc:bfloat16": k6()}:
         fail(f"moe: K6 launches by design {dict(flops.design_launches)}, want all "
              f"{k6()} on the tensor-core design")
-    finite = bool(torch.isfinite(lg1).all() and torch.isfinite(lg_dec).all())
-    rel_plain = rel_l2(torch, lg_k6, lg_plain_pinned)
-    rel_dec = rel_l2(torch, lg_dec_pinned, lg_full)
-
-    def agree(a, b):
-        return float((a.argmax(-1) == b.argmax(-1)).float().mean())
-
+    finite = bool(torch.isfinite(lg1).all() and torch.isfinite(pc["decode"]).all())
     out = {"arch": cfg.name, "layers": L, "published_layers": configs.get(MOE_ARCH).n_layers,
            "reduced": f"n_layers {configs.get(MOE_ARCH).n_layers}->{L}: the weights of all "
                       f"layers do not fit the card",
@@ -2425,31 +2377,302 @@ def moe_path(torch, info):
            "k6_launches_per_prefill": per_prefill, "k6_launches_per_decode_step": per_decode,
            "dropped_share": dropped / routed,
            "dropped_share_per_layer": [n / r for r, n in per_layer],
-           "two_prefills_bitwise": bitwise, "nodrop_dropped": nodrop_dropped,
-           "rel_l2_k6_vs_plain_prefill": rel_plain, "limit": TOL_LM,
-           "argmax_agree_k6_vs_plain": agree(lg_k6, lg_plain_pinned),
-           "rel_l2_teacher_forced_decode_vs_nodrop_prefill": rel_dec,
-           "argmax_agree_teacher_forced": agree(lg_dec_pinned, lg_full),
-           "unpinned": {
-               "rel_l2_k6_vs_plain_prefill": rel_l2(torch, lg_k6, lg_plain),
-               "argmax_agree_k6_vs_plain": agree(lg_k6, lg_plain),
-               "expert_choices_differ_k6_vs_plain_by_layer": [
-                   differ([a], [b]) for a, b in zip(ids_k6, ids_plain)],
-               "expert_choices_k6_vs_plain": L * B * S,
-               "rel_l2_teacher_forced_decode_vs_nodrop_prefill": rel_l2(torch, lg_dec, lg_full),
-               "argmax_agree_teacher_forced": agree(lg_dec, lg_full),
-               "expert_choices_differ_decode_vs_prefill": dec_differ,
-               "expert_choices_decode_vs_prefill": 3 * L * B},
-           "finite": finite}
+           "two_prefills_bitwise": bitwise, **pc["report"], "finite": finite}
     print(json.dumps({"moe": out}))
-    if not (finite and bitwise) or nodrop_dropped or rel_plain > TOL_LM or rel_dec > TOL_LM:
-        fail(f"moe: finite {finite}, two prefills bitwise {bitwise}, dropped at capacity N "
-             f"{nodrop_dropped}, rel L2 K6 vs plain prefill {rel_plain}, teacher-forced decode "
-             f"vs prefill {rel_dec} (routing pinned; limit {TOL_LM})")
+    if not (finite and bitwise) or pc["failed"]:
+        fail(f"moe: finite {finite}, two prefills bitwise {bitwise}, {pc['failed']}")
     info.update(out, **_serving_bounds(lm, B, S, n_gen))
-    del lg1, lg_dec, lg_dec_pinned, lg_full, lg_plain, lg_plain_pinned, lg_k6
+    del lg1, pc
     _profile_serving(torch, lm, prompts, res.ids, info)
     del res, lm, prompts
+
+
+def mla_path(torch, info):
+    """DeepSeek-V2-Lite whole (27 layers at full width: MLA, 64 experts of
+    1408, top-6, beside 2 shared, one leading dense block of 10944) served
+    through ``serve_lm.main`` with the lm path's traffic (one warm-up round,
+    then a timed prefill and 32 decode steps), then on the same weights:
+    K6's launches and input shapes in one prefill (one a layer, q and k of
+    192, v of 128, all on the tensor-core design) and in each decode step
+    (none); the dropped share of assignments per expert layer; a second
+    prefill bitwise equal (logits, ``ckv``, ``krope``); the moe path's
+    comparisons at capacity N, routing pinned and unpinned
+    (``_pinned_comparisons``); one absorbed decode step against the expanded
+    one (``absorbed=False``) on copies of one cache, the expanded step's
+    routing pinned to the absorbed step's (and unpinned beside it).  Fills
+    ``info``."""
+    from repro_torch.kernels.flash import ops as flops
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import moe
+
+    def k6():
+        return sum(flops.launches.values())
+
+    torch.cuda.reset_peak_memory_stats()
+    moe.assignments.clear()
+    res = serve_lm.main(MLA_ARGV)
+    peak = torch.cuda.max_memory_allocated()
+    lm, prompts = res.lm, res.prompts
+    cfg, mcfg, mla = lm.cfg, lm.cfg.moe, lm.cfg.mla
+    B, S = prompts.shape
+    L, n_gen = cfg.n_layers, res.ids.shape[1] - 1
+    served = (moe.assignments["routed"], int(moe.assignments["dropped"]))
+    if k6() != 2 * L:  # the warm-up and the timed prefill; decode launches none
+        fail(f"mla: serve_lm launched K6 {k6()} times, want {2 * L} (two prefills)")
+
+    cache1, lg1, per_layer, per_prefill, shapes = _counted_prefill(torch, lm, prompts, served,
+                                                                   "mla")
+    routed, dropped = (sum(n for n, _ in per_layer), sum(n for _, n in per_layer))
+    dqk, H = mla.qk_nope_dim + mla.qk_rope_dim, cfg.n_heads
+    want_shapes = [((B, S, H, dqk), (B, S, H, dqk), (B, S, H, mla.v_head_dim))] * L
+    if shapes != want_shapes:
+        fail(f"mla: K6's shapes in a prefill {sorted(set(shapes))} x {len(shapes)}, want "
+             f"{want_shapes[0]} x {L}")
+    bitwise = _prefill_repeats_bitwise(torch, lm, prompts, cache1, lg1)
+    cache_keys = {g: sorted(c) for g, c in cache1.items()}
+    del cache1
+
+    extra = res.ids[:, :3].to(prompts.device)  # the first three generated ids
+    pc = _pinned_comparisons(torch, lm, prompts, extra)
+
+    # one decode step in both forms on copies of one cache
+    cache, _ = lm.prefill({"tokens": prompts}, max_len=S + 1)
+    copies = [{g: {k: v.clone() for k, v in c.items()} for g, c in cache.items()}
+              for _ in range(2)]
+    c0 = k6()
+    (_, lg_abs), ids_abs = _routed_by(torch, moe, lambda: lm.decode_step(cache, extra[:, 0], S))
+    (_, lg_exp), ids_exp = _routed_by(torch, moe, lambda: lm.decode_step(
+        copies[0], extra[:, 0], S, absorbed=False))
+    lg_exp_pinned = _routed_by(torch, moe, lambda: lm.decode_step(
+        copies[1], extra[:, 0], S, absorbed=False), ids_abs)[0][1]
+    forms_k6 = k6() - c0
+    del cache, copies
+    rel_forms = rel_l2(torch, lg_abs, lg_exp_pinned)
+
+    per_decode = pc["k6_launches_per_decode_step"]
+    if per_prefill != L or any(per_decode) or forms_k6:
+        fail(f"mla: K6 launches per prefill {per_prefill} (want {L}), per decode step "
+             f"{per_decode} and over both decode forms {forms_k6} (want 0)")
+    if dict(flops.design_launches) != {"tc:bfloat16": k6()}:
+        fail(f"mla: K6 launches by design {dict(flops.design_launches)}, want all "
+             f"{k6()} on the tensor-core design")
+    finite = bool(torch.isfinite(lg1).all() and torch.isfinite(pc["decode"]).all()
+                  and torch.isfinite(lg_abs).all())
+    bounds = _serving_bounds(lm, B, S, n_gen)
+    out = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model, "n_heads": H,
+           "kv_lora_rank": mla.kv_lora_rank, "qk_nope_dim": mla.qk_nope_dim,
+           "qk_rope_dim": mla.qk_rope_dim, "v_head_dim": mla.v_head_dim,
+           "n_experts": mcfg.n_experts, "top_k": mcfg.top_k, "n_shared": mcfg.n_shared,
+           "d_ff_expert": mcfg.d_ff_expert, "first_k_dense": mcfg.first_k_dense,
+           "dense_ff": mcfg.dense_ff, "capacity_factor": mcfg.capacity_factor,
+           "capacity": max(1, math.ceil(B * S * mcfg.top_k * mcfg.capacity_factor
+                                        / mcfg.n_experts)),
+           "vocab": cfg.vocab, "dtype": cfg.dtype,
+           "params": sum(p.numel() for p in lm.parameters()),
+           "weights_gib": sum(p.numel() * p.element_size() for p in lm.parameters()) / 2**30,
+           "batch": B, "prompt_len": S, "gen": n_gen,
+           "prefill_ms": res.prefill_s * 1e3, "prefill_tok_s": B * S / res.prefill_s,
+           "decode_ms_per_step": res.decode_s * 1e3 / n_gen,
+           "decode_tok_s": B * n_gen / res.decode_s,
+           "max_memory_allocated_gib": peak / 2**30, "ids": res.ids[0][:12].tolist(),
+           "cache": cache_keys, "cache_bytes": bounds["cache_bytes"],
+           "k6_launches_per_prefill": per_prefill, "k6_launches_per_decode_step": per_decode,
+           "k6_shapes_qkv": [list(t) for t in shapes[0]],
+           "dropped_share": dropped / routed,
+           "dropped_share_per_layer": [n / r for r, n in per_layer],
+           "two_prefills_bitwise": bitwise, **pc["report"],
+           "rel_l2_absorbed_vs_expanded_decode": rel_forms,
+           "argmax_agree_absorbed_vs_expanded": _agree(lg_abs, lg_exp_pinned),
+           "unpinned_absorbed_vs_expanded": {
+               "rel_l2": rel_l2(torch, lg_abs, lg_exp), "argmax_agree": _agree(lg_abs, lg_exp),
+               "expert_choices_differ": _choices_differ(ids_abs, ids_exp),
+               "expert_choices": len(ids_abs) * B},
+           "finite": finite}
+    print(json.dumps({"mla": out}))
+    if not (finite and bitwise) or pc["failed"] or rel_forms > TOL_LM:
+        fail(f"mla: finite {finite}, two prefills bitwise {bitwise}, {pc['failed']}; absorbed "
+             f"vs expanded decode {rel_forms} (routing pinned; limit {TOL_LM})")
+    info.update(out, **bounds)
+    del lg1, lg_abs, lg_exp, lg_exp_pinned, pc
+    _profile_serving(torch, lm, prompts, res.ids, info)
+    del res, lm, prompts
+
+
+def _counted_prefill(torch, lm, prompts, served, name):
+    """An untimed prefill of ``prompts`` (the timed one's function: the
+    dispatch is deterministic) with each expert layer's dispatch counted
+    around it and K6's launches and (q, k, v) shapes recorded; fails unless
+    its dispatches add up to half of ``served`` (serve's two prefills).
+    Returns (cache, logits, [(routed, dropped)] an expert layer, K6
+    launches, K6's shapes)."""
+    from repro_torch.kernels.flash import ops as flops
+    from repro_torch.models import moe
+
+    dispatch, kern, per_layer, shapes = moe.moe_apply_capacity, flops.flash_attention, [], []
+
+    def counted(*args, **kw):
+        r0, d0 = moe.assignments["routed"], int(moe.assignments["dropped"])
+        out = dispatch(*args, **kw)
+        per_layer.append((moe.assignments["routed"] - r0, int(moe.assignments["dropped"]) - d0))
+        return out
+
+    def shaped(q, k, v, **kw):
+        shapes.append(tuple(tuple(t.shape) for t in (q, k, v)))
+        return kern(q, k, v, **kw)
+
+    moe.moe_apply_capacity, flops.flash_attention = counted, shaped
+    try:
+        c0 = sum(flops.launches.values())
+        cache, lg = lm.prefill({"tokens": prompts}, max_len=prompts.shape[1])
+        launches = sum(flops.launches.values()) - c0
+    finally:
+        moe.moe_apply_capacity, flops.flash_attention = dispatch, kern
+    routed, dropped = (sum(n for n, _ in per_layer), sum(n for _, n in per_layer))
+    if len(per_layer) != len(lm.blocks) or 2 * routed != served[0] or 2 * dropped != served[1]:
+        fail(f"{name}: {len(per_layer)} dispatches counted {routed} routed, {dropped} dropped; "
+             f"serve's two prefills {served}")
+    return cache, lg, per_layer, launches, shapes
+
+
+def _prefill_repeats_bitwise(torch, lm, prompts, cache, lg):
+    """Whether a second prefill of ``prompts`` gives ``lg`` and every entry
+    of ``cache`` bit for bit."""
+    cache2, lg2 = lm.prefill({"tokens": prompts}, max_len=prompts.shape[1])
+    return torch.equal(lg, lg2) and all(torch.equal(cache[g][key], cache2[g][key])
+                                        for g in cache for key in cache[g])
+
+
+def _routed_by(torch, moe, fn, pinned=None):
+    """(fn(), each ``moe.route`` call's expert ids); with ``pinned``, each
+    call's ids are taken from that list in turn and gated by the call's own
+    probabilities, renormalised."""
+    route, ids = moe.route, []
+
+    def hook(router_w, x, top_k):
+        gates, idx, aux, z = route(router_w, x, top_k)
+        if pinned is not None:
+            idx = pinned[len(ids)]
+            probs = torch.softmax(x.float() @ router_w.float(), dim=-1).gather(1, idx)
+            gates = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)
+        ids.append(idx)
+        return gates, idx, aux, z
+
+    moe.route = hook
+    try:
+        return fn(), ids
+    finally:
+        moe.route = route
+
+
+def _choices_differ(a, b):
+    """Expert choices (a token's set in one layer) that differ between two
+    lists of per-layer ids."""
+    return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a, b))
+
+
+def _agree(a, b):
+    return float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+
+def _pinned_comparisons(torch, lm, prompts, extra):
+    """The MoE serving paths' numerics, at a capacity of N (E / k: nothing
+    dropped, the function a decode step computes): the prefill against the
+    same prefill with the plain attention (a batch row at a time), and 3
+    teacher-forced decode steps (tokens ``extra``) against a prefill of
+    S + 3 tokens.  Routing is a step function of the router's margins, so
+    each pair is compared once as it routes itself, with its expert choices
+    that differ counted, and once with the second run's choices pinned to
+    the first's (``_routed_by``), which is the comparison held to
+    ``TOL_LM``.  Returns the decode's logits, its K6 launches per step, the
+    report and what failed (empty if nothing)."""
+    import dataclasses
+
+    from repro_torch.kernels.flash import ops as flops, ref as flref
+    from repro_torch.models import moe
+
+    B, S = prompts.shape
+    cfg, mcfg = lm.cfg, lm.cfg.moe
+
+    def routed_by(fn, pinned=None):
+        return _routed_by(torch, moe, fn, pinned)
+
+    def plain(q, k, v):  # the plain attention, a batch row at a time
+        return torch.cat([flref.attention_gqa_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                                  causal=True) for b in range(q.shape[0])])
+
+    def prefill(toks, max_len=None):
+        return lm.prefill({"tokens": toks}, max_len=max_len)
+
+    full_toks = torch.cat([prompts, extra], 1)
+    per_step_ids = []
+
+    def decode(pinned=None):
+        """3 teacher-forced decode steps after a prefill of S; with
+        ``pinned`` (the S + 3 prefill's ids, (B (S + 3), k) a layer), the
+        prefill and each step route as the S + 3 prefill did."""
+        per_step, logits = [], []
+        cache, _ = routed_by(lambda: prefill(prompts, S + 3), pinned and [
+            p.view(B, S + 3, -1)[:, :S].reshape(B * S, -1) for p in pinned])[0]
+        for t in range(3):
+            c0 = sum(flops.launches.values())
+            step = pinned and [p.view(B, S + 3, -1)[:, S + t] for p in pinned]
+            (cache, lg), ids = routed_by(lambda: lm.decode_step(cache, extra[:, t], S + t), step)
+            per_step.append(sum(flops.launches.values()) - c0)
+            logits.append(lg)
+            if pinned is None:
+                per_step_ids.append(ids)
+        return logits[-1], per_step
+
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        mcfg, capacity_factor=mcfg.n_experts / mcfg.top_k))
+    lm.cfg, d0 = nodrop, int(moe.assignments["dropped"])
+    try:
+        (_, lg_k6), ids_k6 = routed_by(lambda: prefill(prompts))
+        lm._serving_causal = plain
+        try:
+            (_, lg_plain), ids_plain = routed_by(lambda: prefill(prompts))
+            lg_plain_pinned = routed_by(lambda: prefill(prompts), ids_k6)[0][1]
+        finally:
+            del lm._serving_causal
+        (_, lg_full), ids_full = routed_by(lambda: prefill(full_toks))
+        lg_dec, per_decode = decode()
+        lg_dec_pinned, _ = decode(ids_full)
+    finally:
+        lm.cfg = cfg
+    nodrop_dropped = int(moe.assignments["dropped"]) - d0
+    lg_k6, lg_plain, lg_plain_pinned, lg_full = (x[:, 0] for x in (lg_k6, lg_plain,
+                                                                    lg_plain_pinned, lg_full))
+    # the decode steps' choices against the S + 3 prefill's at positions S .. S + 2
+    dec_differ = _choices_differ([i for step in per_step_ids for i in step],
+                                 [f.view(B, S + 3, -1)[:, S + t] for t in range(3)
+                                  for f in ids_full])
+    L = len(ids_k6)  # the expert layers
+    rel_plain = rel_l2(torch, lg_k6, lg_plain_pinned)
+    rel_dec = rel_l2(torch, lg_dec_pinned, lg_full)
+    report = {
+        "nodrop_dropped": nodrop_dropped,
+        "rel_l2_k6_vs_plain_prefill": rel_plain, "limit": TOL_LM,
+        "argmax_agree_k6_vs_plain": _agree(lg_k6, lg_plain_pinned),
+        "rel_l2_teacher_forced_decode_vs_nodrop_prefill": rel_dec,
+        "argmax_agree_teacher_forced": _agree(lg_dec_pinned, lg_full),
+        "unpinned": {
+            "rel_l2_k6_vs_plain_prefill": rel_l2(torch, lg_k6, lg_plain),
+            "argmax_agree_k6_vs_plain": _agree(lg_k6, lg_plain),
+            "expert_choices_differ_k6_vs_plain_by_layer": [
+                _choices_differ([a], [b]) for a, b in zip(ids_k6, ids_plain)],
+            "expert_choices_k6_vs_plain": L * B * S,
+            "rel_l2_teacher_forced_decode_vs_nodrop_prefill": rel_l2(torch, lg_dec, lg_full),
+            "argmax_agree_teacher_forced": _agree(lg_dec, lg_full),
+            "expert_choices_differ_decode_vs_prefill": dec_differ,
+            "expert_choices_decode_vs_prefill": 3 * L * B}}
+    failed = ""
+    if nodrop_dropped or rel_plain > TOL_LM or rel_dec > TOL_LM:
+        failed = (f"dropped at capacity N {nodrop_dropped}, rel L2 K6 vs plain prefill "
+                  f"{rel_plain}, teacher-forced decode vs prefill {rel_dec} (routing pinned; "
+                  f"limit {TOL_LM})")
+    return {"decode": lg_dec, "k6_launches_per_decode_step": per_decode, "report": report,
+            "failed": failed}
 
 
 def _device_time(torch, fn):
@@ -2942,50 +3165,54 @@ def _k4_record(torch, fops, fref, tag, rows, counts, kern, plain, lib, nbytes, l
 
 
 def _flash_records(torch, paths):
-    """K6 at the serving prefills' shapes (launches from the lm and moe
-    paths) and at the prefill_32k length, bf16, causal, against the plain
-    version (at 32k
-    one q head at a time: the whole (S, S) fp32 score matrix of 32 heads
-    would not fit) and SDPA."""
+    """K6 at the serving prefills' shapes (launches from the lm, moe and mla
+    paths; the mla path's q and k of 192, v of 128) and at the prefill_32k
+    length, bf16, causal, against the plain version (at 32k one q head at a
+    time: the whole (S, S) fp32 score matrix of 32 heads would not fit) and
+    SDPA (its time and the backend it picks, or its refusal)."""
     from repro_torch.kernels.flash import ops as flops, ref as flref
 
     recs = []
-    for (B, S, Hq, Hkv, dh), path, reduced in K6_SHAPES:
+    for (B, S, Hq, Hkv, dh, dv), path, reduced in K6_SHAPES:
         t0 = time.perf_counter()
         G = Hq // Hkv
         gen = torch.Generator(device="cuda").manual_seed(S)
-        q, k, v = (torch.randn((B, S, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
-                   for h in (Hq, Hkv, Hkv))
+        q, k, v = (torch.randn((B, S, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+                   for h, d in ((Hq, dh), (Hkv, dh), (Hkv, dv)))
         kern = lambda: flops.flash_attention(q, k, v, causal=True)
 
         def head(h):  # the plain version of q head h
             return flref.attention_gqa_ref(q[:, :, h:h + 1], k[:, :, h // G:h // G + 1],
                                            v[:, :, h // G:h // G + 1], causal=True)
+        shape = (B, S, Hq, Hkv, dh, dv)
         got, design = _ran_design(flops.design_launches, kern, "K6")
         if design != "tc":
-            fail(f"flash at {(B, S, Hq, Hkv, dh)}: ran the {design} design")
+            fail(f"flash at {shape}: ran the {design} design")
         if reduced is None:
             plain = lambda: flref.attention_gqa_ref(q, k, v, causal=True)
-            err = _check_attention(torch, f"flash at {(B, S, Hq, Hkv, dh)}", got, plain(), v)
+            err = _check_attention(torch, f"flash at {shape}", got, plain(), v)
         else:
             plain = lambda: [head(h) for h in range(Hq)]
-            err = max(_check_attention(torch, f"flash at {(B, S, Hq, Hkv, dh)} head {h}",
+            err = max(_check_attention(torch, f"flash at {shape} head {h}",
                                        got[:, :, h:h + 1].contiguous(), head(h), v)
                       for h in range(Hq))
         del got
-        flop = 4.0 * dh * B * Hq * S * (S + 1) / 2
-        nbytes = 2 * (2 * B * S * Hq * dh + 2 * B * S * Hkv * dh)
+        # q . k over dh and p . v over dv for each (query, key) pair of the triangle;
+        # q, k, v read once, o written once
+        flop = 2.0 * (dh + dv) * B * Hq * S * (S + 1) / 2
+        nbytes = 2 * (B * S * Hq * (dh + dv) + B * S * Hkv * (dh + dv))
         reps = 5 if reduced is None else 3
         ms = cuda_ms(torch, kern, reps)
-        extra = {"shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "dh": dh, "dtype": "bf16",
-                           "causal": True}, "design": design, "tflops": flop / (ms * 1e9),
-                 "one_call_ms": one_call_ms(torch, kern, reps)}
+        extra = {"shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "dh": dh, "dv": dv,
+                           "dtype": "bf16", "causal": True}, "design": design,
+                 "tflops": flop / (ms * 1e9), "one_call_ms": one_call_ms(torch, kern, reps)}
         plain_ms = cuda_ms(torch, plain, reps)
-        lib_ms = cuda_ms(torch, _sdpa(torch, q, k, v, True), reps)
+        lib_ms, extra["library"] = _sdpa_ms(torch, q, k, v, True, reps)
         if reduced is not None:
             extra["reduced"] = reduced
         extra["record_s"] = time.perf_counter() - t0
-        recs.append(_record(f"flash_attention[causal,bf16,B{B},S{S},Hkv{Hkv}]", "flash.cu",
+        dims = f",dqk{dh},dv{dv}" if dv != dh else ""
+        recs.append(_record(f"flash_attention[causal,bf16,B{B},S{S},Hkv{Hkv}{dims}]", "flash.cu",
                             "src/repro/kernels/flash/kernel.py:80", path,
                             paths[path].get("flash_attention:bfloat16", 0) if path
                             else _launched(paths, "flash_attention:bfloat16"), err, ms, plain_ms,
@@ -3029,7 +3256,7 @@ def _flash_fp32_record(torch, paths):
     (non-tensor) peak."""
     from repro_torch.kernels.flash import ops as flops, ref as flref
 
-    (B, S, Hq, Hkv, dh), _, _ = K6_SHAPES[0]
+    (B, S, Hq, Hkv, dh, _), _, _ = K6_SHAPES[0]
     gen = torch.Generator(device="cuda").manual_seed(S + 1)
     q, k, v = (torch.randn((B, S, h, dh), generator=gen, device="cuda") for h in (Hq, Hkv, Hkv))
     kern = lambda: flops.flash_attention(q, k, v, causal=True)
@@ -3042,10 +3269,11 @@ def _flash_fp32_record(torch, paths):
     flop = 4.0 * dh * B * Hq * S * (S + 1) / 2
     nbytes = 4 * (2 * B * S * Hq * dh + 2 * B * S * Hkv * dh)
     ms = cuda_ms(torch, kern, 3)
+    lib_ms, lib = _sdpa_ms(torch, q, k, v, True, 3)
     rec = _record(f"flash_attention[causal,f32,B{B},S{S}]", "flash.cu",
                   "src/repro/kernels/flash/kernel.py:80", None,
                   _launched(paths, "flash_attention:float32"), err, ms, cuda_ms(torch, plain, 3),
-                  bound_ms(nbytes, flop, FP32_FLOPS), cuda_ms(torch, _sdpa(torch, q, k, v, True), 3),
+                  bound_ms(nbytes, flop, FP32_FLOPS), lib_ms, library=lib,
                   shape={"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "dh": dh, "dtype": "f32",
                          "causal": True}, design=design, tflops=flop / (ms * 1e9))
     del q, k, v

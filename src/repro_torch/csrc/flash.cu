@@ -1,10 +1,12 @@
-// Causal (or full) attention with online softmax over (B, S, H, dh) GQA
-// tensors, one pass, no (S, S) score matrix in device memory.
+// Causal (or full) attention with online softmax over (B, S, H, d) GQA
+// tensors, one pass, no (S, S) score matrix in device memory.  q and k share
+// one head dim DQK, v and the output have their own, DV (MLA: 192 and 128;
+// every other attention: DQK == DV).
 //
 // Replaces: the Pallas TPU kernel of flash_pallas_call
 // (src/repro/kernels/flash/kernel.py, _flash_kernel), the serving prefill's
 // attention under exact_causal_prefill.  It computes what _flash_kernel
-// computes: s = (q . k) accumulated in fp32, times 1/sqrt(dh) in fp32; a
+// computes: s = (q . k) accumulated in fp32, times 1/sqrt(DQK) in fp32; a
 // top-left causal mask (q_pos >= k_pos, both from 0) with masked scores
 // -1e30; the online softmax m_new = max(m, rowmax s), p = exp(s - m_new),
 // alpha = exp(m - m_new), l = l * alpha + sum p, acc = acc * alpha + p . v
@@ -26,18 +28,23 @@
 // fp32, so this is the reference's mixed precision up to summation order.
 //  - Tiles: one block of 4 warps per (64-query tile, batch x q head); warp w
 //    owns query rows 16w .. 16w+15 and the block loops over 64-key tiles.
-//  - Shared memory holds bf16, rows padded by 16 bytes (a row of DH + 8
+//  - Shared memory holds bf16, rows padded by 16 bytes (a row of D + 8
 //    elements) so that the 8 rows of every ldmatrix 8x8 fall on 8 distinct
-//    16-byte bank groups at each head dim: the Q tile and two buffers each
-//    of K and V, 5 * 64 * (DH + 8) * 2 bytes: 85 KB at dh 128, where ptxas
-//    gives 238 registers a thread, so shared memory and registers each
+//    16-byte bank groups at each head dim (a padded row is an odd number of
+//    16-byte units): the Q tile and two buffers each of K and V,
+//    (3 * (DQK + 8) + 2 * (DV + 8)) * 64 * 2 bytes: 85 KB at dh 128, where
+//    ptxas gives 238 registers a thread, so shared memory and registers each
 //    allow two blocks (8 warps) an SM; 105 KB and 255 registers (52 bytes
-//    spilled) at dh 160, two blocks; 7.5-25 KB below.  Tiles arrive by
+//    spilled) at dh 160, two blocks; 109 KB at (DQK, DV) = (192, 128), two
+//    blocks; 7.5-25 KB below.  Tiles arrive by
 //    cp.async, 16 bytes a thread, rows past Sq or Skv zero-filled (source
 //    size 0, never read); the next tile's K and V are in flight while the
 //    current one computes, so one __syncthreads a tile suffices.
 //  - S = Q K^T: Q's A fragments are read once (ldmatrix.x4) and stay in
-//    registers (dh / 16 k-steps); K's B fragments by ldmatrix.x4 (K is
+//    registers (DQK / 16 k-steps) up to DQK 160; at 192 the twelve k-steps'
+//    48 registers spilled 120 bytes (255 registers), so there each k-step of
+//    each key tile reads its fragment from the Q tile again, which stays in
+//    shared memory until the epilogue.  K's B fragments by ldmatrix.x4 (K is
 //    [key][d], already the col-major B operand), two n8 key tiles a load.
 //    Scale, and mask only where the tile crosses the diagonal or Skv.
 //  - The online softmax stays in registers: a row's 64 scores lie in one
@@ -49,10 +56,10 @@
 //    fragments of two adjacent n8 score tiles are the A fragment of one
 //    k16 step of P V, so p never touches shared memory.
 //  - O += P V: V's B fragments by ldmatrix.x4.trans (V is [key][d]), the
-//    fp32 accumulator 16 x dh a warp in registers (dh / 2 floats a lane).
+//    fp32 accumulator 16 x DV a warp in registers (DV / 2 floats a lane).
 //  - Epilogue: out = acc / max(l, 1e-30) rounded to bf16, staged through
-//    the warp's own rows of the Q tile and stored 16 bytes a lane; rows
-//    past Sq are not stored.
+//    the warp's own rows of the Q tile (DV <= DQK) and stored 16 bytes a
+//    lane; rows past Sq are not stored.
 //  It runs at about a fifth of the dense bf16 peak (PERF.md).  What it
 //  lacks against that peak: wgmma (mma.sync does not reach the full
 //  tensor rate), and overlap of one tile's softmax (expf between the two
@@ -65,7 +72,7 @@
 // threads per (64-query tile, batch x q head).  The query tile is staged
 // once in shared memory transposed (Qt[d][row]); each 64-key tile of K is
 // staged transposed (Kt[d][key]) and then V (Vs[key][d]) into the same
-// buffer.  Thread (r, c), r = tid / 16, c = tid % 16, owns query rows
+// buffer, max(DQK, DV) * 64 floats.  Thread (r, c), r = tid / 16, c = tid % 16, owns query rows
 // 8r .. 8r+7: for the scores, keys c + 16 j (j < 4); for the accumulator,
 // the head-dim columns c * W + 16 W j; its m and partial l stay in
 // registers, and a row's max is reduced over the 16 lanes that share it.
@@ -113,18 +120,19 @@ __device__ __forceinline__ void lds(const float* p, float* out) {
   }
 }
 
-template <int DH>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv, int Hq,
              int Hkv, int causal, float scale) {
-  constexpr int DC = DH / 16;                               // accumulator columns per thread
+  constexpr int DC = DV / 16;                               // accumulator columns per thread
   constexpr int W = DC % 4 == 0 ? 4 : (DC % 2 == 0 ? 2 : 1);  // their vector width
-  constexpr int NV = DH / Vec::n;                        // 16-byte vectors per row
+  constexpr int NV = DQK / Vec::n;                          // 16-byte vectors per q or k row
+  constexpr int NVV = DV / Vec::n;                          // ... per v row
   extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);              // [DH][kBQ]
-  float* KV = Qt + DH * kBQ;                                // Kt [DH][kBK], then Vs [kBK][DH]
-  float* Pt = KV + DH * kBK;                                // [kBK][kPStride]
+  float* Qt = reinterpret_cast<float*>(smem4);              // [DQK][kBQ]
+  float* KV = Qt + DQK * kBQ;                               // Kt [DQK][kBK], then Vs [kBK][DV]
+  float* Pt = KV + (DQK > DV ? DQK : DV) * kBK;             // [kBK][kPStride]
 
   const int tid = threadIdx.x;
   const int r = tid / 16, c = tid % 16;
@@ -134,10 +142,11 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_qt = gridDim.y;
   const int qt = n_qt - 1 - (int)blockIdx.y;                // heaviest causal tiles first
   const int q0 = qt * kBQ;
-  const long long q_row = (long long)Hq * DH, kv_row = (long long)Hkv * DH;
-  const float* qb = q + ((long long)b * Sq * Hq + h) * DH;
-  const float* kb = k + ((long long)b * Skv * Hkv + hk) * DH;
-  const float* vb = v + ((long long)b * Skv * Hkv + hk) * DH;
+  const long long q_row = (long long)Hq * DQK, kv_row = (long long)Hkv * DQK;
+  const long long v_row = (long long)Hkv * DV;
+  const float* qb = q + ((long long)b * Sq * Hq + h) * DQK;
+  const float* kb = k + ((long long)b * Skv * Hkv + hk) * DQK;
+  const float* vb = v + ((long long)b * Skv * Hkv + hk) * DV;
 
   // stage the query tile: row fastest across threads, so the transposed
   // stores of one instruction fall on consecutive words
@@ -178,7 +187,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float qv[kRows], kv[kCols];
       lds<4>(Qt + d * kBQ + r * kRows, qv);
       lds<4>(Qt + d * kBQ + r * kRows + 4, qv + 4);
@@ -227,11 +236,11 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();  // scores done with Kt; P complete
 
-    for (int i = tid; i < kBK * NV; i += kThreads) {
-      const int row = i / NV, vi = i % NV;
+    for (int i = tid; i < kBK * NVV; i += kThreads) {
+      const int row = i / NVV, vi = i % NVV;
       float e[Vec::n];
-      Vec::load(vb + (k0 + row) * kv_row + vi * Vec::n, k0 + row < Skv, e);
-      float4* dst = reinterpret_cast<float4*>(KV + row * DH + vi * Vec::n);
+      Vec::load(vb + (k0 + row) * v_row + vi * Vec::n, k0 + row < Skv, e);
+      float4* dst = reinterpret_cast<float4*>(KV + row * DV + vi * Vec::n);
 #pragma unroll
       for (int j = 0; j < Vec::n / 4; ++j)
         dst[j] = make_float4(e[4 * j], e[4 * j + 1], e[4 * j + 2], e[4 * j + 3]);
@@ -244,7 +253,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       lds<4>(Pt + kk * kPStride + r * kRows, pv);
       lds<4>(Pt + kk * kPStride + r * kRows + 4, pv + 4);
 #pragma unroll
-      for (int j = 0; j < DC / W; ++j) lds<W>(KV + kk * DH + c * W + 16 * W * j, vv + j * W);
+      for (int j = 0; j < DC / W; ++j) lds<W>(KV + kk * DV + c * W + 16 * W * j, vv + j * W);
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -260,7 +269,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qpos = q0 + r * kRows + i;
     if (qpos >= Sq) continue;
     const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
-    float* orow = o + (((long long)b * Sq + qpos) * Hq + h) * DH;
+    float* orow = o + (((long long)b * Sq + qpos) * Hq + h) * DV;
 #pragma unroll
     for (int j = 0; j < DC / W; ++j)
 #pragma unroll
@@ -318,31 +327,35 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // rows r0 .. r0+63 of one head (rows `stride` elements apart) into a padded
-// [64][DH + 8] tile at shared address dst; rows at or past n are zero-filled
-template <int DH>
+// [64][D + 8] tile at shared address dst; rows at or past n are zero-filled
+template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, long long stride,
                                           int r0, int n, int tid) {
-  constexpr int CH = DH / 8;  // 16-byte chunks a row
+  constexpr int CH = D / 8;  // 16-byte chunks a row
 #pragma unroll
   for (int it = 0; it < kBQ * CH / kTcThreads; ++it) {
     const int i = tid + it * kTcThreads;
     const int r = i / CH, c = i % CH;
     const bool valid = r0 + r < n;
-    cp_async16(dst + (uint32_t)((r * (DH + 8) + c * 8) * sizeof(bf16)),
+    cp_async16(dst + (uint32_t)((r * (D + 8) + c * 8) * sizeof(bf16)),
                src + (valid ? r0 + r : 0) * stride + c * 8, valid);
   }
 }
 
-template <int DH>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kTcThreads, 2)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Skv, int Hq,
                 int Hkv, int causal, float scale) {
   static_assert(kBQ == 16 * kTcWarps && kBK == 64, "a warp owns 16 rows; 8 n8 key tiles");
-  constexpr int STR = DH + 8;              // padded row, elements
-  constexpr uint32_t TILE = kBQ * STR * sizeof(bf16);  // bytes of one tile
-  constexpr int KS = DH / 16;              // k16 steps of Q K^T
-  constexpr int ND = DH / 8;               // n8 tiles of O
+  static_assert(DV <= DQK, "the epilogue stages a row of O in a row of the Q tile");
+  constexpr int STR = DQK + 8;             // padded Q or K row, elements
+  constexpr int STRV = DV + 8;             // padded V row
+  constexpr uint32_t TILE = kBQ * STR * sizeof(bf16);    // bytes of one Q or K tile
+  constexpr uint32_t TILEV = kBK * STRV * sizeof(bf16);  // ... of one V tile
+  constexpr int KS = DQK / 16;             // k16 steps of Q K^T
+  constexpr int ND = DV / 8;               // n8 tiles of O
+  constexpr bool QREG = DQK <= 160;        // Q's A fragments held in registers
   extern __shared__ uint4 smem_tc[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_tc);
   const uint32_t aQ = smem_addr(sQ), aK = aQ + TILE, aV = aQ + 3 * TILE;  // K, V: 2 tiles each
@@ -354,17 +367,18 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int hk = h / (Hq / Hkv);
   const int qt = (int)gridDim.y - 1 - (int)blockIdx.y;  // heaviest causal tiles first
   const int q0 = qt * kBQ;
-  const long long q_row = (long long)Hq * DH, kv_row = (long long)Hkv * DH;
-  const bf16* qb = q + ((long long)b * Sq * Hq + h) * DH;
-  const bf16* kb = k + ((long long)b * Skv * Hkv + hk) * DH;
-  const bf16* vb = v + ((long long)b * Skv * Hkv + hk) * DH;
+  const long long q_row = (long long)Hq * DQK, kv_row = (long long)Hkv * DQK;
+  const long long v_row = (long long)Hkv * DV;
+  const bf16* qb = q + ((long long)b * Sq * Hq + h) * DQK;
+  const bf16* kb = k + ((long long)b * Skv * Hkv + hk) * DQK;
+  const bf16* vb = v + ((long long)b * Skv * Hkv + hk) * DV;
 
   const int n_kt_all = (Skv + kBK - 1) / kBK;
   const int n_kt = causal ? min(n_kt_all, (q0 + kBQ - 1) / kBK + 1) : n_kt_all;
 
-  load_tile<DH>(aQ, qb, q_row, q0, Sq, tid);
-  load_tile<DH>(aK, kb, kv_row, 0, Skv, tid);
-  load_tile<DH>(aV, vb, kv_row, 0, Skv, tid);
+  load_tile<DQK>(aQ, qb, q_row, q0, Sq, tid);
+  load_tile<DQK>(aK, kb, kv_row, 0, Skv, tid);
+  load_tile<DV>(aV, vb, v_row, 0, Skv, tid);
   asm volatile("cp.async.commit_group;\n" ::);
 
   // this lane's ldmatrix row addresses (bytes from a tile's start):
@@ -373,9 +387,9 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // K, B fragments of two n8 key tiles: (keys 0-7, d 0-7 | 8-15), (keys 8-15, ...)
   const uint32_t offK = ((lane / 16 * 8 + lane % 8) * STR + lane / 8 % 2 * 8) * sizeof(bf16);
   // V, transposed B fragments of two n8 d tiles: (keys 0-7 | 8-15) x (d 0-7 | 8-15)
-  const uint32_t offV = ((lane / 8 % 2 * 8 + lane % 8) * STR + lane / 16 * 8) * sizeof(bf16);
+  const uint32_t offV = ((lane / 8 % 2 * 8 + lane % 8) * STRV + lane / 16 * 8) * sizeof(bf16);
 
-  uint32_t qf[KS][4];
+  uint32_t qf[QREG ? KS : 1][4];
   float acc[ND][4];
 #pragma unroll
   for (int j = 0; j < ND; ++j)
@@ -385,17 +399,17 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
-    const uint32_t buf = (uint32_t)(kt % 2) * TILE;
+    const uint32_t buf = (uint32_t)(kt % 2) * TILE, bufv = (uint32_t)(kt % 2) * TILEV;
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();  // tile kt has landed; tile kt - 1's buffers are no longer read
     if (kt + 1 < n_kt) {
-      load_tile<DH>(aK + (TILE - buf), kb, kv_row, k0 + kBK, Skv, tid);
-      load_tile<DH>(aV + (TILE - buf), vb, kv_row, k0 + kBK, Skv, tid);
+      load_tile<DQK>(aK + (TILE - buf), kb, kv_row, k0 + kBK, Skv, tid);
+      load_tile<DV>(aV + (TILEV - bufv), vb, v_row, k0 + kBK, Skv, tid);
     }
     asm volatile("cp.async.commit_group;\n" ::);
-    if (kt == 0) {
+    if (QREG && kt == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) ldsm_x4(aQ + offQ + kk * 32, qf[kk]);
+      for (int kk = 0; kk < KS; ++kk) ldsm_x4(aQ + offQ + kk * 32, qf[QREG ? kk : 0]);
     }
 
     // s = q . k^T: 8 n8 tiles of 64 keys; C fragment: rows g, g + 8, keys 8j + 2t, +1
@@ -405,14 +419,17 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
+    for (int kk = 0; kk < KS; ++kk) {
+      if (!QREG) ldsm_x4(aQ + offQ + kk * 32, qf[0]);
+      const uint32_t(&qa)[4] = qf[QREG ? kk : 0];
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         uint32_t bk[4];
         ldsm_x4(aK + buf + offK + (jj * 16 * STR + kk * 16) * sizeof(bf16), bk);
-        mma_bf16(s[2 * jj], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * jj + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(s[2 * jj], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * jj + 1], qa, bk[2], bk[3]);
       }
+    }
 
     // scale, mask where the tile crosses the diagonal or Skv, row max
     const bool masked = k0 + kBK > Skv || (causal && k0 + kBK - 1 > q0);
@@ -468,7 +485,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < ND / 2; ++jj) {
         uint32_t bv[4];
-        ldsm_x4_trans(aV + buf + offV + (kk * 16 * STR + jj * 16) * sizeof(bf16), bv);
+        ldsm_x4_trans(aV + bufv + offV + (kk * 16 * STRV + jj * 16) * sizeof(bf16), bv);
         mma_bf16(acc[2 * jj], pa[kk], bv[0], bv[1]);
         mma_bf16(acc[2 * jj + 1], pa[kk], bv[2], bv[3]);
       }
@@ -498,7 +515,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = i / ND, c = i % ND;
     const int qpos = q0 + warp * 16 + r;
     if (qpos < Sq)
-      *reinterpret_cast<uint4*>(o + (((long long)b * Sq + qpos) * Hq + h) * DH + c * 8) =
+      *reinterpret_cast<uint4*>(o + (((long long)b * Sq + qpos) * Hq + h) * DV + c * 8) =
           *reinterpret_cast<const uint4*>(sQ + (warp * 16 + r) * STR + c * 8);
   }
 }
@@ -507,16 +524,17 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // launch
 // ---------------------------------------------------------------------------
 
-template <int DH>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int Hq,
            int Hkv, int causal, int is_bf16, cudaStream_t st) {
   const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + kBQ - 1) / kBQ));
   // the division here matches the reference's 1.0 / math.sqrt(dh), rounded once to fp32
-  const float scale = (float)(1.0 / sqrt((double)DH));
+  const float scale = (float)(1.0 / sqrt((double)DQK));
   cudaError_t err;
   if (is_bf16) {
-    const size_t smem = 5 * sizeof(bf16) * (size_t)kBQ * (DH + 8);  // Q, 2 K, 2 V tiles
-    auto kern = flash_tc_kernel<DH>;
+    // Q, 2 K, 2 V tiles
+    const size_t smem = sizeof(bf16) * (size_t)kBQ * (3 * (DQK + 8) + 2 * (DV + 8));
+    auto kern = flash_tc_kernel<DQK, DV>;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<grid, kTcThreads, smem, st>>>(static_cast<const bf16*>(q),
@@ -524,9 +542,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
                                          static_cast<const bf16*>(v), static_cast<bf16*>(o),
                                          Sq, Skv, Hq, Hkv, causal, scale);
   } else {
-    const size_t smem =
-        sizeof(float) * ((size_t)DH * kBQ + (size_t)DH * kBK + (size_t)kBK * kPStride);
-    auto kern = flash_kernel<DH>;
+    const size_t smem = sizeof(float) * ((size_t)DQK * kBQ + (size_t)(DQK > DV ? DQK : DV) * kBK +
+                                         (size_t)kBK * kPStride);
+    auto kern = flash_kernel<DQK, DV>;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<grid, kThreads, smem, st>>>(static_cast<const float*>(q),
@@ -539,25 +557,29 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
 
 }  // namespace
 
-// q (B, Sq, Hq, dh), k and v (B, Skv, Hkv, dh), o (B, Sq, Hq, dh): contiguous,
-// 16-byte aligned, all float32 (is_bf16 = 0: the FMA design) or all bfloat16
-// (is_bf16 = 1: the tensor-core design); Hq a multiple of Hkv; dh in
-// {16, 32, 64, 128, 160}.  Returns a CUDA error code (cudaGetLastError()
-// after the launch).
+// q (B, Sq, Hq, dqk), k (B, Skv, Hkv, dqk), v (B, Skv, Hkv, dv), o (B, Sq, Hq,
+// dv): contiguous, 16-byte aligned, all float32 (is_bf16 = 0: the FMA design)
+// or all bfloat16 (is_bf16 = 1: the tensor-core design); Hq a multiple of
+// Hkv; (dqk, dv) one of (16, 16), (32, 32), (64, 64), (128, 128), (160, 160)
+// and (192, 128).  Returns a CUDA error code (cudaGetLastError() after the
+// launch).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                   int Sq, int Skv, int Hq, int Hkv, int dh, int causal,
+                                   int Sq, int Skv, int Hq, int Hkv, int dqk, int dv, int causal,
                                    int is_bf16, void* stream) {
   if (B < 0 || Sq < 0 || Skv < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
   if ((Sq + kBQ - 1) / kBQ > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (dh) {
-    case 16: return launch<16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, is_bf16, st);
-    case 32: return launch<32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, is_bf16, st);
-    case 64: return launch<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, is_bf16, st);
-    case 128: return launch<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, is_bf16, st);
-    case 160: return launch<160>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, is_bf16, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define FLASH_PAIR(DQK, DV)                                                                 \
+  if (dqk == DQK && dv == DV)                                                               \
+    return launch<DQK, DV>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, is_bf16, st)
+  FLASH_PAIR(16, 16);
+  FLASH_PAIR(32, 32);
+  FLASH_PAIR(64, 64);
+  FLASH_PAIR(128, 128);
+  FLASH_PAIR(160, 160);
+  FLASH_PAIR(192, 128);
+#undef FLASH_PAIR
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,10 +1,13 @@
 """Wrapper of the causal flash-attention kernel (the port of
 ``repro/kernels/flash/ops.py``).
 
-``flash_attention(q, k, v, causal=True)`` takes (B, S, Hq, dh) / (B, S,
-Hkv, dh) GQA tensors and returns (B, S, Hq, dh) in v's dtype.  A tensor on
-the CPU takes the plain version (:mod:`.ref`); a CUDA tensor launches the
-kernel (:mod:`.kernel`), which reads kv head ``h // G`` for q head ``h``
+``flash_attention(q, k, v, causal=True)`` takes (B, S, Hq, dqk) queries,
+(B, S, Hkv, dqk) keys and (B, S, Hkv, dv) values (GQA; dv == dqk but for
+MLA, whose (192, 128) the kernel also takes) and returns (B, S, Hq, dv) in
+v's dtype.  A tensor on the CPU takes the plain version (:mod:`.ref`) at any
+head dims; a CUDA tensor launches the kernel (:mod:`.kernel`), which raises
+on a pair of head dims it is not compiled for (``kernel.PAIRS``), and which
+reads kv head ``h // G`` for q head ``h``
 where the reference repeats k and v, and masks the ragged edge where the
 reference pads.  ``block_q`` and ``block_k`` keep the reference's meaning
 for the one rule they carry: a non-causal call whose Skv exceeds

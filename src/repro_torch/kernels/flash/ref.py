@@ -11,7 +11,8 @@ import torch
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool) -> torch.Tensor:
-    """q (BH, Sq, dh), k/v (BH, Skv, dh) -> (BH, Sq, dh), fp32 math."""
+    """q (BH, Sq, dqk), k (BH, Skv, dqk), v (BH, Skv, dv) -> (BH, Sq, dv),
+    fp32 math, scores scaled by 1/sqrt(dqk)."""
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
     if causal:
         Sq, Skv = q.shape[1], k.shape[1]
@@ -25,8 +26,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention_gqa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool) -> torch.Tensor:
-    """:func:`attention_ref` on (B, Sq, Hq, dh) / (B, Skv, Hkv, dh) GQA
-    tensors: the q heads of one kv head folded onto it and k, v repeated for
+    """:func:`attention_ref` on (B, Sq, Hq, dqk) / (B, Skv, Hkv, dqk) /
+    (B, Skv, Hkv, dv) GQA tensors: the q heads of one kv head folded onto it and k, v repeated for
     them, as the reference's wrapper folds them for its kernel."""
     B, Sq, Hq, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -41,12 +42,13 @@ def attention_gqa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention_tiles_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
                         block_k: int = 64) -> torch.Tensor:
     """The order of work of ``csrc/flash.cu``'s tensor-core design, in plain
-    torch on (B, Sq, Hq, dh) / (B, Skv, Hkv, dh) GQA tensors: ``block_k``-key
-    tiles; fp32 scores of the operands (exact products of bf16 values)
-    times 1/sqrt(dh) rounded once to fp32; the top-left causal mask at
-    -1e30; the online softmax per tile (m, l, alpha); p rounded to v's dtype
-    before p . v, summed in fp32; out = acc / max(l, 1e-30) in v's dtype.
-    Keys past Skv take no part, as the kernel's masked, zero-filled rows."""
+    torch on (B, Sq, Hq, dqk) / (B, Skv, Hkv, dqk) / (B, Skv, Hkv, dv) GQA
+    tensors: ``block_k``-key tiles; fp32 scores of the operands (exact
+    products of bf16 values) times 1/sqrt(dqk) rounded once to fp32; the
+    top-left causal mask at -1e30; the online softmax per tile (m, l,
+    alpha); p rounded to v's dtype before p . v, summed in fp32; out = acc /
+    max(l, 1e-30) in v's dtype.  Keys past Skv take no part, as the kernel's
+    masked, zero-filled rows."""
     B, Sq, Hq, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv

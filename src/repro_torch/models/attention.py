@@ -1,10 +1,14 @@
-"""Attention for the dense family (the port of ``repro/models/attention.py``,
-GQA part): projections with RoPE, the blockwise prefill of the baseline
-flags, the exact causal prefill through the flash kernel (K6), and
-single-token decode over a cache.
+"""Attention (the port of ``repro/models/attention.py``): GQA projections
+with RoPE, the blockwise prefill of the baseline flags, the exact causal
+prefill through the flash kernel (K6), single-token decode over a cache,
+and DeepSeek-V2's multi-head latent attention (MLA): its latents, queries,
+the expansion of the latents to per-head K and V, and the weight-absorbed
+decode over the latent cache.
 
-Layouts are the reference's: q (B, S, Hq, dh), k/v (B, S, Hkv, dh).  MLA and
-Ulysses sequence parallelism are not ported yet.
+Layouts are the reference's: q (B, S, Hq, dh), k/v (B, S, Hkv, dh); MLA's q
+and k (B, S, H, dn + dr), v (B, S, H, dv), its cache c_kv (B, S, r) and
+k_rope (B, S, dr).  MLA's training attention and Ulysses sequence
+parallelism are not ported yet.
 
 Mixed precision: the reference's ``bf16_compute`` contracts bf16 operands
 with fp32 accumulation and an fp32 result.  torch has no such product, so
@@ -21,7 +25,7 @@ import math
 import torch
 
 from repro_torch.kernels.flash import ops as flash_ops
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, rmsnorm
 
 _NEG_INF = -1e30
 
@@ -140,3 +144,77 @@ def gqa_qkv(p, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
     q = apply_rope(q, positions[:, :, None], rope_theta)
     k = apply_rope(k, positions[:, :, None], rope_theta)
     return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen: torch.Generator, d: int, n_heads: int, mla,
+             dtype=torch.bfloat16) -> dict[str, torch.Tensor]:
+    dn, dr, r, dv = mla.qk_nope_dim, mla.qk_rope_dim, mla.kv_lora_rank, mla.v_head_dim
+    return {"wq": dense_init(gen, d, n_heads * (dn + dr), dtype),
+            "w_dkv": dense_init(gen, d, r + dr, dtype),
+            "kv_norm": torch.ones((r,), dtype=torch.float32, device=gen.device),
+            "w_uk": dense_init(gen, r, n_heads * dn, dtype),
+            "w_uv": dense_init(gen, r, n_heads * dv, dtype),
+            "wo": dense_init(gen, n_heads * dv, d, dtype)}
+
+
+def mla_latents(p, x: torch.Tensor, *, mla, positions: torch.Tensor, rope_theta: float):
+    """x (B, S, D) -> (c_kv (B, S, r), k_rope (B, S, 1, dr)): the compressed
+    KV that MLA caches; RoPE on the rope part only."""
+    dr, r = mla.qk_rope_dim, mla.kv_lora_rank
+    a = x @ p["w_dkv"]  # (B, S, r + dr)
+    c_kv = rmsnorm(a[..., :r], p["kv_norm"], 1e-6)  # the reference's eps
+    k_rope = a[..., r:].reshape(*x.shape[:2], 1, dr)
+    return c_kv, apply_rope(k_rope, positions[:, :, None], rope_theta)
+
+
+def mla_queries(p, x: torch.Tensor, *, n_heads: int, mla, positions: torch.Tensor,
+                rope_theta: float):
+    """x (B, S, D) -> (q_nope (B, S, H, dn), q_rope (B, S, H, dr))."""
+    dn, dr = mla.qk_nope_dim, mla.qk_rope_dim
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, n_heads, dn + dr)
+    return q[..., :dn], apply_rope(q[..., dn:], positions[:, :, None], rope_theta)
+
+
+def mla_expand_kv(p, c_kv: torch.Tensor, k_rope: torch.Tensor, *, n_heads: int, mla):
+    """Latents to per-head K (nope || rope, k_rope one head broadcast over
+    the heads) (B, S, H, dn + dr) and V (B, S, H, dv)."""
+    dn, dv = mla.qk_nope_dim, mla.v_head_dim
+    B, S, _ = c_kv.shape
+    k_nope = (c_kv.to(p["w_uk"].dtype) @ p["w_uk"]).reshape(B, S, n_heads, dn)
+    v = (c_kv.to(p["w_uv"].dtype) @ p["w_uv"]).reshape(B, S, n_heads, dv)
+    k = torch.cat([k_nope, k_rope.expand(B, S, n_heads, k_rope.shape[-1])], -1)
+    return k, v
+
+
+def mla_decode_absorbed(p, x: torch.Tensor, cache_ckv: torch.Tensor,
+                        cache_krope: torch.Tensor, cur_len: int, *, n_heads: int, mla,
+                        positions: torch.Tensor, rope_theta: float,
+                        bf16_compute: bool = False) -> torch.Tensor:
+    """Weight-absorbed MLA decode of x (B, 1, D) over the first ``cur_len``
+    positions of the latent cache (c_kv (B, M, r), k_rope (B, M, dr)):
+    scores q_nope W_uk^T c_kv + q_rope k_rope, output (P c_kv) W_uv, then
+    ``wo``; K and V are never expanded for the cache.  Under
+    ``bf16_compute`` the absorbed query and p are rounded to x's dtype; the
+    last product is fp32."""
+    dn, dr, r, dv = mla.qk_nope_dim, mla.qk_rope_dim, mla.kv_lora_rank, mla.v_head_dim
+    B = x.shape[0]
+    q_nope, q_rope = mla_queries(p, x, n_heads=n_heads, mla=mla, positions=positions,
+                                 rope_theta=rope_theta)
+    q_lat = _dots(q_nope, p["w_uk"].reshape(r, n_heads, dn), "bqhd,rhd->bqhr")
+    if bf16_compute:
+        q_lat = q_lat.to(x.dtype)
+    s = _dots(q_lat, cache_ckv, "bqhr,bkr->bhqk") + _dots(q_rope, cache_krope, "bqhd,bkd->bhqk")
+    s = s * (1.0 / math.sqrt(dn + dr))
+    mask = torch.arange(cache_ckv.shape[1], device=x.device) < cur_len
+    p_attn = torch.softmax(torch.where(mask, s, _NEG_INF), dim=-1)
+    if bf16_compute:
+        p_attn = p_attn.to(x.dtype)
+    o_lat = _dots(p_attn, cache_ckv, "bhqk,bkr->bqhr")
+    o = torch.einsum("bqhr,rhd->bqhd", o_lat, p["w_uv"].reshape(r, n_heads, dv).float())
+    return o.reshape(B, 1, n_heads * dv).to(x.dtype) @ p["wo"]

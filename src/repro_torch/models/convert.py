@@ -5,8 +5,9 @@ reference's ``LM.init_params`` with numpy (or array-like) leaves and returns
 the state dict that the port's ``LM.load_state_dict(..., strict=True)``
 takes: the leading layer axis of ``blocks`` (and of the MoE family's
 ``dense0``) is unstacked into ``blocks.<i>.<...>``.  Leaves keep their
-dtype: the MoE router stays fp32, the expert stacks (E, d_in, d_out) are
-one tensor a layer as in the port.  bf16 arrives as numpy's ``bfloat16``
+dtype: the MoE router and MLA's ``kv_norm`` stay fp32, the expert stacks
+(E, d_in, d_out) are one tensor a layer as in the port, and MLA's ``wq``,
+``w_dkv``, ``w_uk``, ``w_uv`` and ``wo`` keep the reference's names.  bf16 arrives as numpy's ``bfloat16``
 extension dtype, which ``torch.from_numpy`` refuses; it is recognised by
 name and carried bit for bit through ``uint16``, so this module needs no
 extension package.

@@ -1,5 +1,5 @@
-"""The LM for serving, dense and MoE families (the port of
-``repro/models/lm.py``).
+"""The LM for serving, dense and MoE families, GQA or MLA attention (the
+port of ``repro/models/lm.py``).
 
 ``LM`` is an ``nn.Module`` that holds the parameters of one card:
 ``embed``, ``final_norm``, ``lm_head`` (unless tied), ``dense0`` (the MoE
@@ -13,16 +13,21 @@ scans).  Its entry points:
 
 The cache is ``{"blocks": {"k": ..., "v": ...}}`` (and ``"dense0"`` alike
 where the model has leading dense blocks) with a leading layer axis,
-(L, B, Hkv, M, dh) under ``hmajor_cache`` and (L, B, M, Hkv, dh) otherwise,
+(L, B, Hkv, M, dh) under ``hmajor_cache`` and (L, B, M, Hkv, dh) otherwise;
+with MLA (DeepSeek-V2) it is the latents, ``{"ckv": (L, B, M, r), "krope":
+(L, B, M, dr)}`` under either setting, as in the reference.  It is
 allocated at ``max_len`` by the prefill and written in place by each decode
 step at ``cur_len`` (the reference donates it instead).  There is no mesh:
 one card holds the model, so the vocabulary is not padded (``vocab_padded
 == vocab``).  Under ``exact_causal_prefill`` the prefill's attention is the
-flash kernel (K6).  An expert block's prefill runs the capacity dispatch
+flash kernel (K6); MLA's prefill expands its latents to per-head K and V
+(q and k of dn + dr, v of dv: K6 at (192, 128) for DeepSeek-V2-Lite), and
+its decode step attends in the latent space (``mla_decode_absorbed``), or
+with ``absorbed=False`` over the expanded cache, as the reference has both.
+An expert block's prefill runs the capacity dispatch
 (``moe.moe_apply_capacity``, which drops assignments past capacity) and a
 decode step every expert on its tokens (``moe.moe_apply_local``), as the
-reference does at tp = 1.  MLA (DeepSeek-V2) and the other families are not
-ported yet.
+reference does at tp = 1.  The other families are not ported yet.
 """
 
 from __future__ import annotations
@@ -85,8 +90,9 @@ def _norm_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 
 class Block(nn.Module):
-    """One pre-norm decoder layer: ``ln1``, ``attn``, ``ln2``, and ``mlp``
-    of width ``ff`` (default ``d_ff``) or, with ``use_moe``, ``moe``."""
+    """One pre-norm decoder layer: ``ln1``, ``attn`` (GQA, or MLA where the
+    config has it), ``ln2``, and ``mlp`` of width ``ff`` (default ``d_ff``)
+    or, with ``use_moe``, ``moe``."""
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator, dtype: torch.dtype, *,
                  use_moe: bool = False, ff: int | None = None):
@@ -94,9 +100,10 @@ class Block(nn.Module):
         d = cfg.d_model
         self.ln1 = _norm_init(cfg, d, gen.device)
         self.ln2 = _norm_init(cfg, d, gen.device)
-        self.attn = _params(attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                                          cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
-                                          dtype=dtype))
+        self.attn = _params(
+            attn.mla_init(gen, d, cfg.n_heads, cfg.mla, dtype) if cfg.mla is not None
+            else attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                               qkv_bias=cfg.qkv_bias, dtype=dtype))
         if use_moe:
             self.moe = _params(moe.moe_init(gen, d, cfg.moe, cfg.mlp, dtype))
         else:
@@ -107,8 +114,6 @@ def not_ported(cfg: ArchConfig) -> str | None:
     """Why the port cannot run ``cfg`` yet, or None."""
     if cfg.family not in ("dense", "moe"):
         return f"{cfg.name} is {cfg.family!r}"
-    if cfg.mla is not None:
-        return f"{cfg.name} uses MLA attention"
     return None
 
 
@@ -124,8 +129,8 @@ class LM(nn.Module):
         super().__init__()
         why = not_ported(cfg)
         if why:
-            raise NotImplementedError(f"the port's LM runs the dense and MoE families "
-                                      f"without MLA; {why}, still to port (ROADMAP.md §1)")
+            raise NotImplementedError(f"the port's LM runs the dense and MoE families; "
+                                      f"{why}, still to port (ROADMAP.md §1)")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LM defaults to CUDA and no CUDA device is available; "
@@ -176,24 +181,68 @@ class LM(nn.Module):
                             head_dim=self.head_dim, positions=positions,
                             rope_theta=cfg.rope_theta)
 
-    def _attn_prefill(self, p, x, positions, k_cache, v_cache):
-        """Attention sub-block; writes its keys and values to the layer's cache."""
+    def _mla_latents(self, p, h, positions):
+        cfg = self.cfg
+        return attn.mla_latents(p.attn, h, mla=cfg.mla, positions=positions,
+                                rope_theta=cfg.rope_theta)
+
+    def _mla_qkv(self, p, h, positions, ckv, krope):
+        """MLA's q (nope || rope) at ``positions`` and K, V expanded from the
+        latents ``ckv`` (B, S, r), ``krope`` (B, S, 1, dr)."""
+        cfg = self.cfg
+        qn, qr = attn.mla_queries(p.attn, h, n_heads=cfg.n_heads, mla=cfg.mla,
+                                  positions=positions, rope_theta=cfg.rope_theta)
+        k, v = attn.mla_expand_kv(p.attn, ckv, krope, n_heads=cfg.n_heads, mla=cfg.mla)
+        return torch.cat([qn, qr], -1), k, v
+
+    def _attn_prefill(self, p, x, positions, cache: dict):
+        """Attention sub-block; writes its keys and values (MLA: its
+        latents) to the layer's ``cache``."""
         B, S = x.shape[:2]
-        q, k, v = self._qkv(p, _norm_apply(self.cfg, p.ln1, x), positions)
+        h = _norm_apply(self.cfg, p.ln1, x)
+        if self.cfg.mla is not None:
+            ckv, krope = self._mla_latents(p, h, positions)
+            o = self._serving_causal(*self._mla_qkv(p, h, positions, ckv, krope))
+            cache["ckv"][:, :S] = ckv
+            cache["krope"][:, :S] = krope[:, :, 0]
+            return x + o.reshape(B, S, -1) @ p.attn["wo"]
+        q, k, v = self._qkv(p, h, positions)
         o = self._serving_causal(q, k, v)
         if self.perf.hmajor_cache:
-            k_cache[:, :, :S] = k.transpose(1, 2)
-            v_cache[:, :, :S] = v.transpose(1, 2)
+            cache["k"][:, :, :S] = k.transpose(1, 2)
+            cache["v"][:, :, :S] = v.transpose(1, 2)
         else:
-            k_cache[:, :S] = k
-            v_cache[:, :S] = v
+            cache["k"][:, :S] = k
+            cache["v"][:, :S] = v
         return x + o.reshape(B, S, -1) @ p.attn["wo"]
 
-    def _attn_decode(self, p, x, k_cache, v_cache, cur_len: int):
-        """One-token attention; writes the token's key and value at ``cur_len``."""
+    def _mla_decode(self, p, x, h, pos, cache: dict, cur_len: int, absorbed: bool):
+        """MLA's one-token attention: the token's latents written at
+        ``cur_len``, then the absorbed decode over the latent cache, or the
+        attention over K and V expanded from the whole cache."""
+        cfg = self.cfg
+        ckv_new, krope_new = self._mla_latents(p, h, pos)
+        ckv, krope = cache["ckv"], cache["krope"]
+        ckv[:, cur_len] = ckv_new[:, 0]
+        krope[:, cur_len] = krope_new[:, 0, 0]
+        if absorbed:
+            return x + attn.mla_decode_absorbed(
+                p.attn, h, ckv, krope, cur_len + 1, n_heads=cfg.n_heads, mla=cfg.mla,
+                positions=pos, rope_theta=cfg.rope_theta, bf16_compute=self.perf.bf16_attention)
+        q, k, v = self._mla_qkv(p, h, pos, ckv, krope[:, :, None])
+        o = attn.decode_attention(q, k, v, cur_len + 1, bf16_compute=self.perf.bf16_attention)
+        return x + o.reshape(x.shape[0], 1, -1) @ p.attn["wo"]
+
+    def _attn_decode(self, p, x, cache: dict, cur_len: int, absorbed: bool = True):
+        """One-token attention; writes the token's key and value (MLA: its
+        latents) at ``cur_len``."""
         B = x.shape[0]
         pos = torch.full((B, 1), cur_len, dtype=torch.int64, device=x.device)
-        q, k_new, v_new = self._qkv(p, _norm_apply(self.cfg, p.ln1, x), pos)
+        h = _norm_apply(self.cfg, p.ln1, x)
+        if self.cfg.mla is not None:
+            return self._mla_decode(p, x, h, pos, cache, cur_len, absorbed)
+        k_cache, v_cache = cache["k"], cache["v"]
+        q, k_new, v_new = self._qkv(p, h, pos)
         if self.perf.hmajor_cache:
             k_cache[:, :, cur_len] = k_new[:, 0]
             v_cache[:, :, cur_len] = v_new[:, 0]
@@ -226,10 +275,15 @@ class LM(nn.Module):
     def _new_cache(self, batch: int, max_len: int) -> dict:
         """A zeroed cache of ``max_len`` positions for every layer group."""
         cfg = self.cfg
-        per_layer = ((batch, cfg.n_kv_heads, max_len, self.head_dim) if self.perf.hmajor_cache
+        if cfg.mla is not None:  # one layout whatever hmajor_cache says
+            per_layer = {"ckv": (batch, max_len, cfg.mla.kv_lora_rank),
+                         "krope": (batch, max_len, cfg.mla.qk_rope_dim)}
+        else:
+            shape = ((batch, cfg.n_kv_heads, max_len, self.head_dim) if self.perf.hmajor_cache
                      else (batch, max_len, cfg.n_kv_heads, self.head_dim))
-        return {name: {kv: torch.zeros((len(g), *per_layer), dtype=self.dtype,
-                                       device=self.device) for kv in ("k", "v")}
+            per_layer = {"k": shape, "v": shape}
+        return {name: {key: torch.zeros((len(g), *shape), dtype=self.dtype, device=self.device)
+                       for key, shape in per_layer.items()}
                 for name, g, _ in self._groups()}
 
     # -- serving ----------------------------------------------------------------
@@ -247,25 +301,26 @@ class LM(nn.Module):
         positions = torch.arange(S, device=self.device).expand(B, S)
         cache = self._new_cache(B, M)
         for name, group, use_moe in self._groups():
-            ks, vs = cache[name]["k"], cache[name]["v"]
             for i, p in enumerate(group):
-                x = self._attn_prefill(p, x, positions, ks[i], vs[i])
+                x = self._attn_prefill(p, x, positions, {k: t[i] for k, t in cache[name].items()})
                 x = self._ffn_block(p, x, use_moe=use_moe, decode=False)
         return cache, self._last_logits(x)
 
     @torch.no_grad()
-    def decode_step(self, cache: dict, token: torch.Tensor, cur_len):
+    def decode_step(self, cache: dict, token: torch.Tensor, cur_len, *, absorbed: bool = True):
         """token: (B,) ids; cur_len: the cache's current length.  Returns
-        (the cache, written in place, and fp32 logits (B, V))."""
+        (the cache, written in place, and fp32 logits (B, V)).  ``absorbed``
+        picks MLA's decode form (no effect on GQA)."""
         cur_len = int(cur_len)
-        ks = next(iter(cache.values()))["k"]
-        max_len = ks.shape[3] if self.perf.hmajor_cache else ks.shape[2]
+        group = next(iter(cache.values()))
+        max_len = (group["k"].shape[3] if self.perf.hmajor_cache else group["k"].shape[2]
+                   ) if "k" in group else group["ckv"].shape[2]
         if not 0 <= cur_len < max_len:
             raise ValueError(f"cur_len {cur_len} outside a cache of {max_len} positions")
         x = self.embed[token.to(self.device)[:, None]]
         for name, group, use_moe in self._groups():
-            ks, vs = cache[name]["k"], cache[name]["v"]
             for i, p in enumerate(group):
-                x = self._attn_decode(p, x, ks[i], vs[i], cur_len)
+                x = self._attn_decode(p, x, {k: t[i] for k, t in cache[name].items()}, cur_len,
+                                      absorbed)
                 x = self._ffn_block(p, x, use_moe=use_moe, decode=True)
         return cache, self._last_logits(x)[:, 0]

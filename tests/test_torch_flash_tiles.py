@@ -14,7 +14,9 @@ to bf16 straight into the A fragments of p . v.  Here:
     kernel gives each lane, and the reuse of two n8 score tiles' C
     fragments as one k16 A fragment assemble q . k^T and p . v exactly;
 (c) the padded rows put the 8 rows of every ldmatrix 8x8 on 8 distinct
-    16-byte bank groups at every head dim.
+    16-byte bank groups at every head dim (q and k at ``kernel.HEAD_DIMS``,
+    MLA's 192 among them; v at the same dims, 128 the value head dim of
+    the pair (192, 128)).
 """
 
 import jax.numpy as jnp
@@ -172,13 +174,15 @@ def test_warp_products_from_fragments(dh):
     q . k^T from ldmatrix'd A and B fragments, then p . v with p taken from
     the score C fragments as the kernel reuses them (score tiles 2kk and
     2kk + 1 are A fragment kk: registers (2kk: c0 c1, 2kk: c2 c3, 2kk+1:
-    c0 c1, 2kk+1: c2 c3)) and V's B fragments by ldmatrix.trans.  Small
-    integers, so every sum is exact."""
+    c0 c1, 2kk+1: c2 c3)) and V's B fragments by ldmatrix.trans, V of the
+    value head dim the kernel pairs with ``dh``.  Small integers, so every
+    sum is exact."""
     rng = np.random.default_rng(dh)
+    dv = dict(kernel.PAIRS)[dh]
     warp = 2
     Q = rng.integers(-3, 4, (64, dh)).astype(np.float64)
     K = rng.integers(-3, 4, (64, dh)).astype(np.float64)
-    V = rng.integers(-3, 4, (64, dh)).astype(np.float64)
+    V = rng.integers(-3, 4, (64, dv)).astype(np.float64)
     qf = [ldmatrix_x4(Q, [q_addr(lane, warp, kk) for lane in range(32)])
           for kk in range(dh // 16)]
     s = np.zeros((8, 32, 4))
@@ -199,14 +203,14 @@ def test_warp_products_from_fragments(dh):
     for j in range(8):
         pa[j // 2, :, j % 2 * 2] = P[j][:, 0:2]
         pa[j // 2, :, j % 2 * 2 + 1] = P[j][:, 2:4]
-    acc = np.zeros((dh // 8, 32, 4))
+    acc = np.zeros((dv // 8, 32, 4))
     for kk in range(4):
-        for jj in range(dh // 16):
+        for jj in range(dv // 16):
             bv = ldmatrix_x4(V, [v_addr(lane, kk, jj) for lane in range(32)], trans=True)
             acc[2 * jj] = mma(pa[kk], bv[:, :2], acc[2 * jj])
             acc[2 * jj + 1] = mma(pa[kk], bv[:, 2:], acc[2 * jj + 1])
     O = S @ V
-    for n in range(dh // 8):
+    for n in range(dv // 8):
         for lane in range(32):
             for i in range(4):
                 r, c = c_map(lane, i)

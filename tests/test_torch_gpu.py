@@ -614,16 +614,21 @@ def _flash_limit(want, v):
     return 2.0 ** -7 * want.float().abs() + 2.0 ** -8 * v.float().abs().max()
 
 
-@pytest.mark.parametrize("dh", [16, 32, 64, 128, 160])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128, 160, 192])
 @pytest.mark.parametrize("S", [50, 64, 257])
 @pytest.mark.parametrize("G", [1, 2, 16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_matches_plain(cuda, dtype, causal, G, S, dh):
+    """q and k of head dim ``dh``, v of the value head dim the kernel pairs
+    with it (``dh`` but for MLA's (192, 128))."""
+    from repro_torch.kernels.flash import kernel
+
+    dv = dict(kernel.PAIRS)[dh]
     gen = torch.Generator(device="cuda").manual_seed(S * dh + G)
     q = torch.randn((2, S, 2 * G, dh), generator=gen, device=cuda).to(dtype)
     k = torch.randn((2, S, 2, dh), generator=gen, device=cuda).to(dtype)
-    v = torch.randn((2, S, 2, dh), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((2, S, 2, dv), generator=gen, device=cuda).to(dtype)
     before, designs = sum(flops.launches.values()), Counter(flops.design_launches)
     got = flops.flash_attention(q, k, v, causal=causal)
     want = flref.attention_gqa_ref(q, k, v, causal=causal)
@@ -639,13 +644,18 @@ def test_flash_matches_plain(cuda, dtype, causal, G, S, dh):
 @pytest.mark.parametrize("S,Hkv,G,dh,causal", [
     (50, 2, 1, 16, True), (130, 1, 16, 128, True), (77, 1, 2, 160, True),
     (192, 2, 2, 32, False), (257, 1, 16, 64, True),
+    (130, 4, 1, 192, True), (77, 1, 2, 192, False),
 ])
 def test_flash_bf16_matches_tile_emulation(cuda, S, Hkv, G, dh, causal):
     """The tensor-core design against the CPU emulation of its order of work
-    (``ref.attention_tiles_ref``), at the bf16 limit."""
+    (``ref.attention_tiles_ref``), at the bf16 limit; v of the value head
+    dim the kernel pairs with ``dh``."""
+    from repro_torch.kernels.flash import kernel
+
     rng = np.random.default_rng(S * dh + G)
-    q, k, v = (torch.from_numpy(rng.standard_normal((2, S, h, dh)).astype(np.float32))
-               .to(torch.bfloat16) for h in (Hkv * G, Hkv, Hkv))
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, S, h, d)).astype(np.float32))
+               .to(torch.bfloat16) for h, d in ((Hkv * G, dh), (Hkv, dh),
+                                                (Hkv, dict(kernel.PAIRS)[dh])))
     got = flops.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), causal=causal).cpu()
     want = flref.attention_tiles_ref(q, k, v, causal=causal)
     err = (got.float() - want.float()).abs()
@@ -705,6 +715,45 @@ def test_moe_lm_prefill_runs_k6_once_per_layer_and_repeats_bitwise(cuda):
     assert sum(flops.launches.values()) == before + cfg.n_layers
     _, lg2 = lm.prefill({"tokens": toks}, max_len=41)
     assert torch.equal(lg, lg2) and int(moe.assignments["dropped"]) == 2 * dropped
+
+
+def test_mla_lm_prefill_runs_k6_once_per_layer_and_repeats_bitwise(cuda):
+    """DeepSeek-V2-Lite's smoke config with its own MLA head dims (q and k
+    128 + 64, v 128: K6 at (192, 128)) on the card: K6 once per layer in the
+    prefill and never in decode, all on the tensor-core design; two
+    prefills bitwise equal (logits and latent cache); the prefill within
+    6e-2 of the same prefill with the plain attention; the absorbed and the
+    expanded decode step within 6e-2 of each other."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.config import MLAConfig
+    from repro_torch.models.lm import LM, OPTIMIZED
+
+    cfg = configs.smoke("deepseek_v2_lite_16b")
+    cfg = dataclasses.replace(cfg, mla=MLAConfig(kv_lora_rank=64, qk_nope_dim=128,
+                                                 qk_rope_dim=64, v_head_dim=128))
+    lm = LM(cfg, q_block=16, perf=OPTIMIZED, device=cuda, seed=0)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=cuda,
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    before, designs = sum(flops.launches.values()), Counter(flops.design_launches)
+    cache, lg = lm.prefill({"tokens": toks}, max_len=41)
+    assert sum(flops.launches.values()) == before + cfg.n_layers
+    twin = {g: {k: v.clone() for k, v in c.items()} for g, c in cache.items()}
+    _, lg_abs = lm.decode_step(cache, lg[:, 0].argmax(-1), 40)
+    _, lg_exp = lm.decode_step(twin, lg[:, 0].argmax(-1), 40, absorbed=False)
+    assert sum(flops.launches.values()) == before + cfg.n_layers
+    assert flops.design_launches - designs == Counter({"tc:bfloat16": cfg.n_layers})
+    rel = ((lg_abs - lg_exp).norm() / lg_exp.norm()).item()
+    assert rel < 6e-2, rel
+    c1, lg1 = lm.prefill({"tokens": toks}, max_len=41)
+    c2, lg2 = lm.prefill({"tokens": toks}, max_len=41)
+    assert torch.equal(lg1, lg2) and all(torch.equal(c1[g][k], c2[g][k])
+                                         for g in c1 for k in ("ckv", "krope"))
+    lm._serving_causal = lambda q, k, v: flref.attention_gqa_ref(q, k, v, causal=True)
+    _, lg_plain = lm.prefill({"tokens": toks}, max_len=41)
+    rel = ((lg1 - lg_plain).norm() / lg_plain.norm()).item()
+    assert rel < 6e-2, rel
 
 
 @pytest.mark.parametrize("budget", ["bf16", "int8"])

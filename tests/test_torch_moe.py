@@ -343,18 +343,27 @@ def test_converter_carries_every_weight_bit_for_bit(mesh, variant):
 
 
 @pytest.mark.parametrize("arch", [a for a in configs.ARCH_NAMES
-                                  if configs.get(a).family == "moe" and configs.get(a).mla is None])
+                                  if configs.get(a).family == "moe"])
 def test_moe_smoke_configs_serve(arch):
-    """Every MoE config without MLA serves from seeded weights: finite logits
-    of the right shape, one cache entry per layer group, and the K6
-    wrapper's CPU path counts no launch."""
+    """Every MoE config serves from seeded weights: finite logits of the
+    right shape, one cache entry per layer group with the keys of its
+    attention (GQA's k and v, MLA's latents), and the K6 wrapper's CPU path
+    counts no launch."""
     cfg = configs.smoke(arch)
     port = lm.LM(cfg, q_block=4, perf=lm.OPTIMIZED, device="cpu", seed=1)
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (B, S)))
     before = sum(flash_ops.launches.values())
     cache, lg = port.prefill({"tokens": toks}, max_len=S + 1)
-    assert set(cache) == {"blocks"}
-    assert cache["blocks"]["k"].shape == (cfg.n_layers, B, cfg.n_kv_heads, S + 1, cfg.head_dim)
+    n_dense = cfg.moe.first_k_dense
+    assert set(cache) == ({"dense0", "blocks"} if n_dense else {"blocks"})
+    n = cfg.n_layers - n_dense
+    if cfg.mla is None:
+        assert {k: tuple(v.shape) for k, v in cache["blocks"].items()} == {
+            kv: (n, B, cfg.n_kv_heads, S + 1, cfg.head_dim) for kv in ("k", "v")}
+    else:
+        assert {k: tuple(v.shape) for k, v in cache["blocks"].items()} == {
+            "ckv": (n, B, S + 1, cfg.mla.kv_lora_rank),
+            "krope": (n, B, S + 1, cfg.mla.qk_rope_dim)}
     _, lg2 = port.decode_step(cache, lg[:, 0].argmax(-1), S)
     assert lg.shape == (B, 1, cfg.vocab) and lg2.shape == (B, cfg.vocab)
     assert torch.isfinite(lg).all() and torch.isfinite(lg2).all()
@@ -398,10 +407,29 @@ def test_moe_lm_defaults_to_cuda_and_raises_without_a_card():
         lm.LM(configs.smoke(ARCH))
 
 
-def test_converter_refuses_mla():
-    cfg = configs.smoke("deepseek_v2_lite_16b")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        lm_params_from_reference(cfg, {})
+def test_converter_carries_mla_weights(mesh):
+    """DeepSeek-V2-Lite's smoke weights cross over whole: the state dict
+    loads under ``strict=True``, ``kv_norm`` stays fp32 and the MLA leaves
+    are the reference's bit for bit."""
+    arch = "deepseek_v2_lite_16b"
+    ref = rlm.LM(rconfigs.smoke(arch), mesh, Axes(multi_pod=False), q_block=4, xent_chunks=1)
+    with set_mesh(mesh):
+        params = _np(ref.init_params(jax.random.PRNGKey(2)))
+    cfg = configs.smoke(arch)
+    port = lm.LM(cfg, q_block=4, device="cpu")
+    sd = lm_params_from_reference(cfg, params)
+    port.load_state_dict(sd, strict=True)
+    got = port.state_dict()
+    assert set(got) == set(sd)
+    assert got["blocks.0.attn.kv_norm"].dtype == torch.float32
+    for group, i in (("dense0", 0), ("blocks", 1)):
+        for name in ("wq", "w_dkv", "w_uk", "w_uv", "wo", "kv_norm"):
+            want = np.asarray(params[group]["attn"][name][i])
+            t = got[f"{group}.{i}.attn.{name}"]
+            assert tuple(t.shape) == want.shape, name
+            if t.dtype == torch.bfloat16:
+                t, want = t.view(torch.int16).numpy().view(np.uint16), want.view(np.uint16)
+            np.testing.assert_array_equal(np.asarray(t), want, err_msg=f"{group}.{name}")
 
 
 def test_serve_takes_a_built_lm(capsys):
