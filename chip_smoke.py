@@ -130,6 +130,16 @@ non-zero):
    equal (logits and the latent cache); the moe path's pinned comparisons;
    one absorbed decode step against the expanded one, routing pinned; the
    dropped share per layer (one ``{"mla": ...}`` line);
+   "ssm" — after the mla path's model is freed, Falcon-Mamba-7B whole (64
+   Mamba1 layers at full width: d 4096, d_inner 8192, d_state 16, dt_rank
+   256, scan chunk 128, bf16, seeded weights) through ``serve_lm.main`` with
+   the lm path's traffic; no kernel of K1-K6 launches (the model has no
+   attention); two prefills bitwise equal (logits, ``ssm`` and ``conv``);
+   3 teacher-forced decode steps against a prefill of S + 3 tokens (a padded
+   last chunk), logits within the limit, the final ``ssm`` state's rel. L2
+   beside them; one layer's ``selective_scan`` at full width (B 1, T 256,
+   d_inner 8192, d_state 16) against a float64 recurrence on the card at
+   1e-4, and timed at the prefill's shape (one ``{"ssm": ...}`` line);
 4. the kernels at the main path's shapes (512^3, where K4 runs its
    tensor-core design and K1-K3 their vec designs, as at the pipelined slice;
    K4's general design at the quickstart shape; K5 at three 1 GiB
@@ -147,8 +157,10 @@ non-zero):
    n = 64 by row count against ``torch.fft.fft``, one
    ``{"k4_general_rows"}`` line; K1, K3 and K4 also at every shape the
    serve path launched them at), the serving times beside their
-   bounds (one ``{"lm_breakdown": ...}``, one ``{"moe_breakdown": ...}``
-   and one ``{"mla_breakdown": ...}`` line), the seconds of each phase
+   bounds (one ``{"lm_breakdown": ...}``, one ``{"moe_breakdown": ...}``,
+   one ``{"mla_breakdown": ...}`` and one ``{"ssm_breakdown": ...}`` line,
+   the last with the selective scan's share of the prefill in place of
+   K6's), the seconds of each phase
    (one ``{"phase_s"}`` line), then the result line.
 
 Without a CUDA device, or outside a checkout of the repository, it prints no
@@ -203,6 +215,15 @@ MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 2048, 32
 # served through serve_lm as a user calls it, with the lm path's traffic
 MLA_ARGV = ["--arch", "deepseek_v2_lite_16b", "--preset", "full", "--opt", "--batch", "4",
             "--prompt-len", "2048", "--gen", "32"]
+# the ssm path: Falcon-Mamba-7B whole (64 layers, 13.55 GiB of bf16 weights)
+# through serve_lm, with the lm path's traffic
+SSM_ARGV = ["--arch", "falcon_mamba_7b", "--preset", "full", "--opt", "--batch", "4",
+            "--prompt-len", "2048", "--gen", "32"]
+# one layer's selective scan at full width against a float64 recurrence:
+# (B, T, d_inner, d_state), inputs in tests/test_ssm.py's ranges, held to
+# that file's limit
+SSM_SCAN_SHAPE = (1, 256, 8192, 16)
+TOL_SCAN = 1e-4
 # K4's general design at the quickstart's last axis by row count: the
 # quickstart's 42 * 63 rows, the sweep's 4096 and eight times that
 K4_GENERAL_CASES = ((64, 2646), (64, 4096), (64, 32768))
@@ -366,9 +387,9 @@ def main():
     print(json.dumps({"strided_fft": {**phase("strided_fft", strided_fft_check, torch),
                                       "card": card}}))
 
-    lm_info, moe_info, mla_info = {}, {}, {}
+    lm_info, moe_info, mla_info, ssm_info = {}, {}, {}, {}
     many, tune, tune_shapes, serve, serve_shapes = [], [], {}, [], {}
-    paths = phase("paths", run_paths, torch, lm_info, moe_info, mla_info, many, tune,
+    paths = phase("paths", run_paths, torch, lm_info, moe_info, mla_info, ssm_info, many, tune,
                   tune_shapes, serve, serve_shapes, card)
     print(json.dumps({"paths": paths}))
     print(json.dumps({"many": [{**r, "card": card} for r in many]}))
@@ -382,6 +403,8 @@ def main():
     print(json.dumps({"moe_breakdown": {**lm_breakdown(kernels, moe_info, "moe"),
                                         "card": card}}))
     print(json.dumps({"mla_breakdown": {**lm_breakdown(kernels, mla_info, "mla"),
+                                        "card": card}}))
+    print(json.dumps({"ssm_breakdown": {**lm_breakdown(kernels, ssm_info, "ssm"),
                                         "card": card}}))
     print(json.dumps({"phase_s": {"build": round(build_s, 1), **phases,
                                   "total": round(time.perf_counter() - t0, 1)}}))
@@ -811,15 +834,15 @@ def _by_call(paths, shapes, name):
         fail(f"{name}: launches by call {by_call} != the counters' {[k1, k3, k4]}")
 
 
-def run_paths(torch, lm_info, moe_info, mla_info, many, tune, tune_shapes, serve, serve_shapes,
-              card):
+def run_paths(torch, lm_info, moe_info, mla_info, ssm_info, many, tune, tune_shapes, serve,
+              serve_shapes, card):
     """Drive the five FFT paths on a 1-rank NCCL group (the composed path
     prints its records, the many path fills ``many`` with its), measure the time model's coefficients (one
     ``{"coeffs"}`` line), drive the tune path on the same group (it fills
     ``tune`` and, with its launches by call, ``tune_shapes``), the serve path
     (``serve``, ``serve_shapes`` likewise), then the LM paths (which fill
-    ``lm_info``, ``moe_info`` and ``mla_info``); returns each path's kernel
-    launch counts."""
+    ``lm_info``, ``moe_info``, ``mla_info`` and ``ssm_info``); returns each
+    path's kernel launch counts."""
     import torch.distributed as dist
 
     from repro_torch.core.meshutil import make_mesh
@@ -884,6 +907,9 @@ def run_paths(torch, lm_info, moe_info, mla_info, many, tune, tune_shapes, serve
     gc.collect()
     torch.cuda.empty_cache()
     paths["mla"] = _drive(torch, "mla", mla_path, mla_info)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["ssm"] = _drive(torch, "ssm", ssm_path, ssm_info)
     gc.collect()
     torch.cuda.empty_cache()
     return paths
@@ -2254,12 +2280,20 @@ def _serving_bounds(lm, B, S, n_gen):
     """What a prefill of B x S tokens and a decode step must move and
     compute: a decode step reads every weight once (every expert's: the
     decode path runs them all; of an untied embedding only B rows) and the
-    valid cache at its last step; a prefill reads every weight once, writes
-    its cache, and does the operations of ``_prefill_flops``."""
+    valid cache at its last step (an SSM's states, read and written); a
+    prefill reads every weight once, writes its cache (an SSM's states), and
+    does the operations of ``_prefill_flops``."""
     cfg = lm.cfg
     param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
     step_weight_bytes = param_bytes if cfg.tie_embeddings else (
         param_bytes - (lm.embed.shape[0] - B) * lm.embed.shape[1] * lm.embed.element_size())
+    if cfg.family == "ssm":  # fp32 ssm (B, Di, N) and conv (B, K-1, Di) a layer
+        di = cfg.ssm.expand * cfg.d_model
+        state = len(lm.blocks) * B * di * (cfg.ssm.d_state * 4
+                                          + (cfg.ssm.d_conv - 1) * lm.embed.element_size())
+        return {"step_weight_bytes": step_weight_bytes, "state_bytes": state,
+                "cache_bytes": 2 * state, "prefill_bytes": param_bytes + state,
+                "prefill_flops": _prefill_flops(lm, B, S)}
     layers = len(lm.dense0) + len(lm.blocks)
     # a token's cache a layer: K and V of every kv head, or MLA's latents
     width = (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim if cfg.mla is not None
@@ -2273,9 +2307,16 @@ def _prefill_flops(lm, B, S):
     """Operations of one prefill of B x S tokens, two a multiply-add: the
     projections, causal attention over the triangle, each FFN (the experts
     over their whole capacity buffer, as they run, the router and any shared
-    experts beside them), the last token's head."""
+    experts beside them), the last token's head.  An SSM layer: ``in_proj``,
+    ``x_proj``, ``dt_proj`` and ``out_proj`` (the scan's elementwise
+    operations, ~0.4 TFLOP of fp32 over the whole prefill, aside)."""
     cfg = lm.cfg
     N, d, dh, H = B * S, cfg.d_model, lm.head_dim, cfg.n_heads
+    if cfg.family == "ssm":
+        p = lm.blocks[0].mamba
+        di, dtr, xw = p["D"].shape[0], p["dt_proj"].shape[0], p["x_proj"].shape[1]
+        per_layer = 2 * N * (d * 2 * di + di * xw + dtr * di + di * d)
+        return len(lm.blocks) * per_layer + 2 * B * d * lm.embed.shape[0]
     mult = 3 if cfg.mlp in ("swiglu", "geglu") else 2
     if cfg.mla is not None:  # wq, w_dkv, w_uk, w_uv, wo; q.k over dn + dr, p.v over dv
         m = cfg.mla
@@ -2498,6 +2539,125 @@ def mla_path(torch, info):
     del res, lm, prompts
 
 
+def ssm_path(torch, info):
+    """Falcon-Mamba-7B whole (64 Mamba1 layers at full width) served through
+    ``serve_lm.main`` with the lm path's traffic (one warm-up round, then a
+    timed prefill and 32 decode steps), then on the same weights: a second
+    prefill bitwise equal (logits, ``ssm``, ``conv``); 3 teacher-forced
+    decode steps against a prefill of S + 3 tokens (the last chunk padded),
+    logits within ``TOL_LM`` and the final ``ssm`` state's rel. L2 beside
+    them; ``_ssm_scan`` (one layer's scan at full width against float64, and
+    timed at the prefill's shape); no launch of K1-K6 in the whole path.
+    Fills ``info``."""
+    from repro_torch.launch import serve_lm
+
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_lm.main(SSM_ARGV)
+    peak = torch.cuda.max_memory_allocated()
+    lm, prompts = res.lm, res.prompts
+    cfg, scfg = lm.cfg, lm.cfg.ssm
+    B, S = prompts.shape
+    L, n_gen = cfg.n_layers, res.ids.shape[1] - 1
+
+    cache, lg1 = lm.prefill({"tokens": prompts})
+    cache2, lg2 = lm.prefill({"tokens": prompts})
+    bitwise = torch.equal(lg1, lg2) and all(torch.equal(cache[k], cache2[k])
+                                            for k in ("ssm", "conv"))
+    cache_shapes = {k: list(v.shape) for k, v in cache.items()}
+    del cache2, lg2
+    extra = res.ids[:, :3].to(prompts.device)  # the first three generated ids
+    for t in range(3):
+        cache, lg_dec = lm.decode_step(cache, extra[:, t], S + t)
+    full, lg_full = lm.prefill({"tokens": torch.cat([prompts, extra], 1)})
+    rel_dec = rel_l2(torch, lg_dec, lg_full[:, 0])
+    rel_state = rel_l2(torch, cache["ssm"], full["ssm"])
+    agree = _agree(lg_dec, lg_full[:, 0])
+    finite = bool(torch.isfinite(lg1).all() and torch.isfinite(lg_dec).all())
+    del cache, full, lg_full
+    scan = _ssm_scan(torch, lm, B, S)
+    launched = {k: n for k, n in _count_snapshot().items() if n}
+
+    di = scfg.expand * cfg.d_model
+    bounds = _serving_bounds(lm, B, S, n_gen)
+    out = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model, "d_inner": di,
+           "d_state": scfg.d_state, "d_conv": scfg.d_conv,
+           "dt_rank": lm.blocks[0].mamba["dt_proj"].shape[0], "chunk": scfg.chunk,
+           "vocab": cfg.vocab, "dtype": cfg.dtype,
+           "params": sum(p.numel() for p in lm.parameters()),
+           "weights_gib": sum(p.numel() * p.element_size() for p in lm.parameters()) / 2**30,
+           "batch": B, "prompt_len": S, "gen": n_gen,
+           "prefill_ms": res.prefill_s * 1e3, "prefill_tok_s": B * S / res.prefill_s,
+           "decode_ms_per_step": res.decode_s * 1e3 / n_gen,
+           "decode_tok_s": B * n_gen / res.decode_s,
+           "max_memory_allocated_gib": peak / 2**30, "ids": res.ids[0][:12].tolist(),
+           "cache": cache_shapes, "state_bytes": bounds["state_bytes"],
+           "kernel_launches": launched, "two_prefills_bitwise": bitwise,
+           "rel_l2_teacher_forced_decode_vs_prefill": rel_dec, "limit": TOL_LM,
+           "argmax_agree_teacher_forced": agree,
+           "rel_l2_ssm_state_decode_vs_prefill": rel_state, **scan, "finite": finite}
+    print(json.dumps({"ssm": out}))
+    if launched or not (finite and bitwise and scan["scan_ok"]) or rel_dec > TOL_LM:
+        fail(f"ssm: launches {launched} (want none), finite {finite}, two prefills bitwise "
+             f"{bitwise}, teacher-forced decode vs prefill {rel_dec} (limit {TOL_LM}), "
+             f"scan vs float64 max excess {scan['scan_max_excess']} (limit rtol = atol = "
+             f"{TOL_SCAN})")
+    info.update(out, **bounds)
+    del lg1, lg_dec
+    _profile_serving(torch, lm, prompts, res.ids, info)
+    del res, lm, prompts
+
+
+def _ssm_scan(torch, lm, B, S):
+    """One layer's ``selective_scan`` on the card: at ``SSM_SCAN_SHAPE``
+    with fp32 inputs in tests/test_ssm.py's ranges (numpy seed 0) against
+    the recurrence in float64, step by step, at rtol = atol = ``TOL_SCAN``;
+    then timed (``one_call_ms``) at the prefill's shape (B, S and the
+    model's d_inner and d_state; x, B and C in the activations' dtype, dt
+    fp32, as the model gives them), beside the bytes it must move (x, dt,
+    B, C read, y and the state written)."""
+    import numpy as np
+
+    from repro_torch.models import ssm
+
+    Bn, T, Di, N = SSM_SCAN_SHAPE
+    chunk = lm.cfg.ssm.chunk
+    rng = np.random.default_rng(0)
+    host = (rng.standard_normal((Bn, T, Di), dtype=np.float32),
+            rng.uniform(0.01, 0.2, (Bn, T, Di)).astype(np.float32),
+            -rng.uniform(0.5, 2.0, (Di, N)).astype(np.float32),
+            rng.standard_normal((Bn, T, N), dtype=np.float32),
+            rng.standard_normal((Bn, T, N), dtype=np.float32))
+    x, dt, A, Bm, Cm = (torch.from_numpy(a).cuda() for a in host)
+    y, h = ssm.selective_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    x, dt, A, Bm, Cm = (t.double() for t in (x, dt, A, Bm, Cm))
+    h64 = torch.zeros((Bn, Di, N), dtype=torch.float64, device="cuda")
+    y64 = torch.empty((Bn, T, Di), dtype=torch.float64, device="cuda")
+    for t in range(T):
+        h64 = (torch.exp(dt[:, t, :, None] * A) * h64
+               + dt[:, t, :, None] * Bm[:, t, None, :] * x[:, t, :, None])
+        y64[:, t] = (h64 * Cm[:, t, None, :]).sum(-1)
+    excess = max(float(((got.double() - want).abs() - TOL_SCAN * (1 + want.abs())).max())
+                 for got, want in ((y, y64), (h, h64)))
+    rel = rel_l2(torch, y.double(), y64)
+    del x, dt, A, Bm, Cm, y, h, h64, y64
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    act = lm.dtype
+    Di, N = lm.blocks[0].mamba["A_log"].shape
+    xs = torch.randn((B, S, Di), generator=gen, device="cuda").to(act)
+    dts = torch.rand((B, S, Di), generator=gen, device="cuda") * 0.19 + 0.01
+    As = -torch.exp(lm.blocks[0].mamba["A_log"])
+    Bs, Cs = (torch.randn((B, S, N), generator=gen, device="cuda").to(act) for _ in range(2))
+    ms = one_call_ms(torch, lambda: ssm.selective_scan(xs, dts, As, Bs, Cs, chunk=chunk))
+    nbytes = (sum(t.numel() * t.element_size() for t in (xs, dts, Bs, Cs))
+              + B * S * Di * 4 + B * Di * N * 4)
+    del xs, dts, Bs, Cs
+    return {"scan_shape_checked": list(SSM_SCAN_SHAPE), "scan_max_excess": excess,
+            "scan_ok": excess <= 0, "scan_rel_l2_vs_float64": rel, "scan_limit": TOL_SCAN,
+            "scan_prefill_shape": [B, S, Di, N], "scan_ms_per_layer": ms,
+            "scan_bytes_per_layer": nbytes, "scan_bound_ms_per_layer": nbytes / HBM_BPS * 1e3}
+
+
 def _counted_prefill(torch, lm, prompts, served, name):
     """An untimed prefill of ``prompts`` (the timed one's function: the
     dispatch is deterministic) with each expert layer's dispatch counted
@@ -2708,22 +2868,29 @@ def _device_time(torch, fn):
 
 
 def lm_breakdown(kernels, info, path):
-    """A serving path's times beside K6's share, the prefill's bound and the
-    decode step's byte bound."""
-    k6 = next(k for k in kernels if k["name"].startswith("flash_attention") and k["path"] == path)
+    """A serving path's times beside K6's share (where the path runs K6;
+    the ssm path: the selective scan's, timed alone at the prefill's shape),
+    the prefill's bound and the decode step's byte bound."""
+    k6 = next((k for k in kernels if k["name"].startswith("flash_attention")
+               and k["path"] == path), None)
     pre_bound, pre_by = bound_ms(info["prefill_bytes"], info["prefill_flops"], BF16_TC_FLOPS)
-    k6_total = k6["ms"] * info["layers"]
     decode_bytes = info["step_weight_bytes"] + info["cache_bytes"]
-    out = {"prefill_ms": info["prefill_ms"], "k6_ms_x_layers": k6_total,
-           "k6_share_of_prefill": k6_total / info["prefill_ms"],
-           "prefill_rest_ms": info["prefill_ms"] - k6_total,
-           "prefill_tflop": info["prefill_flops"] / 1e12, "prefill_bound_ms": pre_bound,
-           "prefill_bound_by": pre_by,
-           "decode_ms_per_step": info["decode_ms_per_step"],
-           "decode_bound_ms": decode_bytes / HBM_BPS * 1e3, "decode_bound_by": "bytes",
-           "decode_bytes": decode_bytes,
-           "prefill_device": info["prefill_device"],
-           "decode_device_4_steps": info["decode_device_4_steps"]}
+    out = {"prefill_ms": info["prefill_ms"]}
+    for name, ms in (("k6", k6 and k6["ms"]), ("scan", info.get("scan_ms_per_layer"))):
+        if ms is not None:
+            total = ms * info["layers"]
+            out.update({f"{name}_ms_x_layers": total,
+                        f"{name}_share_of_prefill": total / info["prefill_ms"],
+                        "prefill_rest_ms": info["prefill_ms"] - total})
+    if "scan_bound_ms_per_layer" in info:
+        out["scan_bound_ms_x_layers"] = info["scan_bound_ms_per_layer"] * info["layers"]
+    out.update({"prefill_tflop": info["prefill_flops"] / 1e12, "prefill_bound_ms": pre_bound,
+                "prefill_bound_by": pre_by,
+                "decode_ms_per_step": info["decode_ms_per_step"],
+                "decode_bound_ms": decode_bytes / HBM_BPS * 1e3, "decode_bound_by": "bytes",
+                "decode_bytes": decode_bytes,
+                "prefill_device": info["prefill_device"],
+                "decode_device_4_steps": info["decode_device_4_steps"]})
     # the device's idle share against the unprofiled wall times of serve_lm
     if info["prefill_device"]:
         out["prefill_idle_share"] = 1 - info["prefill_device"]["device_ms"] / info["prefill_ms"]

@@ -6,7 +6,8 @@ input-shape cells; ``cells(name)`` enumerates the applicable (arch, shape)
 pairs (long_500k only for sub-quadratic archs — skip recorded in DESIGN.md).
 
 A copy of the reference's registry and config files (data only).  Every
-config loads; the port's ``LM`` runs the dense ones.
+config loads; the port's ``LM`` runs the dense, MoE (GQA or MLA) and SSM
+(Mamba1) ones.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ live in ``repro_torch/configs/<arch>.py``.
 
 A copy of the reference's ``repro/models/config.py``: plain dataclasses and
 the parameter counts, kept here so that the port imports nothing of the
-reference.  The port's ``LM`` runs the ``dense`` family only.
+reference.  The port's ``LM`` runs the ``dense``, ``moe`` and ``ssm`` families.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ reference's ``LM.init_params`` with numpy (or array-like) leaves and returns
 the state dict that the port's ``LM.load_state_dict(..., strict=True)``
 takes: the leading layer axis of ``blocks`` (and of the MoE family's
 ``dense0``) is unstacked into ``blocks.<i>.<...>``.  Leaves keep their
-dtype: the MoE router and MLA's ``kv_norm`` stay fp32, the expert stacks
+dtype: the MoE router, MLA's ``kv_norm`` and Mamba1's ``dt_bias``,
+``A_log`` and ``D`` stay fp32, the expert stacks
 (E, d_in, d_out) are one tensor a layer as in the port, and MLA's ``wq``,
 ``w_dkv``, ``w_uk``, ``w_uv`` and ``wo`` keep the reference's names.  bf16 arrives as numpy's ``bfloat16``
 extension dtype, which ``torch.from_numpy`` refuses; it is recognised by

@@ -1,4 +1,4 @@
-"""The LM for serving, dense and MoE families, GQA or MLA attention (the
+"""The LM for serving, dense, MoE and SSM families, GQA or MLA attention (the
 port of ``repro/models/lm.py``).
 
 ``LM`` is an ``nn.Module`` that holds the parameters of one card:
@@ -27,7 +27,14 @@ with ``absorbed=False`` over the expanded cache, as the reference has both.
 An expert block's prefill runs the capacity dispatch
 (``moe.moe_apply_capacity``, which drops assignments past capacity) and a
 decode step every expert on its tokens (``moe.moe_apply_local``), as the
-reference does at tp = 1.  The other families are not ported yet.
+reference does at tp = 1.
+
+The SSM family (Falcon-Mamba) holds ``embed``, ``final_norm``, ``lm_head``
+and ``blocks`` of ``ln`` and ``mamba`` (Mamba1, ``models/ssm.py``); its cache
+is the reference's bare ``{"ssm": (L, B, Di, N) fp32, "conv": (L, B, K-1,
+Di)}``, which has no position axis: ``max_len`` does not size it and
+``cur_len`` does not bound it, and each decode step writes it in place.  The
+hybrid, audio and VLM families are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
-from repro_torch.models import moe
+from repro_torch.models import moe, ssm
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import dense_init, layernorm, mlp_apply, mlp_init, rmsnorm
 
@@ -110,15 +117,24 @@ class Block(nn.Module):
             self.mlp = _params(mlp_init(gen, d, ff or cfg.d_ff, cfg.mlp, dtype))
 
 
+class SSMBlock(nn.Module):
+    """One pre-norm Mamba1 layer: ``ln`` and ``mamba``."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator, dtype: torch.dtype):
+        super().__init__()
+        self.ln = _norm_init(cfg, cfg.d_model, gen.device)
+        self.mamba = _params(ssm.mamba1_init(gen, cfg.d_model, cfg.ssm, dtype))
+
+
 def not_ported(cfg: ArchConfig) -> str | None:
     """Why the port cannot run ``cfg`` yet, or None."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         return f"{cfg.name} is {cfg.family!r}"
     return None
 
 
 class LM(nn.Module):
-    """A dense or MoE decoder LM on one device, weights drawn from ``seed``.
+    """A dense, MoE or SSM decoder LM on one device, weights drawn from ``seed``.
 
     ``device`` defaults to CUDA and raises without a card; pass ``"cpu"``
     to run on the CPU (every kernel then takes its plain version).
@@ -129,7 +145,7 @@ class LM(nn.Module):
         super().__init__()
         why = not_ported(cfg)
         if why:
-            raise NotImplementedError(f"the port's LM runs the dense and MoE families; "
+            raise NotImplementedError(f"the port's LM runs the dense, MoE and SSM families; "
                                       f"{why}, still to port (ROADMAP.md §1)")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -150,8 +166,12 @@ class LM(nn.Module):
         n_dense = cfg.moe.first_k_dense if cfg.moe else 0
         ff0 = (cfg.moe.dense_ff or cfg.d_ff) if cfg.moe else cfg.d_ff
         self.dense0 = nn.ModuleList(Block(cfg, gen, self.dtype, ff=ff0) for _ in range(n_dense))
-        self.blocks = nn.ModuleList(Block(cfg, gen, self.dtype, use_moe=cfg.moe is not None)
-                                    for _ in range(cfg.n_layers - n_dense))
+        if cfg.family == "ssm":
+            self.blocks = nn.ModuleList(SSMBlock(cfg, gen, self.dtype)
+                                        for _ in range(cfg.n_layers))
+        else:
+            self.blocks = nn.ModuleList(Block(cfg, gen, self.dtype, use_moe=cfg.moe is not None)
+                                        for _ in range(cfg.n_layers - n_dense))
 
     @property
     def head_dim(self) -> int:
@@ -265,6 +285,16 @@ class LM(nn.Module):
         y, _, _ = fn(p.moe, h, cfg=self.cfg.moe, mlp_kind=self.cfg.mlp)
         return x + y
 
+    def _ssm_block(self, p, x, state: dict, *, decode: bool):
+        """The Mamba1 sub-block, its prefill form or (``decode``) its
+        one-token form on the layer's ``state``; writes the new state into
+        ``state``."""
+        h = _norm_apply(self.cfg, p.ln, x)
+        y, new = ssm.mamba1_apply(p.mamba, h, cfg=self.cfg.ssm, state=state if decode else None)
+        state["ssm"].copy_(new["ssm"])
+        state["conv"].copy_(new["conv"])
+        return x + y
+
     def _groups(self):
         """(cache key, blocks, whether they hold experts) in the order the
         layers run."""
@@ -273,8 +303,15 @@ class LM(nn.Module):
             if len(g)]
 
     def _new_cache(self, batch: int, max_len: int) -> dict:
-        """A zeroed cache of ``max_len`` positions for every layer group."""
+        """A zeroed cache of ``max_len`` positions for every layer group (an
+        SSM's states, which have no position axis)."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            di, L = cfg.ssm.expand * cfg.d_model, len(self.blocks)
+            return {"ssm": torch.zeros((L, batch, di, cfg.ssm.d_state), dtype=torch.float32,
+                                       device=self.device),
+                    "conv": torch.zeros((L, batch, cfg.ssm.d_conv - 1, di), dtype=self.dtype,
+                                        device=self.device)}
         if cfg.mla is not None:  # one layout whatever hmajor_cache says
             per_layer = {"ckv": (batch, max_len, cfg.mla.kv_lora_rank),
                          "krope": (batch, max_len, cfg.mla.qk_rope_dim)}
@@ -291,7 +328,8 @@ class LM(nn.Module):
     @torch.no_grad()
     def prefill(self, batch: dict, *, max_len: int | None = None):
         """Process a prompt batch (``tokens`` (B, S)); returns (cache of
-        ``max_len`` or S positions, last-token fp32 logits (B, 1, V))."""
+        ``max_len`` or S positions, or an SSM's states, and last-token fp32
+        logits (B, 1, V))."""
         tokens = batch["tokens"].to(self.device)
         B, S = tokens.shape
         M = max_len or S
@@ -300,6 +338,10 @@ class LM(nn.Module):
         x = self.embed[tokens]
         positions = torch.arange(S, device=self.device).expand(B, S)
         cache = self._new_cache(B, M)
+        if self.cfg.family == "ssm":
+            for i, p in enumerate(self.blocks):
+                x = self._ssm_block(p, x, {k: t[i] for k, t in cache.items()}, decode=False)
+            return cache, self._last_logits(x)
         for name, group, use_moe in self._groups():
             for i, p in enumerate(group):
                 x = self._attn_prefill(p, x, positions, {k: t[i] for k, t in cache[name].items()})
@@ -310,14 +352,19 @@ class LM(nn.Module):
     def decode_step(self, cache: dict, token: torch.Tensor, cur_len, *, absorbed: bool = True):
         """token: (B,) ids; cur_len: the cache's current length.  Returns
         (the cache, written in place, and fp32 logits (B, V)).  ``absorbed``
-        picks MLA's decode form (no effect on GQA)."""
+        picks MLA's decode form (no effect on GQA).  An SSM's states have no
+        position axis: ``cur_len`` does not bound them."""
+        x = self.embed[token.to(self.device)[:, None]]
+        if self.cfg.family == "ssm":
+            for i, p in enumerate(self.blocks):
+                x = self._ssm_block(p, x, {k: t[i] for k, t in cache.items()}, decode=True)
+            return cache, self._last_logits(x)[:, 0]
         cur_len = int(cur_len)
         group = next(iter(cache.values()))
         max_len = (group["k"].shape[3] if self.perf.hmajor_cache else group["k"].shape[2]
                    ) if "k" in group else group["ckv"].shape[2]
         if not 0 <= cur_len < max_len:
             raise ValueError(f"cur_len {cur_len} outside a cache of {max_len} positions")
-        x = self.embed[token.to(self.device)[:, None]]
         for name, group, use_moe in self._groups():
             for i, p in enumerate(group):
                 x = self._attn_decode(p, x, {k: t[i] for k, t in cache[name].items()}, cur_len,

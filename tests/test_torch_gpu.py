@@ -756,6 +756,41 @@ def test_mla_lm_prefill_runs_k6_once_per_layer_and_repeats_bitwise(cuda):
     assert rel < 6e-2, rel
 
 
+def test_ssm_lm_matches_the_cpu_run(cuda):
+    """Falcon-Mamba's smoke LM in fp32 on the card (the chunked selective
+    scan, a padded last chunk included) against the same weights on the CPU:
+    the prefill's logits and ``ssm`` and ``conv`` states, 3 decode steps'
+    logits and the state after them, within 1e-4 (the scan's limit in
+    tests/test_ssm.py); no K6 launch."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.lm import LM, OPTIMIZED
+
+    cfg = dataclasses.replace(configs.smoke("falcon_mamba_7b"), dtype="float32")
+    cpu = LM(cfg, perf=OPTIMIZED, device="cpu", seed=0)
+    card = LM(cfg, perf=OPTIMIZED, device=cuda, seed=0)
+    card.load_state_dict(cpu.state_dict(), strict=True)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 43)))
+    before, tf32 = sum(flops.launches.values()), torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = []
+        for lm in (cpu, card):
+            cache, lg = lm.prefill({"tokens": toks[:, :40].to(lm.device)})
+            got = [lg[:, 0], cache["ssm"].clone(), cache["conv"].clone()]
+            for t in range(3):
+                cache, lg = lm.decode_step(cache, toks[:, 40 + t].to(lm.device), 40 + t)
+                got.append(lg)
+            outs.append([g.cpu() for g in (*got, cache["ssm"])])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert sum(flops.launches.values()) == before
+    for name, want, got in zip(("prefill", "ssm", "conv", "decode0", "decode1", "decode2",
+                                "ssm after decode"), *outs):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4, msg=name)
+
+
 @pytest.mark.parametrize("budget", ["bf16", "int8"])
 def test_auto_plan_equals_explicit_under_its_schedule(mesh1, tmp_path, budget):
     """An auto plan tunes on the card with the exchange kernels swept
