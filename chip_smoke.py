@@ -140,15 +140,28 @@ non-zero):
    beside them; one layer's ``selective_scan`` at full width (B 1, T 256,
    d_inner 8192, d_state 16) against a float64 recurrence on the card at
    1e-4, and timed at the prefill's shape (one ``{"ssm": ...}`` line);
+   "hybrid" — after the ssm path's model is freed, Zamba2-2.7B whole (54
+   Mamba2 layers in 9 groups of 6 at full width: d 2560, d_inner 5120, 80
+   SSD heads of 64, d_state 64, chunk 128; one shared attention+MLP block,
+   32 / 32 heads of 80, MLP 10240, run on concat(x, embeddings) @ w_in once
+   before each group; bf16, seeded weights) through ``serve_lm.main`` with
+   the lm path's traffic; K6 exactly once a group per prefill at (80, 80),
+   never in decode, all tc; two prefills bitwise equal (logits, ``k``,
+   ``v``, ``states.ssm``, ``states.conv``); the prefill against the same
+   prefill with the plain attention; 3 teacher-forced decode steps against
+   a prefill of S + 3 tokens, the final ``states.ssm``'s rel. L2 beside
+   them; one layer's ``ssd_scan`` at full width (B 1, T 256, 80 heads of
+   64, d_state 64) against a float64 recurrence on the card at 1e-4, and
+   timed at the prefill's shape (one ``{"hybrid": ...}`` line);
 4. the kernels at the main path's shapes (512^3, where K4 runs its
    tensor-core design and K1-K3 their vec designs, as at the pipelined slice;
    K4's general design at the quickstart shape; K5 at three 1 GiB
    complex64 shapes: 512^3, the traditional pack of 512^3 into 4 chunks and
    a 2-D transpose; K1/K3 at the composed slab's exchange and K4 at its
    rows; K1/K3 on 3 stacked 512^3 fields and K4 at the DNS
-   plan's rows, the many path's shapes; K6 at the three serving prefills'
+   plan's rows, the many path's shapes; K6 at the four serving prefills'
    (GLM-4-9B's 2 kv heads, Phi-3.5-MoE's 8, DeepSeek-V2-Lite's MLA at
-   (192, 128)), and once at the prefill_32k
+   (192, 128), Zamba2's 32 kv heads of 80), and once at the prefill_32k
    length, and its fp32 design at the first prefill's shape; K1, K3 and K4 at every shape the tune path launched them at, one
    record per call signature with that signature's launches): launches
    from their path,
@@ -158,9 +171,10 @@ non-zero):
    ``{"k4_general_rows"}`` line; K1, K3 and K4 also at every shape the
    serve path launched them at), the serving times beside their
    bounds (one ``{"lm_breakdown": ...}``, one ``{"moe_breakdown": ...}``,
-   one ``{"mla_breakdown": ...}`` and one ``{"ssm_breakdown": ...}`` line,
-   the last with the selective scan's share of the prefill in place of
-   K6's), the seconds of each phase
+   one ``{"mla_breakdown": ...}``, one ``{"ssm_breakdown": ...}`` line,
+   with the selective scan's share of the prefill in place of K6's, and one
+   ``{"hybrid_breakdown": ...}`` line with both K6's and the SSD scan's),
+   the seconds of each phase
    (one ``{"phase_s"}`` line), then the result line.
 
 Without a CUDA device, or outside a checkout of the repository, it prints no
@@ -224,14 +238,24 @@ SSM_ARGV = ["--arch", "falcon_mamba_7b", "--preset", "full", "--opt", "--batch",
 # that file's limit
 SSM_SCAN_SHAPE = (1, 256, 8192, 16)
 TOL_SCAN = 1e-4
+# the hybrid path: Zamba2-2.7B whole (54 Mamba2 layers in 9 groups of 6, one
+# shared attention+MLP block run once a group, 4.49 GiB of bf16 weights)
+# through serve_lm, with the lm path's traffic
+HYBRID_ARGV = ["--arch", "zamba2_2p7b", "--preset", "full", "--opt", "--batch", "4",
+               "--prompt-len", "2048", "--gen", "32"]
+# one layer's SSD scan at full width against a float64 recurrence:
+# (B, T, heads, headdim, d_state), inputs in tests/test_ssm.py's ranges
+SSD_SCAN_SHAPE = (1, 256, 80, 64, 64)
 # K4's general design at the quickstart's last axis by row count: the
 # quickstart's 42 * 63 rows, the sweep's 4096 and eight times that
 K4_GENERAL_CASES = ((64, 2646), (64, 4096), (64, 32768))
 # K6 at the serving prefills' shapes (GLM-4-9B's 2 kv heads, Phi-3.5-MoE's 8,
-# DeepSeek-V2-Lite's MLA: 16 heads, q and k of 192, v of 128) and at the
-# prefill_32k length (batch cut): ((B, S, Hq, Hkv, dqk, dv), path, cut)
+# DeepSeek-V2-Lite's MLA: 16 heads, q and k of 192, v of 128; Zamba2's shared
+# block: 32 / 32 heads of 80) and at the prefill_32k length (batch cut):
+# ((B, S, Hq, Hkv, dqk, dv), path, cut)
 K6_SHAPES = (((4, 2048, 32, 2, 128, 128), "lm", None), ((4, 2048, 32, 8, 128, 128), "moe", None),
              ((4, 2048, 16, 16, 192, 128), "mla", None),
+             ((4, 2048, 32, 32, 80, 80), "hybrid", None),
              ((1, 32768, 32, 2, 128, 128), None, "batch 32->1"))
 # K5's sweep: the old sweep's shapes, then 131072 rows of 32 to 256 bytes
 # (float32 and complex64 at C = 8, 16, 24, 32) across the rows design's least
@@ -387,10 +411,10 @@ def main():
     print(json.dumps({"strided_fft": {**phase("strided_fft", strided_fft_check, torch),
                                       "card": card}}))
 
-    lm_info, moe_info, mla_info, ssm_info = {}, {}, {}, {}
+    lm_info, moe_info, mla_info, ssm_info, hybrid_info = {}, {}, {}, {}, {}
     many, tune, tune_shapes, serve, serve_shapes = [], [], {}, [], {}
-    paths = phase("paths", run_paths, torch, lm_info, moe_info, mla_info, ssm_info, many, tune,
-                  tune_shapes, serve, serve_shapes, card)
+    paths = phase("paths", run_paths, torch, lm_info, moe_info, mla_info, ssm_info, hybrid_info,
+                  many, tune, tune_shapes, serve, serve_shapes, card)
     print(json.dumps({"paths": paths}))
     print(json.dumps({"many": [{**r, "card": card} for r in many]}))
     print(json.dumps({"tune": [{**r, "card": card} for r in tune]}))
@@ -406,6 +430,8 @@ def main():
                                         "card": card}}))
     print(json.dumps({"ssm_breakdown": {**lm_breakdown(kernels, ssm_info, "ssm"),
                                         "card": card}}))
+    print(json.dumps({"hybrid_breakdown": {**lm_breakdown(kernels, hybrid_info, "hybrid"),
+                                           "card": card}}))
     print(json.dumps({"phase_s": {"build": round(build_s, 1), **phases,
                                   "total": round(time.perf_counter() - t0, 1)}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -655,8 +681,10 @@ def _flash_sweep(torch):
         for causal in (True, False):
             for G in (1, 2, 16):
                 for S in (50, 64, 257):  # S <= block_k: the reference takes non-causal too
-                    # (q/k, v) head dims: one for all three, and MLA's (192, 128)
-                    for dh, dv in ((16, 16), (64, 64), (128, 128), (160, 160), (192, 128)):
+                    # (q/k, v) head dims: one for all three (Zamba2's 80
+                    # among them), and MLA's (192, 128)
+                    for dh, dv in ((16, 16), (64, 64), (80, 80), (128, 128), (160, 160),
+                                   (192, 128)):
                         gen = torch.Generator(device="cuda").manual_seed(S * dh + G)
                         q, k, v = (torch.randn((2, S, h, d), generator=gen, device="cuda")
                                    .to(dtype) for h, d in ((2 * G, dh), (2, dh), (2, dv)))
@@ -834,14 +862,15 @@ def _by_call(paths, shapes, name):
         fail(f"{name}: launches by call {by_call} != the counters' {[k1, k3, k4]}")
 
 
-def run_paths(torch, lm_info, moe_info, mla_info, ssm_info, many, tune, tune_shapes, serve,
-              serve_shapes, card):
+def run_paths(torch, lm_info, moe_info, mla_info, ssm_info, hybrid_info, many, tune, tune_shapes,
+              serve, serve_shapes, card):
     """Drive the five FFT paths on a 1-rank NCCL group (the composed path
     prints its records, the many path fills ``many`` with its), measure the time model's coefficients (one
     ``{"coeffs"}`` line), drive the tune path on the same group (it fills
     ``tune`` and, with its launches by call, ``tune_shapes``), the serve path
     (``serve``, ``serve_shapes`` likewise), then the LM paths (which fill
-    ``lm_info``, ``moe_info``, ``mla_info`` and ``ssm_info``); returns each
+    ``lm_info``, ``moe_info``, ``mla_info``, ``ssm_info`` and
+    ``hybrid_info``); returns each
     path's kernel launch counts."""
     import torch.distributed as dist
 
@@ -910,6 +939,9 @@ def run_paths(torch, lm_info, moe_info, mla_info, ssm_info, many, tune, tune_sha
     gc.collect()
     torch.cuda.empty_cache()
     paths["ssm"] = _drive(torch, "ssm", ssm_path, ssm_info)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["hybrid"] = _drive(torch, "hybrid", hybrid_path, hybrid_info)
     gc.collect()
     torch.cuda.empty_cache()
     return paths
@@ -2276,17 +2308,33 @@ def _profile_serving(torch, lm, prompts, ids, info):
         torch, lambda: [lm.decode_step(cache, tok, S + t) for t in range(4)])
 
 
+def _bytes(params):
+    return sum(p.numel() * p.element_size() for p in params)
+
+
 def _serving_bounds(lm, B, S, n_gen):
     """What a prefill of B x S tokens and a decode step must move and
     compute: a decode step reads every weight once (every expert's: the
-    decode path runs them all; of an untied embedding only B rows) and the
-    valid cache at its last step (an SSM's states, read and written); a
-    prefill reads every weight once, writes its cache (an SSM's states), and
-    does the operations of ``_prefill_flops``."""
+    decode path runs them all; of an untied embedding only B rows; the
+    hybrid's shared block once a group, since its 183.5 MB do not stay in
+    the 50 MB L2) and the valid cache at its last step (an SSM's states,
+    read and written); a prefill reads every weight once, writes its cache
+    (an SSM's states), and does the operations of ``_prefill_flops``."""
     cfg = lm.cfg
-    param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    param_bytes = _bytes(lm.parameters())
     step_weight_bytes = param_bytes if cfg.tie_embeddings else (
         param_bytes - (lm.embed.shape[0] - B) * lm.embed.shape[1] * lm.embed.element_size())
+    if cfg.family == "hybrid":  # fp32 ssm (B, H, P, N), conv (B, K-1, di + 2N) a layer
+        s, G = cfg.ssm, len(lm.blocks)
+        di = s.expand * cfg.d_model
+        state = G * cfg.attn_every * B * (di * s.d_state * 4 + (s.d_conv - 1) * (
+            di + 2 * s.d_state) * lm.embed.element_size())
+        kv = G * B * 2 * cfg.n_kv_heads * lm.head_dim * lm.embed.element_size()
+        return {"step_weight_bytes": step_weight_bytes + (G - 1) * _bytes(lm.shared.parameters()),
+                "state_bytes": state, "kv_bytes": kv * (S + n_gen),
+                "cache_bytes": kv * (S + n_gen) + 2 * state,
+                "prefill_bytes": param_bytes + kv * S + state,
+                "prefill_flops": _prefill_flops(lm, B, S)}
     if cfg.family == "ssm":  # fp32 ssm (B, Di, N) and conv (B, K-1, Di) a layer
         di = cfg.ssm.expand * cfg.d_model
         state = len(lm.blocks) * B * di * (cfg.ssm.d_state * 4
@@ -2309,7 +2357,10 @@ def _prefill_flops(lm, B, S):
     over their whole capacity buffer, as they run, the router and any shared
     experts beside them), the last token's head.  An SSM layer: ``in_proj``,
     ``x_proj``, ``dt_proj`` and ``out_proj`` (the scan's elementwise
-    operations, ~0.4 TFLOP of fp32 over the whole prefill, aside)."""
+    operations, ~0.4 TFLOP of fp32 over the whole prefill, aside).  The
+    hybrid: each Mamba2 layer's ``in_proj``, ``out_proj`` and SSD
+    contractions (``_ssd_flops``), and the shared block once a group
+    (``w_in``, attention, MLP)."""
     cfg = lm.cfg
     N, d, dh, H = B * S, cfg.d_model, lm.head_dim, cfg.n_heads
     if cfg.family == "ssm":
@@ -2318,6 +2369,17 @@ def _prefill_flops(lm, B, S):
         per_layer = 2 * N * (d * 2 * di + di * xw + dtr * di + di * d)
         return len(lm.blocks) * per_layer + 2 * B * d * lm.embed.shape[0]
     mult = 3 if cfg.mlp in ("swiglu", "geglu") else 2
+    if cfg.family == "hybrid":
+        p = lm.blocks[0][0].mamba
+        di = p["norm_w"].shape[0]
+        mamba = (2 * N * (d * p["in_proj"].shape[1] + di * d)
+                 + _ssd_flops(B, S, di // cfg.ssm.headdim, cfg.ssm.headdim, cfg.ssm.d_state,
+                              cfg.ssm.chunk))
+        shared = (2 * N * 2 * d * d + 2 * N * d * dh * 2 * (H + cfg.n_kv_heads)
+                  + 4 * dh * B * H * S * (S + 1) / 2
+                  + 2 * N * d * lm.shared.mlp["w_up"].shape[1] * mult)
+        return (len(lm.blocks) * (cfg.attn_every * mamba + shared)
+                + 2 * B * d * lm.embed.shape[0])
     if cfg.mla is not None:  # wq, w_dkv, w_uk, w_uv, wo; q.k over dn + dr, p.v over dv
         m = cfg.mla
         dqk = m.qk_nope_dim + m.qk_rope_dim
@@ -2339,6 +2401,15 @@ def _prefill_flops(lm, B, S):
 
     return (sum(attn + ffn(p) for p in (*lm.dense0, *lm.blocks))
             + 2 * B * d * lm.embed.shape[0])
+
+
+def _ssd_flops(B, T, H, Pd, N, chunk):
+    """Operations of ``ssd_scan``'s contractions over B x T (T padded to a
+    multiple of the chunk Lc), per chunk: C B^T (B Lc Lc N), the masked
+    (Lc, Lc) product with x dt (B H Lc Lc P), the inter-chunk term and the
+    state update (B Lc H P N each); two a multiply-add."""
+    Lc = min(chunk, T)
+    return -(-T // Lc) * 2 * B * (Lc * Lc * N + H * Lc * Lc * Pd + 2 * Lc * H * Pd * N)
 
 
 def moe_path(torch, info):
@@ -2658,6 +2729,174 @@ def _ssm_scan(torch, lm, B, S):
             "scan_bytes_per_layer": nbytes, "scan_bound_ms_per_layer": nbytes / HBM_BPS * 1e3}
 
 
+def _hybrid_leaves(cache):
+    """The hybrid cache's leaves by path: the shared block's ``k`` and
+    ``v`` a group, and the Mamba2 ``states``."""
+    return {"k": cache["k"], "v": cache["v"],
+            **{f"states.{k}": v for k, v in cache["states"].items()}}
+
+
+def hybrid_path(torch, info):
+    """Zamba2-2.7B whole (54 Mamba2 layers in 9 groups of 6 at full width,
+    the one shared attention+MLP block run once a group) served through
+    ``serve_lm.main`` with the lm path's traffic (one warm-up round, then a
+    timed prefill and 32 decode steps), then on the same weights: K6's
+    launches in one prefill (once a group, all on the tensor-core design)
+    and in each decode step (none); a second prefill bitwise equal (logits
+    and every cache leaf); 3 teacher-forced decode steps against a prefill
+    of S + 3 tokens, logits within ``TOL_LM``, the final ``states.ssm``'s
+    rel. L2 beside them; the K6 prefill's logits against the same prefill
+    with the plain attention; ``_ssd_scan`` (one layer's scan at full width
+    against float64, and timed at the prefill's shape).  Fills ``info``."""
+    from repro_torch.kernels.flash import ops as flops, ref as flref
+    from repro_torch.launch import serve_lm
+    from repro_torch.models.config import param_count
+
+    def k6():
+        return sum(flops.launches.values())
+
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_lm.main(HYBRID_ARGV)
+    peak = torch.cuda.max_memory_allocated()
+    lm, prompts = res.lm, res.prompts
+    cfg, scfg = lm.cfg, lm.cfg.ssm
+    B, S = prompts.shape
+    G, n_gen = len(lm.blocks), res.ids.shape[1] - 1
+    L = G * cfg.attn_every
+    if k6() != 2 * G:  # the warm-up and the timed prefill; decode launches none
+        fail(f"hybrid: serve_lm launched K6 {k6()} times, want {2 * G} (two prefills)")
+
+    c0 = k6()
+    cache, lg1 = lm.prefill({"tokens": prompts}, max_len=S + 3)
+    per_prefill = k6() - c0
+    cache2, lg2 = lm.prefill({"tokens": prompts}, max_len=S + 3)
+    leaves, leaves2 = _hybrid_leaves(cache), _hybrid_leaves(cache2)
+    bitwise = torch.equal(lg1, lg2) and all(torch.equal(leaves[k], leaves2[k]) for k in leaves)
+    cache_shapes = {k: list(v.shape) for k, v in leaves.items()}
+    del cache2, lg2, leaves2
+    extra = res.ids[:, :3].to(prompts.device)  # the first three generated ids
+    per_decode = []
+    for t in range(3):
+        c0 = k6()
+        cache, lg_dec = lm.decode_step(cache, extra[:, t], S + t)
+        per_decode.append(k6() - c0)
+    full, lg_full = lm.prefill({"tokens": torch.cat([prompts, extra], 1)})
+    rel_dec = rel_l2(torch, lg_dec, lg_full[:, 0])
+    rel_state = rel_l2(torch, cache["states"]["ssm"], full["states"]["ssm"])
+    agree_dec = _agree(lg_dec, lg_full[:, 0])
+    del cache, full, lg_full, leaves
+    lm._serving_causal = lambda q, k, v: flref.attention_gqa_ref(q, k, v, causal=True)
+    try:
+        lg_plain = lm.prefill({"tokens": prompts})[1][:, 0]
+    finally:
+        del lm._serving_causal
+    rel_plain, agree_plain = rel_l2(torch, lg1[:, 0], lg_plain), _agree(lg1[:, 0], lg_plain)
+    if per_prefill != G or any(per_decode):
+        fail(f"hybrid: K6 launches per prefill {per_prefill} (want {G}, one a group), per "
+             f"decode step {per_decode} (want 0)")
+    if dict(flops.design_launches) != {"tc:bfloat16": k6()}:
+        fail(f"hybrid: K6 launches by design {dict(flops.design_launches)}, want all "
+             f"{k6()} on the tensor-core design")
+    finite = bool(torch.isfinite(lg1).all() and torch.isfinite(lg_dec).all())
+    scan = _ssd_scan(torch, lm, B, S)
+
+    di = scfg.expand * cfg.d_model
+    bounds = _serving_bounds(lm, B, S, n_gen)
+    out = {"arch": cfg.name, "layers": L, "groups": G, "layers_a_group": cfg.attn_every,
+           "d_model": cfg.d_model, "d_inner": di, "ssm_heads": di // scfg.headdim,
+           "ssm_headdim": scfg.headdim, "d_state": scfg.d_state, "d_conv": scfg.d_conv,
+           "chunk": scfg.chunk, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "dtype": cfg.dtype, "params": sum(p.numel() for p in lm.parameters()),
+           "param_count": param_count(cfg), "weights_gib": _bytes(lm.parameters()) / 2**30,
+           "shared_block_bytes": _bytes(lm.shared.parameters()),
+           "batch": B, "prompt_len": S, "gen": n_gen,
+           "prefill_ms": res.prefill_s * 1e3, "prefill_tok_s": B * S / res.prefill_s,
+           "decode_ms_per_step": res.decode_s * 1e3 / n_gen,
+           "decode_tok_s": B * n_gen / res.decode_s,
+           "max_memory_allocated_gib": peak / 2**30, "ids": res.ids[0][:12].tolist(),
+           "cache": cache_shapes, "kv_bytes": bounds["kv_bytes"],
+           "state_bytes": bounds["state_bytes"],
+           "k6_launches_per_prefill": per_prefill, "k6_launches_per_decode_step": per_decode,
+           "two_prefills_bitwise": bitwise, "rel_l2_k6_vs_plain_prefill": rel_plain,
+           "argmax_agree_k6_vs_plain": agree_plain,
+           "rel_l2_teacher_forced_decode_vs_prefill": rel_dec, "limit": TOL_LM,
+           "argmax_agree_teacher_forced": agree_dec,
+           "rel_l2_ssm_state_decode_vs_prefill": rel_state, **scan, "finite": finite}
+    print(json.dumps({"hybrid": out}))
+    if (not (finite and bitwise and scan["scan_ok"]) or rel_plain > TOL_LM
+            or rel_dec > TOL_LM):
+        fail(f"hybrid: finite {finite}, two prefills bitwise {bitwise}, K6 vs plain prefill "
+             f"{rel_plain}, teacher-forced decode vs prefill {rel_dec} (limit {TOL_LM}), scan "
+             f"vs float64 max excess {scan['scan_max_excess']} (limit rtol = atol = "
+             f"{TOL_SCAN})")
+    info.update(out, **bounds)
+    del lg1, lg_dec, lg_plain
+    _profile_serving(torch, lm, prompts, res.ids, info)
+    del res, lm, prompts
+
+
+def _ssd_scan(torch, lm, B, S):
+    """One layer's ``ssd_scan`` on the card: at ``SSD_SCAN_SHAPE`` with fp32
+    inputs in tests/test_ssm.py's ranges (numpy seed 0) against the
+    recurrence in float64, step by step, at rtol = atol = ``TOL_SCAN``; then
+    timed at the prefill's shape (B, S and the model's heads, headdim and
+    d_state; x, B and C in the activations' dtype, dt fp32, as the model
+    gives them): its device time (``cuda_ms``: the ~300 small kernels of
+    one call queued behind a spin, so the host's enqueue, which alone takes
+    longer, is not in it) and one call with the enqueue (``one_call_ms``),
+    beside its bound: the bytes it must move (x, dt, B, C read, y and the
+    state written) and its contractions' operations (``_ssd_flops``) at the
+    fp32 peak, which it runs at."""
+    import numpy as np
+
+    from repro_torch.models import ssm
+
+    Bn, T, H, Pd, N = SSD_SCAN_SHAPE
+    chunk = lm.cfg.ssm.chunk
+    rng = np.random.default_rng(0)
+    host = (rng.standard_normal((Bn, T, H, Pd), dtype=np.float32),
+            rng.uniform(0.01, 0.3, (Bn, T, H)).astype(np.float32),
+            -rng.uniform(0.5, 2.0, (H,)).astype(np.float32),
+            rng.standard_normal((Bn, T, N), dtype=np.float32),
+            rng.standard_normal((Bn, T, N), dtype=np.float32))
+    xh, dt, a_log, Bm, Cm = (torch.from_numpy(a).cuda() for a in host)
+    y, s = ssm.ssd_scan(xh, dt, a_log, Bm, Cm, chunk=chunk)
+    xh, dt, a_log, Bm, Cm = (t.double() for t in (xh, dt, a_log, Bm, Cm))
+    s64 = torch.zeros((Bn, H, Pd, N), dtype=torch.float64, device="cuda")
+    y64 = torch.empty((Bn, T, H, Pd), dtype=torch.float64, device="cuda")
+    for t in range(T):
+        s64 = (s64 * torch.exp(dt[:, t] * a_log)[..., None, None]
+               + (xh[:, t] * dt[:, t, :, None])[..., None] * Bm[:, t, None, None, :])
+        y64[:, t] = (s64 * Cm[:, t, None, None, :]).sum(-1)
+    excess = max(float(((got.double() - want).abs() - TOL_SCAN * (1 + want.abs())).max())
+                 for got, want in ((y, y64), (s, s64)))
+    rel = rel_l2(torch, y.double(), y64)
+    del xh, dt, a_log, Bm, Cm, y, s, s64, y64
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    act, scfg = lm.dtype, lm.cfg.ssm
+    H = lm.blocks[0][0].mamba["A_log"].shape[0]
+    Pd, N = scfg.headdim, scfg.d_state
+    xs = torch.randn((B, S, H, Pd), generator=gen, device="cuda").to(act)
+    dts = torch.rand((B, S, H), generator=gen, device="cuda") * 0.29 + 0.01
+    a_logs = -torch.exp(lm.blocks[0][0].mamba["A_log"])
+    Bs, Cs = (torch.randn((B, S, N), generator=gen, device="cuda").to(act) for _ in range(2))
+    scan = lambda: ssm.ssd_scan(xs, dts, a_logs, Bs, Cs, chunk=chunk)
+    ms, one_ms = cuda_ms(torch, scan, reps=3), one_call_ms(torch, scan, reps=3)
+    nbytes = (sum(t.numel() * t.element_size() for t in (xs, dts, Bs, Cs))
+              + B * S * H * Pd * 4 + B * H * Pd * N * 4)
+    flop = _ssd_flops(B, S, H, Pd, N, chunk)
+    bound, by = bound_ms(nbytes, flop, FP32_FLOPS)
+    del xs, dts, Bs, Cs
+    return {"scan_shape_checked": list(SSD_SCAN_SHAPE), "scan_max_excess": excess,
+            "scan_ok": excess <= 0, "scan_rel_l2_vs_float64": rel, "scan_limit": TOL_SCAN,
+            "scan_prefill_shape": [B, S, H, Pd, N], "scan_ms_per_layer": ms,
+            "scan_one_call_ms_per_layer": one_ms,
+            "scan_bytes_per_layer": nbytes, "scan_flops_per_layer": flop,
+            "scan_bound_ms_per_layer": bound, "scan_bound_by": by}
+
+
 def _counted_prefill(torch, lm, prompts, served, name):
     """An untimed prefill of ``prompts`` (the timed one's function: the
     dispatch is deterministic) with each expert layer's dispatch counted
@@ -2868,20 +3107,25 @@ def _device_time(torch, fn):
 
 
 def lm_breakdown(kernels, info, path):
-    """A serving path's times beside K6's share (where the path runs K6;
-    the ssm path: the selective scan's, timed alone at the prefill's shape),
-    the prefill's bound and the decode step's byte bound."""
+    """A serving path's times beside K6's share (where the path runs K6,
+    once a layer, or once a group in the hybrid) and the scan's (the ssm
+    and hybrid paths: the selective or SSD scan timed alone at the
+    prefill's shape, once a layer), the prefill's bound and the decode
+    step's byte bound."""
     k6 = next((k for k in kernels if k["name"].startswith("flash_attention")
                and k["path"] == path), None)
     pre_bound, pre_by = bound_ms(info["prefill_bytes"], info["prefill_flops"], BF16_TC_FLOPS)
     decode_bytes = info["step_weight_bytes"] + info["cache_bytes"]
     out = {"prefill_ms": info["prefill_ms"]}
+    rest = info["prefill_ms"]
     for name, ms in (("k6", k6 and k6["ms"]), ("scan", info.get("scan_ms_per_layer"))):
         if ms is not None:
-            total = ms * info["layers"]
-            out.update({f"{name}_ms_x_layers": total,
+            per = "groups" if name == "k6" and "groups" in info else "layers"
+            total = ms * info[per]
+            rest -= total
+            out.update({f"{name}_ms_x_{per}": total,
                         f"{name}_share_of_prefill": total / info["prefill_ms"],
-                        "prefill_rest_ms": info["prefill_ms"] - total})
+                        "prefill_rest_ms": rest})
     if "scan_bound_ms_per_layer" in info:
         out["scan_bound_ms_x_layers"] = info["scan_bound_ms_per_layer"] * info["layers"]
     out.update({"prefill_tflop": info["prefill_flops"] / 1e12, "prefill_bound_ms": pre_bound,
@@ -3332,8 +3576,9 @@ def _k4_record(torch, fops, fref, tag, rows, counts, kern, plain, lib, nbytes, l
 
 
 def _flash_records(torch, paths):
-    """K6 at the serving prefills' shapes (launches from the lm, moe and mla
-    paths; the mla path's q and k of 192, v of 128) and at the prefill_32k
+    """K6 at the serving prefills' shapes (launches from the lm, moe, mla
+    and hybrid paths; the mla path's q and k of 192, v of 128; the hybrid's
+    80) and at the prefill_32k
     length, bf16, causal, against the plain version (at 32k one q head at a
     time: the whole (S, S) fp32 score matrix of 32 heads would not fit) and
     SDPA (its time and the backend it picks, or its refusal)."""

@@ -6,8 +6,8 @@ input-shape cells; ``cells(name)`` enumerates the applicable (arch, shape)
 pairs (long_500k only for sub-quadratic archs — skip recorded in DESIGN.md).
 
 A copy of the reference's registry and config files (data only).  Every
-config loads; the port's ``LM`` runs the dense, MoE (GQA or MLA) and SSM
-(Mamba1) ones.
+config loads; the port's ``LM`` runs the dense, MoE (GQA or MLA), SSM
+(Mamba1) and hybrid (Mamba2 with a shared attention block) ones.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 // Causal (or full) attention with online softmax over (B, S, H, d) GQA
 // tensors, one pass, no (S, S) score matrix in device memory.  q and k share
 // one head dim DQK, v and the output have their own, DV (MLA: 192 and 128;
-// every other attention: DQK == DV).
+// every other attention: DQK == DV, Zamba2's 80 among them).
 //
 // Replaces: the Pallas TPU kernel of flash_pallas_call
 // (src/repro/kernels/flash/kernel.py, _flash_kernel), the serving prefill's
@@ -36,6 +36,7 @@
 //    ptxas gives 238 registers a thread, so shared memory and registers each
 //    allow two blocks (8 warps) an SM; 105 KB and 255 registers (52 bytes
 //    spilled) at dh 160, two blocks; 109 KB at (DQK, DV) = (192, 128), two
+//    blocks; 55 KB and 190 registers, no spill, at dh 80 (Zamba2), two
 //    blocks; 7.5-25 KB below.  Tiles arrive by
 //    cp.async, 16 bytes a thread, rows past Sq or Skv zero-filled (source
 //    size 0, never read); the next tile's K and V are in flight while the
@@ -76,6 +77,8 @@
 // 8r .. 8r+7: for the scores, keys c + 16 j (j < 4); for the accumulator,
 // the head-dim columns c * W + 16 W j; its m and partial l stay in
 // registers, and a row's max is reduced over the 16 lanes that share it.
+// At dh 80 a thread's 5 accumulator columns are scalar loads (W = 1); ptxas
+// gives 210 registers, no spill.
 // p goes through shared memory (Pt[key][row]) to the p . v product.
 
 #include <cuda_bf16.h>
@@ -560,8 +563,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
 // q (B, Sq, Hq, dqk), k (B, Skv, Hkv, dqk), v (B, Skv, Hkv, dv), o (B, Sq, Hq,
 // dv): contiguous, 16-byte aligned, all float32 (is_bf16 = 0: the FMA design)
 // or all bfloat16 (is_bf16 = 1: the tensor-core design); Hq a multiple of
-// Hkv; (dqk, dv) one of (16, 16), (32, 32), (64, 64), (128, 128), (160, 160)
-// and (192, 128).  Returns a CUDA error code (cudaGetLastError() after the
+// Hkv; (dqk, dv) one of (16, 16), (32, 32), (64, 64), (80, 80), (128, 128),
+// (160, 160) and (192, 128).  Returns a CUDA error code (cudaGetLastError() after the
 // launch).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
                                    int Sq, int Skv, int Hq, int Hkv, int dqk, int dv, int causal,
@@ -577,6 +580,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   FLASH_PAIR(16, 16);
   FLASH_PAIR(32, 32);
   FLASH_PAIR(64, 64);
+  FLASH_PAIR(80, 80);
   FLASH_PAIR(128, 128);
   FLASH_PAIR(160, 160);
   FLASH_PAIR(192, 128);

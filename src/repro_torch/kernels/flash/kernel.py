@@ -13,8 +13,9 @@ _c = ctypes.c_void_p
 _i = ctypes.c_int
 
 #: (query/key head dim, value head dim) pairs the kernel is compiled for:
-#: one head dim for q, k and v, and MLA's 192 for q and k beside 128 for v
-PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (160, 160), (192, 128))
+#: one head dim for q, k and v (Zamba2's 80 among them), and MLA's 192 for
+#: q and k beside 128 for v
+PAIRS = ((16, 16), (32, 32), (64, 64), (80, 80), (128, 128), (160, 160), (192, 128))
 #: the query/key head dims among them
 HEAD_DIMS = tuple(dqk for dqk, _ in PAIRS)
 

@@ -4,9 +4,12 @@
 reference's ``LM.init_params`` with numpy (or array-like) leaves and returns
 the state dict that the port's ``LM.load_state_dict(..., strict=True)``
 takes: the leading layer axis of ``blocks`` (and of the MoE family's
-``dense0``) is unstacked into ``blocks.<i>.<...>``.  Leaves keep their
-dtype: the MoE router, MLA's ``kv_norm`` and Mamba1's ``dt_bias``,
-``A_log`` and ``D`` stay fp32, the expert stacks
+``dense0``) is unstacked into ``blocks.<i>.<...>``; the hybrid family's
+``blocks``, stacked (groups, layers a group, ...), into
+``blocks.<g>.<j>.<...>``, and its ``shared`` block passes through as the
+top-level leaves do.  Leaves keep their dtype: the MoE router, MLA's
+``kv_norm``, the Mamba layers' ``dt_bias``, ``A_log`` and ``D`` and
+Mamba2's ``norm_w`` stay fp32, the expert stacks
 (E, d_in, d_out) are one tensor a layer as in the port, and MLA's ``wq``,
 ``w_dkv``, ``w_uk``, ``w_uv`` and ``wo`` keep the reference's names.  bf16 arrives as numpy's ``bfloat16``
 extension dtype, which ``torch.from_numpy`` refuses; it is recognised by
@@ -15,6 +18,8 @@ extension package.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
@@ -44,15 +49,19 @@ def lm_params_from_reference(cfg: ArchConfig, params: dict) -> dict[str, torch.T
     if why:
         raise NotImplementedError(f"not ported: {why}")
     n_dense = cfg.moe.first_k_dense if cfg.moe else 0
-    layers = {"dense0": n_dense, "blocks": cfg.n_layers - n_dense}
+    # the leading stacked axes of each layer group
+    layers = ({"blocks": (cfg.n_layers // cfg.attn_every, cfg.attn_every)}
+              if cfg.family == "hybrid"
+              else {"dense0": (n_dense,), "blocks": (cfg.n_layers - n_dense,)})
     out = {}
     for name, leaf in _flatten({k: v for k, v in params.items() if k not in layers}):
         out[name] = to_tensor(leaf)
-    for group, n in layers.items():
+    for group, lead in layers.items():
         for name, leaf in _flatten(params.get(group, {})):
             stacked = to_tensor(leaf)
-            if stacked.shape[0] != n:
-                raise ValueError(f"{group}.{name}: {stacked.shape[0]} layers, config has {n}")
-            for i in range(n):
-                out[f"{group}.{i}.{name}"] = stacked[i].clone()
+            if tuple(stacked.shape[:len(lead)]) != lead:
+                raise ValueError(f"{group}.{name}: stacked {tuple(stacked.shape)}, config has "
+                                 f"{lead} layers")
+            for idx in itertools.product(*map(range, lead)):
+                out[".".join(map(str, (group, *idx, name)))] = stacked[idx].clone()
     return out

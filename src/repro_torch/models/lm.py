@@ -1,5 +1,5 @@
-"""The LM for serving, dense, MoE and SSM families, GQA or MLA attention (the
-port of ``repro/models/lm.py``).
+"""The LM for serving, dense, MoE, SSM and hybrid families, GQA or MLA
+attention (the port of ``repro/models/lm.py``).
 
 ``LM`` is an ``nn.Module`` that holds the parameters of one card:
 ``embed``, ``final_norm``, ``lm_head`` (unless tied), ``dense0`` (the MoE
@@ -33,8 +33,17 @@ The SSM family (Falcon-Mamba) holds ``embed``, ``final_norm``, ``lm_head``
 and ``blocks`` of ``ln`` and ``mamba`` (Mamba1, ``models/ssm.py``); its cache
 is the reference's bare ``{"ssm": (L, B, Di, N) fp32, "conv": (L, B, K-1,
 Di)}``, which has no position axis: ``max_len`` does not size it and
-``cur_len`` does not bound it, and each decode step writes it in place.  The
-hybrid, audio and VLM families are not ported yet.
+``cur_len`` does not bound it, and each decode step writes it in place.
+
+The hybrid family (Zamba2) holds ``embed``, ``final_norm``, ``lm_head``,
+``blocks``, ``n_layers // attn_every`` groups of ``attn_every`` pre-norm
+Mamba2 layers (``blocks.<g>.<j>``), and one ``shared`` attention+MLP block
+(a ``Block`` with ``w_in`` (2d, d)) that runs once before each group on
+``cat(x, x0) @ w_in``, x0 the token embeddings, its output added to x.  Its
+cache is the reference's ``{"k", "v": (G, B, Hkv, M, dh) or (G, B, M, Hkv,
+dh), "states": {"ssm": (G, J, B, H, P, N) fp32, "conv": (G, J, B, K-1, di
++ 2N)}}``: the shared block's keys and values of each group beside the
+groups' Mamba2 states.  The audio and VLM families are not ported yet.
 """
 
 from __future__ import annotations
@@ -118,23 +127,26 @@ class Block(nn.Module):
 
 
 class SSMBlock(nn.Module):
-    """One pre-norm Mamba1 layer: ``ln`` and ``mamba``."""
+    """One pre-norm Mamba1 or Mamba2 layer (``cfg.ssm.kind``): ``ln`` and
+    ``mamba``."""
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator, dtype: torch.dtype):
         super().__init__()
+        init = ssm.mamba2_init if cfg.ssm.kind == "mamba2" else ssm.mamba1_init
         self.ln = _norm_init(cfg, cfg.d_model, gen.device)
-        self.mamba = _params(ssm.mamba1_init(gen, cfg.d_model, cfg.ssm, dtype))
+        self.mamba = _params(init(gen, cfg.d_model, cfg.ssm, dtype))
 
 
 def not_ported(cfg: ArchConfig) -> str | None:
     """Why the port cannot run ``cfg`` yet, or None."""
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         return f"{cfg.name} is {cfg.family!r}"
     return None
 
 
 class LM(nn.Module):
-    """A dense, MoE or SSM decoder LM on one device, weights drawn from ``seed``.
+    """A dense, MoE, SSM or hybrid decoder LM on one device, weights drawn
+    from ``seed``.
 
     ``device`` defaults to CUDA and raises without a card; pass ``"cpu"``
     to run on the CPU (every kernel then takes its plain version).
@@ -145,8 +157,8 @@ class LM(nn.Module):
         super().__init__()
         why = not_ported(cfg)
         if why:
-            raise NotImplementedError(f"the port's LM runs the dense, MoE and SSM families; "
-                                      f"{why}, still to port (ROADMAP.md §1)")
+            raise NotImplementedError("the port's LM runs the dense, MoE, SSM and hybrid "
+                                      f"families; {why}, still to port (ROADMAP.md §1)")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LM defaults to CUDA and no CUDA device is available; "
@@ -169,6 +181,13 @@ class LM(nn.Module):
         if cfg.family == "ssm":
             self.blocks = nn.ModuleList(SSMBlock(cfg, gen, self.dtype)
                                         for _ in range(cfg.n_layers))
+        elif cfg.family == "hybrid":
+            self.blocks = nn.ModuleList(
+                nn.ModuleList(SSMBlock(cfg, gen, self.dtype) for _ in range(cfg.attn_every))
+                for _ in range(cfg.n_layers // cfg.attn_every))
+            self.shared = Block(cfg, gen, self.dtype)
+            self.shared.w_in = nn.Parameter(dense_init(gen, 2 * d, d, self.dtype),
+                                            requires_grad=False)
         else:
             self.blocks = nn.ModuleList(Block(cfg, gen, self.dtype, use_moe=cfg.moe is not None)
                                         for _ in range(cfg.n_layers - n_dense))
@@ -286,11 +305,12 @@ class LM(nn.Module):
         return x + y
 
     def _ssm_block(self, p, x, state: dict, *, decode: bool):
-        """The Mamba1 sub-block, its prefill form or (``decode``) its
-        one-token form on the layer's ``state``; writes the new state into
-        ``state``."""
+        """The Mamba1 or Mamba2 sub-block, its prefill form or (``decode``)
+        its one-token form on the layer's ``state``; writes the new state
+        into ``state``."""
         h = _norm_apply(self.cfg, p.ln, x)
-        y, new = ssm.mamba1_apply(p.mamba, h, cfg=self.cfg.ssm, state=state if decode else None)
+        apply = ssm.mamba2_apply if self.cfg.ssm.kind == "mamba2" else ssm.mamba1_apply
+        y, new = apply(p.mamba, h, cfg=self.cfg.ssm, state=state if decode else None)
         state["ssm"].copy_(new["ssm"])
         state["conv"].copy_(new["conv"])
         return x + y
@@ -302,16 +322,28 @@ class LM(nn.Module):
             ("dense0", self.dense0, False), ("blocks", self.blocks, self.cfg.moe is not None))
             if len(g)]
 
+    def _new_states(self, lead: tuple, batch: int) -> dict:
+        """Zeroed SSM states with the leading layer axes ``lead``: Mamba1's
+        ssm (B, di, N), Mamba2's (B, H, P, N), both fp32, and the conv's
+        last K-1 inputs (B, K-1, di, or di + 2N for Mamba2)."""
+        s = self.cfg.ssm
+        di = s.expand * self.cfg.d_model
+        if s.kind == "mamba2":
+            ssm_shape, conv_dim = (di // s.headdim, s.headdim, s.d_state), di + 2 * s.d_state
+        else:
+            ssm_shape, conv_dim = (di, s.d_state), di
+        return {"ssm": torch.zeros((*lead, batch, *ssm_shape), dtype=torch.float32,
+                                   device=self.device),
+                "conv": torch.zeros((*lead, batch, s.d_conv - 1, conv_dim), dtype=self.dtype,
+                                    device=self.device)}
+
     def _new_cache(self, batch: int, max_len: int) -> dict:
         """A zeroed cache of ``max_len`` positions for every layer group (an
-        SSM's states, which have no position axis)."""
+        SSM's states, which have no position axis; the hybrid's shared-block
+        keys and values a group beside its groups' states)."""
         cfg = self.cfg
         if cfg.family == "ssm":
-            di, L = cfg.ssm.expand * cfg.d_model, len(self.blocks)
-            return {"ssm": torch.zeros((L, batch, di, cfg.ssm.d_state), dtype=torch.float32,
-                                       device=self.device),
-                    "conv": torch.zeros((L, batch, cfg.ssm.d_conv - 1, di), dtype=self.dtype,
-                                        device=self.device)}
+            return self._new_states((len(self.blocks),), batch)
         if cfg.mla is not None:  # one layout whatever hmajor_cache says
             per_layer = {"ckv": (batch, max_len, cfg.mla.kv_lora_rank),
                          "krope": (batch, max_len, cfg.mla.qk_rope_dim)}
@@ -319,9 +351,32 @@ class LM(nn.Module):
             shape = ((batch, cfg.n_kv_heads, max_len, self.head_dim) if self.perf.hmajor_cache
                      else (batch, max_len, cfg.n_kv_heads, self.head_dim))
             per_layer = {"k": shape, "v": shape}
+        if cfg.family == "hybrid":
+            G = len(self.blocks)
+            return {**{key: torch.zeros((G, *shape), dtype=self.dtype, device=self.device)
+                       for key, shape in per_layer.items()},
+                    "states": self._new_states((G, cfg.attn_every), batch)}
         return {name: {key: torch.zeros((len(g), *shape), dtype=self.dtype, device=self.device)
                        for key, shape in per_layer.items()}
                 for name, g, _ in self._groups()}
+
+    def _hybrid(self, x, cache: dict, *, positions=None, cur_len: int | None = None):
+        """The hybrid stack over the embeddings x (the prefill with
+        ``positions``, a decode step at ``cur_len``): per group g, the shared
+        block on ``cat(x, x0) @ w_in``, writing group g's keys and values,
+        added to x; then the group's Mamba2 layers, each writing its states
+        in ``cache["states"]``."""
+        sh, x0, decode = self.shared, x, cur_len is not None
+        for g, group in enumerate(self.blocks):
+            xin = torch.cat([x, x0], dim=-1) @ sh.w_in
+            kv = {k: cache[k][g] for k in ("k", "v")}
+            xin = (self._attn_decode(sh, xin, kv, cur_len) if decode
+                   else self._attn_prefill(sh, xin, positions, kv))
+            x = x + self._ffn_block(sh, xin, use_moe=False, decode=decode)
+            for j, p in enumerate(group):
+                x = self._ssm_block(p, x, {k: t[g, j] for k, t in cache["states"].items()},
+                                    decode=decode)
+        return x
 
     # -- serving ----------------------------------------------------------------
 
@@ -342,6 +397,8 @@ class LM(nn.Module):
             for i, p in enumerate(self.blocks):
                 x = self._ssm_block(p, x, {k: t[i] for k, t in cache.items()}, decode=False)
             return cache, self._last_logits(x)
+        if self.cfg.family == "hybrid":
+            return cache, self._last_logits(self._hybrid(x, cache, positions=positions))
         for name, group, use_moe in self._groups():
             for i, p in enumerate(group):
                 x = self._attn_prefill(p, x, positions, {k: t[i] for k, t in cache[name].items()})
@@ -360,11 +417,14 @@ class LM(nn.Module):
                 x = self._ssm_block(p, x, {k: t[i] for k, t in cache.items()}, decode=True)
             return cache, self._last_logits(x)[:, 0]
         cur_len = int(cur_len)
-        group = next(iter(cache.values()))
-        max_len = (group["k"].shape[3] if self.perf.hmajor_cache else group["k"].shape[2]
-                   ) if "k" in group else group["ckv"].shape[2]
+        # the hybrid's k and v lie at the top of its cache, the others' in a group
+        kv = cache if self.cfg.family == "hybrid" else next(iter(cache.values()))
+        max_len = (kv["k"].shape[-2] if self.perf.hmajor_cache else kv["k"].shape[-3]
+                   ) if "k" in kv else kv["ckv"].shape[2]
         if not 0 <= cur_len < max_len:
             raise ValueError(f"cur_len {cur_len} outside a cache of {max_len} positions")
+        if self.cfg.family == "hybrid":
+            return cache, self._last_logits(self._hybrid(x, cache, cur_len=cur_len))[:, 0]
         for name, group, use_moe in self._groups():
             for i, p in enumerate(group):
                 x = self._attn_decode(p, x, {k: t[i] for k, t in cache[name].items()}, cur_len,

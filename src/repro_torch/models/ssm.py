@@ -1,5 +1,5 @@
-"""The state-space layer Mamba1, the selective scan (the port of the Mamba1
-half of ``repro/models/ssm.py``).
+"""The state-space layers Mamba1 (the selective scan) and Mamba2 (the SSD
+scan): the port of ``repro/models/ssm.py``.
 
 Functions over parameter mappings (``nn.ParameterDict`` or plain dicts of
 tensors), as in ``layers.py``.  The depthwise causal conv sums its K taps in
@@ -24,7 +24,22 @@ PyTorch, the reference's plain JAX; a fused scan kernel is later work
 of ``(dt @ dt_proj).float() + dt_bias`` in fp32 (``F.softplus``, whose
 threshold of 20 agrees with jax's ``logaddexp(x, 0)`` to fp32 rounding);
 ``y + D x`` and the ``silu(z)`` gate in fp32, cast before ``out_proj``.
-Mamba2 (``ssd_scan``) is not ported yet.
+
+``ssd_scan`` (Mamba2) is chunked the same way, with T padded by zeros in
+x, dt, B and C (a padded step, dt = 0, neither decays nor adds) and s
+(B, H, P, N) carried in fp32.  A chunk is dense contractions, as in the
+reference: the log decays ``cum = cumsum(dt a)``, the lower triangle of
+``(C_i . B_j) exp(cum_i - cum_j)`` against ``x dt``, the inter-chunk term
+``C_i . (exp(cum_i) s)`` and the state update ``exp(cum_last) s + sum_j
+exp(cum_last - cum_j) B_j (x dt)_j``.  ``exp(cum_i - cum_j)`` overflows to
+inf above the diagonal (j > i); ``torch.where`` drops it there, as the
+reference's ``where`` does (a product with a 0/1 mask would make inf . 0 =
+NaN).  Each of the reference's three-operand einsums is one factor applied
+first and then a two-operand product: torch contracts an einsum left to
+right, which for the state update would build a (B, Lc, N, H, P)
+intermediate (671 MB a chunk at Zamba2's widths).  ``mamba2_apply`` splits
+``in_proj``'s output as z, x, B, C, dt, runs the causal conv over (x, B, C),
+and ends in the gated norm ``rmsnorm((y silu(z)).to(u.dtype), norm_w)``.
 """
 
 from __future__ import annotations
@@ -34,7 +49,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, rmsnorm
 
 
 # ---------------------------------------------------------------------------
@@ -164,3 +179,112 @@ def mamba1_apply(p, u: torch.Tensor, *, cfg, state: dict | None = None):
     y = y + p["D"] * x.float()
     y = (y * F.silu(z.float())).to(u.dtype)
     return y @ p["out_proj"], {"ssm": h, "conv": conv_state}
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD)
+# ---------------------------------------------------------------------------
+
+
+def mamba2_init(gen: torch.Generator, d: int, cfg, dtype=torch.bfloat16) -> dict:
+    """The reference's leaves, shapes and dtypes, drawn on ``gen``:
+    ``in_proj`` (d, 2 di + 2N + nh), a conv over di + 2N channels,
+    ``dt_bias`` the inverse softplus of a dt log-uniform on [1e-3, 1e-1],
+    ``A_log`` zeros, ``D`` ones and ``norm_w`` ones, all four fp32."""
+    di = cfg.expand * d
+    nh = di // cfg.headdim
+    N = cfg.d_state
+    conv_dim = di + 2 * N
+    dev = gen.device
+    u = torch.rand((nh,), generator=gen, device=dev)
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    conv_w = torch.randn((cfg.d_conv, conv_dim), generator=gen, device=dev) / math.sqrt(cfg.d_conv)
+    return {
+        "in_proj": dense_init(gen, d, 2 * di + 2 * N + nh, dtype),
+        "conv_w": conv_w.to(dtype),
+        "conv_b": torch.zeros((conv_dim,), dtype=dtype, device=dev),
+        "dt_bias": dt + torch.log(-torch.expm1(-dt)),
+        "A_log": torch.zeros((nh,), dtype=torch.float32, device=dev),
+        "D": torch.ones((nh,), dtype=torch.float32, device=dev),
+        "norm_w": torch.ones((di,), dtype=torch.float32, device=dev),
+        "out_proj": dense_init(gen, di, d, dtype),
+    }
+
+
+def ssd_scan(xh, dt, a_log, Bm, Cm, *, chunk: int, s0=None):
+    """SSD chunked recurrence (Mamba2), h_t = exp(dt_t a) h_{t-1} + dt_t
+    x_t (x) B_t, y_t = h_t . C_t.
+
+    xh: (B, T, H, P); dt: (B, T, H) (after the softplus); a_log: (H,), the
+    negative ``-exp(A_log)``; Bm, Cm: (B, T, N) (one group).  Returns y
+    (B, T, H, P) fp32 and the final state (B, H, P, N) fp32.
+    """
+    B, T, H, Pd = xh.shape
+    N = Bm.shape[-1]
+    Lc = min(chunk, T)
+    pad = -T % Lc
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt, Bm, Cm = (F.pad(a, (0, 0, 0, pad)) for a in (dt, Bm, Cm))
+    a_log = a_log.float()
+    tri = torch.ones((Lc, Lc), dtype=torch.bool, device=xh.device).tril()
+    s = (torch.zeros((B, H, Pd, N), dtype=torch.float32, device=xh.device)
+         if s0 is None else s0.float())
+    y = torch.empty((B, T + pad, H, Pd), dtype=torch.float32, device=xh.device)
+    for c0 in range(0, T + pad, Lc):
+        c = slice(c0, c0 + Lc)
+        x_c, dt_c, B_c, C_c = (a[:, c].float() for a in (xh, dt, Bm, Cm))
+        cum = torch.cumsum(dt_c * a_log, dim=1)                   # (B, Lc, H) log decays
+        xb = x_c * dt_c[..., None]                                # (B, Lc, H, P)
+        # intra-chunk: att[i, j] = (C_i . B_j) exp(cum_i - cum_j) for j <= i
+        cum_h = cum.transpose(1, 2)                               # (B, H, Lc)
+        decay = torch.exp(cum_h[..., :, None] - cum_h[..., None, :])
+        att = torch.where(tri, (C_c @ B_c.transpose(1, 2))[:, None] * decay, 0.0)
+        yc = (att @ xb.transpose(1, 2)).transpose(1, 2)           # (B, Lc, H, P)
+        # inter-chunk: y_i += exp(cum_i) C_i . s
+        cs = (C_c @ s.reshape(B, H * Pd, N).transpose(1, 2)).view(B, Lc, H, Pd)
+        y[:, c] = yc + cs * torch.exp(cum)[..., None]
+        # state: s' = exp(cum_last) s + sum_j B_j (x) (exp(cum_last - cum_j) xb_j)
+        xw = xb * torch.exp(cum[:, -1:] - cum)[..., None]
+        s = (s * torch.exp(cum[:, -1])[:, :, None, None]
+             + (xw.reshape(B, Lc, H * Pd).transpose(1, 2) @ B_c).view(B, H, Pd, N))
+    return y[:, :T], s
+
+
+def mamba2_apply(p, u: torch.Tensor, *, cfg, state: dict | None = None):
+    """u: (B, T, D).  ``state=None`` for the prefill; returns (y, new state).
+
+    ``state`` is {"ssm": (B, H, P, N) fp32, "conv": (B, K-1, di + 2N) in u's
+    dtype} for the one-token decode form (T = 1).
+    """
+    di = p["norm_w"].shape[0]
+    N = cfg.d_state
+    Pd = cfg.headdim
+    H = di // Pd
+    B, T, _ = u.shape
+    z, x, Bm, Cm, dt = (u @ p["in_proj"]).split([di, di, N, N, H], dim=-1)
+
+    xbc = torch.cat([x, Bm, Cm], dim=-1)
+    if state is None:
+        conv_state = conv_tail(xbc, cfg.d_conv)
+        xbc = causal_conv(xbc, p["conv_w"], p["conv_b"])
+    else:
+        conv_state, xbc1 = causal_conv_step(state["conv"], xbc[:, 0], p["conv_w"], p["conv_b"])
+        xbc = xbc1[:, None]
+    x, Bm, Cm = F.silu(xbc).split([di, N, N], dim=-1)
+
+    dt = F.softplus(dt.float() + p["dt_bias"])                  # (B, T, H)
+    a_log = -torch.exp(p["A_log"])                              # (H,)
+    xh = x.reshape(B, T, H, Pd)
+
+    if state is None:
+        y, s = ssd_scan(xh, dt, a_log, Bm, Cm, chunk=cfg.chunk)
+    else:
+        a = torch.exp(dt[:, 0] * a_log)                         # (B, H)
+        xb = xh[:, 0].float() * dt[:, 0, :, None]               # (B, H, P)
+        s = state["ssm"] * a[..., None, None] + xb[..., None] * Bm[:, 0, None, None].float()
+        y = (s @ Cm[:, 0, None, :, None].float())[:, None, ..., 0]     # (B, 1, H, P)
+
+    y = (y + p["D"][:, None] * xh.float()).reshape(B, T, di)
+    y = rmsnorm((y * F.silu(z.float())).to(u.dtype), p["norm_w"], 1e-5)
+    return y @ p["out_proj"], {"ssm": s, "conv": conv_state}

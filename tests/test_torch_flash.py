@@ -25,6 +25,7 @@ CASES = [
     (1, 64, 2, 2, 16, 32, 32, False),
     (1, 50, 2, 2, 16, 16, 16, True),    # ragged: the reference pads q and kv
     (1, 64, 8, 2, 32, 64, 16, True),    # uneven blocks
+    (1, 48, 4, 4, 80, 16, 16, True),    # Zamba2's head dim, 4 of its 32 heads
 ]
 
 

@@ -614,7 +614,7 @@ def _flash_limit(want, v):
     return 2.0 ** -7 * want.float().abs() + 2.0 ** -8 * v.float().abs().max()
 
 
-@pytest.mark.parametrize("dh", [16, 32, 64, 128, 160, 192])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128, 160, 192])
 @pytest.mark.parametrize("S", [50, 64, 257])
 @pytest.mark.parametrize("G", [1, 2, 16])
 @pytest.mark.parametrize("causal", [True, False])
@@ -644,7 +644,7 @@ def test_flash_matches_plain(cuda, dtype, causal, G, S, dh):
 @pytest.mark.parametrize("S,Hkv,G,dh,causal", [
     (50, 2, 1, 16, True), (130, 1, 16, 128, True), (77, 1, 2, 160, True),
     (192, 2, 2, 32, False), (257, 1, 16, 64, True),
-    (130, 4, 1, 192, True), (77, 1, 2, 192, False),
+    (130, 4, 1, 192, True), (77, 1, 2, 192, False), (130, 4, 1, 80, True),
 ])
 def test_flash_bf16_matches_tile_emulation(cuda, S, Hkv, G, dh, causal):
     """The tensor-core design against the CPU emulation of its order of work
@@ -788,6 +788,52 @@ def test_ssm_lm_matches_the_cpu_run(cuda):
     assert sum(flops.launches.values()) == before
     for name, want, got in zip(("prefill", "ssm", "conv", "decode0", "decode1", "decode2",
                                 "ssm after decode"), *outs):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4, msg=name)
+
+
+def test_hybrid_lm_matches_the_cpu_run(cuda):
+    """Zamba2's smoke LM in fp32 on the card (K6's FMA design once a group
+    in the prefill, the SSD scan with a padded last chunk) against the same
+    weights on the CPU, where K6 takes its plain version: the prefill's
+    logits and every cache leaf, 3 decode steps' logits and the cache after
+    them, within 1e-4 (the SSD scan's limit in tests/test_ssm.py); K6 once
+    a group per prefill, never in decode."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.lm import LM, OPTIMIZED
+
+    cfg = dataclasses.replace(configs.smoke("zamba2_2p7b"), dtype="float32")
+    groups = cfg.n_layers // cfg.attn_every
+    cpu = LM(cfg, q_block=16, perf=OPTIMIZED, device="cpu", seed=0)
+    card = LM(cfg, q_block=16, perf=OPTIMIZED, device=cuda, seed=0)
+    card.load_state_dict(cpu.state_dict(), strict=True)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 43)))
+
+    def leaves(cache):
+        return [cache["k"].clone(), cache["v"].clone(), cache["states"]["ssm"].clone(),
+                cache["states"]["conv"].clone()]
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs, k6 = [], []
+        for lm in (cpu, card):
+            before = sum(flops.launches.values())
+            cache, lg = lm.prefill({"tokens": toks[:, :40].to(lm.device)}, max_len=43)
+            k6.append(sum(flops.launches.values()) - before)
+            got = [lg[:, 0], *leaves(cache)]
+            for t in range(3):
+                cache, lg = lm.decode_step(cache, toks[:, 40 + t].to(lm.device), 40 + t)
+                got.append(lg)
+            k6.append(sum(flops.launches.values()) - before)
+            outs.append([g.cpu() for g in (*got, *leaves(cache))])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert k6 == [0, 0, groups, groups]
+    names = ("prefill", "k", "v", "ssm", "conv", "decode0", "decode1", "decode2",
+             "k after decode", "v after decode", "ssm after decode", "conv after decode")
+    for name, want, got in zip(names, *outs):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4, msg=name)
 
 
