@@ -153,15 +153,35 @@ non-zero):
    them; one layer's ``ssd_scan`` at full width (B 1, T 256, 80 heads of
    64, d_state 64) against a float64 recurrence on the card at 1e-4, and
    timed at the prefill's shape (one ``{"hybrid": ...}`` line);
+   "vlm" — after the hybrid path's model is freed, LLaVA-NeXT-34B whole (60
+   layers at full width: d 7168, 56 / 8 heads of 128, swiglu of 20480,
+   vocabulary 64000, bf16, seeded weights, 64.05 GiB) through
+   ``serve_lm.main`` with the lm path's traffic and 2048 seeded frontend
+   embeddings before each prompt (F + S = 4096 positions, a cache of 4128);
+   K6 exactly once a layer per prefill at (4, 4096, 56 / 8, 128), never in
+   decode, all tc; the prefill against the same prefill with the plain
+   attention (a batch row and kv head at a time); 3 teacher-forced decode
+   steps against a prefill of F + S + 3 positions (one ``{"vlm": ...}``
+   line);
+   "audio" — after the vlm path's model is freed, SeamlessM4T-medium whole
+   (12 encoder and 12 decoder layers at d 1024, 16 / 16 heads of 64, gelu of
+   4096, layernorm, vocabulary 256,206, bf16, seeded weights) through
+   ``serve_lm.main`` with the lm path's traffic and 2048 seeded frames a
+   prompt for the encoder; K6 exactly once a decoder layer per prefill at
+   (4, 2048, 16 / 16, 64), never in decode, all tc (the encoder and the
+   cross-attention are plain attention, as in the reference); two prefills
+   bitwise equal (logits, ``k``, ``v``, ``ck``, ``cv``); the vlm path's two
+   comparisons (one ``{"audio": ...}`` line);
 4. the kernels at the main path's shapes (512^3, where K4 runs its
    tensor-core design and K1-K3 their vec designs, as at the pipelined slice;
    K4's general design at the quickstart shape; K5 at three 1 GiB
    complex64 shapes: 512^3, the traditional pack of 512^3 into 4 chunks and
    a 2-D transpose; K1/K3 at the composed slab's exchange and K4 at its
    rows; K1/K3 on 3 stacked 512^3 fields and K4 at the DNS
-   plan's rows, the many path's shapes; K6 at the four serving prefills'
+   plan's rows, the many path's shapes; K6 at the six serving prefills'
    (GLM-4-9B's 2 kv heads, Phi-3.5-MoE's 8, DeepSeek-V2-Lite's MLA at
-   (192, 128), Zamba2's 32 kv heads of 80), and once at the prefill_32k
+   (192, 128), Zamba2's 32 kv heads of 80, LLaVA-NeXT's 56 / 8 over 4096
+   positions, SeamlessM4T's 16 / 16 of 64), and once at the prefill_32k
    length, and its fp32 design at the first prefill's shape; K1, K3 and K4 at every shape the tune path launched them at, one
    record per call signature with that signature's launches): launches
    from their path,
@@ -173,7 +193,8 @@ non-zero):
    bounds (one ``{"lm_breakdown": ...}``, one ``{"moe_breakdown": ...}``,
    one ``{"mla_breakdown": ...}``, one ``{"ssm_breakdown": ...}`` line,
    with the selective scan's share of the prefill in place of K6's, and one
-   ``{"hybrid_breakdown": ...}`` line with both K6's and the SSD scan's),
+   ``{"hybrid_breakdown": ...}`` line with both K6's and the SSD scan's,
+   one ``{"vlm_breakdown": ...}`` and one ``{"audio_breakdown": ...}``),
    the seconds of each phase
    (one ``{"phase_s"}`` line), then the result line.
 
@@ -246,16 +267,32 @@ HYBRID_ARGV = ["--arch", "zamba2_2p7b", "--preset", "full", "--opt", "--batch", 
 # one layer's SSD scan at full width against a float64 recurrence:
 # (B, T, heads, headdim, d_state), inputs in tests/test_ssm.py's ranges
 SSD_SCAN_SHAPE = (1, 256, 80, 64, 64)
+# the vlm path: LLaVA-NeXT-34B whole (60 layers, 64.05 GiB of bf16 weights),
+# 2048 seeded frontend embeddings before each prompt of 2048 tokens, through
+# serve_lm with the lm path's traffic
+VLM_ARGV = ["--arch", "llava_next_34b", "--preset", "full", "--opt", "--batch", "4",
+            "--prompt-len", "2048", "--gen", "32"]
+# the audio path: SeamlessM4T-medium whole (12 encoder and 12 decoder layers,
+# 1.63 GiB of bf16 weights), 2048 seeded frames a prompt for its encoder,
+# through serve_lm with the lm path's traffic
+AUDIO_ARGV = ["--arch", "seamless_m4t_medium", "--preset", "full", "--opt", "--batch", "4",
+              "--prompt-len", "2048", "--gen", "32"]
+# the plain attention a batch row at a time past this many bytes of fp32
+# scores (LLaVA's prefill: 15 GB for the whole batch)
+PLAIN_SCORE_BYTES = 2**32
 # K4's general design at the quickstart's last axis by row count: the
 # quickstart's 42 * 63 rows, the sweep's 4096 and eight times that
 K4_GENERAL_CASES = ((64, 2646), (64, 4096), (64, 32768))
 # K6 at the serving prefills' shapes (GLM-4-9B's 2 kv heads, Phi-3.5-MoE's 8,
 # DeepSeek-V2-Lite's MLA: 16 heads, q and k of 192, v of 128; Zamba2's shared
-# block: 32 / 32 heads of 80) and at the prefill_32k length (batch cut):
-# ((B, S, Hq, Hkv, dqk, dv), path, cut)
+# block: 32 / 32 heads of 80; LLaVA-NeXT-34B's 56 / 8 heads over 2048 frontend
+# and 2048 prompt positions; SeamlessM4T's decoder, 16 / 16 heads of 64) and
+# at the prefill_32k length (batch cut): ((B, S, Hq, Hkv, dqk, dv), path, cut)
 K6_SHAPES = (((4, 2048, 32, 2, 128, 128), "lm", None), ((4, 2048, 32, 8, 128, 128), "moe", None),
              ((4, 2048, 16, 16, 192, 128), "mla", None),
              ((4, 2048, 32, 32, 80, 80), "hybrid", None),
+             ((4, 4096, 56, 8, 128, 128), "vlm", None),
+             ((4, 2048, 16, 16, 64, 64), "audio", None),
              ((1, 32768, 32, 2, 128, 128), None, "batch 32->1"))
 # K5's sweep: the old sweep's shapes, then 131072 rows of 32 to 256 bytes
 # (float32 and complex64 at C = 8, 16, 24, 32) across the rows design's least
@@ -411,10 +448,11 @@ def main():
     print(json.dumps({"strided_fft": {**phase("strided_fft", strided_fft_check, torch),
                                       "card": card}}))
 
-    lm_info, moe_info, mla_info, ssm_info, hybrid_info = {}, {}, {}, {}, {}
+    lm_info, moe_info, mla_info, ssm_info, hybrid_info, vlm_info, audio_info = (
+        {}, {}, {}, {}, {}, {}, {})
     many, tune, tune_shapes, serve, serve_shapes = [], [], {}, [], {}
     paths = phase("paths", run_paths, torch, lm_info, moe_info, mla_info, ssm_info, hybrid_info,
-                  many, tune, tune_shapes, serve, serve_shapes, card)
+                  vlm_info, audio_info, many, tune, tune_shapes, serve, serve_shapes, card)
     print(json.dumps({"paths": paths}))
     print(json.dumps({"many": [{**r, "card": card} for r in many]}))
     print(json.dumps({"tune": [{**r, "card": card} for r in tune]}))
@@ -432,6 +470,9 @@ def main():
                                         "card": card}}))
     print(json.dumps({"hybrid_breakdown": {**lm_breakdown(kernels, hybrid_info, "hybrid"),
                                            "card": card}}))
+    for name, info in (("vlm", vlm_info), ("audio", audio_info)):
+        print(json.dumps({f"{name}_breakdown": {**lm_breakdown(kernels, info, name),
+                                                "card": card}}))
     print(json.dumps({"phase_s": {"build": round(build_s, 1), **phases,
                                   "total": round(time.perf_counter() - t0, 1)}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -862,15 +903,15 @@ def _by_call(paths, shapes, name):
         fail(f"{name}: launches by call {by_call} != the counters' {[k1, k3, k4]}")
 
 
-def run_paths(torch, lm_info, moe_info, mla_info, ssm_info, hybrid_info, many, tune, tune_shapes,
-              serve, serve_shapes, card):
+def run_paths(torch, lm_info, moe_info, mla_info, ssm_info, hybrid_info, vlm_info, audio_info,
+              many, tune, tune_shapes, serve, serve_shapes, card):
     """Drive the five FFT paths on a 1-rank NCCL group (the composed path
     prints its records, the many path fills ``many`` with its), measure the time model's coefficients (one
     ``{"coeffs"}`` line), drive the tune path on the same group (it fills
     ``tune`` and, with its launches by call, ``tune_shapes``), the serve path
     (``serve``, ``serve_shapes`` likewise), then the LM paths (which fill
-    ``lm_info``, ``moe_info``, ``mla_info``, ``ssm_info`` and
-    ``hybrid_info``); returns each
+    ``lm_info``, ``moe_info``, ``mla_info``, ``ssm_info``, ``hybrid_info``,
+    ``vlm_info`` and ``audio_info``); returns each
     path's kernel launch counts."""
     import torch.distributed as dist
 
@@ -942,6 +983,12 @@ def run_paths(torch, lm_info, moe_info, mla_info, ssm_info, hybrid_info, many, t
     gc.collect()
     torch.cuda.empty_cache()
     paths["hybrid"] = _drive(torch, "hybrid", hybrid_path, hybrid_info)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["vlm"] = _drive(torch, "vlm", frontend_path, vlm_info, "vlm", VLM_ARGV)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["audio"] = _drive(torch, "audio", frontend_path, audio_info, "audio", AUDIO_ARGV)
     gc.collect()
     torch.cuda.empty_cache()
     return paths
@@ -2296,13 +2343,16 @@ def lm_path(torch, info):
     del res, lm, prompts
 
 
-def _profile_serving(torch, lm, prompts, ids, info):
-    """Device time of one prefill and of 4 decode steps, by kernel class."""
-    S = prompts.shape[1]
+def _profile_serving(torch, lm, prompts, ids, info, frontend=None):
+    """Device time of one prefill and of 4 decode steps, by kernel class
+    (with the ``frontend`` where the family takes one; the VLM's positions
+    after its F)."""
+    S = prompts.shape[1] + (frontend.shape[1] if lm.cfg.family == "vlm" else 0)
     n_gen = ids.shape[1] - 1
-    info["prefill_device"] = _device_time(
-        torch, lambda: lm.prefill({"tokens": prompts}, max_len=S + n_gen))
-    cache = lm.prefill({"tokens": prompts}, max_len=S + n_gen)[0]
+    batch = {"tokens": prompts} if frontend is None else {"tokens": prompts,
+                                                          "frontend": frontend}
+    info["prefill_device"] = _device_time(torch, lambda: lm.prefill(batch, max_len=S + n_gen))
+    cache = lm.prefill(batch, max_len=S + n_gen)[0]
     tok = ids[:, 0].to(prompts.device)
     info["decode_device_4_steps"] = _device_time(
         torch, lambda: [lm.decode_step(cache, tok, S + t) for t in range(4)])
@@ -2317,13 +2367,24 @@ def _serving_bounds(lm, B, S, n_gen):
     compute: a decode step reads every weight once (every expert's: the
     decode path runs them all; of an untied embedding only B rows; the
     hybrid's shared block once a group, since its 183.5 MB do not stay in
-    the 50 MB L2) and the valid cache at its last step (an SSM's states,
-    read and written); a prefill reads every weight once, writes its cache
-    (an SSM's states), and does the operations of ``_prefill_flops``."""
+    the 50 MB L2; of the audio family the decoder's alone) and the valid
+    cache at its last step (an SSM's states, read and written; the audio
+    decoder's cross keys and values of S frames beside its own); a prefill
+    reads every weight once (and the audio family's B x S bf16 frames),
+    writes its cache (an SSM's states), and does the operations of
+    ``_prefill_flops``.  The VLM's S counts its frontend positions."""
     cfg = lm.cfg
     param_bytes = _bytes(lm.parameters())
     step_weight_bytes = param_bytes if cfg.tie_embeddings else (
         param_bytes - (lm.embed.shape[0] - B) * lm.embed.shape[1] * lm.embed.element_size())
+    if cfg.family == "audio":
+        el = lm.embed.element_size()
+        kv = len(lm.dec_blocks) * B * 2 * cfg.n_kv_heads * lm.head_dim * el  # a position
+        enc = _bytes(lm.enc_blocks.parameters()) + _bytes(lm.enc_norm.parameters())
+        return {"step_weight_bytes": step_weight_bytes - enc, "kv_bytes": kv * (S + n_gen),
+                "cross_kv_bytes": kv * S, "cache_bytes": kv * (S + n_gen) + kv * S,
+                "prefill_bytes": param_bytes + B * S * cfg.d_model * 2 + 2 * kv * S,
+                "prefill_flops": _prefill_flops(lm, B, S)}
     if cfg.family == "hybrid":  # fp32 ssm (B, H, P, N), conv (B, K-1, di + 2N) a layer
         s, G = cfg.ssm, len(lm.blocks)
         di = s.expand * cfg.d_model
@@ -2360,9 +2421,20 @@ def _prefill_flops(lm, B, S):
     operations, ~0.4 TFLOP of fp32 over the whole prefill, aside).  The
     hybrid: each Mamba2 layer's ``in_proj``, ``out_proj`` and SSD
     contractions (``_ssd_flops``), and the shared block once a group
-    (``w_in``, attention, MLP)."""
+    (``w_in``, attention, MLP).  The audio family: the encoder's layers
+    over S frames (non-causal attention over the whole square), the
+    decoder's over S tokens, each with its cross-attention (queries and
+    output of the tokens, keys and values of the frames, the S x S
+    rectangle).  The VLM's S counts its frontend positions."""
     cfg = lm.cfg
     N, d, dh, H = B * S, cfg.d_model, lm.head_dim, cfg.n_heads
+    if cfg.family == "audio":  # S frames and S tokens
+        proj = 2 * N * d * dh * 2 * (H + cfg.n_kv_heads)  # q, k, v, o
+        mlp = 2 * N * d * cfg.d_ff * (3 if cfg.mlp in ("swiglu", "geglu") else 2)
+        enc = proj + 4 * dh * B * H * S * S + mlp
+        dec = proj + 4 * dh * B * H * S * (S + 1) / 2 + proj + 4 * dh * B * H * S * S + mlp
+        return (len(lm.enc_blocks) * enc + len(lm.dec_blocks) * dec
+                + 2 * B * d * lm.embed.shape[0])
     if cfg.family == "ssm":
         p = lm.blocks[0].mamba
         di, dtr, xw = p["D"].shape[0], p["dt_proj"].shape[0], p["x_proj"].shape[1]
@@ -2834,6 +2906,116 @@ def hybrid_path(torch, info):
     del lg1, lg_dec, lg_plain
     _profile_serving(torch, lm, prompts, res.ids, info)
     del res, lm, prompts
+
+
+def frontend_path(torch, info, name, argv):
+    """LLaVA-NeXT-34B (``name`` "vlm": 60 layers, 2048 frontend embeddings
+    before each prompt) or SeamlessM4T-medium ("audio": 12 encoder and 12
+    decoder layers, 2048 frames a prompt) whole, served through
+    ``serve_lm.main(argv)`` with the lm path's traffic (one warm-up round,
+    then a timed prefill and 32 decode steps), then on the same weights and
+    frontend: K6's launches in one prefill (once a causal layer, all on the
+    tensor-core design) and in each decode step (none); the audio family's
+    second prefill bitwise equal (logits and every cache leaf); 3
+    teacher-forced decode steps against a prefill of S + 3 tokens (the VLM's
+    positions after its F); the K6 prefill's logits against the same
+    prefill with the plain attention, a batch row and kv head at a time (the
+    VLM's whole (4 x 56, 4096, 4096) fp32 scores are 15 GB beside 64 GiB of
+    weights).  Each cache is freed before the next prefill.  Fills
+    ``info``."""
+    from repro_torch.kernels.flash import ops as flops, ref as flref
+    from repro_torch.launch import serve_lm
+    from repro_torch.models.config import param_count
+
+    def k6():
+        return sum(flops.launches.values())
+
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_lm.main(argv)
+    peak = torch.cuda.max_memory_allocated()
+    lm, prompts, frontend = res.lm, res.prompts, res.frontend
+    cfg = lm.cfg
+    B, S = prompts.shape
+    F = frontend.shape[1] if cfg.family == "vlm" else 0
+    L, n_gen = cfg.n_layers, res.ids.shape[1] - 1  # the causal layers, K6's
+    if k6() != 2 * L:  # the warm-up and the timed prefill; decode launches none
+        fail(f"{name}: serve_lm launched K6 {k6()} times, want {2 * L} (two prefills)")
+
+    def prefill(toks, max_len=None):
+        return lm.prefill({"tokens": toks, "frontend": frontend}, max_len=max_len)
+
+    def leaves(cache):
+        return cache.get("blocks", cache)
+
+    c0 = k6()
+    cache, lg1 = prefill(prompts, F + S + 3)
+    per_prefill = k6() - c0
+    cache_shapes = {k: list(v.shape) for k, v in leaves(cache).items()}
+    cache_bytes = sum(v.numel() * v.element_size() for v in leaves(cache).values())
+    bitwise = None
+    if cfg.family == "audio":  # two caches of LLaVA's would not fit beside its weights
+        cache2, lg2 = prefill(prompts, F + S + 3)
+        bitwise = torch.equal(lg1, lg2) and all(
+            torch.equal(v, leaves(cache2)[k]) for k, v in leaves(cache).items())
+        del cache2, lg2
+    extra = res.ids[:, :3].to(prompts.device)  # the first three generated ids
+    per_decode = []
+    for t in range(3):
+        c0 = k6()
+        cache, lg_dec = lm.decode_step(cache, extra[:, t], F + S + t)
+        per_decode.append(k6() - c0)
+    del cache
+    lg_full = prefill(torch.cat([prompts, extra], 1))[1][:, 0]
+    rel_dec, agree_dec = rel_l2(torch, lg_dec, lg_full), _agree(lg_dec, lg_full)
+    del lg_full
+
+    def plain(q, k, v):  # a batch row and kv head at a time
+        G = q.shape[2] // k.shape[2]
+        return torch.cat([torch.cat([flref.attention_gqa_ref(
+            q[b:b + 1, :, h * G:(h + 1) * G], k[b:b + 1, :, h:h + 1], v[b:b + 1, :, h:h + 1],
+            causal=True) for h in range(k.shape[2])], 2) for b in range(q.shape[0])])
+
+    lm._serving_causal = plain
+    try:
+        lg_plain = prefill(prompts)[1][:, 0]
+    finally:
+        del lm._serving_causal
+    rel_plain, agree_plain = rel_l2(torch, lg1[:, 0], lg_plain), _agree(lg1[:, 0], lg_plain)
+    if per_prefill != L or any(per_decode):
+        fail(f"{name}: K6 launches per prefill {per_prefill} (want {L}, one a causal layer), "
+             f"per decode step {per_decode} (want 0)")
+    if dict(flops.design_launches) != {"tc:bfloat16": k6()}:
+        fail(f"{name}: K6 launches by design {dict(flops.design_launches)}, want all "
+             f"{k6()} on the tensor-core design")
+    finite = bool(torch.isfinite(lg1).all() and torch.isfinite(lg_dec).all())
+
+    bounds = _serving_bounds(lm, B, F + S, n_gen)
+    out = {"arch": cfg.name, "family": cfg.family, "layers": L,
+           "encoder_layers": cfg.n_encoder_layers, "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff, "mlp": cfg.mlp,
+           "vocab": cfg.vocab, "dtype": cfg.dtype,
+           "params": sum(p.numel() for p in lm.parameters()), "param_count": param_count(cfg),
+           "weights_gib": _bytes(lm.parameters()) / 2**30,
+           "batch": B, "prompt_len": S, "frontend": list(frontend.shape), "gen": n_gen,
+           "prefill_ms": res.prefill_s * 1e3, "prefill_tok_s": B * S / res.prefill_s,
+           "decode_ms_per_step": res.decode_s * 1e3 / n_gen,
+           "decode_tok_s": B * n_gen / res.decode_s,
+           "max_memory_allocated_gib": peak / 2**30, "ids": res.ids[0][:12].tolist(),
+           "cache": cache_shapes, "cache_gib_at_s_plus_3": cache_bytes / 2**30,
+           "k6_launches_per_prefill": per_prefill, "k6_launches_per_decode_step": per_decode,
+           "two_prefills_bitwise": bitwise, "rel_l2_k6_vs_plain_prefill": rel_plain,
+           "argmax_agree_k6_vs_plain": agree_plain,
+           "rel_l2_teacher_forced_decode_vs_prefill": rel_dec, "limit": TOL_LM,
+           "argmax_agree_teacher_forced": agree_dec, "finite": finite}
+    print(json.dumps({name: out}))
+    if not finite or bitwise is False or rel_plain > TOL_LM or rel_dec > TOL_LM:
+        fail(f"{name}: finite {finite}, two prefills bitwise {bitwise}, K6 vs plain prefill "
+             f"{rel_plain}, teacher-forced decode vs prefill {rel_dec} (limit {TOL_LM})")
+    info.update(out, **bounds)
+    del lg1, lg_dec, lg_plain
+    _profile_serving(torch, lm, prompts, res.ids, info, frontend)
+    del res, lm, prompts, frontend
 
 
 def _ssd_scan(torch, lm, B, S):
@@ -3576,10 +3758,12 @@ def _k4_record(torch, fops, fref, tag, rows, counts, kern, plain, lib, nbytes, l
 
 
 def _flash_records(torch, paths):
-    """K6 at the serving prefills' shapes (launches from the lm, moe, mla
-    and hybrid paths; the mla path's q and k of 192, v of 128; the hybrid's
-    80) and at the prefill_32k
-    length, bf16, causal, against the plain version (at 32k one q head at a
+    """K6 at the serving prefills' shapes (launches from the lm, moe, mla,
+    hybrid, vlm and audio paths; the mla path's q and k of 192, v of 128;
+    the hybrid's 80; the vlm's 7 q heads a kv head over 4096 positions; the
+    audio decoder's 64) and at the prefill_32k
+    length, bf16, causal, against the plain version (a batch row at a time
+    past ``PLAIN_SCORE_BYTES`` of scores; at 32k one q head at a
     time: the whole (S, S) fp32 score matrix of 32 heads would not fit) and
     SDPA (its time and the backend it picks, or its refusal)."""
     from repro_torch.kernels.flash import ops as flops, ref as flref
@@ -3601,7 +3785,9 @@ def _flash_records(torch, paths):
         if design != "tc":
             fail(f"flash at {shape}: ran the {design} design")
         if reduced is None:
-            plain = lambda: flref.attention_gqa_ref(q, k, v, causal=True)
+            by_row = B * Hq * S * S * 4 > PLAIN_SCORE_BYTES
+            plain = ((lambda: _plain_by_row(torch, flref, q, k, v)) if by_row
+                     else (lambda: flref.attention_gqa_ref(q, k, v, causal=True)))
             err = _check_attention(torch, f"flash at {shape}", got, plain(), v)
         else:
             plain = lambda: [head(h) for h in range(Hq)]
@@ -3632,6 +3818,12 @@ def _flash_records(torch, paths):
         del q, k, v
         torch.cuda.empty_cache()
     return recs
+
+
+def _plain_by_row(torch, flref, q, k, v):
+    """The plain causal attention a batch row at a time."""
+    return torch.cat([flref.attention_gqa_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=True)
+                      for b in range(q.shape[0])])
 
 
 def _transpose_records(torch, x, paths):

@@ -10,9 +10,13 @@ optimized flags (the flash kernel K6 in the prefill, the head-major cache);
 ``--flags`` names single ones as the reference's dry-run does.  One untimed
 round of prefill and decode comes first, so that the times are of warm code
 (the reference's include its compilation).  ``main(argv)`` returns the
-generated ids and the times; ``serve(lm, prompts, n_gen)`` is its loop on
-an ``LM`` built elsewhere (a depth-cut model, say), and ``make_prompts`` its
-prompts.
+generated ids and the times; ``serve(lm, prompts, n_gen, frontend)`` is its
+loop on an ``LM`` built elsewhere (a depth-cut model, say), and
+``make_prompts`` and ``make_frontend`` its inputs: the VLM family takes
+``n_frontend_tokens`` vision embeddings a prompt, put before its tokens
+(the cache and the decode positions count them), the audio family S
+frames a prompt for its encoder, both bf16 from ``--seed``, as the
+reference draws them.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ class ServeResult:
     decode_s: float
     prompts: torch.Tensor    # (B, prompt_len) on the model's device
     lm: LM
+    frontend: torch.Tensor | None = None  # (B, F, D) bf16, the VLM and audio families
 
 
 def _sync(device: torch.device):
@@ -66,24 +71,43 @@ def make_prompts(vocab: int, batch: int, prompt_len: int, device, seed: int) -> 
     return torch.randint(0, vocab, (batch, prompt_len), generator=gen, device=device)
 
 
-def serve(lm: LM, prompts: torch.Tensor, n_gen: int) -> ServeResult:
-    """One untimed round of a batched prefill of ``prompts`` and ``n_gen``
-    greedy decode steps, then the timed round; prints the reference's three
-    lines."""
+def make_frontend(cfg, batch: int, prompt_len: int, device, seed: int) -> torch.Tensor | None:
+    """The frontend's embeddings of the VLM family, (batch,
+    ``n_frontend_tokens``, d_model), or the audio family's frames, (batch,
+    prompt_len, d_model): bf16 normals on ``device`` from ``seed + 2``; None
+    for the other families."""
+    if cfg.family not in ("vlm", "audio"):
+        return None
+    n = cfg.n_frontend_tokens if cfg.family == "vlm" else prompt_len
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    return torch.randn((batch, n, cfg.d_model), generator=gen,
+                       device=device).to(torch.bfloat16)
+
+
+def serve(lm: LM, prompts: torch.Tensor, n_gen: int,
+          frontend: torch.Tensor | None = None) -> ServeResult:
+    """One untimed round of a batched prefill of ``prompts`` (with the
+    ``frontend`` where the family takes one) and ``n_gen`` greedy decode
+    steps, then the timed round; prints the reference's three lines.  The
+    VLM's frontend tokens take cache positions before the prompt's."""
     cfg, device = lm.cfg, lm.device
     B, S = prompts.shape
-    M = S + n_gen
+    batch = {"tokens": prompts}
+    if frontend is not None:
+        batch["frontend"] = frontend
+    off = frontend.shape[1] if cfg.family == "vlm" else 0
+    M = S + off + n_gen
 
     def one_round():
         t0 = time.perf_counter()
-        cache, logits = lm.prefill({"tokens": prompts}, max_len=M)
+        cache, logits = lm.prefill(batch, max_len=M)
         tok = logits[:, -1, :cfg.vocab].argmax(-1)
         _sync(device)
         t_prefill = time.perf_counter() - t0
         out = [tok]
         t0 = time.perf_counter()
         for step in range(n_gen):
-            cache, logits = lm.decode_step(cache, tok, S + step)
+            cache, logits = lm.decode_step(cache, tok, S + off + step)
             tok = logits[:, :cfg.vocab].argmax(-1)
             out.append(tok)
         _sync(device)
@@ -95,7 +119,7 @@ def serve(lm: LM, prompts: torch.Tensor, n_gen: int) -> ServeResult:
     print(f"prefill: {t_prefill:.3f}s ({B * S / t_prefill:.0f} tok/s)  "
           f"decode: {t_decode:.3f}s ({B * n_gen / max(t_decode, 1e-9):.0f} tok/s)")
     print("sample generated ids:", ids[0][:12].tolist())
-    return ServeResult(ids, t_prefill, t_decode, prompts, lm)
+    return ServeResult(ids, t_prefill, t_decode, prompts, lm, frontend)
 
 
 def main(argv=None) -> ServeResult:
@@ -119,7 +143,8 @@ def main(argv=None) -> ServeResult:
     lm = LM(cfg, q_block=min(512, args.prompt_len), perf=resolve_flags(args.opt, args.flags),
             device=device, seed=args.seed)
     prompts = make_prompts(cfg.vocab, args.batch, args.prompt_len, device, args.seed)
-    return serve(lm, prompts, args.gen)
+    return serve(lm, prompts, args.gen,
+                 make_frontend(cfg, args.batch, args.prompt_len, device, args.seed))
 
 
 if __name__ == "__main__":

@@ -43,8 +43,9 @@ def _dots(a: torch.Tensor, b: torch.Tensor, eq: str) -> torch.Tensor:
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
                         q_block: int = 512, bf16_compute: bool = False) -> torch.Tensor:
     """Attention over q blocks, each against the whole (masked) key range.
-    Returns (B, Sq, Hq, dv) in v's dtype.  The reference's ``q_offset`` and
-    ``kv_len`` serve callers not ported yet (Ulysses, cross attention)."""
+    Returns (B, Sq, Hq, dv) in v's dtype.  Sq and Skv may differ (the
+    encoder–decoder's cross-attention, non-causal); the reference's
+    ``q_offset`` and ``kv_len`` serve a caller not ported yet (Ulysses)."""
     B, Sq, Hq, dh = q.shape
     Skv, Hkv, dv = v.shape[1], v.shape[2], v.shape[3]
     assert Hq % Hkv == 0, (Hq, Hkv)
@@ -127,23 +128,38 @@ def gqa_init(gen: torch.Generator, d: int, n_heads: int, n_kv: int, head_dim: in
     return p
 
 
+def gqa_q(p, x: torch.Tensor, *, n_heads: int, head_dim: int, positions: torch.Tensor,
+          rope_theta: float) -> torch.Tensor:
+    """Queries of x (B, S, D): (B, S, Hq, dh), RoPE at ``positions``."""
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    # RoPE is elementwise per (position, head): rotating in (B, S, H, dh)
+    # with the positions broadcast over heads leaves q and k contiguous
+    return apply_rope(q.reshape(B, S, n_heads, head_dim), positions[:, :, None], rope_theta)
+
+
+def gqa_kv(p, x: torch.Tensor, *, n_kv: int, head_dim: int, positions: torch.Tensor,
+           rope_theta: float):
+    """Keys (RoPE at ``positions``) and values of x (B, S, D): (B, S, Hkv, dh)
+    each.  Cross-attention takes them from the encoder's output alone."""
+    B, S, _ = x.shape
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    k = apply_rope(k.reshape(B, S, n_kv, head_dim), positions[:, :, None], rope_theta)
+    return k, v.reshape(B, S, n_kv, head_dim)
+
+
 def gqa_qkv(p, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
             positions: torch.Tensor, rope_theta: float):
     """Project + RoPE.  x: (B, S, D) -> q (B,S,Hq,dh), k/v (B,S,Hkv,dh)."""
-    B, S, _ = x.shape
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, n_heads, head_dim)
-    k = k.reshape(B, S, n_kv, head_dim)
-    v = v.reshape(B, S, n_kv, head_dim)
-    # RoPE is elementwise per (position, head): rotating in (B, S, H, dh)
-    # with the positions broadcast over heads leaves q and k contiguous
-    q = apply_rope(q, positions[:, :, None], rope_theta)
-    k = apply_rope(k, positions[:, :, None], rope_theta)
-    return q, k, v
+    q = gqa_q(p, x, n_heads=n_heads, head_dim=head_dim, positions=positions,
+              rope_theta=rope_theta)
+    return (q, *gqa_kv(p, x, n_kv=n_kv, head_dim=head_dim, positions=positions,
+                       rope_theta=rope_theta))
 
 
 # ---------------------------------------------------------------------------

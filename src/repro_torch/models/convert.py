@@ -7,7 +7,9 @@ takes: the leading layer axis of ``blocks`` (and of the MoE family's
 ``dense0``) is unstacked into ``blocks.<i>.<...>``; the hybrid family's
 ``blocks``, stacked (groups, layers a group, ...), into
 ``blocks.<g>.<j>.<...>``, and its ``shared`` block passes through as the
-top-level leaves do.  Leaves keep their dtype: the MoE router, MLA's
+top-level leaves do; the audio family's ``enc_blocks`` and ``dec_blocks``
+into ``enc_blocks.<i>`` and ``dec_blocks.<i>`` (``enc_norm`` passes
+through).  The VLM family's parameters are the dense family's.  Leaves keep their dtype: the MoE router, MLA's
 ``kv_norm``, the Mamba layers' ``dt_bias``, ``A_log`` and ``D`` and
 Mamba2's ``norm_w`` stay fp32, the expert stacks
 (E, d_in, d_out) are one tensor a layer as in the port, and MLA's ``wq``,
@@ -47,12 +49,15 @@ def _flatten(tree, prefix: str = ""):
 def lm_params_from_reference(cfg: ArchConfig, params: dict) -> dict[str, torch.Tensor]:
     why = not_ported(cfg)
     if why:
-        raise NotImplementedError(f"not ported: {why}")
+        raise ValueError(why)
     n_dense = cfg.moe.first_k_dense if cfg.moe else 0
     # the leading stacked axes of each layer group
-    layers = ({"blocks": (cfg.n_layers // cfg.attn_every, cfg.attn_every)}
-              if cfg.family == "hybrid"
-              else {"dense0": (n_dense,), "blocks": (cfg.n_layers - n_dense,)})
+    if cfg.family == "hybrid":
+        layers = {"blocks": (cfg.n_layers // cfg.attn_every, cfg.attn_every)}
+    elif cfg.family == "audio":
+        layers = {"enc_blocks": (cfg.n_encoder_layers,), "dec_blocks": (cfg.n_layers,)}
+    else:
+        layers = {"dense0": (n_dense,), "blocks": (cfg.n_layers - n_dense,)}
     out = {}
     for name, leaf in _flatten({k: v for k, v in params.items() if k not in layers}):
         out[name] = to_tensor(leaf)

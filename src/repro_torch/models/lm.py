@@ -1,5 +1,6 @@
-"""The LM for serving, dense, MoE, SSM and hybrid families, GQA or MLA
-attention (the port of ``repro/models/lm.py``).
+"""The LM for serving, every family of the reference: dense, MoE, SSM,
+hybrid, VLM and audio, GQA or MLA attention (the port of
+``repro/models/lm.py``).
 
 ``LM`` is an ``nn.Module`` that holds the parameters of one card:
 ``embed``, ``final_norm``, ``lm_head`` (unless tied), ``dense0`` (the MoE
@@ -43,7 +44,27 @@ Mamba2 layers (``blocks.<g>.<j>``), and one ``shared`` attention+MLP block
 cache is the reference's ``{"k", "v": (G, B, Hkv, M, dh) or (G, B, M, Hkv,
 dh), "states": {"ssm": (G, J, B, H, P, N) fp32, "conv": (G, J, B, K-1, di
 + 2N)}}``: the shared block's keys and values of each group beside the
-groups' Mamba2 states.  The audio and VLM families are not ported yet.
+groups' Mamba2 states.
+
+The VLM family (LLaVA-NeXT) is the dense stack; its prefill takes
+``batch["frontend"]`` (B, F, D), the vision frontend's embeddings, and puts
+it before the token embeddings: positions run 0 .. F + S - 1, the cache
+holds F + S of its positions, and a decode step's ``cur_len`` counts them.
+
+The audio family (SeamlessM4T) is an encoder–decoder: ``enc_blocks``
+(``n_encoder_layers`` pre-norm blocks, non-causal plain attention) and
+``enc_norm`` over ``batch["frontend"]`` (B, Se, D), the audio frontend's
+frames at positions 0 .. Se - 1; then ``dec_blocks``, each a ``Block`` with
+``ln_x`` and a ``cross`` GQA (no qkv bias) between its causal
+self-attention (K6 under ``exact_causal_prefill``) and its MLP: queries of
+``ln_x(x)`` at the decoder positions, keys and values of the encoder's
+output at the frame positions, both rotated, as in the reference.  Its
+cache is the reference's top-level ``{"k", "v", "ck", "cv"}`` with a
+leading layer axis: ``k``, ``v`` of ``max_len`` positions, ``ck``, ``cv``
+of Se, unpadded, in the layout ``hmajor_cache`` sets; a decode step
+attends over all Se frames.
+
+``not_ported`` is None for every config of the registry.
 """
 
 from __future__ import annotations
@@ -108,10 +129,11 @@ def _norm_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
 class Block(nn.Module):
     """One pre-norm decoder layer: ``ln1``, ``attn`` (GQA, or MLA where the
     config has it), ``ln2``, and ``mlp`` of width ``ff`` (default ``d_ff``)
-    or, with ``use_moe``, ``moe``."""
+    or, with ``use_moe``, ``moe``; with ``cross`` (the audio decoder) also
+    ``ln_x`` and ``cross``, a GQA without qkv bias."""
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator, dtype: torch.dtype, *,
-                 use_moe: bool = False, ff: int | None = None):
+                 use_moe: bool = False, ff: int | None = None, cross: bool = False):
         super().__init__()
         d = cfg.d_model
         self.ln1 = _norm_init(cfg, d, gen.device)
@@ -120,6 +142,11 @@ class Block(nn.Module):
             attn.mla_init(gen, d, cfg.n_heads, cfg.mla, dtype) if cfg.mla is not None
             else attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
                                qkv_bias=cfg.qkv_bias, dtype=dtype))
+        if cross:
+            self.ln_x = _norm_init(cfg, d, gen.device)
+            self.cross = _params(attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                               cfg.resolved_head_dim, qkv_bias=False,
+                                               dtype=dtype))
         if use_moe:
             self.moe = _params(moe.moe_init(gen, d, cfg.moe, cfg.mlp, dtype))
         else:
@@ -137,15 +164,19 @@ class SSMBlock(nn.Module):
         self.mamba = _params(init(gen, cfg.d_model, cfg.ssm, dtype))
 
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
 def not_ported(cfg: ArchConfig) -> str | None:
-    """Why the port cannot run ``cfg`` yet, or None."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        return f"{cfg.name} is {cfg.family!r}"
+    """Why the port cannot run ``cfg``, or None: it runs every family of the
+    reference (``FAMILIES``)."""
+    if cfg.family not in FAMILIES:
+        return f"{cfg.name} is {cfg.family!r}, not a family of the reference"
     return None
 
 
 class LM(nn.Module):
-    """A dense, MoE, SSM or hybrid decoder LM on one device, weights drawn
+    """An LM of any family of the reference on one device, weights drawn
     from ``seed``.
 
     ``device`` defaults to CUDA and raises without a card; pass ``"cpu"``
@@ -155,10 +186,6 @@ class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, q_block: int = 512, perf: PerfFlags | None = None,
                  device: str | torch.device = "cuda", seed: int = 0):
         super().__init__()
-        why = not_ported(cfg)
-        if why:
-            raise NotImplementedError("the port's LM runs the dense, MoE, SSM and hybrid "
-                                      f"families; {why}, still to port (ROADMAP.md §1)")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LM defaults to CUDA and no CUDA device is available; "
@@ -188,9 +215,17 @@ class LM(nn.Module):
             self.shared = Block(cfg, gen, self.dtype)
             self.shared.w_in = nn.Parameter(dense_init(gen, 2 * d, d, self.dtype),
                                             requires_grad=False)
-        else:
+        elif cfg.family == "audio":
+            self.enc_blocks = nn.ModuleList(Block(cfg, gen, self.dtype)
+                                            for _ in range(cfg.n_encoder_layers))
+            self.enc_norm = _norm_init(cfg, d, device)
+            self.dec_blocks = nn.ModuleList(Block(cfg, gen, self.dtype, cross=True)
+                                            for _ in range(cfg.n_layers))
+        elif cfg.family in ("dense", "vlm", "moe"):
             self.blocks = nn.ModuleList(Block(cfg, gen, self.dtype, use_moe=cfg.moe is not None)
                                         for _ in range(cfg.n_layers - n_dense))
+        else:
+            raise ValueError(not_ported(cfg))
 
     @property
     def head_dim(self) -> int:
@@ -254,6 +289,44 @@ class LM(nn.Module):
             cache["k"][:, :S] = k
             cache["v"][:, :S] = v
         return x + o.reshape(B, S, -1) @ p.attn["wo"]
+
+    def _enc_attn(self, p, x, positions):
+        """The encoder's attention sub-block: non-causal plain attention."""
+        B, S = x.shape[:2]
+        q, k, v = self._qkv(p, _norm_apply(self.cfg, p.ln1, x), positions)
+        o = attn.blockwise_attention(q, k, v, causal=False, q_block=self.q_block,
+                                     bf16_compute=self.perf.bf16_attention)
+        return x + o.reshape(B, S, -1) @ p.attn["wo"]
+
+    def _cross_prefill(self, p, x, enc, positions, enc_positions, cache: dict):
+        """Cross-attention sub-block of the prefill: queries of ``ln_x(x)``
+        at ``positions``, keys and values of the encoder's output ``enc`` at
+        ``enc_positions``, written to the layer's ``ck``, ``cv``.  The
+        reference contracts it in fp32 whatever ``bf16_attention`` says."""
+        cfg, (B, S) = self.cfg, x.shape[:2]
+        ck, cv = attn.gqa_kv(p.cross, enc, n_kv=cfg.n_kv_heads, head_dim=self.head_dim,
+                             positions=enc_positions, rope_theta=cfg.rope_theta)
+        q = attn.gqa_q(p.cross, _norm_apply(cfg, p.ln_x, x), n_heads=cfg.n_heads,
+                       head_dim=self.head_dim, positions=positions, rope_theta=cfg.rope_theta)
+        o = attn.blockwise_attention(q, ck, cv, causal=False, q_block=self.q_block)
+        if self.perf.hmajor_cache:
+            ck, cv = ck.transpose(1, 2), cv.transpose(1, 2)
+        cache["ck"].copy_(ck)
+        cache["cv"].copy_(cv)
+        return x + o.reshape(B, S, -1) @ p.cross["wo"]
+
+    def _cross_decode(self, p, x, cache: dict, cur_len: int):
+        """One token's cross-attention over every encoder position in the
+        layer's ``ck``, ``cv``; its query rotated at ``cur_len``."""
+        cfg, B = self.cfg, x.shape[0]
+        pos = torch.full((B, 1), cur_len, dtype=torch.int64, device=x.device)
+        q = attn.gqa_q(p.cross, _norm_apply(cfg, p.ln_x, x), n_heads=cfg.n_heads,
+                       head_dim=self.head_dim, positions=pos, rope_theta=cfg.rope_theta)
+        hmajor, ck = self.perf.hmajor_cache, cache["ck"]
+        o = attn.decode_attention(q, ck, cache["cv"], ck.shape[2] if hmajor else ck.shape[1],
+                                  layout="bhsd" if hmajor else "bskd",
+                                  bf16_compute=self.perf.bf16_attention)
+        return x + o.reshape(B, 1, -1) @ p.cross["wo"]
 
     def _mla_decode(self, p, x, h, pos, cache: dict, cur_len: int, absorbed: bool):
         """MLA's one-token attention: the token's latents written at
@@ -337,19 +410,31 @@ class LM(nn.Module):
                 "conv": torch.zeros((*lead, batch, s.d_conv - 1, conv_dim), dtype=self.dtype,
                                     device=self.device)}
 
-    def _new_cache(self, batch: int, max_len: int) -> dict:
+    def _kv_shape(self, batch: int, n: int) -> tuple:
+        """One layer's keys or values of ``n`` positions, in the layout
+        ``hmajor_cache`` sets."""
+        return ((batch, self.cfg.n_kv_heads, n, self.head_dim) if self.perf.hmajor_cache
+                else (batch, n, self.cfg.n_kv_heads, self.head_dim))
+
+    def _new_cache(self, batch: int, max_len: int, enc_len: int = 0) -> dict:
         """A zeroed cache of ``max_len`` positions for every layer group (an
         SSM's states, which have no position axis; the hybrid's shared-block
-        keys and values a group beside its groups' states)."""
+        keys and values a group beside its groups' states; the audio
+        decoder's keys and values beside its cross keys and values of
+        ``enc_len`` positions)."""
         cfg = self.cfg
         if cfg.family == "ssm":
             return self._new_states((len(self.blocks),), batch)
+        if cfg.family == "audio":
+            return {key: torch.zeros((len(self.dec_blocks), *self._kv_shape(batch, n)),
+                                     dtype=self.dtype, device=self.device)
+                    for key, n in (("k", max_len), ("v", max_len), ("ck", enc_len),
+                                   ("cv", enc_len))}
         if cfg.mla is not None:  # one layout whatever hmajor_cache says
             per_layer = {"ckv": (batch, max_len, cfg.mla.kv_lora_rank),
                          "krope": (batch, max_len, cfg.mla.qk_rope_dim)}
         else:
-            shape = ((batch, cfg.n_kv_heads, max_len, self.head_dim) if self.perf.hmajor_cache
-                     else (batch, max_len, cfg.n_kv_heads, self.head_dim))
+            shape = self._kv_shape(batch, max_len)
             per_layer = {"k": shape, "v": shape}
         if cfg.family == "hybrid":
             G = len(self.blocks)
@@ -378,20 +463,59 @@ class LM(nn.Module):
                                     decode=decode)
         return x
 
+    def _audio(self, x, cache: dict, *, enc=None, positions=None, cur_len: int | None = None):
+        """The audio decoder over the token embeddings x (the prefill, on the
+        encoder's output ``enc``, at ``positions``; a decode step at
+        ``cur_len``): per layer its self-attention, writing ``k``, ``v``,
+        the cross-attention (the prefill writes ``ck``, ``cv``, a decode
+        step reads them), the MLP."""
+        decode = cur_len is not None
+        if not decode:
+            B, Se = enc.shape[:2]
+            enc_positions = torch.arange(Se, device=self.device).expand(B, Se)
+        for i, p in enumerate(self.dec_blocks):
+            c = {k: t[i] for k, t in cache.items()}
+            if decode:
+                x = self._cross_decode(p, self._attn_decode(p, x, c, cur_len), c, cur_len)
+            else:
+                x = self._cross_prefill(p, self._attn_prefill(p, x, positions, c), enc,
+                                        positions, enc_positions, c)
+            x = self._ffn_block(p, x, use_moe=False, decode=decode)
+        return x
+
+    def _encode(self, frames):
+        """The audio encoder over ``frames`` (B, Se, D) at positions 0 .. Se - 1:
+        pre-norm blocks of non-causal attention and MLP, then ``enc_norm``."""
+        B, Se = frames.shape[:2]
+        positions = torch.arange(Se, device=self.device).expand(B, Se)
+        h = frames
+        for p in self.enc_blocks:
+            h = self._ffn_block(p, self._enc_attn(p, h, positions), use_moe=False, decode=False)
+        return _norm_apply(self.cfg, self.enc_norm, h)
+
     # -- serving ----------------------------------------------------------------
 
     @torch.no_grad()
     def prefill(self, batch: dict, *, max_len: int | None = None):
-        """Process a prompt batch (``tokens`` (B, S)); returns (cache of
-        ``max_len`` or S positions, or an SSM's states, and last-token fp32
-        logits (B, 1, V))."""
+        """Process a prompt batch (``tokens`` (B, S); the VLM and audio
+        families also ``frontend`` (B, F, D), put before the tokens or
+        encoded); returns (cache of ``max_len`` or S positions (the VLM's
+        F + S), or an SSM's states, and last-token fp32 logits (B, 1, V))."""
         tokens = batch["tokens"].to(self.device)
-        B, S = tokens.shape
+        x = self.embed[tokens]
+        if self.cfg.family in ("vlm", "audio"):
+            frontend = batch["frontend"].to(device=self.device, dtype=self.dtype)
+            if self.cfg.family == "vlm":
+                x = torch.cat([frontend, x], dim=1)
+        B, S = x.shape[:2]
         M = max_len or S
         if M < S:
             raise ValueError(f"max_len {M} is shorter than the prompt ({S})")
-        x = self.embed[tokens]
         positions = torch.arange(S, device=self.device).expand(B, S)
+        if self.cfg.family == "audio":
+            cache = self._new_cache(B, M, frontend.shape[1])
+            x = self._audio(x, cache, enc=self._encode(frontend), positions=positions)
+            return cache, self._last_logits(x)
         cache = self._new_cache(B, M)
         if self.cfg.family == "ssm":
             for i, p in enumerate(self.blocks):
@@ -407,7 +531,8 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, cache: dict, token: torch.Tensor, cur_len, *, absorbed: bool = True):
-        """token: (B,) ids; cur_len: the cache's current length.  Returns
+        """token: (B,) ids; cur_len: the cache's current length (the VLM's
+        counts its frontend positions).  Returns
         (the cache, written in place, and fp32 logits (B, V)).  ``absorbed``
         picks MLA's decode form (no effect on GQA).  An SSM's states have no
         position axis: ``cur_len`` does not bound them."""
@@ -417,14 +542,17 @@ class LM(nn.Module):
                 x = self._ssm_block(p, x, {k: t[i] for k, t in cache.items()}, decode=True)
             return cache, self._last_logits(x)[:, 0]
         cur_len = int(cur_len)
-        # the hybrid's k and v lie at the top of its cache, the others' in a group
-        kv = cache if self.cfg.family == "hybrid" else next(iter(cache.values()))
+        # the hybrid's and the audio decoder's k and v lie at the top of the
+        # cache, the others' in a group
+        kv = cache if self.cfg.family in ("hybrid", "audio") else next(iter(cache.values()))
         max_len = (kv["k"].shape[-2] if self.perf.hmajor_cache else kv["k"].shape[-3]
                    ) if "k" in kv else kv["ckv"].shape[2]
         if not 0 <= cur_len < max_len:
             raise ValueError(f"cur_len {cur_len} outside a cache of {max_len} positions")
         if self.cfg.family == "hybrid":
             return cache, self._last_logits(self._hybrid(x, cache, cur_len=cur_len))[:, 0]
+        if self.cfg.family == "audio":
+            return cache, self._last_logits(self._audio(x, cache, cur_len=cur_len))[:, 0]
         for name, group, use_moe in self._groups():
             for i, p in enumerate(group):
                 x = self._attn_decode(p, x, {k: t[i] for k, t in cache[name].items()}, cur_len,

@@ -668,6 +668,75 @@ def test_flash_refuses_unsupported_head_dims(cuda):
         flops.flash_attention(x, x, x)
 
 
+@pytest.mark.parametrize("B,S,Hq,Hkv,dh", [(4, 4096, 56, 8, 128), (4, 2048, 16, 16, 64)],
+                         ids=["llava", "seamless"])
+def test_flash_at_the_vlm_and_audio_serving_shapes(cuda, B, S, Hq, Hkv, dh):
+    """K6 at LLaVA-NeXT-34B's prefill (2048 frontend and 2048 prompt
+    positions, 56 q heads on 8 kv heads: a group of 7, the first that is not
+    a power of two) and at SeamlessM4T's decoder prefill (16 / 16 heads of
+    64), bf16, causal, on the tensor-core design, against the plain version
+    a batch row at a time (LLaVA's whole batch would take 15 GB of fp32
+    scores)."""
+    gen = torch.Generator(device="cuda").manual_seed(S + Hq)
+    q, k, v = (torch.randn((B, S, h, dh), generator=gen, device=cuda).to(torch.bfloat16)
+               for h in (Hq, Hkv, Hkv))
+    designs = Counter(flops.design_launches)
+    got = flops.flash_attention(q, k, v, causal=True)
+    assert flops.design_launches - designs == Counter({"tc:bfloat16": 1})
+    for b in range(B):
+        want = flref.attention_gqa_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=True)
+        err = (got[b:b + 1].float() - want.float()).abs()
+        assert bool((err <= _flash_limit(want, v)).all()), (b, err.max().item())
+
+
+@pytest.mark.parametrize("arch", ["llava_next_34b", "seamless_m4t_medium"])
+def test_vlm_and_audio_lms_match_the_cpu_run(cuda, arch):
+    """LLaVA-NeXT's and SeamlessM4T's smoke LMs in fp32 on the card (K6's
+    FMA design once a layer in the prefill: the VLM's over F + S positions,
+    the audio decoder's self-attention) against the same weights on the
+    CPU, where K6 takes its plain version: the prefill's logits and every
+    cache leaf, 3 decode steps' logits and the cache after them, within
+    1e-4 (the LM files' fp32 limit); never K6 in decode."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import serve_lm
+    from repro_torch.models.lm import LM, OPTIMIZED
+
+    cfg = dataclasses.replace(configs.smoke(arch), dtype="float32")
+    cpu = LM(cfg, q_block=16, perf=OPTIMIZED, device="cpu", seed=0)
+    card = LM(cfg, q_block=16, perf=OPTIMIZED, device=cuda, seed=0)
+    card.load_state_dict(cpu.state_dict(), strict=True)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 43)))
+    frontend = serve_lm.make_frontend(cfg, 2, 40, "cpu", 1)
+    off = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+
+    def leaves(cache):
+        cache = cache.get("blocks", cache)
+        return [cache[k].clone() for k in sorted(cache)]
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs, k6 = [], []
+        for lm in (cpu, card):
+            before = sum(flops.launches.values())
+            cache, lg = lm.prefill({"tokens": toks[:, :40].to(lm.device),
+                                    "frontend": frontend.to(lm.device)}, max_len=off + 43)
+            k6.append(sum(flops.launches.values()) - before)
+            got = [lg[:, 0], *leaves(cache)]
+            for t in range(3):
+                cache, lg = lm.decode_step(cache, toks[:, 40 + t].to(lm.device), off + 40 + t)
+                got.append(lg)
+            k6.append(sum(flops.launches.values()) - before)
+            outs.append([g.cpu() for g in (*got, *leaves(cache))])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert k6 == [0, 0, cfg.n_layers, cfg.n_layers]
+    for i, (want, got) in enumerate(zip(*outs)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4, msg=f"output {i}")
+
+
 def test_lm_prefill_runs_k6_once_per_layer(cuda):
     """The optimized prefill launches K6 once per layer and decode never,
     and its logits match the same prefill with the plain attention."""

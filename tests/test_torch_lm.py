@@ -132,13 +132,26 @@ def test_dense_smoke_configs_serve(arch):
     assert sum(flash_ops.launches.values()) == before
 
 
-@pytest.mark.parametrize("arch", [a for a in configs.ARCH_NAMES
-                                  if configs.get(a).family != "dense"
-                                  and lm.not_ported(configs.get(a))])
-def test_other_families_are_refused_naming_the_roadmap(arch):
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+def test_every_family_serves_its_smoke_config(arch):
+    """Every config of the registry builds its smoke LM on the CPU (nothing
+    is refused: ``not_ported`` is None), and a prefill (with the frontend's
+    embeddings or frames where the family takes them) and one decode step
+    give finite logits of the right shapes."""
     cfg = configs.smoke(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.LM(cfg, device="cpu")
+    assert lm.not_ported(cfg) is None
+    port = lm.LM(cfg, q_block=4, perf=lm.OPTIMIZED, device="cpu", seed=1)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (B, S)))
+    batch = {"tokens": toks}
+    frontend = serve_lm.make_frontend(cfg, B, S, "cpu", 0)
+    assert (frontend is None) == (cfg.family not in ("vlm", "audio"))
+    if frontend is not None:
+        batch["frontend"] = frontend
+    off = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+    cache, lg = port.prefill(batch, max_len=off + S + 1)
+    _, lg2 = port.decode_step(cache, lg[:, 0].argmax(-1), off + S)
+    assert lg.shape == (B, 1, cfg.vocab) and lg2.shape == (B, cfg.vocab)
+    assert torch.isfinite(lg).all() and torch.isfinite(lg2).all()
 
 
 def test_configs_are_the_references():
