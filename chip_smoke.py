@@ -121,7 +121,17 @@ non-zero):
    choices pinned to the first's, each within the limit (and unpinned,
    reported with the choices that differ); the timed prefill's dropped share
    of assignments per layer (one ``{"moe": ...}`` line);
-   "mla" — after the moe path's model is freed, DeepSeek-V2-Lite whole (27
+   "parallel" — the moe path's model on a 1-rank NCCL group through
+   ``make_host_mesh(1)``: ``LM.sharded`` holds its very tensors (no second
+   model), served through ``serve_lm.serve`` with the same traffic (prefill
+   and decode times beside the moe path's); K6 exactly once per layer per
+   prefill, never in decode; the collectives of each call by kind equal to
+   ``LM.collectives_per_call``; a greedy run of the sharded LM bitwise the
+   mesh-less LM's in logits, ids and every cache leaf, and its ids the
+   served ones; 4 decode steps of each LM timed interleaved, the sharded
+   steps' device time by class and each LM's host operations, and one
+   all-reduce and one all-gather alone (one ``{"parallel": ...}`` line);
+   "mla" — after that model is freed, DeepSeek-V2-Lite whole (27
    layers at full width: MLA of rank 512 with heads of 128 + 64 and values
    of 128, 64 experts of 1408, top-6, beside 2 shared, one leading dense
    block, bf16, seeded weights) through ``serve_lm.main`` with the lm path's
@@ -202,6 +212,7 @@ Without a CUDA device, or outside a checkout of the repository, it prints no
 result and exits non-zero.
 """
 
+import contextlib
 import gc
 import json
 import math
@@ -903,6 +914,21 @@ def _by_call(paths, shapes, name):
         fail(f"{name}: launches by call {by_call} != the counters' {[k1, k3, k4]}")
 
 
+@contextlib.contextmanager
+def _nccl_world_one():
+    """A 1-rank NCCL default process group for the span of the block."""
+    import torch.distributed as dist
+
+    pg_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{pg_dir}/pg", rank=0, world_size=1)
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(pg_dir, ignore_errors=True)
+
+
 def run_paths(torch, lm_info, moe_info, mla_info, ssm_info, hybrid_info, vlm_info, audio_info,
               many, tune, tune_shapes, serve, serve_shapes, card):
     """Drive the five FFT paths on a 1-rank NCCL group (the composed path
@@ -911,15 +937,12 @@ def run_paths(torch, lm_info, moe_info, mla_info, ssm_info, hybrid_info, vlm_inf
     ``tune`` and, with its launches by call, ``tune_shapes``), the serve path
     (``serve``, ``serve_shapes`` likewise), then the LM paths (which fill
     ``lm_info``, ``moe_info``, ``mla_info``, ``ssm_info``, ``hybrid_info``,
-    ``vlm_info`` and ``audio_info``); returns each
-    path's kernel launch counts."""
-    import torch.distributed as dist
-
+    ``vlm_info`` and ``audio_info``; the parallel path runs on the moe
+    path's model, on a 1-rank NCCL group again);
+    returns each path's kernel launch counts."""
     from repro_torch.core.meshutil import make_mesh
 
-    pg_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
-    try:
-        dist.init_process_group("nccl", init_method=f"file://{pg_dir}/pg", rank=0, world_size=1)
+    with _nccl_world_one():
         mesh = make_mesh((1, 1), ("p0", "p1"))
         uniform = {}  # 512^3 forward ms of each uniform explicit config, by the paths
         composed = []
@@ -966,14 +989,14 @@ def run_paths(torch, lm_info, moe_info, mla_info, ssm_info, hybrid_info, vlm_inf
             vec = sum(n for k, n in counts.items() if k.startswith("decode:vec:"))
             if dec < 1 or vec != dec:
                 fail(f"{name}: {vec} of {dec} K3 launches ran the vec design")
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        shutil.rmtree(pg_dir, ignore_errors=True)
     paths["lm"] = _drive(torch, "lm", lm_path, lm_info)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["moe"] = _drive(torch, "moe", moe_path, moe_info)
+    handoff = {}  # the moe path's model, prompts and served ids, for the parallel path
+    paths["moe"] = _drive(torch, "moe", moe_path, moe_info, handoff)
+    with _nccl_world_one():
+        paths["parallel"] = _drive(torch, "parallel", parallel_path, moe_info, handoff)
+    handoff.clear()
     gc.collect()
     torch.cuda.empty_cache()
     paths["mla"] = _drive(torch, "mla", mla_path, mla_info)
@@ -2484,7 +2507,7 @@ def _ssd_flops(B, T, H, Pd, N, chunk):
     return -(-T // Lc) * 2 * B * (Lc * Lc * N + H * Lc * Lc * Pd + 2 * Lc * H * Pd * N)
 
 
-def moe_path(torch, info):
+def moe_path(torch, info, handoff=None):
     """Phi-3.5-MoE, 28 of its 32 layers at full width, served through
     ``serve_lm.serve`` (one warm-up round, then a timed prefill and 32
     decode steps), then on the same weights: the K6 launches of one prefill
@@ -2499,7 +2522,8 @@ def moe_path(torch, info):
     as it routes itself, with its expert choices that differ counted, and
     once with the second run's choices pinned to the first's (gated by its
     own probabilities), which is the comparison held to the limit.  Fills
-    ``info``."""
+    ``info``; puts the model, the prompts and the served ids in ``handoff``
+    where one is given (the parallel path's)."""
     import dataclasses
 
     from repro_torch import configs
@@ -2568,7 +2592,135 @@ def moe_path(torch, info):
     info.update(out, **_serving_bounds(lm, B, S, n_gen))
     del lg1, pc
     _profile_serving(torch, lm, prompts, res.ids, info)
+    if handoff is not None:
+        handoff.update(lm=lm, prompts=prompts, ids=res.ids)
     del res, lm, prompts
+
+
+def parallel_path(torch, moe_info, handoff):
+    """The moe path's Phi-3.5-MoE (28 layers, full width) on the 1-rank NCCL
+    group through ``make_host_mesh(1)``: ``LM.sharded`` holds the very
+    tensors (two copies of the weights would not fit the card).  Served
+    through ``serve_lm.serve`` with the moe path's traffic (one warm-up
+    round, then a timed prefill and 32 decode steps; times beside the moe
+    path's), then a greedy run of the mesh-less LM and one of the sharded
+    LM on the same prompts: K6 exactly once a layer per prefill and never in
+    decode, each call's collectives by kind ``LM.collectives_per_call``'s
+    (the mesh-less LM's none), and logits, ids and every cache leaf bitwise
+    equal; the sharded run's ids are the served ones.  Then 4 decode steps
+    of each LM timed, interleaved twice (host clock), and the sharded LM's
+    device time of 4 steps by class (NCCL's kernels apart), each LM's host
+    operations of 2 steps by their own CPU time, and one
+    all-reduce and one all-gather of a decode step's (B, 1, D) alone, each
+    timed over 200 calls beside the all-reduce's casts."""
+    from collections import Counter
+
+    from repro_torch.kernels.flash import ops as flops
+    from repro_torch.launch import serve_lm
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding
+
+    def k6():
+        return sum(flops.launches.values())
+
+    lm, prompts, moe_ids = handoff.pop("lm"), handoff.pop("prompts"), handoff.pop("ids")
+    B, S = prompts.shape
+    L, V = len(lm.blocks), lm.cfg.vocab
+    par = lm.sharded(make_host_mesh(1))
+    shares = all(a.data_ptr() == b.data_ptr() for a, b in zip(lm.parameters(), par.parameters()))
+    torch.cuda.reset_peak_memory_stats()
+    sharding.collectives.clear()
+    c0 = k6()
+    res = serve_lm.serve(par, prompts, MOE_GEN)
+    peak = torch.cuda.max_memory_allocated()
+    served = Counter(sharding.collectives)
+    per_prefill, per_step = par.collectives_per_call(B, S), par.collectives_per_call(B)
+    want_served = Counter({k: 2 * (per_prefill[k] + MOE_GEN * per_step[k])
+                           for k in per_prefill | per_step})
+    served_k6 = k6() - c0
+
+    def greedy(m):
+        sharding.collectives.clear()
+        c0 = k6()
+        cache, lg = m.prefill({"tokens": prompts}, max_len=S + MOE_GEN)
+        counts, k6s = [Counter(sharding.collectives)], [k6() - c0]
+        logits, tok = [lg[:, -1]], lg[:, -1, :V].argmax(-1)
+        ids = [tok]
+        for step in range(MOE_GEN):
+            sharding.collectives.clear()
+            c0 = k6()
+            cache, lg = m.decode_step(cache, tok, S + step)
+            counts.append(Counter(sharding.collectives))
+            k6s.append(k6() - c0)
+            tok = lg[:, :V].argmax(-1)
+            logits.append(lg)
+            ids.append(tok)
+        return cache, torch.stack(logits), torch.stack(ids, 1), counts, k6s
+
+    c_a, lg_a, ids_a, counts_a, k6_a = greedy(lm)
+    c_b, lg_b, ids_b, counts_b, k6_b = greedy(par)
+    bitwise = {"logits": torch.equal(lg_a, lg_b), "ids": torch.equal(ids_a, ids_b),
+               "cache": all(torch.equal(c_a[g][k], c_b[g][k]) for g in c_a for k in c_a[g])}
+
+    def steps(m, cache, n=4):  # n decode steps over the run's cache, its last positions rewritten
+        return [m.decode_step(cache, ids_a[:, t], S + MOE_GEN - n + t) for t in range(n)]
+
+    walls = {"meshless": [], "sharded": []}
+    for _ in range(2):  # interleaved: the host's speed drifts
+        for name, m, cache in (("sharded", par, c_b), ("meshless", lm, c_a)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps(m, cache)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3 / 4)
+    device = _device_time(torch, lambda: steps(par, c_b))
+    host = {"sharded": _host_top(torch, lambda: steps(par, c_b, 2)),
+            "meshless": _host_top(torch, lambda: steps(lm, c_a, 2))}
+    del c_a, c_b
+    # one collective of a decode step's size alone, host clock over 200 calls
+    x = torch.ones((B, 1, lm.cfg.d_model), dtype=lm.dtype, device=lm.device)
+
+    def per_call_ms(fn, n=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    call_ms = {"all_reduce": per_call_ms(lambda: par.shard.reduce(x)),
+               "all_gather": per_call_ms(lambda: par.shard.gather(x, dim=2)),
+               "casts_alone": per_call_ms(lambda: x.float().contiguous().to(x.dtype))}
+    ids_b = ids_b.cpu()
+    collectives_ok = (served == want_served and counts_a == [Counter()] * (MOE_GEN + 1)
+                      and counts_b == [per_prefill] + [per_step] * MOE_GEN)
+    k6_ok = (served_k6 == 2 * L and k6_a == k6_b == [L] + [0] * MOE_GEN)
+    out = {"arch": lm.cfg.name, "layers": L, "mesh": {"data": 1, "model": 1},
+           "shares_tensors": shares, "batch": B, "prompt_len": S, "gen": MOE_GEN,
+           "prefill_ms": res.prefill_s * 1e3, "decode_ms_per_step": res.decode_s * 1e3 / MOE_GEN,
+           "moe_prefill_ms": moe_info["prefill_ms"],
+           "moe_decode_ms_per_step": moe_info["decode_ms_per_step"],
+           "max_memory_allocated_gib": peak / 2**30,
+           "collectives_per_prefill": dict(per_prefill), "collectives_per_decode_step":
+               dict(per_step), "collectives_served": dict(served),
+           "k6_launches_per_prefill": k6_b[0], "k6_launches_per_decode_step": max(k6_b[1:]),
+           "bitwise_vs_meshless": bitwise,
+           "decode_step_wall_ms_interleaved": walls,
+           "decode_device_4_steps": device,
+           "one_collective_ms": call_ms,
+           "host_top_2_steps": host,
+           "moe_decode_device_4_steps": moe_info.get("decode_device_4_steps"),
+           "served_ids_are_the_moe_paths": torch.equal(res.ids, moe_ids),
+           "served_ids_are_the_greedy_runs": torch.equal(res.ids, ids_b),
+           "ids": res.ids[0][:12].tolist()}
+    print(json.dumps({"parallel": out}))
+    if not (shares and all(bitwise.values()) and collectives_ok and k6_ok
+            and out["served_ids_are_the_greedy_runs"]):
+        fail(f"parallel: shares tensors {shares}, bitwise {bitwise}, collectives served "
+             f"{dict(served)} (want {dict(want_served)}), per call {counts_b[:2]} (want "
+             f"{per_prefill}, {per_step}), K6 served {served_k6}, per call {k6_a[:2]} / "
+             f"{k6_b[:2]}, served ids = greedy {out['served_ids_are_the_greedy_runs']}")
 
 
 def mla_path(torch, info):
@@ -3273,10 +3425,11 @@ def _device_time(torch, fn):
                if e.self_device_time_total > 0 and e.device_type.name == "CUDA"]
     if not kernels:
         return None
-    classes = {"k6": 0.0, "matmul": 0.0, "index_sort": 0.0, "other": 0.0}
+    classes = {"k6": 0.0, "matmul": 0.0, "index_sort": 0.0, "nccl": 0.0, "other": 0.0}
     for name, ms, _ in kernels:
         low = name.lower()
         cls = ("k6" if "flash_tc_kernel" in low or "flash_kernel" in low else
+               "nccl" if "nccl" in low else
                "matmul" if any(w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
                else "index_sort" if any(w in low for w in ("sort", "index", "gather", "scatter",
                                                            "searchsorted"))
@@ -3286,6 +3439,21 @@ def _device_time(torch, fn):
     return {"device_ms": sum(classes.values()), "by_class_ms": classes,
             "kernels": sum(n for _, _, n in kernels),
             "top": [{"name": n[:80], "ms": ms, "count": c} for n, ms, c in top]}
+
+
+def _host_top(torch, fn, n=10):
+    """The host's own time of ``fn`` in ms (a CPU-only torch.profiler trace)
+    and its ``n`` operations of the largest own CPU time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {"self_cpu_ms": sum(e.self_cpu_time_total for e in ops) / 1e3,
+            "top": [{"name": e.key[:60], "self_cpu_ms": e.self_cpu_time_total / 1e3,
+                     "count": e.count} for e in ops[:n]]}
 
 
 def lm_breakdown(kernels, info, path):

@@ -17,17 +17,34 @@ loop on an ``LM`` built elsewhere (a depth-cut model, say), and
 (the cache and the decode positions count them), the audio family S
 frames a prompt for its encoder, both bf16 from ``--seed``, as the
 reference draws them.
+
+``--model-parallel N`` serves the dense and MoE families across ranks, one
+process a rank, as the reference's does: with N > 1, or with
+``torch.distributed`` already initialized, the LM is built on
+``launch.mesh.make_host_mesh(N)`` (tensor and expert parallelism over N
+ranks of ``"model"``, the batch over the world / N ranks of ``"data"``;
+``models/lm.py``).  Under ``torchrun`` each rank serves on
+``cuda:LOCAL_RANK`` over NCCL (``--device cpu``: gloo), draws the same
+weights, prompts and frontend from ``--seed``, and rank 0 alone prints:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve_lm \\
+      --arch phi35_moe_42b --preset full --opt --model-parallel 4 \\
+      --batch 4 --prompt-len 2048 --gen 32
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
+from repro_torch.core.meshutil import mesh_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.lm import LM, OPTIMIZED, PerfFlags
 
 FLAG_MAP = {  # --flags shorthand -> PerfFlags field
@@ -115,10 +132,11 @@ def serve(lm: LM, prompts: torch.Tensor, n_gen: int,
 
     one_round()  # warm-up
     ids, t_prefill, t_decode = one_round()
-    print(f"arch={cfg.name} batch={B} prompt={S} gen={n_gen}")
-    print(f"prefill: {t_prefill:.3f}s ({B * S / t_prefill:.0f} tok/s)  "
-          f"decode: {t_decode:.3f}s ({B * n_gen / max(t_decode, 1e-9):.0f} tok/s)")
-    print("sample generated ids:", ids[0][:12].tolist())
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(f"arch={cfg.name} batch={B} prompt={S} gen={n_gen}")
+        print(f"prefill: {t_prefill:.3f}s ({B * S / t_prefill:.0f} tok/s)  "
+              f"decode: {t_decode:.3f}s ({B * n_gen / max(t_decode, 1e-9):.0f} tok/s)")
+        print("sample generated ids:", ids[0][:12].tolist())
     return ServeResult(ids, t_prefill, t_decode, prompts, lm, frontend)
 
 
@@ -133,6 +151,8 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--flags", default="", help=f"comma list of {sorted(FLAG_MAP)}")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks of the mesh's \"model\" axis (tensor and expert parallelism)")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
@@ -140,11 +160,24 @@ def main(argv=None) -> ServeResult:
         raise RuntimeError("serve_lm runs on a CUDA card and none is available; "
                            "pass --device cpu to run on the CPU")
     cfg = configs.smoke(args.arch) if args.preset == "smoke" else configs.get(args.arch)
-    lm = LM(cfg, q_block=min(512, args.prompt_len), perf=resolve_flags(args.opt, args.flags),
-            device=device, seed=args.seed)
-    prompts = make_prompts(cfg.vocab, args.batch, args.prompt_len, device, args.seed)
-    return serve(lm, prompts, args.gen,
-                 make_frontend(cfg, args.batch, args.prompt_len, device, args.seed))
+    mesh, started = None, False
+    if args.model_parallel > 1 or dist.is_initialized():
+        if not dist.is_initialized():  # torchrun's environment names the rank
+            if device.type == "cuda":
+                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+            dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+            started = True
+        mesh = make_host_mesh(args.model_parallel, device=device.type)
+        device = mesh_device(mesh)
+    try:
+        lm = LM(cfg, mesh=mesh, q_block=min(512, args.prompt_len),
+                perf=resolve_flags(args.opt, args.flags), device=device, seed=args.seed)
+        prompts = make_prompts(cfg.vocab, args.batch, args.prompt_len, device, args.seed)
+        return serve(lm, prompts, args.gen,
+                     make_frontend(cfg, args.batch, args.prompt_len, device, args.seed))
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -7,8 +7,10 @@ decode over the latent cache.
 
 Layouts are the reference's: q (B, S, Hq, dh), k/v (B, S, Hkv, dh); MLA's q
 and k (B, S, H, dn + dr), v (B, S, H, dv), its cache c_kv (B, S, r) and
-k_rope (B, S, dr).  MLA's training attention and Ulysses sequence
-parallelism are not ported yet.
+k_rope (B, S, dr).  The decode can run over a cache whose positions are
+split over the model group (``decode_attention``'s ``shard``).  MLA's
+training attention and Ulysses sequence parallelism (the reference's
+training forward alone calls it) are not ported yet.
 
 Mixed precision: the reference's ``bf16_compute`` contracts bf16 operands
 with fp32 accumulation and an fp32 result.  torch has no such product, so
@@ -23,6 +25,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.models.layers import apply_rope, dense_init, rmsnorm
@@ -73,10 +76,21 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, ca
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      cur_len: int, *, bf16_compute: bool = False,
-                     layout: str = "bskd") -> torch.Tensor:
+                     layout: str = "bskd", shard=None, pos0: int = 0) -> torch.Tensor:
     """Single-token attention over a cache of which the first ``cur_len``
     positions are valid.  q (B, 1, Hq, dh); the cache is (B, S, Hkv, dh)
-    (``"bskd"``) or head-major (B, Hkv, S, dh) (``"bhsd"``)."""
+    (``"bskd"``) or head-major (B, Hkv, S, dh) (``"bhsd"``).
+
+    With a ``shard`` (``models.sharding.Shard``) the cache is this rank's
+    block of positions, from global position ``pos0`` on, and q holds the
+    rank's q heads; the reference's schedule, which GSPMD lowers to
+    all-reduces over the sharded position axis, runs as written: q's heads
+    ``all_gather``-ed, the local scores' max ``all_reduce``-d (MAX), the
+    sum of exp(s - m) ``all_reduce``-d, p normalised before the local p . v,
+    and o ``all_reduce``-d.  Every rank returns all Hq heads.  Without one
+    (or at one rank) these are the same ops on the same values."""
+    if shard is not None:
+        q = shard.gather(q, dim=2)
     B, _, Hq, dh = q.shape
     hmajor = layout == "bhsd"
     Hkv = k_cache.shape[1] if hmajor else k_cache.shape[2]
@@ -87,13 +101,23 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     k_eq = "bqhgd,bhkd->bhgqk" if hmajor else "bqhgd,bkhd->bhgqk"
     v_eq = "bhgqk,bhkd->bqhgd" if hmajor else "bhgqk,bkhd->bqhgd"
     s = _dots(qq, k_cache, k_eq)
-    mask = torch.arange(S_cache, device=q.device) < cur_len
-    s = torch.where(mask, s, _NEG_INF)
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    p = p / p.sum(-1, keepdim=True)
+    pos = torch.arange(S_cache, device=q.device)
+    if pos0:
+        pos = pos + pos0
+    s = torch.where(pos < cur_len, s, _NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    if shard is not None:
+        m = shard.reduce(m, op=dist.ReduceOp.MAX)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    if shard is not None:
+        l = shard.reduce(l)
+    p = p / l
     if bf16_compute:
         p = p.to(v_cache.dtype)
     o = _dots(p, v_cache, v_eq)
+    if shard is not None:
+        o = shard.reduce(o)
     return o.reshape(B, 1, Hq, -1).to(v_cache.dtype)
 
 

@@ -17,6 +17,11 @@ Mamba2's ``norm_w`` stay fp32, the expert stacks
 extension dtype, which ``torch.from_numpy`` refuses; it is recognised by
 name and carried bit for bit through ``uint16``, so this module needs no
 extension package.
+
+``shard_params(cfg, full_params, mesh)`` cuts such a state dict (whole, the
+tp = 1 weights) to this rank's slices on a ``("data", "model")`` mesh, by
+``models/sharding.py``'s rules, for an ``LM(cfg, mesh=mesh)``'s
+``load_state_dict``; at tp = 1 each slice is the tensor itself.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import itertools
 import numpy as np
 import torch
 
+from repro_torch.models import sharding
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.lm import not_ported
 
@@ -69,4 +75,25 @@ def lm_params_from_reference(cfg: ArchConfig, params: dict) -> dict[str, torch.T
                                  f"{lead} layers")
             for idx in itertools.product(*map(range, lead)):
                 out[".".join(map(str, (group, *idx, name)))] = stacked[idx].clone()
+    return out
+
+
+def shard_params(cfg: ArchConfig, full_params: dict[str, torch.Tensor], mesh
+                 ) -> dict[str, torch.Tensor]:
+    """This rank's slices of ``full_params`` (``lm_params_from_reference``'s
+    output, or a mesh-less ``LM``'s state dict) on ``mesh``.  ``embed``'s
+    rows and ``lm_head``'s columns are first padded with zeros to
+    ``vocab_padded`` where ``full_params`` holds fewer (the reference draws
+    its padding; its logits past ``vocab`` are never read).  At tp = 1 every
+    entry of an unpadded vocabulary is the tensor itself."""
+    sharding.check_family(cfg)
+    _, tp, rank = sharding.mesh_sizes(mesh)
+    vp = sharding.vocab_padded(cfg.vocab, mesh)
+    out = {}
+    for name, t in full_params.items():
+        if name in ("embed", "lm_head"):
+            short = vp - t.shape[0 if name == "embed" else 1]
+            if short > 0:
+                t = torch.nn.functional.pad(t, (0, 0, 0, short) if name == "embed" else (0, short))
+        out[name] = sharding.take(t, sharding.split_dim(name), rank, tp)
     return out

@@ -18,9 +18,9 @@ where the model has leading dense blocks) with a leading layer axis,
 with MLA (DeepSeek-V2) it is the latents, ``{"ckv": (L, B, M, r), "krope":
 (L, B, M, dr)}`` under either setting, as in the reference.  It is
 allocated at ``max_len`` by the prefill and written in place by each decode
-step at ``cur_len`` (the reference donates it instead).  There is no mesh:
-one card holds the model, so the vocabulary is not padded (``vocab_padded
-== vocab``).  Under ``exact_causal_prefill`` the prefill's attention is the
+step at ``cur_len`` (the reference donates it instead).  Without a mesh
+one card holds the model and the vocabulary is not padded (``vocab_padded
+== vocab``); on a mesh see the end of this docstring.  Under ``exact_causal_prefill`` the prefill's attention is the
 flash kernel (K6); MLA's prefill expands its latents to per-head K and V
 (q and k of dn + dr, v of dv: K6 at (192, 128) for DeepSeek-V2-Lite), and
 its decode step attends in the latent space (``mla_decode_absorbed``), or
@@ -65,19 +65,65 @@ of Se, unpadded, in the layout ``hmajor_cache`` sets; a decode step
 attends over all Se frames.
 
 ``not_ported`` is None for every config of the registry.
+
+On a mesh (``LM(cfg, mesh=launch.mesh.make_host_mesh(tp))``, the dense and
+MoE families with GQA attention; one process a rank) the LM is the
+reference's ``LM`` on a ``("data", "model")`` mesh, its rules
+(``models/sharding.py``) and collectives issued by each rank:
+
+* tensor parallelism over ``"model"``: Megatron column/row attention and
+  MLP, each rank on its Hq / tp q heads and the kv heads they read
+  ([h0 // G, h_last // G], one kv head where Hq / tp < G: K6 runs on them),
+  ``o @ wo`` and the MLP's ``h @ w_down`` summed with an ``all_reduce``;
+* the batch split over ``"data"`` where it divides; every rank takes the
+  whole batch and returns the whole logits;
+* the KV cache's positions split over ``"model"``: each rank holds blocks of
+  ``ceil(M / tp)`` positions (the tail past M is padding, masked); the new
+  token's k and v are written by the rank that holds ``cur_len``, and a
+  decode step attends with the reference's schedule over the split axis
+  (``attention.decode_attention``);
+* the MoE prefill's expert-parallel dispatch (``moe.moe_apply_a2a``, two
+  ``all_to_all_single`` and a gather along S) where S divides by tp and S
+  >= tp, else, and in every decode step, each rank's experts on every token
+  summed with an ``all_reduce`` (``moe.moe_apply_local``);
+* the embedding a masked lookup in the rank's vocabulary rows and an
+  ``all_reduce``, the logits the rank's vocabulary columns and an
+  ``all_gather`` (and one over ``"data"`` where the batch is split).
+
+Each ``all_reduce`` sums fp32 (``models/sharding.py``).  The collectives a
+call issues, counted by kind in ``collectives`` (the formula is
+``LM.collectives_per_call``), with L layers of which L_e have experts and
+L_d = L - L_e an MLP, s = 1 where the MoE has shared experts, g = 1 where
+the batch is split over ``"data"``:
+
+  prefill, S % tp == 0 and S >= tp:  all_reduce 1 + L + L_d + s L_e,
+                                     all_to_all 2 L_e, all_gather L_e + 1 + g
+  prefill otherwise:                 all_reduce 1 + L + L_d + (1 + s) L_e,
+                                     all_gather 1 + g
+  decode step:                       all_reduce 1 + 4 L + L_d + (1 + s) L_e,
+                                     all_gather L + 1 + g
+
+A decode step's attention issues four all-reduces and one all-gather a
+layer (q's heads gathered; the max, the sum and o reduced; then ``wo``).
+At one rank (tp = dp = 1) these collectives are copies and the LM computes
+the mesh-less one bit for bit.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+from collections import Counter
 
 import torch
 from torch import nn
 
+from repro_torch.core.meshutil import mesh_device
 from repro_torch.models import attention as attn
-from repro_torch.models import moe, ssm
+from repro_torch.models import moe, sharding, ssm
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import dense_init, layernorm, mlp_apply, mlp_init, rmsnorm
+from repro_torch.models.sharding import collectives  # noqa: F401  (counted here)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,8 +137,9 @@ class PerfFlags:
                            masked blockwise form.
     remat_policy         — the reference's training remat; no effect here.
     hmajor_cache         — head-major (B, Hkv, S, dh) KV cache.
-    seq_sharded_residual — the reference's tensor-parallel residual; no
-                           effect on one card.
+    seq_sharded_residual — the reference's sequence-sharded residual, which
+                           its training forward alone reads; no effect on
+                           serving at any tp.
     """
 
     bf16_attention: bool = False
@@ -113,6 +160,10 @@ def _params(tensors: dict) -> nn.ParameterDict:
                              for k, t in tensors.items()})
 
 
+def _kept(keep, prefix: str, tensors: dict) -> dict:
+    return {k: keep(f"{prefix}.{k}", t) for k, t in tensors.items()}
+
+
 def _norm_init(cfg: ArchConfig, d: int, device) -> nn.ParameterDict:
     p = {"w": torch.ones((d,), dtype=torch.float32, device=device)}
     if cfg.norm == "layernorm":
@@ -130,27 +181,33 @@ class Block(nn.Module):
     """One pre-norm decoder layer: ``ln1``, ``attn`` (GQA, or MLA where the
     config has it), ``ln2``, and ``mlp`` of width ``ff`` (default ``d_ff``)
     or, with ``use_moe``, ``moe``; with ``cross`` (the audio decoder) also
-    ``ln_x`` and ``cross``, a GQA without qkv bias."""
+    ``ln_x`` and ``cross``, a GQA without qkv bias.  ``keep(name,
+    tensor)``, if given, takes each drawn leaf (``"attn.wq"``, ...) and
+    returns what the block holds: on a mesh, this rank's slice."""
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator, dtype: torch.dtype, *,
-                 use_moe: bool = False, ff: int | None = None, cross: bool = False):
+                 use_moe: bool = False, ff: int | None = None, cross: bool = False,
+                 keep=None):
         super().__init__()
         d = cfg.d_model
+        keep = keep or (lambda name, t: t)
         self.ln1 = _norm_init(cfg, d, gen.device)
         self.ln2 = _norm_init(cfg, d, gen.device)
-        self.attn = _params(
+        self.attn = _params(_kept(keep, "attn", (
             attn.mla_init(gen, d, cfg.n_heads, cfg.mla, dtype) if cfg.mla is not None
             else attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
-                               qkv_bias=cfg.qkv_bias, dtype=dtype))
+                               qkv_bias=cfg.qkv_bias, dtype=dtype))))
         if cross:
             self.ln_x = _norm_init(cfg, d, gen.device)
-            self.cross = _params(attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                                               cfg.resolved_head_dim, qkv_bias=False,
-                                               dtype=dtype))
+            self.cross = _params(_kept(keep, "cross", attn.gqa_init(
+                gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, qkv_bias=False,
+                dtype=dtype)))
         if use_moe:
-            self.moe = _params(moe.moe_init(gen, d, cfg.moe, cfg.mlp, dtype))
+            self.moe = _params(moe.moe_init(gen, d, cfg.moe, cfg.mlp, dtype,
+                                            keep=lambda name, t: keep("moe." + name, t)))
         else:
-            self.mlp = _params(mlp_init(gen, d, ff or cfg.d_ff, cfg.mlp, dtype))
+            self.mlp = _params(_kept(keep, "mlp", mlp_init(gen, d, ff or cfg.d_ff, cfg.mlp,
+                                                          dtype)))
 
 
 class SSMBlock(nn.Module):
@@ -176,35 +233,63 @@ def not_ported(cfg: ArchConfig) -> str | None:
 
 
 class LM(nn.Module):
-    """An LM of any family of the reference on one device, weights drawn
-    from ``seed``.
+    """An LM of any family of the reference, weights drawn from ``seed``:
+    on one device, or with ``mesh`` (``launch.mesh.make_host_mesh``, the
+    dense and MoE families) this rank's part of it.
 
     ``device`` defaults to CUDA and raises without a card; pass ``"cpu"``
-    to run on the CPU (every kernel then takes its plain version).
+    to run on the CPU (every kernel then takes its plain version).  With a
+    mesh the device is the mesh's (this rank's card, or the CPU for a gloo
+    mesh), and ``device`` must name its type.  On a mesh every leaf is drawn
+    whole, in the order it is drawn without one, and the rank keeps its
+    slice, so that any tp holds slices of the tp = 1 weights wherever
+    ``vocab_padded`` is the same (the embedding is drawn first, at that
+    size); at most one whole leaf is held beside the slices.
     """
 
-    def __init__(self, cfg: ArchConfig, *, q_block: int = 512, perf: PerfFlags | None = None,
-                 device: str | torch.device = "cuda", seed: int = 0):
+    def __init__(self, cfg: ArchConfig, *, mesh=None, q_block: int = 512,
+                 perf: PerfFlags | None = None, device: str | torch.device = "cuda",
+                 seed: int = 0):
         super().__init__()
         device = torch.device(device)
+        if mesh is not None:
+            if device.type != mesh.device_type:
+                raise ValueError(f"device {device} is not the mesh's ({mesh.device_type})")
+            device = mesh_device(mesh)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LM defaults to CUDA and no CUDA device is available; "
                                "pass device='cpu' to run on the CPU")
         self.cfg, self.q_block = cfg, q_block
         self.perf = perf if perf is not None else PerfFlags()
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-        self.vocab_padded = cfg.vocab  # tp = fsdp = 1
+        self._place(mesh)
+        if self.shard is None:
+            bkeep = None
+
+            def keep(name, t):
+                return t
+        else:
+            tp, rank = self.shard.tp, self.shard.rank
+
+            def keep(name, t):
+                return sharding.take(t, sharding.split_dim(name), rank, tp)
+
+            def bkeep(name, t):
+                return sharding.take(t, sharding.block_split_dim(name), rank, tp)
         gen = torch.Generator(device=device).manual_seed(seed)
         d = cfg.d_model
-        self.embed = nn.Parameter(dense_init(gen, self.vocab_padded, d, self.dtype, scale=1.0),
-                                  requires_grad=False)
+        self.embed = nn.Parameter(
+            keep("embed", dense_init(gen, self.vocab_padded, d, self.dtype, scale=1.0)),
+            requires_grad=False)
         self.final_norm = _norm_init(cfg, d, device)
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(dense_init(gen, d, self.vocab_padded, self.dtype),
-                                        requires_grad=False)
+            self.lm_head = nn.Parameter(
+                keep("lm_head", dense_init(gen, d, self.vocab_padded, self.dtype)),
+                requires_grad=False)
         n_dense = cfg.moe.first_k_dense if cfg.moe else 0
         ff0 = (cfg.moe.dense_ff or cfg.d_ff) if cfg.moe else cfg.d_ff
-        self.dense0 = nn.ModuleList(Block(cfg, gen, self.dtype, ff=ff0) for _ in range(n_dense))
+        self.dense0 = nn.ModuleList(Block(cfg, gen, self.dtype, ff=ff0, keep=bkeep)
+                                    for _ in range(n_dense))
         if cfg.family == "ssm":
             self.blocks = nn.ModuleList(SSMBlock(cfg, gen, self.dtype)
                                         for _ in range(cfg.n_layers))
@@ -222,10 +307,56 @@ class LM(nn.Module):
             self.dec_blocks = nn.ModuleList(Block(cfg, gen, self.dtype, cross=True)
                                             for _ in range(cfg.n_layers))
         elif cfg.family in ("dense", "vlm", "moe"):
-            self.blocks = nn.ModuleList(Block(cfg, gen, self.dtype, use_moe=cfg.moe is not None)
+            self.blocks = nn.ModuleList(Block(cfg, gen, self.dtype, use_moe=cfg.moe is not None,
+                                              keep=bkeep)
                                         for _ in range(cfg.n_layers - n_dense))
         else:
             raise ValueError(not_ported(cfg))
+
+    def _place(self, mesh):
+        """This LM's place on ``mesh`` (None: no mesh): its ``shard``, the
+        padded vocabulary, and its q heads (``n_q`` from head ``h0``) and the
+        kv heads [kv0, kv1) they read.  Raises where the family has no
+        sharding rules, or Hq, E or d_ff do not divide by tp (the
+        reference's GSPMD pads them instead)."""
+        cfg = self.cfg
+        self.vocab_padded = sharding.vocab_padded(cfg.vocab, mesh)
+        if mesh is None:
+            self.shard = None
+            self.n_q, self.h0, self.kv0, self.kv1 = cfg.n_heads, 0, 0, cfg.n_kv_heads
+            return
+        sharding.check_family(cfg)
+        self.shard = sharding.Shard(mesh)
+        tp = self.shard.tp
+        widths = {"n_heads": cfg.n_heads}
+        if cfg.moe is None:
+            widths["d_ff"] = cfg.d_ff
+        else:
+            widths["n_experts"] = cfg.moe.n_experts
+            if cfg.moe.first_k_dense:
+                widths["dense_ff"] = cfg.moe.dense_ff or cfg.d_ff
+            if cfg.moe.n_shared:
+                widths["shared d_ff"] = cfg.moe.n_shared * cfg.moe.d_ff_expert
+        bad = {k: n for k, n in widths.items() if n % tp}
+        if bad:
+            raise ValueError(f"{cfg.name}: {bad} do not divide by tp = {tp} (the reference's "
+                             "GSPMD pads them; here they must divide)")
+        self.n_q, self.h0, self.kv0, self.kv1 = self.shard.heads(cfg.n_heads, cfg.n_kv_heads)
+
+    def sharded(self, mesh) -> LM:
+        """This mesh-less LM on ``mesh``: a new LM holding this rank's slices
+        of this one's weights (``convert.shard_params``); at tp = 1 the very
+        tensors, so nothing is drawn or copied."""
+        if self.shard is not None:
+            raise ValueError("the LM is on a mesh already")
+        from repro_torch.models.convert import shard_params  # convert imports this module
+
+        params = dict(self.named_parameters())
+        cut = shard_params(self.cfg, {k: p.detach() for k, p in params.items()}, mesh)
+        memo = {id(p): nn.Parameter(cut[k], requires_grad=False) for k, p in params.items()}
+        new = copy.deepcopy(self, memo)
+        new._place(mesh)
+        return new
 
     @property
     def head_dim(self) -> int:
@@ -237,10 +368,41 @@ class LM(nn.Module):
 
     # -- pieces ---------------------------------------------------------------
 
-    def _last_logits(self, x: torch.Tensor) -> torch.Tensor:
+    def _reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product's partial sums summed over the model group
+        (``t`` itself without a mesh)."""
+        return t if self.shard is None else self.shard.reduce(t)
+
+    def _rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole batch (all of them without a mesh or
+        where the batch does not split over "data")."""
+        rows = None if self.shard is None else self.shard.rows(t.shape[0])
+        return t if rows is None else t[rows[0]:rows[1]]
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The tokens' embeddings; on a mesh, a lookup in the rank's
+        vocabulary rows, zero where another rank holds the row, summed over
+        the model group (exact: one rank adds its row to zeros)."""
+        if self.shard is None:
+            return self.embed[tokens]
+        n = self.embed.shape[0]
+        local = tokens - self.shard.rank * n
+        e = self.embed[local.clamp(0, n - 1)]
+        return self.shard.reduce(torch.where(((local >= 0) & (local < n))[..., None], e, 0))
+
+    def _last_logits(self, x: torch.Tensor, batch: int = 0) -> torch.Tensor:
+        """fp32 logits of the last position; on a mesh the rank's vocabulary
+        columns gathered over "model", and the rows over "data" where the
+        ``batch`` of the call was split."""
         w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         h = _norm_apply(self.cfg, self.final_norm, x[:, -1:])
-        return (h @ w).float()
+        lg = (h @ w).float()
+        if self.shard is None:
+            return lg
+        lg = self.shard.gather(lg, dim=-1)
+        if self.shard.rows(batch) is not None:
+            lg = self.shard.gather(lg, dim=0, axis="data")
+        return lg
 
     def _serving_causal(self, q, k, v):
         if self.perf.exact_causal_prefill:
@@ -251,7 +413,7 @@ class LM(nn.Module):
 
     def _qkv(self, p, h, positions):
         cfg = self.cfg
-        return attn.gqa_qkv(p.attn, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        return attn.gqa_qkv(p.attn, h, n_heads=self.n_q, n_kv=cfg.n_kv_heads,
                             head_dim=self.head_dim, positions=positions,
                             rope_theta=cfg.rope_theta)
 
@@ -281,14 +443,25 @@ class LM(nn.Module):
             cache["krope"][:, :S] = krope[:, :, 0]
             return x + o.reshape(B, S, -1) @ p.attn["wo"]
         q, k, v = self._qkv(p, h, positions)
-        o = self._serving_causal(q, k, v)
-        if self.perf.hmajor_cache:
-            cache["k"][:, :, :S] = k.transpose(1, 2)
-            cache["v"][:, :, :S] = v.transpose(1, 2)
-        else:
-            cache["k"][:, :S] = k
-            cache["v"][:, :S] = v
-        return x + o.reshape(B, S, -1) @ p.attn["wo"]
+        if (self.kv0, self.kv1) == (0, self.cfg.n_kv_heads):
+            o = self._serving_causal(q, k, v)
+        else:  # the kv heads the rank's q heads read
+            o = self._serving_causal(q, k[:, :, self.kv0:self.kv1], v[:, :, self.kv0:self.kv1])
+        lo, m = self._cache_block(cache)
+        n = max(0, min(S, lo + m) - lo)  # the prompt's positions this rank holds
+        if n and self.perf.hmajor_cache:
+            cache["k"][:, :, :n] = k[:, lo:lo + n].transpose(1, 2)
+            cache["v"][:, :, :n] = v[:, lo:lo + n].transpose(1, 2)
+        elif n:
+            cache["k"][:, :n] = k[:, lo:lo + n]
+            cache["v"][:, :n] = v[:, lo:lo + n]
+        return x + self._reduce(o.reshape(B, S, -1) @ p.attn["wo"])
+
+    def _cache_block(self, cache: dict) -> tuple[int, int]:
+        """(the first global position, the number of positions) of one
+        layer's ``k`` that this rank holds."""
+        m = cache["k"].shape[-2] if self.perf.hmajor_cache else cache["k"].shape[-3]
+        return (0 if self.shard is None else self.shard.rank * m), m
 
     def _enc_attn(self, p, x, positions):
         """The encoder's attention sub-block: non-causal plain attention."""
@@ -355,27 +528,46 @@ class LM(nn.Module):
             return self._mla_decode(p, x, h, pos, cache, cur_len, absorbed)
         k_cache, v_cache = cache["k"], cache["v"]
         q, k_new, v_new = self._qkv(p, h, pos)
-        if self.perf.hmajor_cache:
-            k_cache[:, :, cur_len] = k_new[:, 0]
-            v_cache[:, :, cur_len] = v_new[:, 0]
-            layout = "bhsd"
-        else:
-            k_cache[:, cur_len] = k_new[:, 0]
-            v_cache[:, cur_len] = v_new[:, 0]
-            layout = "bskd"
+        lo, m = self._cache_block(cache)
+        j = cur_len - lo  # the new position in this rank's block, if it holds it
+        layout = "bhsd" if self.perf.hmajor_cache else "bskd"
+        if 0 <= j < m and self.perf.hmajor_cache:
+            k_cache[:, :, j] = k_new[:, 0]
+            v_cache[:, :, j] = v_new[:, 0]
+        elif 0 <= j < m:
+            k_cache[:, j] = k_new[:, 0]
+            v_cache[:, j] = v_new[:, 0]
         o = attn.decode_attention(q, k_cache, v_cache, cur_len + 1, layout=layout,
-                                  bf16_compute=self.perf.bf16_attention)
-        return x + o.reshape(B, 1, -1) @ p.attn["wo"]
+                                  bf16_compute=self.perf.bf16_attention, shard=self.shard,
+                                  pos0=lo)
+        if self.shard is not None:  # every rank has every head; wo takes its own
+            o = o[:, :, self.h0:self.h0 + self.n_q]
+        return x + self._reduce(o.reshape(B, 1, -1) @ p.attn["wo"])
 
     def _ffn_block(self, p, x, *, use_moe: bool, decode: bool):
-        """The FFN sub-block: the layer's MLP, or its experts through the
-        capacity dispatch (prefill) or all of them on each token (decode)."""
+        """The FFN sub-block: the layer's MLP (column/row-parallel on a mesh,
+        its partials summed), or its experts through the capacity dispatch
+        (prefill) or all of them on each token (decode).  On a mesh the
+        prefill dispatches expert-parallel where S divides over the model
+        group and S >= tp, and takes the decode's path otherwise (the
+        reference's rule)."""
         h = _norm_apply(self.cfg, p.ln2, x)
         if not use_moe:
-            return x + mlp_apply(p.mlp, h, self.cfg.mlp)
-        fn = moe.moe_apply_local if decode else moe.moe_apply_capacity
-        y, _, _ = fn(p.moe, h, cfg=self.cfg.moe, mlp_kind=self.cfg.mlp)
+            return x + self._reduce(mlp_apply(p.mlp, h, self.cfg.mlp))
+        kw = {"cfg": self.cfg.moe, "mlp_kind": self.cfg.mlp}
+        if self.shard is None:
+            fn = moe.moe_apply_local if decode else moe.moe_apply_capacity
+            y, _, _ = fn(p.moe, h, **kw)
+        elif decode or not self._expert_parallel(h.shape[1]):
+            y, _, _ = moe.moe_apply_local(p.moe, h, shard=self.shard, **kw)
+        else:
+            y, _, _ = moe.moe_apply_a2a(p.moe, h, self.shard, **kw)
         return x + y
+
+    def _expert_parallel(self, seq: int) -> bool:
+        """Whether a prefill of ``seq`` positions dispatches its experts
+        through the all-to-all (the reference's rule)."""
+        return seq % self.shard.tp == 0 and seq >= self.shard.tp
 
     def _ssm_block(self, p, x, state: dict, *, decode: bool):
         """The Mamba1 or Mamba2 sub-block, its prefill form or (``decode``)
@@ -500,9 +692,13 @@ class LM(nn.Module):
         """Process a prompt batch (``tokens`` (B, S); the VLM and audio
         families also ``frontend`` (B, F, D), put before the tokens or
         encoded); returns (cache of ``max_len`` or S positions (the VLM's
-        F + S), or an SSM's states, and last-token fp32 logits (B, 1, V))."""
+        F + S), or an SSM's states, and last-token fp32 logits (B, 1, V)).
+        On a mesh every rank takes the whole batch and returns the whole
+        logits (V the padded vocabulary); its cache holds its rows and its
+        block of ``ceil(max_len / tp)`` positions."""
         tokens = batch["tokens"].to(self.device)
-        x = self.embed[tokens]
+        n_rows = tokens.shape[0]
+        x = self._embed(self._rows(tokens))
         if self.cfg.family in ("vlm", "audio"):
             frontend = batch["frontend"].to(device=self.device, dtype=self.dtype)
             if self.cfg.family == "vlm":
@@ -516,7 +712,7 @@ class LM(nn.Module):
             cache = self._new_cache(B, M, frontend.shape[1])
             x = self._audio(x, cache, enc=self._encode(frontend), positions=positions)
             return cache, self._last_logits(x)
-        cache = self._new_cache(B, M)
+        cache = self._new_cache(B, M if self.shard is None else self.shard.positions(M))
         if self.cfg.family == "ssm":
             for i, p in enumerate(self.blocks):
                 x = self._ssm_block(p, x, {k: t[i] for k, t in cache.items()}, decode=False)
@@ -527,7 +723,7 @@ class LM(nn.Module):
             for i, p in enumerate(group):
                 x = self._attn_prefill(p, x, positions, {k: t[i] for k, t in cache[name].items()})
                 x = self._ffn_block(p, x, use_moe=use_moe, decode=False)
-        return cache, self._last_logits(x)
+        return cache, self._last_logits(x, n_rows)
 
     @torch.no_grad()
     def decode_step(self, cache: dict, token: torch.Tensor, cur_len, *, absorbed: bool = True):
@@ -535,8 +731,11 @@ class LM(nn.Module):
         counts its frontend positions).  Returns
         (the cache, written in place, and fp32 logits (B, V)).  ``absorbed``
         picks MLA's decode form (no effect on GQA).  An SSM's states have no
-        position axis: ``cur_len`` does not bound them."""
-        x = self.embed[token.to(self.device)[:, None]]
+        position axis: ``cur_len`` does not bound them.  On a mesh ``token``
+        and the logits are the whole batch's; the cache holds ``tp`` times
+        its blocks' positions."""
+        n_rows = token.shape[0]
+        x = self._embed(self._rows(token.to(self.device))[:, None])
         if self.cfg.family == "ssm":
             for i, p in enumerate(self.blocks):
                 x = self._ssm_block(p, x, {k: t[i] for k, t in cache.items()}, decode=True)
@@ -547,6 +746,7 @@ class LM(nn.Module):
         kv = cache if self.cfg.family in ("hybrid", "audio") else next(iter(cache.values()))
         max_len = (kv["k"].shape[-2] if self.perf.hmajor_cache else kv["k"].shape[-3]
                    ) if "k" in kv else kv["ckv"].shape[2]
+        max_len *= 1 if self.shard is None else self.shard.tp
         if not 0 <= cur_len < max_len:
             raise ValueError(f"cur_len {cur_len} outside a cache of {max_len} positions")
         if self.cfg.family == "hybrid":
@@ -558,4 +758,23 @@ class LM(nn.Module):
                 x = self._attn_decode(p, x, {k: t[i] for k, t in cache[name].items()}, cur_len,
                                       absorbed)
                 x = self._ffn_block(p, x, use_moe=use_moe, decode=True)
-        return cache, self._last_logits(x)[:, 0]
+        return cache, self._last_logits(x, n_rows)[:, 0]
+
+    def collectives_per_call(self, batch: int, seq: int | None = None) -> Counter:
+        """The collectives, by kind, that a prefill of ``batch`` x ``seq``
+        tokens (a decode step where ``seq`` is None) issues: the module
+        docstring's formula (nothing without a mesh)."""
+        if self.shard is None:
+            return Counter()
+        L_e = len(self.blocks) if self.cfg.moe is not None else 0
+        L = len(self.dense0) + len(self.blocks)
+        L_d, s = L - L_e, int(bool(self.cfg.moe and self.cfg.moe.n_shared))
+        g = int(self.shard.rows(batch) is not None)
+        if seq is None:
+            counts = Counter(all_reduce=1 + 4 * L + L_d + (1 + s) * L_e, all_gather=L + 1 + g)
+        elif self._expert_parallel(seq):
+            counts = Counter(all_reduce=1 + L + L_d + s * L_e, all_to_all=2 * L_e,
+                             all_gather=L_e + 1 + g)
+        else:
+            counts = Counter(all_reduce=1 + L + L_d + (1 + s) * L_e, all_gather=1 + g)
+        return +counts  # the kinds it issues

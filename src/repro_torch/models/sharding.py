@@ -1,0 +1,193 @@
+"""Tensor, expert and sequence parallelism of the serving LM over a
+``("data", "model")`` mesh (the port of ``repro/models/sharding.py`` and of
+the leaf rules of the reference's ``LM.param_specs`` and ``cache_specs``).
+
+The reference names a ``PartitionSpec`` for each leaf and lets GSPMD place
+the collectives; here each rank holds its slice of each tensor and issues
+the collectives itself.  The rules, by leaf name (a state-dict key):
+
+* column-parallel, the output dim split over ``"model"``: ``attn.wq``,
+  ``attn.bq``, ``mlp.w_gate``, ``mlp.w_up`` (and a MoE's ``shared`` MLP's);
+* row-parallel, the input dim split: ``attn.wo``, ``mlp.w_down``;
+* whole on every rank: ``attn.wk``, ``wv``, ``bk``, ``bv`` (the reference
+  leaves the kv heads unsharded), ``moe.router``, the norms;
+* the expert stacks (E, d_in, d_out): E split over ``"model"``;
+* ``embed`` (V, D) split on vocabulary rows and ``lm_head`` (D, V) on
+  vocabulary columns, V padded to a multiple of model x data as the
+  reference pads it (``vocab_padded``);
+* the KV cache: its positions split over ``"model"`` in contiguous blocks of
+  ``ceil(M / tp)``, the last block's tail padding (``Shard.positions``);
+* the batch split over ``"data"`` where it divides (``Shard.rows``).
+
+The reference also shards every weight over ``"data"`` (FSDP), a storage
+layout with the same results; here the weights are whole over ``"data"``.
+Only the dense and MoE families with GQA attention have rules: a mesh for
+another family, or a leaf without a rule, raises ``NotImplementedError``.
+
+Every collective goes through a ``Shard`` (``reduce``, ``gather`` and
+``exchange``: ``torch.distributed``'s ``all_reduce``, ``all_gather`` and
+``all_to_all_single``) and is counted in ``collectives`` by kind
+(``"all_reduce"``, ``"all_gather"``, ``"all_to_all"``).  ``reduce``
+reduces fp32 on every backend: a bf16
+partial sum is cast to fp32, reduced and cast back once.  gloo does reduce
+bf16 (torch 2.13 on the CPU), but a ring reduction in bf16 rounds at every
+hop, and the fp32 sum of one rank's bf16 value casts back to itself bit for
+bit, so that at one rank the sharded LM computes the mesh-less one exactly.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.meshutil import axis_size
+
+#: collectives issued by a ``Shard``, by kind
+collectives: Counter = Counter()
+
+NOT_YET = ("tensor parallelism covers the dense and MoE families with GQA attention; "
+           "MLA, SSM, hybrid, VLM and audio are ROADMAP §1 item 1 (tensor parallelism "
+           "for the other families)")
+
+#: the dim of a block leaf split over "model" (None: whole on every rank), by
+#: the sub-block and the leaf's name
+_ATTN = {"wq": 1, "bq": 0, "wo": 0, "wk": None, "wv": None, "bk": None, "bv": None}
+_MLP = {"w_gate": 1, "w_up": 1, "w_down": 0}
+_EXPERTS = {"router": None, "w_gate": 0, "w_up": 0, "w_down": 0}
+
+_all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def check_family(cfg) -> None:
+    """Raise ``NotImplementedError`` unless ``cfg`` has sharding rules."""
+    if cfg.family not in ("dense", "moe") or cfg.mla is not None:
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}"
+                                  f"{', MLA' if cfg.mla is not None else ''}): {NOT_YET}")
+
+
+def mesh_sizes(mesh) -> tuple[int, int, int]:
+    """(data size, model size, this rank's index on "model")."""
+    return axis_size(mesh, "data"), axis_size(mesh, "model"), mesh.get_local_rank("model")
+
+
+def vocab_padded(vocab: int, mesh) -> int:
+    """The vocabulary rounded up to a multiple of model x data (the
+    reference's ``LM.vocab_padded``); ``vocab`` without a mesh."""
+    if mesh is None:
+        return vocab
+    dp, tp, _ = mesh_sizes(mesh)
+    return -(-vocab // (tp * dp)) * (tp * dp)
+
+
+def block_split_dim(name: str) -> int | None:
+    """The dim of a block's leaf (``"attn.wq"``, ``"moe.w_up"``,
+    ``"moe.shared.w_down"``, ...) split over "model"; None where it is whole."""
+    sub, *rest = name.split(".")
+    leaf = rest[-1] if rest else ""
+    if sub in ("ln1", "ln2"):
+        return None
+    rules = {"attn": _ATTN, "mlp": _MLP,
+             "moe": _MLP if rest[:1] == ["shared"] else _EXPERTS}.get(sub, {})
+    if len(rest) == (2 if rest[:1] == ["shared"] else 1) and leaf in rules:
+        return rules[leaf]
+    raise NotImplementedError(f"no tensor-parallel rule for the leaf {name!r}: {NOT_YET}")
+
+
+def split_dim(name: str) -> int | None:
+    """The dim of the state-dict entry ``name`` split over "model"."""
+    head, *rest = name.split(".")
+    if name == "embed":
+        return 0
+    if name == "lm_head":
+        return 1
+    if head == "final_norm":
+        return None
+    if head in ("blocks", "dense0") and len(rest) > 1:
+        return block_split_dim(".".join(rest[1:]))
+    raise NotImplementedError(f"no tensor-parallel rule for {name!r}: {NOT_YET}")
+
+
+def take(t: torch.Tensor, dim: int | None, rank: int, n: int) -> torch.Tensor:
+    """Part ``rank`` of ``n`` of ``t`` along ``dim``: ``t`` itself where
+    ``n`` is 1 or ``dim`` None, else a contiguous copy, so that the whole
+    tensor can be freed."""
+    if n == 1 or dim is None:
+        return t
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split over {n} ranks")
+    size = t.shape[dim] // n
+    return t.narrow(dim, rank * size, size).clone(memory_format=torch.contiguous_format)
+
+
+class Shard:
+    """This rank's place in a ``("data", "model")`` mesh, and the counted
+    collectives over its groups.  ``tp``, ``rank``: the model group's size
+    and this rank's index in it; ``dp``, ``drank``: the data group's."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.dp, self.tp, self.rank = mesh_sizes(mesh)
+        self.drank = mesh.get_local_rank("data")
+        self.group, self.dgroup = mesh.get_group("model"), mesh.get_group("data")
+
+    # -- layouts ----------------------------------------------------------------
+
+    def heads(self, n_heads: int, n_kv: int) -> tuple[int, int, int, int]:
+        """(q heads of this rank, its first q head, its kv heads' range
+        [kv0, kv1)): q head h reads kv head h // G.  A rank's heads must
+        cover whole GQA groups or lie within one."""
+        if n_heads % self.tp:
+            raise ValueError(f"{n_heads} q heads do not split over {self.tp} ranks")
+        n, G = n_heads // self.tp, n_heads // n_kv
+        if n % G and G % n:
+            raise ValueError(f"{n} q heads a rank straddle GQA groups of {G}")
+        h0 = self.rank * n
+        return n, h0, h0 // G, (h0 + n - 1) // G + 1
+
+    def positions(self, m: int) -> int:
+        """Cache positions a rank holds of ``m``: ``ceil(m / tp)``; rank r
+        holds global positions r * that onwards."""
+        return -(-m // self.tp)
+
+    def rows(self, batch: int) -> tuple[int, int] | None:
+        """This rank's rows [b0, b1) of a batch split over "data", or None
+        where the batch is whole on every rank (one data rank, or a batch
+        that does not divide)."""
+        if self.dp == 1 or batch % self.dp:
+            return None
+        b = batch // self.dp
+        return self.drank * b, (self.drank + 1) * b
+
+    # -- collectives -------------------------------------------------------------
+
+    def reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """The sum (or ``op``) of ``t`` over the model group, reduced in fp32
+        and returned in ``t``'s dtype (an fp32 ``t`` is reduced in place)."""
+        buf = t.float().contiguous()
+        dist.all_reduce(buf, op=op, group=self.group)
+        collectives["all_reduce"] += 1
+        return buf.to(t.dtype)
+
+    def gather(self, t: torch.Tensor, dim: int, axis: str = "model") -> torch.Tensor:
+        """The ranks' ``t`` of the ``axis`` group concatenated along ``dim``."""
+        group, n = (self.group, self.tp) if axis == "model" else (self.dgroup, self.dp)
+        t = t.contiguous()
+        out = t.new_empty((n * t.shape[0], *t.shape[1:]))
+        _all_gather(out, t, group=group)
+        collectives["all_gather"] += 1
+        dim %= t.ndim
+        if dim == 0:
+            return out
+        return out.view(n, *t.shape).movedim(0, dim).flatten(dim, dim + 1)
+
+    def exchange(self, t: torch.Tensor) -> torch.Tensor:
+        """One ``all_to_all_single`` over the model group: dim 0's chunk r
+        goes to rank r.  ``t`` is sent as it lies (it must be contiguous)."""
+        if not t.is_contiguous():
+            raise ValueError("all_to_all sends a contiguous buffer as it lies")
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=self.group)
+        collectives["all_to_all"] += 1
+        return out

@@ -1,8 +1,9 @@
 """CPU (gloo) ranks running the port's exchanges, plans and server, for
 tests/test_torch_pfft.py, tests/test_torch_engines.py,
 tests/test_torch_guard.py, tests/test_torch_many.py,
-tests/test_torch_tuner.py, tests/test_torch_bitwise.py (four ranks each)
-and tests/test_torch_serve.py (two).
+tests/test_torch_tuner.py, tests/test_torch_bitwise.py (four ranks each),
+tests/test_torch_serve.py (two) and tests/test_torch_tp.py (the LM on
+meshes of one, two and four ranks).
 
 The cases and their numpy-seeded inputs are plain data here, so the JAX side
 of the comparison (a subprocess with 4 virtual devices) builds the very same
@@ -1577,3 +1578,273 @@ def run_composed_rank(rank: int, init_file: str, out_dir: str):
             np.savez(d / "parity.npz", **arrays)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# LM serving across ranks (tests/test_torch_tp.py)
+# ---------------------------------------------------------------------------
+
+#: ("data", "model") meshes of the comparison with the reference
+TP_MESHES = ((1, 2), (1, 4), (2, 2))
+TP_ARCHS = ("glm4_9b", "phi35_moe_42b")
+#: Phi-3.5-MoE's smoke config with DeepSeek's structure (without MLA): two
+#: shared experts beside the routed ones and one leading dense block
+TP_SHARED = "phi35_moe_42b+shared"
+TP_VARIANTS = {TP_SHARED: ("phi35_moe_42b", {"n_shared": 2, "first_k_dense": 1})}
+#: (layers, of which with experts, shared experts) of each smoke LM
+TP_LAYERS = {"glm4_9b": (2, 0, 0), "phi35_moe_42b": (2, 2, 0), TP_SHARED: (2, 1, 1)}
+TP_B, TP_S = 2, 8
+#: a prompt length no mesh's tp divides: the MoE prefill takes the local path
+TP_S_ODD = 7
+#: the (dtype, optimized flags) of each mesh's runs of both archs, so that
+#: each arch meets all four pairs and each mesh both dtypes
+TP_FLAGS = {(1, 2): (("float32", False), ("bfloat16", True)),
+            (1, 4): (("float32", True), ("bfloat16", False)),
+            (2, 2): (("float32", True), ("bfloat16", True))}
+#: the MoE's capacity factor in fp32: Phi-3.5-MoE's own 1.25, which drops
+#: assignments at these sizes (the smoke config's 8.0 drops none, and bf16
+#: keeps it: a bf16 router margin may fall apart in the two packages)
+TP_CAPACITY_FP32 = 1.25
+#: families that have no tensor-parallel rules yet, one smoke config each
+TP_REFUSED = ("deepseek_v2_lite_16b", "falcon_mamba_7b", "zamba2_2p7b", "llava_next_34b",
+              "seamless_m4t_medium")
+#: tests/test_moe.py's (1, 4) layer: (E, k, d_ff, D, B, S), and the
+#: (path, capacity factor) cases run on it
+TP_MOE_DIMS = (8, 2, 16, 12, 2, 8)
+TP_MOE_CASES = (("a2a", 8.0), ("a2a", 1.0), ("local", 8.0))
+#: the serve_lm run on the (2, 2) mesh
+TP_SERVE_ARGV = ["--arch", "phi35_moe_42b", "--preset", "smoke", "--device", "cpu", "--opt",
+                 "--model-parallel", "2", "--batch", "2", "--prompt-len", "8", "--gen", "3"]
+
+
+def tp_cases(mesh_shape) -> list[tuple[str, str, bool, int]]:
+    """(arch, dtype, optimized, S) of a mesh's runs; the shared-experts
+    variant on the meshes of tp 4 and of two data ranks."""
+    cases = [(arch, dt, opt, TP_S) for arch in TP_ARCHS for dt, opt in TP_FLAGS[mesh_shape]]
+    if mesh_shape != (1, 2):
+        cases.append((TP_SHARED, "float32", True, TP_S))
+    return cases + [("phi35_moe_42b", "float32", True, TP_S_ODD)]
+
+
+def tp_key(arch, dtype, opt, S) -> str:
+    return f"{arch}:{dtype}:{'opt' if opt else 'base'}:{S}"
+
+
+def tp_config(configs, arch: str, dtype: str):
+    """The smoke config of ``arch`` (or of a ``TP_VARIANTS`` key) from
+    ``configs`` (either package's) at ``dtype``, its MoE at
+    ``TP_CAPACITY_FP32`` in fp32."""
+    import dataclasses
+
+    base, moe = TP_VARIANTS.get(arch, (arch, {}))
+    cfg = dataclasses.replace(configs.smoke(base), dtype=dtype)
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
+    if cfg.moe is not None and dtype == "float32":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=TP_CAPACITY_FP32))
+    return cfg
+
+
+def tp_tokens(S: int) -> np.ndarray:
+    """(TP_B, S + 3) token ids: the prompt and 3 teacher-forced ones."""
+    return np.random.default_rng(11 + S).integers(0, 256, (TP_B, S + 3)).astype(np.int64)
+
+
+def tp_make_weights(path) -> None:
+    """Numpy-seeded fp32 weights of each ``TP_ARCHS`` smoke LM, keyed
+    ``arch:<the port's state-dict key>`` (per layer, as the port holds them;
+    the reference's side stacks the layers), and tests/test_moe.py's (1, 4)
+    layer (``moe:router``, ``moe:w_gate``, ... and its input ``moe:x``),
+    saved to the npz ``path``.  Norm weights lie around 1 and biases around
+    0; a matrix (or expert stack) is normal over the square root of its
+    input dim, the embedding normal.  Each side rounds to its config's dtype."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    rng, arrays = np.random.default_rng(7), {}
+    for arch in TP_LAYERS:
+        cfg = tp_config(configs, arch, "float32")
+        for key, t in lm.LM(cfg, device="cpu").state_dict().items():
+            shape = tuple(t.shape)
+            x = rng.standard_normal(shape).astype(np.float32)
+            if key.endswith((".w", ".b")):  # a norm's weight or bias
+                x = (key.endswith(".w") + 0.1 * x).astype(np.float32)
+            elif key != "embed":
+                x /= np.float32(np.sqrt(shape[-2]))
+            arrays[f"{arch}:{key}"] = x
+    E, k, ff, D, B, S = TP_MOE_DIMS
+    for name, shape in (("router", (D, E)), ("w_gate", (E, D, ff)), ("w_up", (E, D, ff)),
+                        ("w_down", (E, ff, D))):
+        arrays["moe:" + name] = (rng.standard_normal(shape) / np.sqrt(shape[-2])).astype(
+            np.float32)
+    arrays["moe:x"] = rng.standard_normal((B, S, D)).astype(np.float32)
+    np.savez(path, **arrays)
+
+
+def tp_weights(weights, arch: str) -> dict:
+    """The port's state dict of ``arch`` out of ``tp_make_weights``' npz
+    (numpy fp32 arrays)."""
+    pre = arch + ":"
+    return {key[len(pre):]: weights[key] for key in weights.files if key.startswith(pre)}
+
+
+def run_tp_rank(rank: int, init_file: str, out_dir: str, mesh_shape=(1, 4)):
+    """One rank of a ``mesh_shape`` mesh: every ``tp_cases`` run of the LM
+    (``tp_make_weights``' from ``out_dir/../weights.npz``: prefill, cache, 3
+    teacher-forced decode steps, collectives and dropped assignments by
+    call, each expert-parallel send), the weights' slices, the families
+    refused, the MoE layer cases on (1, 4), ``serve_lm`` on (2, 2), and at
+    one rank the sharded LM against the mesh-less one bit for bit.  Writes
+    ``tp{rank}.npz`` and ``tp{rank}.json`` to ``out_dir``."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)  # the meshes' ranks share the host's cores
+    from repro_torch import configs
+    from repro_torch.launch import serve_lm
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm, moe, sharding
+    from repro_torch.models.config import MoEConfig
+    from repro_torch.models.convert import shard_params
+
+    world = mesh_shape[0] * mesh_shape[1]
+    _init(rank, init_file, world)
+    d = Path(out_dir)
+    weights = np.load(d.parent / "weights.npz")
+    try:
+        mesh = make_host_mesh(mesh_shape[1], device="cpu")
+        shard = sharding.Shard(mesh)
+        sends, real_a2a = [], dist.all_to_all_single
+
+        def logged(output, inp, *args, **kw):
+            # whether the sent tensor is the dispatch buffer's prefix (E cap
+            # rows of its E cap + 1): no pack copy before the collective
+            base = inp._base
+            sends.append(base is not None and inp.data_ptr() == base.data_ptr()
+                         and tuple(base.shape) == (inp.shape[0] + 1, *inp.shape[1:]))
+            return real_a2a(output, inp, *args, **kw)
+
+        dist.all_to_all_single = logged
+        arrays, info = {}, {"coord": [shard.drank, shard.rank], "cases": {}}
+
+        if world == 1:
+            info["world1"] = _tp_world_one(torch, lm, moe, sharding, configs, MoEConfig, mesh,
+                                           shard)
+        for arch, dtype, opt, S in ([] if world == 1 else tp_cases(mesh_shape)):
+            key = tp_key(arch, dtype, opt, S)
+            cfg = tp_config(configs, arch, dtype)
+            port = lm.LM(cfg, mesh=mesh, q_block=4, perf=lm.OPTIMIZED if opt else lm.PerfFlags(),
+                         device="cpu")
+            full = {k: torch.from_numpy(a) for k, a in tp_weights(weights, arch).items()}
+            port.load_state_dict(shard_params(cfg, full, mesh), strict=True)
+            toks = torch.from_numpy(tp_tokens(S))
+            moe.assignments.clear()
+            sharding.collectives.clear()
+            sends.clear()
+            cache, lg = port.prefill({"tokens": toks[:, :S]}, max_len=S + 3)
+            case = {"counts": [dict(sharding.collectives)], "sends": list(sends),
+                    "dropped": int(moe.assignments["dropped"]),
+                    "want": [dict(port.collectives_per_call(TP_B, S)),
+                             dict(port.collectives_per_call(TP_B))]}
+            logits = [lg[:, 0]]
+            for t in range(3):
+                sharding.collectives.clear()
+                cache, lg = port.decode_step(cache, toks[:, S + t], S + t)
+                case["counts"].append(dict(sharding.collectives))
+                logits.append(lg)
+            info["cases"][key] = case
+            arrays["lg:" + key] = torch.stack(logits).float().numpy()
+            for kv in ("k", "v"):
+                arrays[kv + ":" + key] = cache["blocks"][kv].float().numpy()
+
+        if world > 1:
+            info["weights"] = {}
+            for arch in TP_LAYERS:
+                cfg = tp_config(configs, arch, "bfloat16")
+                whole = lm.LM(cfg, q_block=4, device="cpu", seed=5)
+                mine = lm.LM(cfg, mesh=mesh, q_block=4, device="cpu", seed=5).state_dict()
+                cut = shard_params(cfg, whole.state_dict(), mesh)
+                moved = whole.sharded(mesh).state_dict()
+                info["weights"][arch] = (set(mine) == set(cut) == set(moved) and all(
+                    torch.equal(mine[k], cut[k]) and torch.equal(mine[k], moved[k])
+                    for k in mine))
+        if mesh_shape == (1, 4):
+            info["refused"] = {}
+            for arch in TP_REFUSED:
+                try:
+                    lm.LM(configs.smoke(arch), mesh=mesh, device="cpu")
+                    info["refused"][arch] = None
+                except NotImplementedError as e:
+                    info["refused"][arch] = str(e)
+            E, k, ff, D, B, S = TP_MOE_DIMS
+            for path, cf in TP_MOE_CASES:
+                cfg = MoEConfig(n_experts=E, top_k=k, d_ff_expert=ff, capacity_factor=cf)
+                p = {n: sharding.take(torch.from_numpy(weights["moe:" + n]),
+                                      0 if n != "router" else None, shard.rank, shard.tp)
+                     for n in ("router", "w_gate", "w_up", "w_down")}
+                x = torch.from_numpy(weights["moe:x"])
+                moe.assignments.clear()
+                if path == "a2a":
+                    y, _, _ = moe.moe_apply_a2a(p, x, shard, cfg=cfg, mlp_kind="swiglu")
+                else:
+                    y, _, _ = moe.moe_apply_local(p, x, cfg=cfg, mlp_kind="swiglu", shard=shard)
+                arrays[f"moe:{path}:{cf}"] = y.numpy()
+                info[f"moe_dropped:{path}:{cf}"] = int(moe.assignments["dropped"])
+        if mesh_shape == (2, 2):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                res = serve_lm.main(TP_SERVE_ARGV)
+            info["serve"] = {"lines": out.getvalue().splitlines(), "ids": res.ids.tolist(),
+                             "vocab_padded": res.lm.vocab_padded,
+                             "mesh": [res.lm.shard.dp, res.lm.shard.tp]}
+        np.savez(d / f"tp{rank}.npz", **arrays)
+        (d / f"tp{rank}.json").write_text(json.dumps(info))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_world_one(torch, lm, moe, sharding, configs, MoEConfig, mesh, shard) -> dict:
+    """At one rank: each arch's sharded LM (``LM.sharded``, the very
+    tensors) against the mesh-less one (a prefill, 3 greedy decode steps:
+    logits, ids and every cache leaf bit for bit), and the MoE paths with
+    the shard against those without."""
+    out = {}
+    for arch in TP_LAYERS:
+        whole = lm.LM(tp_config(configs, arch, "bfloat16"), q_block=4, perf=lm.OPTIMIZED,
+                      device="cpu", seed=2)
+        par = whole.sharded(mesh)
+        shared = all(a.data_ptr() == b.data_ptr()
+                     for a, b in zip(whole.parameters(), par.parameters()))
+        toks = torch.from_numpy(tp_tokens(TP_S)[:, :TP_S])
+        runs = []
+        for m in (whole, par):
+            cache, lg = m.prefill({"tokens": toks}, max_len=TP_S + 3)
+            logits, tok = [lg], lg[:, -1].argmax(-1)
+            ids = [tok]
+            for t in range(3):
+                cache, lg = m.decode_step(cache, tok, TP_S + t)
+                tok = lg.argmax(-1)
+                logits.append(lg)
+                ids.append(tok)
+            runs.append((logits, ids, cache))
+        (la, ia, ca), (lb, ib, cb) = runs
+        out[arch] = {"shares_tensors": shared,
+                     "logits": all(torch.equal(a, b) for a, b in zip(la, lb)),
+                     "ids": all(torch.equal(a, b) for a, b in zip(ia, ib)),
+                     "cache": all(torch.equal(ca[g][k], cb[g][k]) for g in ca for k in ca[g])}
+    gen = torch.Generator().manual_seed(0)
+    E, k, ff, D, B, S = TP_MOE_DIMS
+    cfg = MoEConfig(n_experts=E, top_k=k, d_ff_expert=ff, capacity_factor=1.0)
+    p = moe.moe_init(gen, D, cfg, "swiglu", torch.bfloat16)
+    x = torch.randn((B, S, D), generator=gen).to(torch.bfloat16)
+    out["moe"] = {
+        "a2a": torch.equal(moe.moe_apply_a2a(p, x, shard, cfg=cfg, mlp_kind="swiglu")[0],
+                           moe.moe_apply_capacity(p, x, cfg=cfg, mlp_kind="swiglu")[0]),
+        "local": torch.equal(moe.moe_apply_local(p, x, cfg=cfg, mlp_kind="swiglu",
+                                                 shard=shard)[0],
+                             moe.moe_apply_local(p, x, cfg=cfg, mlp_kind="swiglu")[0])}
+    return out

@@ -786,6 +786,53 @@ def test_moe_lm_prefill_runs_k6_once_per_layer_and_repeats_bitwise(cuda):
     assert torch.equal(lg, lg2) and int(moe.assignments["dropped"]) == 2 * dropped
 
 
+@pytest.mark.parametrize("arch", ["glm4_9b", "phi35_moe_42b"])
+def test_world_one_sharded_lm_is_the_meshless_lm_bitwise(mesh1, arch):
+    """At one rank on NCCL (``make_host_mesh(1)``) the sharded LM holds the
+    mesh-less LM's very tensors, and its prefill (K6 once a layer), 4 greedy
+    decode steps and cache are the mesh-less LM's bit for bit, with the
+    collectives ``collectives_per_call`` counts.  Phi drops assignments
+    (capacity factor 0.5) through the expert-parallel dispatch."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models.lm import LM, OPTIMIZED
+
+    cfg = configs.smoke(arch)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    lm = LM(cfg, q_block=16, perf=OPTIMIZED, device="cuda", seed=0)
+    par = lm.sharded(make_host_mesh(1))
+    assert all(a.data_ptr() == b.data_ptr() for a, b in zip(lm.parameters(), par.parameters()))
+    toks = torch.randint(0, cfg.vocab, (2, 40), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    runs = []
+    for m in (lm, par):
+        sharding.collectives.clear()
+        before = sum(flops.launches.values())
+        cache, lg = m.prefill({"tokens": toks}, max_len=44)
+        assert sum(flops.launches.values()) == before + cfg.n_layers
+        counts = [Counter(sharding.collectives)]
+        logits, tok = [lg], lg[:, -1].argmax(-1)
+        ids = [tok]
+        for t in range(4):
+            sharding.collectives.clear()
+            cache, lg = m.decode_step(cache, tok, 40 + t)
+            counts.append(Counter(sharding.collectives))
+            tok = lg.argmax(-1)
+            logits.append(lg)
+            ids.append(tok)
+        runs.append((logits, ids, cache, counts))
+    (la, ia, ca, counts), (lb, ib, cb, par_counts) = runs
+    assert all(torch.equal(a, b) for a, b in zip(la, lb))
+    assert all(torch.equal(a, b) for a, b in zip(ia, ib))
+    assert all(torch.equal(ca[g][k], cb[g][k]) for g in ca for k in ca[g])
+    assert counts == [Counter()] * 5
+    assert par_counts == [par.collectives_per_call(2, 40)] + [par.collectives_per_call(2)] * 4
+
+
 def test_mla_lm_prefill_runs_k6_once_per_layer_and_repeats_bitwise(cuda):
     """DeepSeek-V2-Lite's smoke config with its own MLA head dims (q and k
     128 + 64, v 128: K6 at (192, 128)) on the card: K6 once per layer in the
