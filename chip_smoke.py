@@ -139,7 +139,10 @@ non-zero):
    and v (4, 2048, 16, 128), never in decode, all tc; two prefills bitwise
    equal (logits and the latent cache); the moe path's pinned comparisons;
    one absorbed decode step against the expanded one, routing pinned; the
-   dropped share per layer (one ``{"mla": ...}`` line);
+   dropped share per layer (one ``{"mla": ...}`` line); then the model's
+   one-rank twin (``twin_path``: ``LM.sharded`` on a 1-rank NCCL group,
+   bitwise the mesh-less LM, the expanded decode step too; one
+   ``{"mla_parallel": ...}`` line);
    "ssm" — after the mla path's model is freed, Falcon-Mamba-7B whole (64
    Mamba1 layers at full width: d 4096, d_inner 8192, d_state 16, dt_rank
    256, scan chunk 128, bf16, seeded weights) through ``serve_lm.main`` with
@@ -172,7 +175,9 @@ non-zero):
    decode, all tc; the prefill against the same prefill with the plain
    attention (a batch row and kv head at a time); 3 teacher-forced decode
    steps against a prefill of F + S + 3 positions (one ``{"vlm": ...}``
-   line);
+   line); then the model's one-rank twin (``twin_path``, the mesh-less
+   run's cache held on the host while the twin's is on the card; one
+   ``{"vlm_parallel": ...}`` line);
    "audio" — after the vlm path's model is freed, SeamlessM4T-medium whole
    (12 encoder and 12 decoder layers at d 1024, 16 / 16 heads of 64, gelu of
    4096, layernorm, vocabulary 256,206, bf16, seeded weights) through
@@ -181,7 +186,8 @@ non-zero):
    (4, 2048, 16 / 16, 64), never in decode, all tc (the encoder and the
    cross-attention are plain attention, as in the reference); two prefills
    bitwise equal (logits, ``k``, ``v``, ``ck``, ``cv``); the vlm path's two
-   comparisons (one ``{"audio": ...}`` line);
+   comparisons (one ``{"audio": ...}`` line); then the model's one-rank twin
+   (``twin_path``; one ``{"audio_parallel": ...}`` line);
 4. the kernels at the main path's shapes (512^3, where K4 runs its
    tensor-core design and K1-K3 their vec designs, as at the pipelined slice;
    K4's general design at the quickstart shape; K5 at three 1 GiB
@@ -257,6 +263,8 @@ TOL_LM = 6e-2
 # of bf16 weights; 32 are 83.8 GB), with the lm path's traffic
 MOE_ARCH, MOE_LAYERS = "phi35_moe_42b", 28
 MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 2048, 32
+#: greedy decode steps of each attention family's one-rank twin (``twin_path``)
+TWIN_STEPS = 3
 # the mla path: DeepSeek-V2-Lite whole (27 layers, 29.3 GiB of bf16 weights),
 # served through serve_lm as a user calls it, with the lm path's traffic
 MLA_ARGV = ["--arch", "deepseek_v2_lite_16b", "--preset", "full", "--opt", "--batch", "4",
@@ -2723,6 +2731,109 @@ def parallel_path(torch, moe_info, handoff):
              f"{k6_b[:2]}, served ids = greedy {out['served_ids_are_the_greedy_runs']}")
 
 
+def _leaves(cache) -> dict:
+    """A cache's leaves by path (``blocks.k``, ``dense0.ckv``, ``ck``, ...)."""
+    out = {}
+    for key, t in cache.items():
+        if isinstance(t, dict):
+            out.update({f"{key}.{k}": v for k, v in t.items()})
+        else:
+            out[key] = t
+    return out
+
+
+def twin_path(torch, name, lm, prompts, frontend=None):
+    """A path's mesh-less ``lm`` (the card's only copy of its weights)
+    beside its one-rank twin: ``LM.sharded`` on a 1-rank NCCL group through
+    ``make_host_mesh(1)``, which holds the very tensors.  A greedy run of
+    each on ``prompts`` (and the ``frontend``): a prefill of max_len F + S +
+    ``TWIN_STEPS``, MLA's expanded decode step (``absorbed=False``) on a copy
+    of the prefill's cache, then ``TWIN_STEPS`` decode steps; the mesh-less
+    run's logits, ids and cache go to the host and its cache is freed before
+    the twin's prefill (two of LLaVA's caches would not fit beside its
+    weights).  Checks K6 once a causal layer per prefill and never in
+    decode, each call's collectives by kind against
+    ``LM.collectives_per_call`` (the mesh-less LM's none), and logits, ids,
+    every cache leaf and the expanded step's logits bitwise equal.  Prints
+    one ``{"<name>_parallel": ...}`` line."""
+    from collections import Counter
+
+    from repro_torch.kernels.flash import ops as flops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding
+
+    cfg, (B, S) = lm.cfg, prompts.shape
+    F = frontend.shape[1] if cfg.family == "vlm" else 0
+    L, V, mla = cfg.n_layers, cfg.vocab, cfg.mla is not None  # L: K6's causal layers
+    batch = {"tokens": prompts} if frontend is None else {"tokens": prompts,
+                                                          "frontend": frontend}
+
+    def greedy(m):
+        counts, k6s = [], []
+
+        def call(fn, *args, **kw):
+            sharding.collectives.clear()
+            c0 = sum(flops.launches.values())
+            out = fn(*args, **kw)
+            counts.append(Counter(sharding.collectives))
+            k6s.append(sum(flops.launches.values()) - c0)
+            return out
+
+        cache, lg = call(m.prefill, batch, max_len=F + S + TWIN_STEPS)
+        tok = lg[:, -1, :V].argmax(-1)
+        expanded = None
+        if mla:
+            spare = {g: {k: t.clone() for k, t in c.items()} for g, c in cache.items()}
+            expanded = call(m.decode_step, spare, tok, F + S, absorbed=False)[1].cpu()
+            del spare
+        logits, ids = [lg[:, -1].cpu()], [tok.cpu()]
+        for step in range(TWIN_STEPS):
+            cache, lg = call(m.decode_step, cache, tok, F + S + step)
+            tok = lg[:, :V].argmax(-1)
+            logits.append(lg.cpu())
+            ids.append(tok.cpu())
+        host = {k: t.cpu() for k, t in _leaves(cache).items()}
+        del cache, lg
+        torch.cuda.empty_cache()
+        return torch.stack(logits), torch.stack(ids, 1), expanded, host, counts, k6s
+
+    t0 = time.perf_counter()
+    lg_a, ids_a, exp_a, cache_a, counts_a, k6_a = greedy(lm)
+    with _nccl_world_one():
+        par = lm.sharded(make_host_mesh(1))
+        shares = all(a.data_ptr() == b.data_ptr()
+                     for a, b in zip(lm.parameters(), par.parameters()))
+        torch.cuda.reset_peak_memory_stats()
+        lg_b, ids_b, exp_b, cache_b, counts_b, k6_b = greedy(par)
+        peak = torch.cuda.max_memory_allocated()
+        want = ([par.collectives_per_call(B, F + S)]
+                + [par.collectives_per_call(B, absorbed=False)] * mla
+                + [par.collectives_per_call(B)] * TWIN_STEPS)
+        del par
+    bitwise = {"logits": torch.equal(lg_a, lg_b), "ids": torch.equal(ids_a, ids_b),
+               "cache": set(cache_a) == set(cache_b) and all(
+                   torch.equal(cache_a[k], cache_b[k]) for k in cache_a)}
+    if mla:
+        bitwise["expanded_step"] = torch.equal(exp_a, exp_b)
+    want_k6 = [L] + [0] * (len(want) - 1)
+    collectives_ok = counts_b == want and counts_a == [Counter()] * len(want)
+    k6_ok = k6_a == k6_b == want_k6
+    out = {"arch": cfg.name, "mesh": {"data": 1, "model": 1}, "shares_tensors": shares,
+           "batch": B, "prompt_len": S, "frontend_positions": F, "steps": TWIN_STEPS,
+           "calls": ["prefill"] + ["expanded_step"] * mla + ["decode_step"] * TWIN_STEPS,
+           "collectives_by_call": [dict(c) for c in counts_b],
+           "collectives_per_call": [dict(c) for c in want],
+           "k6_launches_by_call": k6_b, "bitwise_vs_meshless": bitwise,
+           "cache": {k: list(t.shape) for k, t in cache_b.items()},
+           "max_memory_allocated_gib": peak / 2**30, "seconds": time.perf_counter() - t0,
+           "ids": ids_b[0].tolist()}
+    print(json.dumps({f"{name}_parallel": out}))
+    if not (shares and all(bitwise.values()) and collectives_ok and k6_ok):
+        fail(f"{name}_parallel: shares tensors {shares}, bitwise {bitwise}, collectives "
+             f"{[dict(c) for c in counts_b]} (want {[dict(c) for c in want]}; mesh-less "
+             f"{[dict(c) for c in counts_a]}), K6 by call {k6_a} / {k6_b} (want {want_k6})")
+
+
 def mla_path(torch, info):
     """DeepSeek-V2-Lite whole (27 layers at full width: MLA, 64 experts of
     1408, top-6, beside 2 shared, one leading dense block of 10944) served
@@ -2736,7 +2847,7 @@ def mla_path(torch, info):
     (``_pinned_comparisons``); one absorbed decode step against the expanded
     one (``absorbed=False``) on copies of one cache, the expanded step's
     routing pinned to the absorbed step's (and unpinned beside it).  Fills
-    ``info``."""
+    ``info``; then the model's one-rank twin (``twin_path``)."""
     from repro_torch.kernels.flash import ops as flops
     from repro_torch.launch import serve_lm
     from repro_torch.models import moe
@@ -2831,6 +2942,7 @@ def mla_path(torch, info):
     info.update(out, **bounds)
     del lg1, lg_abs, lg_exp, lg_exp_pinned, pc
     _profile_serving(torch, lm, prompts, res.ids, info)
+    twin_path(torch, "mla", lm, prompts)
     del res, lm, prompts
 
 
@@ -3074,7 +3186,7 @@ def frontend_path(torch, info, name, argv):
     prefill with the plain attention, a batch row and kv head at a time (the
     VLM's whole (4 x 56, 4096, 4096) fp32 scores are 15 GB beside 64 GiB of
     weights).  Each cache is freed before the next prefill.  Fills
-    ``info``."""
+    ``info``; then the model's one-rank twin (``twin_path``)."""
     from repro_torch.kernels.flash import ops as flops, ref as flref
     from repro_torch.launch import serve_lm
     from repro_torch.models.config import param_count
@@ -3167,6 +3279,7 @@ def frontend_path(torch, info, name, argv):
     info.update(out, **bounds)
     del lg1, lg_dec, lg_plain
     _profile_serving(torch, lm, prompts, res.ids, info, frontend)
+    twin_path(torch, name, lm, prompts, frontend)
     del res, lm, prompts, frontend
 
 

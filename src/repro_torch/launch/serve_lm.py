@@ -18,17 +18,19 @@ loop on an ``LM`` built elsewhere (a depth-cut model, say), and
 frames a prompt for its encoder, both bf16 from ``--seed``, as the
 reference draws them.
 
-``--model-parallel N`` serves the dense and MoE families across ranks, one
-process a rank, as the reference's does: with N > 1, or with
-``torch.distributed`` already initialized, the LM is built on
-``launch.mesh.make_host_mesh(N)`` (tensor and expert parallelism over N
-ranks of ``"model"``, the batch over the world / N ranks of ``"data"``;
+``--model-parallel N`` serves every family but SSM and hybrid across ranks
+(dense, MoE with GQA or MLA, VLM, audio), one process a rank, as the
+reference's does: with N > 1, or with ``torch.distributed`` already
+initialized, the LM is built on ``launch.mesh.make_host_mesh(N)`` (tensor
+and expert parallelism over N ranks of ``"model"``, the batch over the
+world / N ranks of ``"data"``, every cache's positions over ``"model"``;
 ``models/lm.py``).  Under ``torchrun`` each rank serves on
 ``cuda:LOCAL_RANK`` over NCCL (``--device cpu``: gloo), draws the same
-weights, prompts and frontend from ``--seed``, and rank 0 alone prints:
+weights, prompts and frontend from ``--seed`` (the LM keeps its rows of
+both), and rank 0 alone prints:
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.serve_lm \\
-      --arch phi35_moe_42b --preset full --opt --model-parallel 4 \\
+      --arch llava_next_34b --preset full --opt --model-parallel 4 \\
       --batch 4 --prompt-len 2048 --gen 32
 """
 
@@ -152,7 +154,8 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="ranks of the mesh's \"model\" axis (tensor and expert parallelism)")
+                    help="ranks of the mesh's \"model\" axis (tensor and expert parallelism; "
+                         "every family but ssm and hybrid)")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)

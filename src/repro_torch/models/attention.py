@@ -8,7 +8,8 @@ decode over the latent cache.
 Layouts are the reference's: q (B, S, Hq, dh), k/v (B, S, Hkv, dh); MLA's q
 and k (B, S, H, dn + dr), v (B, S, H, dv), its cache c_kv (B, S, r) and
 k_rope (B, S, dr).  The decode can run over a cache whose positions are
-split over the model group (``decode_attention``'s ``shard``).  MLA's
+split over the model group (``decode_attention``'s and
+``mla_decode_absorbed``'s ``shard``).  MLA's
 training attention and Ulysses sequence parallelism (the reference's
 training forward alone calls it) are not ported yet.
 
@@ -235,13 +236,25 @@ def mla_expand_kv(p, c_kv: torch.Tensor, k_rope: torch.Tensor, *, n_heads: int, 
 def mla_decode_absorbed(p, x: torch.Tensor, cache_ckv: torch.Tensor,
                         cache_krope: torch.Tensor, cur_len: int, *, n_heads: int, mla,
                         positions: torch.Tensor, rope_theta: float,
-                        bf16_compute: bool = False) -> torch.Tensor:
+                        bf16_compute: bool = False, shard=None, pos0: int = 0,
+                        h0: int = 0) -> torch.Tensor:
     """Weight-absorbed MLA decode of x (B, 1, D) over the first ``cur_len``
     positions of the latent cache (c_kv (B, M, r), k_rope (B, M, dr)):
     scores q_nope W_uk^T c_kv + q_rope k_rope, output (P c_kv) W_uv, then
     ``wo``; K and V are never expanded for the cache.  Under
     ``bf16_compute`` the absorbed query and p are rounded to x's dtype; the
-    last product is fp32."""
+    last product is fp32.  p is exp(s - max) over its sum, normalised before
+    the p . c_kv product, as ``decode_attention``'s.
+
+    With a ``shard`` (``models.sharding.Shard``) the latent cache is this
+    rank's block of positions from global position ``pos0`` on, and ``p``
+    holds the rank's ``n_heads`` heads from head ``h0`` (its columns of
+    ``wq``, ``w_uk`` and ``w_uv``, its rows of ``wo``): the heads' absorbed
+    queries and rope queries are ``all_gather``-ed (one gather of their
+    concatenation), the max and the sum of the scores ``all_reduce``-d, and
+    the latent output o_lat ``all_reduce``-d, of which the rank takes its
+    heads through its ``w_uv`` and ``wo``; the caller sums ``wo``'s
+    partials.  At one rank these are the same ops on the same values."""
     dn, dr, r, dv = mla.qk_nope_dim, mla.qk_rope_dim, mla.kv_lora_rank, mla.v_head_dim
     B = x.shape[0]
     q_nope, q_rope = mla_queries(p, x, n_heads=n_heads, mla=mla, positions=positions,
@@ -249,12 +262,30 @@ def mla_decode_absorbed(p, x: torch.Tensor, cache_ckv: torch.Tensor,
     q_lat = _dots(q_nope, p["w_uk"].reshape(r, n_heads, dn), "bqhd,rhd->bqhr")
     if bf16_compute:
         q_lat = q_lat.to(x.dtype)
+    # one buffer of both queries, gathered whole on a mesh (and split alike
+    # without one, so that one rank computes the mesh-less values bit for bit)
+    q = torch.cat([q_lat, q_rope.to(q_lat.dtype)], -1)
+    if shard is not None:
+        q = shard.gather(q, dim=2)
+    q_lat, q_rope = q[..., :r], q[..., r:]
     s = _dots(q_lat, cache_ckv, "bqhr,bkr->bhqk") + _dots(q_rope, cache_krope, "bqhd,bkd->bhqk")
     s = s * (1.0 / math.sqrt(dn + dr))
-    mask = torch.arange(cache_ckv.shape[1], device=x.device) < cur_len
-    p_attn = torch.softmax(torch.where(mask, s, _NEG_INF), dim=-1)
+    pos = torch.arange(cache_ckv.shape[1], device=x.device)
+    if pos0:
+        pos = pos + pos0
+    s = torch.where(pos < cur_len, s, _NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    if shard is not None:
+        m = shard.reduce(m, op=dist.ReduceOp.MAX)
+    e = torch.exp(s - m)
+    l = e.sum(-1, keepdim=True)
+    if shard is not None:
+        l = shard.reduce(l)
+    p_attn = e / l
     if bf16_compute:
         p_attn = p_attn.to(x.dtype)
-    o_lat = _dots(p_attn, cache_ckv, "bhqk,bkr->bqhr")
+    o_lat = _dots(p_attn, cache_ckv, "bhqk,bkr->bqhr").contiguous()
+    if shard is not None:
+        o_lat = shard.reduce(o_lat)[:, :, h0:h0 + n_heads]
     o = torch.einsum("bqhr,rhd->bqhd", o_lat, p["w_uv"].reshape(r, n_heads, dv).float())
     return o.reshape(B, 1, n_heads * dv).to(x.dtype) @ p["wo"]

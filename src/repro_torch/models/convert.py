@@ -20,8 +20,9 @@ extension package.
 
 ``shard_params(cfg, full_params, mesh)`` cuts such a state dict (whole, the
 tp = 1 weights) to this rank's slices on a ``("data", "model")`` mesh, by
-``models/sharding.py``'s rules, for an ``LM(cfg, mesh=mesh)``'s
-``load_state_dict``; at tp = 1 each slice is the tensor itself.
+``models/sharding.py``'s rules (the dense, MoE with GQA or MLA, VLM and
+audio families), for an ``LM(cfg, mesh=mesh)``'s ``load_state_dict``; at tp
+= 1 each slice is the tensor itself.
 """
 
 from __future__ import annotations

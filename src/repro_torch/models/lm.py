@@ -60,28 +60,42 @@ self-attention (K6 under ``exact_causal_prefill``) and its MLP: queries of
 ``ln_x(x)`` at the decoder positions, keys and values of the encoder's
 output at the frame positions, both rotated, as in the reference.  Its
 cache is the reference's top-level ``{"k", "v", "ck", "cv"}`` with a
-leading layer axis: ``k``, ``v`` of ``max_len`` positions, ``ck``, ``cv``
-of Se, unpadded, in the layout ``hmajor_cache`` sets; a decode step
-attends over all Se frames.
+leading layer axis (an ``EncDecCache``, a dict that also carries Se):
+``k``, ``v`` of ``max_len`` positions, ``ck``, ``cv`` of Se, unpadded, in
+the layout ``hmajor_cache`` sets; a decode step attends over all Se frames.
 
 ``not_ported`` is None for every config of the registry.
 
-On a mesh (``LM(cfg, mesh=launch.mesh.make_host_mesh(tp))``, the dense and
-MoE families with GQA attention; one process a rank) the LM is the
-reference's ``LM`` on a ``("data", "model")`` mesh, its rules
-(``models/sharding.py``) and collectives issued by each rank:
+On a mesh (``LM(cfg, mesh=launch.mesh.make_host_mesh(tp))``, every family
+but SSM and hybrid; one process a rank) the LM is the reference's ``LM`` on
+a ``("data", "model")`` mesh, its rules (``models/sharding.py``) and
+collectives issued by each rank:
 
 * tensor parallelism over ``"model"``: Megatron column/row attention and
   MLP, each rank on its Hq / tp q heads and the kv heads they read
   ([h0 // G, h_last // G], one kv head where Hq / tp < G: K6 runs on them),
   ``o @ wo`` and the MLP's ``h @ w_down`` summed with an ``all_reduce``;
-* the batch split over ``"data"`` where it divides; every rank takes the
-  whole batch and returns the whole logits;
-* the KV cache's positions split over ``"model"``: each rank holds blocks of
-  ``ceil(M / tp)`` positions (the tail past M is padding, masked); the new
-  token's k and v are written by the rank that holds ``cur_len``, and a
-  decode step attends with the reference's schedule over the split axis
-  (``attention.decode_attention``);
+  MLA's latents computed whole on every rank (``w_dkv`` is whole) and
+  expanded to the rank's own heads (its ``w_uk``, ``w_uv`` columns: K6 at
+  Hkv = Hq / tp); the audio encoder's attention and MLP alike, and the
+  decoder's cross-attention on the rank's q heads over ``ck``, ``cv``
+  computed whole;
+* the batch split over ``"data"`` where it divides, and with it the VLM's
+  frontend rows and the audio encoder's frames; every rank takes the whole
+  batch and returns the whole logits;
+* every cache's positions split over ``"model"``: each rank holds blocks of
+  ``ceil(M / tp)`` positions (the tail past M is padding, masked) of the
+  KV cache (the VLM's M counts its F frontend positions), of MLA's latent
+  cache and of the audio decoder's cross cache of Se frames (an
+  ``EncDecCache``, which carries Se); the prompt's positions are written by
+  the ranks that hold them, a new token's by the rank that holds
+  ``cur_len``, and a decode step attends with the reference's schedule over
+  the split axis (``attention.decode_attention``; MLA's absorbed form
+  ``attention.mla_decode_absorbed``; the cross-attention with every valid
+  frame and no causal limit);
+* MLA's expanded decode (``absorbed=False``, the check path) all-gathers
+  the latent cache's positions (one gather of ``ckv || krope``), since a
+  rank can expand its own heads only, and attends on them whole;
 * the MoE prefill's expert-parallel dispatch (``moe.moe_apply_a2a``, two
   ``all_to_all_single`` and a gather along S) where S divides by tp and S
   >= tp, else, and in every decode step, each rank's experts on every token
@@ -94,17 +108,27 @@ Each ``all_reduce`` sums fp32 (``models/sharding.py``).  The collectives a
 call issues, counted by kind in ``collectives`` (the formula is
 ``LM.collectives_per_call``), with L layers of which L_e have experts and
 L_d = L - L_e an MLP, s = 1 where the MoE has shared experts, g = 1 where
-the batch is split over ``"data"``:
+the batch is split over ``"data"``, a = 4 (GQA, MLA's absorbed step) or 1
+(MLA's expanded step):
 
   prefill, S % tp == 0 and S >= tp:  all_reduce 1 + L + L_d + s L_e,
                                      all_to_all 2 L_e, all_gather L_e + 1 + g
   prefill otherwise:                 all_reduce 1 + L + L_d + (1 + s) L_e,
                                      all_gather 1 + g
-  decode step:                       all_reduce 1 + 4 L + L_d + (1 + s) L_e,
+  decode step:                       all_reduce 1 + a L + L_d + (1 + s) L_e,
                                      all_gather L + 1 + g
 
-A decode step's attention issues four all-reduces and one all-gather a
-layer (q's heads gathered; the max, the sum and o reduced; then ``wo``).
+(S counts the VLM's frontend positions; it has no experts.)  A decode
+step's attention issues four all-reduces and one all-gather a layer (q's
+heads gathered, MLA's absorbed queries; the max, the sum and o reduced;
+then ``wo``); MLA's expanded step one all-gather (the latents) and one
+all-reduce (``wo``).  The audio family, L_enc encoder and L decoder layers:
+
+  prefill:      all_reduce 1 + 2 L_enc + 3 L (the encoder's wo and MLP; the
+                decoder's self wo, cross wo and MLP), all_gather 1 + g
+  decode step:  all_reduce 1 + 9 L (the self- and the cross-attention's
+                four each, the MLP), all_gather 2 L + 1 + g
+
 At one rank (tp = dp = 1) these collectives are copies and the LM computes
 the mesh-less one bit for bit.
 """
@@ -224,6 +248,17 @@ class SSMBlock(nn.Module):
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
+class EncDecCache(dict):
+    """The audio family's cache, ``{"k", "v", "ck", "cv"}``, which also
+    carries ``enc_len``: the encoder frames its cross keys and values hold
+    (on a mesh a rank's ``ck``, ``cv`` are its block of ``ceil(enc_len /
+    tp)`` positions, the tail padding, so that their shape does not tell)."""
+
+    def __init__(self, leaves: dict, enc_len: int):
+        super().__init__(leaves)
+        self.enc_len = enc_len
+
+
 def not_ported(cfg: ArchConfig) -> str | None:
     """Why the port cannot run ``cfg``, or None: it runs every family of the
     reference (``FAMILIES``)."""
@@ -234,8 +269,8 @@ def not_ported(cfg: ArchConfig) -> str | None:
 
 class LM(nn.Module):
     """An LM of any family of the reference, weights drawn from ``seed``:
-    on one device, or with ``mesh`` (``launch.mesh.make_host_mesh``, the
-    dense and MoE families) this rank's part of it.
+    on one device, or with ``mesh`` (``launch.mesh.make_host_mesh``, every
+    family but SSM and hybrid) this rank's part of it.
 
     ``device`` defaults to CUDA and raises without a card; pass ``"cpu"``
     to run on the CPU (every kernel then takes its plain version).  With a
@@ -301,10 +336,10 @@ class LM(nn.Module):
             self.shared.w_in = nn.Parameter(dense_init(gen, 2 * d, d, self.dtype),
                                             requires_grad=False)
         elif cfg.family == "audio":
-            self.enc_blocks = nn.ModuleList(Block(cfg, gen, self.dtype)
+            self.enc_blocks = nn.ModuleList(Block(cfg, gen, self.dtype, keep=bkeep)
                                             for _ in range(cfg.n_encoder_layers))
             self.enc_norm = _norm_init(cfg, d, device)
-            self.dec_blocks = nn.ModuleList(Block(cfg, gen, self.dtype, cross=True)
+            self.dec_blocks = nn.ModuleList(Block(cfg, gen, self.dtype, cross=True, keep=bkeep)
                                             for _ in range(cfg.n_layers))
         elif cfg.family in ("dense", "vlm", "moe"):
             self.blocks = nn.ModuleList(Block(cfg, gen, self.dtype, use_moe=cfg.moe is not None,
@@ -316,9 +351,10 @@ class LM(nn.Module):
     def _place(self, mesh):
         """This LM's place on ``mesh`` (None: no mesh): its ``shard``, the
         padded vocabulary, and its q heads (``n_q`` from head ``h0``) and the
-        kv heads [kv0, kv1) they read.  Raises where the family has no
-        sharding rules, or Hq, E or d_ff do not divide by tp (the
-        reference's GSPMD pads them instead)."""
+        kv heads [kv0, kv1) they read (MLA's expanded kv heads are one a q
+        head: the rank's own).  Raises where the family has no sharding
+        rules, or Hq, E or d_ff (the audio encoder's too) do not divide by
+        tp (the reference's GSPMD pads them instead)."""
         cfg = self.cfg
         self.vocab_padded = sharding.vocab_padded(cfg.vocab, mesh)
         if mesh is None:
@@ -341,7 +377,8 @@ class LM(nn.Module):
         if bad:
             raise ValueError(f"{cfg.name}: {bad} do not divide by tp = {tp} (the reference's "
                              "GSPMD pads them; here they must divide)")
-        self.n_q, self.h0, self.kv0, self.kv1 = self.shard.heads(cfg.n_heads, cfg.n_kv_heads)
+        self.n_q, self.h0, self.kv0, self.kv1 = self.shard.heads(
+            cfg.n_heads, cfg.n_heads if cfg.mla is not None else cfg.n_kv_heads)
 
     def sharded(self, mesh) -> LM:
         """This mesh-less LM on ``mesh``: a new LM holding this rank's slices
@@ -378,6 +415,51 @@ class LM(nn.Module):
         where the batch does not split over "data")."""
         rows = None if self.shard is None else self.shard.rows(t.shape[0])
         return t if rows is None else t[rows[0]:rows[1]]
+
+    def _positions(self, n: int) -> int:
+        """The positions of a cache of ``n`` that this rank holds: all of
+        them without a mesh, else its block of ``ceil(n / tp)``."""
+        return n if self.shard is None else self.shard.positions(n)
+
+    def _block(self, c: torch.Tensor, hmajor: bool) -> tuple[int, int]:
+        """(the first global position, the number of positions) of the
+        layer's cache leaf ``c`` (B, m, ...) or, ``hmajor``, (B, H, m, d)
+        that this rank holds."""
+        m = c.shape[2] if hmajor else c.shape[1]
+        return (0 if self.shard is None else self.shard.rank * m), m
+
+    def _write_prompt(self, cache: dict, new: dict, hmajor: bool):
+        """Write each ``new[key]`` (B, S, ...) of positions 0 .. S - 1 into
+        the positions of the layer's ``cache[key]`` that this rank holds;
+        ``hmajor`` leaves are head-major (B, H, m, d)."""
+        for key, t in new.items():
+            c = cache[key]
+            lo, m = self._block(c, hmajor)
+            n = max(0, min(t.shape[1], lo + m) - lo)
+            if n and hmajor:
+                c[:, :, :n] = t[:, lo:lo + n].transpose(1, 2)
+            elif n:
+                c[:, :n] = t[:, lo:lo + n]
+
+    def _write_token(self, cache: dict, new: dict, cur_len: int, hmajor: bool) -> int:
+        """Write each ``new[key]`` (B, 1, ...) at global position
+        ``cur_len`` of the layer's ``cache[key]``, on the rank that holds it;
+        returns the first global position this rank holds."""
+        for key, t in new.items():
+            c = cache[key]
+            lo, m = self._block(c, hmajor)
+            j = cur_len - lo  # the position in this rank's block, if it holds it
+            if 0 <= j < m and hmajor:
+                c[:, :, j] = t[:, 0]
+            elif 0 <= j < m:
+                c[:, j] = t[:, 0]
+        return lo
+
+    def _kv_heads(self, k: torch.Tensor, v: torch.Tensor):
+        """The kv heads (B, S, Hkv, d) that the rank's q heads read."""
+        if (self.kv0, self.kv1) == (0, k.shape[2]):
+            return k, v
+        return k[:, :, self.kv0:self.kv1], v[:, :, self.kv0:self.kv1]
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """The tokens' embeddings; on a mesh, a lookup in the rank's
@@ -423,100 +505,102 @@ class LM(nn.Module):
                                 rope_theta=cfg.rope_theta)
 
     def _mla_qkv(self, p, h, positions, ckv, krope):
-        """MLA's q (nope || rope) at ``positions`` and K, V expanded from the
-        latents ``ckv`` (B, S, r), ``krope`` (B, S, 1, dr)."""
+        """MLA's q (nope || rope) of the rank's heads at ``positions`` and
+        their K, V expanded from the latents ``ckv`` (B, S, r), ``krope``
+        (B, S, 1, dr)."""
         cfg = self.cfg
-        qn, qr = attn.mla_queries(p.attn, h, n_heads=cfg.n_heads, mla=cfg.mla,
+        qn, qr = attn.mla_queries(p.attn, h, n_heads=self.n_q, mla=cfg.mla,
                                   positions=positions, rope_theta=cfg.rope_theta)
-        k, v = attn.mla_expand_kv(p.attn, ckv, krope, n_heads=cfg.n_heads, mla=cfg.mla)
+        k, v = attn.mla_expand_kv(p.attn, ckv, krope, n_heads=self.n_q, mla=cfg.mla)
         return torch.cat([qn, qr], -1), k, v
 
     def _attn_prefill(self, p, x, positions, cache: dict):
         """Attention sub-block; writes its keys and values (MLA: its
-        latents) to the layer's ``cache``."""
+        latents, which every rank computes whole) to the rank's positions
+        of the layer's ``cache``."""
         B, S = x.shape[:2]
         h = _norm_apply(self.cfg, p.ln1, x)
         if self.cfg.mla is not None:
             ckv, krope = self._mla_latents(p, h, positions)
             o = self._serving_causal(*self._mla_qkv(p, h, positions, ckv, krope))
-            cache["ckv"][:, :S] = ckv
-            cache["krope"][:, :S] = krope[:, :, 0]
-            return x + o.reshape(B, S, -1) @ p.attn["wo"]
-        q, k, v = self._qkv(p, h, positions)
-        if (self.kv0, self.kv1) == (0, self.cfg.n_kv_heads):
-            o = self._serving_causal(q, k, v)
-        else:  # the kv heads the rank's q heads read
-            o = self._serving_causal(q, k[:, :, self.kv0:self.kv1], v[:, :, self.kv0:self.kv1])
-        lo, m = self._cache_block(cache)
-        n = max(0, min(S, lo + m) - lo)  # the prompt's positions this rank holds
-        if n and self.perf.hmajor_cache:
-            cache["k"][:, :, :n] = k[:, lo:lo + n].transpose(1, 2)
-            cache["v"][:, :, :n] = v[:, lo:lo + n].transpose(1, 2)
-        elif n:
-            cache["k"][:, :n] = k[:, lo:lo + n]
-            cache["v"][:, :n] = v[:, lo:lo + n]
+            self._write_prompt(cache, {"ckv": ckv, "krope": krope[:, :, 0]}, hmajor=False)
+        else:
+            q, k, v = self._qkv(p, h, positions)
+            o = self._serving_causal(q, *self._kv_heads(k, v))
+            self._write_prompt(cache, {"k": k, "v": v}, self.perf.hmajor_cache)
         return x + self._reduce(o.reshape(B, S, -1) @ p.attn["wo"])
 
-    def _cache_block(self, cache: dict) -> tuple[int, int]:
-        """(the first global position, the number of positions) of one
-        layer's ``k`` that this rank holds."""
-        m = cache["k"].shape[-2] if self.perf.hmajor_cache else cache["k"].shape[-3]
-        return (0 if self.shard is None else self.shard.rank * m), m
-
     def _enc_attn(self, p, x, positions):
-        """The encoder's attention sub-block: non-causal plain attention."""
+        """The encoder's attention sub-block: non-causal plain attention on
+        the rank's heads."""
         B, S = x.shape[:2]
         q, k, v = self._qkv(p, _norm_apply(self.cfg, p.ln1, x), positions)
-        o = attn.blockwise_attention(q, k, v, causal=False, q_block=self.q_block,
-                                     bf16_compute=self.perf.bf16_attention)
-        return x + o.reshape(B, S, -1) @ p.attn["wo"]
+        o = attn.blockwise_attention(q, *self._kv_heads(k, v), causal=False,
+                                     q_block=self.q_block, bf16_compute=self.perf.bf16_attention)
+        return x + self._reduce(o.reshape(B, S, -1) @ p.attn["wo"])
 
     def _cross_prefill(self, p, x, enc, positions, enc_positions, cache: dict):
         """Cross-attention sub-block of the prefill: queries of ``ln_x(x)``
-        at ``positions``, keys and values of the encoder's output ``enc`` at
-        ``enc_positions``, written to the layer's ``ck``, ``cv``.  The
+        at ``positions`` (the rank's heads), keys and values of the
+        encoder's output ``enc`` at ``enc_positions`` (whole on every rank),
+        written to the rank's positions of the layer's ``ck``, ``cv``.  The
         reference contracts it in fp32 whatever ``bf16_attention`` says."""
         cfg, (B, S) = self.cfg, x.shape[:2]
         ck, cv = attn.gqa_kv(p.cross, enc, n_kv=cfg.n_kv_heads, head_dim=self.head_dim,
                              positions=enc_positions, rope_theta=cfg.rope_theta)
-        q = attn.gqa_q(p.cross, _norm_apply(cfg, p.ln_x, x), n_heads=cfg.n_heads,
+        q = attn.gqa_q(p.cross, _norm_apply(cfg, p.ln_x, x), n_heads=self.n_q,
                        head_dim=self.head_dim, positions=positions, rope_theta=cfg.rope_theta)
-        o = attn.blockwise_attention(q, ck, cv, causal=False, q_block=self.q_block)
-        if self.perf.hmajor_cache:
-            ck, cv = ck.transpose(1, 2), cv.transpose(1, 2)
-        cache["ck"].copy_(ck)
-        cache["cv"].copy_(cv)
-        return x + o.reshape(B, S, -1) @ p.cross["wo"]
+        o = attn.blockwise_attention(q, *self._kv_heads(ck, cv), causal=False,
+                                     q_block=self.q_block)
+        self._write_prompt(cache, {"ck": ck, "cv": cv}, self.perf.hmajor_cache)
+        return x + self._reduce(o.reshape(B, S, -1) @ p.cross["wo"])
 
-    def _cross_decode(self, p, x, cache: dict, cur_len: int):
-        """One token's cross-attention over every encoder position in the
-        layer's ``ck``, ``cv``; its query rotated at ``cur_len``."""
+    def _cross_decode(self, p, x, cache: dict, cur_len: int, enc_len: int):
+        """One token's cross-attention over the ``enc_len`` encoder positions
+        of the layer's ``ck``, ``cv`` (on a mesh the rank's block of them,
+        its padding masked); its query rotated at ``cur_len``."""
         cfg, B = self.cfg, x.shape[0]
         pos = torch.full((B, 1), cur_len, dtype=torch.int64, device=x.device)
-        q = attn.gqa_q(p.cross, _norm_apply(cfg, p.ln_x, x), n_heads=cfg.n_heads,
+        q = attn.gqa_q(p.cross, _norm_apply(cfg, p.ln_x, x), n_heads=self.n_q,
                        head_dim=self.head_dim, positions=pos, rope_theta=cfg.rope_theta)
-        hmajor, ck = self.perf.hmajor_cache, cache["ck"]
-        o = attn.decode_attention(q, ck, cache["cv"], ck.shape[2] if hmajor else ck.shape[1],
+        hmajor = self.perf.hmajor_cache
+        o = attn.decode_attention(q, cache["ck"], cache["cv"], enc_len,
                                   layout="bhsd" if hmajor else "bskd",
-                                  bf16_compute=self.perf.bf16_attention)
-        return x + o.reshape(B, 1, -1) @ p.cross["wo"]
+                                  bf16_compute=self.perf.bf16_attention, shard=self.shard,
+                                  pos0=self._block(cache["ck"], hmajor)[0])
+        return x + self._wo(p.cross, o)
+
+    def _wo(self, p, o: torch.Tensor) -> torch.Tensor:
+        """A decode step's attention output ``o`` (B, 1, Hq, d) through
+        ``wo``: on a mesh the rank's heads of every rank's ``o`` through its
+        rows of ``wo``, the partials summed."""
+        if self.shard is not None:
+            o = o[:, :, self.h0:self.h0 + self.n_q]
+        return self._reduce(o.reshape(o.shape[0], 1, -1) @ p["wo"])
 
     def _mla_decode(self, p, x, h, pos, cache: dict, cur_len: int, absorbed: bool):
         """MLA's one-token attention: the token's latents written at
-        ``cur_len``, then the absorbed decode over the latent cache, or the
-        attention over K and V expanded from the whole cache."""
+        ``cur_len`` (by the rank that holds it), then the absorbed decode
+        over the latent cache, or the attention over K and V of the rank's
+        heads expanded from the whole cache (on a mesh every rank's
+        positions of it all-gathered first)."""
         cfg = self.cfg
         ckv_new, krope_new = self._mla_latents(p, h, pos)
         ckv, krope = cache["ckv"], cache["krope"]
-        ckv[:, cur_len] = ckv_new[:, 0]
-        krope[:, cur_len] = krope_new[:, 0, 0]
+        lo = self._write_token(cache, {"ckv": ckv_new, "krope": krope_new[:, :, 0]}, cur_len,
+                               hmajor=False)
         if absorbed:
-            return x + attn.mla_decode_absorbed(
-                p.attn, h, ckv, krope, cur_len + 1, n_heads=cfg.n_heads, mla=cfg.mla,
-                positions=pos, rope_theta=cfg.rope_theta, bf16_compute=self.perf.bf16_attention)
+            return x + self._reduce(attn.mla_decode_absorbed(
+                p.attn, h, ckv, krope, cur_len + 1, n_heads=self.n_q, mla=cfg.mla,
+                positions=pos, rope_theta=cfg.rope_theta, bf16_compute=self.perf.bf16_attention,
+                shard=self.shard, pos0=lo, h0=self.h0))
+        if self.shard is not None:  # one gather of both latents' positions
+            r = cfg.mla.kv_lora_rank
+            lat = self.shard.gather(torch.cat([ckv, krope], -1), dim=1)
+            ckv, krope = lat[..., :r].contiguous(), lat[..., r:].contiguous()
         q, k, v = self._mla_qkv(p, h, pos, ckv, krope[:, :, None])
         o = attn.decode_attention(q, k, v, cur_len + 1, bf16_compute=self.perf.bf16_attention)
-        return x + o.reshape(x.shape[0], 1, -1) @ p.attn["wo"]
+        return x + self._reduce(o.reshape(x.shape[0], 1, -1) @ p.attn["wo"])
 
     def _attn_decode(self, p, x, cache: dict, cur_len: int, absorbed: bool = True):
         """One-token attention; writes the token's key and value (MLA: its
@@ -526,23 +610,14 @@ class LM(nn.Module):
         h = _norm_apply(self.cfg, p.ln1, x)
         if self.cfg.mla is not None:
             return self._mla_decode(p, x, h, pos, cache, cur_len, absorbed)
-        k_cache, v_cache = cache["k"], cache["v"]
         q, k_new, v_new = self._qkv(p, h, pos)
-        lo, m = self._cache_block(cache)
-        j = cur_len - lo  # the new position in this rank's block, if it holds it
-        layout = "bhsd" if self.perf.hmajor_cache else "bskd"
-        if 0 <= j < m and self.perf.hmajor_cache:
-            k_cache[:, :, j] = k_new[:, 0]
-            v_cache[:, :, j] = v_new[:, 0]
-        elif 0 <= j < m:
-            k_cache[:, j] = k_new[:, 0]
-            v_cache[:, j] = v_new[:, 0]
-        o = attn.decode_attention(q, k_cache, v_cache, cur_len + 1, layout=layout,
+        hmajor = self.perf.hmajor_cache
+        lo = self._write_token(cache, {"k": k_new, "v": v_new}, cur_len, hmajor)
+        o = attn.decode_attention(q, cache["k"], cache["v"], cur_len + 1,
+                                  layout="bhsd" if hmajor else "bskd",
                                   bf16_compute=self.perf.bf16_attention, shard=self.shard,
                                   pos0=lo)
-        if self.shard is not None:  # every rank has every head; wo takes its own
-            o = o[:, :, self.h0:self.h0 + self.n_q]
-        return x + self._reduce(o.reshape(B, 1, -1) @ p.attn["wo"])
+        return x + self._wo(p.attn, o)
 
     def _ffn_block(self, p, x, *, use_moe: bool, decode: bool):
         """The FFN sub-block: the layer's MLP (column/row-parallel on a mesh,
@@ -609,19 +684,22 @@ class LM(nn.Module):
                 else (batch, n, self.cfg.n_kv_heads, self.head_dim))
 
     def _new_cache(self, batch: int, max_len: int, enc_len: int = 0) -> dict:
-        """A zeroed cache of ``max_len`` positions for every layer group (an
-        SSM's states, which have no position axis; the hybrid's shared-block
-        keys and values a group beside its groups' states; the audio
-        decoder's keys and values beside its cross keys and values of
-        ``enc_len`` positions)."""
+        """A zeroed cache of ``max_len`` positions (on a mesh the rank's
+        block of them) for every layer group (an SSM's states, which have no
+        position axis; the hybrid's shared-block keys and values a group
+        beside its groups' states; the audio decoder's keys and values
+        beside its cross keys and values of ``enc_len`` positions, an
+        ``EncDecCache``)."""
         cfg = self.cfg
         if cfg.family == "ssm":
             return self._new_states((len(self.blocks),), batch)
+        max_len = self._positions(max_len)
         if cfg.family == "audio":
-            return {key: torch.zeros((len(self.dec_blocks), *self._kv_shape(batch, n)),
-                                     dtype=self.dtype, device=self.device)
-                    for key, n in (("k", max_len), ("v", max_len), ("ck", enc_len),
-                                   ("cv", enc_len))}
+            return EncDecCache(
+                {key: torch.zeros((len(self.dec_blocks), *self._kv_shape(batch, n)),
+                                  dtype=self.dtype, device=self.device)
+                 for key, n in (("k", max_len), ("v", max_len), ("ck", self._positions(enc_len)),
+                                ("cv", self._positions(enc_len)))}, enc_len)
         if cfg.mla is not None:  # one layout whatever hmajor_cache says
             per_layer = {"ckv": (batch, max_len, cfg.mla.kv_lora_rank),
                          "krope": (batch, max_len, cfg.mla.qk_rope_dim)}
@@ -662,13 +740,21 @@ class LM(nn.Module):
         the cross-attention (the prefill writes ``ck``, ``cv``, a decode
         step reads them), the MLP."""
         decode = cur_len is not None
-        if not decode:
+        if decode:
+            enc_len = getattr(cache, "enc_len", None)
+            if enc_len is None and self.shard is not None:
+                raise ValueError("a decode step on a mesh needs the prefill's EncDecCache, "
+                                 "which carries the encoder frames its padded ck, cv hold")
+            if enc_len is None:  # a plain dict: ck holds exactly the frames
+                enc_len = cache["ck"].shape[3 if self.perf.hmajor_cache else 2]
+        else:
             B, Se = enc.shape[:2]
             enc_positions = torch.arange(Se, device=self.device).expand(B, Se)
         for i, p in enumerate(self.dec_blocks):
             c = {k: t[i] for k, t in cache.items()}
             if decode:
-                x = self._cross_decode(p, self._attn_decode(p, x, c, cur_len), c, cur_len)
+                x = self._cross_decode(p, self._attn_decode(p, x, c, cur_len), c, cur_len,
+                                       enc_len)
             else:
                 x = self._cross_prefill(p, self._attn_prefill(p, x, positions, c), enc,
                                         positions, enc_positions, c)
@@ -699,8 +785,8 @@ class LM(nn.Module):
         tokens = batch["tokens"].to(self.device)
         n_rows = tokens.shape[0]
         x = self._embed(self._rows(tokens))
-        if self.cfg.family in ("vlm", "audio"):
-            frontend = batch["frontend"].to(device=self.device, dtype=self.dtype)
+        if self.cfg.family in ("vlm", "audio"):  # its rows split with the tokens'
+            frontend = self._rows(batch["frontend"].to(device=self.device, dtype=self.dtype))
             if self.cfg.family == "vlm":
                 x = torch.cat([frontend, x], dim=1)
         B, S = x.shape[:2]
@@ -711,8 +797,8 @@ class LM(nn.Module):
         if self.cfg.family == "audio":
             cache = self._new_cache(B, M, frontend.shape[1])
             x = self._audio(x, cache, enc=self._encode(frontend), positions=positions)
-            return cache, self._last_logits(x)
-        cache = self._new_cache(B, M if self.shard is None else self.shard.positions(M))
+            return cache, self._last_logits(x, n_rows)
+        cache = self._new_cache(B, M)
         if self.cfg.family == "ssm":
             for i, p in enumerate(self.blocks):
                 x = self._ssm_block(p, x, {k: t[i] for k, t in cache.items()}, decode=False)
@@ -752,7 +838,7 @@ class LM(nn.Module):
         if self.cfg.family == "hybrid":
             return cache, self._last_logits(self._hybrid(x, cache, cur_len=cur_len))[:, 0]
         if self.cfg.family == "audio":
-            return cache, self._last_logits(self._audio(x, cache, cur_len=cur_len))[:, 0]
+            return cache, self._last_logits(self._audio(x, cache, cur_len=cur_len), n_rows)[:, 0]
         for name, group, use_moe in self._groups():
             for i, p in enumerate(group):
                 x = self._attn_decode(p, x, {k: t[i] for k, t in cache[name].items()}, cur_len,
@@ -760,18 +846,26 @@ class LM(nn.Module):
                 x = self._ffn_block(p, x, use_moe=use_moe, decode=True)
         return cache, self._last_logits(x, n_rows)[:, 0]
 
-    def collectives_per_call(self, batch: int, seq: int | None = None) -> Counter:
+    def collectives_per_call(self, batch: int, seq: int | None = None, *,
+                             absorbed: bool = True) -> Counter:
         """The collectives, by kind, that a prefill of ``batch`` x ``seq``
-        tokens (a decode step where ``seq`` is None) issues: the module
-        docstring's formula (nothing without a mesh)."""
+        positions (the VLM's F + S; a decode step where ``seq`` is None, of
+        MLA's ``absorbed`` form) issues: the module docstring's formula
+        (nothing without a mesh)."""
         if self.shard is None:
             return Counter()
+        g = int(self.shard.rows(batch) is not None)
+        if self.cfg.family == "audio":
+            L, L_enc = len(self.dec_blocks), len(self.enc_blocks)
+            if seq is None:
+                return Counter(all_reduce=1 + 9 * L, all_gather=2 * L + 1 + g)
+            return Counter(all_reduce=1 + 2 * L_enc + 3 * L, all_gather=1 + g)
         L_e = len(self.blocks) if self.cfg.moe is not None else 0
         L = len(self.dense0) + len(self.blocks)
         L_d, s = L - L_e, int(bool(self.cfg.moe and self.cfg.moe.n_shared))
-        g = int(self.shard.rows(batch) is not None)
+        a = 4 if absorbed or self.cfg.mla is None else 1  # a decode layer's attention reduces
         if seq is None:
-            counts = Counter(all_reduce=1 + 4 * L + L_d + (1 + s) * L_e, all_gather=L + 1 + g)
+            counts = Counter(all_reduce=1 + a * L + L_d + (1 + s) * L_e, all_gather=L + 1 + g)
         elif self._expert_parallel(seq):
             counts = Counter(all_reduce=1 + L + L_d + s * L_e, all_to_all=2 * L_e,
                              all_gather=L_e + 1 + g)

@@ -7,22 +7,33 @@ the collectives; here each rank holds its slice of each tensor and issues
 the collectives itself.  The rules, by leaf name (a state-dict key):
 
 * column-parallel, the output dim split over ``"model"``: ``attn.wq``,
-  ``attn.bq``, ``mlp.w_gate``, ``mlp.w_up`` (and a MoE's ``shared`` MLP's);
+  ``attn.bq``, ``mlp.w_gate``, ``mlp.w_up`` (and a MoE's ``shared`` MLP's),
+  MLA's ``attn.w_uk`` and ``attn.w_uv`` (r, H * d; the reference's
+  ``P(None, tp)``); ``wq`` is head-major (MLA's (H, dn + dr) too), so that a
+  rank's columns are whole heads;
 * row-parallel, the input dim split: ``attn.wo``, ``mlp.w_down``;
 * whole on every rank: ``attn.wk``, ``wv``, ``bk``, ``bv`` (the reference
-  leaves the kv heads unsharded), ``moe.router``, the norms;
+  leaves the kv heads unsharded), MLA's ``attn.w_dkv`` and ``attn.kv_norm``
+  (the latents), ``moe.router``, the norms;
+* the audio family's ``enc_blocks`` by the same rules, and its
+  ``dec_blocks``' ``cross`` by ``attn``'s (``wq`` by column, ``wo`` by row,
+  ``wk``, ``wv`` whole); ``ln_x`` and ``enc_norm`` whole;
 * the expert stacks (E, d_in, d_out): E split over ``"model"``;
 * ``embed`` (V, D) split on vocabulary rows and ``lm_head`` (D, V) on
   vocabulary columns, V padded to a multiple of model x data as the
   reference pads it (``vocab_padded``);
-* the KV cache: its positions split over ``"model"`` in contiguous blocks of
-  ``ceil(M / tp)``, the last block's tail padding (``Shard.positions``);
-* the batch split over ``"data"`` where it divides (``Shard.rows``).
+* every cache's positions split over ``"model"`` in contiguous blocks of
+  ``ceil(M / tp)``, the last block's tail padding (``Shard.positions``):
+  the KV cache, MLA's latent cache ``ckv``/``krope``, the audio decoder's
+  cross cache ``ck``/``cv`` of Se encoder frames;
+* the batch split over ``"data"`` where it divides (``Shard.rows``), and
+  with it the VLM's frontend rows and the audio encoder's frames.
 
 The reference also shards every weight over ``"data"`` (FSDP), a storage
 layout with the same results; here the weights are whole over ``"data"``.
-Only the dense and MoE families with GQA attention have rules: a mesh for
-another family, or a leaf without a rule, raises ``NotImplementedError``.
+The dense, MoE (GQA or MLA), VLM and audio families have rules: a mesh
+for the SSM or hybrid family, or a leaf without a rule, raises
+``NotImplementedError``.
 
 Every collective goes through a ``Shard`` (``reduce``, ``gather`` and
 ``exchange``: ``torch.distributed``'s ``all_reduce``, ``all_gather`` and
@@ -47,13 +58,14 @@ from repro_torch.core.meshutil import axis_size
 #: collectives issued by a ``Shard``, by kind
 collectives: Counter = Counter()
 
-NOT_YET = ("tensor parallelism covers the dense and MoE families with GQA attention; "
-           "MLA, SSM, hybrid, VLM and audio are ROADMAP §1 item 1 (tensor parallelism "
-           "for the other families)")
+NOT_YET = ("tensor parallelism covers the dense, MoE (GQA or MLA), VLM and audio "
+           "families; SSM and hybrid are ROADMAP §1 item 1 (tensor parallelism for the "
+           "other families)")
 
 #: the dim of a block leaf split over "model" (None: whole on every rank), by
 #: the sub-block and the leaf's name
-_ATTN = {"wq": 1, "bq": 0, "wo": 0, "wk": None, "wv": None, "bk": None, "bv": None}
+_ATTN = {"wq": 1, "bq": 0, "wo": 0, "wk": None, "wv": None, "bk": None, "bv": None,
+         "w_uk": 1, "w_uv": 1, "w_dkv": None, "kv_norm": None}
 _MLP = {"w_gate": 1, "w_up": 1, "w_down": 0}
 _EXPERTS = {"router": None, "w_gate": 0, "w_up": 0, "w_down": 0}
 
@@ -62,9 +74,8 @@ _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_t
 
 def check_family(cfg) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` has sharding rules."""
-    if cfg.family not in ("dense", "moe") or cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}"
-                                  f"{', MLA' if cfg.mla is not None else ''}): {NOT_YET}")
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}): {NOT_YET}")
 
 
 def mesh_sizes(mesh) -> tuple[int, int, int]:
@@ -83,12 +94,13 @@ def vocab_padded(vocab: int, mesh) -> int:
 
 def block_split_dim(name: str) -> int | None:
     """The dim of a block's leaf (``"attn.wq"``, ``"moe.w_up"``,
-    ``"moe.shared.w_down"``, ...) split over "model"; None where it is whole."""
+    ``"moe.shared.w_down"``, ``"cross.wq"``, ...) split over "model"; None
+    where it is whole."""
     sub, *rest = name.split(".")
     leaf = rest[-1] if rest else ""
-    if sub in ("ln1", "ln2"):
+    if sub in ("ln1", "ln2", "ln_x"):
         return None
-    rules = {"attn": _ATTN, "mlp": _MLP,
+    rules = {"attn": _ATTN, "cross": _ATTN, "mlp": _MLP,
              "moe": _MLP if rest[:1] == ["shared"] else _EXPERTS}.get(sub, {})
     if len(rest) == (2 if rest[:1] == ["shared"] else 1) and leaf in rules:
         return rules[leaf]
@@ -102,9 +114,9 @@ def split_dim(name: str) -> int | None:
         return 0
     if name == "lm_head":
         return 1
-    if head == "final_norm":
+    if head in ("final_norm", "enc_norm"):
         return None
-    if head in ("blocks", "dense0") and len(rest) > 1:
+    if head in ("blocks", "dense0", "enc_blocks", "dec_blocks") and len(rest) > 1:
         return block_split_dim(".".join(rest[1:]))
     raise NotImplementedError(f"no tensor-parallel rule for {name!r}: {NOT_YET}")
 

@@ -2,8 +2,9 @@
 tests/test_torch_pfft.py, tests/test_torch_engines.py,
 tests/test_torch_guard.py, tests/test_torch_many.py,
 tests/test_torch_tuner.py, tests/test_torch_bitwise.py (four ranks each),
-tests/test_torch_serve.py (two) and tests/test_torch_tp.py (the LM on
-meshes of one, two and four ranks).
+tests/test_torch_serve.py (two), tests/test_torch_tp.py and
+tests/test_torch_tp_attention.py (the LM on meshes of one, two and four
+ranks).
 
 The cases and their numpy-seeded inputs are plain data here, so the JAX side
 of the comparison (a subprocess with 4 virtual devices) builds the very same
@@ -1606,8 +1607,7 @@ TP_FLAGS = {(1, 2): (("float32", False), ("bfloat16", True)),
 #: keeps it: a bf16 router margin may fall apart in the two packages)
 TP_CAPACITY_FP32 = 1.25
 #: families that have no tensor-parallel rules yet, one smoke config each
-TP_REFUSED = ("deepseek_v2_lite_16b", "falcon_mamba_7b", "zamba2_2p7b", "llava_next_34b",
-              "seamless_m4t_medium")
+TP_REFUSED = ("falcon_mamba_7b", "zamba2_2p7b")
 #: tests/test_moe.py's (1, 4) layer: (E, k, d_ff, D, B, S), and the
 #: (path, capacity factor) cases run on it
 TP_MOE_DIMS = (8, 2, 16, 12, 2, 8)
@@ -1664,15 +1664,8 @@ def tp_make_weights(path) -> None:
 
     rng, arrays = np.random.default_rng(7), {}
     for arch in TP_LAYERS:
-        cfg = tp_config(configs, arch, "float32")
-        for key, t in lm.LM(cfg, device="cpu").state_dict().items():
-            shape = tuple(t.shape)
-            x = rng.standard_normal(shape).astype(np.float32)
-            if key.endswith((".w", ".b")):  # a norm's weight or bias
-                x = (key.endswith(".w") + 0.1 * x).astype(np.float32)
-            elif key != "embed":
-                x /= np.float32(np.sqrt(shape[-2]))
-            arrays[f"{arch}:{key}"] = x
+        _seeded_state(rng, lm.LM(tp_config(configs, arch, "float32"), device="cpu"), arch,
+                      arrays)
     E, k, ff, D, B, S = TP_MOE_DIMS
     for name, shape in (("router", (D, E)), ("w_gate", (E, D, ff)), ("w_up", (E, D, ff)),
                         ("w_down", (E, ff, D))):
@@ -1680,6 +1673,21 @@ def tp_make_weights(path) -> None:
             np.float32)
     arrays["moe:x"] = rng.standard_normal((B, S, D)).astype(np.float32)
     np.savez(path, **arrays)
+
+
+def _seeded_state(rng, model, arch: str, arrays: dict) -> None:
+    """``model``'s state dict drawn from ``rng`` into ``arrays`` under
+    ``arch:<key>``: norm weights around 1 and biases around 0 (MLA's
+    ``kv_norm`` too), a matrix (or expert stack) normal over the square root
+    of its input dim, the embedding normal."""
+    for key, t in model.state_dict().items():
+        shape = tuple(t.shape)
+        x = rng.standard_normal(shape).astype(np.float32)
+        if key.endswith((".w", ".b", ".kv_norm")):  # a norm's weight or bias
+            x = (key.endswith((".w", ".kv_norm")) + 0.1 * x).astype(np.float32)
+        elif key != "embed":
+            x /= np.float32(np.sqrt(shape[-2]))
+        arrays[f"{arch}:{key}"] = x
 
 
 def tp_weights(weights, arch: str) -> dict:
@@ -1847,4 +1855,241 @@ def _tp_world_one(torch, lm, moe, sharding, configs, MoEConfig, mesh, shard) -> 
         "local": torch.equal(moe.moe_apply_local(p, x, cfg=cfg, mlp_kind="swiglu",
                                                  shard=shard)[0],
                              moe.moe_apply_local(p, x, cfg=cfg, mlp_kind="swiglu")[0])}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The attention families across ranks (tests/test_torch_tp_attention.py)
+# ---------------------------------------------------------------------------
+
+#: LLaVA-NeXT's smoke config with LLaVA's own GQA group of 7 (14 q heads
+#: over 2 kv heads): on two ranks each holds one whole group
+TPA_G7 = "llava_next_34b+g7"
+TPA_VARIANTS = {TPA_G7: ("llava_next_34b", {"n_heads": 14, "n_kv_heads": 2})}
+TPA_ARCHS = ("deepseek_v2_lite_16b", "llava_next_34b", "seamless_m4t_medium")
+#: each mesh's runs, (arch, dtype, optimized flags): each arch meets both
+#: dtypes and both flag sets, each mesh both dtypes; the audio run on (1, 4)
+#: holds TPA_SE = 6 frames in blocks of 2, so that rank 3 holds padding alone
+TPA_CASES = {
+    (1, 2): (("deepseek_v2_lite_16b", "float32", False), ("llava_next_34b", "bfloat16", True),
+             ("seamless_m4t_medium", "float32", True), (TPA_G7, "float32", True)),
+    (1, 4): (("deepseek_v2_lite_16b", "bfloat16", True), ("llava_next_34b", "float32", False),
+             ("seamless_m4t_medium", "bfloat16", False)),
+    (2, 2): (("deepseek_v2_lite_16b", "float32", True), ("llava_next_34b", "float32", True),
+             ("seamless_m4t_medium", "bfloat16", True)),
+}
+#: batch, prompt, the VLM's frontend rows and the audio encoder's frames
+TPA_B, TPA_S, TPA_F, TPA_SE = 2, 8, 4, 6
+#: the serve_lm runs on the (2, 2) mesh, by arch
+TPA_SERVE_ARGV = {arch: ["--arch", arch, "--preset", "smoke", "--device", "cpu", "--opt",
+                         "--model-parallel", "2", "--batch", "2", "--prompt-len", "6",
+                         "--gen", "3"]
+                  for arch in ("llava_next_34b", "seamless_m4t_medium")}
+
+
+def tpa_config(configs, arch: str, dtype: str):
+    """The smoke config of ``arch`` (or of a ``TPA_VARIANTS`` key) from
+    ``configs`` (either package's) at ``dtype``."""
+    import dataclasses
+
+    base, kw = TPA_VARIANTS.get(arch, (arch, {}))
+    return dataclasses.replace(configs.smoke(base), dtype=dtype, **kw)
+
+
+def tpa_key(arch, dtype, opt) -> str:
+    return f"{arch}:{dtype}:{'opt' if opt else 'base'}"
+
+
+def tpa_front(arch: str) -> int:
+    """The cache positions before the prompt's: the VLM's frontend rows."""
+    return TPA_F if arch.startswith("llava") else 0
+
+
+def tpa_frontend(arch: str) -> np.ndarray | None:
+    """(TPA_B, F or Se, 64) fp32 frontend of the VLM (its embeddings) or the
+    audio family (its frames), numpy-seeded; None for MLA."""
+    if arch.startswith("deepseek"):
+        return None
+    n = TPA_SE if arch.startswith("seamless") else TPA_F
+    return np.random.default_rng(23 + n).standard_normal((TPA_B, n, 64)).astype(np.float32)
+
+
+def tpa_make_weights(path) -> None:
+    """Numpy-seeded fp32 weights of each smoke LM of ``TPA_CASES``, keyed
+    ``arch:<the port's state-dict key>`` as ``tp_make_weights``' are."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    rng, arrays = np.random.default_rng(17), {}
+    for arch in (*TPA_ARCHS, TPA_G7):
+        _seeded_state(rng, lm.LM(tpa_config(configs, arch, "float32"), device="cpu"), arch,
+                      arrays)
+    np.savez(path, **arrays)
+
+
+def tpa_leaves(cache) -> dict:
+    """A cache's leaves by path (``blocks.k``, ``dense0.ckv``, ``ck``, ...)."""
+    out = {}
+    for key, t in cache.items():
+        if isinstance(t, dict):
+            out.update({f"{key}.{k}": v for k, v in t.items()})
+        else:
+            out[key] = t
+    return out
+
+
+def _tpa_steps(torch, sharding, port, arch: str, absorbed: bool = True):
+    """A prefill of ``arch``'s prompt and frontend (max_len F + S + 3) and 3
+    teacher-forced decode steps (MLA's in the ``absorbed`` form) of the LM
+    ``port``: (logits (4, B, V) fp32, the cache after them, the collectives
+    of each call by kind)."""
+    F = tpa_front(arch)
+    toks = torch.from_numpy(tp_tokens(TPA_S))
+    batch = {"tokens": toks[:, :TPA_S]}
+    if tpa_frontend(arch) is not None:
+        batch["frontend"] = torch.from_numpy(tpa_frontend(arch))
+    sharding.collectives.clear()
+    cache, lg = port.prefill(batch, max_len=F + TPA_S + 3)
+    counts, logits = [dict(sharding.collectives)], [lg[:, 0]]
+    for t in range(3):
+        sharding.collectives.clear()
+        cache, lg = port.decode_step(cache, toks[:, TPA_S + t], F + TPA_S + t, absorbed=absorbed)
+        counts.append(dict(sharding.collectives))
+        logits.append(lg)
+    return torch.stack(logits).float(), cache, counts
+
+
+def run_tpa_rank(rank: int, init_file: str, out_dir: str, mesh_shape=(1, 4)):
+    """One rank of a ``mesh_shape`` mesh: every ``TPA_CASES`` run
+    (``tpa_make_weights``' from ``out_dir/../weights.npz``: the prefill, 3
+    teacher-forced decode steps, the cache after them and the collectives
+    by call; MLA's expanded decode beside the mesh-less LM's), the weights'
+    slices, ``serve_lm`` on (2, 2), and at one rank each sharded LM against
+    the mesh-less one bit for bit.  Writes ``tpa{rank}.npz`` and
+    ``tpa{rank}.json`` to ``out_dir``."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)  # the meshes' ranks share the host's cores
+    from repro_torch import configs
+    from repro_torch.launch import serve_lm
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm, sharding
+    from repro_torch.models.convert import shard_params
+
+    world = mesh_shape[0] * mesh_shape[1]
+    _init(rank, init_file, world)
+    d = Path(out_dir)
+    weights = np.load(d.parent / "weights.npz")
+    try:
+        mesh = make_host_mesh(mesh_shape[1], device="cpu")
+        shard = sharding.Shard(mesh)
+        arrays, info = {}, {"coord": [shard.drank, shard.rank], "cases": {}}
+        if world == 1:
+            info["world1"] = _tpa_world_one(torch, lm, sharding, configs, mesh)
+        for arch, dtype, opt in TPA_CASES.get(mesh_shape, ()):
+            key = tpa_key(arch, dtype, opt)
+            cfg = tpa_config(configs, arch, dtype)
+            perf = lm.OPTIMIZED if opt else lm.PerfFlags()
+            full = {k: torch.from_numpy(a) for k, a in tp_weights(weights, arch).items()}
+            port = lm.LM(cfg, mesh=mesh, q_block=4, perf=perf, device="cpu")
+            port.load_state_dict(shard_params(cfg, full, mesh), strict=True)
+            logits, cache, counts = _tpa_steps(torch, sharding, port, arch)
+            F = tpa_front(arch)
+            case = {"counts": counts,
+                    "want": [dict(port.collectives_per_call(TPA_B, F + TPA_S)),
+                             dict(port.collectives_per_call(TPA_B))]}
+            arrays["lg:" + key] = logits.numpy()
+            for path, t in tpa_leaves(cache).items():
+                arrays[f"{path}:{key}"] = t.float().numpy()
+            if cfg.mla is not None:  # the expanded step, beside the mesh-less LM's
+                exp_lg, _, exp_counts = _tpa_steps(torch, sharding, port, arch, absorbed=False)
+                whole = lm.LM(cfg, q_block=4, perf=perf, device="cpu")
+                whole.load_state_dict(full, strict=True)
+                arrays["expanded:" + key] = exp_lg.numpy()
+                arrays["expanded_meshless:" + key] = _tpa_steps(
+                    torch, sharding, whole, arch, absorbed=False)[0].numpy()
+                case["expanded_counts"] = exp_counts[1:]
+                case["expanded_want"] = dict(port.collectives_per_call(TPA_B, absorbed=False))
+            info["cases"][key] = case
+        if world > 1:
+            info["weights"] = {}
+            for arch in TPA_ARCHS:
+                cfg = tpa_config(configs, arch, "bfloat16")
+                whole = lm.LM(cfg, q_block=4, device="cpu", seed=5)
+                mine = lm.LM(cfg, mesh=mesh, q_block=4, device="cpu", seed=5).state_dict()
+                cut = shard_params(cfg, whole.state_dict(), mesh)
+                moved = whole.sharded(mesh).state_dict()
+                info["weights"][arch] = (set(mine) == set(cut) == set(moved) and all(
+                    torch.equal(mine[k], cut[k]) and torch.equal(mine[k], moved[k])
+                    for k in mine))
+        if mesh_shape == (2, 2):
+            info["serve"] = {}
+            for arch, argv in TPA_SERVE_ARGV.items():
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    res = serve_lm.main(argv)
+                info["serve"][arch] = {"lines": out.getvalue().splitlines(),
+                                       "ids": res.ids.tolist(),
+                                       "mesh": [res.lm.shard.dp, res.lm.shard.tp]}
+        np.savez(d / f"tpa{rank}.npz", **arrays)
+        (d / f"tpa{rank}.json").write_text(json.dumps(info))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tpa_world_one(torch, lm, sharding, configs, mesh) -> dict:
+    """At one rank, each ``TPA_ARCHS`` smoke LM (bf16, the optimized flags)
+    sharded (``LM.sharded``: the very tensors) against the mesh-less one: a
+    prefill and 3 greedy decode steps (logits, ids, every cache leaf) and,
+    for MLA, one expanded decode step from copies of the prefill's cache,
+    each bit for bit; the sharded run's collectives by call against
+    ``LM.collectives_per_call``."""
+    out = {}
+    for arch in TPA_ARCHS:
+        whole = lm.LM(tpa_config(configs, arch, "bfloat16"), q_block=4, perf=lm.OPTIMIZED,
+                      device="cpu", seed=2)
+        par = whole.sharded(mesh)
+        shared = all(a.data_ptr() == b.data_ptr()
+                     for a, b in zip(whole.parameters(), par.parameters()))
+        F = tpa_front(arch)
+        batch = {"tokens": torch.from_numpy(tp_tokens(TPA_S)[:, :TPA_S])}
+        if tpa_frontend(arch) is not None:
+            batch["frontend"] = torch.from_numpy(tpa_frontend(arch))
+        runs = []
+        for m in (whole, par):
+            sharding.collectives.clear()
+            cache, lg = m.prefill(batch, max_len=F + TPA_S + 3)
+            counts = [dict(sharding.collectives)]
+            expanded = None
+            if m.cfg.mla is not None:
+                copy = {g: {k: t.clone() for k, t in c.items()} for g, c in cache.items()}
+                sharding.collectives.clear()
+                expanded = m.decode_step(copy, lg[:, -1].argmax(-1), F + TPA_S,
+                                         absorbed=False)[1]
+                counts.append(dict(sharding.collectives))
+            logits, tok = [lg[:, 0]], lg[:, -1].argmax(-1)
+            ids = [tok]
+            for t in range(3):
+                sharding.collectives.clear()
+                cache, lg = m.decode_step(cache, tok, F + TPA_S + t)
+                counts.append(dict(sharding.collectives))
+                tok = lg.argmax(-1)
+                logits.append(lg)
+                ids.append(tok)
+            runs.append((logits, ids, tpa_leaves(cache), expanded, counts))
+        (la, ia, ca, ea, _), (lb, ib, cb, eb, counts) = runs
+        want = [dict(par.collectives_per_call(TPA_B, F + TPA_S))]
+        if eb is not None:
+            want.append(dict(par.collectives_per_call(TPA_B, absorbed=False)))
+        want += [dict(par.collectives_per_call(TPA_B))] * 3
+        out[arch] = {"shares_tensors": shared,
+                     "logits": all(torch.equal(a, b) for a, b in zip(la, lb)),
+                     "ids": all(torch.equal(a, b) for a, b in zip(ia, ib)),
+                     "cache": set(ca) == set(cb) and all(torch.equal(ca[k], cb[k]) for k in ca),
+                     "expanded": None if ea is None else torch.equal(ea, eb),
+                     "collectives": counts == want}
     return out

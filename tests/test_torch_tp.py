@@ -323,8 +323,9 @@ def test_sharded_weights_are_slices_of_tp1(runs, shape, arch):
 
 @pytest.mark.parametrize("arch", R.TP_REFUSED)
 def test_other_families_refuse_tensor_parallelism(runs, arch):
-    """MLA, SSM, hybrid, VLM and audio on a (1, 4) mesh raise
-    ``NotImplementedError`` naming the ROADMAP item."""
+    """The SSM and hybrid families on a (1, 4) mesh raise
+    ``NotImplementedError`` naming the ROADMAP item (the others serve
+    across ranks: here and in tests/test_torch_tp_attention.py)."""
     ranks, _ = runs
     for _, info in ranks["1x4"]:
         msg = info["refused"][arch]
