@@ -153,6 +153,8 @@ non-zero):
    beside them; one layer's ``selective_scan`` at full width (B 1, T 256,
    d_inner 8192, d_state 16) against a float64 recurrence on the card at
    1e-4, and timed at the prefill's shape (one ``{"ssm": ...}`` line);
+   then the model's one-rank twin (``twin_path``: no K6 launch; one
+   ``{"ssm_parallel": ...}`` line);
    "hybrid" — after the ssm path's model is freed, Zamba2-2.7B whole (54
    Mamba2 layers in 9 groups of 6 at full width: d 2560, d_inner 5120, 80
    SSD heads of 64, d_state 64, chunk 128; one shared attention+MLP block,
@@ -165,7 +167,9 @@ non-zero):
    a prefill of S + 3 tokens, the final ``states.ssm``'s rel. L2 beside
    them; one layer's ``ssd_scan`` at full width (B 1, T 256, 80 heads of
    64, d_state 64) against a float64 recurrence on the card at 1e-4, and
-   timed at the prefill's shape (one ``{"hybrid": ...}`` line);
+   timed at the prefill's shape (one ``{"hybrid": ...}`` line); then the
+   model's one-rank twin (``twin_path``: K6 once a group per prefill; one
+   ``{"hybrid_parallel": ...}`` line);
    "vlm" — after the hybrid path's model is freed, LLaVA-NeXT-34B whole (60
    layers at full width: d 7168, 56 / 8 heads of 128, swiglu of 20480,
    vocabulary 64000, bf16, seeded weights, 64.05 GiB) through
@@ -263,7 +267,7 @@ TOL_LM = 6e-2
 # of bf16 weights; 32 are 83.8 GB), with the lm path's traffic
 MOE_ARCH, MOE_LAYERS = "phi35_moe_42b", 28
 MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 2048, 32
-#: greedy decode steps of each attention family's one-rank twin (``twin_path``)
+#: greedy decode steps of each LM path's one-rank twin (``twin_path``)
 TWIN_STEPS = 3
 # the mla path: DeepSeek-V2-Lite whole (27 layers, 29.3 GiB of bf16 weights),
 # served through serve_lm as a user calls it, with the lm path's traffic
@@ -2751,11 +2755,12 @@ def twin_path(torch, name, lm, prompts, frontend=None):
     of the prefill's cache, then ``TWIN_STEPS`` decode steps; the mesh-less
     run's logits, ids and cache go to the host and its cache is freed before
     the twin's prefill (two of LLaVA's caches would not fit beside its
-    weights).  Checks K6 once a causal layer per prefill and never in
-    decode, each call's collectives by kind against
-    ``LM.collectives_per_call`` (the mesh-less LM's none), and logits, ids,
-    every cache leaf and the expanded step's logits bitwise equal.  Prints
-    one ``{"<name>_parallel": ...}`` line."""
+    weights).  Checks K6 once a causal layer per prefill (the hybrid's
+    shared block once a group; the SSM has none) and never in decode, each
+    launch on the tensor-core design, each call's collectives by kind
+    against ``LM.collectives_per_call`` (the mesh-less LM's none), and
+    logits, ids, every cache leaf and the expanded step's logits bitwise
+    equal.  Prints one ``{"<name>_parallel": ...}`` line."""
     from collections import Counter
 
     from repro_torch.kernels.flash import ops as flops
@@ -2764,7 +2769,10 @@ def twin_path(torch, name, lm, prompts, frontend=None):
 
     cfg, (B, S) = lm.cfg, prompts.shape
     F = frontend.shape[1] if cfg.family == "vlm" else 0
-    L, V, mla = cfg.n_layers, cfg.vocab, cfg.mla is not None  # L: K6's causal layers
+    # L: K6's causal layers
+    L = (0 if cfg.family == "ssm" else cfg.n_layers // cfg.attn_every
+         if cfg.family == "hybrid" else cfg.n_layers)
+    V, mla = cfg.vocab, cfg.mla is not None
     batch = {"tokens": prompts} if frontend is None else {"tokens": prompts,
                                                           "frontend": frontend}
 
@@ -2798,6 +2806,7 @@ def twin_path(torch, name, lm, prompts, frontend=None):
         return torch.stack(logits), torch.stack(ids, 1), expanded, host, counts, k6s
 
     t0 = time.perf_counter()
+    designs0 = Counter(flops.design_launches)
     lg_a, ids_a, exp_a, cache_a, counts_a, k6_a = greedy(lm)
     with _nccl_world_one():
         par = lm.sharded(make_host_mesh(1))
@@ -2810,6 +2819,7 @@ def twin_path(torch, name, lm, prompts, frontend=None):
                 + [par.collectives_per_call(B, absorbed=False)] * mla
                 + [par.collectives_per_call(B)] * TWIN_STEPS)
         del par
+    designs = dict(Counter(flops.design_launches) - designs0)
     bitwise = {"logits": torch.equal(lg_a, lg_b), "ids": torch.equal(ids_a, ids_b),
                "cache": set(cache_a) == set(cache_b) and all(
                    torch.equal(cache_a[k], cache_b[k]) for k in cache_a)}
@@ -2817,13 +2827,14 @@ def twin_path(torch, name, lm, prompts, frontend=None):
         bitwise["expanded_step"] = torch.equal(exp_a, exp_b)
     want_k6 = [L] + [0] * (len(want) - 1)
     collectives_ok = counts_b == want and counts_a == [Counter()] * len(want)
-    k6_ok = k6_a == k6_b == want_k6
+    k6_ok = k6_a == k6_b == want_k6 and all(k.startswith("tc:") for k in designs)
     out = {"arch": cfg.name, "mesh": {"data": 1, "model": 1}, "shares_tensors": shares,
            "batch": B, "prompt_len": S, "frontend_positions": F, "steps": TWIN_STEPS,
            "calls": ["prefill"] + ["expanded_step"] * mla + ["decode_step"] * TWIN_STEPS,
            "collectives_by_call": [dict(c) for c in counts_b],
            "collectives_per_call": [dict(c) for c in want],
-           "k6_launches_by_call": k6_b, "bitwise_vs_meshless": bitwise,
+           "k6_launches_by_call": k6_b, "k6_designs": designs,
+           "bitwise_vs_meshless": bitwise,
            "cache": {k: list(t.shape) for k, t in cache_b.items()},
            "max_memory_allocated_gib": peak / 2**30, "seconds": time.perf_counter() - t0,
            "ids": ids_b[0].tolist()}
@@ -2831,7 +2842,8 @@ def twin_path(torch, name, lm, prompts, frontend=None):
     if not (shares and all(bitwise.values()) and collectives_ok and k6_ok):
         fail(f"{name}_parallel: shares tensors {shares}, bitwise {bitwise}, collectives "
              f"{[dict(c) for c in counts_b]} (want {[dict(c) for c in want]}; mesh-less "
-             f"{[dict(c) for c in counts_a]}), K6 by call {k6_a} / {k6_b} (want {want_k6})")
+             f"{[dict(c) for c in counts_a]}), K6 by call {k6_a} / {k6_b} (want {want_k6}), "
+             f"K6 designs {designs} (want tc)")
 
 
 def mla_path(torch, info):
@@ -2955,7 +2967,7 @@ def ssm_path(torch, info):
     logits within ``TOL_LM`` and the final ``ssm`` state's rel. L2 beside
     them; ``_ssm_scan`` (one layer's scan at full width against float64, and
     timed at the prefill's shape); no launch of K1-K6 in the whole path.
-    Fills ``info``."""
+    Fills ``info``; then the model's one-rank twin (``twin_path``)."""
     from repro_torch.launch import serve_lm
 
     torch.cuda.reset_peak_memory_stats()
@@ -3011,6 +3023,7 @@ def ssm_path(torch, info):
     info.update(out, **bounds)
     del lg1, lg_dec
     _profile_serving(torch, lm, prompts, res.ids, info)
+    twin_path(torch, "ssm", lm, prompts)
     del res, lm, prompts
 
 
@@ -3083,7 +3096,8 @@ def hybrid_path(torch, info):
     of S + 3 tokens, logits within ``TOL_LM``, the final ``states.ssm``'s
     rel. L2 beside them; the K6 prefill's logits against the same prefill
     with the plain attention; ``_ssd_scan`` (one layer's scan at full width
-    against float64, and timed at the prefill's shape).  Fills ``info``."""
+    against float64, and timed at the prefill's shape).  Fills ``info``; then
+    the model's one-rank twin (``twin_path``)."""
     from repro_torch.kernels.flash import ops as flops, ref as flref
     from repro_torch.launch import serve_lm
     from repro_torch.models.config import param_count
@@ -3169,6 +3183,7 @@ def hybrid_path(torch, info):
     info.update(out, **bounds)
     del lg1, lg_dec, lg_plain
     _profile_serving(torch, lm, prompts, res.ids, info)
+    twin_path(torch, "hybrid", lm, prompts)
     del res, lm, prompts
 
 

@@ -18,13 +18,13 @@ loop on an ``LM`` built elsewhere (a depth-cut model, say), and
 frames a prompt for its encoder, both bf16 from ``--seed``, as the
 reference draws them.
 
-``--model-parallel N`` serves every family but SSM and hybrid across ranks
-(dense, MoE with GQA or MLA, VLM, audio), one process a rank, as the
+``--model-parallel N`` serves every family across ranks (dense, MoE with
+GQA or MLA, SSM, hybrid, VLM, audio), one process a rank, as the
 reference's does: with N > 1, or with ``torch.distributed`` already
 initialized, the LM is built on ``launch.mesh.make_host_mesh(N)`` (tensor
-and expert parallelism over N ranks of ``"model"``, the batch over the
-world / N ranks of ``"data"``, every cache's positions over ``"model"``;
-``models/lm.py``).  Under ``torchrun`` each rank serves on
+and expert parallelism over N ranks of ``"model"``, the Mamba layers'
+channels or heads among them, the batch over the world / N ranks of
+``"data"``, every cache's positions over ``"model"``; ``models/lm.py``).  Under ``torchrun`` each rank serves on
 ``cuda:LOCAL_RANK`` over NCCL (``--device cpu``: gloo), draws the same
 weights, prompts and frontend from ``--seed`` (the LM keeps its rows of
 both), and rank 0 alone prints:

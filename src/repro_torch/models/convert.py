@@ -20,9 +20,10 @@ extension package.
 
 ``shard_params(cfg, full_params, mesh)`` cuts such a state dict (whole, the
 tp = 1 weights) to this rank's slices on a ``("data", "model")`` mesh, by
-``models/sharding.py``'s rules (the dense, MoE with GQA or MLA, VLM and
-audio families), for an ``LM(cfg, mesh=mesh)``'s ``load_state_dict``; at tp
-= 1 each slice is the tensor itself.
+``models/sharding.py``'s rules (every family: dense, MoE with GQA or MLA,
+SSM, hybrid, VLM and audio; the Mamba layers' parted leaves by
+``sharding.cut``, as ``LM(cfg, mesh=mesh)`` cuts them), for such an LM's
+``load_state_dict``; at tp = 1 each slice is the tensor itself.
 """
 
 from __future__ import annotations
@@ -87,7 +88,6 @@ def shard_params(cfg: ArchConfig, full_params: dict[str, torch.Tensor], mesh
     ``vocab_padded`` where ``full_params`` holds fewer (the reference draws
     its padding; its logits past ``vocab`` are never read).  At tp = 1 every
     entry of an unpadded vocabulary is the tensor itself."""
-    sharding.check_family(cfg)
     _, tp, rank = sharding.mesh_sizes(mesh)
     vp = sharding.vocab_padded(cfg.vocab, mesh)
     out = {}
@@ -96,5 +96,5 @@ def shard_params(cfg: ArchConfig, full_params: dict[str, torch.Tensor], mesh
             short = vp - t.shape[0 if name == "embed" else 1]
             if short > 0:
                 t = torch.nn.functional.pad(t, (0, 0, 0, short) if name == "embed" else (0, short))
-        out[name] = sharding.take(t, sharding.split_dim(name), rank, tp)
+        out[name] = sharding.cut(cfg, name, t, sharding.split_dim(name), rank, tp)
     return out

@@ -66,10 +66,10 @@ the layout ``hmajor_cache`` sets; a decode step attends over all Se frames.
 
 ``not_ported`` is None for every config of the registry.
 
-On a mesh (``LM(cfg, mesh=launch.mesh.make_host_mesh(tp))``, every family
-but SSM and hybrid; one process a rank) the LM is the reference's ``LM`` on
-a ``("data", "model")`` mesh, its rules (``models/sharding.py``) and
-collectives issued by each rank:
+On a mesh (``LM(cfg, mesh=launch.mesh.make_host_mesh(tp))``, every family;
+one process a rank) the LM is the reference's ``LM`` on a ``("data",
+"model")`` mesh, its rules (``models/sharding.py``) and collectives issued
+by each rank:
 
 * tensor parallelism over ``"model"``: Megatron column/row attention and
   MLP, each rank on its Hq / tp q heads and the kv heads they read
@@ -80,6 +80,13 @@ collectives issued by each rank:
   Hkv = Hq / tp); the audio encoder's attention and MLP alike, and the
   decoder's cross-attention on the rank's q heads over ``ck``, ``cv``
   computed whole;
+* the Mamba layers over ``"model"``: Mamba1 on the rank's Di / tp channels
+  (``x @ x_proj``, a sum over every channel, reduced before dt, B and C
+  are split; dt, the scan and its ``ssm`` and ``conv`` states the rank's
+  own), Mamba2 on its H / tp heads with B and C computed whole on every
+  rank (the gated norm's mean square reduced over the whole di), and
+  ``out_proj``'s partial sums reduced; the hybrid's shared block runs as a
+  GQA layer does, on ``cat(x, x0) @ w_in`` with ``w_in`` whole;
 * the batch split over ``"data"`` where it divides, and with it the VLM's
   frontend rows and the audio encoder's frames; every rank takes the whole
   batch and returns the whole logits;
@@ -128,6 +135,14 @@ all-reduce (``wo``).  The audio family, L_enc encoder and L decoder layers:
                 decoder's self wo, cross wo and MLP), all_gather 1 + g
   decode step:  all_reduce 1 + 9 L (the self- and the cross-attention's
                 four each, the MLP), all_gather 2 L + 1 + g
+
+The SSM family (L Mamba1 layers: ``x_proj`` and ``out_proj``) and the
+hybrid (G groups, L_m Mamba2 layers: the norm and ``out_proj``; the shared
+block as a GQA layer's attention and MLP, once a group):
+
+  ssm, prefill and decode step:  all_reduce 1 + 2 L, all_gather 1 + g
+  hybrid, prefill:               all_reduce 1 + 2 G + 2 L_m, all_gather 1 + g
+  hybrid, decode step:           all_reduce 1 + 5 G + 2 L_m, all_gather G + 1 + g
 
 At one rank (tp = dp = 1) these collectives are copies and the LM computes
 the mesh-less one bit for bit.
@@ -236,13 +251,15 @@ class Block(nn.Module):
 
 class SSMBlock(nn.Module):
     """One pre-norm Mamba1 or Mamba2 layer (``cfg.ssm.kind``): ``ln`` and
-    ``mamba``."""
+    ``mamba``.  ``keep`` as ``Block``'s (``"mamba.in_proj"``, ...)."""
 
-    def __init__(self, cfg: ArchConfig, gen: torch.Generator, dtype: torch.dtype):
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator, dtype: torch.dtype, *,
+                 keep=None):
         super().__init__()
+        keep = keep or (lambda name, t: t)
         init = ssm.mamba2_init if cfg.ssm.kind == "mamba2" else ssm.mamba1_init
         self.ln = _norm_init(cfg, cfg.d_model, gen.device)
-        self.mamba = _params(init(gen, cfg.d_model, cfg.ssm, dtype))
+        self.mamba = _params(_kept(keep, "mamba", init(gen, cfg.d_model, cfg.ssm, dtype)))
 
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
@@ -269,8 +286,8 @@ def not_ported(cfg: ArchConfig) -> str | None:
 
 class LM(nn.Module):
     """An LM of any family of the reference, weights drawn from ``seed``:
-    on one device, or with ``mesh`` (``launch.mesh.make_host_mesh``, every
-    family but SSM and hybrid) this rank's part of it.
+    on one device, or with ``mesh`` (``launch.mesh.make_host_mesh``) this
+    rank's part of it.
 
     ``device`` defaults to CUDA and raises without a card; pass ``"cpu"``
     to run on the CPU (every kernel then takes its plain version).  With a
@@ -307,10 +324,10 @@ class LM(nn.Module):
             tp, rank = self.shard.tp, self.shard.rank
 
             def keep(name, t):
-                return sharding.take(t, sharding.split_dim(name), rank, tp)
+                return sharding.cut(cfg, name, t, sharding.split_dim(name), rank, tp)
 
             def bkeep(name, t):
-                return sharding.take(t, sharding.block_split_dim(name), rank, tp)
+                return sharding.cut(cfg, name, t, sharding.block_split_dim(name), rank, tp)
         gen = torch.Generator(device=device).manual_seed(seed)
         d = cfg.d_model
         self.embed = nn.Parameter(
@@ -326,14 +343,17 @@ class LM(nn.Module):
         self.dense0 = nn.ModuleList(Block(cfg, gen, self.dtype, ff=ff0, keep=bkeep)
                                     for _ in range(n_dense))
         if cfg.family == "ssm":
-            self.blocks = nn.ModuleList(SSMBlock(cfg, gen, self.dtype)
+            self.blocks = nn.ModuleList(SSMBlock(cfg, gen, self.dtype, keep=bkeep)
                                         for _ in range(cfg.n_layers))
         elif cfg.family == "hybrid":
             self.blocks = nn.ModuleList(
-                nn.ModuleList(SSMBlock(cfg, gen, self.dtype) for _ in range(cfg.attn_every))
+                nn.ModuleList(SSMBlock(cfg, gen, self.dtype, keep=bkeep)
+                              for _ in range(cfg.attn_every))
                 for _ in range(cfg.n_layers // cfg.attn_every))
-            self.shared = Block(cfg, gen, self.dtype)
-            self.shared.w_in = nn.Parameter(dense_init(gen, 2 * d, d, self.dtype),
+            self.shared = Block(cfg, gen, self.dtype,
+                                keep=lambda name, t: keep("shared." + name, t))
+            self.shared.w_in = nn.Parameter(keep("shared.w_in", dense_init(gen, 2 * d, d,
+                                                                           self.dtype)),
                                             requires_grad=False)
         elif cfg.family == "audio":
             self.enc_blocks = nn.ModuleList(Block(cfg, gen, self.dtype, keep=bkeep)
@@ -352,22 +372,27 @@ class LM(nn.Module):
         """This LM's place on ``mesh`` (None: no mesh): its ``shard``, the
         padded vocabulary, and its q heads (``n_q`` from head ``h0``) and the
         kv heads [kv0, kv1) they read (MLA's expanded kv heads are one a q
-        head: the rank's own).  Raises where the family has no sharding
-        rules, or Hq, E or d_ff (the audio encoder's too) do not divide by
-        tp (the reference's GSPMD pads them instead)."""
+        head: the rank's own).  Raises where the widths the family splits
+        do not divide by tp: Hq, E or d_ff (the audio encoder's too), the
+        SSM's d_inner, the hybrid's SSD heads, Hq and d_ff (the reference's
+        GSPMD pads them instead)."""
         cfg = self.cfg
         self.vocab_padded = sharding.vocab_padded(cfg.vocab, mesh)
+        self.n_q, self.h0, self.kv0, self.kv1 = cfg.n_heads, 0, 0, cfg.n_kv_heads
         if mesh is None:
             self.shard = None
-            self.n_q, self.h0, self.kv0, self.kv1 = cfg.n_heads, 0, 0, cfg.n_kv_heads
             return
-        sharding.check_family(cfg)
         self.shard = sharding.Shard(mesh)
         tp = self.shard.tp
-        widths = {"n_heads": cfg.n_heads}
-        if cfg.moe is None:
+        attention = cfg.family != "ssm"
+        widths = {"n_heads": cfg.n_heads} if attention else {}
+        if cfg.ssm is not None:
+            di = cfg.ssm.expand * cfg.d_model
+            widths.update({"d_inner": di} if cfg.ssm.kind == "mamba1"
+                          else {"ssm heads": di // cfg.ssm.headdim})
+        if attention and cfg.moe is None:
             widths["d_ff"] = cfg.d_ff
-        else:
+        elif attention:
             widths["n_experts"] = cfg.moe.n_experts
             if cfg.moe.first_k_dense:
                 widths["dense_ff"] = cfg.moe.dense_ff or cfg.d_ff
@@ -377,8 +402,9 @@ class LM(nn.Module):
         if bad:
             raise ValueError(f"{cfg.name}: {bad} do not divide by tp = {tp} (the reference's "
                              "GSPMD pads them; here they must divide)")
-        self.n_q, self.h0, self.kv0, self.kv1 = self.shard.heads(
-            cfg.n_heads, cfg.n_heads if cfg.mla is not None else cfg.n_kv_heads)
+        if attention:
+            self.n_q, self.h0, self.kv0, self.kv1 = self.shard.heads(
+                cfg.n_heads, cfg.n_heads if cfg.mla is not None else cfg.n_kv_heads)
 
     def sharded(self, mesh) -> LM:
         """This mesh-less LM on ``mesh``: a new LM holding this rank's slices
@@ -647,13 +673,15 @@ class LM(nn.Module):
     def _ssm_block(self, p, x, state: dict, *, decode: bool):
         """The Mamba1 or Mamba2 sub-block, its prefill form or (``decode``)
         its one-token form on the layer's ``state``; writes the new state
-        into ``state``."""
+        into ``state``.  On a mesh the rank's channels or heads, ``out_proj``'s
+        partial sums summed."""
         h = _norm_apply(self.cfg, p.ln, x)
         apply = ssm.mamba2_apply if self.cfg.ssm.kind == "mamba2" else ssm.mamba1_apply
-        y, new = apply(p.mamba, h, cfg=self.cfg.ssm, state=state if decode else None)
+        y, new = apply(p.mamba, h, cfg=self.cfg.ssm, state=state if decode else None,
+                       shard=self.shard)
         state["ssm"].copy_(new["ssm"])
         state["conv"].copy_(new["conv"])
-        return x + y
+        return x + self._reduce(y)
 
     def _groups(self):
         """(cache key, blocks, whether they hold experts) in the order the
@@ -665,9 +693,10 @@ class LM(nn.Module):
     def _new_states(self, lead: tuple, batch: int) -> dict:
         """Zeroed SSM states with the leading layer axes ``lead``: Mamba1's
         ssm (B, di, N), Mamba2's (B, H, P, N), both fp32, and the conv's
-        last K-1 inputs (B, K-1, di, or di + 2N for Mamba2)."""
+        last K-1 inputs (B, K-1, di, or di + 2N for Mamba2); on a mesh di
+        and H are the rank's 1 / tp (B and C whole)."""
         s = self.cfg.ssm
-        di = s.expand * self.cfg.d_model
+        di = s.expand * self.cfg.d_model // (1 if self.shard is None else self.shard.tp)
         if s.kind == "mamba2":
             ssm_shape, conv_dim = (di // s.headdim, s.headdim, s.d_state), di + 2 * s.d_state
         else:
@@ -802,9 +831,9 @@ class LM(nn.Module):
         if self.cfg.family == "ssm":
             for i, p in enumerate(self.blocks):
                 x = self._ssm_block(p, x, {k: t[i] for k, t in cache.items()}, decode=False)
-            return cache, self._last_logits(x)
+            return cache, self._last_logits(x, n_rows)
         if self.cfg.family == "hybrid":
-            return cache, self._last_logits(self._hybrid(x, cache, positions=positions))
+            return cache, self._last_logits(self._hybrid(x, cache, positions=positions), n_rows)
         for name, group, use_moe in self._groups():
             for i, p in enumerate(group):
                 x = self._attn_prefill(p, x, positions, {k: t[i] for k, t in cache[name].items()})
@@ -825,7 +854,7 @@ class LM(nn.Module):
         if self.cfg.family == "ssm":
             for i, p in enumerate(self.blocks):
                 x = self._ssm_block(p, x, {k: t[i] for k, t in cache.items()}, decode=True)
-            return cache, self._last_logits(x)[:, 0]
+            return cache, self._last_logits(x, n_rows)[:, 0]
         cur_len = int(cur_len)
         # the hybrid's and the audio decoder's k and v lie at the top of the
         # cache, the others' in a group
@@ -836,7 +865,8 @@ class LM(nn.Module):
         if not 0 <= cur_len < max_len:
             raise ValueError(f"cur_len {cur_len} outside a cache of {max_len} positions")
         if self.cfg.family == "hybrid":
-            return cache, self._last_logits(self._hybrid(x, cache, cur_len=cur_len))[:, 0]
+            return cache, self._last_logits(self._hybrid(x, cache, cur_len=cur_len),
+                                            n_rows)[:, 0]
         if self.cfg.family == "audio":
             return cache, self._last_logits(self._audio(x, cache, cur_len=cur_len), n_rows)[:, 0]
         for name, group, use_moe in self._groups():
@@ -855,6 +885,14 @@ class LM(nn.Module):
         if self.shard is None:
             return Counter()
         g = int(self.shard.rows(batch) is not None)
+        if self.cfg.family == "ssm":
+            return Counter(all_reduce=1 + 2 * len(self.blocks), all_gather=1 + g)
+        if self.cfg.family == "hybrid":
+            G = len(self.blocks)
+            L_m = G * self.cfg.attn_every
+            if seq is None:
+                return Counter(all_reduce=1 + 5 * G + 2 * L_m, all_gather=G + 1 + g)
+            return Counter(all_reduce=1 + 2 * G + 2 * L_m, all_gather=1 + g)
         if self.cfg.family == "audio":
             L, L_enc = len(self.dec_blocks), len(self.enc_blocks)
             if seq is None:

@@ -29,11 +29,33 @@ the collectives itself.  The rules, by leaf name (a state-dict key):
 * the batch split over ``"data"`` where it divides (``Shard.rows``), and
   with it the VLM's frontend rows and the audio encoder's frames.
 
+* the Mamba layers (``blocks.<i>.mamba``; the hybrid's
+  ``blocks.<g>.<j>.mamba``) by whole channels (Mamba1) or whole heads
+  (Mamba2), each rank its contiguous 1/tp of each split part: Mamba1's
+  ``in_proj`` (D, 2 Di) of parts [x | z], both split by channel, ``conv_w``,
+  ``conv_b``, ``dt_bias``, ``A_log`` and ``D`` split on Di, ``x_proj`` (Di,
+  dtr + 2N) by rows (its product summed with an ``all_reduce`` before dt, B
+  and C are split) and ``dt_proj`` (dtr, Di) by output columns, so that dt
+  is the rank's own (the reference splits dtr); Mamba2's ``in_proj`` (D, 2
+  di + 2N + H) of parts [z | x | B | C | dt], z, x and dt split by head, B
+  and C whole, ``conv_w``, ``conv_b`` of parts [x | B | C], x split by head,
+  B and C whole (every rank convolves B and C whole), ``dt_bias``, ``A_log``,
+  ``D`` split on H and ``norm_w`` by head (the gated norm's mean square is
+  over the whole di: one ``all_reduce``); ``out_proj`` by rows for both;
+  the layer's ``ln`` whole.  ``leaf_parts`` names each parted leaf's parts
+  and ``cut`` takes a rank's slice of any leaf;
+* the hybrid's ``shared`` block by the attention's and the MLP's rules,
+  its ``ln1``, ``ln2`` whole and its ``w_in`` (2d, d) whole (the reference
+  splits its columns; the block's norm reads all of them);
+* the SSM states: Mamba1's ``ssm`` (B, Di / tp, N) and ``conv`` (B, K-1,
+  Di / tp), the reference's contiguous blocks; Mamba2's ``ssm`` (B, H / tp,
+  P, N), the reference's block, and ``conv`` (B, K-1, di / tp + 2N), the
+  rank's x channels beside B and C whole (the reference's is a contiguous
+  block of di + 2N).
+
 The reference also shards every weight over ``"data"`` (FSDP), a storage
 layout with the same results; here the weights are whole over ``"data"``.
-The dense, MoE (GQA or MLA), VLM and audio families have rules: a mesh
-for the SSM or hybrid family, or a leaf without a rule, raises
-``NotImplementedError``.
+Every family has rules; a leaf without one raises ``NotImplementedError``.
 
 Every collective goes through a ``Shard`` (``reduce``, ``gather`` and
 ``exchange``: ``torch.distributed``'s ``all_reduce``, ``all_gather`` and
@@ -58,24 +80,16 @@ from repro_torch.core.meshutil import axis_size
 #: collectives issued by a ``Shard``, by kind
 collectives: Counter = Counter()
 
-NOT_YET = ("tensor parallelism covers the dense, MoE (GQA or MLA), VLM and audio "
-           "families; SSM and hybrid are ROADMAP §1 item 1 (tensor parallelism for the "
-           "other families)")
-
 #: the dim of a block leaf split over "model" (None: whole on every rank), by
 #: the sub-block and the leaf's name
 _ATTN = {"wq": 1, "bq": 0, "wo": 0, "wk": None, "wv": None, "bk": None, "bv": None,
          "w_uk": 1, "w_uv": 1, "w_dkv": None, "kv_norm": None}
 _MLP = {"w_gate": 1, "w_up": 1, "w_down": 0}
 _EXPERTS = {"router": None, "w_gate": 0, "w_up": 0, "w_down": 0}
+_MAMBA = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "x_proj": 0, "dt_proj": 1, "dt_bias": 0,
+          "A_log": 0, "D": 0, "norm_w": 0, "out_proj": 0}
 
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-
-
-def check_family(cfg) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` has sharding rules."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}): {NOT_YET}")
 
 
 def mesh_sizes(mesh) -> tuple[int, int, int]:
@@ -98,13 +112,13 @@ def block_split_dim(name: str) -> int | None:
     where it is whole."""
     sub, *rest = name.split(".")
     leaf = rest[-1] if rest else ""
-    if sub in ("ln1", "ln2", "ln_x"):
+    if sub in ("ln1", "ln2", "ln_x", "ln"):
         return None
-    rules = {"attn": _ATTN, "cross": _ATTN, "mlp": _MLP,
+    rules = {"attn": _ATTN, "cross": _ATTN, "mlp": _MLP, "mamba": _MAMBA,
              "moe": _MLP if rest[:1] == ["shared"] else _EXPERTS}.get(sub, {})
     if len(rest) == (2 if rest[:1] == ["shared"] else 1) and leaf in rules:
         return rules[leaf]
-    raise NotImplementedError(f"no tensor-parallel rule for the leaf {name!r}: {NOT_YET}")
+    raise NotImplementedError(f"no tensor-parallel rule for the leaf {name!r}")
 
 
 def split_dim(name: str) -> int | None:
@@ -114,11 +128,49 @@ def split_dim(name: str) -> int | None:
         return 0
     if name == "lm_head":
         return 1
-    if head in ("final_norm", "enc_norm"):
+    if head in ("final_norm", "enc_norm") or name == "shared.w_in":
         return None
-    if head in ("blocks", "dense0", "enc_blocks", "dec_blocks") and len(rest) > 1:
-        return block_split_dim(".".join(rest[1:]))
-    raise NotImplementedError(f"no tensor-parallel rule for {name!r}: {NOT_YET}")
+    if head == "shared":
+        return block_split_dim(".".join(rest))
+    while rest[:1] and rest[0].isdigit():  # a layer's index (the hybrid's: two)
+        rest = rest[1:]
+    if head in ("blocks", "dense0", "enc_blocks", "dec_blocks") and rest:
+        return block_split_dim(".".join(rest))
+    raise NotImplementedError(f"no tensor-parallel rule for {name!r}")
+
+
+def leaf_parts(cfg, name: str) -> tuple[tuple[int, bool], ...] | None:
+    """The parts (size, split over "model") along the split dim of the
+    Mamba leaf ``name`` (a state-dict key, or a block's ``"mamba.in_proj"``)
+    where it is made of parts, each split alone; None for any other leaf."""
+    *_, sub, leaf = ("", *name.split("."))
+    if sub != "mamba" or cfg.ssm is None:
+        return None
+    s = cfg.ssm
+    di, N = s.expand * cfg.d_model, s.d_state
+    if s.kind != "mamba2":
+        return ((di, True), (di, True)) if leaf == "in_proj" else None
+    if leaf == "in_proj":
+        return ((di, True), (di, True), (N, False), (N, False), (di // s.headdim, True))
+    if leaf in ("conv_w", "conv_b"):
+        return ((di, True), (N, False), (N, False))
+    return None
+
+
+def cut(cfg, name: str, t: torch.Tensor, dim: int | None, rank: int, n: int) -> torch.Tensor:
+    """Part ``rank`` of ``n`` of the leaf ``name`` along ``dim`` (its
+    ``split_dim``): ``take`` of a leaf cut as one, and of a parted leaf
+    (``leaf_parts``) each split part's slice beside each whole part,
+    concatenated in the parts' order; ``t`` itself where ``n`` is 1 or
+    ``dim`` None."""
+    parts = leaf_parts(cfg, name)
+    if parts is None or n == 1 or dim is None:
+        return take(t, dim, rank, n)
+    if sum(size for size, _ in parts) != t.shape[dim]:
+        raise ValueError(f"{name}: parts {parts} do not make dim {dim} of {tuple(t.shape)}")
+    pieces = t.split([size for size, _ in parts], dim)
+    return torch.cat([_part(p, dim, rank, n) if split else p
+                      for p, (_, split) in zip(pieces, parts)], dim)
 
 
 def take(t: torch.Tensor, dim: int | None, rank: int, n: int) -> torch.Tensor:
@@ -127,10 +179,15 @@ def take(t: torch.Tensor, dim: int | None, rank: int, n: int) -> torch.Tensor:
     tensor can be freed."""
     if n == 1 or dim is None:
         return t
+    return _part(t, dim, rank, n).clone(memory_format=torch.contiguous_format)
+
+
+def _part(t: torch.Tensor, dim: int, rank: int, n: int) -> torch.Tensor:
+    """Part ``rank`` of ``n`` of ``t`` along ``dim``, a view."""
     if t.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split over {n} ranks")
     size = t.shape[dim] // n
-    return t.narrow(dim, rank * size, size).clone(memory_format=torch.contiguous_format)
+    return t.narrow(dim, rank * size, size)
 
 
 class Shard:

@@ -40,6 +40,17 @@ right, which for the state update would build a (B, Lc, N, H, P)
 intermediate (671 MB a chunk at Zamba2's widths).  ``mamba2_apply`` splits
 ``in_proj``'s output as z, x, B, C, dt, runs the causal conv over (x, B, C),
 and ends in the gated norm ``rmsnorm((y silu(z)).to(u.dtype), norm_w)``.
+
+Both apply functions take ``shard`` (a ``models/sharding.py`` ``Shard``,
+None without a mesh) and then run on the rank's slices of the weights
+(whole channels of Mamba1, whole heads of Mamba2; the rules are
+``sharding.py``'s): Mamba1's ``x @ x_proj`` is a sum over every rank's
+channels, reduced in fp32 before dt, B and C are split; Mamba2's gated
+norm takes the mean square over the whole di, the rank's mean scaled by
+1 / tp and reduced in fp32 (the scale is exactly 1.0 at tp = 1, so that one
+rank computes ``rmsnorm`` bit for bit).  Both return ``out_proj``'s partial
+sums, which the caller reduces.  The scans are per channel or head and run
+on the rank's alone.
 """
 
 from __future__ import annotations
@@ -49,7 +60,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, rmsnorm
+from repro_torch.models.layers import dense_init
 
 
 # ---------------------------------------------------------------------------
@@ -146,11 +157,12 @@ def selective_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
     return y[:, :T], h
 
 
-def mamba1_apply(p, u: torch.Tensor, *, cfg, state: dict | None = None):
+def mamba1_apply(p, u: torch.Tensor, *, cfg, state: dict | None = None, shard=None):
     """u: (B, T, D).  ``state=None`` for the prefill; returns (y, new state).
 
     ``state`` is {"conv": (B, K-1, Di) in u's dtype, "ssm": (B, Di, N) fp32}
-    for the one-token decode form (T = 1).
+    for the one-token decode form (T = 1); with ``shard`` Di is the rank's
+    channels and y its partial sums.
     """
     N = cfg.d_state
     dtr = p["dt_proj"].shape[0]
@@ -164,7 +176,10 @@ def mamba1_apply(p, u: torch.Tensor, *, cfg, state: dict | None = None):
         x = x1[:, None]
     x = F.silu(x)
 
-    dt, Bm, Cm = (x @ p["x_proj"]).split([dtr, N, N], dim=-1)
+    xp = x @ p["x_proj"]
+    if shard is not None:  # a sum over every rank's channels
+        xp = shard.reduce(xp)
+    dt, Bm, Cm = xp.split([dtr, N, N], dim=-1)
     dt = F.softplus((dt @ p["dt_proj"]).float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 
@@ -251,11 +266,24 @@ def ssd_scan(xh, dt, a_log, Bm, Cm, *, chunk: int, s0=None):
     return y[:, :T], s
 
 
-def mamba2_apply(p, u: torch.Tensor, *, cfg, state: dict | None = None):
+def gated_rmsnorm(y: torch.Tensor, w: torch.Tensor, eps: float, shard=None) -> torch.Tensor:
+    """``rmsnorm(y, w, eps)`` over the last dim; with ``shard``, ``y`` and
+    ``w`` are the rank's part of it and the mean square is the whole dim's:
+    the rank's mean times 1 / tp, summed in fp32 over the model group."""
+    yf = y.float()
+    ms = (yf * yf).mean(-1, keepdim=True)
+    if shard is not None:
+        ms = shard.reduce(ms * (1.0 / shard.tp))
+    return (yf * torch.rsqrt(ms + eps) * w.float()).to(y.dtype)
+
+
+def mamba2_apply(p, u: torch.Tensor, *, cfg, state: dict | None = None, shard=None):
     """u: (B, T, D).  ``state=None`` for the prefill; returns (y, new state).
 
     ``state`` is {"ssm": (B, H, P, N) fp32, "conv": (B, K-1, di + 2N) in u's
-    dtype} for the one-token decode form (T = 1).
+    dtype} for the one-token decode form (T = 1); with ``shard`` di and H
+    are the rank's (``norm_w``'s length gives them), B and C whole, and y
+    its partial sums.
     """
     di = p["norm_w"].shape[0]
     N = cfg.d_state
@@ -286,5 +314,5 @@ def mamba2_apply(p, u: torch.Tensor, *, cfg, state: dict | None = None):
         y = (s @ Cm[:, 0, None, :, None].float())[:, None, ..., 0]     # (B, 1, H, P)
 
     y = (y + p["D"][:, None] * xh.float()).reshape(B, T, di)
-    y = rmsnorm((y * F.silu(z.float())).to(u.dtype), p["norm_w"], 1e-5)
+    y = gated_rmsnorm((y * F.silu(z.float())).to(u.dtype), p["norm_w"], 1e-5, shard)
     return y @ p["out_proj"], {"ssm": s, "conv": conv_state}

@@ -1606,8 +1606,9 @@ TP_FLAGS = {(1, 2): (("float32", False), ("bfloat16", True)),
 #: assignments at these sizes (the smoke config's 8.0 drops none, and bf16
 #: keeps it: a bf16 router margin may fall apart in the two packages)
 TP_CAPACITY_FP32 = 1.25
-#: families that have no tensor-parallel rules yet, one smoke config each
-TP_REFUSED = ("falcon_mamba_7b", "zamba2_2p7b")
+#: the frontend rows (the VLM's embeddings, the audio encoder's frames) of
+#: each smoke config's run on (1, 4) in ``run_tp_rank``'s family sweep
+TP_BUILD_FRONTEND = 4
 #: tests/test_moe.py's (1, 4) layer: (E, k, d_ff, D, B, S), and the
 #: (path, capacity factor) cases run on it
 TP_MOE_DIMS = (8, 2, 16, 12, 2, 8)
@@ -1700,10 +1701,10 @@ def tp_weights(weights, arch: str) -> dict:
 def run_tp_rank(rank: int, init_file: str, out_dir: str, mesh_shape=(1, 4)):
     """One rank of a ``mesh_shape`` mesh: every ``tp_cases`` run of the LM
     (``tp_make_weights``' from ``out_dir/../weights.npz``: prefill, cache, 3
-    teacher-forced decode steps, collectives and dropped assignments by
-    call, each expert-parallel send), the weights' slices, the families
-    refused, the MoE layer cases on (1, 4), ``serve_lm`` on (2, 2), and at
-    one rank the sharded LM against the mesh-less one bit for bit.  Writes
+    call, each expert-parallel send), the weights' slices, every smoke
+    config built on (1, 4) with a prefill and a decode step, the MoE layer
+    cases on (1, 4), ``serve_lm`` on (2, 2), and at one rank the sharded LM
+    against the mesh-less one bit for bit.  Writes
     ``tp{rank}.npz`` and ``tp{rank}.json`` to ``out_dir``."""
     import contextlib
     import io
@@ -1781,13 +1782,8 @@ def run_tp_rank(rank: int, init_file: str, out_dir: str, mesh_shape=(1, 4)):
                     torch.equal(mine[k], cut[k]) and torch.equal(mine[k], moved[k])
                     for k in mine))
         if mesh_shape == (1, 4):
-            info["refused"] = {}
-            for arch in TP_REFUSED:
-                try:
-                    lm.LM(configs.smoke(arch), mesh=mesh, device="cpu")
-                    info["refused"][arch] = None
-                except NotImplementedError as e:
-                    info["refused"][arch] = str(e)
+            info["builds"] = {arch: _tp_build(torch, lm, sharding, configs, arch, mesh)
+                              for arch in configs.ARCH_NAMES}
             E, k, ff, D, B, S = TP_MOE_DIMS
             for path, cf in TP_MOE_CASES:
                 cfg = MoEConfig(n_experts=E, top_k=k, d_ff_expert=ff, capacity_factor=cf)
@@ -1813,6 +1809,32 @@ def run_tp_rank(rank: int, init_file: str, out_dir: str, mesh_shape=(1, 4)):
         (d / f"tp{rank}.json").write_text(json.dumps(info))
     finally:
         dist.destroy_process_group()
+
+
+def _tp_build(torch, lm, sharding, configs, arch: str, mesh) -> dict:
+    """``arch``'s smoke LM (bf16, the optimized flags) built on ``mesh``: a
+    prefill of ``TP_S`` tokens (after ``TP_BUILD_FRONTEND`` frontend rows
+    where the family takes them) and one decode step, each call's
+    collectives by kind beside ``LM.collectives_per_call``'s, and whether
+    the logits are finite."""
+    cfg = configs.smoke(arch)
+    port = lm.LM(cfg, mesh=mesh, q_block=4, perf=lm.OPTIMIZED, device="cpu")
+    toks = torch.from_numpy(tp_tokens(TP_S))
+    batch = {"tokens": toks[:, :TP_S]}
+    F = TP_BUILD_FRONTEND if cfg.family in ("vlm", "audio") else 0
+    if F:
+        batch["frontend"] = torch.randn((TP_B, F, cfg.d_model),
+                                        generator=torch.Generator().manual_seed(3))
+    M = (F if cfg.family == "vlm" else 0) + TP_S  # the cache positions of the prompt
+    sharding.collectives.clear()
+    cache, lg = port.prefill(batch, max_len=M + 1)
+    counts = [dict(sharding.collectives)]
+    sharding.collectives.clear()
+    lg2 = port.decode_step(cache, toks[:, TP_S], M)[1]
+    counts.append(dict(sharding.collectives))
+    want = [dict(port.collectives_per_call(TP_B, M)), dict(port.collectives_per_call(TP_B))]
+    return {"family": cfg.family, "counts": counts, "want": want,
+            "finite": bool(torch.isfinite(lg).all() and torch.isfinite(lg2).all())}
 
 
 def _tp_world_one(torch, lm, moe, sharding, configs, MoEConfig, mesh, shard) -> dict:
@@ -2091,5 +2113,188 @@ def _tpa_world_one(torch, lm, sharding, configs, mesh) -> dict:
                      "ids": all(torch.equal(a, b) for a, b in zip(ia, ib)),
                      "cache": set(ca) == set(cb) and all(torch.equal(ca[k], cb[k]) for k in ca),
                      "expanded": None if ea is None else torch.equal(ea, eb),
+                     "collectives": counts == want}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The SSM and hybrid families across ranks (tests/test_torch_tp_ssm.py)
+# ---------------------------------------------------------------------------
+
+TPS_ARCHS = ("falcon_mamba_7b", "zamba2_2p7b")
+#: each mesh's runs, (arch, dtype, optimized flags): each arch meets both
+#: dtypes and both flag sets, each mesh both dtypes
+TPS_CASES = {
+    (1, 2): (("falcon_mamba_7b", "float32", False), ("zamba2_2p7b", "bfloat16", True)),
+    (1, 4): (("falcon_mamba_7b", "bfloat16", True), ("zamba2_2p7b", "float32", False)),
+    (2, 2): (("falcon_mamba_7b", "float32", True), ("zamba2_2p7b", "bfloat16", False)),
+}
+#: batch and prompt: S is longer than the smoke scan chunk of 16, so that the
+#: prefill runs a padded second chunk
+TPS_B, TPS_S = 2, 20
+#: the serve_lm runs on the (2, 2) mesh, by arch
+TPS_SERVE_ARGV = {arch: ["--arch", arch, "--preset", "smoke", "--device", "cpu", "--opt",
+                         "--model-parallel", "2", "--batch", "2", "--prompt-len", "6",
+                         "--gen", "3"]
+                  for arch in TPS_ARCHS}
+
+
+def tps_config(configs, arch: str, dtype: str):
+    """The smoke config of ``arch`` from ``configs`` (either package's) at
+    ``dtype``."""
+    import dataclasses
+
+    return dataclasses.replace(configs.smoke(arch), dtype=dtype)
+
+
+def tps_make_weights(path) -> None:
+    """Each ``TPS_ARCHS`` smoke LM's fp32 weights, keyed ``arch:<the port's
+    state-dict key>``: a seeded mesh-less port LM's (its own draws keep
+    ``A_log`` and ``dt_bias`` in their working range), with the leaves it
+    draws constant made to differ by channel, so that a misplaced slice
+    shows: every norm's weight (``norm_w`` too) and ``D`` 1 + 0.1 n, its
+    bias and ``conv_b`` 0.1 n, ``A_log`` plus 0.1 n (n normal, numpy seed
+    19)."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    rng, arrays = np.random.default_rng(19), {}
+    for arch in TPS_ARCHS:
+        model = lm.LM(tps_config(configs, arch, "float32"), device="cpu", seed=4)
+        for key, t in model.state_dict().items():
+            x = t.numpy().copy()
+            n = (0.1 * rng.standard_normal(x.shape)).astype(np.float32)
+            if key.endswith((".w", ".norm_w", ".D")):
+                x = 1 + n
+            elif key.endswith((".b", ".conv_b")):
+                x = n
+            elif key.endswith(".A_log"):
+                x = x + n
+            arrays[f"{arch}:{key}"] = x
+    np.savez(path, **arrays)
+
+
+def _tps_steps(torch, sharding, port):
+    """A prefill of ``TPS_S`` tokens (max_len S + 3) and 3 teacher-forced
+    decode steps of the LM ``port``: (logits (4, B, V) fp32, the cache
+    after them, the collectives of each call by kind)."""
+    toks = torch.from_numpy(tp_tokens(TPS_S))
+    sharding.collectives.clear()
+    cache, lg = port.prefill({"tokens": toks[:, :TPS_S]}, max_len=TPS_S + 3)
+    counts, logits = [dict(sharding.collectives)], [lg[:, 0]]
+    for t in range(3):
+        sharding.collectives.clear()
+        cache, lg = port.decode_step(cache, toks[:, TPS_S + t], TPS_S + t)
+        counts.append(dict(sharding.collectives))
+        logits.append(lg)
+    return torch.stack(logits).float(), cache, counts
+
+
+def run_tps_rank(rank: int, init_file: str, out_dir: str, mesh_shape=(1, 4)):
+    """One rank of a ``mesh_shape`` mesh: every ``TPS_CASES`` run
+    (``tps_make_weights``' from ``out_dir/../weights.npz``: the prefill, 3
+    teacher-forced decode steps, the cache after them and the collectives
+    by call), the weights' slices, ``serve_lm`` on (2, 2), and at one rank
+    each sharded LM against the mesh-less one bit for bit.  Writes
+    ``tps{rank}.npz`` and ``tps{rank}.json`` to ``out_dir``."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)  # the meshes' ranks share the host's cores
+    from repro_torch import configs
+    from repro_torch.launch import serve_lm
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm, sharding
+    from repro_torch.models.convert import shard_params
+
+    world = mesh_shape[0] * mesh_shape[1]
+    _init(rank, init_file, world)
+    d = Path(out_dir)
+    weights = np.load(d.parent / "weights.npz")
+    try:
+        mesh = make_host_mesh(mesh_shape[1], device="cpu")
+        shard = sharding.Shard(mesh)
+        arrays, info = {}, {"coord": [shard.drank, shard.rank], "cases": {}}
+        if world == 1:
+            info["world1"] = _tps_world_one(torch, lm, sharding, configs, mesh)
+        for arch, dtype, opt in TPS_CASES.get(mesh_shape, ()):
+            key = tpa_key(arch, dtype, opt)
+            cfg = tps_config(configs, arch, dtype)
+            full = {k: torch.from_numpy(a) for k, a in tp_weights(weights, arch).items()}
+            port = lm.LM(cfg, mesh=mesh, q_block=4, perf=lm.OPTIMIZED if opt else lm.PerfFlags(),
+                         device="cpu")
+            port.load_state_dict(shard_params(cfg, full, mesh), strict=True)
+            logits, cache, counts = _tps_steps(torch, sharding, port)
+            info["cases"][key] = {"counts": counts,
+                                  "want": [dict(port.collectives_per_call(TPS_B, TPS_S)),
+                                           dict(port.collectives_per_call(TPS_B))]}
+            arrays["lg:" + key] = logits.numpy()
+            for path, t in tpa_leaves(cache).items():
+                arrays[f"{path}:{key}"] = t.float().numpy()
+        if world > 1:
+            info["weights"] = {}
+            for arch in TPS_ARCHS:
+                cfg = tps_config(configs, arch, "bfloat16")
+                whole = lm.LM(cfg, q_block=4, device="cpu", seed=5)
+                mine = lm.LM(cfg, mesh=mesh, q_block=4, device="cpu", seed=5).state_dict()
+                cut = shard_params(cfg, whole.state_dict(), mesh)
+                moved = whole.sharded(mesh).state_dict()
+                info["weights"][arch] = (set(mine) == set(cut) == set(moved) and all(
+                    torch.equal(mine[k], cut[k]) and torch.equal(mine[k], moved[k])
+                    for k in mine))
+        if mesh_shape == (2, 2):
+            info["serve"] = {}
+            for arch, argv in TPS_SERVE_ARGV.items():
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    res = serve_lm.main(argv)
+                info["serve"][arch] = {"lines": out.getvalue().splitlines(),
+                                       "ids": res.ids.tolist(),
+                                       "mesh": [res.lm.shard.dp, res.lm.shard.tp]}
+        np.savez(d / f"tps{rank}.npz", **arrays)
+        (d / f"tps{rank}.json").write_text(json.dumps(info))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tps_world_one(torch, lm, sharding, configs, mesh) -> dict:
+    """At one rank, each ``TPS_ARCHS`` smoke LM (bf16, the optimized flags)
+    sharded (``LM.sharded``: the very tensors) against the mesh-less one: a
+    prefill and 3 greedy decode steps (logits, ids, every cache leaf), bit
+    for bit; the sharded run's collectives by call against
+    ``LM.collectives_per_call``."""
+    out = {}
+    for arch in TPS_ARCHS:
+        whole = lm.LM(tps_config(configs, arch, "bfloat16"), q_block=4, perf=lm.OPTIMIZED,
+                      device="cpu", seed=2)
+        par = whole.sharded(mesh)
+        shared = all(a.data_ptr() == b.data_ptr()
+                     for a, b in zip(whole.parameters(), par.parameters()))
+        batch = {"tokens": torch.from_numpy(tp_tokens(TPS_S)[:, :TPS_S])}
+        runs = []
+        for m in (whole, par):
+            sharding.collectives.clear()
+            cache, lg = m.prefill(batch, max_len=TPS_S + 3)
+            counts = [dict(sharding.collectives)]
+            logits, tok = [lg[:, 0]], lg[:, -1].argmax(-1)
+            ids = [tok]
+            for t in range(3):
+                sharding.collectives.clear()
+                cache, lg = m.decode_step(cache, tok, TPS_S + t)
+                counts.append(dict(sharding.collectives))
+                tok = lg.argmax(-1)
+                logits.append(lg)
+                ids.append(tok)
+            runs.append((logits, ids, tpa_leaves(cache), counts))
+        (la, ia, ca, _), (lb, ib, cb, counts) = runs
+        want = ([dict(par.collectives_per_call(TPS_B, TPS_S))]
+                + [dict(par.collectives_per_call(TPS_B))] * 3)
+        out[arch] = {"shares_tensors": shared,
+                     "logits": all(torch.equal(a, b) for a, b in zip(la, lb)),
+                     "ids": all(torch.equal(a, b) for a, b in zip(ia, ib)),
+                     "cache": set(ca) == set(cb) and all(torch.equal(ca[k], cb[k]) for k in ca),
                      "collectives": counts == want}
     return out

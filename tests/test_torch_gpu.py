@@ -833,6 +833,56 @@ def test_world_one_sharded_lm_is_the_meshless_lm_bitwise(mesh1, arch):
     assert par_counts == [par.collectives_per_call(2, 40)] + [par.collectives_per_call(2)] * 4
 
 
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "zamba2_2p7b"])
+def test_world_one_sharded_ssm_and_hybrid_lm_is_the_meshless_lm_bitwise(mesh1, arch):
+    """At one rank on NCCL the sharded Falcon-Mamba and Zamba2 smoke LMs
+    hold the mesh-less LM's very tensors, and their prefill (K6 never for
+    the SSM, once a group for the hybrid's shared block, all on the
+    tensor-core design), 4 greedy decode steps (no K6) and every cache leaf
+    are the mesh-less LM's bit for bit, with the collectives
+    ``collectives_per_call`` counts."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models.lm import LM, OPTIMIZED
+
+    cfg = configs.smoke(arch)
+    k6 = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    lm = LM(cfg, q_block=16, perf=OPTIMIZED, device="cuda", seed=0)
+    par = lm.sharded(make_host_mesh(1))
+    assert all(a.data_ptr() == b.data_ptr() for a, b in zip(lm.parameters(), par.parameters()))
+    toks = torch.randint(0, cfg.vocab, (2, 40), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    designs = Counter(flops.design_launches)
+    runs = []
+    for m in (lm, par):
+        sharding.collectives.clear()
+        before = sum(flops.launches.values())
+        cache, lg = m.prefill({"tokens": toks}, max_len=44)
+        assert sum(flops.launches.values()) == before + k6
+        counts = [Counter(sharding.collectives)]
+        logits, tok = [lg], lg[:, -1].argmax(-1)
+        ids = [tok]
+        for t in range(4):
+            sharding.collectives.clear()
+            cache, lg = m.decode_step(cache, tok, 40 + t)
+            counts.append(Counter(sharding.collectives))
+            tok = lg.argmax(-1)
+            logits.append(lg)
+            ids.append(tok)
+        assert sum(flops.launches.values()) == before + k6
+        leaves = {k: v for k, v in cache.items() if torch.is_tensor(v)}
+        leaves.update({f"states.{k}": v for k, v in cache.get("states", {}).items()})
+        runs.append((logits, ids, leaves, counts))
+    assert flops.design_launches - designs == Counter({"tc:bfloat16": 2 * k6} if k6 else {})
+    (la, ia, ca, counts), (lb, ib, cb, par_counts) = runs
+    assert all(torch.equal(a, b) for a, b in zip(la, lb))
+    assert all(torch.equal(a, b) for a, b in zip(ia, ib))
+    assert set(ca) == set(cb) and all(torch.equal(ca[k], cb[k]) for k in ca)
+    assert counts == [Counter()] * 5
+    assert par_counts == [par.collectives_per_call(2, 40)] + [par.collectives_per_call(2)] * 4
+
+
 def test_mla_lm_prefill_runs_k6_once_per_layer_and_repeats_bitwise(cuda):
     """DeepSeek-V2-Lite's smoke config with its own MLA head dims (q and k
     128 + 64, v 128: K6 at (192, 128)) on the card: K6 once per layer in the

@@ -41,12 +41,12 @@ import numpy as np
 import pytest
 
 import _torch_ranks as R
+from repro_torch.configs import ARCH_NAMES
 
 TESTS = Path(__file__).resolve().parent
 TOL = {("float32", False): 1e-5, ("float32", True): 1e-5,
        ("bfloat16", False): 3e-2, ("bfloat16", True): 6e-2}
 TOL_MOE = 1e-5
-ROADMAP_ITEM = "ROADMAP §1 item 1"
 
 _REFERENCE = """
 import dataclasses, json, sys
@@ -321,15 +321,19 @@ def test_sharded_weights_are_slices_of_tp1(runs, shape, arch):
     assert all(info["weights"][arch] for _, info in ranks[_mesh_tag(shape)])
 
 
-@pytest.mark.parametrize("arch", R.TP_REFUSED)
-def test_other_families_refuse_tensor_parallelism(runs, arch):
-    """The SSM and hybrid families on a (1, 4) mesh raise
-    ``NotImplementedError`` naming the ROADMAP item (the others serve
-    across ranks: here and in tests/test_torch_tp_attention.py)."""
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_every_family_builds_on_a_mesh(runs, arch):
+    """Every smoke config builds as ``LM(cfg, mesh=...)`` on (1, 4) and
+    serves a prefill and a decode step there: finite logits, and each
+    call's collectives by kind, on every rank, ``collectives_per_call``'s,
+    which is non-empty (the reference's comparison of each family is here,
+    in tests/test_torch_tp_attention.py and in tests/test_torch_tp_ssm.py)."""
     ranks, _ = runs
     for _, info in ranks["1x4"]:
-        msg = info["refused"][arch]
-        assert msg is not None and ROADMAP_ITEM in msg
+        build = info["builds"][arch]
+        assert build["finite"]
+        assert all(build["want"]) and build["counts"] == build["want"]
+        assert build["want"][0]["all_reduce"] >= 1 and build["want"][0]["all_gather"] >= 1
 
 
 @pytest.mark.parametrize("arch", R.TP_LAYERS)
