@@ -69,6 +69,19 @@ non-zero):
    the traditional engine's int8 exchange of stacked fields against the
    plain codec; guarded batches (one ``{"many": [...]}`` line, each record
    with the card's name and power limit);
+   "dns" — the example twins (``repro_torch.examples``): the Navier-Stokes
+   twin's RK2 Taylor-Green DNS at 256 modes on the 384^3 grid, 8 steps of
+   dt 5e-4 (the example's 5e-3 is outside RK2's viscous bound there), in
+   the example's configuration (cuFFT, no kernel), the slice configuration
+   (K4) and with a bf16 wire (K1, K3, K4): the example's checks, the slice
+   run's energies within 1e-5 of the example's at every step and the bf16
+   run's within the bound of its wire's roundings, one step's launches and
+   collectives exactly as the plan counts, a step's ms and a RHS's three
+   batched transforms timed; the quickstart twin in the example's and the
+   slice configuration; the Poisson twin at (64, 512, 512) (one ``{"dns":
+   [...]}`` line); then "audit" — the run-time plan audit
+   (``repro_torch.analysis.planlint``) of every example plan, any violation
+   failing the run (one ``{"audit": [...]}`` line);
    then the time model's constants measured on this card (one
    ``{"coeffs"}`` line: a 1 GiB device copy, ``torch.fft.fft`` on 262144
    rows of 512, one 4 KiB ``all_to_all_single`` on the device alone, by the
@@ -203,7 +216,8 @@ non-zero):
    (192, 128), Zamba2's 32 kv heads of 80, LLaVA-NeXT's 56 / 8 over 4096
    positions, SeamlessM4T's 16 / 16 of 64), and once at the prefill_32k
    length, and its fp32 design at the first prefill's shape; K1, K3 and K4 at every shape the tune path launched them at, one
-   record per call signature with that signature's launches): launches
+   record per call signature with that signature's launches, and so at
+   every shape the dns path's bf16 run launched them at): launches
    from their path,
    error against the plain version, kernel / plain / library times and the
    bound (one ``{"kernels": [...]}`` line; before it, K4's general design at
@@ -326,6 +340,43 @@ K5_SWEEP = ((24, 24, 8), (7, 13, 3), (64, 48, 40), (512, 33, 1), (4096, 32, 8), 
 # 256 retained modes per axis on the 3/2-rule grid of 384
 DNS_N, DNS_M = 256, 384
 BATCH_FUSIONS = ("stacked", "pipelined-across-fields", "per-field")
+# the dns path: the Navier-Stokes twin's RK2 Taylor-Green DNS on the many path's
+# plan, DNS_STEPS steps in three configurations: the example's own (cuFFT, no
+# kernel), the slice configuration (K4) and it with a bf16 wire (K1, K3, K4)
+DNS_STEPS = 8
+# explicit RK2 is stable for the viscous term while dt nu k_max^2 <= 2, k_max^2
+# = 3 (DNS_N / 2)^2: the example's dt = 5e-3 (0.19 of the bound at its 32
+# modes) is 12.3 at 256 modes, and the round-off in the highest modes grows
+# 64x a step; 5e-4 is 0.61 of the bound
+DNS_DT = 5e-4
+DNS_NU = 0.05  # the example's viscosity
+DNS_CONFIGS = {"example": {"method": "fused"},
+               "slice": {"method": "fused", "impl": "matmul", "exchange_impl": "cuda"},
+               "slice_bf16": {"method": "fused", "impl": "matmul", "exchange_impl": "cuda",
+                              "comm_dtype": "bf16"}}
+# energies, relative: a lossless run against E0 = 0.125 (analytic) and K4's
+# against cuFFT's at every step (fp32 rounding); the bf16 run against the
+# lossless one: a coherent bound of its wire's roundings, written in PERF.md
+# before its first card run: the initial forward rounds each value twice (two
+# exchanges) and the energy is quadratic, 2 x 2 x 2^-9; each step adds dt x 2
+# (dE/dt = 2 u . rhs) x 2 (|conv| / |u| <= 2 on Taylor-Green's lowest modes) x
+# 4 roundings (two exchanges there and back) x 2^-9.  (bf16's unit roundoff is
+# 2^-8, not the 2^-9 written then: the limit stays as written, not loosened.)
+TOL_DNS = 1e-5
+TOL_DNS_BF16 = 2 * 2 * 2.0 ** -9 + DNS_STEPS * DNS_DT * 2 * 2 * 4 * 2.0 ** -9
+# the bf16 run's energy decrements E_k - E_0 against the example run's,
+# relative, at every step (a frozen step gives 1): with bf16's unit roundoff
+# u = 2^-8, (a) the initial forward rounds each value at two exchanges and a
+# decrement is proportional to the energy (Taylor-Green's sits at k^2 = 3):
+# 2 x 2 u; (b) a RHS's convective term passes six roundings (two exchanges in
+# each of its three batched transforms), so its error in dE/dt is at most
+# 6 u |conv| |u| = 6 u sqrt(3/8) |u|^2 (|conv| / |u| = sqrt(3/8) for
+# Taylor-Green at t = 0, mean-square norms), against the viscous decay
+# nu k^2 |u|^2 = 3 nu |u|^2: 6 u sqrt(3/8) / (3 nu)
+TOL_DNS_BF16_DECAY = 4 * 2.0 ** -8 + 6 * 2.0 ** -8 * math.sqrt(3 / 8) / (3 * DNS_NU)
+# the twins beside it: the quickstart at its own size in the example's and the
+# slice configuration, Poisson at (64, 512, 512) in the slice configuration
+POISSON_SHAPE = (64, 512, 512)
 # the per-signature records of the tune and serve paths (several hundred, most
 # at the quickstart's microsecond shapes, where a timing run is host-bound):
 # the median of SHAPE_REPS runs each
@@ -473,15 +524,17 @@ def main():
 
     lm_info, moe_info, mla_info, ssm_info, hybrid_info, vlm_info, audio_info = (
         {}, {}, {}, {}, {}, {}, {})
-    many, tune, tune_shapes, serve, serve_shapes = [], [], {}, [], {}
+    many, tune, tune_shapes, serve, serve_shapes, dns_shapes = [], [], {}, [], {}, {}
     paths = phase("paths", run_paths, torch, lm_info, moe_info, mla_info, ssm_info, hybrid_info,
-                  vlm_info, audio_info, many, tune, tune_shapes, serve, serve_shapes, card)
+                  vlm_info, audio_info, many, tune, tune_shapes, serve, serve_shapes, dns_shapes,
+                  card)
     print(json.dumps({"paths": paths}))
     print(json.dumps({"many": [{**r, "card": card} for r in many]}))
     print(json.dumps({"tune": [{**r, "card": card} for r in tune]}))
     print(json.dumps({"serve": [{**r, "card": card} for r in serve]}))
 
-    kernels = phase("kernels", main_path_kernels, torch, paths, tune_shapes, serve_shapes)
+    kernels = phase("kernels", main_path_kernels, torch, paths, tune_shapes, serve_shapes,
+                    dns_shapes)
     print(json.dumps({"k4_general_rows": phase("k4_general_rows", k4_general_rows, torch)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"lm_breakdown": lm_breakdown(kernels, lm_info, "lm")}))
@@ -942,9 +995,11 @@ def _nccl_world_one():
 
 
 def run_paths(torch, lm_info, moe_info, mla_info, ssm_info, hybrid_info, vlm_info, audio_info,
-              many, tune, tune_shapes, serve, serve_shapes, card):
+              many, tune, tune_shapes, serve, serve_shapes, dns_shapes, card):
     """Drive the five FFT paths on a 1-rank NCCL group (the composed path
-    prints its records, the many path fills ``many`` with its), measure the time model's coefficients (one
+    prints its records, the many path fills ``many`` with its), the dns path
+    (its K1, K3 and K4 launches by call into ``dns_shapes``) and the audit
+    of the example plans, measure the time model's coefficients (one
     ``{"coeffs"}`` line), drive the tune path on the same group (it fills
     ``tune`` and, with its launches by call, ``tune_shapes``), the serve path
     (``serve``, ``serve_shapes`` likewise), then the LM paths (which fill
@@ -970,6 +1025,17 @@ def run_paths(torch, lm_info, moe_info, mla_info, ssm_info, hybrid_info, vlm_inf
         paths["many"] = _drive(torch, "many", many_path, mesh, many)
         gc.collect()
         torch.cuda.empty_cache()
+        dns = []
+        paths["dns"] = _drive(torch, "dns", dns_path, mesh, dns, dns_shapes)
+        print(json.dumps({"dns": [{**r, "card": card} for r in dns]}))
+        gc.collect()
+        torch.cuda.empty_cache()
+        ran = {k for (k, *_), r in dns_shapes.items() if r["launches"]}
+        if ran != {"K1", "K3", "K4"}:
+            fail(f"dns: the bf16 run launched {sorted(ran)}, want K1, K3 and K4")
+        audit = []
+        paths["audit"] = _drive(torch, "audit", audit_path, mesh, audit)
+        print(json.dumps({"audit": [{**r, "card": card} for r in audit]}))
         print(json.dumps({"coeffs": {**measure_coeffs(torch), "card": card}}))
         torch.cuda.empty_cache()
         paths["tune"] = _drive(torch, "tune", tune_path, mesh, tune, uniform, tune_shapes)
@@ -1445,18 +1511,15 @@ def guard_path(torch, mesh):
 
 
 def _dns_plan(mesh, comm, fusion, **config):
-    """examples/navier_stokes.py's plan at DNS_M^3: pruned(DNS_N) on the
-    first two axes, r2c keeping DNS_N / 2 + 1 bins on the last (``config``
-    overrides the plan's other fields)."""
-    from repro_torch.core.fftcore import TransformSpec
-    from repro_torch.core.pfft import ParallelFFT
+    """The DNS twin's plan (``navier_stokes.dns_plan``) at DNS_N modes on
+    the DNS_M^3 grid: pruned(DNS_N) on the first two axes, r2c keeping
+    DNS_N / 2 + 1 bins on the last (``config`` overrides the plan's other
+    fields)."""
     from repro_torch.core.planconfig import PlanConfig
+    from repro_torch.examples.navier_stokes import dns_plan
 
     cfg = {"method": "fused", "impl": "matmul", "exchange_impl": "cuda", **config}
-    return ParallelFFT(mesh, (DNS_M,) * 3, ("p0", "p1"),
-                       config=PlanConfig(comm_dtype=comm, batch_fusion=fusion, **cfg),
-                       transforms=(TransformSpec.pruned(DNS_N), TransformSpec.pruned(DNS_N),
-                                   TransformSpec.r2c(n_keep=DNS_N // 2 + 1)))
+    return dns_plan(mesh, DNS_N, PlanConfig(comm_dtype=comm, batch_fusion=fusion, **cfg))
 
 
 def _codec_designs(torch, plan, direction, nfields, codec):
@@ -1492,27 +1555,6 @@ def _codec_designs(torch, plan, direction, nfields, codec):
             calls * xops.ENCODE_KERNELS[codec])
         want[f"decode:{dec}:{codec}"] += calls
     return want
-
-
-class _CountedCollectives:
-    """Counts ``torch.distributed.all_to_all_single`` calls while active."""
-
-    def __enter__(self):
-        import torch.distributed as dist
-
-        self.n, self._real = 0, dist.all_to_all_single
-
-        def counted(*args, **kwargs):
-            self.n += 1
-            return self._real(*args, **kwargs)
-
-        dist.all_to_all_single = counted
-        return self
-
-    def __exit__(self, *exc):
-        import torch.distributed as dist
-
-        dist.all_to_all_single = self._real
 
 
 class _LaunchesByShape:
@@ -1575,7 +1617,9 @@ def _many_call(torch, fn, want_designs, want_collectives, k4_design, what):
 
     k4, designs = dict(fops.design_launches), {k: dict(c) for k, c in (
         ("enc", xops.design_launches), ("dec", xops.decode_design_launches))}
-    with _CountedCollectives() as cc:
+    from repro_torch.analysis.planlint import CollectiveRecorder
+
+    with CollectiveRecorder() as cc:
         out = fn()
         torch.cuda.synchronize()
     k4_ran = {k: n - k4.get(k, 0) for k, n in fops.design_launches.items() if n != k4.get(k, 0)}
@@ -1734,6 +1778,162 @@ def many_path(torch, mesh, records):
                     "transitions": [t.get("tripped") for t in rep.transitions],
                     "rel_l2_vs_lossless": err})
     del x3, yu, yc, yd
+
+
+def _energies_within(a, b, tol):
+    """Largest relative difference of two energy histories, and whether it is
+    within ``tol``."""
+    worst = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    return worst, worst <= tol
+
+
+def _decrements(energies):
+    """An energy history's decrements ``E_k - E_0``, k >= 1."""
+    return [e - energies[0] for e in energies[1:]]
+
+
+def dns_path(torch, mesh, records, shapes):
+    """The example twins on the card: (a) the Navier-Stokes twin's RK2
+    Taylor-Green DNS (``repro_torch.examples.navier_stokes.run``) at DNS_N
+    modes on the DNS_M^3 grid, DNS_STEPS steps of DNS_DT, in each of DNS_CONFIGS, the
+    example's checks held (E0 = 0.125 within TOL_DNS on the lossless runs, a
+    monotone decay, max|div| < 1e-3 sqrt(E0), the initial rate within 10 %
+    of 6 nu, the batched forward bitwise the per-field loop on the lossless
+    runs, the guarded demo's recovery on them), the slice run's energies
+    within TOL_DNS of the example's at every step and the bf16 run's within
+    TOL_DNS_BF16, its decrements E_k - E_0 within TOL_DNS_BF16_DECAY; one step's K1/K3/K4 launches and collectives exactly as
+    the plan counts; a step's ms and a RHS's split into its three batched
+    transforms and the rest (``cuda_ms``); the bf16 run's K1, K3 and K4
+    launches by call into ``shapes``; (b) the quickstart twin in the
+    example's and the slice configuration; (c) the Poisson twin at
+    POISSON_SHAPE in the slice configuration, max|u - u*| < 1e-3.  One
+    record each into ``records``."""
+    from repro_torch.analysis.planlint import CollectiveRecorder
+    from repro_torch.core.planconfig import PlanConfig
+    from repro_torch.examples import navier_stokes as ns, poisson, quickstart
+
+    energies = {}
+    for name, fields in DNS_CONFIGS.items():
+        cfg = PlanConfig(**fields)
+        lossless = cfg.comm_dtype == "complex64"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        log = _LaunchesByShape(shapes) if name == "slice_bf16" else contextlib.nullcontext()
+        with log:
+            out = ns.run(mesh, DNS_N, nu=DNS_NU, dt=DNS_DT, steps=DNS_STEPS, config=cfg,
+                         guard_demo=lossless)
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        energies[name] = out["energies"]
+        what = f"dns {name}"
+        checks = dict(out["checks"])
+        if lossless:
+            checks["E0"] = abs(out["E0"] - 0.125) <= TOL_DNS * 0.125
+        else:
+            checks.pop("bitwise_batched")  # reported, not required of a lossy wire
+        if not all(checks.values()):
+            fail(f"{what}: checks {checks} (E0 {out['E0']}, div {out['div']}, rate {out['rate']}, "
+                 f"guarded {out.get('guarded')})")
+
+        # one step: launches and collectives exactly as the plan counts them
+        plan = ns.dns_plan(mesh, DNS_N, cfg)
+        tg = ns.TaylorGreen(plan, DNS_N, nu=DNS_NU, dt=DNS_DT)
+        u_hat = tg.project(tg.fwd3(tg.initial()))
+        tg.step(u_hat)
+        torch.cuda.synchronize()
+        before = _count_snapshot()
+        with CollectiveRecorder() as cc:
+            tg.step(u_hat)
+            torch.cuda.synchronize()
+        after = _count_snapshot()
+        grew = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+        got = {"fourstep": sum(n for k, n in grew.items() if k.startswith(("tc:", "general:"))),
+               "encode": sum(n for k, n in grew.items() if k.startswith("pack_chunks:")),
+               "decode": sum(n for k, n in grew.items() if k.startswith("unpack_chunks:"))}
+        one = _want_launches(plan, cfg.comm_dtype) if cfg.impl == "matmul" else {
+            "fourstep": 0, "encode": 0, "decode": 0}
+        if cfg.exchange_impl != "cuda" or lossless:
+            one = {**one, "encode": 0, "decode": 0}
+        want = {k: 6 * v for k, v in one.items()}  # 2 RHS x 3 batched calls a step
+        want_colls = 2 * sum(plan.model_collective_launches(nfields=nf, direction=d)
+                             for nf, d in ((3, "backward"), (9, "backward"), (3, "forward")))
+        if got != want or cc.n != want_colls:
+            fail(f"{what}: a step launched {got} with {cc.n} collectives, the plan counts "
+                 f"{want} and {want_colls}")
+
+        # a step, and a RHS split into its three batched transforms and the rest
+        step_ms = cuda_ms(torch, lambda: tg.step(u_hat), reps=3)
+        rhs_ms = cuda_ms(torch, lambda: tg.rhs(u_hat), reps=3)
+        u = tg.bwd3(u_hat)
+        ik = tg.gradient_hat(u_hat)
+        grads = tg.bwd9(ik).reshape(3, 3, *u.shape[1:])
+        conv = tg.convection(u, grads)
+        calls = {"bwd3": cuda_ms(torch, lambda: tg.bwd3(u_hat), reps=3),
+                 "bwd9": cuda_ms(torch, lambda: tg.bwd9(ik), reps=3),
+                 "fwd3": cuda_ms(torch, lambda: tg.fwd3(conv), reps=3)}
+        conv_ms = cuda_ms(torch, lambda: tg.convection(u, grads), reps=3)
+        del grads
+        records.append({"case": "taylor_green", "config": name, "plan_config": fields,
+                        "N": DNS_N, "M": DNS_M, "steps": DNS_STEPS, "nu": out["nu"],
+                        "dt": out["dt"], "energies": out["energies"], "E0": out["E0"],
+                        "div": out["div"], "rate": out["rate"],
+                        "bitwise_batched": out["bitwise_batched"], "checks": checks,
+                        "guarded": out.get("guarded"), "launches_per_step": got,
+                        "collectives_per_step": cc.n, "step_ms": step_ms, "rhs_ms": rhs_ms,
+                        "rhs_calls_ms": calls, "rhs_rest_ms": rhs_ms - sum(calls.values()),
+                        "convection_ms": conv_ms,
+                        "run_s": run_s, "peak_gib": peak})
+        del tg, plan, u_hat, u, ik, conv
+        gc.collect()
+        torch.cuda.empty_cache()
+    worst, ok = _energies_within(energies["slice"], energies["example"], TOL_DNS)
+    worst16, ok16 = _energies_within(energies["slice_bf16"], energies["example"], TOL_DNS_BF16)
+    decay16, okd = _energies_within(*(_decrements(energies[k]) for k in ("slice_bf16", "example")),
+                                    TOL_DNS_BF16_DECAY)
+    records.append({"case": "taylor_green_vs_example", "slice_max_rel": worst, "limit": TOL_DNS,
+                    "slice_bf16_max_rel": worst16, "limit_bf16": TOL_DNS_BF16,
+                    "slice_bf16_decrement_max_rel": decay16,
+                    "limit_bf16_decrement": TOL_DNS_BF16_DECAY})
+    if not (ok and ok16 and okd):
+        fail(f"dns: energies vs the example's run: slice {worst} (<= {TOL_DNS}), bf16 {worst16} "
+             f"(<= {TOL_DNS_BF16}), bf16 decrements {decay16} (<= {TOL_DNS_BF16_DECAY})")
+
+    for name in ("example", "slice"):
+        cfg = PlanConfig(**DNS_CONFIGS[name])
+        out = quickstart.run(mesh, cfg)
+        out.pop("plan")
+        if not out["ok"]:
+            fail(f"quickstart {name}: outside the example's limits {out}")
+        records.append({"case": "quickstart", "config": name, **out})
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = poisson.run(mesh, PlanConfig(**DNS_CONFIGS["slice"]), shape=POISSON_SHAPE)
+    torch.cuda.synchronize()
+    out.pop("plan")
+    if not out["ok"]:
+        fail(f"poisson {POISSON_SHAPE}: max|u - u*| = {out['err']} (< {poisson.TOL})")
+    records.append({"case": "poisson", "config": "slice", **out,
+                    "seconds": time.perf_counter() - t0,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    torch.cuda.empty_cache()
+
+
+def audit_path(torch, mesh, records):
+    """The run-time plan audit (``repro_torch.analysis.planlint``) of every
+    example plan on this rank: any violation fails the run.  At M = 1 the
+    wire bytes are 0 and the lossless pack of a contiguous block is a
+    view."""
+    from repro_torch.analysis import planlint
+
+    for label, (plan, nfields) in planlint.example_plans(mesh).items():
+        rep = planlint.audit_plan(plan, nfields=nfields, label=label)
+        records.append({"plan": label, "nfields": nfields, **rep.summary(),
+                        "schedule": [list(e) for e in rep.schedule]})
+        if not rep.ok:
+            fail(f"audit {label}: {[v.to_dict() for v in rep.violations]}")
+    torch.cuda.synchronize()
 
 
 def _traditional_int8_stacked(torch, mesh):
@@ -1919,6 +2119,7 @@ def tune_path(torch, mesh, records, uniform, shapes):
     K4 launches by the arguments of each call (``_LaunchesByShape``)."""
     import numpy as np
 
+    from repro_torch.analysis.planlint import CollectiveRecorder
     from repro_torch.core import modelfit, tuner
     from repro_torch.core.pfft import ParallelFFT
     from repro_torch.core.planconfig import PlanConfig
@@ -2048,7 +2249,7 @@ def tune_path(torch, mesh, records, uniform, shapes):
             if n_timed != plan.n_exchanges * len(cands) or any(e not in cands for e in bsched):
                 fail(f"tune dns: {n_timed} stage timings (want {plan.n_exchanges} x {len(cands)}), "
                      f"schedule {bsched}")
-            with _CountedCollectives() as cc:
+            with CollectiveRecorder() as cc:
                 y3 = plan.forward_many(u3)
                 torch.cuda.synchronize()
             want_colls = plan.model_collective_launches(nfields=3)
@@ -3641,7 +3842,7 @@ def _record(name, source, replaces, path, launches, err, ms, plain_ms, bound, li
             "library_ms": library_ms, **extra}
 
 
-def main_path_kernels(torch, paths, tune_shapes, serve_shapes):
+def main_path_kernels(torch, paths, tune_shapes, serve_shapes, dns_shapes):
     from repro_torch.kernels.exchange import ops as xops, ref as xref
     from repro_torch.kernels.fft import ops as fops, ref as fref
 
@@ -3758,6 +3959,7 @@ def main_path_kernels(torch, paths, tune_shapes, serve_shapes):
     kernels.append(_flash_fp32_record(torch, paths))
     kernels += _shape_records(torch, tune_shapes, "tune")
     kernels += _shape_records(torch, serve_shapes, "serve")
+    kernels += _shape_records(torch, dns_shapes, "dns")
 
     for k in kernels:
         if k["path"] is not None and k["launches"] < 1:

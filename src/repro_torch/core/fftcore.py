@@ -201,6 +201,21 @@ def _irfft(x, axis, n, impl):
     return fft_ops.irfft_matmul(x, n=n, axis=axis)
 
 
+def pad_axis(x: torch.Tensor, axis: int, n: int, *, contiguous: bool = False) -> torch.Tensor:
+    """``x`` zero-padded at the end of ``axis`` to length ``n``;
+    ``contiguous=True`` returns a contiguous block, in one copy at most."""
+    if x.shape[axis] == n:
+        return x.contiguous() if contiguous else x
+    if not contiguous:
+        # F.pad lists the last axis first
+        return torch.nn.functional.pad(x, [0, 0] * (x.dim() - 1 - axis) + [0, n - x.shape[axis]])
+    shape = list(x.shape)
+    shape[axis] = n
+    out = x.new_zeros(shape)
+    out.narrow(axis, 0, x.shape[axis]).copy_(x)
+    return out
+
+
 def _zero_extend(y, axis, n):
     """``y`` zero-padded at the end of ``axis`` to length ``n``."""
     shape = list(y.shape)

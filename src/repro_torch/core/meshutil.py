@@ -18,7 +18,11 @@ group, its size and the order of ``all_to_all_single``'s dim-0 chunks.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
+import shutil
+import tempfile
 from typing import NamedTuple
 
 import torch
@@ -32,6 +36,33 @@ def balanced_dims(ndev: int) -> tuple[int, int]:
     while ndev % a:
         a -= 1
     return a, ndev // a
+
+
+@contextlib.contextmanager
+def default_group(device: str = "cuda"):
+    """The default process group for the span of the block, for a CLI: from
+    ``torchrun``'s environment when it is set (NCCL on ``"cuda"``, the card
+    of ``LOCAL_RANK``; gloo on ``"cpu"``), else one rank over a file in a
+    temporary directory, destroyed on exit.  A group the caller already
+    initialized is used as it is and left up."""
+    if dist.is_initialized():
+        yield
+        return
+    backend = "nccl" if device == "cuda" else "gloo"
+    tmp = None
+    if "WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ:
+        if device == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        tmp = tempfile.mkdtemp(prefix="repro_torch_group_")
+        dist.init_process_group(backend, init_method=f"file://{tmp}/pg", rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 def make_mesh(shape: tuple[int, ...], names: tuple[str, ...], *,

@@ -58,7 +58,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core import fftcore
-from repro_torch.core.decomp import pad_to_multiple
+from repro_torch.core.decomp import local_lengths, pad_to_multiple
 from repro_torch.core.fftcore import TransformSpec, as_spec
 from repro_torch.core.meshutil import mesh_device
 from repro_torch.core.pencil import (Group, Pencil, allgather_global, group_size, make_pencil,
@@ -69,8 +69,8 @@ from repro_torch.core.quant import canonical_comm_dtype
 from repro_torch.core.redistribute import (exchange_collective_launches,
                                            exchange_local_copy_elems, exchange_shard,
                                            exchange_shard_sliced, exchange_shard_start,
-                                           exchange_time_model, exchange_wire_bytes,
-                                           pipeline_slices)
+                                           exchange_takes_any_layout, exchange_time_model,
+                                           exchange_wire_bytes, pipeline_slices)
 from repro_torch.robustness import faults, health
 
 
@@ -453,7 +453,8 @@ class ParallelFFT:
         ``comm_dtype``.  ``method`` adds that engine's local copies
         (:func:`~repro_torch.core.redistribute.exchange_local_copy_elems`);
         ``itemsize=None`` prices each stage at its dtype (complex64 8, a
-        still-real float32 stage 4); ``nfields`` stacks fields.  Pure
+        still-real float32 stage 4); ``nfields`` stacks fields; a pipelined
+        ``method`` is priced at the plan's ``chunks``.  Pure
         arithmetic: a byte count never triggers the tuner."""
         if comm_dtype is None:
             batched = self._batched_sched_memo.get(nfields) if nfields > 1 else None
@@ -479,7 +480,8 @@ class ParallelFFT:
                                          nfields=nfields, slices=slices)
             ex_i += 1
             if method is not None:
-                total += exchange_local_copy_elems(src, st.v, st.w, method=method) * isz * nfields
+                total += (exchange_local_copy_elems(src, st.v, st.w, method=method,
+                                                    chunks=self.chunks) * isz * nfields)
         return total
 
     def model_time_s(self, *, itemsize: int | None = None, peak_flops: float = PEAK_FLOPS,
@@ -562,6 +564,17 @@ class ParallelFFT:
                 nfields=nfields, batch_fusion=fusion)
         return total
 
+    def audit(self, *, nfields: int = 1, direction: str = "forward", schedule=None):
+        """Audit one run of this plan's executor against its schedule
+        contracts (collective counts, wire bytes, the engine's copies, dtype
+        flow, guard and kernel containment): a thin wrapper of
+        :func:`repro_torch.analysis.planlint.audit_plan`, returning its
+        :class:`~repro_torch.analysis.planlint.AuditReport`.  Collective:
+        every rank calls it alike."""
+        from repro_torch.analysis.planlint import audit_plan
+
+        return audit_plan(self, nfields=nfields, direction=direction, schedule=schedule)
+
 
 def _repad(pencil: Pencil, axis: int, divisor: int) -> Pencil:
     m = divisor
@@ -600,6 +613,20 @@ def _run_stages(block, *, stages, pencils, schedule, impl, sign, mesh, nbatch=0,
     energy_in = health.block_energy(block) if lossy else zero
     per_stage = []
     ex_i = i = 0
+
+    def contiguous_before(j, k):
+        """Whether the transform at stage ``j`` hands on a contiguous block:
+        stage ``j + 1`` is the ``k``-th exchange and takes its block as it
+        lies (a strided view would be copied by its pack, outside every
+        contract; ``exchange_takes_any_layout``)."""
+        ex = stages[j + 1] if j + 1 < len(stages) else None
+        if not isinstance(ex, ExchangeStage):
+            return False
+        method, chunks, comm_dtype, ex_impl, fusion = schedule[k]
+        return not exchange_takes_any_layout(
+            pencils[j + 1], ex.v, ex.w, method=method, chunks=chunks, comm_dtype=comm_dtype,
+            impl=ex_impl, nbatch=nbatch if fusion == "stacked" else 0)
+
     while i < len(stages):
         st = stages[i]
         if isinstance(st, ExchangeStage):
@@ -609,13 +636,14 @@ def _run_stages(block, *, stages, pencils, schedule, impl, sign, mesh, nbatch=0,
                 block, st, fft_st, pencils[i + 1],
                 pencils[i + 2] if fft_st is not None else None,
                 schedule[ex_i], impl=impl, sign=sign, mesh=mesh, nbatch=nbatch, guard=guard,
-                stage_index=ex_i)
+                stage_index=ex_i,
+                contiguous=fft_st is not None and contiguous_before(i + 1, ex_i + 1))
             per_stage.append(stats)
             ex_i += 1
             i += 2 if fft_st is not None else 1
         else:
             block = _fft_padded_axis(block, st, pencils[i], pencils[i + 1], impl=impl, sign=sign,
-                                     nbatch=nbatch)
+                                     nbatch=nbatch, contiguous=contiguous_before(i, ex_i))
             i += 1
     if not guard:
         return block
@@ -627,12 +655,13 @@ def _run_stages(block, *, stages, pencils, schedule, impl, sign, mesh, nbatch=0,
 
 def _run_exchange_stage(block, ex: ExchangeStage, fft_st: FFTStage | None, mid: Pencil,
                         after: Pencil | None, entry: StageEntry, *, impl, sign, mesh, nbatch=0,
-                        guard=False, stage_index=None):
+                        guard=False, stage_index=None, contiguous=False):
     """One exchange stage (+ the FFT of its newly aligned axis) under one
     schedule entry; returns ``(block, stats)``, ``stats`` None unless
     ``guard``.  A stacked block (``nbatch=1``) goes through the entry's
-    ``batch_fusion`` mode (module docstring).  The fault taps return their
-    input when no FaultPlan is armed."""
+    ``batch_fusion`` mode (module docstring).  ``contiguous``: the output
+    block must be contiguous (:func:`_fft_padded_axis`).  The fault taps
+    return their input when no FaultPlan is armed."""
     method, chunks, comm_dtype, ex_impl, fusion = entry
     with faults.stage_context(stage_index, method, comm_dtype):
         faults.check_compile(method, comm_dtype)
@@ -643,24 +672,27 @@ def _run_exchange_stage(block, ex: ExchangeStage, fft_st: FFTStage | None, mid: 
                                impl=impl, sign=sign, mesh=mesh, guard=guard)
         return _exchange_and_fft(block, ex, fft_st, mid, after, method=method, chunks=chunks,
                                  comm_dtype=comm_dtype, exchange_impl=ex_impl, impl=impl,
-                                 sign=sign, mesh=mesh, nbatch=nbatch, guard=guard)
+                                 sign=sign, mesh=mesh, nbatch=nbatch, guard=guard,
+                                 contiguous=contiguous)
 
 
 def _exchange_and_fft(block, ex: ExchangeStage, fft_st: FFTStage | None, mid: Pencil,
                       after: Pencil | None, *, method, chunks, comm_dtype, exchange_impl, impl,
-                      sign, mesh, nbatch, guard):
+                      sign, mesh, nbatch, guard, contiguous=False):
     """One exchange of ``block`` (every field of a stacked block at once),
     then the FFT of its newly aligned axis; a chunked pipelined engine
     interleaves its slices with that FFT.  Returns ``(block, stats)``."""
     if fft_st is not None and method == "pipelined" and chunks > 1:
         return _exchange_then_fft(block, ex, fft_st, mid, after, chunks=chunks,
                                   comm_dtype=comm_dtype, exchange_impl=exchange_impl, impl=impl,
-                                  sign=sign, mesh=mesh, nbatch=nbatch, guard=guard)
+                                  sign=sign, mesh=mesh, nbatch=nbatch, guard=guard,
+                                  contiguous=contiguous)
     res = exchange_shard(block, ex.v, ex.w, ex.group, mesh=mesh, method=method, chunks=chunks,
                          comm_dtype=comm_dtype, nbatch=nbatch, impl=exchange_impl, guard=guard)
     block, stats = res if guard else (res, None)
     if fft_st is not None:
-        block = _fft_padded_axis(block, fft_st, mid, after, impl=impl, sign=sign, nbatch=nbatch)
+        block = _fft_padded_axis(block, fft_st, mid, after, impl=impl, sign=sign, nbatch=nbatch,
+                                 contiguous=contiguous)
     return block, stats
 
 
@@ -709,29 +741,44 @@ def _run_fields(block, ex: ExchangeStage, fft_st: FFTStage | None, mid: Pencil,
 
 
 def _exchange_then_fft(block, ex: ExchangeStage, fft_st: FFTStage, mid: Pencil, after: Pencil,
-                       *, chunks, comm_dtype, exchange_impl, impl, sign, mesh, nbatch=0, guard):
+                       *, chunks, comm_dtype, exchange_impl, impl, sign, mesh, nbatch=0, guard,
+                       contiguous=False):
     """Pipelined exchange fused with the next stage's 1-D FFT: every
     slice's collective is issued, then each slice's FFT is issued right
     after its wait, before the wait of the next slice, so the card can run
     slice ``i + 1``'s collective under slice ``i``'s FFT.  Slicing commutes
     with the FFT along ``w``, so the concat equals the unpipelined result
     (bitwise for lossless payloads).  With ``nbatch=1`` each slice carries
-    every field's sub-range."""
+    every field's sub-range.  ``contiguous``: the output block is
+    contiguous (the slices are concatenated in the block's own order; one
+    slice is the transform's, :func:`_fft_padded_axis`)."""
+    b = block.shape[ex.v + nbatch] // group_size(mid.mesh, ex.group)
+    whole = len([n for n in local_lengths(b, max(1, min(chunks, b))) if n > 0]) == 1
     res = exchange_shard_sliced(
         block, ex.v, ex.w, ex.group, mesh=mesh, chunks=chunks, comm_dtype=comm_dtype,
         nbatch=nbatch, guard=guard, impl=exchange_impl,
         then=lambda p: _fft_padded_axis(p, fft_st, mid, after, impl=impl, sign=sign,
-                                        nbatch=nbatch))
+                                        nbatch=nbatch, contiguous=contiguous and whole))
     out, stats = res if guard else (res, None)
-    out = out[0] if len(out) == 1 else torch.cat(out, dim=ex.v + nbatch)
-    return out, stats
+    if len(out) > 1:
+        # into a contiguous buffer: torch.cat of 4-D moved views comes out
+        # channels-last, a strided block for the next exchange
+        shape = list(out[0].shape)
+        shape[ex.v + nbatch] = sum(p.shape[ex.v + nbatch] for p in out)
+        out = [torch.cat(out, dim=ex.v + nbatch, out=out[0].new_empty(shape))]
+    return out[0], stats
 
 
-def _fft_padded_axis(block, st: FFTStage, cur: Pencil, nxt: Pencil, *, impl, sign, nbatch=0):
+def _fft_padded_axis(block, st: FFTStage, cur: Pencil, nxt: Pencil, *, impl, sign, nbatch=0,
+                     contiguous=False):
     """One transform stage along a locally complete axis: slice to the
     logical extent, transform at the true length, zero-pad to the next
     physical extent.  ``st.axis`` is field-relative; ``nbatch`` leading
-    field axes transform in the same call."""
+    field axes transform in the same call.  The transform of an axis that
+    is not last leaves it moved back as a view; ``contiguous=True`` hands
+    on a contiguous block instead, for an exchange that takes its block as
+    it lies (:func:`~repro_torch.core.redistribute.exchange_takes_any_layout`),
+    as the reference's ``jnp.fft`` moves its axis back."""
     axis = st.axis + nbatch
     n_log_in = cur.logical[st.axis]
     if block.shape[axis] != cur.physical[st.axis]:
@@ -742,9 +789,4 @@ def _fft_padded_axis(block, st: FFTStage, cur: Pencil, nxt: Pencil, *, impl, sig
         block = torch.narrow(block, axis, 0, n_log_in)
     block = fftcore.local_transform(block, st.axis, sign, st.spec, n=st.n, impl=impl,
                                     nbatch=nbatch)
-    n_phys_out = nxt.physical[st.axis]
-    if block.shape[axis] != n_phys_out:
-        shape = list(block.shape)
-        shape[axis] = n_phys_out - block.shape[axis]
-        block = torch.cat([block, block.new_zeros(shape)], dim=axis)
-    return block
+    return fftcore.pad_axis(block, axis, nxt.physical[st.axis], contiguous=contiguous)

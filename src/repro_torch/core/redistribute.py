@@ -334,9 +334,7 @@ def pipeline_slices(src: Pencil, v: int, w: int, *, chunks: int) -> int:
     """Collectives the pipelined engine issues for this exchange: the
     nonempty pieces of the post-exchange shard ``b = n_v / m`` that
     :func:`exchange_shard_sliced` cuts."""
-    m = group_size(src.mesh, src.placement[w])
-    b = src.local_shape[v] // m
-    return len([n for n in local_lengths(b, max(1, min(chunks, b))) if n > 0])
+    return len(_slice_lengths(src, v, w, chunks))
 
 
 def exchange_collective_launches(src: Pencil, v: int, w: int, *, method: str = "fused",
@@ -356,46 +354,184 @@ def exchange_collective_launches(src: Pencil, v: int, w: int, *, method: str = "
     raise ValueError(f"unknown batch_fusion {batch_fusion!r}")
 
 
-def exchange_local_copy_elems(src: Pencil, v: int, w: int, *, method: str = "fused",
-                              comm_dtype=None, impl: str = "torch") -> int:
-    """Elements of local copies the engine pays on top of the wire payload
-    and the codec, counting the port's copies: traditional's pack and
-    unpack touch the local block twice, pipelined's concat of its slices
-    once, fused none; with ``impl="cuda"`` and a lossy payload the codec
-    kernels do traditional's pack and unpack (pipelined's concat remains).
+def _lead(shape, axis: int, nbatch: int) -> bool:
+    """Whether anything but extent 1 precedes ``axis`` of a block of
+    ``shape`` (stacked fields always do): moving the axis to the front, or
+    merging into it, is then a copy."""
+    return nbatch > 0 or math.prod(shape[:axis]) > 1
 
-    One case differs from the reference's count: a lossless (complex64)
-    fused or pipelined exchange over ``M > 1`` ranks packs with
-    ``movedim(...).contiguous()`` into chunk-major order and scatters with a
-    ``movedim``/``reshape``, two more passes over the local block (at
-    ``M = 1`` both are views).  ``all_to_all_single`` splits dim 0 only,
-    where the reference's all-to-all takes the split axis itself.
 
-    The other: a composed group out of mesh order (``("p1", "p0")``, see
-    :func:`repro_torch.core.meshutil.in_mesh_order`) gathers its wire
-    buffer's chunks into the group's rank order before the send and back
-    after the receive.  On a lossy wire that is two passes over the payload
-    (``2 * local / wire_ratio`` elements of the block's width; int8's
-    ``(M, F)`` scales, a few floats, are not counted); on a lossless one the
-    send's gather takes the place of the fused and pipelined engines' pack,
-    leaving one pass, and two for traditional, whose pack comes before.
-    A group in mesh order pays nothing more.  Every other case equals the
-    reference's count."""
-    local = math.prod(src.local_shape)
+def _slice_lengths(src: Pencil, v: int, w: int, chunks: int) -> list[int]:
+    """The pipelined engine's nonempty slices of the post-exchange shard."""
+    b = src.local_shape[v] // group_size(src.mesh, src.placement[w])
+    return [n for n in local_lengths(b, max(1, min(chunks, b))) if n > 0]
+
+
+def _engine_copies(src: Pencil, v: int, w: int, *, method: str, chunks: int,
+                   transposed_out: bool, nbatch: int, comm_dtype, impl: str):
+    """``(copies, concats, scale_gathers)`` of one exchange of a contiguous
+    block as the port makes them: ``copies`` and ``concats`` lists of the
+    elements each copy or concatenate materializes, counted at the local
+    block's width (a lossy payload's copy is ``local / wire_ratio`` of
+    them), and the number of ``index_select`` gathers of int8's ``(M, F)``
+    scales beside them.  A stacked block (``nbatch``) holds more than one
+    field."""
     d = canonical_comm_dtype(comm_dtype)
-    if impl == "cuda" and d != "complex64":
-        copies = {"fused": 0, "pipelined": local, "traditional": 0}.get(method, 0)
-    else:
-        copies = {"fused": 0, "pipelined": local, "traditional": 2 * local}.get(method, 0)
-    grp = src.placement[w]
-    if d == "complex64" and method in ("fused", "pipelined") and group_size(src.mesh, grp) > 1:
-        copies += 2 * local
-    if not in_mesh_order(src.mesh, group_names(grp)):
-        if d != "complex64":
-            copies += 2 * local // wire_ratio(d)
-        else:
-            copies += 2 * local if method == "traditional" else local
-    return copies
+    m = group_size(src.mesh, src.placement[w])
+    local = math.prod(src.local_shape)
+    ordered = in_mesh_order(src.mesh, group_names(src.placement[w]))
+    dst = src.exchanged(v, w)
+
+    def wire(n_elems):
+        """The gathers of a group out of mesh order around one collective of
+        ``n_elems`` block elements: send and receive, payload and scales."""
+        if ordered or m == 1:
+            return [], 0
+        size = n_elems if d == "complex64" else n_elems // wire_ratio(d)
+        return [size, size], 2 if d == "int8" else 0
+
+    if method not in ("fused", "traditional", "pipelined"):
+        raise ValueError(f"unknown method {method!r}")
+    # the pack into chunk-major order (``movedim(...).contiguous()``) moves
+    # data unless the chunk axis already leads
+    pack = m > 1 and _lead(src.local_shape, v, nbatch)
+    kernels = impl == "cuda" and d != "complex64"
+    if method == "fused" or (method == "traditional" and kernels):
+        copies, scales = wire(local)
+        if d == "complex64":
+            # the send's gather takes the pack's place out of mesh order
+            if ordered and pack:
+                copies.append(local)
+            if m > 1 and _lead(dst.local_shape, w, nbatch):  # the scatter into w
+                copies.append(local)
+        return copies, [], scales
+    if method == "traditional":  # Eq. 16's pack and Eq. 17's unpack
+        copies, scales = wire(local)
+        if pack:
+            copies.append(local)
+        if m > 1 and not transposed_out and _lead(dst.local_shape, w, nbatch):
+            copies.append(local)
+        return copies, [], scales
+    sizes = _slice_lengths(src, v, w, chunks)
+    b = sum(sizes)
+    # one slice of several is a strided view of the block
+    sliced = len(sizes) > 1 and (m > 1 or _lead(src.local_shape, v, nbatch))
+    copies, scales = [], 0
+    for n in sizes:
+        piece = local * n // b
+        c, s = wire(piece)
+        copies += c
+        scales += s
+        if d == "complex64":
+            shape = list(dst.local_shape)
+            shape[v] = n
+            if ordered and (pack or sliced):
+                copies.append(piece)
+            if m > 1 and _lead(shape, w, nbatch):
+                copies.append(piece)
+    return copies, [local] if len(sizes) > 1 else [], scales
+
+
+def exchange_takes_any_layout(src: Pencil, v: int, w: int, *, method: str = "fused",
+                              chunks: int = 1, nbatch: int = 0, comm_dtype=None,
+                              impl: str = "torch") -> bool:
+    """Whether the exchange reads its block through a copy of all of it (the
+    chunk-major pack where the chunk axis does not lead, each slice's pack
+    of a pipelined exchange of several, a composed group's gather out of
+    mesh order, or a lossy wire's encode), so that a block in any layout
+    costs it no copy more than a contiguous one.
+
+    Where it does not, the engine takes the block as it lies and the copies
+    of :func:`exchange_engine_ops` hold for a contiguous block only: a
+    strided view would be copied by the pack, a realignment outside the
+    collective that no contract names.  The executor therefore has the
+    transform before such an exchange hand on a contiguous block
+    (``repro_torch.core.pfft._fft_padded_axis``), as the reference's
+    ``jnp.fft`` moves its axis back before the exchange sees it, and hands
+    on the transform's own view everywhere else.  A lossy encode under
+    ``impl="cuda"`` counts as reading any layout: K1's wrapper copies a
+    strided block first (ROADMAP §3)."""
+    d = canonical_comm_dtype(comm_dtype)
+    m = group_size(src.mesh, src.placement[w])
+    lead = _lead(src.local_shape, v, nbatch)
+    if d != "complex64" and (method != "traditional" or impl == "cuda"):
+        return True
+    if method == "traditional":
+        return m > 1 and lead
+    if m > 1 and (lead or not in_mesh_order(src.mesh, group_names(src.placement[w]))):
+        return True
+    return method == "pipelined" and pipeline_slices(src, v, w, chunks=chunks) > 1 and (
+        m > 1 or lead)
+
+
+def exchange_engine_ops(src: Pencil, v: int, w: int, *, method: str = "fused", chunks: int = 1,
+                        transposed_out: bool = False, nbatch: int = 0, comm_dtype=None,
+                        impl: str = "torch") -> dict[str, int]:
+    """Layout copies (``"transposes"``: ``clone``, ``copy_``,
+    ``index_select``) and concatenates (``"concats"``) the engine makes
+    outside the collective, as the port makes them: the contract
+    :mod:`repro_torch.analysis.planlint` holds a run to (PLAN003, PLAN004).
+    The block is contiguous, or the exchange reads it through a copy of
+    its own (:func:`exchange_takes_any_layout`).
+
+    Where the port equals the reference (``repro.core.redistribute
+    .exchange_engine_ops``): a lossy fused exchange makes none (the codec
+    packs into chunk-major order and the decode scatters into ``w``);
+    traditional makes its pack and unpack copies, except where the moved
+    axis already leads; with ``impl="cuda"`` and a lossy wire the codec
+    kernels do them; pipelined concatenates its slices when it makes more
+    than one.
+
+    Where it differs, every case also priced by
+    :func:`exchange_local_copy_elems`:
+
+    * a lossless (complex64) fused or pipelined exchange over ``M > 1``
+      ranks packs with ``movedim(...).contiguous()`` into chunk-major order
+      and scatters with a ``movedim``/``reshape`` (``all_to_all_single``
+      splits dim 0 only): one copy each, except where the moved axis
+      already leads (nothing but extent 1 before ``v``, or before ``w``
+      after the exchange, and no stacked fields); a pipelined slice of
+      several is never contiguous in chunk-major order, so each packs;
+    * a composed group out of mesh order gathers the wire buffer's chunks
+      into the group's rank order with ``index_select`` before the send and
+      back after the receive (two more, int8's scales two more again); on a
+      lossless fused or pipelined wire the send's gather is the pack;
+    * under ``impl="cuda"`` the codec kernels' pack and scatter are the
+      kernels' (their plain versions' on a CPU tensor are the wrappers'):
+      the engine makes no copy of its own for them, traditional's
+      transposed-out exchange included (the decode scatters into the new
+      leading chunk axis; the reference keeps that case's pack copy).
+
+    ``nbatch`` leading axes are stacked fields; ``transposed_out`` applies
+    to traditional."""
+    copies, concats, scales = _engine_copies(
+        src, v, w, method=method, chunks=chunks, transposed_out=transposed_out, nbatch=nbatch,
+        comm_dtype=comm_dtype, impl=impl)
+    return {"transposes": len(copies) + scales, "concats": len(concats)}
+
+
+def exchange_local_copy_elems(src: Pencil, v: int, w: int, *, method: str = "fused",
+                              comm_dtype=None, impl: str = "torch", chunks: int = 1,
+                              nbatch: int = 0) -> int:
+    """Elements of local copies the engine pays on top of the wire payload
+    and the codec: the elements of the copies and concatenates of
+    :func:`exchange_engine_ops`, at the local block's width (a lossy
+    payload's gather is ``local / wire_ratio`` of them; int8's ``(M, F)``
+    scales, a few floats, are not counted).  ``chunks`` is the pipelined
+    engine's and ``nbatch`` says whether the block stacks fields.
+
+    The reference counts traditional's pack and unpack as two passes, the
+    pipelined concat as one and fused as none, and none of the engine's
+    own under its kernels.  The port's count is the copies its code makes:
+    traditional's pack or unpack is free where the moved axis already
+    leads, a one-slice pipelined exchange concatenates nothing, a lossless
+    fused or pipelined exchange over ``M > 1`` ranks pays the pack and the
+    scatter where they move data, and a composed group out of mesh order
+    adds its gathers (:func:`exchange_engine_ops` lists the cases)."""
+    copies, concats, _ = _engine_copies(
+        src, v, w, method=method, chunks=chunks, transposed_out=False, nbatch=nbatch,
+        comm_dtype=comm_dtype, impl=impl)
+    return sum(copies) + sum(concats)
 
 
 def exchange_time_model(src: Pencil, v: int, w: int, *, itemsize: int = 8,
@@ -424,8 +560,11 @@ def exchange_time_model(src: Pencil, v: int, w: int, *, itemsize: int = 8,
     N serialized exchange + FFT pairs.  The reference's formula, with the
     port's local copies (:func:`exchange_local_copy_elems`)."""
     d = canonical_comm_dtype(comm_dtype)
+    n = max(1, nfields)
     comm_s = exchange_wire_bytes(src, v, w, itemsize=itemsize, comm_dtype=d) / ici_bw
-    copy_s = (exchange_local_copy_elems(src, v, w, method=method, comm_dtype=d, impl=impl)
+    stacked = 1 if n > 1 and batch_fusion == "stacked" else 0
+    copy_s = (exchange_local_copy_elems(src, v, w, method=method, comm_dtype=d, impl=impl,
+                                        chunks=chunks, nbatch=stacked)
               * itemsize / hbm_bw)
     if d != "complex64":
         local = math.prod(src.local_shape)
@@ -440,7 +579,6 @@ def exchange_time_model(src: Pencil, v: int, w: int, *, itemsize: int = 8,
             return c * ici_latency_s + comm / c + max(comm, fft) * (c - 1) / c + fft / c
         return ici_latency_s + comm + fft
 
-    n = max(1, nfields)
     if n == 1 or batch_fusion == "stacked":
         return one(comm_s * n, overlap_compute_s * n) + copy_s * n
     if batch_fusion == "per-field":

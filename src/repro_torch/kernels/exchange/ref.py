@@ -80,7 +80,8 @@ def pack_chunks_ref(y, *, axis, m, nbatch=0, codec, guard=False, scale_div=None)
     s[axis] = B
     if scale is not None:
         scale = scale.T.contiguous()  # (F, M) -> (M, F)
-    return packed.reshape((M, P, *s)), scale, stats
+    # contiguous, as the kernel writes it: the buffer all_to_all_single sends
+    return packed.reshape((M, P, *s)).contiguous(), scale, stats
 
 
 def unpack_chunks_ref(p, *, v, w, m, nbatch=0, scale, codec, iscomplex):

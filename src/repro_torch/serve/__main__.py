@@ -25,9 +25,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import shutil
-import tempfile
 
 
 def _parse_shapes(spec: str):
@@ -35,24 +32,6 @@ def _parse_shapes(spec: str):
     for part in spec.split(";"):
         shapes.append(tuple(int(s) for s in part.split(",")))
     return shapes
-
-
-def _init_group(device):
-    """Initialize the default process group: from ``torchrun``'s
-    environment when it is set, else a one-rank group over a file in a
-    temporary directory.  Returns that directory (or None)."""
-    import torch
-    import torch.distributed as dist
-
-    backend = "nccl" if device.type == "cuda" else "gloo"
-    if "WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ:
-        if device.type == "cuda":
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-        dist.init_process_group(backend, init_method="env://")
-        return None
-    tmp = tempfile.mkdtemp(prefix="repro_torch_serve_")
-    dist.init_process_group(backend, init_method=f"file://{tmp}/pg", rank=0, world_size=1)
-    return tmp
 
 
 def main(argv=None):
@@ -81,7 +60,7 @@ def main(argv=None):
     import torch
     import torch.distributed as dist
 
-    from repro_torch.core.meshutil import balanced_dims, make_mesh
+    from repro_torch.core.meshutil import balanced_dims, default_group, make_mesh
     from repro_torch.core.planconfig import PlanConfig
     from repro_torch.robustness import faults
     from repro_torch.serve import ServeConfig, SpectralServer
@@ -90,9 +69,7 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("python -m repro_torch.serve: no CUDA device is available; "
                            "pass --device cpu to run on the CPU")
-    owned = not dist.is_initialized()
-    tmp = _init_group(device) if owned else None
-    try:
+    with default_group(device.type):
         ndev, rank = dist.get_world_size(), dist.get_rank()
         if args.grid == "slab":
             mesh, grid = make_mesh((ndev,), ("p0",), device=device.type), ("p0",)
@@ -129,11 +106,6 @@ def main(argv=None):
         finally:
             if fault_ctx is not None:
                 fault_ctx.__exit__(None, None, None)
-    finally:
-        if owned:
-            dist.destroy_process_group()
-        if tmp is not None:
-            shutil.rmtree(tmp, ignore_errors=True)
 
     hist: dict[str, int] = {}
     for o in outcomes:

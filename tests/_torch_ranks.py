@@ -2298,3 +2298,242 @@ def _tps_world_one(torch, lm, sharding, configs, mesh) -> dict:
                      "cache": set(ca) == set(cb) and all(torch.equal(ca[k], cb[k]) for k in ca),
                      "collectives": counts == want}
     return out
+
+
+# ---------------------------------------------------------------------------
+# the example twins (tests/test_torch_examples.py) and the plan audit
+# (tests/test_torch_planlint.py)
+# ---------------------------------------------------------------------------
+
+
+def run_examples_rank(rank: int, init_file: str, out_dir: str):
+    """One rank of the (2, 2) mesh: the three example twins on this rank's
+    blocks at the examples' sizes, the NS run with its collectives counted
+    (no all-gather anywhere in it; ``all_to_all_single`` calls per step);
+    rank 0 saves ``examples.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.meshutil import make_mesh
+    from repro_torch.examples import navier_stokes, poisson, quickstart
+
+    torch.set_num_threads(1)
+    _init(rank, init_file)
+    try:
+        mesh = make_mesh((2, 2), ("p0", "p1"), device="cpu")
+        qs = quickstart.run(mesh)
+        qs.pop("plan")
+        ps = poisson.run(mesh)
+        ps.pop("plan")
+        calls = {"all_to_all_single": 0, "gathers": 0}
+        real = {n: getattr(dist, n) for n in ("all_to_all_single", "all_gather",
+                                              "all_gather_into_tensor", "all_gather_object")}
+
+        def counted(name, key):
+            def fn(*a, **k):
+                calls[key] += 1
+                return real[name](*a, **k)
+            return fn
+
+        for name in real:
+            setattr(dist, name, counted(name, "all_to_all_single" if name == "all_to_all_single"
+                                        else "gathers"))
+        try:
+            ns = navier_stokes.run(mesh)
+            plan = navier_stokes.dns_plan(mesh, navier_stokes.N)
+            tg = navier_stokes.TaylorGreen(plan, navier_stokes.N)
+            u_hat = tg.project(tg.fwd3(tg.initial()))
+            before = dict(calls)
+            tg.step(u_hat)
+            per_step = {k: calls[k] - before[k] for k in calls}
+        finally:
+            for name, fn in real.items():
+                setattr(dist, name, fn)
+        ns["collectives_in_run"] = calls
+        ns["collectives_per_step"] = per_step
+        ns["model_collectives_per_step"] = 2 * sum(
+            plan.model_collective_launches(nfields=nf, direction=d)
+            for nf, d in ((3, "backward"), (9, "backward"), (3, "forward")))
+        if rank == 0:
+            (Path(out_dir) / "examples.json").write_text(json.dumps(
+                {"quickstart": qs, "poisson": ps, "navier_stokes": ns}))
+    finally:
+        dist.destroy_process_group()
+
+
+#: the audit matrix: grid -> (global shape, transforms)
+AUDIT_GRIDS = {"pencil": ("p0", "p1"), "slab": ("p0",)}
+AUDIT_METHODS = ("fused", "traditional", "pipelined")
+AUDIT_FUSIONS = ((1, "stacked"), (3, "stacked"), (3, "per-field"), (3, "pipelined-across-fields"))
+#: plans the reference audits beside the port: label -> (grid, PlanConfig
+#: fields with the reference's names, nfields, transforms)
+AUDIT_REFERENCE_PLANS = {
+    f"{g}/{m}/{c}/{i}/{nf}": (g, {"method": m, "chunks": 2, "comm_dtype": c, "exchange_impl": i,
+                                  "batch_fusion": "per-field" if nf > 1 and m == "fused" else
+                                  "stacked"}, nf, None)
+    for g in AUDIT_GRIDS for m in AUDIT_METHODS for c in COMM_DTYPES
+    for i in ("jnp", "pallas") for nf in (1, 3)
+}
+AUDIT_REFERENCE_PLANS.update({
+    "pencil/ns": ("pencil", {"method": "fused"}, 3, "ns"),
+    "pencil/mixed": ("pencil", {"method": "traditional"}, 1, ("dct2", "c2c", "r2c")),
+})
+AUDIT_SHAPE = (8, 8, 8)
+
+
+def engine_op_cases() -> list[tuple[str, dict]]:
+    """``(key, exchange_engine_ops kwargs)`` compared with the reference,
+    implementation names the reference's."""
+    return [(f"{m}/{c}/{i}/nb{nb}/t{int(t)}", {"method": m, "chunks": 2, "transposed_out": t,
+                                               "nbatch": nb, "comm_dtype": c, "impl": i})
+            for m in AUDIT_METHODS for c in COMM_DTYPES for i in ("jnp", "pallas")
+            for nb in (0, 1) for t in ((False, True) if m == "traditional" else (False,))]
+
+
+def engine_ops_claimed_equal(kw) -> bool:
+    """Where the port's ``exchange_engine_ops`` docstring says it equals the
+    reference's: lossy fused and pipelined exchanges, and traditional but
+    for the kernels' transposed-out scatter."""
+    lossy = kw["comm_dtype"] != "complex64"
+    if kw["method"] == "traditional":
+        return not (kw["impl"] == "pallas" and lossy and kw["transposed_out"])
+    return lossy
+
+
+def audit_transforms(tag, spec_module):
+    """The transforms of an audit plan: None, tag strings, or "ns" for the
+    DNS plan's pruned/r2c specs at 12^3 (8 modes)."""
+    if tag == "ns":
+        T = spec_module.TransformSpec
+        return (T.pruned(8), T.pruned(8), T.r2c(n_keep=5))
+    return tag
+
+
+def audit_shape(tag):
+    return (12, 12, 12) if tag == "ns" else AUDIT_SHAPE
+
+
+def run_planlint_rank(rank: int, init_file: str, out_dir: str):
+    """One rank of the (2, 2) mesh: ``audit_plan`` over every engine x wire x
+    exchange impl x batch fusion on the pencil and slab plans (forward and
+    backward, and the DNS and mixed plans), the reference-compared plans,
+    the negative claims, a float64 op, a guard op and a strided arrival
+    planted on the path, and the CLI; rank 0 saves ``planlint.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.analysis import planlint
+    from repro_torch.core import fftcore, pfft
+    from repro_torch.core.meshutil import make_mesh
+    from repro_torch.core.pfft import ParallelFFT
+    from repro_torch.core.planconfig import PlanConfig, config_from_reference
+    from repro_torch.robustness import faults, health
+
+    torch.set_num_threads(1)
+    _init(rank, init_file)
+    try:
+        mesh = make_mesh((2, 2), ("p0", "p1"), device="cpu")
+        res = {"matrix": {}, "reference": {}, "negative": {}}
+
+        def codes(rep):
+            return sorted({v.code for v in rep.violations})
+
+        for gname, grid in AUDIT_GRIDS.items():
+            for method in AUDIT_METHODS:
+                for comm in COMM_DTYPES:
+                    for impl in ("torch", "cuda"):
+                        for nf, fusion in AUDIT_FUSIONS:
+                            cfg = PlanConfig(method=method, chunks=2, comm_dtype=comm,
+                                             exchange_impl=impl, batch_fusion=fusion)
+                            plan = ParallelFFT(mesh, AUDIT_SHAPE, grid, config=cfg)
+                            for direction in ("forward", "backward"):
+                                rep = planlint.audit_plan(plan, nfields=nf, direction=direction)
+                                key = f"{gname}/{method}/{comm}/{impl}/{nf}/{fusion}/{direction}"
+                                res["matrix"][key] = {"codes": codes(rep),
+                                                      **rep.summary()}
+        for tag in ("ns", ("dct2", "c2c", "r2c")):
+            for fimpl in ("torch", "matmul"):
+                for method in AUDIT_METHODS:
+                    plan = ParallelFFT(mesh, audit_shape(tag), AUDIT_GRIDS["pencil"],
+                                       transforms=audit_transforms(tag, fftcore),
+                                       config=PlanConfig(method=method, chunks=2, impl=fimpl))
+                    for direction in ("forward", "backward"):
+                        for nf in (1, 3):
+                            rep = planlint.audit_plan(plan, nfields=nf, direction=direction)
+                            key = f"{tag}/{fimpl}/{method}/{nf}/{direction}"
+                            res["matrix"][key] = {"codes": codes(rep), **rep.summary()}
+
+        for label, (gname, fields, nf, tag) in AUDIT_REFERENCE_PLANS.items():
+            plan = ParallelFFT(mesh, audit_shape(tag), AUDIT_GRIDS[gname],
+                               transforms=audit_transforms(tag, fftcore),
+                               config=config_from_reference(fields))
+            rep = plan.audit(nfields=nf)
+            res["reference"][label] = {"codes": codes(rep),
+                                       "all_to_alls": rep.observed["all_to_alls"],
+                                       "payload_bytes": rep.observed["payload_bytes"],
+                                       "engine_copies": rep.observed["engine_copies"],
+                                       "engine_concats": rep.observed["engine_concats"],
+                                       "exchange_kernel_calls":
+                                           rep.observed["exchange_kernel_calls"],
+                                       "report_type": type(rep).__name__}
+
+        neg = res["negative"]
+        fused = (("fused", 1, "complex64"),) * 2
+
+        def claim(name, schedule, **cfg):
+            plan = ParallelFFT(mesh, AUDIT_SHAPE, AUDIT_GRIDS["pencil"],
+                               config=PlanConfig(**cfg))
+            neg[name] = codes(planlint.audit_plan(plan, schedule=schedule))
+
+        # on a lossless wire the port's fused engine packs and scatters as
+        # traditional does (all_to_all_single splits dim 0 only), so the lie
+        # shows on a lossy wire, where fused makes no copy of its own
+        claim("traditional_claims_fused", (("fused", 1, "bf16"),) * 2, method="traditional",
+              comm_dtype="bf16")
+        claim("pipelined_claims_fused", fused, method="pipelined", chunks=2)
+        claim("lossless_claims_bf16", (("fused", 1, "bf16"),) * 2, method="fused")
+        claim("bf16_claims_lossless", fused, method="fused", comm_dtype="bf16")
+        claim("int8_claims_lossless", fused, method="fused", comm_dtype="int8")
+        claim("torch_codec_claims_kernels", (("fused", 1, "int8", "cuda"),) * 2,
+              method="fused", comm_dtype="int8")
+        claim("kernels_claim_torch_codec", (("fused", 1, "int8", "torch"),) * 2,
+              method="fused", comm_dtype="int8", exchange_impl="cuda")
+        try:
+            planlint.audit_plan(ParallelFFT(mesh, AUDIT_SHAPE, AUDIT_GRIDS["pencil"]),
+                                schedule=(("fused", 1, "complex64"),))
+            neg["wrong_length"] = "accepted"
+        except ValueError as e:
+            neg["wrong_length"] = str(e)
+        plan = ParallelFFT(mesh, AUDIT_SHAPE, AUDIT_GRIDS["pencil"])
+        real_fft, real_tap = pfft._fft_padded_axis, faults.tap_stage_input
+        try:  # a silent upcast on the data path, then a guard op in an unguarded plan
+            pfft._fft_padded_axis = lambda *a, **k: real_fft(*a, **k).to(torch.complex128).to(
+                torch.complex64)
+            neg["float64_on_path"] = codes(planlint.audit_plan(plan))
+        finally:
+            pfft._fft_padded_axis = real_fft
+        try:
+            # a health reduction run on the unguarded path
+            faults.tap_stage_input = lambda block: (health.block_energy(block), block)[1]
+            neg["guard_op_unguarded"] = codes(planlint.audit_plan(plan))
+        finally:
+            faults.tap_stage_input = real_tap
+        real_layout = pfft.exchange_takes_any_layout
+        try:
+            # every transform hands on its moved view: the backward's first
+            # exchange (v = 0, no pack of its own) copies the strided block
+            pfft.exchange_takes_any_layout = lambda *a, **k: True
+            neg["strided_arrival"] = codes(planlint.audit_plan(plan, direction="backward"))
+        finally:
+            pfft.exchange_takes_any_layout = real_layout
+        guarded = ParallelFFT(mesh, AUDIT_SHAPE, AUDIT_GRIDS["pencil"],
+                              config=PlanConfig(guard="strict", comm_dtype="bf16"))
+        rep = planlint.audit_plan(guarded)
+        res["guarded"] = {"codes": codes(rep), "guard_ops": rep.observed["guard_ops"]}
+
+        report = Path(out_dir) / "plan_audit.json"
+        res["cli_rc"] = planlint.main(["--device", "cpu", "--out", str(report)])
+        if rank == 0:
+            (Path(out_dir) / "planlint.json").write_text(json.dumps(res, default=str))
+    finally:
+        dist.destroy_process_group()

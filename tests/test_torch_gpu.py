@@ -25,9 +25,13 @@ so does its int8 exchange of stacked fields, each field within one of its
 own quanta.  Batched plans: the DNS plan's stacked and per-field forwards
 are bitwise equal (lossless), 3 stacked 512^3 fields through int8 stay
 within the plan's 3e-2 bound each with one field at 1e3, and every K1/K3
-launch of a stacked 512^3 forward is ``vec``.
+launch of a stacked 512^3 forward is ``vec``.  The example twins at the
+examples' sizes on a 1-rank NCCL group hold the examples' checks (a K4 DNS
+run's energies within 1e-5 of cuFFT's, a bf16 wire's within its rounding
+bound), and every example plan audits clean.
 """
 
+import math
 from collections import Counter
 
 import numpy as np
@@ -1033,3 +1037,63 @@ def test_auto_plan_equals_explicit_under_its_schedule(mesh1, tmp_path, budget):
         assert again.schedule == sched
     finally:
         tuner.tune_plan = real
+
+
+# -- the example twins and the plan audit on the card -------------------------
+
+_TWIN_CONFIGS = {
+    "example": {"method": "fused"},
+    "slice": {"method": "fused", "impl": "matmul", "exchange_impl": "cuda"},
+    "slice_bf16": {"method": "fused", "impl": "matmul", "exchange_impl": "cuda",
+                   "comm_dtype": "bf16"},
+}
+
+
+@pytest.mark.parametrize("config", list(_TWIN_CONFIGS))
+def test_navier_stokes_twin_on_the_card(mesh1, config):
+    """The Taylor-Green twin at the example's size (32 modes, 48^3) on a
+    1-rank NCCL group: the example's checks, and a K4 run's energies within
+    1e-5 relative of cuFFT's at every step (a bf16 wire within its rounding
+    bound, chip_smoke.TOL_DNS_BF16's form = 9.06e-3 at this dt, and its
+    decrements E_k - E_0 within chip_smoke.TOL_DNS_BF16_DECAY's 0.111, which
+    a frozen step exceeds)."""
+    from repro_torch.core.planconfig import PlanConfig
+    from repro_torch.examples import navier_stokes as ns
+
+    cfg = PlanConfig(**_TWIN_CONFIGS[config])
+    lossless = cfg.comm_dtype == "complex64"
+    out = ns.run(mesh1, config=cfg, guard_demo=lossless)
+    checks = dict(out["checks"])
+    if not lossless:
+        checks.pop("bitwise_batched")
+    assert all(checks.values()), checks
+    ref = ns.run(mesh1, config=PlanConfig(**_TWIN_CONFIGS["example"]), guard_demo=False)
+    tol = 1e-5 if lossless else 2 * 2 * 2.0 ** -9 + 8 * 5e-3 * 2 * 2 * 4 * 2.0 ** -9
+    for a, b in zip(out["energies"], ref["energies"]):
+        assert abs(a - b) <= tol * b
+    if not lossless:
+        e, r = out["energies"], ref["energies"]
+        decay_tol = 4 * 2.0 ** -8 + 6 * 2.0 ** -8 * math.sqrt(3 / 8) / (3 * ns.NU)
+        for a, b in zip(e[1:], r[1:]):
+            assert abs((a - e[0]) - (b - r[0])) <= decay_tol * abs(b - r[0])
+
+
+@pytest.mark.parametrize("config", ["example", "slice"])
+def test_quickstart_and_poisson_twins_on_the_card(mesh1, config):
+    from repro_torch.core.planconfig import PlanConfig
+    from repro_torch.examples import poisson, quickstart
+
+    cfg = PlanConfig(**_TWIN_CONFIGS[config])
+    assert quickstart.run(mesh1, cfg)["ok"]
+    out = poisson.run(mesh1, cfg)
+    assert out["ok"] and out["err"] < 1e-5
+
+
+def test_plan_audit_of_the_example_plans_on_the_card(mesh1):
+    """Every example plan audits clean on the card, the exchange kernels
+    opaque to dispatch (PLAN009 counts their wrappers' calls)."""
+    from repro_torch.analysis import planlint
+
+    for label, (plan, nfields) in planlint.example_plans(mesh1).items():
+        rep = planlint.audit_plan(plan, nfields=nfields, label=label)
+        assert rep.ok, (label, [v.to_dict() for v in rep.violations])

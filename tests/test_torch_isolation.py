@@ -1,7 +1,8 @@
 """The port stands alone and runs on the card unless asked otherwise: its
 modules import neither jax nor the reference package, its mesh, its LM and
-its serving CLIs (``serve_lm`` and ``python -m repro_torch.serve``) default
-to CUDA and raise without a card, and its config maps the reference's.
+its CLIs (``serve_lm``, ``python -m repro_torch.serve``, the example twins
+and the plan audit) default to CUDA and raise without a card, and its
+config maps the reference's.
 """
 
 import dataclasses
@@ -31,7 +32,9 @@ def test_port_imports_neither_jax_nor_reference():
     for want in ("repro_torch.robustness.runner", "repro_torch.kernels.transpose.ops",
                  "repro_torch.kernels.flash.ops", "repro_torch.launch.serve_lm",
                  "repro_torch.configs.glm4_9b", "repro_torch.serve.engine",
-                 "repro_torch.serve.__main__", "repro_torch.launch.serve"):
+                 "repro_torch.serve.__main__", "repro_torch.launch.serve",
+                 "repro_torch.analysis.planlint", "repro_torch.examples.quickstart",
+                 "repro_torch.examples.poisson", "repro_torch.examples.navier_stokes"):
         assert want in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -102,6 +105,37 @@ def test_spectral_server_cli_on_the_cpu(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert '"unresolved": 0' in proc.stdout
     assert '"ok": 6' in proc.stdout
+
+
+#: the example twins' and the plan audit's CLIs, with arguments that keep a
+#: one-rank CPU run to seconds
+_CLIS = {
+    "repro_torch.examples.quickstart": [],
+    "repro_torch.examples.poisson": ["--shape", "16,16,16"],
+    "repro_torch.examples.navier_stokes": ["--n", "16", "--steps", "2"],
+    "repro_torch.analysis.planlint": ["--only", "quickstart,navier_stokes[batched]"],
+}
+
+
+@pytest.mark.parametrize("module", list(_CLIS))
+def test_example_and_audit_clis_default_to_cuda_and_raise_without_a_card(module):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import importlib
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        importlib.import_module(module).main(_CLIS[module])
+
+
+@pytest.mark.parametrize("module", list(_CLIS))
+def test_example_and_audit_clis_on_the_cpu(module, tmp_path):
+    """``python -m <module> --device cpu`` runs on a one-rank gloo group it
+    starts itself and exits 0 with its checks held."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), HOME=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-m", module, "--device", "cpu", *_CLIS[module]],
+                          env=env, capture_output=True, text=True, timeout=300, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert ("[ok]" if module.endswith("planlint") else "ok") in proc.stdout
 
 
 @pytest.mark.parametrize("fields,expect", [

@@ -13,11 +13,15 @@ package.
   tests/test_pfft.py:17-42 (the slab on a composed group in mesh order and
   out of it included) at the same coefficients, passed explicitly, to 1e-12
   relative, both directions, 1 and 3 fields, every candidate entry as the
-  uniform schedule.  The differences are named: a lossless fused or
-  pipelined exchange over M > 1 ranks pays two more passes over its local
-  block in the port, and a composed group out of mesh order the gathers of
-  its chunks (``exchange_local_copy_elems``), added to the reference's value
-  before the comparison; and ``tune_plan`` under one deterministic stand-in
+  uniform schedule.  The one difference is the local copies: the port
+  prices the copies its code makes (``exchange_local_copy_elems``: a
+  lossless fused or pipelined exchange over M > 1 ranks packs and scatters
+  where they move data, a composed group out of mesh order gathers its
+  chunks, a pack or unpack of a leading axis is free; written out here
+  apart from the model in ``_port_copy_elems``, and held to the copies a
+  run makes by tests/test_torch_planlint.py); the port's count less the
+  reference's is added to the reference's value before the comparison;
+  and ``tune_plan`` under one deterministic stand-in
   ``_time_stage`` picks the reference's schedule, also with model priors
   armed (top 6).
 * Four gloo ranks (tests/_torch_ranks.py ``run_tune_rank``) on the (16, 8,
@@ -46,6 +50,7 @@ import torch
 import _torch_ranks as R
 from repro_torch.core import modelfit, tuner
 from repro_torch.core.pfft import ExchangeStage, ParallelFFT
+from repro_torch.core.decomp import local_lengths
 from repro_torch.core.meshutil import in_mesh_order
 from repro_torch.core.pencil import group_names, group_size
 from repro_torch.core.quant import wire_ratio
@@ -190,26 +195,59 @@ def test_candidates_cover_the_matrix():
 # -- the models ------------------------------------------------------------------
 
 
-def _extra_copy_elems(src, w, entry) -> int:
-    """The port's copies beyond the reference's count
-    (``exchange_local_copy_elems``): a lossless fused or pipelined exchange
-    over M > 1 ranks packs and scatters its local block; a composed group
-    out of mesh order gathers its wire buffer's chunks into the group's
-    rank order and back, two passes over a lossy payload, and on a lossless
-    wire one (fused, pipelined: the send's gather is the pack) or two
-    (traditional)."""
-    local = math.prod(src.local_shape)
+def _port_copy_elems(src, v, w, entry, nbatch) -> int:
+    """The port's local copies of one exchange, written out from what its
+    engines do (``core/redistribute.py``): a pack into chunk-major order
+    where the moved axis ``v`` does not lead, a scatter where ``w`` does not
+    lead after the exchange, traditional's pack and unpack alike unless the
+    codec kernels do them, the pipelined slices' packs and their
+    concatenate, and a composed group's gathers out of mesh order."""
     lossless = entry.comm_dtype == "complex64"
-    extra = 0
-    if lossless and entry.method in ("fused", "pipelined") and \
-            group_size(src.mesh, src.placement[w]) > 1:
-        extra += 2 * local
-    if not in_mesh_order(src.mesh, group_names(src.placement[w])):
+    kernels = entry.impl == "cuda" and not lossless
+    local = math.prod(src.local_shape)
+    m = group_size(src.mesh, src.placement[w])
+    dst_shape = src.exchanged(v, w).local_shape
+    ordered = in_mesh_order(src.mesh, group_names(src.placement[w]))
+
+    def leads(shape, axis):  # moving ``axis`` to the front moves data
+        return nbatch > 0 or math.prod(shape[:axis]) > 1
+
+    def gathers(n):  # send and receive out of mesh order, at the wire's width
+        return 0 if ordered or m == 1 else 2 * (n if lossless else n // wire_ratio(entry.comm_dtype))
+
+    pack = m > 1 and leads(src.local_shape, v)
+    if entry.method == "traditional" and not kernels:
+        return gathers(local) + local * (pack + (m > 1 and leads(dst_shape, w)))
+    if entry.method in ("fused", "traditional"):
         if not lossless:
-            extra += 2 * local // wire_ratio(entry.comm_dtype)
-        else:
-            extra += 2 * local if entry.method == "traditional" else local
-    return extra
+            return gathers(local)
+        return gathers(local) + local * ((ordered and pack) + (m > 1 and leads(dst_shape, w)))
+    b = src.local_shape[v] // m
+    sizes = [n for n in local_lengths(b, max(1, min(entry.chunks, b))) if n > 0]
+    total = local if len(sizes) > 1 else 0  # the concatenate of the slices
+    for n in sizes:
+        piece = local * n // b
+        total += gathers(piece)
+        if lossless:
+            shape = list(dst_shape)
+            shape[v] = n
+            sliced = len(sizes) > 1 and (m > 1 or leads(src.local_shape, v))
+            total += piece * ((ordered and (pack or sliced)) + (m > 1 and leads(shape, w)))
+    return total
+
+
+def _extra_copy_elems(src, v, w, entry, nfields=1) -> int:
+    """The port's copies beyond the reference's count, as
+    ``exchange_time_model`` prices an ``nfields``-field exchange under
+    ``entry``: :func:`_port_copy_elems` less the reference's (traditional
+    two passes, pipelined one, fused none; none of the engine's own under
+    the kernels)."""
+    local = math.prod(src.local_shape)
+    kernels = entry.impl == "cuda" and entry.comm_dtype != "complex64"
+    ref = {"fused": 0, "pipelined": local,
+           "traditional": 0 if kernels else 2 * local}[entry.method]
+    stacked = 1 if nfields > 1 and entry.batch_fusion == "stacked" else 0
+    return _port_copy_elems(src, v, w, entry, stacked) - ref
 
 
 def _model_extra(plan, key, cands):
@@ -221,24 +259,25 @@ def _model_extra(plan, key, cands):
         nf, method, isz = int(rest[0]), rest[2], rest[3]
         if method == "None":
             return 0.0
-        lossless = cands[0]._replace(method=method, chunks=1)  # complex64
+        # complex64, at the plan's chunks (comm_bytes_per_device's)
+        lossless = cands[0]._replace(method=method, chunks=plan.chunks)
         total = 0
         for i, st in enumerate(plan.stages):
             if isinstance(st, ExchangeStage):
                 size = int(isz) if isz != "None" else plan._stage_itemsize(i)
-                total += _extra_copy_elems(plan.pencil_trace[i], st.w, lossless) * size * nf
+                total += _extra_copy_elems(plan.pencil_trace[i], st.v, st.w, lossless) * size * nf
         return float(total)
     entry = cands[int(rest[0])]
     if kind == "ex":  # ex:<candidate>:<stage>:<nfields>
         i, nf = int(rest[1]), int(rest[2])
         st = plan.stages[i]
-        return (nf * _extra_copy_elems(plan.pencil_trace[i], st.w, entry)
+        return (nf * _extra_copy_elems(plan.pencil_trace[i], st.v, st.w, entry, nf)
                 * plan._stage_itemsize(i) / hbm)
     nf = int(rest[1])  # time:<candidate>:<nfields>:<direction>, time_ex:<candidate>:<nfields>
     direction = rest[2] if kind == "time" else "forward"
     stages, pencils, _, _ = plan._walk(direction)
     dtypes = plan.dtype_trace if direction == "forward" else plan.dtype_trace[::-1]
-    return sum(nf * _extra_copy_elems(pencils[i], st.w, entry)
+    return sum(nf * _extra_copy_elems(pencils[i], st.v, st.w, entry, nf)
                * plan._stage_itemsize(i, dtypes) / hbm
                for i, st in enumerate(stages) if isinstance(st, ExchangeStage))
 
@@ -279,9 +318,9 @@ def test_model_counts_the_port_copies_only_where_named():
     local = math.prod(src.local_shape)
     assert group_size(src.mesh, src.placement[st.w]) > 1
 
-    def count(method, comm, impl="torch"):
+    def count(method, comm, impl="torch"):  # pipelined: two slices
         return exchange_local_copy_elems(src, st.v, st.w, method=method, comm_dtype=comm,
-                                         impl=impl)
+                                         impl=impl, chunks=2)
 
     assert count("fused", "complex64") == 2 * local  # the reference: 0
     assert count("pipelined", "complex64") == 3 * local  # the reference: local
