@@ -205,6 +205,24 @@ non-zero):
    bitwise equal (logits, ``k``, ``v``, ``ck``, ``cv``); the vlm path's two
    comparisons (one ``{"audio": ...}`` line); then the model's one-rank twin
    (``twin_path``; one ``{"audio_parallel": ...}`` line);
+   "train" — last, the dense family's training (``repro_torch.runtime.
+   Trainer``; no kernel of K1-K6 may launch in it): one fp32 step of the
+   smoke GLM-4 on the card against the same step on the CPU (the loss, the
+   grad norm and each gradient leaf within 1e-5 relative, and the optimizer
+   alone on the CPU's gradients bitwise the CPU's update); 4 steps, a stop
+   and 2 resumed steps bitwise 6 uninterrupted ones (bf16, the optimized
+   flags); 2 steps with int8 gradient compression on a 1-rank NCCL group;
+   then GLM-4-9B at full width cut to 12 of its 40 layers (bf16, seeded
+   weights, "dots" remat, 4 x 2048 tokens a step, lr 3e-4): the Trainer's
+   4 steps and its final checkpoint (~36.9 GB, written where there is more
+   room and removed at the end), a second Trainer on a fresh model resuming
+   at step 4 and taking a step, one more step traced: step times,
+   tokens/s, the model-FLOP share of 989 TFLOP/s, peak memory by phase, the
+   checkpoint's snapshot, write and read seconds, the first loss beside
+   ln V, the traced step's device time by class and its idle share (one
+   ``{"train_full"}`` line as it ends, the whole path's ``{"train"}`` line
+   after the kernels'); ``python3 chip_smoke.py --only train`` runs this
+   path alone (no kernel is built);
 4. the kernels at the main path's shapes (512^3, where K4 runs its
    tensor-core design and K1-K3 their vec designs, as at the pipelined slice;
    K4's general design at the quickstart shape; K5 at three 1 GiB
@@ -280,6 +298,14 @@ TOL_LM = 6e-2
 # the moe path: Phi-3.5-MoE at full width, its 32 layers cut to 28 (73.3 GB
 # of bf16 weights; 32 are 83.8 GB), with the lm path's traffic
 MOE_ARCH, MOE_LAYERS = "phi35_moe_42b", 28
+# the train path: GLM-4-9B at full width, cut in depth to what the card's
+# memory and the run's time take (PERF.md §4), 4 x 2048 tokens a step
+TRAIN_ARCH, TRAIN_LAYERS = "glm4_9b", 12
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 2048, 4, 3e-4
+# the smoke checks: card against CPU, one fp32 step (allow_tf32 off): the
+# loss, the grad norm and each gradient leaf (rel. L2), relative
+TOL_TRAIN_REL = 1e-5
+SMOKE_TRAIN_LR = 1e-3
 MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 2048, 32
 #: greedy decode steps of each LM path's one-rank twin (``twin_path``)
 TWIN_STEPS = 3
@@ -468,9 +494,16 @@ def rel_l2(torch, a, b):
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
-def main():
+def main(argv=None):
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--only" or argv[1] != "train":
+            print("usage: chip_smoke.py [--only train]", file=sys.stderr)
+            return 2
+        only = argv[1]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -482,6 +515,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
+
+    if only == "train":
+        return train_alone(torch)
 
     from repro_torch import _build
 
@@ -525,9 +561,10 @@ def main():
     lm_info, moe_info, mla_info, ssm_info, hybrid_info, vlm_info, audio_info = (
         {}, {}, {}, {}, {}, {}, {})
     many, tune, tune_shapes, serve, serve_shapes, dns_shapes = [], [], {}, [], {}, {}
+    train_info = {}
     paths = phase("paths", run_paths, torch, lm_info, moe_info, mla_info, ssm_info, hybrid_info,
                   vlm_info, audio_info, many, tune, tune_shapes, serve, serve_shapes, dns_shapes,
-                  card)
+                  card, train_info)
     print(json.dumps({"paths": paths}))
     print(json.dumps({"many": [{**r, "card": card} for r in many]}))
     print(json.dumps({"tune": [{**r, "card": card} for r in tune]}))
@@ -537,6 +574,7 @@ def main():
                     dns_shapes)
     print(json.dumps({"k4_general_rows": phase("k4_general_rows", k4_general_rows, torch)}))
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"train": {**train_info, "card": card}}))
     print(json.dumps({"lm_breakdown": lm_breakdown(kernels, lm_info, "lm")}))
     print(json.dumps({"moe_breakdown": {**lm_breakdown(kernels, moe_info, "moe"),
                                         "card": card}}))
@@ -995,7 +1033,7 @@ def _nccl_world_one():
 
 
 def run_paths(torch, lm_info, moe_info, mla_info, ssm_info, hybrid_info, vlm_info, audio_info,
-              many, tune, tune_shapes, serve, serve_shapes, dns_shapes, card):
+              many, tune, tune_shapes, serve, serve_shapes, dns_shapes, card, train_info):
     """Drive the five FFT paths on a 1-rank NCCL group (the composed path
     prints its records, the many path fills ``many`` with its), the dns path
     (its K1, K3 and K4 launches by call into ``dns_shapes``) and the audit
@@ -1005,7 +1043,8 @@ def run_paths(torch, lm_info, moe_info, mla_info, ssm_info, hybrid_info, vlm_inf
     (``serve``, ``serve_shapes`` likewise), then the LM paths (which fill
     ``lm_info``, ``moe_info``, ``mla_info``, ``ssm_info``, ``hybrid_info``,
     ``vlm_info`` and ``audio_info``; the parallel path runs on the moe
-    path's model, on a 1-rank NCCL group again);
+    path's model, on a 1-rank NCCL group again), and last the train path
+    (``train_info``), which must launch no kernel;
     returns each path's kernel launch counts."""
     from repro_torch.core.meshutil import make_mesh
 
@@ -1090,6 +1129,10 @@ def run_paths(torch, lm_info, moe_info, mla_info, ssm_info, hybrid_info, vlm_inf
     gc.collect()
     torch.cuda.empty_cache()
     paths["audio"] = _drive(torch, "audio", frontend_path, audio_info, "audio", AUDIO_ARGV)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["train"] = _drive(torch, "train", train_path, train_info)
+    _no_launches(paths["train"])
     gc.collect()
     torch.cuda.empty_cache()
     return paths
@@ -3821,6 +3864,331 @@ def lm_breakdown(kernels, info, path):
         out["decode_idle_share"] = (1 - info["decode_device_4_steps"]["device_ms"] / 4
                                     / info["decode_ms_per_step"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# the train path: the dense family's training on the card
+# ---------------------------------------------------------------------------
+
+
+def train_alone(torch):
+    """``--only train``: the train path alone (no kernel is built; it
+    launches none), its line, the card and the result line."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    info = {}
+    t0 = time.perf_counter()
+    counts = _drive(torch, "train", train_path, info)
+    _no_launches(counts)
+    print(json.dumps({"train": {**info, "card": card}}))
+    print(card)
+    print(json.dumps({"phase_s": {"train": round(time.perf_counter() - t0, 1)}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _no_launches(counts):
+    if any(counts.values()):
+        fail(f"train: a train step launched kernels of K1-K6: {counts}")
+
+
+def train_path(torch, info):
+    """The dense family's training: (a) one fp32 step of the smoke config on
+    the card against the same step on the CPU; (b) 4 steps, a preemption
+    and 2 resumed steps against 6 uninterrupted ones (bf16, optimized
+    flags), bitwise; (c) 2 steps with int8 gradient compression on a 1-rank
+    NCCL group; (d) GLM-4-9B at full width, ``TRAIN_LAYERS`` layers: the
+    Trainer's 4 steps (checkpoint at the end), a second Trainer that
+    resumes at step 4 and takes a step, and one more step traced.  Fills
+    ``info``; every check fails the run."""
+    info.update(_train_vs_cpu(torch))
+    info.update(_train_resume(torch))
+    info.update(_train_int8(torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    info.update(_train_full(torch))
+
+
+def _smoke_train_cfg(dtype):
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.smoke(TRAIN_ARCH), dtype=dtype)
+
+
+def _smoke_data(cfg):
+    from repro_torch.data import SyntheticLMData
+
+    return SyntheticLMData(vocab=cfg.vocab, seq_len=16, global_batch=4)
+
+
+def _train_vs_cpu(torch):
+    """One fp32 step on the card and on the CPU from the same weights: the
+    loss, the grad norm and every (clipped) gradient leaf within
+    ``TOL_TRAIN_REL``; then the optimizer alone on the card, from the same
+    weights and the CPU's gradients, bitwise the CPU's updated weights and
+    moments.  (The updated weights themselves differ where a gradient is
+    near AdamW's eps: its first step divides g by |g| + 1e-8.)"""
+    import functools
+
+    from repro_torch.models.convert import decays_in_reference
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    cfg = _smoke_train_cfg("float32")
+    data = _smoke_data(cfg)
+    cpu = LM(cfg, q_block=8, xent_chunks=2, device="cpu")
+    gpu = LM(cfg, q_block=8, xent_chunks=2, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    init = {k: t.clone() for k, t in cpu.state_dict().items()}
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, lm in (("cpu", cpu), ("cuda", gpu)):
+            tr = Trainer(lm, data, TrainConfig(steps=1, ckpt_dir=f"{d}/{name}", lr=SMOKE_TRAIN_LR,
+                                               warmup=1))
+            params, opt, _ = tr.init_state()
+            batch = {k: v.to(lm.device) for k, v in data.batch(0).items()}
+            params, opt, m = tr.train_step(params, opt, batch)
+            out[name] = (float(m["loss"]), float(m["grad_norm"]),
+                         {k: p.grad.detach().cpu() for k, p in params.items()},
+                         {k: p.detach().cpu() for k, p in params.items()}, opt)
+    (l0, g0, gr0, p0, o0), (l1, g1, gr1, p1, _) = out["cpu"], out["cuda"]
+    rel_loss, rel_gnorm = abs(l1 - l0) / abs(l0), abs(g1 - g0) / abs(g0)
+    rel_grad = max(float(torch.linalg.vector_norm(gr1[k] - gr0[k])
+                         / torch.linalg.vector_norm(gr0[k])) for k in gr0 if gr0[k].any())
+    # the optimizer alone: the CPU's clipped gradients, no further clip
+    adam = AdamW(lr=cosine_schedule(SMOKE_TRAIN_LR, 1, 1), max_grad_norm=1e30,
+                 decays=functools.partial(decays_in_reference, cfg))
+    params = {k: t.cuda() for k, t in init.items()}
+    params, st, _ = adam.update({k: g.cuda() for k, g in gr0.items()}, adam.init(params), params)
+    opt_bitwise = all(torch.equal(params[k].cpu(), p0[k]) and torch.equal(st.mu[k].cpu(), o0.mu[k])
+                      and torch.equal(st.nu[k].cpu(), o0.nu[k]) for k in p0)
+    res = {"smoke_card_vs_cpu": {
+        "loss_cpu": l0, "loss_card": l1, "rel_loss": rel_loss, "grad_norm_cpu": g0,
+        "grad_norm_card": g1, "rel_grad_norm": rel_gnorm, "max_rel_l2_grad_leaf": rel_grad,
+        "limit": TOL_TRAIN_REL, "optimizer_on_the_cpu_grads_bitwise": opt_bitwise,
+        "max_abs_updated_param": max(float((p1[k] - p0[k]).abs().max()) for k in p0)}}
+    print(json.dumps(res))
+    if max(rel_loss, rel_gnorm, rel_grad) > TOL_TRAIN_REL or not opt_bitwise:
+        fail(f"train: the card's step against the CPU's: {res}")
+    return res
+
+
+def _train_resume(torch):
+    """4 steps, the stop flag SIGTERM sets, 2 resumed steps against 6
+    uninterrupted ones: weights, moments and losses bitwise."""
+    from repro_torch.models.lm import LM, OPTIMIZED
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    cfg = _smoke_train_cfg("bfloat16")
+    data = _smoke_data(cfg)
+
+    def trainer(d):
+        lm = LM(cfg, q_block=8, xent_chunks=2, perf=OPTIMIZED, device="cuda")
+        return Trainer(lm, data, TrainConfig(steps=6, ckpt_every=100, ckpt_dir=d,
+                                             lr=SMOKE_TRAIN_LR, warmup=2))
+
+    with tempfile.TemporaryDirectory() as d:
+        first = trainer(f"{d}/a")
+
+        def stop(m):
+            if m["step"] == 3:
+                first._stop = True
+
+        _, _, h1 = first.run(on_metrics=stop)
+        p2, o2, h2 = trainer(f"{d}/a").run()
+        p3, o3, h3 = trainer(f"{d}/b").run()
+    same = {"losses": [h["loss"] for h in h1 + h2] == [h["loss"] for h in h3],
+            "params": all(torch.equal(p2[k], p3[k]) for k in p3),
+            "moments": all(torch.equal(o2.mu[k], o3.mu[k]) and torch.equal(o2.nu[k], o3.nu[k])
+                           for k in p3)}
+    res = {"smoke_resume": {"steps": [[h["step"] for h in h1], [h["step"] for h in h2]],
+                            "bitwise": same,
+                            "max_abs_param": max(float((p2[k] - p3[k]).detach().float().abs().max())
+                                                 for k in p3)}}
+    print(json.dumps(res))
+    if res["smoke_resume"]["steps"] != [[0, 1, 2, 3], [4, 5]] or not all(same.values()):
+        fail(f"train: 4 + 2 resumed steps against 6: {res}")
+    return res
+
+
+def _train_int8(torch):
+    """2 steps with int8 error-feedback compression on a 1-rank NCCL group."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    cfg = _smoke_train_cfg("float32")
+    with _nccl_world_one(), tempfile.TemporaryDirectory() as d:
+        mesh = make_host_mesh(1, device="cuda")
+        tr = Trainer(LM(cfg, q_block=8, xent_chunks=2, device="cuda"), _smoke_data(cfg),
+                     TrainConfig(steps=2, ckpt_every=100, ckpt_dir=d, lr=SMOKE_TRAIN_LR, warmup=1,
+                                 grad_compression="int8"), mesh=mesh)
+        _, _, hist = tr.run()
+    res = {"smoke_int8": {"loss": [h["loss"] for h in hist],
+                          "grad_norm": [h["grad_norm"] for h in hist]}}
+    print(json.dumps(res))
+    if len(hist) != 2 or not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                                 for h in hist):
+        fail(f"train: int8 compression: {res}")
+    return res
+
+
+def _train_flops(lm, B, S):
+    """Model operations of one step, two a multiply-add: 6 N T over the
+    weights that multiply (all but the embedding table, which is a lookup)
+    and the causal attention's two products, forward (1) and backward (2);
+    the recomputed forward of remat is not counted."""
+    cfg = lm.cfg
+    n = sum(p.numel() for p in lm.parameters()) - lm.embed.numel()
+    attn = 2 * 2 * B * cfg.n_heads * lm.head_dim * S * (S + 1) / 2 * len(lm.blocks)
+    return 6 * n * B * S + 3 * attn
+
+
+def _train_full(torch):
+    """GLM-4-9B at full width, ``TRAIN_LAYERS`` layers, seeded weights, the
+    optimized flags ("dots" remat): the Trainer's ``TRAIN_STEPS`` steps of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens and its final checkpoint, then a
+    second Trainer on a fresh model that resumes at step 4 and takes a step,
+    then a traced step.  The checkpoint directory is removed at the end."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.lm import LM, OPTIMIZED
+    from repro_torch.runtime import TrainConfig, Trainer
+    from repro_torch.runtime import trainer as trainer_mod
+
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    # the checkpoint goes where there is more room: the temporary directory
+    # or the checkout
+    base = max((tempfile.gettempdir(), str(ROOT)), key=lambda d: shutil.disk_usage(d).free)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=base)
+    du = shutil.disk_usage(ckpt_dir)
+    host = {"disk_free_gib": du.free / 2**30, "ram_free_gib": _ram_available_gib()}
+    print(json.dumps({"train_host": {**host, "ckpt_dir": ckpt_dir}}))
+    # the checkpoint: bf16 weights and fp32 moments, 10 bytes a parameter, on
+    # disk and (the async snapshot) in host memory
+    need = 10 * _dense_params(cfg) / 2**30
+    if host["disk_free_gib"] < 1.1 * need or (host["ram_free_gib"] or 0) < 1.1 * need:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        fail(f"train: the checkpoint takes {need:.1f} GiB; free disk {host['disk_free_gib']:.1f}, "
+             f"RAM {host['ram_free_gib']} GiB: cut TRAIN_LAYERS")
+
+    def model():
+        return LM(cfg, q_block=min(512, TRAIN_SEQ), xent_chunks=min(8, TRAIN_SEQ),
+                  perf=OPTIMIZED, device="cuda")
+
+    def config(steps):
+        return TrainConfig(steps=steps, ckpt_every=10**9, ckpt_dir=ckpt_dir, lr=TRAIN_LR,
+                           warmup=2)
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lm = model()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in lm.parameters())
+        flops = _train_flops(lm, TRAIN_BATCH, TRAIN_SEQ)
+        tr = Trainer(lm, data, config(TRAIN_STEPS))
+        t0 = time.perf_counter()
+        hist = tr.run()[2]  # the weights and moments are the trainer's to free
+        run_s = time.perf_counter() - t0
+        peaks = {"run": torch.cuda.max_memory_allocated() / 2**30}
+        snapshot_s, write_s = tr.ckpt.snapshot_s, tr.ckpt.write_s
+        ckpt_bytes = sum(f.stat().st_size for f in Path(ckpt_dir).rglob("*.npy"))
+        del tr, lm
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        tr2 = Trainer(model(), data, config(TRAIN_STEPS + 1))
+        read = []  # the store's read (np.load and sha1 of every leaf) inside the restore
+        real_load = trainer_mod.load_checkpoint
+
+        def timed_load(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return real_load(*args, **kwargs)
+            finally:
+                read.append(time.perf_counter() - t)
+
+        trainer_mod.load_checkpoint = timed_load
+        t0 = time.perf_counter()
+        try:
+            params, opt, start = tr2.restore_or_init()
+        finally:
+            trainer_mod.load_checkpoint = real_load
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params, opt, m = tr2.train_step(params, opt, tr2.stage_batch(start))
+        resumed = {"step": start, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                   "time": time.perf_counter() - t0}
+        peaks["resume"] = torch.cuda.max_memory_allocated() / 2**30
+        batch = tr2.stage_batch(start + 1)
+        torch.cuda.reset_peak_memory_stats()
+        device = _device_time(torch, lambda: tr2.train_step(params, opt, batch))
+        peaks["traced_step"] = torch.cuda.max_memory_allocated() / 2**30
+        del tr2, params, opt, m, batch
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    steady = [h["time"] for h in hist[1:]]
+    step_s = statistics.median(steady)
+    bound_s = flops / BF16_TC_FLOPS
+    losses = [h["loss"] for h in hist] + [resumed["loss"]]
+    norms = [h["grad_norm"] for h in hist] + [resumed["grad_norm"]]
+    out = {"arch": cfg.name, "layers": TRAIN_LAYERS,
+           "published_layers": configs.get(TRAIN_ARCH).n_layers,
+           "reduced": f"n_layers {configs.get(TRAIN_ARCH).n_layers}->{TRAIN_LAYERS}: the "
+                      "weights, gradients and fp32 moments of every layer do not fit the card "
+                      "(PERF.md §4)",
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype, "params": n_params,
+           "remat_policy": "dots", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+           "init_s": init_s, "steps": [h["step"] for h in hist], "step_times_s": [
+               h["time"] for h in hist], "step_s_median_after_first": step_s,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "model_flops_per_step": flops,
+           "bound_s": bound_s, "model_flop_share": bound_s / step_s,
+           "max_memory_allocated_gib": max(peaks.values()), "peak_gib_by_phase": peaks,
+           "ckpt_bytes": ckpt_bytes, "ckpt_snapshot_s": snapshot_s, "ckpt_write_s": write_s,
+           "run_s": run_s, "resume_load_s": load_s, "resume_read_s": sum(read),
+           "resumed": resumed,
+           "losses": losses, "grad_norms": norms, "first_loss": losses[0],
+           "ln_vocab": math.log(cfg.vocab), "step_device": device,
+           "step_idle_share": (1 - device["device_ms"] / 1e3 / step_s) if device else None,
+           **host}
+    print(json.dumps({"train_full": out}))
+    finite = all(math.isfinite(x) for x in losses + norms)
+    if not finite or hist[-1]["step"] != TRAIN_STEPS - 1 or start != TRAIN_STEPS:
+        fail(f"train: full width: finite {finite}, steps {out['steps']}, resumed at {start}")
+    return {"full": out}
+
+
+def _dense_params(cfg):
+    """Parameters of a dense config (GQA, a gated or plain MLP, untied head)."""
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    mlp = (3 if cfg.mlp in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+    layer = 2 * d * dh * (cfg.n_heads + cfg.n_kv_heads) + mlp + 2 * d
+    return cfg.n_layers * layer + cfg.vocab * d * (1 if cfg.tie_embeddings else 2) + d
+
+
+def _ram_available_gib():
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    return None
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,8 @@ Layouts are the reference's: q (B, S, Hq, dh), k/v (B, S, Hkv, dh); MLA's q
 and k (B, S, H, dn + dr), v (B, S, H, dv), its cache c_kv (B, S, r) and
 k_rope (B, S, dr).  The decode can run over a cache whose positions are
 split over the model group (``decode_attention``'s and
-``mla_decode_absorbed``'s ``shard``).  MLA's
+``mla_decode_absorbed``'s ``shard``).  The dense family's training forward
+runs ``blockwise_attention`` with each q block rematerialized; MLA's
 training attention and Ulysses sequence parallelism (the reference's
 training forward alone calls it) are not ported yet.
 
@@ -27,6 +28,7 @@ import math
 
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.models.layers import apply_rope, dense_init, rmsnorm
@@ -45,34 +47,49 @@ def _dots(a: torch.Tensor, b: torch.Tensor, eq: str) -> torch.Tensor:
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-                        q_block: int = 512, bf16_compute: bool = False) -> torch.Tensor:
+                        q_block: int = 512, bf16_compute: bool = False,
+                        remat: bool = False) -> torch.Tensor:
     """Attention over q blocks, each against the whole (masked) key range.
     Returns (B, Sq, Hq, dv) in v's dtype.  Sq and Skv may differ (the
     encoder–decoder's cross-attention, non-causal); the reference's
-    ``q_offset`` and ``kv_len`` serve a caller not ported yet (Ulysses)."""
-    B, Sq, Hq, dh = q.shape
-    Skv, Hkv, dv = v.shape[1], v.shape[2], v.shape[3]
-    assert Hq % Hkv == 0, (Hq, Hkv)
-    G = Hq // Hkv
+    ``q_offset`` and ``kv_len`` serve a caller not ported yet (Ulysses).
+    The softmax's max takes no gradient (the reference's ``stop_gradient``).
+    ``remat`` (the training forward) recomputes each block in the backward
+    (a non-reentrant ``torch.utils.checkpoint`` a block, the reference's
+    ``jax.checkpoint``-ed scan body), so that one block's scores are live
+    at a time."""
+    Sq = q.shape[1]
     qb = min(q_block, Sq)
-    scale = 1.0 / math.sqrt(dh)
-    kv_pos = torch.arange(Skv, device=q.device)
     outs = []
     for i in range(-(-Sq // qb)):
-        qi = q[:, i * qb:(i + 1) * qb]
-        n = qi.shape[1]  # the last block may be short: the reference pads it
-        qi = qi.reshape(B, n, Hkv, G, dh)
-        s = _dots((qi * scale).to(qi.dtype), k, "bqhgd,bkhd->bhgqk")
-        if causal:
-            q_pos = i * qb + torch.arange(n, device=q.device)
-            s = torch.where(q_pos[:, None] >= kv_pos[None, :], s, _NEG_INF)
-        p = torch.exp(s - s.amax(-1, keepdim=True))
-        p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
-        if bf16_compute:
-            p = p.to(v.dtype)
-        o = _dots(p, v, "bhgqk,bkhd->bqhgd")
-        outs.append(o.reshape(B, n, Hq, dv).to(v.dtype))
+        qi = q[:, i * qb:(i + 1) * qb]  # the last block may be short: the reference pads it
+        if remat:
+            outs.append(checkpoint(_attention_block, qi, k, v, i * qb, causal, bf16_compute,
+                                   use_reentrant=False))
+        else:
+            outs.append(_attention_block(qi, k, v, i * qb, causal, bf16_compute))
     return torch.cat(outs, dim=1)
+
+
+def _attention_block(qi: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q0: int,
+                     causal: bool, bf16_compute: bool) -> torch.Tensor:
+    """One q block (B, n, Hq, dh) at positions q0 .. q0 + n - 1 against the
+    whole key range."""
+    B, n, Hq, dh = qi.shape
+    Skv, Hkv, dv = v.shape[1], v.shape[2], v.shape[3]
+    assert Hq % Hkv == 0, (Hq, Hkv)
+    qi = qi.reshape(B, n, Hkv, Hq // Hkv, dh)
+    s = _dots((qi * (1.0 / math.sqrt(dh))).to(qi.dtype), k, "bqhgd,bkhd->bhgqk")
+    if causal:
+        q_pos = q0 + torch.arange(n, device=qi.device)
+        kv_pos = torch.arange(Skv, device=qi.device)
+        s = torch.where(q_pos[:, None] >= kv_pos[None, :], s, _NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True).detach())
+    p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    if bf16_compute:
+        p = p.to(v.dtype)
+    o = _dots(p, v, "bhgqk,bkhd->bqhgd")
+    return o.reshape(B, n, Hq, dv).to(v.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

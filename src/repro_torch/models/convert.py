@@ -24,6 +24,17 @@ tp = 1 weights) to this rank's slices on a ``("data", "model")`` mesh, by
 SSM, hybrid, VLM and audio; the Mamba layers' parted leaves by
 ``sharding.cut``, as ``LM(cfg, mesh=mesh)`` cuts them), for such an LM's
 ``load_state_dict``; at tp = 1 each slice is the tensor itself.
+``lm_shardings`` gives the same cuts as functions, for
+``checkpoint.load_checkpoint(..., shardings=)``.
+
+The optimizer's state and the trainer's checkpoints: ``opt_state_from_reference``
+takes the reference's ``OptState`` (numpy leaves) to the port's (``mu``,
+``nu`` unstacked as the parameters); ``trainer_state_from_reference`` maps
+the leaves of a checkpoint that the reference's ``Trainer`` wrote, by their
+keys (its tree paths: ``params/<path>``, ``opt/.step``, ``opt/.mu/<path>``,
+``opt/.nu/<path>``, the layer groups stacked), to the port's ``Trainer``
+state (``{"params": {name: tensor}, "opt": OptState}``), so that the port
+resumes the reference's run.
 """
 
 from __future__ import annotations
@@ -39,7 +50,10 @@ from repro_torch.models.lm import not_ported
 
 
 def to_tensor(a) -> torch.Tensor:
-    """A numpy array (or array-like) as a CPU tensor of the same dtype and bits."""
+    """A numpy array (or array-like, or tensor) as a CPU tensor of the same
+    dtype and bits."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().clone()
     a = np.array(a)  # a writable copy: reference arrays are read-only views
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
@@ -54,18 +68,30 @@ def _flatten(tree, prefix: str = ""):
         yield prefix[:-1], tree
 
 
+def _stacked_groups(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
+    """The reference's layer groups and the leading stacked axes of each."""
+    if cfg.family == "hybrid":
+        return {"blocks": (cfg.n_layers // cfg.attn_every, cfg.attn_every)}
+    if cfg.family == "audio":
+        return {"enc_blocks": (cfg.n_encoder_layers,), "dec_blocks": (cfg.n_layers,)}
+    n_dense = cfg.moe.first_k_dense if cfg.moe else 0
+    return {"dense0": (n_dense,), "blocks": (cfg.n_layers - n_dense,)}
+
+
+def decays_in_reference(cfg: ArchConfig, name: str, p: torch.Tensor) -> bool:
+    """Whether the reference's AdamW decays the port's leaf ``name``: it
+    decays every leaf of rank >= 2 in its tree, where a layer group's leaves
+    carry the stacked layer axes, so a layer's norm weights and biases are
+    decayed and the top-level ``final_norm`` is not."""
+    lead = _stacked_groups(cfg).get(name.split(".")[0])
+    return p.ndim + (len(lead) if lead else 0) >= 2
+
+
 def lm_params_from_reference(cfg: ArchConfig, params: dict) -> dict[str, torch.Tensor]:
     why = not_ported(cfg)
     if why:
         raise ValueError(why)
-    n_dense = cfg.moe.first_k_dense if cfg.moe else 0
-    # the leading stacked axes of each layer group
-    if cfg.family == "hybrid":
-        layers = {"blocks": (cfg.n_layers // cfg.attn_every, cfg.attn_every)}
-    elif cfg.family == "audio":
-        layers = {"enc_blocks": (cfg.n_encoder_layers,), "dec_blocks": (cfg.n_layers,)}
-    else:
-        layers = {"dense0": (n_dense,), "blocks": (cfg.n_layers - n_dense,)}
+    layers = _stacked_groups(cfg)  # the leading stacked axes of each layer group
     out = {}
     for name, leaf in _flatten({k: v for k, v in params.items() if k not in layers}):
         out[name] = to_tensor(leaf)
@@ -98,3 +124,48 @@ def shard_params(cfg: ArchConfig, full_params: dict[str, torch.Tensor], mesh
                 t = torch.nn.functional.pad(t, (0, 0, 0, short) if name == "embed" else (0, short))
         out[name] = sharding.cut(cfg, name, t, sharding.split_dim(name), rank, tp)
     return out
+
+
+def lm_shardings(cfg: ArchConfig, mesh, names) -> dict:
+    """{name: function of a whole leaf to this rank's slice on ``mesh``} for
+    the state-dict ``names`` (the cuts of ``shard_params``; ``embed`` and
+    ``lm_head`` must hold ``vocab_padded`` already)."""
+    _, tp, rank = sharding.mesh_sizes(mesh)
+    return {name: (lambda t, name=name: sharding.cut(cfg, name, t, sharding.split_dim(name),
+                                                     rank, tp))
+            for name in names}
+
+
+def opt_state_from_reference(cfg: ArchConfig, opt_state):
+    """The reference's ``OptState(step, mu, nu)`` (numpy or array-like
+    leaves) as the port's: ``step`` an int32 scalar, ``mu`` and ``nu`` keyed
+    by the port's parameter names."""
+    from repro_torch.optim import OptState
+
+    step, mu, nu = opt_state
+    return OptState(to_tensor(step).to(torch.int32).reshape(()),
+                    lm_params_from_reference(cfg, mu), lm_params_from_reference(cfg, nu))
+
+
+def _nest(flat: dict, prefix: str) -> dict:
+    """The leaves of ``flat`` under ``prefix/`` as a nested dict of their
+    remaining path."""
+    out = {}
+    for key, leaf in flat.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        *path, last = key[len(prefix) + 1:].split("/")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return out
+
+
+def trainer_state_from_reference(cfg: ArchConfig, flat: dict) -> dict:
+    """A reference ``Trainer`` checkpoint's leaves ``{key: tensor}`` as the
+    port's ``Trainer`` state ``{"params": {name: tensor}, "opt":
+    OptState}``."""
+    return {"params": lm_params_from_reference(cfg, _nest(flat, "params")),
+            "opt": opt_state_from_reference(cfg, (flat["opt/.step"], _nest(flat, "opt/.mu"),
+                                                  _nest(flat, "opt/.nu")))}

@@ -4,8 +4,9 @@
 Functions over parameter mappings (``nn.ParameterDict`` or plain dicts of
 tensors).  Weight init draws a truncated normal with fan-in scaling from an
 explicit ``torch.Generator``.  The compute dtype is the weights' (bf16 on the
-serving path); norms run in fp32 and cast back, as in the reference.  The
-chunked cross-entropy of the reference's training path is not ported yet.
+serving path); norms run in fp32 and cast back, as in the reference.
+``chunked_xent`` is the training loss: the token cross-entropy over chunks
+of the sequence, each chunk's logits recomputed in the backward.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype=torch.bfloat16,
@@ -89,3 +91,38 @@ def mlp_apply(p, x: torch.Tensor, kind: str) -> torch.Tensor:
     else:
         raise ValueError(kind)
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Loss: chunked softmax cross-entropy (never materializes (B, T, V) at once)
+# ---------------------------------------------------------------------------
+
+
+def _xent_chunk(h: torch.Tensor, w_out: torch.Tensor, targets: torch.Tensor,
+                mask: torch.Tensor):
+    """(sum of the masked token losses, sum of the mask) of one chunk."""
+    logits = (h @ w_out).float()                           # (B, Tc, V)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None])[..., 0]
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def chunked_xent(h: torch.Tensor, w_out: torch.Tensor, targets: torch.Tensor,
+                 mask: torch.Tensor, n_chunks: int, denom: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """Mean token cross-entropy of h (B, T, D) through ``w_out`` (D, V),
+    summed over ``n_chunks`` chunks of T in order (the reference's scan),
+    each under a non-reentrant ``torch.utils.checkpoint``: the backward
+    recomputes a chunk's logits, so that one (B, T / n_chunks, V) tile is
+    live at a time.  The sum is divided by max(``denom``, 1), by default the
+    mask's sum (a data-parallel rank passes the whole batch's)."""
+    b, t, d = h.shape
+    assert t % n_chunks == 0, (t, n_chunks)
+    tc = t // n_chunks
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        sl = slice(c * tc, (c + 1) * tc)
+        s, n = checkpoint(_xent_chunk, h[:, sl], w_out, targets[:, sl], mask[:, sl],
+                          use_reentrant=False)
+        tot, cnt = tot + s, cnt + n
+    return tot / torch.clamp(cnt if denom is None else denom, min=1.0)

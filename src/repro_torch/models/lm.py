@@ -161,7 +161,8 @@ from repro_torch.core.meshutil import mesh_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, sharding, ssm
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import dense_init, layernorm, mlp_apply, mlp_init, rmsnorm
+from repro_torch.models.layers import (chunked_xent, dense_init, layernorm, mlp_apply,
+                                      mlp_init, rmsnorm)
 from repro_torch.models.sharding import collectives  # noqa: F401  (counted here)
 
 
@@ -174,7 +175,14 @@ class PerfFlags:
     exact_causal_prefill — the serving prefill's attention is the flash
                            kernel (K6, exact causal FLOPs) instead of the
                            masked blockwise form.
-    remat_policy         — the reference's training remat; no effect here.
+    remat_policy         — the training forward's per-layer remat
+                           (``LM.loss``): "full" recomputes the layer in the
+                           backward; "dots" saves the outputs of the
+                           products with no batch dimension (``aten.mm``,
+                           ``addmm``) and recomputes the rest (the
+                           reference's ``dots_with_no_batch_dims_saveable``);
+                           "none", the port's own, keeps every activation.
+                           No effect on serving.
     hmajor_cache         — head-major (B, Hkv, S, dh) KV cache.
     seq_sharded_residual — the reference's sequence-sharded residual, which
                            its training forward alone reads; no effect on
@@ -190,6 +198,18 @@ class PerfFlags:
 
 OPTIMIZED = PerfFlags(bf16_attention=True, exact_causal_prefill=True,
                       remat_policy="dots", hmajor_cache=True)
+
+REMAT_POLICIES = ("full", "dots", "none")
+
+#: the products whose outputs the "dots" policy saves: no batch dimension
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _params(tensors: dict) -> nn.ParameterDict:
@@ -300,8 +320,8 @@ class LM(nn.Module):
     """
 
     def __init__(self, cfg: ArchConfig, *, mesh=None, q_block: int = 512,
-                 perf: PerfFlags | None = None, device: str | torch.device = "cuda",
-                 seed: int = 0):
+                 xent_chunks: int = 8, perf: PerfFlags | None = None,
+                 device: str | torch.device = "cuda", seed: int = 0):
         super().__init__()
         device = torch.device(device)
         if mesh is not None:
@@ -311,8 +331,11 @@ class LM(nn.Module):
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LM defaults to CUDA and no CUDA device is available; "
                                "pass device='cpu' to run on the CPU")
-        self.cfg, self.q_block = cfg, q_block
+        self.cfg, self.q_block, self.xent_chunks = cfg, q_block, xent_chunks
         self.perf = perf if perf is not None else PerfFlags()
+        if self.perf.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {self.perf.remat_policy!r} is not one of "
+                             f"{REMAT_POLICIES}")
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         self._place(mesh)
         if self.shard is None:
@@ -799,6 +822,80 @@ class LM(nn.Module):
         for p in self.enc_blocks:
             h = self._ffn_block(p, self._enc_attn(p, h, positions), use_moe=False, decode=False)
         return _norm_apply(self.cfg, self.enc_norm, h)
+
+    # -- training ---------------------------------------------------------------
+
+    def trainable_params(self) -> dict[str, nn.Parameter]:
+        """Every parameter, by its state-dict name, with ``requires_grad``
+        set (the serving entry points run under ``torch.no_grad`` and are
+        unaffected)."""
+        params = dict(self.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        return params
+
+    def _ckpt(self, fn, *args):
+        """``fn(*args)`` under the ``remat_policy``: a non-reentrant
+        ``torch.utils.checkpoint`` ("full"), the same with selective
+        checkpointing that saves the no-batch-dim products ("dots"), or
+        plainly ("none").  None of them changes a value."""
+        from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+        policy = self.perf.remat_policy
+        if policy == "none" or not torch.is_grad_enabled():
+            return fn(*args)
+        if policy == "dots":
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=lambda: create_selective_checkpoint_contexts(
+                                  _dots_policy))
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    def _train_layer(self, p, x, positions):
+        """One decoder layer of the training forward: attention without a
+        cache, each q block rematerialized, then the MLP."""
+        cfg, (B, S) = self.cfg, x.shape[:2]
+        q, k, v = self._qkv(p, _norm_apply(cfg, p.ln1, x), positions)
+        o = attn.blockwise_attention(q, k, v, causal=True, q_block=self.q_block,
+                                     bf16_compute=self.perf.bf16_attention, remat=True)
+        x = x + o.reshape(B, S, -1) @ p.attn["wo"]
+        return x + mlp_apply(p.mlp, _norm_apply(cfg, p.ln2, x), cfg.mlp)
+
+    def loss_not_ported(self) -> str | None:
+        """Why ``loss`` cannot train this LM, or None (the dense family on one
+        device)."""
+        cfg = self.cfg
+        if cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None:
+            return (f"{cfg.name}: the {cfg.family!r} family's training loss is not ported "
+                    "yet (ROADMAP §1: the dense family trains; the MoE loss and the other "
+                    "families' training stacks are queued)")
+        if self.shard is not None:
+            return (f"{cfg.name}: the loss of an LM on a mesh (tensor-parallel training) is "
+                    "not ported yet (ROADMAP §1); data-parallel training takes a mesh-less "
+                    "LM on each rank and a mesh for the Trainer")
+        return None
+
+    def loss(self, batch: dict, *, denom: torch.Tensor | None = None):
+        """The training loss of ``batch`` (``tokens``, ``targets`` (B, S)
+        int64, ``mask`` (B, S) fp32): returns (total, {"xent", "aux"}), the
+        mean token cross-entropy (the reference's ``LM.loss``).  ``denom``
+        divides the masked sum instead of this batch's mask count (a
+        data-parallel rank passes the whole batch's).  Each layer runs under
+        the ``remat_policy``; gradients reach the parameters of
+        ``trainable_params``."""
+        why = self.loss_not_ported()
+        if why:
+            raise NotImplementedError(why)
+        cfg, dev = self.cfg, self.device
+        tokens = batch["tokens"].to(dev)
+        B, S = tokens.shape
+        x = torch.nn.functional.embedding(tokens, self.embed).to(self.dtype)
+        positions = torch.arange(S, device=dev).expand(B, S)
+        for p in self.blocks:
+            x = self._ckpt(lambda x, p=p: self._train_layer(p, x, positions), x)
+        w = self.embed.T if cfg.tie_embeddings else self.lm_head
+        xent = chunked_xent(_norm_apply(cfg, self.final_norm, x), w, batch["targets"].to(dev),
+                            batch["mask"].to(dev), self.xent_chunks, denom)
+        return xent, {"xent": xent, "aux": torch.zeros((), dtype=torch.float32, device=dev)}
 
     # -- serving ----------------------------------------------------------------
 

@@ -1,0 +1,256 @@
+"""Fault-tolerant training runtime (the port of ``repro/runtime/trainer.py``).
+
+* **checkpoint/restart** — ``save_async`` every ``ckpt_every`` steps and
+  once at the end (``checkpoint/store.py``, the reference's format); on
+  start the trainer resumes from the newest intact checkpoint, its own or
+  one that the reference's ``Trainer`` wrote (``convert.
+  trainer_state_from_reference``).  The data is a pure function of the step
+  (``data/pipeline.py``), so the stream replays exactly.
+* **preemption** — SIGTERM/SIGINT ask for a final checkpoint at the next
+  step boundary, then the run returns.
+* **straggler detection** — a step slower than ``straggler_factor`` times
+  the median of the last ``straggler_window`` steps (once 8 are in)
+  writes a ``SLOW_STEP`` event to the heartbeat log.
+* **overlap** — the next step's rows are drawn on the host and copied
+  from pinned memory without blocking while the step runs; checkpoints
+  are written on a thread.
+
+Data parallelism: with ``mesh`` (``launch/mesh.make_host_mesh``, ``("data",
+"model")``, one process a rank) each rank holds the whole weights and
+optimizer state (the reference also shards them over ``"data"``, FSDP),
+takes its contiguous rows of each batch, and computes its rows' summed
+token loss over the whole batch's mask count; the gradients are then summed
+in fp32 over ``"data"`` (one ``all_reduce`` a leaf, cast back once), so each
+rank applies the gradient of the whole batch's mean loss, as the
+reference's.  ``grad_compression="int8"`` takes the reference's explicit
+path instead: each rank's gradient of its own rows' mean loss goes through
+error feedback and ``optim/compress.compressed_psum``, divided by the
+group's size.  Rank 0 alone writes the checkpoints and the heartbeat.  Weight decay
+takes the reference's leaves: those of rank >= 2 in its stacked tree, a
+layer's norm weights among them (``convert.decays_in_reference``).
+Tensor-parallel training (``"model"`` > 1) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import signal
+import time
+from collections import deque
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.checkpoint import CheckpointManager, load_checkpoint
+from repro_torch.checkpoint.store import read_manifest
+from repro_torch.core.meshutil import axis_size
+from repro_torch.data import SyntheticLMData
+from repro_torch.models.convert import decays_in_reference
+from repro_torch.models.lm import LM
+from repro_torch.optim import AdamW, OptState, cosine_schedule
+
+
+@dataclass
+class TrainConfig:
+    steps: int = 100
+    ckpt_every: int = 50
+    ckpt_dir: str = "ckpt"
+    log_every: int = 10
+    lr: float = 3e-4
+    warmup: int = 20
+    straggler_factor: float = 3.0
+    straggler_window: int = 32
+    keep_ckpts: int = 3
+    # "none" | "int8": the int8 error-feedback reduction over "data"
+    grad_compression: str = "none"
+
+
+class Trainer:
+    """Trains ``lm`` (mesh-less, its parameters whole on this rank) on
+    ``data``; ``mesh`` (``("data", "model")``, "model" of 1) makes the run
+    data-parallel over its ``"data"`` ranks."""
+
+    def __init__(self, lm: LM, data: SyntheticLMData, tc: TrainConfig, *, mesh=None):
+        why = lm.loss_not_ported()
+        if why:
+            raise NotImplementedError(why)
+        if tc.grad_compression not in ("none", "int8"):
+            raise ValueError(f"grad_compression {tc.grad_compression!r}: 'none' or 'int8'")
+        self.lm, self.data, self.tc, self.mesh = lm, data, tc, mesh
+        self.dp, self.dp_rank, self.group = 1, 0, None
+        if mesh is not None:
+            if axis_size(mesh, "model") > 1:
+                raise NotImplementedError(
+                    "tensor-parallel training (a mesh with \"model\" > 1) is not ported yet "
+                    "(ROADMAP §1); train data-parallel with model 1")
+            self.dp, self.dp_rank = axis_size(mesh, "data"), mesh.get_local_rank("data")
+            self.group = mesh.get_group("data")
+        elif tc.grad_compression == "int8":
+            raise ValueError("grad_compression='int8' reduces over a mesh's \"data\" ranks; "
+                             "pass mesh=")
+        if data.global_batch % self.dp:
+            raise ValueError(f"global batch {data.global_batch} does not split over "
+                             f"{self.dp} data ranks")
+        self.lead = dist.get_rank() == 0 if mesh is not None else True
+        self.opt = AdamW(lr=cosine_schedule(tc.lr, tc.warmup, tc.steps),
+                         decays=functools.partial(decays_in_reference, lm.cfg))
+        self.ckpt = CheckpointManager(tc.ckpt_dir, keep=tc.keep_ckpts)
+        self._stop = False
+        self._times: deque[float] = deque(maxlen=tc.straggler_window)
+        self.heartbeat_path = Path(tc.ckpt_dir) / "heartbeat.log"
+        self.params = lm.trainable_params()
+        self._err_feedback = tc.grad_compression == "int8"
+
+    # -- state ----------------------------------------------------------------
+
+    def init_state(self):
+        """(params, a fresh optimizer state, 0): the LM's own parameters, as
+        drawn from its seed or loaded into it."""
+        return self.params, self.opt.init(self.params), 0
+
+    def restore_or_init(self):
+        """The newest intact checkpoint's (params, opt state, step), written
+        into this LM's parameters and a state of its leaves, or
+        ``init_state()`` where there is none."""
+        params, opt_state, _ = self.init_state()
+        last = self.ckpt.latest_step()
+        if last is None:
+            return params, opt_state, 0
+        keys = read_manifest(self.tc.ckpt_dir, last)["leaves"]
+        if any(k.startswith("params/blocks/") for k in keys):  # the reference's Trainer
+            from repro_torch.models.convert import trainer_state_from_reference
+
+            flat, manifest = load_checkpoint(self.tc.ckpt_dir, {k: None for k in keys})
+            state = trainer_state_from_reference(self.lm.cfg, flat)
+        else:
+            state, manifest = load_checkpoint(self.tc.ckpt_dir,
+                                              {"params": params, "opt": opt_state})
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(state["params"][k])
+            for mine, theirs in ((opt_state.mu, state["opt"].mu), (opt_state.nu, state["opt"].nu)):
+                for k, t in mine.items():
+                    t.copy_(theirs[k])
+        step = state["opt"].step.to(torch.int32).reshape(())
+        return params, OptState(step.clone(), opt_state.mu, opt_state.nu), manifest["step"]
+
+    # -- one step ---------------------------------------------------------------
+
+    def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        if self.dp > 1:
+            dist.all_reduce(t, group=self.group)
+        return t
+
+    def train_step(self, params: dict, opt_state: OptState, batch: dict, err: dict | None = None):
+        """One step on this rank's rows ``batch``: returns (params, opt state,
+        metrics), with the new error-feedback state before the metrics under
+        int8 compression.  The parameters are updated in place."""
+        for p in params.values():
+            p.grad = None
+        if self._err_feedback:
+            from repro_torch.optim.compress import (ErrorFeedback, compressed_psum,
+                                                    reduce_local_roundtrip)
+
+            loss, _ = self.lm.loss(batch)  # this rank's rows' mean
+            loss.backward()
+            g, err = ErrorFeedback.apply(
+                {k: p.grad for k, p in params.items()}, err,
+                lambda c: compressed_psum(c, self.mesh), lambda c: reduce_local_roundtrip(c, self.mesh))
+            ndp = torch.full((), float(self.dp), device=loss.device)
+            grads = {k: t / ndp for k, t in g.items()}
+            loss = self._all_reduce(loss.detach().clone()) / ndp
+            params, opt_state, om = self.opt.update(grads, opt_state, params)
+            return params, opt_state, err, {"loss": loss, "xent": loss, **om}
+        denom = self._all_reduce(batch["mask"].sum().to(self.lm.device))
+        loss, metrics = self.lm.loss(batch, denom=denom)
+        loss.backward()
+        grads = {k: p.grad for k, p in params.items()}
+        if self.dp > 1:  # the whole batch's gradient: fp32 sums, cast back once
+            for g in grads.values():
+                g.copy_(self._all_reduce(g.float()))
+            loss = self._all_reduce(loss.detach().clone())
+        params, opt_state, om = self.opt.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss.detach(), "xent": loss.detach(),
+                                   "aux": metrics["aux"], **om}
+
+    def stage_batch(self, step: int) -> dict:
+        """This rank's rows of batch ``step`` on the LM's device: a
+        non-blocking copy from pinned memory on a card."""
+        rows = self.data.host_local_batch(step, process_index=self.dp_rank,
+                                          process_count=self.dp)
+        if self.lm.device.type != "cuda":
+            return rows
+        return {k: v.pin_memory().to(self.lm.device, non_blocking=True) for k, v in rows.items()}
+
+    # -- loop -------------------------------------------------------------------
+
+    def _heartbeat(self, record: dict):
+        if self.lead:
+            with open(self.heartbeat_path, "a") as f:
+                f.write(json.dumps(record) + "\n")
+
+    def _save(self, step: int, params, opt_state):
+        if self.lead:
+            self.ckpt.save_async(step, {"params": params, "opt": opt_state})
+
+    def _signal(self, *_):
+        self._stop = True
+
+    def run(self, on_metrics=None):
+        """Train from the newest checkpoint (or step 0) to ``tc.steps``;
+        returns (params, opt state, history of {"step", "loss", "time",
+        "grad_norm"})."""
+        tc = self.tc
+        Path(tc.ckpt_dir).mkdir(parents=True, exist_ok=True)
+        old1 = signal.signal(signal.SIGTERM, self._signal)
+        old2 = signal.signal(signal.SIGINT, self._signal)
+        params, opt_state, start = self.restore_or_init()
+        history = []
+        err = None
+        if self._err_feedback:
+            from repro_torch.optim.compress import ErrorFeedback
+
+            err = ErrorFeedback.init(params)
+        try:
+            staged = self.stage_batch(start)
+            for step in range(start, tc.steps):
+                t0 = time.perf_counter()
+                batch = staged
+                if self._err_feedback:
+                    params, opt_state, err, metrics = self.train_step(params, opt_state, batch,
+                                                                      err)
+                else:
+                    params, opt_state, metrics = self.train_step(params, opt_state, batch)
+                if step + 1 < tc.steps:  # stage the next batch while the step runs
+                    staged = self.stage_batch(step + 1)
+                loss = float(metrics["loss"])  # sync point
+                dt = time.perf_counter() - t0
+                median = float(np.median(self._times)) if self._times else dt
+                slow = dt > tc.straggler_factor * median and len(self._times) >= 8
+                self._times.append(dt)
+                self._heartbeat({"step": step, "t": dt, "loss": loss,
+                                 **({"event": "SLOW_STEP"} if slow else {})})
+                history.append({"step": step, "loss": loss, "time": dt,
+                                "grad_norm": float(metrics["grad_norm"])})
+                if on_metrics:
+                    on_metrics(history[-1])
+                if (step + 1) % tc.ckpt_every == 0:
+                    self._save(step + 1, params, opt_state)
+                if self._stop:
+                    self.ckpt.wait()
+                    self._save(step + 1, params, opt_state)
+                    self.ckpt.wait()
+                    self._heartbeat({"step": step, "event": "PREEMPTED_CLEAN_EXIT"})
+                    break
+            else:
+                self.ckpt.wait()
+                self._save(tc.steps, params, opt_state)
+                self.ckpt.wait()
+        finally:
+            signal.signal(signal.SIGTERM, old1)
+            signal.signal(signal.SIGINT, old2)
+        return params, opt_state, history

@@ -28,7 +28,10 @@ within the plan's 3e-2 bound each with one field at 1e3, and every K1/K3
 launch of a stacked 512^3 forward is ``vec``.  The example twins at the
 examples' sizes on a 1-rank NCCL group hold the examples' checks (a K4 DNS
 run's energies within 1e-5 of cuFFT's, a bf16 wire's within its rounding
-bound), and every example plan audits clean.
+bound), and every example plan audits clean.  The dense family's training
+step at the smoke size matches the CPU's (fp32, TF32 off: the loss, the
+grad norm and each gradient leaf within 1e-5 relative) and launches no
+kernel, and a resumed run is bitwise an uninterrupted one.
 """
 
 import math
@@ -1097,3 +1100,76 @@ def test_plan_audit_of_the_example_plans_on_the_card(mesh1):
     for label, (plan, nfields) in planlint.example_plans(mesh1).items():
         rep = planlint.audit_plan(plan, nfields=nfields, label=label)
         assert rep.ok, (label, [v.to_dict() for v in rep.violations])
+
+
+def _train_smoke(dtype):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMData
+
+    cfg = dataclasses.replace(configs.smoke("glm4_9b"), dtype=dtype)
+    return cfg, SyntheticLMData(vocab=cfg.vocab, seq_len=16, global_batch=4)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """One fp32 step of the smoke GLM-4 (TF32 off): the loss, the grad norm
+    and every clipped gradient leaf within 1e-5 relative of the CPU's; no
+    kernel of K1-K6 launches."""
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    cfg, data = _train_smoke("float32")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = (fops.launches, xops.launches, tops.launches, flops.launches)
+    before = [dict(c) for c in counters]
+    try:
+        cpu = LM(cfg, q_block=8, xent_chunks=2, device="cpu")
+        gpu = LM(cfg, q_block=8, xent_chunks=2, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        out = {}
+        for name, lm in (("cpu", cpu), ("cuda", gpu)):
+            tr = Trainer(lm, data, TrainConfig(steps=1, ckpt_dir=str(tmp_path / name), lr=1e-3,
+                                               warmup=1))
+            params, opt, _ = tr.init_state()
+            params, opt, m = tr.train_step(params, opt, {k: v.to(lm.device)
+                                                         for k, v in data.batch(0).items()})
+            out[name] = (float(m["loss"]), float(m["grad_norm"]),
+                         {k: p.grad.cpu() for k, p in params.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (l0, g0, gr0), (l1, g1, gr1) = out["cpu"], out["cuda"]
+    assert abs(l1 - l0) <= 1e-5 * l0 and abs(g1 - g0) <= 1e-5 * g0
+    for k in gr0:
+        if gr0[k].any():
+            assert float((gr1[k] - gr0[k]).norm() / gr0[k].norm()) <= 1e-5, k
+    assert [dict(c) for c in counters] == before
+
+
+def test_resume_on_the_card_is_bitwise(cuda, tmp_path):
+    """4 steps, a stop and 2 resumed steps equal 6 uninterrupted ones on the
+    card (bf16, the optimized flags): weights, moments, losses."""
+    from repro_torch.models.lm import LM, OPTIMIZED
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    cfg, data = _train_smoke("bfloat16")
+
+    def trainer(d):
+        lm = LM(cfg, q_block=8, xent_chunks=2, perf=OPTIMIZED, device="cuda")
+        return Trainer(lm, data, TrainConfig(steps=6, ckpt_every=100, ckpt_dir=str(d), lr=1e-3,
+                                             warmup=2))
+
+    first = trainer(tmp_path / "a")
+
+    def stop(m):
+        if m["step"] == 3:
+            first._stop = True
+
+    h1 = first.run(on_metrics=stop)[2]
+    p2, o2, h2 = trainer(tmp_path / "a").run()
+    p3, o3, h3 = trainer(tmp_path / "b").run()
+    assert [h["loss"] for h in h1 + h2] == [h["loss"] for h in h3]
+    for k in p3:
+        assert torch.equal(p2[k], p3[k]) and torch.equal(o2.mu[k], o3.mu[k])
+        assert torch.equal(o2.nu[k], o3.nu[k])

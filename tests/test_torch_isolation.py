@@ -34,7 +34,11 @@ def test_port_imports_neither_jax_nor_reference():
                  "repro_torch.configs.glm4_9b", "repro_torch.serve.engine",
                  "repro_torch.serve.__main__", "repro_torch.launch.serve",
                  "repro_torch.analysis.planlint", "repro_torch.examples.quickstart",
-                 "repro_torch.examples.poisson", "repro_torch.examples.navier_stokes"):
+                 "repro_torch.examples.poisson", "repro_torch.examples.navier_stokes",
+                 "repro_torch.optim.adamw", "repro_torch.optim.compress",
+                 "repro_torch.data.pipeline", "repro_torch.data.prng",
+                 "repro_torch.checkpoint.store", "repro_torch.runtime.trainer",
+                 "repro_torch.launch.train", "repro_torch.examples.lm_pretrain"):
         assert want in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -136,6 +140,38 @@ def test_example_and_audit_clis_on_the_cpu(module, tmp_path):
                           env=env, capture_output=True, text=True, timeout=300, cwd=tmp_path)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert ("[ok]" if module.endswith("planlint") else "ok") in proc.stdout
+
+
+#: the training CLIs, with arguments that keep a one-rank CPU run to seconds
+_TRAIN_CLIS = {
+    "repro_torch.launch.train": ["--arch", "glm4_9b", "--preset", "smoke", "--steps", "2"],
+    "repro_torch.examples.lm_pretrain": ["--steps", "1"],
+}
+
+
+@pytest.mark.parametrize("module", list(_TRAIN_CLIS))
+def test_training_clis_default_to_cuda_and_raise_without_a_card(module, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import importlib
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        importlib.import_module(module).main([*_TRAIN_CLIS[module], "--ckpt-dir",
+                                              str(tmp_path)])
+    assert not any(tmp_path.iterdir())  # nothing ran on the CPU instead
+
+
+def test_train_cli_on_the_cpu(tmp_path):
+    """``python -m repro_torch.launch.train --device cpu`` trains on the CPU
+    and writes its final checkpoint."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), HOME=str(tmp_path), TMPDIR=str(tmp_path),
+               OMP_NUM_THREADS="1")  # the suite's workers share the cores
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+                           *_TRAIN_CLIS["repro_torch.launch.train"]], env=env,
+                          capture_output=True, text=True, timeout=300, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "trained 2 steps" in proc.stdout
+    assert (tmp_path / "repro_torch_train_glm4_9b" / "step_0000000002").is_dir()
 
 
 @pytest.mark.parametrize("fields,expect", [
