@@ -156,10 +156,10 @@ non-zero):
    one-rank twin (``twin_path``: ``LM.sharded`` on a 1-rank NCCL group,
    bitwise the mesh-less LM, the expanded decode step too; one
    ``{"mla_parallel": ...}`` line);
-   "ssm" — after the mla path's model is freed, Falcon-Mamba-7B whole (64
-   Mamba1 layers at full width: d 4096, d_inner 8192, d_state 16, dt_rank
-   256, scan chunk 128, bf16, seeded weights) through ``serve_lm.main`` with
-   the lm path's traffic; no kernel of K1-K6 launches (the model has no
+   "ssm" — after the mla path's model is freed, Falcon-Mamba-7B at full
+   width (d 4096, d_inner 8192, d_state 16, dt_rank 256, scan chunk 128,
+   bf16, seeded weights), 16 of its 64 Mamba1 layers (cut for the run's
+   time), through ``serve_lm.serve`` with the lm path's traffic; no kernel of K1-K6 launches (the model has no
    attention); two prefills bitwise equal (logits, ``ssm`` and ``conv``);
    3 teacher-forced decode steps against a prefill of S + 3 tokens (a padded
    last chunk), logits within the limit, the final ``ssm`` state's rel. L2
@@ -205,24 +205,30 @@ non-zero):
    bitwise equal (logits, ``k``, ``v``, ``ck``, ``cv``); the vlm path's two
    comparisons (one ``{"audio": ...}`` line); then the model's one-rank twin
    (``twin_path``; one ``{"audio_parallel": ...}`` line);
-   "train" — last, the dense family's training (``repro_torch.runtime.
-   Trainer``; no kernel of K1-K6 may launch in it): one fp32 step of the
-   smoke GLM-4 on the card against the same step on the CPU (the loss, the
-   grad norm and each gradient leaf within 1e-5 relative, and the optimizer
-   alone on the CPU's gradients bitwise the CPU's update); 4 steps, a stop
-   and 2 resumed steps bitwise 6 uninterrupted ones (bf16, the optimized
-   flags); 2 steps with int8 gradient compression on a 1-rank NCCL group;
-   then GLM-4-9B at full width cut to 12 of its 40 layers (bf16, seeded
-   weights, "dots" remat, 4 x 2048 tokens a step, lr 3e-4): the Trainer's
+   "train" — last, every family's training (``repro_torch.runtime.
+   Trainer``; no kernel of K1-K6 may launch in it): one fp32 step of each
+   family's smoke config on the card against the same step on the CPU (the
+   loss, the grad norm and each gradient leaf within 1e-5 relative, an
+   MoE's expert choices compared first; for GLM-4 also the optimizer alone
+   on the CPU's gradients bitwise the CPU's update); 4 steps, a stop and 2
+   resumed steps bitwise 6 uninterrupted ones (bf16, the optimized flags)
+   for the smoke GLM-4, DeepSeek-V2-Lite and Zamba2; 2 steps with int8
+   gradient compression on a 1-rank NCCL group (GLM-4, and Phi-3.5-MoE's
+   local-mode LM); then each family at full width, cut in depth only
+   (``TRAIN_AT_WIDTH``: bf16, seeded weights, "dots" remat, 4 x 2048
+   tokens a step, lr 3e-4): GLM-4-9B's 12 of 40 layers take the Trainer's
    4 steps and its final checkpoint (~36.9 GB, written where there is more
-   room and removed at the end), a second Trainer on a fresh model resuming
-   at step 4 and taking a step, one more step traced: step times,
-   tokens/s, the model-FLOP share of 989 TFLOP/s, peak memory by phase, the
-   checkpoint's snapshot, write and read seconds, the first loss beside
-   ln V, the traced step's device time by class and its idle share (one
-   ``{"train_full"}`` line as it ends, the whole path's ``{"train"}`` line
-   after the kernels'); ``python3 chip_smoke.py --only train`` runs this
-   path alone (no kernel is built);
+   room and removed at the end), a second Trainer resumes at step 4 and
+   takes a step, one more is traced; DeepSeek-V2-Lite's 10 of 27 take 4
+   steps and one traced (aux, z and the dropped share a layer beside
+   them); Zamba2-2.7B, Falcon-Mamba-7B, LLaVA-NeXT-34B and
+   SeamlessM4T-medium take 3: step times, tokens/s, the model-FLOP share
+   of 989 TFLOP/s, peak memory by phase, the first loss beside ln V, a
+   traced step's device time by class and its idle share (one
+   ``{"train_full"}``, ``{"train_moe_full"}`` or ``{"train_width"}`` line
+   each, the whole path's ``{"train"}`` line after the kernels');
+   ``python3 chip_smoke.py --only train`` runs this path alone (no kernel
+   is built);
 4. the kernels at the main path's shapes (512^3, where K4 runs its
    tensor-core design and K1-K3 their vec designs, as at the pipelined slice;
    K4's general design at the quickstart shape; K5 at three 1 GiB
@@ -298,14 +304,35 @@ TOL_LM = 6e-2
 # the moe path: Phi-3.5-MoE at full width, its 32 layers cut to 28 (73.3 GB
 # of bf16 weights; 32 are 83.8 GB), with the lm path's traffic
 MOE_ARCH, MOE_LAYERS = "phi35_moe_42b", 28
-# the train path: GLM-4-9B at full width, cut in depth to what the card's
-# memory and the run's time take (PERF.md §4), 4 x 2048 tokens a step
-TRAIN_ARCH, TRAIN_LAYERS = "glm4_9b", 12
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 2048, 4, 3e-4
+# the train path's smoke checks take GLM-4 unless they name another family
+TRAIN_ARCH = "glm4_9b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 2048, 3e-4
 # the smoke checks: card against CPU, one fp32 step (allow_tf32 off): the
 # loss, the grad norm and each gradient leaf (rel. L2), relative
 TOL_TRAIN_REL = 1e-5
 SMOKE_TRAIN_LR = 1e-3
+# the other families' training: each smoke config's fp32 step card vs CPU,
+# a bitwise resume of two of them, int8 compression of the MoE
+TRAIN_FAMILIES = ("phi35_moe_42b", "deepseek_v2_lite_16b", "falcon_mamba_7b", "zamba2_2p7b",
+                  "llava_next_34b", "seamless_m4t_medium")
+TRAIN_RESUME_ARCHS = ("deepseek_v2_lite_16b", "zamba2_2p7b")
+TRAIN_INT8_ARCH = "phi35_moe_42b"
+# every family's training at full width: seeded weights, the optimized
+# flags, TRAIN_BATCH x TRAIN_SEQ tokens a step, cut in depth only, to what
+# the card's memory (TRAIN_PEAK_GIB) and the run's time take (PERF.md §4):
+# (its JSON line, arch, layers, steps, the checkpoint and a resume, a traced
+# step).  GLM-4-9B writes the full-width checkpoint; the others' leaves go
+# through the store in the smoke resumes
+TRAIN_AT_WIDTH = (
+    ("train_full", "glm4_9b", 12, 4, True, True),
+    ("train_moe_full", "deepseek_v2_lite_16b", 10, 4, False, True),
+    ("train_width", "zamba2_2p7b", 54, 3, False, False),
+    ("train_width", "falcon_mamba_7b", 4, 3, False, False),
+    ("train_width", "llava_next_34b", 6, 3, False, False),
+    ("train_width", "seamless_m4t_medium", 12, 3, False, False),
+)
+# the depth rule: the card's 79.1 GiB less 8 GiB of headroom
+TRAIN_PEAK_GIB = 79.1 - 8
 MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 2048, 32
 #: greedy decode steps of each LM path's one-rank twin (``twin_path``)
 TWIN_STEPS = 3
@@ -313,10 +340,11 @@ TWIN_STEPS = 3
 # served through serve_lm as a user calls it, with the lm path's traffic
 MLA_ARGV = ["--arch", "deepseek_v2_lite_16b", "--preset", "full", "--opt", "--batch", "4",
             "--prompt-len", "2048", "--gen", "32"]
-# the ssm path: Falcon-Mamba-7B whole (64 layers, 13.55 GiB of bf16 weights)
-# through serve_lm, with the lm path's traffic
-SSM_ARGV = ["--arch", "falcon_mamba_7b", "--preset", "full", "--opt", "--batch", "4",
-            "--prompt-len", "2048", "--gen", "32"]
+# the ssm path: Falcon-Mamba-7B at full width through serve_lm, with the lm
+# path's traffic, its 64 layers cut to SSM_LAYERS for the run's time (the
+# path's first depth cut, PERF.md §4; every layer is alike and the path
+# holds each against its own reference)
+SSM_ARCH, SSM_LAYERS = "falcon_mamba_7b", 16
 # one layer's selective scan at full width against a float64 recurrence:
 # (B, T, d_inner, d_state), inputs in tests/test_ssm.py's ranges, held to
 # that file's limit
@@ -3203,8 +3231,8 @@ def mla_path(torch, info):
 
 
 def ssm_path(torch, info):
-    """Falcon-Mamba-7B whole (64 Mamba1 layers at full width) served through
-    ``serve_lm.main`` with the lm path's traffic (one warm-up round, then a
+    """Falcon-Mamba-7B at full width, ``SSM_LAYERS`` of its 64 Mamba1
+    layers, served through ``serve_lm.serve`` with the lm path's traffic (one warm-up round, then a
     timed prefill and 32 decode steps), then on the same weights: a second
     prefill bitwise equal (logits, ``ssm``, ``conv``); 3 teacher-forced
     decode steps against a prefill of S + 3 tokens (the last chunk padded),
@@ -3212,10 +3240,18 @@ def ssm_path(torch, info):
     them; ``_ssm_scan`` (one layer's scan at full width against float64, and
     timed at the prefill's shape); no launch of K1-K6 in the whole path.
     Fills ``info``; then the model's one-rank twin (``twin_path``)."""
-    from repro_torch.launch import serve_lm
+    import dataclasses
 
+    from repro_torch import configs
+    from repro_torch.launch import serve_lm
+    from repro_torch.models.lm import LM, OPTIMIZED
+
+    published = configs.get(SSM_ARCH)
     torch.cuda.reset_peak_memory_stats()
-    res = serve_lm.main(SSM_ARGV)
+    lm = LM(dataclasses.replace(published, n_layers=SSM_LAYERS), q_block=512, perf=OPTIMIZED,
+            device="cuda", seed=0)
+    res = serve_lm.serve(lm, serve_lm.make_prompts(published.vocab, MOE_BATCH, MOE_PROMPT,
+                                                   "cuda", 0), MOE_GEN)
     peak = torch.cuda.max_memory_allocated()
     lm, prompts = res.lm, res.prompts
     cfg, scfg = lm.cfg, lm.cfg.ssm
@@ -3242,7 +3278,9 @@ def ssm_path(torch, info):
 
     di = scfg.expand * cfg.d_model
     bounds = _serving_bounds(lm, B, S, n_gen)
-    out = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model, "d_inner": di,
+    out = {"arch": cfg.name, "layers": L, "published_layers": published.n_layers,
+           "reduced": f"n_layers {published.n_layers}->{L}: the run's time (PERF.md §4)",
+           "d_model": cfg.d_model, "d_inner": di,
            "d_state": scfg.d_state, "d_conv": scfg.d_conv,
            "dt_rank": lm.blocks[0].mamba["dt_proj"].shape[0], "chunk": scfg.chunk,
            "vocab": cfg.vocab, "dtype": cfg.dtype,
@@ -3647,24 +3685,27 @@ def _prefill_repeats_bitwise(torch, lm, prompts, cache, lg):
                                         for g in cache for key in cache[g])
 
 
-def _routed_by(torch, moe, fn, pinned=None):
-    """(fn(), each ``moe.route`` call's expert ids); with ``pinned``, each
-    call's ids are taken from that list in turn and gated by the call's own
-    probabilities, renormalised."""
-    route, ids = moe.route, []
+def _routed_by(torch, moe, fn, pinned=None, key=None):
+    """(fn(), the expert ids of each ``moe.route`` call); with ``pinned``, each
+    call's ids are taken from that list and gated by the call's own
+    probabilities, renormalised.  Calls are told apart by their order, or
+    with ``key`` by ``key(router_w)`` (a layer's index), of which the first
+    call counts: so the backward's recomputation of a layer finds its own."""
+    route, seen = moe.route, {}
 
     def hook(router_w, x, top_k):
         gates, idx, aux, z = route(router_w, x, top_k)
+        i = len(seen) if key is None else key(router_w)
         if pinned is not None:
-            idx = pinned[len(ids)]
+            idx = pinned[i]
             probs = torch.softmax(x.float() @ router_w.float(), dim=-1).gather(1, idx)
             gates = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)
-        ids.append(idx)
+        seen.setdefault(i, idx)
         return gates, idx, aux, z
 
     moe.route = hook
     try:
-        return fn(), ids
+        return fn(), [seen[i] for i in sorted(seen)]
     finally:
         moe.route = route
 
@@ -3896,34 +3937,92 @@ def _no_launches(counts):
 
 
 def train_path(torch, info):
-    """The dense family's training: (a) one fp32 step of the smoke config on
-    the card against the same step on the CPU; (b) 4 steps, a preemption
-    and 2 resumed steps against 6 uninterrupted ones (bf16, optimized
-    flags), bitwise; (c) 2 steps with int8 gradient compression on a 1-rank
-    NCCL group; (d) GLM-4-9B at full width, ``TRAIN_LAYERS`` layers: the
-    Trainer's 4 steps (checkpoint at the end), a second Trainer that
-    resumes at step 4 and takes a step, and one more step traced.  Fills
+    """The training of every family: (a) one fp32 step of each smoke config
+    (GLM-4 and ``TRAIN_FAMILIES``) on the card against the same step on the
+    CPU; (b) 4 steps, a preemption and 2 resumed steps against 6
+    uninterrupted ones (bf16, optimized flags), bitwise, for GLM-4 and
+    ``TRAIN_RESUME_ARCHS``; (c) 2 steps with int8 gradient compression on a
+    1-rank NCCL group, GLM-4 and the MoE (``moe_apply_dense``); (d) each
+    family at full width (``TRAIN_AT_WIDTH``, ``_train_at_width``).  Fills
     ``info``; every check fails the run."""
     info.update(_train_vs_cpu(torch))
+    info["families_card_vs_cpu"] = {arch: _family_vs_cpu(torch, arch) for arch in TRAIN_FAMILIES}
     info.update(_train_resume(torch))
+    info["families_resume"] = {arch: _train_resume(torch, arch)["smoke_resume"]
+                               for arch in TRAIN_RESUME_ARCHS}
     info.update(_train_int8(torch))
-    gc.collect()
-    torch.cuda.empty_cache()
-    info.update(_train_full(torch))
+    info["moe_int8"] = _train_int8(torch, TRAIN_INT8_ARCH)["smoke_int8"]
+    for line, arch, layers, steps, ckpt, traced in TRAIN_AT_WIDTH:
+        gc.collect()
+        torch.cuda.empty_cache()
+        info.setdefault("at_width", {})[arch] = _train_at_width(torch, line, arch, layers, steps,
+                                                                ckpt, traced)
 
 
-def _smoke_train_cfg(dtype):
+def _smoke_train_cfg(dtype, arch=TRAIN_ARCH):
     import dataclasses
 
     from repro_torch import configs
 
-    return dataclasses.replace(configs.smoke(TRAIN_ARCH), dtype=dtype)
+    return dataclasses.replace(configs.smoke(arch), dtype=dtype)
 
 
 def _smoke_data(cfg):
-    from repro_torch.data import SyntheticLMData
+    """The smoke steps' data: seq 16, batch 4, with the family's frontend."""
+    from repro_torch.launch.train import data_for
 
-    return SyntheticLMData(vocab=cfg.vocab, seq_len=16, global_batch=4)
+    return data_for(cfg, 16, 4)
+
+
+def _family_vs_cpu(torch, arch):
+    """One fp32 step of ``arch``'s smoke config on the card and on the CPU
+    from the same weights: the loss, the grad norm and every gradient leaf
+    within ``TOL_TRAIN_REL``.  An MoE's expert choices are compared first;
+    where any differ, the card's step is taken again with the CPU's choices
+    pinned (routing is a step function of the router's margins)."""
+    from repro_torch.models import moe
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    cfg = _smoke_train_cfg("float32", arch)
+    data = _smoke_data(cfg)
+    init = LM(cfg, q_block=8, xent_chunks=2, device="cpu").state_dict()
+
+    def step(device, d, pinned=None):
+        lm = LM(cfg, q_block=8, xent_chunks=2, device=device)
+        lm.load_state_dict(init)
+        layer = {id(p.moe["router"]): i for i, p in enumerate(getattr(lm, "blocks", []))
+                 if hasattr(p, "moe")}
+        tr = Trainer(lm, data, TrainConfig(steps=1, ckpt_dir=d, lr=SMOKE_TRAIN_LR, warmup=1))
+        params, opt, _ = tr.init_state()
+        batch = {k: v.to(lm.device) for k, v in data.batch(0).items()}
+        (params, opt, m), ids = _routed_by(
+            torch, moe, lambda: tr.train_step(params, opt, batch),
+            None if pinned is None else [i.to(lm.device) for i in pinned],
+            key=lambda w: layer[id(w)])
+        return (float(m["loss"]), float(m["grad_norm"]),
+                {k: p.grad.detach().cpu() for k, p in params.items()}, [i.cpu() for i in ids])
+
+    with tempfile.TemporaryDirectory() as d:
+        (l0, g0, gr0, ids0) = step("cpu", f"{d}/cpu")
+        (l1, g1, gr1, ids1) = step("cuda", f"{d}/cuda")
+        differ = _choices_differ(ids0, ids1)
+        if differ:
+            (l1, g1, gr1, _) = step("cuda", f"{d}/pinned", pinned=ids0)
+    rel_loss, rel_gnorm = abs(l1 - l0) / abs(l0), abs(g1 - g0) / abs(g0)
+    rel_grad = max(float(torch.linalg.vector_norm(gr1[k] - gr0[k])
+                         / torch.linalg.vector_norm(gr0[k])) for k in gr0 if gr0[k].any())
+    res = {"arch": arch, "loss_cpu": l0, "loss_card": l1, "rel_loss": rel_loss,
+           "grad_norm_cpu": g0, "grad_norm_card": g1, "rel_grad_norm": rel_gnorm,
+           "max_rel_l2_grad_leaf": rel_grad, "limit": TOL_TRAIN_REL}
+    if ids0:
+        n = sum(int(i.shape[0]) for i in ids0)
+        res.update({"expert_choices_differ": differ, "expert_choices": n,
+                    "differ_share": differ / n, "card_pinned_to_cpu": bool(differ)})
+    print(json.dumps({"family_card_vs_cpu": res}))
+    if max(rel_loss, rel_gnorm, rel_grad) > TOL_TRAIN_REL:
+        fail(f"train: the card's step against the CPU's: {res}")
+    return res
 
 
 def _train_vs_cpu(torch):
@@ -3979,13 +4078,14 @@ def _train_vs_cpu(torch):
     return res
 
 
-def _train_resume(torch):
+def _train_resume(torch, arch=TRAIN_ARCH):
     """4 steps, the stop flag SIGTERM sets, 2 resumed steps against 6
-    uninterrupted ones: weights, moments and losses bitwise."""
+    uninterrupted ones: weights, moments and losses bitwise (an MoE's
+    backward has no atomics: ``moe._Fill``)."""
     from repro_torch.models.lm import LM, OPTIMIZED
     from repro_torch.runtime import TrainConfig, Trainer
 
-    cfg = _smoke_train_cfg("bfloat16")
+    cfg = _smoke_train_cfg("bfloat16", arch)
     data = _smoke_data(cfg)
 
     def trainer(d):
@@ -4007,7 +4107,8 @@ def _train_resume(torch):
             "params": all(torch.equal(p2[k], p3[k]) for k in p3),
             "moments": all(torch.equal(o2.mu[k], o3.mu[k]) and torch.equal(o2.nu[k], o3.nu[k])
                            for k in p3)}
-    res = {"smoke_resume": {"steps": [[h["step"] for h in h1], [h["step"] for h in h2]],
+    res = {"smoke_resume": {"arch": arch,
+                            "steps": [[h["step"] for h in h1], [h["step"] for h in h2]],
                             "bitwise": same,
                             "max_abs_param": max(float((p2[k] - p3[k]).detach().float().abs().max())
                                                  for k in p3)}}
@@ -4017,170 +4118,282 @@ def _train_resume(torch):
     return res
 
 
-def _train_int8(torch):
-    """2 steps with int8 error-feedback compression on a 1-rank NCCL group."""
+def _train_int8(torch, arch=TRAIN_ARCH):
+    """2 steps with int8 error-feedback compression on a 1-rank NCCL group
+    (an MoE trains its local-mode LM: ``moe_apply_dense``)."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.lm import LM
     from repro_torch.runtime import TrainConfig, Trainer
 
-    cfg = _smoke_train_cfg("float32")
+    cfg = _smoke_train_cfg("float32", arch)
     with _nccl_world_one(), tempfile.TemporaryDirectory() as d:
         mesh = make_host_mesh(1, device="cuda")
         tr = Trainer(LM(cfg, q_block=8, xent_chunks=2, device="cuda"), _smoke_data(cfg),
                      TrainConfig(steps=2, ckpt_every=100, ckpt_dir=d, lr=SMOKE_TRAIN_LR, warmup=1,
                                  grad_compression="int8"), mesh=mesh)
         _, _, hist = tr.run()
-    res = {"smoke_int8": {"loss": [h["loss"] for h in hist],
+    res = {"smoke_int8": {"arch": arch, "local_mode": tr.loss_lm.local_mode,
+                          "loss": [h["loss"] for h in hist],
                           "grad_norm": [h["grad_norm"] for h in hist]}}
     print(json.dumps(res))
     if len(hist) != 2 or not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
-                                 for h in hist):
+                                 for h in hist) or not tr.loss_lm.local_mode:
         fail(f"train: int8 compression: {res}")
     return res
 
 
 def _train_flops(lm, B, S):
-    """Model operations of one step, two a multiply-add: 6 N T over the
-    weights that multiply (all but the embedding table, which is a lookup)
-    and the causal attention's two products, forward (1) and backward (2);
-    the recomputed forward of remat is not counted."""
+    """Model operations of one step at full width, two a multiply-add: 6 T
+    for each weight that multiplies, T the tokens it multiplies (the
+    embedding table is a lookup, a tied one is also the head), and the
+    attention's two products, forward (1) and backward (2); the recomputed
+    forward of remat and the scans' elementwise recurrences are not counted.
+    T is B S, the VLM's layers take its F + S positions a row (the head S),
+    the audio encoder's its S frames, the hybrid's shared block runs once
+    a group.  The MoE family counts its own (``_moe_train_flops``)."""
+    cfg, H, dh = lm.cfg, lm.cfg.n_heads, lm.head_dim
+    S_dec = S + (cfg.n_frontend_tokens if cfg.family == "vlm" else 0)
+    groups = len(lm.blocks) if cfg.family == "hybrid" else 1
+    tokens = {"embed": B * S if cfg.tie_embeddings else 0, "lm_head": B * S,
+              "shared": B * S * groups, "enc_blocks": B * S}
+    n = sum(p.numel() * tokens.get(k.split(".")[0], B * S_dec)
+            for k, p in lm.trainable_params().items())
+
+    def pairs(q, k, causal=True):  # the (query, key) pairs of one head
+        return q * (q + 1) / 2 if causal else q * k
+
+    if cfg.family == "ssm":
+        att = 0
+    elif cfg.family == "hybrid":
+        att = groups * pairs(S, S)
+    elif cfg.family == "audio":  # the encoder's, the decoder's self and (causal) cross
+        att = len(lm.enc_blocks) * pairs(S, S, False) + 2 * len(lm.dec_blocks) * pairs(S, S)
+    else:
+        att = len(lm.blocks) * pairs(S_dec, S_dec)
+    return {"model_flops_per_step": 6 * n + 3 * 2 * 2 * B * H * dh * att}
+
+
+def _moe_train_flops(lm, B, S):
+    """Model operations of one step of an MoE with MLA (two a multiply-add,
+    6 N_active T over the weights a token passes through, the recomputed
+    forward of remat not counted): the head; each layer's attention (wq,
+    w_dkv, w_uk, w_uv, wo) and its MLP (the dense first layers) or its
+    router, shared experts and top-k routed experts; plus the causal
+    attention's two products (q k of dn + dr, p v of dv) x 3.  Beside it
+    the capacity slots' expert operations: every expert runs on its whole
+    (capacity, d) slice, E cap rows a layer against the N k routed."""
     cfg = lm.cfg
-    n = sum(p.numel() for p in lm.parameters()) - lm.embed.numel()
-    attn = 2 * 2 * B * cfg.n_heads * lm.head_dim * S * (S + 1) / 2 * len(lm.blocks)
-    return 6 * n * B * S + 3 * attn
+    m, d, H = cfg.moe, cfg.d_model, cfg.n_heads
+    la = cfg.mla
+    attn = (d * H * (la.qk_nope_dim + la.qk_rope_dim) + d * (la.kv_lora_rank + la.qk_rope_dim)
+            + la.kv_lora_rank * H * (la.qk_nope_dim + la.v_head_dim) + H * la.v_head_dim * d)
+    gated = 3 if cfg.mlp in ("swiglu", "geglu") else 2
+    expert = gated * d * m.d_ff_expert
+    n_dense = m.first_k_dense
+    n_moe = cfg.n_layers - n_dense
+    dense_layer = attn + gated * d * (m.dense_ff or cfg.d_ff)
+    moe_layer = attn + d * m.n_experts + m.n_shared * expert + m.top_k * expert
+    n_active = d * cfg.vocab + n_dense * dense_layer + n_moe * moe_layer
+    T = B * S
+    pairs = B * H * S * (S + 1) / 2
+    attn_ops = 2 * pairs * (la.qk_nope_dim + la.qk_rope_dim + la.v_head_dim) * cfg.n_layers
+    cap = max(1, math.ceil(T * m.top_k * m.capacity_factor / m.n_experts))
+    return {"n_active": n_active, "model_flops_per_step": 6 * n_active * T + 3 * attn_ops,
+            "capacity": cap, "capacity_slots": m.n_experts * cap,
+            "routed_assignments": T * m.top_k,
+            "routed_expert_flops": 6 * expert * T * m.top_k * n_moe,
+            "capacity_slot_expert_flops": 6 * expert * m.n_experts * cap * n_moe}
 
 
-def _train_full(torch):
-    """GLM-4-9B at full width, ``TRAIN_LAYERS`` layers, seeded weights, the
-    optimized flags ("dots" remat): the Trainer's ``TRAIN_STEPS`` steps of
-    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens and its final checkpoint, then a
-    second Trainer on a fresh model that resumes at step 4 and takes a step,
-    then a traced step.  The checkpoint directory is removed at the end."""
+@contextlib.contextmanager
+def _moe_probe(cfg):
+    """While active, ``moe.route`` and ``moe._dispatch`` note each call's
+    aux, z and dropped assignments; yields the Trainer's ``on_metrics``,
+    which adds to a step's record the sums of aux and z over the expert
+    layers and each layer's dropped share, from the forward's calls (the
+    backward's recomputation calls them again)."""
+    from repro_torch.models import moe
+
+    n_moe = cfg.n_layers - cfg.moe.first_k_dense
+    route, dispatch, calls = moe.route, moe._dispatch, []
+
+    def routed(router_w, x, top_k):
+        out = route(router_w, x, top_k)
+        calls.append({"aux": out[2].detach(), "z": out[3].detach()})
+        return out
+
+    def dispatched(*args, **kwargs):
+        before = moe.assignments["dropped"]
+        out = dispatch(*args, **kwargs)
+        calls[-1]["dropped"] = moe.assignments["dropped"] - before
+        calls[-1]["routed"] = args[1].shape[0] * cfg.moe.top_k
+        return out
+
+    def on_metrics(h):
+        fwd = calls[:n_moe]
+        h.update({"aux": float(sum(c["aux"] for c in fwd)), "z": float(sum(c["z"] for c in fwd)),
+                  "dropped_share_by_layer": [int(c["dropped"]) / c["routed"] for c in fwd]})
+        calls.clear()
+
+    moe.route, moe._dispatch = routed, dispatched
+    try:
+        yield on_metrics
+    finally:
+        moe.route, moe._dispatch = route, dispatch
+
+
+def _train_at_width(torch, line, arch, layers, steps, checkpoint, traced):
+    """``arch`` at full width cut to ``layers`` (PERF.md §4), seeded weights,
+    the optimized flags ("dots" remat): the Trainer's ``steps`` steps of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens (the family's frontend
+    embeddings with them), timed by its own loop; with ``checkpoint`` its
+    final checkpoint, then a second Trainer on a fresh model that resumes
+    and takes a step (else the Trainer writes none); with ``traced`` one
+    more step under the profiler.  The MoE family's steps also give their
+    aux, z and dropped shares (``_moe_probe``).  Prints one ``{line: ...}``
+    line; fails on a non-finite loss or grad norm, a launch of K1-K6 or a
+    peak above ``TRAIN_PEAK_GIB``."""
     import dataclasses
 
     from repro_torch import configs
-    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.train import data_for
     from repro_torch.models.lm import LM, OPTIMIZED
     from repro_torch.runtime import TrainConfig, Trainer
     from repro_torch.runtime import trainer as trainer_mod
 
-    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
-    data = SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
-    # the checkpoint goes where there is more room: the temporary directory
-    # or the checkout
-    base = max((tempfile.gettempdir(), str(ROOT)), key=lambda d: shutil.disk_usage(d).free)
-    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=base)
-    du = shutil.disk_usage(ckpt_dir)
-    host = {"disk_free_gib": du.free / 2**30, "ram_free_gib": _ram_available_gib()}
-    print(json.dumps({"train_host": {**host, "ckpt_dir": ckpt_dir}}))
-    # the checkpoint: bf16 weights and fp32 moments, 10 bytes a parameter, on
-    # disk and (the async snapshot) in host memory
-    need = 10 * _dense_params(cfg) / 2**30
-    if host["disk_free_gib"] < 1.1 * need or (host["ram_free_gib"] or 0) < 1.1 * need:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
-        fail(f"train: the checkpoint takes {need:.1f} GiB; free disk {host['disk_free_gib']:.1f}, "
-             f"RAM {host['ram_free_gib']} GiB: cut TRAIN_LAYERS")
+    full = configs.get(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    is_moe = cfg.moe is not None
+    data = data_for(cfg, TRAIN_SEQ, TRAIN_BATCH)
+    if checkpoint:  # where there is more room: the temporary directory or the checkout
+        base = max((tempfile.gettempdir(), str(ROOT)), key=lambda d: shutil.disk_usage(d).free)
+        ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=base)
+    else:
+        ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
 
     def model():
         return LM(cfg, q_block=min(512, TRAIN_SEQ), xent_chunks=min(8, TRAIN_SEQ),
                   perf=OPTIMIZED, device="cuda")
 
-    def config(steps):
-        return TrainConfig(steps=steps, ckpt_every=10**9, ckpt_dir=ckpt_dir, lr=TRAIN_LR,
-                           warmup=2)
+    def trainer(lm, n):
+        tr = Trainer(lm, data, TrainConfig(steps=n, ckpt_every=10**9, ckpt_dir=ckpt_dir,
+                                           lr=TRAIN_LR, warmup=2))
+        if not checkpoint:
+            tr._save = lambda *_: None
+        return tr
 
+    out, peaks, resumed = {}, {}, None
     try:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         lm = model()
         torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
+        out["init_s"] = time.perf_counter() - t0
+        peaks["built"] = torch.cuda.max_memory_allocated() / 2**30
         n_params = sum(p.numel() for p in lm.parameters())
-        flops = _train_flops(lm, TRAIN_BATCH, TRAIN_SEQ)
-        tr = Trainer(lm, data, config(TRAIN_STEPS))
-        t0 = time.perf_counter()
-        hist = tr.run()[2]  # the weights and moments are the trainer's to free
-        run_s = time.perf_counter() - t0
-        peaks = {"run": torch.cuda.max_memory_allocated() / 2**30}
-        snapshot_s, write_s = tr.ckpt.snapshot_s, tr.ckpt.write_s
-        ckpt_bytes = sum(f.stat().st_size for f in Path(ckpt_dir).rglob("*.npy"))
-        del tr, lm
-        gc.collect()
-        torch.cuda.empty_cache()
+        flops = (_moe_train_flops if is_moe else _train_flops)(lm, TRAIN_BATCH, TRAIN_SEQ)
+        if checkpoint:
+            # bf16 weights and fp32 moments, 10 bytes a parameter, on disk
+            # and (the async snapshot) in host memory
+            du = shutil.disk_usage(ckpt_dir)
+            host = {"disk_free_gib": du.free / 2**30, "ram_free_gib": _ram_available_gib()}
+            print(json.dumps({"train_host": {**host, "ckpt_dir": ckpt_dir}}))
+            need = 10 * n_params / 2**30
+            if host["disk_free_gib"] < 1.1 * need or (host["ram_free_gib"] or 0) < 1.1 * need:
+                fail(f"train: the checkpoint takes {need:.1f} GiB; free disk "
+                     f"{host['disk_free_gib']:.1f}, RAM {host['ram_free_gib']} GiB: cut {arch}'s "
+                     "layers in TRAIN_AT_WIDTH")
+            out.update(host)
+        tr = trainer(lm, steps)
+        with _moe_probe(cfg) if is_moe else contextlib.nullcontext() as on_metrics:
+            t0 = time.perf_counter()
+            params, opt, hist = tr.run(on_metrics=on_metrics)
+            out["run_s"] = time.perf_counter() - t0
+            peaks["steps"] = torch.cuda.max_memory_allocated() / 2**30
+            if checkpoint:
+                out.update({"ckpt_snapshot_s": tr.ckpt.snapshot_s, "ckpt_write_s": tr.ckpt.write_s,
+                            "ckpt_bytes": sum(f.stat().st_size
+                                              for f in Path(ckpt_dir).rglob("*.npy"))})
+                del tr, lm, params, opt
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                tr = trainer(model(), steps + 1)
+                read = []  # the store's read (np.load and sha1 of every leaf) in the restore
+                real_load = trainer_mod.load_checkpoint
 
-        torch.cuda.reset_peak_memory_stats()
-        tr2 = Trainer(model(), data, config(TRAIN_STEPS + 1))
-        read = []  # the store's read (np.load and sha1 of every leaf) inside the restore
-        real_load = trainer_mod.load_checkpoint
+                def timed_load(*args, **kwargs):
+                    t = time.perf_counter()
+                    try:
+                        return real_load(*args, **kwargs)
+                    finally:
+                        read.append(time.perf_counter() - t)
 
-        def timed_load(*args, **kwargs):
-            t = time.perf_counter()
-            try:
-                return real_load(*args, **kwargs)
-            finally:
-                read.append(time.perf_counter() - t)
-
-        trainer_mod.load_checkpoint = timed_load
-        t0 = time.perf_counter()
-        try:
-            params, opt, start = tr2.restore_or_init()
-        finally:
-            trainer_mod.load_checkpoint = real_load
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        params, opt, m = tr2.train_step(params, opt, tr2.stage_batch(start))
-        resumed = {"step": start, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                   "time": time.perf_counter() - t0}
-        peaks["resume"] = torch.cuda.max_memory_allocated() / 2**30
-        batch = tr2.stage_batch(start + 1)
-        torch.cuda.reset_peak_memory_stats()
-        device = _device_time(torch, lambda: tr2.train_step(params, opt, batch))
-        peaks["traced_step"] = torch.cuda.max_memory_allocated() / 2**30
-        del tr2, params, opt, m, batch
+                trainer_mod.load_checkpoint = timed_load
+                t0 = time.perf_counter()
+                try:
+                    params, opt, start = tr.restore_or_init()
+                finally:
+                    trainer_mod.load_checkpoint = real_load
+                torch.cuda.synchronize()
+                out.update({"resume_load_s": time.perf_counter() - t0, "resume_read_s": sum(read)})
+                t0 = time.perf_counter()
+                params, opt, m = tr.train_step(params, opt, tr.stage_batch(start))
+                resumed = {"step": start, "loss": float(m["loss"]),
+                           "grad_norm": float(m["grad_norm"]), "time": time.perf_counter() - t0}
+                peaks["resume"] = torch.cuda.max_memory_allocated() / 2**30
+            if traced:
+                batch = tr.stage_batch(steps + (resumed is not None))
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out["step_device"] = _device_time(torch, lambda: tr.train_step(params, opt, batch))
+                out["traced_step_s"] = time.perf_counter() - t0
+                peaks["traced_step"] = torch.cuda.max_memory_allocated() / 2**30
+        del tr, params, opt
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
 
-    steady = [h["time"] for h in hist[1:]]
-    step_s = statistics.median(steady)
-    bound_s = flops / BF16_TC_FLOPS
-    losses = [h["loss"] for h in hist] + [resumed["loss"]]
-    norms = [h["grad_norm"] for h in hist] + [resumed["grad_norm"]]
-    out = {"arch": cfg.name, "layers": TRAIN_LAYERS,
-           "published_layers": configs.get(TRAIN_ARCH).n_layers,
-           "reduced": f"n_layers {configs.get(TRAIN_ARCH).n_layers}->{TRAIN_LAYERS}: the "
-                      "weights, gradients and fp32 moments of every layer do not fit the card "
-                      "(PERF.md §4)",
+    launches = sum(_count_snapshot().values())
+    step_s = statistics.median(h["time"] for h in hist[1:])
+    bound_s = flops["model_flops_per_step"] / BF16_TC_FLOPS
+    losses = [h["loss"] for h in hist] + ([resumed["loss"]] if resumed else [])
+    norms = [h["grad_norm"] for h in hist] + ([resumed["grad_norm"]] if resumed else [])
+    device = out.get("step_device")
+    out = {"arch": cfg.name, "layers": layers, "published_layers": full.n_layers,
+           "reduced": None if layers == full.n_layers else
+           f"n_layers {full.n_layers}->{layers}: the weights, gradients and fp32 moments of every "
+           "layer do not fit the card, or the run's time (PERF.md §4)",
            "d_model": cfg.d_model, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
            "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype, "params": n_params,
-           "remat_policy": "dots", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
-           "init_s": init_s, "steps": [h["step"] for h in hist], "step_times_s": [
-               h["time"] for h in hist], "step_s_median_after_first": step_s,
-           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "model_flops_per_step": flops,
-           "bound_s": bound_s, "model_flop_share": bound_s / step_s,
-           "max_memory_allocated_gib": max(peaks.values()), "peak_gib_by_phase": peaks,
-           "ckpt_bytes": ckpt_bytes, "ckpt_snapshot_s": snapshot_s, "ckpt_write_s": write_s,
-           "run_s": run_s, "resume_load_s": load_s, "resume_read_s": sum(read),
-           "resumed": resumed,
-           "losses": losses, "grad_norms": norms, "first_loss": losses[0],
-           "ln_vocab": math.log(cfg.vocab), "step_device": device,
+           **({"moe": dataclasses.asdict(cfg.moe)} if is_moe else {}),
+           **({"mla": dataclasses.asdict(cfg.mla)} if cfg.mla else {}),
+           "remat_policy": "dots", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "frontend": data.frontend, "lr": TRAIN_LR, **out,
+           "steps": [h["step"] for h in hist], "step_times_s": [h["time"] for h in hist],
+           "first_step_s": hist[0]["time"], "step_s_median_after_first": step_s,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, **flops, "bound_s": bound_s,
+           "model_flop_share": bound_s / step_s, "peak_gib_by_phase": peaks,
+           "max_memory_allocated_gib": max(peaks.values()), "resumed": resumed,
+           "losses": losses, "xents": [h["xent"] for h in hist], "grad_norms": norms,
+           "first_loss": losses[0], "ln_vocab": math.log(cfg.vocab),
            "step_idle_share": (1 - device["device_ms"] / 1e3 / step_s) if device else None,
-           **host}
-    print(json.dumps({"train_full": out}))
-    finite = all(math.isfinite(x) for x in losses + norms)
-    if not finite or hist[-1]["step"] != TRAIN_STEPS - 1 or start != TRAIN_STEPS:
-        fail(f"train: full width: finite {finite}, steps {out['steps']}, resumed at {start}")
-    return {"full": out}
-
-
-def _dense_params(cfg):
-    """Parameters of a dense config (GQA, a gated or plain MLP, untied head)."""
-    d, dh = cfg.d_model, cfg.resolved_head_dim
-    mlp = (3 if cfg.mlp in ("swiglu", "geglu") else 2) * d * cfg.d_ff
-    layer = 2 * d * dh * (cfg.n_heads + cfg.n_kv_heads) + mlp + 2 * d
-    return cfg.n_layers * layer + cfg.vocab * d * (1 if cfg.tie_embeddings else 2) + d
+           "k1_k6_launches": launches}
+    if is_moe:
+        out.update({"aux": [h["aux"] for h in hist], "z": [h["z"] for h in hist],
+                    "dropped_share_by_layer": {f"step{h['step'] + 1}": h["dropped_share_by_layer"]
+                                               for h in (hist[0], hist[-1])}})
+    print(json.dumps({line: out}))
+    finite = all(math.isfinite(x) for x in losses + norms + out.get("aux", []) + out.get("z", []))
+    if (not finite or out["steps"] != list(range(steps)) or launches
+            or (resumed and resumed["step"] != steps)):
+        fail(f"train: {arch} at full width: finite {finite}, steps {out['steps']}, "
+             f"resumed {resumed}, launches {launches}")
+    if out["max_memory_allocated_gib"] > TRAIN_PEAK_GIB:
+        fail(f"train: {arch} at full width peaks at {out['max_memory_allocated_gib']:.2f} GiB, "
+             f"above {TRAIN_PEAK_GIB}: cut its layers in TRAIN_AT_WIDTH")
+    return out
 
 
 def _ram_available_gib():

@@ -1,15 +1,21 @@
-"""Where a training step's device memory goes, on the card: GLM-4-9B at full
-width, a few layers, 4 x 2048 tokens, each remat policy.
+"""Where a training step's device memory goes, on the card: an arch at full
+width (GLM-4-9B unless ``--arch`` names another), a few layers, 4 x 2048
+tokens, each remat policy.
 
-  python scripts/train_memory.py [--layers 2,4] [--policies none,full,dots]
-                                 [--trainer-steps N]
+  python scripts/train_memory.py [--arch glm4_9b] [--layers 2,4]
+                                 [--policies none,full,dots] [--trainer-steps N]
+
+The layers count the MoE family's leading dense layers (DeepSeek-V2-Lite:
+``--layers 2,4`` is the dense layer and 1 or 3 expert layers).
 
 Prints one JSON line a (policy, depth): the memory allocated after the
 model and its moments are built, after the loss's forward (what the
 backward will read: the saved activations), the peak of the forward, of
 the backward and of the optimizer's update, in GiB, beside the card's name
 and power limit; with ``--trainer-steps N``, the ``Trainer``'s own N steps
-at each depth ("dots"), each step's peak.  The difference between two depths is a layer's share.
+at each depth ("dots"), each step's peak and seconds.  The difference
+between two depths is a layer's share.  The VLM's and the audio family's
+batches carry their frontend embeddings (``launch.train.data_for``).
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
@@ -26,24 +33,24 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 import torch  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.data import SyntheticLMData  # noqa: E402
+from repro_torch.launch.train import data_for  # noqa: E402
 from repro_torch.models.lm import LM, OPTIMIZED  # noqa: E402
 from repro_torch.optim import AdamW  # noqa: E402
 
 GIB = 2**30
 
 
-def measure(layers: int, policy: str, batch: int, seq: int) -> dict:
-    cfg = dataclasses.replace(configs.get("glm4_9b"), n_layers=layers)
+def measure(layers: int, policy: str, batch: int, seq: int, arch: str = "glm4_9b") -> dict:
+    cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
     lm = LM(cfg, q_block=min(512, seq), xent_chunks=min(8, seq),
             perf=dataclasses.replace(OPTIMIZED, remat_policy=policy), device="cuda")
     params = lm.trainable_params()
     opt = AdamW(lr=3e-4)
     state = opt.init(params)
-    data = {k: v.cuda() for k, v in SyntheticLMData(vocab=cfg.vocab, seq_len=seq,
-                                                     global_batch=batch).batch(0).items()}
+    data = {k: v.cuda() for k, v in data_for(cfg, seq, batch).batch(0).items()}
     torch.cuda.synchronize()
-    out = {"layers": layers, "policy": policy, "built": torch.cuda.memory_allocated() / GIB}
+    out = {"arch": arch, "layers": layers, "policy": policy,
+           "built": torch.cuda.memory_allocated() / GIB}
     torch.cuda.reset_peak_memory_stats()
     loss, _ = lm.loss(data)
     torch.cuda.synchronize()
@@ -63,25 +70,28 @@ def measure(layers: int, policy: str, batch: int, seq: int) -> dict:
     return out
 
 
-def measure_trainer(layers: int, batch: int, seq: int, steps: int) -> list[dict]:
+def measure_trainer(layers: int, batch: int, seq: int, steps: int,
+                    arch: str = "glm4_9b") -> list[dict]:
     """The Trainer's own steps (``train_step``), "dots": the memory allocated
     and the peak of each step, in GiB."""
     import tempfile
 
     from repro_torch.runtime import TrainConfig, Trainer
 
-    cfg = dataclasses.replace(configs.get("glm4_9b"), n_layers=layers)
+    cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
     lm = LM(cfg, q_block=min(512, seq), xent_chunks=min(8, seq), perf=OPTIMIZED, device="cuda")
-    data = SyntheticLMData(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+    data = data_for(cfg, seq, batch)
     with tempfile.TemporaryDirectory() as d:
         tr = Trainer(lm, data, TrainConfig(steps=steps, ckpt_dir=d))
         params, opt, _ = tr.init_state()
         out = []
         for step in range(steps):
             torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
             params, opt, _ = tr.train_step(params, opt, tr.stage_batch(step))
             torch.cuda.synchronize()
-            out.append({"layers": layers, "trainer_step": step,
+            out.append({"arch": arch, "layers": layers, "trainer_step": step,
+                        "seconds": time.perf_counter() - t0,
                         "allocated": torch.cuda.memory_allocated() / GIB,
                         "peak": torch.cuda.max_memory_allocated() / GIB})
     return out
@@ -89,6 +99,7 @@ def measure_trainer(layers: int, batch: int, seq: int, steps: int) -> list[dict]
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="glm4_9b")
     ap.add_argument("--layers", default="2,4")
     ap.add_argument("--policies", default="none,full,dots")
     ap.add_argument("--batch", type=int, default=4)
@@ -103,10 +114,11 @@ def main(argv=None):
                           capture_output=True, text=True, check=True).stdout.strip()
     for policy in args.policies.split(","):
         for layers in map(int, args.layers.split(",")):
-            print(json.dumps({"train_memory": {**measure(layers, policy, args.batch, args.seq),
-                                               "card": card}}), flush=True)
+            print(json.dumps({"train_memory": {
+                **measure(layers, policy, args.batch, args.seq, args.arch), "card": card}}),
+                flush=True)
     for layers in map(int, args.layers.split(",")) if args.trainer_steps else ():
-        for rec in measure_trainer(layers, args.batch, args.seq, args.trainer_steps):
+        for rec in measure_trainer(layers, args.batch, args.seq, args.trainer_steps, args.arch):
             print(json.dumps({"train_memory": {**rec, "card": card}}), flush=True)
 
 

@@ -71,10 +71,15 @@ class SyntheticLMData:
     seq_len: int
     global_batch: int
     seed: int = 0
+    #: (F, D): each row also carries ``frontend`` (F, D) float32 standard
+    #: normals, the VLM's frontend embeddings or the audio family's frames
+    #: (the reference's data has none; its frontends are stubs)
+    frontend: tuple[int, int] | None = None
 
     def batch(self, step: int) -> dict[str, torch.Tensor]:
         """``tokens`` and ``targets`` (B, S) int64, ``mask`` (B, S) float32,
-        on the CPU: the reference's values."""
+        on the CPU: the reference's values; with ``frontend`` also its
+        normals (B, F, D), drawn by numpy from (seed, step)."""
         B, S, V = self.global_batch, self.seq_len, self.vocab
         key = prng.fold_in(prng.prng_key(self.seed), step)
         base = power_law_base(prng.uniform(key, (B, S + 1), minval=1e-6), V).astype(np.int64)
@@ -84,8 +89,13 @@ class SyntheticLMData:
             prev = (base[:, t + 1] + 7 * prev) % V
             toks[:, t] = prev
         inp = np.concatenate([base[:, :1], toks[:, :-1]], axis=1)
-        return {"tokens": torch.from_numpy(inp), "targets": torch.from_numpy(toks),
-                "mask": torch.ones((B, S), dtype=torch.float32)}
+        out = {"tokens": torch.from_numpy(inp), "targets": torch.from_numpy(toks),
+               "mask": torch.ones((B, S), dtype=torch.float32)}
+        if self.frontend is not None:
+            rng = np.random.default_rng((self.seed, step))
+            out["frontend"] = torch.from_numpy(
+                rng.standard_normal((B, *self.frontend), dtype=np.float32))
+        return out
 
     def host_local_batch(self, step: int, *, process_index: int = 0,
                          process_count: int = 1) -> dict[str, torch.Tensor]:

@@ -1,6 +1,11 @@
 """LM pretraining — the twin of ``examples/lm_pretrain.py``: a small dense LM
 (GLM-4's family at the preset's widths) trained with the port's whole
 runtime (AdamW, the seeded data stream, async checkpoints, restart).
+``--arch`` trains another family at the preset's widths instead: the
+arch's smoke config (its experts, MLA, Mamba layers, frontend or encoder
+as ``configs.smoke`` cuts them) with the preset's layers, widths and
+vocabulary, and its frontend embeddings or frames in each batch
+(``launch.train.data_for``).
 
 Presets:
   10m   ~10M parameters,  seq 256  (the default)
@@ -9,6 +14,7 @@ Presets:
 Run:  python -m repro_torch.examples.lm_pretrain --steps 50              # on the card
       python -m repro_torch.examples.lm_pretrain --steps 50 --device cpu
       torchrun --nproc-per-node 2 -m repro_torch.examples.lm_pretrain --device cpu
+      python -m repro_torch.examples.lm_pretrain --arch zamba2_2p7b --steps 20 --device cpu
 Rerun the same command after a kill: it resumes from the last atomic
 checkpoint and replays the same data stream.  Under ``torchrun`` the ranks
 train data-parallel, each on its rows of the batch.
@@ -26,9 +32,8 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core.meshutil import default_group, mesh_device
-from repro_torch.data import SyntheticLMData
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.launch.train import under_ranks
+from repro_torch.launch.train import data_for, under_ranks
 from repro_torch.models.config import param_count
 from repro_torch.models.lm import LM
 from repro_torch.runtime import TrainConfig, Trainer
@@ -44,6 +49,8 @@ PRESETS = {
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", choices=PRESETS, default="10m")
+    ap.add_argument("--arch", default=None,
+                    help="train this arch's family at the preset's widths (default: dense)")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--lr", type=float, default=1e-3)
@@ -56,14 +63,15 @@ def main(argv=None) -> list[dict]:
                            "pass --device cpu to run on the CPU")
     p = dict(PRESETS[args.preset])
     seq, batch = p.pop("seq"), p.pop("batch")
-    cfg = replace(configs.get("glm4_9b"), name=f"lm-{args.preset}", **p)
+    base = configs.smoke(args.arch) if args.arch else configs.get("glm4_9b")
+    cfg = replace(base, name=f"lm-{args.preset}" + (f"-{args.arch}" if args.arch else ""), **p)
     ckpt_dir = args.ckpt_dir or os.path.join(tempfile.gettempdir(), "repro_torch_lm_pretrain")
     ranks = under_ranks()
     with default_group(device.type) if ranks else contextlib.nullcontext():
         mesh = make_host_mesh(1, device=device.type) if ranks else None
         lm = LM(cfg, q_block=64, xent_chunks=4,
                 device=mesh_device(mesh) if mesh is not None else device)
-        data = SyntheticLMData(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+        data = data_for(cfg, seq, batch)
         trainer = Trainer(lm, data, TrainConfig(steps=args.steps, ckpt_every=50,
                                                 ckpt_dir=ckpt_dir, lr=args.lr, warmup=20),
                           mesh=mesh)

@@ -12,10 +12,12 @@ SIGTERM-clean preemption, the heartbeat log with its straggler events.  It
 runs on the CUDA card unless ``--device cpu`` is given, and raises without
 one.  Under ``torchrun`` the ranks train data-parallel (``launch/mesh.
 make_host_mesh``, ``"data"`` the world, each rank on ``cuda:LOCAL_RANK``
-over NCCL, or gloo with ``--device cpu``); rank 0 alone prints.  The dense
-family trains; ``--model-parallel`` above 1 and ``--sp-mode ulysses``
-(tensor and sequence parallelism) are not ported yet (ROADMAP §1).
-``main(argv)`` returns the history of the run.
+over NCCL, or gloo with ``--device cpu``); rank 0 alone prints.  Every
+family trains (``--arch`` any of ``configs.ARCH_NAMES``): the VLM's batches
+carry its ``n_frontend_tokens`` seeded frontend embeddings and the audio
+family's ``--seq`` seeded frames (``data_for``); ``--model-parallel`` above
+1 and ``--sp-mode ulysses`` (tensor and sequence parallelism) are not
+ported yet (ROADMAP §1).  ``main(argv)`` returns the history of the run.
 """
 
 from __future__ import annotations
@@ -40,6 +42,15 @@ def under_ranks() -> bool:
     """Whether the process is one rank of several (an initialized group, or
     ``torchrun``'s environment)."""
     return dist.is_initialized() or ("WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ)
+
+
+def data_for(cfg, seq: int, global_batch: int) -> SyntheticLMData:
+    """The seeded token stream of ``cfg``'s family: with frontend
+    embeddings before the tokens for the VLM (``n_frontend_tokens`` a row)
+    and ``seq`` frames a row for the audio encoder."""
+    n = {"vlm": cfg.n_frontend_tokens, "audio": seq}.get(cfg.family)
+    return SyntheticLMData(vocab=cfg.vocab, seq_len=seq, global_batch=global_batch,
+                           frontend=None if n is None else (n, cfg.d_model))
 
 
 def main(argv=None) -> list[dict]:
@@ -75,7 +86,7 @@ def main(argv=None) -> list[dict]:
         mesh = make_host_mesh(1, device=device.type) if ranks else None
         lm = LM(cfg, q_block=min(512, seq), xent_chunks=min(8, seq),
                 device=mesh_device(mesh) if mesh is not None else device)
-        data = SyntheticLMData(vocab=cfg.vocab, seq_len=seq, global_batch=gbs)
+        data = data_for(cfg, seq, gbs)
         tc = TrainConfig(steps=args.steps, ckpt_every=args.ckpt_every,
                          ckpt_dir=args.ckpt_dir or os.path.join(tempfile.gettempdir(),
                                                                 f"repro_torch_train_{args.arch}"),

@@ -9,10 +9,12 @@ Layouts are the reference's: q (B, S, Hq, dh), k/v (B, S, Hkv, dh); MLA's q
 and k (B, S, H, dn + dr), v (B, S, H, dv), its cache c_kv (B, S, r) and
 k_rope (B, S, dr).  The decode can run over a cache whose positions are
 split over the model group (``decode_attention``'s and
-``mla_decode_absorbed``'s ``shard``).  The dense family's training forward
-runs ``blockwise_attention`` with each q block rematerialized; MLA's
-training attention and Ulysses sequence parallelism (the reference's
-training forward alone calls it) are not ported yet.
+``mla_decode_absorbed``'s ``shard``).  The training forward of every family
+runs ``blockwise_attention`` with each q block rematerialized: GQA, MLA's
+expanded K and V (the reference's ``mla_attention_train``), the audio
+encoder's non-causal attention and its decoder's causal cross-attention;
+Ulysses sequence parallelism (the reference's training forward alone calls
+it) is not ported yet.
 
 Mixed precision: the reference's ``bf16_compute`` contracts bf16 operands
 with fp32 accumulation and an fp32 result.  torch has no such product, so

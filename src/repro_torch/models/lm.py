@@ -1,5 +1,5 @@
-"""The LM for serving, every family of the reference: dense, MoE, SSM,
-hybrid, VLM and audio, GQA or MLA attention (the port of
+"""The LM for serving and training, every family of the reference: dense,
+MoE, SSM, hybrid, VLM and audio, GQA or MLA attention (the port of
 ``repro/models/lm.py``).
 
 ``LM`` is an ``nn.Module`` that holds the parameters of one card:
@@ -65,6 +65,17 @@ leading layer axis (an ``EncDecCache``, a dict that also carries Se):
 the layout ``hmajor_cache`` sets; a decode step attends over all Se frames.
 
 ``not_ported`` is None for every config of the registry.
+
+Training (``loss``, mesh-less: one card or one data-parallel rank) runs the
+reference's training forward of each family, without a cache, each layer
+under the ``remat_policy``: the decoder layers' attention through the
+blockwise form (MLA's K and V expanded from its latents), the MoE's
+capacity dispatch (``moe_apply_dense`` in ``local_mode``, the reference's
+compressed-gradient path) with the aux and z terms summed over its expert
+layers, the Mamba layers' scans in their training form, the hybrid's shared
+block once a group, the VLM's frontend before the tokens, and the audio
+encoder and then the decoder with a causal cross-attention (the reference's
+training semantics; its serving cross-attention is not causal).
 
 On a mesh (``LM(cfg, mesh=launch.mesh.make_host_mesh(tp))``, every family;
 one process a rank) the LM is the reference's ``LM`` on a ``("data",
@@ -323,6 +334,7 @@ class LM(nn.Module):
                  xent_chunks: int = 8, perf: PerfFlags | None = None,
                  device: str | torch.device = "cuda", seed: int = 0):
         super().__init__()
+        self.local_mode = False  # see ``local``
         device = torch.device(device)
         if mesh is not None:
             if device.type != mesh.device_type:
@@ -850,37 +862,153 @@ class LM(nn.Module):
                                   _dots_policy))
         return checkpoint(fn, *args, use_reentrant=False)
 
-    def _train_layer(self, p, x, positions):
-        """One decoder layer of the training forward: attention without a
-        cache, each q block rematerialized, then the MLP."""
+    def _train_attn(self, p, x, positions, *, causal: bool = True):
+        """The attention sub-block of the training forward, without a cache:
+        GQA, or MLA's latents, queries and K, V expanded from the latents
+        (the reference's ``mla_attention_train``), through the blockwise
+        attention with each q block rematerialized."""
         cfg, (B, S) = self.cfg, x.shape[:2]
-        q, k, v = self._qkv(p, _norm_apply(cfg, p.ln1, x), positions)
+        h = _norm_apply(cfg, p.ln1, x)
+        if cfg.mla is not None:
+            q, k, v = self._mla_qkv(p, h, positions, *self._mla_latents(p, h, positions))
+        else:
+            q, k, v = self._qkv(p, h, positions)
+        o = attn.blockwise_attention(q, k, v, causal=causal, q_block=self.q_block,
+                                     bf16_compute=self.perf.bf16_attention, remat=True)
+        return x + o.reshape(B, S, -1) @ p.attn["wo"]
+
+    def _train_cross(self, p, x, enc, positions, enc_positions):
+        """The audio decoder's cross-attention in the training forward:
+        queries of ``ln_x(x)`` at ``positions``, keys and values of the
+        encoder's output at ``enc_positions``, both rotated, and the mask
+        causal, as the reference's ``_decoder_stack`` calls it (serving's
+        cross-attention is not causal: ROADMAP §3)."""
+        cfg, (B, S) = self.cfg, x.shape[:2]
+        q = attn.gqa_q(p.cross, _norm_apply(cfg, p.ln_x, x), n_heads=cfg.n_heads,
+                       head_dim=self.head_dim, positions=positions, rope_theta=cfg.rope_theta)
+        k, v = attn.gqa_kv(p.cross, enc, n_kv=cfg.n_kv_heads, head_dim=self.head_dim,
+                           positions=enc_positions, rope_theta=cfg.rope_theta)
         o = attn.blockwise_attention(q, k, v, causal=True, q_block=self.q_block,
                                      bf16_compute=self.perf.bf16_attention, remat=True)
-        x = x + o.reshape(B, S, -1) @ p.attn["wo"]
-        return x + mlp_apply(p.mlp, _norm_apply(cfg, p.ln2, x), cfg.mlp)
+        return x + o.reshape(B, S, -1) @ p.cross["wo"]
+
+    def _train_ffn(self, p, x, use_moe: bool):
+        """The FFN sub-block of the training forward: (x + y, aux, z), the
+        MLP's aux and z None; the experts through the capacity dispatch, or
+        in ``local_mode`` every expert on every token (``moe_apply_dense``)."""
+        cfg = self.cfg
+        h = _norm_apply(cfg, p.ln2, x)
+        if not use_moe:
+            return x + mlp_apply(p.mlp, h, cfg.mlp), None, None
+        fn = moe.moe_apply_dense if self.local_mode else moe.moe_apply_capacity
+        y, aux, z = fn(p.moe, h, cfg=cfg.moe, mlp_kind=cfg.mlp)
+        return x + y, aux, z
+
+    def _train_layer(self, p, x, positions, *, use_moe: bool = False, enc=None,
+                     enc_positions=None):
+        """One decoder layer of the training forward: its attention, the
+        cross-attention on ``enc`` (the audio decoder), the MLP or experts.
+        Returns (x, aux, z), zeros for an MLP."""
+        x = self._train_attn(p, x, positions)
+        if enc is not None:
+            x = self._train_cross(p, x, enc, positions, enc_positions)
+        x, aux, z = self._train_ffn(p, x, use_moe)
+        if aux is None:
+            aux = z = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux, z
+
+    def _train_decoder(self, x, positions, *, enc=None):
+        """The decoder stack of the training forward, each layer under the
+        remat policy: the leading dense blocks, then ``blocks`` (the audio
+        decoder's ``dec_blocks``, with the encoder's output ``enc``).  Returns
+        (x, aux, z), aux and z summed over the expert layers (the reference's
+        ``_decoder_stack``)."""
+        cfg, dev = self.cfg, x.device
+        aux = z = torch.zeros((), dtype=torch.float32, device=dev)
+        enc_positions = None
+        if enc is not None:
+            B, Se = enc.shape[:2]
+            enc_positions = torch.arange(Se, device=dev).expand(B, Se)
+        for p in self.dense0:
+            x = self._ckpt(lambda x, p=p: self._train_layer(p, x, positions)[0], x)
+        blocks = self.dec_blocks if cfg.family == "audio" else self.blocks
+        for p in blocks:
+            x, a, zz = self._ckpt(lambda x, p=p: self._train_layer(
+                p, x, positions, use_moe=cfg.moe is not None, enc=enc,
+                enc_positions=enc_positions), x)
+            aux, z = aux + a, z + zz
+        return x, aux, z
+
+    def _train_encoder(self, frames):
+        """The audio encoder of the training forward: each layer (non-causal
+        attention, the MLP) under the remat policy, then ``enc_norm``."""
+        B, Se = frames.shape[:2]
+        positions = torch.arange(Se, device=self.device).expand(B, Se)
+
+        def layer(h, p):
+            return self._train_ffn(p, self._train_attn(p, h, positions, causal=False),
+                                   False)[0]
+
+        h = frames
+        for p in self.enc_blocks:
+            h = self._ckpt(lambda h, p=p: layer(h, p), h)
+        return _norm_apply(self.cfg, self.enc_norm, h)
+
+    def _train_mamba(self, p, x):
+        """One pre-norm Mamba1 or Mamba2 layer of the training forward (its
+        scan's training form: ``ssm.selective_scan``)."""
+        apply = ssm.mamba2_apply if self.cfg.ssm.kind == "mamba2" else ssm.mamba1_apply
+        return x + apply(p.mamba, _norm_apply(self.cfg, p.ln, x), cfg=self.cfg.ssm)[0]
+
+    def _train_hybrid(self, x, positions):
+        """The hybrid stack of the training forward: per group the shared
+        block on ``cat(x, x0) @ w_in`` (x0 the embeddings) added to x, then
+        the group's Mamba2 layers, each under the remat policy (the
+        reference's ``_hybrid_stack``, which rematerializes the Mamba layers
+        and leaves the shared block to its attention's own)."""
+        sh, x0 = self.shared, x
+        for group in self.blocks:
+            xin = self._train_attn(sh, torch.cat([x, x0], dim=-1) @ sh.w_in, positions)
+            x = x + self._train_ffn(sh, xin, False)[0]
+            for p in group:
+                x = self._ckpt(lambda x, p=p: self._train_mamba(p, x), x)
+        return x
 
     def loss_not_ported(self) -> str | None:
-        """Why ``loss`` cannot train this LM, or None (the dense family on one
-        device)."""
-        cfg = self.cfg
-        if cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None:
-            return (f"{cfg.name}: the {cfg.family!r} family's training loss is not ported "
-                    "yet (ROADMAP §1: the dense family trains; the MoE loss and the other "
-                    "families' training stacks are queued)")
+        """Why ``loss`` cannot train this LM, or None (any family, on one
+        device or one data-parallel rank)."""
         if self.shard is not None:
-            return (f"{cfg.name}: the loss of an LM on a mesh (tensor-parallel training) is "
-                    "not ported yet (ROADMAP §1); data-parallel training takes a mesh-less "
-                    "LM on each rank and a mesh for the Trainer")
+            return (f"{self.cfg.name}: the loss of an LM on a mesh (tensor-parallel "
+                    "training) is not ported yet (ROADMAP §1); data-parallel training takes "
+                    "a mesh-less LM on each rank and a mesh for the Trainer")
         return None
 
-    def loss(self, batch: dict, *, denom: torch.Tensor | None = None):
+    def local(self) -> LM:
+        """This LM in ``local_mode``, its parameters the same tensors: the
+        reference's per-shard LM of its compressed-gradient Trainer, whose
+        expert layers train through ``moe_apply_dense`` (every expert on
+        every token, nothing dropped).  No other family changes."""
+        new = copy.copy(self)
+        new.local_mode = True
+        return new
+
+    def loss(self, batch: dict, *, denom: torch.Tensor | None = None, n_ranks: int = 1):
         """The training loss of ``batch`` (``tokens``, ``targets`` (B, S)
-        int64, ``mask`` (B, S) fp32): returns (total, {"xent", "aux"}), the
-        mean token cross-entropy (the reference's ``LM.loss``).  ``denom``
-        divides the masked sum instead of this batch's mask count (a
-        data-parallel rank passes the whole batch's).  Each layer runs under
-        the ``remat_policy``; gradients reach the parameters of
+        int64, ``mask`` (B, S) fp32; the VLM and audio families also
+        ``frontend`` (B, F, D)): returns (total, {"xent", "aux"}), the
+        reference's ``LM.loss``: the mean token cross-entropy, plus for the
+        MoE family ``aux_coef`` times the load-balance loss and
+        ``zloss_coef`` times the router z-loss, each summed over the expert
+        layers ("aux" is that sum).  The VLM's frontend embeddings go before
+        the tokens, at positions 0 .. F - 1, and leave before the
+        cross-entropy; the audio family encodes ``frontend`` as its frames.
+        ``denom`` divides the masked sum instead of this batch's mask count,
+        and ``n_ranks`` divides the aux and z terms: a data-parallel rank
+        passes the whole batch's count and the group's size, so that the
+        ranks' summed totals and gradients are the whole batch's mean
+        cross-entropy plus the mean of the ranks' terms (the gradient the
+        reference takes: ROADMAP §3).  Each layer runs under the
+        ``remat_policy``; gradients reach the parameters of
         ``trainable_params``."""
         why = self.loss_not_ported()
         if why:
@@ -889,13 +1017,32 @@ class LM(nn.Module):
         tokens = batch["tokens"].to(dev)
         B, S = tokens.shape
         x = torch.nn.functional.embedding(tokens, self.embed).to(self.dtype)
+        aux = z = torch.zeros((), dtype=torch.float32, device=dev)
         positions = torch.arange(S, device=dev).expand(B, S)
-        for p in self.blocks:
-            x = self._ckpt(lambda x, p=p: self._train_layer(p, x, positions), x)
+        if cfg.family == "vlm":
+            fe = batch["frontend"].to(device=dev, dtype=self.dtype)
+            n = fe.shape[1]
+            x = torch.cat([fe, x], dim=1)
+            x, aux, z = self._train_decoder(x, torch.arange(n + S, device=dev).expand(B, n + S))
+            x = x[:, n:]
+        elif cfg.family == "audio":
+            enc = self._train_encoder(batch["frontend"].to(device=dev, dtype=self.dtype))
+            x, aux, z = self._train_decoder(x, positions, enc=enc)
+        elif cfg.family == "ssm":
+            for p in self.blocks:
+                x = self._ckpt(lambda x, p=p: self._train_mamba(p, x), x)
+        elif cfg.family == "hybrid":
+            x = self._train_hybrid(x, positions)
+        else:
+            x, aux, z = self._train_decoder(x, positions)
         w = self.embed.T if cfg.tie_embeddings else self.lm_head
         xent = chunked_xent(_norm_apply(cfg, self.final_norm, x), w, batch["targets"].to(dev),
                             batch["mask"].to(dev), self.xent_chunks, denom)
-        return xent, {"xent": xent, "aux": torch.zeros((), dtype=torch.float32, device=dev)}
+        total = xent
+        if cfg.moe is not None:
+            total = (xent + cfg.moe.aux_coef / n_ranks * aux
+                     + cfg.moe.zloss_coef / n_ranks * z)
+        return total, {"xent": xent, "aux": aux}
 
     # -- serving ----------------------------------------------------------------
 

@@ -29,6 +29,13 @@ reference's mean over the group is left out: serving reads neither).  The
 expert products are ``torch.matmul`` (the reference's ``jnp.einsum`` runs
 outside any Pallas kernel).  ``assignments`` counts each rank's routed and
 dropped assignments.
+
+Training (``LM.loss``) runs ``moe_apply_capacity``, or ``moe_apply_dense``
+in local mode, with gradients through the router's gates, aux and z-loss,
+the dispatch and the combine.  The backward is deterministic on a card: the
+dispatch's gathers its k copies of a token's gradient back in a fixed order
+(``_Fill``), and the combine's gathers read distinct rows but the dropped
+one, whose gradient is discarded.
 """
 
 from __future__ import annotations
@@ -137,6 +144,31 @@ def _with_shared(p, x: torch.Tensor, y: torch.Tensor, mlp_kind: str, shard=None)
 # ---------------------------------------------------------------------------
 
 
+class _Fill(torch.autograd.Function):
+    """The dispatch buffer (E cap + 1, D): ``buf[slot] = xt[src]``, zeros in
+    the slots no assignment fills (the last row takes the dropped ones).
+    Its backward sums a token's k gradients by gathers, in the order of its
+    choices (``flat_slot`` (N, k): the row of each, E cap if dropped, whose
+    gradient is zero), in fp32: a segment sum with no atomics, where the
+    backward of ``xt[src]`` would scatter-add the k copies (atomics on CUDA,
+    in no fixed order)."""
+
+    @staticmethod
+    def forward(ctx, xt, rows: int, slot, src, flat_slot):
+        ctx.save_for_backward(flat_slot)
+        buf = xt.new_zeros((rows, xt.shape[1]))
+        buf[slot] = xt[src]
+        return buf
+
+    @staticmethod
+    def backward(ctx, g):
+        (flat_slot,) = ctx.saved_tensors
+        gx = g[flat_slot[:, 0]].float()
+        for i in range(1, flat_slot.shape[1]):
+            gx += g[flat_slot[:, i]].float()
+        return gx.to(g.dtype), None, None, None, None
+
+
 def _dispatch(p, xt: torch.Tensor, *, cfg, mlp_kind: str, shard=None):
     """xt: (N, D), one rank's tokens -> (y (N, D) in xt's dtype, aux, z-loss).
 
@@ -168,9 +200,11 @@ def _dispatch(p, xt: torch.Tensor, *, cfg, mlp_kind: str, shard=None):
     pos = torch.arange(N * k, device=xt.device) - first[sorted_e]
     keep = pos < cap
     slot = torch.where(keep, sorted_e * cap + pos, E * cap)
-    buf = xt.new_zeros((E * cap + 1, D))
-    buf[slot] = xt[order // k]
-    send = buf[:E * cap]
+    # back in flat order: assignment j's row of the buffer, E cap if dropped
+    flat_slot = torch.empty_like(slot)
+    flat_slot[order] = slot
+    flat_slot = flat_slot.view(N, k)
+    send = _Fill.apply(xt, E * cap + 1, slot, order // k, flat_slot)[:E * cap]
     if shard is None:
         out = _expert_ffn(p, send.view(E, cap, D), mlp_kind)
     else:
@@ -182,16 +216,15 @@ def _dispatch(p, xt: torch.Tensor, *, cfg, mlp_kind: str, shard=None):
         out = out.view(E_loc, ep, cap, D).transpose(0, 1).reshape(E * cap, D)
         out = shard.exchange(out.contiguous())
 
-    # back in flat order: assignment j's row of the outputs, zeros if dropped
-    flat_slot = torch.empty_like(slot)
-    flat_slot[order] = slot
+    # assignment j's row of the outputs, zeros if dropped
     out = torch.cat([out.reshape(E * cap, D), out.new_zeros((1, D))])
-    flat_slot = flat_slot.view(N, k)
     y = out[flat_slot[:, 0]].float() * gates[:, :1]
     for i in range(1, k):
         y = y + out[flat_slot[:, i]].float() * gates[:, i:i + 1]
     assignments["routed"] += N * k
-    assignments["dropped"] += (~keep).sum()
+    dropped = assignments["dropped"]  # 0, or a tensor of an earlier call (maybe another device)
+    assignments["dropped"] = (~keep).sum() + (dropped.to(keep.device) if torch.is_tensor(dropped)
+                                              else dropped)
     return y.to(xt.dtype), aux, zloss
 
 
@@ -249,6 +282,7 @@ def moe_apply_local(p, x: torch.Tensor, *, cfg, mlp_kind: str, shard=None):
     return _with_shared(p, x, y, mlp_kind, shard), aux, zloss
 
 
-#: the reference's meshless path (every expert resident, gate-masked): on
-#: one card the same function as the decode path
+#: the reference's meshless path (every expert on every token, gate-masked,
+#: nothing dropped), which its compressed-gradient Trainer trains through
+#: (``LM.local()``): on one card the same function as the decode path
 moe_apply_dense = moe_apply_local

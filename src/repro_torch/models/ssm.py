@@ -17,7 +17,9 @@ here a sequential loop over the chunk's positions, one in-place
 of dA underflow fp32 over a chunk, as they should) and holds nothing beyond
 the chunk's two (B, Lc, Di, N) tensors.  Then y = sum_n h C.  It is plain
 PyTorch, the reference's plain JAX; a fused scan kernel is later work
-(ROADMAP.md §2).
+(ROADMAP.md §2).  With gradients enabled (the training forward) each chunk
+runs the same operations out of place, rematerialized in the backward
+(``_scan_chunk``): bit for bit the same values.
 
 ``mamba1_apply`` keeps the reference's dtype boundaries: ``in_proj``,
 ``x_proj``, ``dt_proj`` and ``out_proj`` in the weights' dtype; the softplus
@@ -31,10 +33,13 @@ x, dt, B and C (a padded step, dt = 0, neither decays nor adds) and s
 reference: the log decays ``cum = cumsum(dt a)``, the lower triangle of
 ``(C_i . B_j) exp(cum_i - cum_j)`` against ``x dt``, the inter-chunk term
 ``C_i . (exp(cum_i) s)`` and the state update ``exp(cum_last) s + sum_j
-exp(cum_last - cum_j) B_j (x dt)_j``.  ``exp(cum_i - cum_j)`` overflows to
-inf above the diagonal (j > i); ``torch.where`` drops it there, as the
-reference's ``where`` does (a product with a 0/1 mask would make inf . 0 =
-NaN).  Each of the reference's three-operand einsums is one factor applied
+exp(cum_last - cum_j) B_j (x dt)_j``.  ``exp(cum_i - cum_j)`` can overflow
+to inf above the diagonal (j > i): the exponent is set to -inf there before
+the exp, and ``torch.where`` drops those entries as the reference's ``where``
+does (a product with a 0/1 mask would make inf . 0 = NaN).  The values are
+the reference's; its gradient is not where it overflows, since it
+exponentiates first and masks after, and the backward of the dropped inf is
+0 . inf = NaN; here it is finite.  Each of the reference's three-operand einsums is one factor applied
 first and then a two-operand product: torch contracts an einsum left to
 right, which for the state update would build a (B, Lc, N, H, P)
 intermediate (671 MB a chunk at Zamba2's widths).  ``mamba2_apply`` splits
@@ -59,6 +64,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import dense_init
 
@@ -129,11 +135,31 @@ def mamba1_init(gen: torch.Generator, d: int, cfg, dtype=torch.bfloat16) -> dict
     }
 
 
+def _scan_chunk(h, x_c, dt_c, A, B_c, C_c):
+    """The training form of one chunk: the serving form's operations out of
+    place (one ``addcmul`` a position, each h a tensor of its own), so that
+    autograd can take it back; the same values bit for bit.  Returns (the
+    last h, y_c (B, Lc, Di) fp32)."""
+    dt_f = dt_c.float()
+    dA = torch.exp(dt_f[..., None] * A.float())
+    dBx = (dt_f * x_c.float())[..., None] * B_c[:, :, None, :].float()
+    hs = []
+    for l in range(dA.shape[1]):
+        h = torch.addcmul(dBx[:, l], dA[:, l], h)
+        hs.append(h)
+    return h, torch.matmul(torch.stack(hs, 1), C_c[..., None].float())[..., 0]
+
+
 def selective_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
     """Diagonal selective scan, chunked.
 
     x, dt: (B, T, Di); A: (Di, N); Bm, Cm: (B, T, N).
-    Returns y (B, T, Di) fp32 and the final state (B, Di, N) fp32.
+    Returns y (B, T, Di) fp32 and the final state (B, Di, N) fp32.  Where
+    a gradient is wanted (grad mode on and an input that requires one) it
+    takes the training form (``_scan_chunk``, each chunk rematerialized in
+    the backward, as the reference's checkpointed chunk body): the serving
+    form's in-place ``addcmul_`` on views of one buffer share that buffer's
+    version counter, which autograd refuses.
     """
     B, T, Di = x.shape
     Lc = min(chunk, T)
@@ -143,6 +169,15 @@ def selective_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
     Af = A.float()
     h = (torch.zeros((B, Di, A.shape[-1]), dtype=torch.float32, device=x.device)
          if h0 is None else h0.float())
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, dt, A, Bm, Cm, h0)):
+        ys = []
+        for c0 in range(0, T + pad, Lc):
+            c = slice(c0, c0 + Lc)
+            h, y_c = checkpoint(_scan_chunk, h, x[:, c], dt[:, c], Af, Bm[:, c], Cm[:, c],
+                                use_reentrant=False)
+            ys.append(y_c)
+        return torch.cat(ys, 1)[:, :T], h
     y = torch.empty((B, T + pad, Di), dtype=torch.float32, device=x.device)
     for c0 in range(0, T + pad, Lc):
         c = slice(c0, c0 + Lc)
@@ -253,8 +288,9 @@ def ssd_scan(xh, dt, a_log, Bm, Cm, *, chunk: int, s0=None):
         xb = x_c * dt_c[..., None]                                # (B, Lc, H, P)
         # intra-chunk: att[i, j] = (C_i . B_j) exp(cum_i - cum_j) for j <= i
         cum_h = cum.transpose(1, 2)                               # (B, H, Lc)
-        decay = torch.exp(cum_h[..., :, None] - cum_h[..., None, :])
-        att = torch.where(tri, (C_c @ B_c.transpose(1, 2))[:, None] * decay, 0.0)
+        decay = torch.exp(torch.where(tri, cum_h[..., :, None] - cum_h[..., None, :],
+                                      -math.inf))
+        att = (C_c @ B_c.transpose(1, 2))[:, None] * decay        # 0 where j > i
         yc = (att @ xb.transpose(1, 2)).transpose(1, 2)           # (B, Lc, H, P)
         # inter-chunk: y_i += exp(cum_i) C_i . s
         cs = (C_c @ s.reshape(B, H * Pd, N).transpose(1, 2)).view(B, Lc, H, Pd)

@@ -19,16 +19,20 @@ Data parallelism: with ``mesh`` (``launch/mesh.make_host_mesh``, ``("data",
 "model")``, one process a rank) each rank holds the whole weights and
 optimizer state (the reference also shards them over ``"data"``, FSDP),
 takes its contiguous rows of each batch, and computes its rows' summed
-token loss over the whole batch's mask count; the gradients are then summed
-in fp32 over ``"data"`` (one ``all_reduce`` a leaf, cast back once), so each
-rank applies the gradient of the whole batch's mean loss, as the
-reference's.  ``grad_compression="int8"`` takes the reference's explicit
-path instead: each rank's gradient of its own rows' mean loss goes through
-error feedback and ``optim/compress.compressed_psum``, divided by the
-group's size.  Rank 0 alone writes the checkpoints and the heartbeat.  Weight decay
-takes the reference's leaves: those of rank >= 2 in its stacked tree, a
-layer's norm weights among them (``convert.decays_in_reference``).
-Tensor-parallel training (``"model"`` > 1) is not ported yet.
+token loss over the whole batch's mask count (the MoE family's aux and
+z terms, its own rows', over the group's size); the gradients are then
+summed in fp32 over ``"data"`` (one ``all_reduce`` a leaf, cast back
+once), so each rank applies the gradient of the whole batch's mean loss
+plus the mean of the ranks' aux and z terms, the gradient the reference
+takes (ROADMAP §3).  ``grad_compression="int8"`` takes the reference's
+explicit path instead: each rank's gradient of its own rows' mean loss,
+the experts of its local-mode LM (``LM.local()``: every expert on every
+token, ``moe_apply_dense``), goes through error feedback and
+``optim/compress.compressed_psum``, divided by the group's size.  Rank 0
+alone writes the checkpoints and the heartbeat.  Weight decay takes the
+reference's leaves: those of rank >= 2 in its stacked tree, a layer's norm
+weights among them (``convert.decays_in_reference``).  Every family
+trains; tensor-parallel training (``"model"`` > 1) is not ported yet.
 """
 
 from __future__ import annotations
@@ -104,6 +108,8 @@ class Trainer:
         self.heartbeat_path = Path(tc.ckpt_dir) / "heartbeat.log"
         self.params = lm.trainable_params()
         self._err_feedback = tc.grad_compression == "int8"
+        # the reference's compressed path trains its per-shard local-mode LM
+        self.loss_lm = lm.local() if self._err_feedback else lm
 
     # -- state ----------------------------------------------------------------
 
@@ -155,27 +161,30 @@ class Trainer:
             from repro_torch.optim.compress import (ErrorFeedback, compressed_psum,
                                                     reduce_local_roundtrip)
 
-            loss, _ = self.lm.loss(batch)  # this rank's rows' mean
+            loss, metrics = self.loss_lm.loss(batch)  # this rank's rows' mean
             loss.backward()
             g, err = ErrorFeedback.apply(
                 {k: p.grad for k, p in params.items()}, err,
                 lambda c: compressed_psum(c, self.mesh), lambda c: reduce_local_roundtrip(c, self.mesh))
             ndp = torch.full((), float(self.dp), device=loss.device)
             grads = {k: t / ndp for k, t in g.items()}
-            loss = self._all_reduce(loss.detach().clone()) / ndp
+            means = self._all_reduce(torch.stack([loss.detach(), metrics["xent"].detach(),
+                                                  metrics["aux"].detach()])) / ndp
             params, opt_state, om = self.opt.update(grads, opt_state, params)
-            return params, opt_state, err, {"loss": loss, "xent": loss, **om}
+            return params, opt_state, err, {"loss": means[0], "xent": means[1], "aux": means[2],
+                                            **om}
         denom = self._all_reduce(batch["mask"].sum().to(self.lm.device))
-        loss, metrics = self.lm.loss(batch, denom=denom)
+        loss, metrics = self.lm.loss(batch, denom=denom, n_ranks=self.dp)
         loss.backward()
         grads = {k: p.grad for k, p in params.items()}
+        sums = torch.stack([loss.detach(), metrics["xent"].detach(),
+                            metrics["aux"].detach() / self.dp])
         if self.dp > 1:  # the whole batch's gradient: fp32 sums, cast back once
             for g in grads.values():
                 g.copy_(self._all_reduce(g.float()))
-            loss = self._all_reduce(loss.detach().clone())
+            sums = self._all_reduce(sums)
         params, opt_state, om = self.opt.update(grads, opt_state, params)
-        return params, opt_state, {"loss": loss.detach(), "xent": loss.detach(),
-                                   "aux": metrics["aux"], **om}
+        return params, opt_state, {"loss": sums[0], "xent": sums[1], "aux": sums[2], **om}
 
     def stage_batch(self, step: int) -> dict:
         """This rank's rows of batch ``step`` on the LM's device: a
@@ -203,7 +212,7 @@ class Trainer:
     def run(self, on_metrics=None):
         """Train from the newest checkpoint (or step 0) to ``tc.steps``;
         returns (params, opt state, history of {"step", "loss", "time",
-        "grad_norm"})."""
+        "grad_norm", "xent"})."""
         tc = self.tc
         Path(tc.ckpt_dir).mkdir(parents=True, exist_ok=True)
         old1 = signal.signal(signal.SIGTERM, self._signal)
@@ -235,7 +244,8 @@ class Trainer:
                 self._heartbeat({"step": step, "t": dt, "loss": loss,
                                  **({"event": "SLOW_STEP"} if slow else {})})
                 history.append({"step": step, "loss": loss, "time": dt,
-                                "grad_norm": float(metrics["grad_norm"])})
+                                "grad_norm": float(metrics["grad_norm"]),
+                                "xent": float(metrics["xent"])})
                 if on_metrics:
                     on_metrics(history[-1])
                 if (step + 1) % tc.ckpt_every == 0:

@@ -143,3 +143,59 @@ def run_train_rank(rank: int, init_file: str, out_dir: str):
         (Path(out_dir) / f"train{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
+
+
+#: the data-parallel MoE runs: smoke Phi-3.5-MoE in fp32, the dense runs' sizes
+MOE_ARCH = "phi35_moe_42b"
+
+
+def run_train_moe_rank(rank: int, init_file: str, out_dir: str):
+    """The port's ``Trainer`` for the smoke ``MOE_ARCH`` on a (2, 1) mesh for
+    each of ``TRAIN_MODES`` from the weights in ``out_dir/moe_weights.npz``;
+    each rank saves its histories (loss, grad norm, and the step's xent and
+    aux) to ``out_dir/moe<rank>.json``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    torch.set_num_threads(2)
+    _init(rank, init_file, WORLD)
+    try:
+        mesh = make_host_mesh(1, device="cpu")
+        cfg = dataclasses.replace(configs.smoke(MOE_ARCH), dtype="float32")
+        weights = np.load(Path(out_dir) / "moe_weights.npz")
+        data = SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+        out = {}
+        for mode in TRAIN_MODES:
+            lm = LM(cfg, q_block=TRAIN_Q_BLOCK, xent_chunks=TRAIN_XENT_CHUNKS, device="cpu")
+            lm.load_state_dict({k: torch.from_numpy(weights[k]) for k in weights.files})
+            tc = TrainConfig(steps=TRAIN_STEPS, ckpt_every=100, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                             ckpt_dir=str(Path(out_dir) / f"moe-ckpt-{mode}"),
+                             grad_compression=mode)
+            tr = Trainer(lm, data, tc, mesh=mesh)
+            params, opt, _ = tr.init_state()
+            err = None
+            if mode == "int8":
+                from repro_torch.optim.compress import ErrorFeedback
+
+                err = ErrorFeedback.init(params)
+            hist = []
+            for step in range(TRAIN_STEPS):
+                batch = tr.stage_batch(step)
+                if mode == "int8":
+                    params, opt, err, m = tr.train_step(params, opt, batch, err)
+                else:
+                    params, opt, m = tr.train_step(params, opt, batch)
+                hist.append({k: float(m[k]) for k in ("loss", "xent", "aux", "grad_norm")
+                             if k in m})
+            out[mode] = hist
+        (Path(out_dir) / f"moe{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()

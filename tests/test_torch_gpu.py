@@ -1102,24 +1102,30 @@ def test_plan_audit_of_the_example_plans_on_the_card(mesh1):
         assert rep.ok, (label, [v.to_dict() for v in rep.violations])
 
 
-def _train_smoke(dtype):
+def _train_smoke(dtype, arch="glm4_9b"):
     import dataclasses
 
     from repro_torch import configs
-    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.train import data_for
 
-    cfg = dataclasses.replace(configs.smoke("glm4_9b"), dtype=dtype)
-    return cfg, SyntheticLMData(vocab=cfg.vocab, seq_len=16, global_batch=4)
+    cfg = dataclasses.replace(configs.smoke(arch), dtype=dtype)
+    return cfg, data_for(cfg, 16, 4)
 
 
-def test_train_step_on_the_card_matches_the_cpu(cuda, tmp_path):
-    """One fp32 step of the smoke GLM-4 (TF32 off): the loss, the grad norm
-    and every clipped gradient leaf within 1e-5 relative of the CPU's; no
-    kernel of K1-K6 launches."""
+TRAIN_ARCHS = ["glm4_9b", "phi35_moe_42b", "deepseek_v2_lite_16b", "falcon_mamba_7b",
+               "zamba2_2p7b", "llava_next_34b", "seamless_m4t_medium"]
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_the_card_matches_the_cpu(cuda, tmp_path, arch):
+    """One fp32 step of each family's smoke config (TF32 off): the loss, the
+    grad norm and every clipped gradient leaf within 1e-5 relative of the
+    CPU's (the MoE's expert choices are identical at this size); no kernel
+    of K1-K6 launches."""
     from repro_torch.models.lm import LM
     from repro_torch.runtime import TrainConfig, Trainer
 
-    cfg, data = _train_smoke("float32")
+    cfg, data = _train_smoke("float32", arch)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     counters = (fops.launches, xops.launches, tops.launches, flops.launches)
@@ -1147,13 +1153,15 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, tmp_path):
     assert [dict(c) for c in counters] == before
 
 
-def test_resume_on_the_card_is_bitwise(cuda, tmp_path):
+@pytest.mark.parametrize("arch", ["glm4_9b", "deepseek_v2_lite_16b", "zamba2_2p7b"])
+def test_resume_on_the_card_is_bitwise(cuda, tmp_path, arch):
     """4 steps, a stop and 2 resumed steps equal 6 uninterrupted ones on the
-    card (bf16, the optimized flags): weights, moments, losses."""
+    card (bf16, the optimized flags): weights, moments, losses (the MoE's
+    dispatch has a backward without atomics)."""
     from repro_torch.models.lm import LM, OPTIMIZED
     from repro_torch.runtime import TrainConfig, Trainer
 
-    cfg, data = _train_smoke("bfloat16")
+    cfg, data = _train_smoke("bfloat16", arch)
 
     def trainer(d):
         lm = LM(cfg, q_block=8, xent_chunks=2, perf=OPTIMIZED, device="cuda")

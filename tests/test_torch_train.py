@@ -29,6 +29,11 @@ reference's own initial weights carried across
   second step's loss at lr 3e-3); the heartbeat, ``SLOW_STEP`` and the
   SIGTERM save; ``launch.train`` and the ``lm_pretrain`` twin on the CPU,
   and ``launch.train`` under two ranks.
+* Every mesh-less LM of the registry trains (``loss_not_ported`` is None;
+  the other families: tests/test_torch_train_families.py); the forms not
+  ported yet raise, naming ROADMAP §1: the loss of an LM on a mesh, a
+  ``Trainer`` of one, ``launch.train --model-parallel 2`` and ``--sp-mode
+  ulysses``.
 """
 
 import dataclasses
@@ -159,14 +164,36 @@ def test_remat_policies_are_bitwise(ref_init, dtype):
         assert all(torch.equal(grads[k], grads0[k]) for k in grads0), pol
 
 
-@pytest.mark.parametrize("arch", ["phi35_moe_42b", "deepseek_v2_lite_16b", "falcon_mamba_7b",
-                                  "zamba2_2p7b", "llava_next_34b", "seamless_m4t_medium"])
-def test_other_families_raise_naming_the_roadmap(arch):
-    lm = plm.LM(configs.smoke(arch), device="cpu")
+def _unported(case: str):
+    """Each training form not ported yet (ROADMAP §1): the loss of an LM on
+    a mesh (tensor-parallel training; a one-rank gloo mesh), a Trainer of
+    such an LM, and the CLI's tensor- and sequence-parallel options."""
+    from repro_torch.core.meshutil import default_group
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+
+    if case.startswith("cli"):
+        argv = ["--model-parallel", "2"] if case == "cli-model-parallel" else ["--sp-mode",
+                                                                              "ulysses"]
+        return train.main(["--arch", ARCH, "--device", "cpu", *argv])
+    with default_group("cpu"):
+        lm = plm.LM(configs.smoke(ARCH), mesh=make_host_mesh(1, device="cpu"), device="cpu")
+        if case == "loss-on-a-mesh":
+            return lm.loss(_data().batch(0))
+        return Trainer(lm, _data(), TrainConfig())
+
+
+@pytest.mark.parametrize("case", ["loss-on-a-mesh", "trainer-of-a-mesh-lm", "cli-model-parallel",
+                                  "cli-ulysses"])
+def test_unported_training_forms_raise_naming_the_roadmap(case):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.loss({"tokens": torch.zeros((1, 4), dtype=torch.int64)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(lm, SyntheticLMData(vocab=256, seq_len=4, global_batch=1), TrainConfig())
+        _unported(case)
+
+
+def test_every_mesh_less_family_trains():
+    """``loss_not_ported`` is None for a mesh-less LM of every arch."""
+    for arch in rconfigs.ARCH_NAMES:
+        assert plm.LM(configs.smoke(arch), device="cpu").loss_not_ported() is None, arch
 
 
 def _data():
@@ -284,9 +311,6 @@ def test_train_cli_and_pretrain_twin_on_the_cpu(tmp_path, monkeypatch):
     hist = lm_pretrain.main(["--steps", "2", "--device", "cpu", "--ckpt-dir",
                              str(tmp_path / "pretrain")])
     assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
-    for argv in (["--model-parallel", "2"], ["--sp-mode", "ulysses"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train.main(["--arch", ARCH, "--device", "cpu", *argv])
 
 
 _REFERENCE_DP = """
