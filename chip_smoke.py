@@ -227,8 +227,21 @@ non-zero):
    traced step's device time by class and its idle share (one
    ``{"train_full"}``, ``{"train_moe_full"}`` or ``{"train_width"}`` line
    each, the whole path's ``{"train"}`` line after the kernels');
-   ``python3 chip_smoke.py --only train`` runs this path alone (no kernel
-   is built);
+   "train_tp" — after it, the dense family's tensor-parallel and Ulysses
+   training on a 1-rank NCCL mesh (``make_host_mesh(1)``; no kernel of
+   K1-K6 may launch in it): the smoke GLM-4 in fp32 in each of the four
+   forms (``sp_mode`` "none" / "ulysses" x ``seq_sharded_residual`` off /
+   on), its loss and every gradient leaf (the partial ones summed) within
+   1e-6 relative of the mesh-less LM on the card (and whether bitwise) and
+   1e-5 of the CPU's, a Trainer step's collectives exactly
+   ``LM.collectives_per_step(trainer=True)``; then GLM-4-9B at full width cut
+   to ``TRAIN_TP_LAYERS`` (bf16, "dots", 4 x 2048 tokens, lr 3e-4), Ulysses
+   with the sequence-sharded residual: 3 Trainer steps on the mesh and 3
+   mesh-less from the same seeded weights, each step's loss and grad norm
+   within 1e-5 relative, step seconds, tokens/s, peak memory (one
+   ``{"train_tp"}`` line);
+   ``python3 chip_smoke.py --only train`` runs these two paths alone (no
+   kernel is built);
 4. the kernels at the main path's shapes (512^3, where K4 runs its
    tensor-core design and K1-K3 their vec designs, as at the pipelined slice;
    K4's general design at the quickstart shape; K5 at three 1 GiB
@@ -333,6 +346,13 @@ TRAIN_AT_WIDTH = (
 )
 # the depth rule: the card's 79.1 GiB less 8 GiB of headroom
 TRAIN_PEAK_GIB = 79.1 - 8
+# the train_tp path: the four forms of training on a mesh, (sp_mode,
+# seq_sharded_residual); GLM-4-9B at full width cut to TRAIN_TP_LAYERS
+# (~26 GiB a run, PERF.md §4), TRAIN_TP_STEPS steps on the mesh and as many
+# without one; the smoke forms against the mesh-less LM on the card
+TRAIN_TP_FORMS = (("none", False), ("none", True), ("ulysses", False), ("ulysses", True))
+TRAIN_TP_LAYERS, TRAIN_TP_STEPS = 4, 3
+TOL_TP_CARD = 1e-6
 MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 2048, 32
 #: greedy decode steps of each LM path's one-rank twin (``twin_path``)
 TWIN_STEPS = 3
@@ -1072,7 +1092,8 @@ def run_paths(torch, lm_info, moe_info, mla_info, ssm_info, hybrid_info, vlm_inf
     ``lm_info``, ``moe_info``, ``mla_info``, ``ssm_info``, ``hybrid_info``,
     ``vlm_info`` and ``audio_info``; the parallel path runs on the moe
     path's model, on a 1-rank NCCL group again), and last the train path
-    (``train_info``), which must launch no kernel;
+    (``train_info``) and the train_tp path (its own ``{"train_tp"}``
+    line), which must launch no kernel;
     returns each path's kernel launch counts."""
     from repro_torch.core.meshutil import make_mesh
 
@@ -1161,6 +1182,10 @@ def run_paths(torch, lm_info, moe_info, mla_info, ssm_info, hybrid_info, vlm_inf
     torch.cuda.empty_cache()
     paths["train"] = _drive(torch, "train", train_path, train_info)
     _no_launches(paths["train"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["train_tp"] = _drive(torch, "train_tp", train_tp_path, card)
+    _no_launches(paths["train_tp"])
     gc.collect()
     torch.cuda.empty_cache()
     return paths
@@ -3913,8 +3938,8 @@ def lm_breakdown(kernels, info, path):
 
 
 def train_alone(torch):
-    """``--only train``: the train path alone (no kernel is built; it
-    launches none), its line, the card and the result line."""
+    """``--only train``: the train and train_tp paths alone (no kernel is
+    built; they launch none), their lines, the card and the result line."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
@@ -3923,8 +3948,11 @@ def train_alone(torch):
     counts = _drive(torch, "train", train_path, info)
     _no_launches(counts)
     print(json.dumps({"train": {**info, "card": card}}))
+    t1 = time.perf_counter()
+    _no_launches(_drive(torch, "train_tp", train_tp_path, card))
     print(card)
-    print(json.dumps({"phase_s": {"train": round(time.perf_counter() - t0, 1)}}))
+    print(json.dumps({"phase_s": {"train": round(t1 - t0, 1),
+                                  "train_tp": round(time.perf_counter() - t1, 1)}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -3955,8 +3983,8 @@ def train_path(torch, info):
     for line, arch, layers, steps, ckpt, traced in TRAIN_AT_WIDTH:
         gc.collect()
         torch.cuda.empty_cache()
-        info.setdefault("at_width", {})[arch] = _train_at_width(torch, line, arch, layers, steps,
-                                                                ckpt, traced)
+        info.setdefault("at_width", {})[arch] = _train_at_width(
+            torch, arch, layers, steps, line=line, checkpoint=ckpt, traced=traced)
 
 
 def _smoke_train_cfg(dtype, arch=TRAIN_ARCH):
@@ -4156,7 +4184,9 @@ def _train_flops(lm, B, S):
     groups = len(lm.blocks) if cfg.family == "hybrid" else 1
     tokens = {"embed": B * S if cfg.tie_embeddings else 0, "lm_head": B * S,
               "shared": B * S * groups, "enc_blocks": B * S}
-    n = sum(p.numel() * tokens.get(k.split(".")[0], B * S_dec)
+    tp = 1 if lm.shard is None else lm.shard.tp  # an LM on a mesh: the whole model's
+    n = sum(p.numel() * (tp if lm.split_over_model(k) else 1) * tokens.get(k.split(".")[0],
+                                                                           B * S_dec)
             for k, p in lm.trainable_params().items())
 
     def pairs(q, k, causal=True):  # the (query, key) pairs of one head
@@ -4242,21 +4272,31 @@ def _moe_probe(cfg):
         moe.route, moe._dispatch = route, dispatch
 
 
-def _train_at_width(torch, line, arch, layers, steps, checkpoint, traced):
+def _train_at_width(torch, arch, layers, steps, *, line=None, checkpoint=False, traced=False,
+                    perf=None, lm_kw=None, why=None):
     """``arch`` at full width cut to ``layers`` (PERF.md §4), seeded weights,
-    the optimized flags ("dots" remat): the Trainer's ``steps`` steps of
-    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens (the family's frontend
-    embeddings with them), timed by its own loop; with ``checkpoint`` its
-    final checkpoint, then a second Trainer on a fresh model that resumes
-    and takes a step (else the Trainer writes none); with ``traced`` one
-    more step under the profiler.  The MoE family's steps also give their
-    aux, z and dropped shares (``_moe_probe``).  Prints one ``{line: ...}``
-    line; fails on a non-finite loss or grad norm, a launch of K1-K6 or a
-    peak above ``TRAIN_PEAK_GIB``."""
+    ``perf`` (the optimized flags, "dots" remat, unless given), on the mesh
+    of ``lm_kw`` (``LM``'s ``mesh`` and ``sp_mode``) where given: the
+    Trainer's ``steps`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens (the
+    family's frontend embeddings with them), timed by its own loop; with
+    ``checkpoint`` its final checkpoint, then a second Trainer on a fresh
+    model that resumes and takes a step (else the Trainer writes none); with
+    ``traced`` one more step under the profiler.  The MoE family's steps
+    also give their aux, z and dropped shares (``_moe_probe``); an LM on a
+    mesh its collectives, ``steps`` x ``LM.collectives_per_step(trainer=
+    True)`` (the checkpoint's gathers beside them).  Every rank of a mesh
+    calls it; rank 0 prints one ``{line: ...}`` line where ``line`` is
+    given.  Returns the record; fails on a non-finite loss or grad norm, a
+    launch of K1-K6, collectives off the formula or a peak above
+    ``TRAIN_PEAK_GIB``.  ``why``: the reason for the cut in depth."""
     import dataclasses
+    from collections import Counter
+
+    import torch.distributed as dist
 
     from repro_torch import configs
     from repro_torch.launch.train import data_for
+    from repro_torch.models import sharding
     from repro_torch.models.lm import LM, OPTIMIZED
     from repro_torch.runtime import TrainConfig, Trainer
     from repro_torch.runtime import trainer as trainer_mod
@@ -4265,15 +4305,21 @@ def _train_at_width(torch, line, arch, layers, steps, checkpoint, traced):
     cfg = dataclasses.replace(full, n_layers=layers)
     is_moe = cfg.moe is not None
     data = data_for(cfg, TRAIN_SEQ, TRAIN_BATCH)
+    lm_kw = lm_kw or {}
+    ranks = dist.is_initialized()
+    lead = not ranks or dist.get_rank() == 0
     if checkpoint:  # where there is more room: the temporary directory or the checkout
         base = max((tempfile.gettempdir(), str(ROOT)), key=lambda d: shutil.disk_usage(d).free)
-        ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=base)
+        ckpt_dir = [tempfile.mkdtemp(prefix="chip_smoke_train_", dir=base) if lead else None]
     else:
-        ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+        ckpt_dir = [tempfile.mkdtemp(prefix="chip_smoke_train_") if lead else None]
+    if ranks:  # one directory for every rank: rank 0's
+        dist.broadcast_object_list(ckpt_dir, src=0)
+    ckpt_dir = ckpt_dir[0]
 
     def model():
         return LM(cfg, q_block=min(512, TRAIN_SEQ), xent_chunks=min(8, TRAIN_SEQ),
-                  perf=OPTIMIZED, device="cuda")
+                  perf=perf or OPTIMIZED, device="cuda", **lm_kw)
 
     def trainer(lm, n):
         tr = Trainer(lm, data, TrainConfig(steps=n, ckpt_every=10**9, ckpt_dir=ckpt_dir,
@@ -4290,14 +4336,17 @@ def _train_at_width(torch, line, arch, layers, steps, checkpoint, traced):
         torch.cuda.synchronize()
         out["init_s"] = time.perf_counter() - t0
         peaks["built"] = torch.cuda.max_memory_allocated() / 2**30
-        n_params = sum(p.numel() for p in lm.parameters())
+        n_cards = 1 if lm.shard is None else lm.shard.tp * lm.shard.dp
+        n_params = sum(p.numel() * (lm.shard.tp if lm.split_over_model(k) else 1)
+                       for k, p in lm.named_parameters())  # the whole model's
         flops = (_moe_train_flops if is_moe else _train_flops)(lm, TRAIN_BATCH, TRAIN_SEQ)
         if checkpoint:
             # bf16 weights and fp32 moments, 10 bytes a parameter, on disk
             # and (the async snapshot) in host memory
             du = shutil.disk_usage(ckpt_dir)
             host = {"disk_free_gib": du.free / 2**30, "ram_free_gib": _ram_available_gib()}
-            print(json.dumps({"train_host": {**host, "ckpt_dir": ckpt_dir}}))
+            if lead:
+                print(json.dumps({"train_host": {**host, "ckpt_dir": ckpt_dir}}))
             need = 10 * n_params / 2**30
             if host["disk_free_gib"] < 1.1 * need or (host["ram_free_gib"] or 0) < 1.1 * need:
                 fail(f"train: the checkpoint takes {need:.1f} GiB; free disk "
@@ -4305,15 +4354,34 @@ def _train_at_width(torch, line, arch, layers, steps, checkpoint, traced):
                      "layers in TRAIN_AT_WIDTH")
             out.update(host)
         tr = trainer(lm, steps)
+        want = lm.collectives_per_step(trainer=True)
+        sharding.collectives.clear()
         with _moe_probe(cfg) if is_moe else contextlib.nullcontext() as on_metrics:
+            def on_step(m):  # the steps' peak, before the final checkpoint's
+                if on_metrics:
+                    on_metrics(m)
+                if m["step"] == steps - 1:
+                    torch.cuda.synchronize()
+                    peaks["steps"] = torch.cuda.max_memory_allocated() / 2**30
+                    torch.cuda.reset_peak_memory_stats()
+
             t0 = time.perf_counter()
-            params, opt, hist = tr.run(on_metrics=on_metrics)
+            params, opt, hist = tr.run(on_metrics=on_step)
             out["run_s"] = time.perf_counter() - t0
-            peaks["steps"] = torch.cuda.max_memory_allocated() / 2**30
+            if lm.shard is not None:
+                counts = Counter(sharding.collectives)
+                out["collectives"] = dict(counts)
+                out["collectives_formula"] = {k: steps * v for k, v in want.items()}
+                out["collectives_ok"] = all(
+                    counts[k] == out["collectives_formula"].get(k, 0)
+                    for k in set(counts) | set(want) if k != "gather")
             if checkpoint:
-                out.update({"ckpt_snapshot_s": tr.ckpt.snapshot_s, "ckpt_write_s": tr.ckpt.write_s,
+                peaks["checkpoint"] = torch.cuda.max_memory_allocated() / 2**30
+                out.update({"ckpt_snapshot_s": tr.snapshot_s, "ckpt_write_s": tr.ckpt.write_s,
                             "ckpt_bytes": sum(f.stat().st_size
-                                              for f in Path(ckpt_dir).rglob("*.npy"))})
+                                              for f in Path(ckpt_dir).rglob("*.npy"))
+                            if lead else None})
+                saved = _state_digest(torch, params, opt)
                 del tr, lm, params, opt
                 gc.collect()
                 torch.cuda.empty_cache()
@@ -4336,7 +4404,9 @@ def _train_at_width(torch, line, arch, layers, steps, checkpoint, traced):
                 finally:
                     trainer_mod.load_checkpoint = real_load
                 torch.cuda.synchronize()
-                out.update({"resume_load_s": time.perf_counter() - t0, "resume_read_s": sum(read)})
+                out.update({"resume_load_s": time.perf_counter() - t0, "resume_read_s": sum(read),
+                            "restored_bitwise": torch.equal(_state_digest(torch, params, opt),
+                                                            saved)})
                 t0 = time.perf_counter()
                 params, opt, m = tr.train_step(params, opt, tr.stage_batch(start))
                 resumed = {"step": start, "loss": float(m["loss"]),
@@ -4351,20 +4421,26 @@ def _train_at_width(torch, line, arch, layers, steps, checkpoint, traced):
                 peaks["traced_step"] = torch.cuda.max_memory_allocated() / 2**30
         del tr, params, opt
     finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        if lead:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
 
     launches = sum(_count_snapshot().values())
     step_s = statistics.median(h["time"] for h in hist[1:])
-    bound_s = flops["model_flops_per_step"] / BF16_TC_FLOPS
+    bound_s = flops["model_flops_per_step"] / (BF16_TC_FLOPS * n_cards)
     losses = [h["loss"] for h in hist] + ([resumed["loss"]] if resumed else [])
     norms = [h["grad_norm"] for h in hist] + ([resumed["grad_norm"]] if resumed else [])
     device = out.get("step_device")
     out = {"arch": cfg.name, "layers": layers, "published_layers": full.n_layers,
            "reduced": None if layers == full.n_layers else
-           f"n_layers {full.n_layers}->{layers}: the weights, gradients and fp32 moments of every "
-           "layer do not fit the card, or the run's time (PERF.md §4)",
+           f"n_layers {full.n_layers}->{layers}: " + (
+               why or "the weights, gradients and fp32 moments of every layer do not fit the "
+               "card, or the run's time (PERF.md §4)"),
+           **({"mesh": [lm_kw["mesh"].size(0), lm_kw["mesh"].size(1)],
+               "sp_mode": lm_kw.get("sp_mode", "none"),
+               "seq_sharded_residual": (perf or OPTIMIZED).seq_sharded_residual}
+              if "mesh" in lm_kw else {}),
            "d_model": cfg.d_model, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
            "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype, "params": n_params,
            **({"moe": dataclasses.asdict(cfg.moe)} if is_moe else {}),
@@ -4384,16 +4460,156 @@ def _train_at_width(torch, line, arch, layers, steps, checkpoint, traced):
         out.update({"aux": [h["aux"] for h in hist], "z": [h["z"] for h in hist],
                     "dropped_share_by_layer": {f"step{h['step'] + 1}": h["dropped_share_by_layer"]
                                                for h in (hist[0], hist[-1])}})
-    print(json.dumps({line: out}))
+    if line and lead:
+        print(json.dumps({line: out}))
     finite = all(math.isfinite(x) for x in losses + norms + out.get("aux", []) + out.get("z", []))
     if (not finite or out["steps"] != list(range(steps)) or launches
-            or (resumed and resumed["step"] != steps)):
+            or (resumed and (resumed["step"] != steps or not out["restored_bitwise"]))
+            or not out.get("collectives_ok", True)):
         fail(f"train: {arch} at full width: finite {finite}, steps {out['steps']}, "
-             f"resumed {resumed}, launches {launches}")
+             f"resumed {resumed}, launches {launches}, collectives {out.get('collectives')} "
+             f"against {out.get('collectives_formula')}")
     if out["max_memory_allocated_gib"] > TRAIN_PEAK_GIB:
         fail(f"train: {arch} at full width peaks at {out['max_memory_allocated_gib']:.2f} GiB, "
              f"above {TRAIN_PEAK_GIB}: cut its layers in TRAIN_AT_WIDTH")
     return out
+
+
+def train_tp_path(torch, card):
+    """The dense family's training on a mesh, on a 1-rank NCCL group: the
+    four forms of the smoke GLM-4 (``_train_tp_forms``), then GLM-4-9B at
+    full width (``_train_tp_width``).  Prints one ``{"train_tp"}`` line;
+    every check fails the run."""
+    t0 = time.perf_counter()
+    with _nccl_world_one():
+        info = {"forms": _train_tp_forms(torch)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        info["at_width"] = _train_tp_width(torch)
+    info["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"train_tp": {**info, "card": card}}))
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def _max_rel_leaf(torch, got, want):
+    """The largest rel. L2 over the gradient leaves (those not all zero)."""
+    return max(float(torch.linalg.vector_norm(got[k].float() - want[k].float())
+                     / torch.linalg.vector_norm(want[k].float())) for k in want if want[k].any())
+
+
+def _train_tp_forms(torch):
+    """The smoke GLM-4 in fp32 (TF32 off) from one set of weights: the loss
+    and every gradient leaf (``LM.sum_partial_grads`` applied) of each of
+    ``TRAIN_TP_FORMS`` on the 1-rank mesh against the mesh-less LM's on the
+    card (``TOL_TP_CARD``, and whether bitwise) and on the CPU
+    (``TOL_TRAIN_REL``); then a step of each Trainer's ``run``: its grad norm
+    against the mesh-less Trainer's on the card (``TOL_TP_CARD``) and the
+    collectives it issues against ``LM.collectives_per_step(trainer=True)``,
+    exactly."""
+    from collections import Counter
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models.convert import shard_params
+    from repro_torch.models.lm import LM, PerfFlags
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    cfg = _smoke_train_cfg("float32")
+    data = _smoke_data(cfg)
+    batch = data.batch(0)
+    init = LM(cfg, q_block=8, xent_chunks=2, device="cpu").state_dict()
+    mesh = make_host_mesh(1, device="cuda")
+
+    def model(device, form=None):
+        sp, ssr = form or ("none", False)
+        kw = {} if form is None else {"mesh": mesh, "sp_mode": sp}
+        lm = LM(cfg, q_block=8, xent_chunks=2, perf=PerfFlags(seq_sharded_residual=ssr),
+                device=device, **kw)
+        lm.load_state_dict(init if form is None else shard_params(cfg, init, mesh))
+        return lm
+
+    def loss_and_grads(lm):
+        params = lm.trainable_params()
+        loss, _ = lm.loss({k: v.to(lm.device) for k, v in batch.items()})
+        loss.backward()
+        grads = {k: p.grad.detach().clone() for k, p in params.items()}
+        lm.sum_partial_grads(grads)
+        return loss.detach().cpu(), {k: g.cpu() for k, g in grads.items()}
+
+    def step(lm, d):
+        tr = Trainer(lm, data, TrainConfig(steps=1, ckpt_dir=d, lr=SMOKE_TRAIN_LR, warmup=1))
+        sharding.collectives.clear()
+        hist = tr.run()[2]
+        return hist[0]["grad_norm"], Counter(sharding.collectives)
+
+    with tempfile.TemporaryDirectory() as d:
+        cpu_loss, cpu_grads = loss_and_grads(model("cpu"))
+        card = model("cuda")
+        card_loss, card_grads = loss_and_grads(card)
+        card_gnorm, _ = step(card, f"{d}/card")
+        out = []
+        for form in TRAIN_TP_FORMS:
+            lm = model("cuda", form)
+            loss, grads = loss_and_grads(lm)
+            gnorm, counts = step(lm, f"{d}/{form[0]}-{form[1]}")
+            want = lm.collectives_per_step(trainer=True)
+            rec = {"sp_mode": form[0], "seq_sharded_residual": form[1], "loss": float(loss),
+                   "rel_loss_card": _rel(float(loss), float(card_loss)),
+                   "max_rel_l2_grad_leaf_card": _max_rel_leaf(torch, grads, card_grads),
+                   "bitwise_card": bool(torch.equal(loss, card_loss)
+                                        and all(torch.equal(grads[k], card_grads[k])
+                                                for k in card_grads)),
+                   "rel_loss_cpu": _rel(float(loss), float(cpu_loss)),
+                   "max_rel_l2_grad_leaf_cpu": _max_rel_leaf(torch, grads, cpu_grads),
+                   "grad_norm": gnorm, "rel_grad_norm_card": _rel(gnorm, card_gnorm),
+                   "collectives": dict(counts), "collectives_formula": dict(want),
+                   "limits": {"card": TOL_TP_CARD, "cpu": TOL_TRAIN_REL}}
+            out.append(rec)
+            if (max(rec["rel_loss_card"], rec["max_rel_l2_grad_leaf_card"],
+                    rec["rel_grad_norm_card"]) > TOL_TP_CARD
+                    or max(rec["rel_loss_cpu"], rec["max_rel_l2_grad_leaf_cpu"]) > TOL_TRAIN_REL
+                    or counts != want):
+                fail(f"train_tp: the {form} form against the mesh-less LM: {rec}")
+            del lm
+    return out
+
+
+def _train_tp_width(torch):
+    """GLM-4-9B at full width cut to ``TRAIN_TP_LAYERS`` (bf16, seeded
+    weights, "dots", the sequence-sharded residual, fp32 attention,
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, lr ``TRAIN_LR``):
+    ``TRAIN_TP_STEPS`` Trainer steps of the LM on the 1-rank mesh with
+    Ulysses, then as many of the mesh-less LM drawn from the same seed
+    (``_train_at_width`` both); each step's loss and grad norm within
+    ``TOL_TRAIN_REL`` relative."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import PerfFlags
+
+    perf = PerfFlags(remat_policy="dots", seq_sharded_residual=True)
+    mesh = make_host_mesh(1, device="cuda")
+    runs = {name: _train_at_width(torch, TRAIN_ARCH, TRAIN_TP_LAYERS, TRAIN_TP_STEPS, perf=perf,
+                                  lm_kw=kw, why="two runs a phase of ~40 s (PERF.md §4)")
+            for name, kw in (("mesh", {"mesh": mesh, "sp_mode": "ulysses"}), ("mesh_less", {}))}
+    m, ref = runs["mesh"], runs["mesh_less"]
+    out = {**runs,
+           "rel_loss": [_rel(a, b) for a, b in zip(m["losses"], ref["losses"])],
+           "rel_grad_norm": [_rel(a, b) for a, b in zip(m["grad_norms"], ref["grad_norms"])],
+           "bitwise": m["losses"] == ref["losses"] and m["grad_norms"] == ref["grad_norms"],
+           "limit": TOL_TRAIN_REL}
+    if max(out["rel_loss"] + out["rel_grad_norm"]) > TOL_TRAIN_REL:
+        fail(f"train_tp: GLM-4-9B on the mesh against the mesh-less run: {out}")
+    return out
+
+
+def _state_digest(torch, params, opt):
+    """Each leaf's fp64 sum, of the weights, both moments and the step (a
+    restored state equals the saved one where these are equal, bit for
+    bit: the same sums in the same order)."""
+    leaves = [*params.values(), *opt.mu.values(), *opt.nu.values(), opt.step]
+    return torch.stack([t.detach().sum(dtype=torch.float64).cpu() for t in leaves])
 
 
 def _ram_available_gib():

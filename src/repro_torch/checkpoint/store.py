@@ -256,13 +256,17 @@ class CheckpointManager:
         self._error: AsyncCheckpointError | None = None
         self.snapshot_s = self.write_s = None
 
-    def save_async(self, step: int, tree, *, extra: dict | None = None):
+    def save_async(self, step: int, tree, *, extra: dict | None = None, copied: bool = False):
+        """Write ``tree`` as checkpoint ``step`` on a thread.  ``copied``:
+        its leaves are host copies that the caller hands over (the Trainer
+        of an LM on a mesh gathers them so), written as they are."""
         import time
 
         self.wait()
         t0 = time.perf_counter()
         flat = _flatten(tree)
-        host_tree = _unflatten(tree, {k: _host_copy(v) for k, v in flat.items()})
+        host_tree = tree if copied else _unflatten(tree, {k: _host_copy(v)
+                                                          for k, v in flat.items()})
         if any(isinstance(v, torch.Tensor) and v.is_cuda for v in flat.values()):
             torch.cuda.synchronize()  # the copies into pinned memory are asynchronous
         self.snapshot_s = time.perf_counter() - t0

@@ -15,9 +15,17 @@ make_host_mesh``, ``"data"`` the world, each rank on ``cuda:LOCAL_RANK``
 over NCCL, or gloo with ``--device cpu``); rank 0 alone prints.  Every
 family trains (``--arch`` any of ``configs.ARCH_NAMES``): the VLM's batches
 carry its ``n_frontend_tokens`` seeded frontend embeddings and the audio
-family's ``--seq`` seeded frames (``data_for``); ``--model-parallel`` above
-1 and ``--sp-mode ulysses`` (tensor and sequence parallelism) are not
-ported yet (ROADMAP §1).  ``main(argv)`` returns the history of the run.
+family's ``--seq`` seeded frames (``data_for``).  ``--model-parallel N``
+and ``--sp-mode ulysses`` train the dense family on a ``(world / N, N)``
+mesh (``LM(cfg, mesh=make_host_mesh(N), sp_mode=)``: tensor parallelism
+over ``"model"``, Ulysses sequence parallelism inside the attention; a
+lone process trains on a one-rank group) and raise for every other family
+(ROADMAP §1):
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch glm4_9b --preset smoke \
+      --model-parallel 2 --sp-mode ulysses --device cpu
+
+``main(argv)`` returns the history of the run.
 """
 
 from __future__ import annotations
@@ -68,24 +76,26 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.model_parallel > 1:
-        raise NotImplementedError("--model-parallel > 1: tensor-parallel training is not ported "
-                                  "yet (ROADMAP §1); the ranks train data-parallel")
-    if args.sp_mode == "ulysses":
-        raise NotImplementedError("--sp-mode ulysses: Ulysses sequence parallelism for training "
-                                  "is not ported yet (ROADMAP §1 item 4)")
+    cfg = configs.smoke(args.arch) if args.preset == "smoke" else configs.get(args.arch)
+    on_mesh = args.model_parallel > 1 or args.sp_mode == "ulysses"
+    if on_mesh and cfg.family != "dense":
+        raise NotImplementedError(f"--model-parallel {args.model_parallel} --sp-mode "
+                                  f"{args.sp_mode}: tensor- and sequence-parallel training of "
+                                  f"the {cfg.family!r} family is not ported yet (ROADMAP §1); "
+                                  "the dense family's is")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train runs on a CUDA card and none is available; "
                            "pass --device cpu to run on the CPU")
-    cfg = configs.smoke(args.arch) if args.preset == "smoke" else configs.get(args.arch)
     seq = args.seq or (32 if args.preset == "smoke" else 4096)
     gbs = args.global_batch or (4 if args.preset == "smoke" else 256)
-    ranks = under_ranks()
+    ranks = under_ranks() or on_mesh
     with default_group(device.type) if ranks else contextlib.nullcontext():
-        mesh = make_host_mesh(1, device=device.type) if ranks else None
-        lm = LM(cfg, q_block=min(512, seq), xent_chunks=min(8, seq),
-                device=mesh_device(mesh) if mesh is not None else device)
+        mesh = make_host_mesh(args.model_parallel, device=device.type) if ranks else None
+        # an LM on the mesh, or a mesh-less one (data-parallel where ranks run)
+        kw = ({"mesh": mesh, "sp_mode": args.sp_mode, "device": device.type} if on_mesh
+              else {"device": mesh_device(mesh) if mesh is not None else device})
+        lm = LM(cfg, q_block=min(512, seq), xent_chunks=min(8, seq), **kw)
         data = data_for(cfg, seq, gbs)
         tc = TrainConfig(steps=args.steps, ckpt_every=args.ckpt_every,
                          ckpt_dir=args.ckpt_dir or os.path.join(tempfile.gettempdir(),

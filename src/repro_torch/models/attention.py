@@ -13,8 +13,8 @@ split over the model group (``decode_attention``'s and
 runs ``blockwise_attention`` with each q block rematerialized: GQA, MLA's
 expanded K and V (the reference's ``mla_attention_train``), the audio
 encoder's non-causal attention and its decoder's causal cross-attention;
-Ulysses sequence parallelism (the reference's training forward alone calls
-it) is not ported yet.
+on a mesh under ``sp_mode="ulysses"`` the dense family's through
+``ulysses_attention``, the paper's exchange applied to attention.
 
 Mixed precision: the reference's ``bf16_compute`` contracts bf16 operands
 with fp32 accumulation and an fp32 result.  torch has no such product, so
@@ -54,7 +54,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, ca
     """Attention over q blocks, each against the whole (masked) key range.
     Returns (B, Sq, Hq, dv) in v's dtype.  Sq and Skv may differ (the
     encoder–decoder's cross-attention, non-causal); the reference's
-    ``q_offset`` and ``kv_len`` serve a caller not ported yet (Ulysses).
+    The reference's ``q_offset`` and ``kv_len`` have no caller here.
     The softmax's max takes no gradient (the reference's ``stop_gradient``).
     ``remat`` (the training forward) recomputes each block in the backward
     (a non-reentrant ``torch.utils.checkpoint`` a block, the reference's
@@ -153,6 +153,63 @@ def triangular_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     """
     del bf16_compute  # K6 keeps its operands in the input dtype
     return flash_ops.flash_attention(q, k, v, causal=True, block_q=q_block, block_k=q_block)
+
+
+# ---------------------------------------------------------------------------
+# Ulysses sequence parallelism (the paper's exchange applied to attention)
+# ---------------------------------------------------------------------------
+
+
+def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, shard, *,
+                      causal: bool, q_block: int = 512) -> torch.Tensor:
+    """Causal (or not) attention of a sequence split over the model group of
+    ``shard``: q (B, S / tp, Hq, dh), k, v (B, S / tp, Hkv, dh) this rank's
+    block of positions, in rank order; returns its block of the output
+    (B, S / tp, Hq, dh).  The reference's ``ulysses_attention``:
+
+    * the kv heads are repeated up to tp where tp does not divide Hkv
+      (``repeat_interleave`` by ceil(tp / Hkv): q head h still reads its
+      own kv head), and Hq must divide by tp;
+    * one ``all_to_all`` takes the sequence-split block to a head-split one,
+      (B, S, Hq / tp, dh): the rank's q heads and the kv heads they read,
+      every position, the blocks concatenated in sequence order;
+    * ``blockwise_attention`` over the whole sequence, each q block
+      rematerialized, with fp32 contractions whatever the LM's
+      ``bf16_attention`` says (the reference calls it without
+      ``bf16_compute`` here);
+    * the reverse ``all_to_all`` back to the sequence block.
+
+    The exchange is ``Shard.swap`` (``all_to_all_single`` on the model
+    group, its own adjoint), not ``core/redistribute.exchange_shard``:
+    q, k and v travel in one buffer, (tp, B, S / tp, Hq / tp + 2 Hkv' / tp,
+    dh) with chunk r the heads that rank r takes, so that one collective
+    carries all three; ``exchange_shard``'s (v, w) contract moves one
+    array split on one axis and gathered on another, which would take three
+    exchanges and its own pack and unpack around each.  The buffer is the
+    same global redistribution that the FFT plans run: split heads,
+    concatenate sequence."""
+    tp = shard.tp
+    B, s, Hq, dh = q.shape
+    if Hq % tp:
+        raise ValueError(f"ulysses needs the {Hq} q heads to split over {tp} ranks")
+    if k.shape[2] % tp:
+        rep = -(-tp // k.shape[2])
+        k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+    Hkv = k.shape[2]
+    if Hkv % tp or Hq % Hkv or v.shape[3] != dh:
+        raise ValueError(f"ulysses: {Hq} q heads and {Hkv} kv heads of {dh} and {v.shape[3]} "
+                         f"do not split into whole GQA groups over {tp} ranks")
+    n, m = Hq // tp, Hkv // tp
+    buf = torch.cat([q.reshape(B, s, tp, n, dh), k.reshape(B, s, tp, m, dh),
+                     v.reshape(B, s, tp, m, dh)], dim=3).permute(2, 0, 1, 3, 4)
+    got = shard.swap(buf.contiguous())              # chunk j: rank j's positions
+    got = got.permute(1, 0, 2, 3, 4).reshape(B, tp * s, n + 2 * m, dh)
+    # contiguous, as the projections' own: the products then take the
+    # mesh-less attention's paths (at one rank its result bit for bit)
+    ql, kl, vl = (t.contiguous() for t in got.split([n, m, m], dim=2))
+    o = blockwise_attention(ql, kl, vl, causal=causal, q_block=q_block, remat=True)
+    back = shard.swap(o.reshape(B, tp, s, n, dh).transpose(0, 1).contiguous())
+    return back.permute(1, 2, 0, 3, 4).reshape(B, s, Hq, dh)
 
 
 # ---------------------------------------------------------------------------

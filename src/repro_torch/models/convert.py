@@ -129,7 +129,8 @@ def shard_params(cfg: ArchConfig, full_params: dict[str, torch.Tensor], mesh
 def lm_shardings(cfg: ArchConfig, mesh, names) -> dict:
     """{name: function of a whole leaf to this rank's slice on ``mesh``} for
     the state-dict ``names`` (the cuts of ``shard_params``; ``embed`` and
-    ``lm_head`` must hold ``vocab_padded`` already)."""
+    ``lm_head`` must hold ``vocab_padded`` already).  The Trainer of an LM
+    on a mesh cuts its parameters and both moments of a checkpoint so."""
     _, tp, rank = sharding.mesh_sizes(mesh)
     return {name: (lambda t, name=name: sharding.cut(cfg, name, t, sharding.split_dim(name),
                                                      rank, tp))

@@ -77,6 +77,41 @@ block once a group, the VLM's frontend before the tokens, and the audio
 encoder and then the decoder with a causal cross-attention (the reference's
 training semantics; its serving cross-attention is not causal).
 
+Training on a mesh (``LM(cfg, mesh=, sp_mode=)``, the dense family; every
+other family's ``loss_not_ported`` names ROADMAP §1) is the reference's
+``loss`` on a ``("data", "model")`` mesh, in four forms: ``sp_mode``
+"none" (Megatron tensor parallelism: the rank's q heads and the kv heads
+they read, its ``d_ff`` columns) or "ulysses" (the rank's block of the
+sequence projected with every head through ``wq`` and ``wo`` gathered
+inside the block, redistributed to head blocks by
+``attention.ulysses_attention``, the MLP tensor-parallel), each with the residual stream whole on every model rank
+or, under ``PerfFlags.seq_sharded_residual``, split by sequence position
+between blocks.  The placement of every leaf, and which gradients are
+partial sums over "model", is ``models/sharding.py``'s table; the
+vocabulary-parallel lookup and cross-entropy are ``layers.vocab_lookup``
+and ``layers.chunked_xent(shard=)``.  Each data rank passes its rows and
+the whole batch's mask count, as a data-parallel rank does; its model
+ranks compute the same loss.  The collectives of one ``loss`` and its
+backward (``LM.collectives_per_step``), L layers, c = 2 under a remat
+policy (the layer's forward again in the backward, up to its closing sum
+or reduce-scatter, which no saved tensor needs) or 1 under "none", n
+cross-entropy chunks (two all_reduces each, twice: the chunk is always
+recomputed):
+
+  none, residual whole:     all_reduce (c + 3) L + 2 + 4n
+  none, seq-sharded:        all_gather (2c + 2) L + 2, reduce_scatter (c + 3) L + 2,
+                            all_reduce 4n
+  ulysses, residual whole:  all_to_all (2c + 2) L, all_gather (2c + 1) L,
+                            reduce_scatter L, all_reduce 2 L + 2 + 4n
+  ulysses, seq-sharded:     all_to_all (2c + 2) L, all_gather (2c + 1) L + 2,
+                            reduce_scatter 3 L + 2, all_reduce 4n
+
+(Ulysses' c all_gathers and one reduce_scatter a layer are its ``wq``,
+``bq`` and ``wo``'s), and a ``Trainer`` step in ``run`` adds three
+all_reduces (the partial gradients, the split leaves' squared norm, the
+ranks' stop flag).  At one rank every form computes the
+mesh-less loss and gradients bit for bit.
+
 On a mesh (``LM(cfg, mesh=launch.mesh.make_host_mesh(tp))``, every family;
 one process a rank) the LM is the reference's ``LM`` on a ``("data",
 "model")`` mesh, its rules (``models/sharding.py``) and collectives issued
@@ -173,7 +208,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe, sharding, ssm
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (chunked_xent, dense_init, layernorm, mlp_apply,
-                                      mlp_init, rmsnorm)
+                                      mlp_init, rmsnorm, vocab_lookup)
 from repro_torch.models.sharding import collectives  # noqa: F401  (counted here)
 
 
@@ -195,9 +230,14 @@ class PerfFlags:
                            "none", the port's own, keeps every activation.
                            No effect on serving.
     hmajor_cache         — head-major (B, Hkv, S, dh) KV cache.
-    seq_sharded_residual — the reference's sequence-sharded residual, which
-                           its training forward alone reads; no effect on
-                           serving at any tp.
+    seq_sharded_residual — the training forward on a mesh keeps the
+                           residual stream split over "model" by sequence
+                           position between blocks (the reference's
+                           ``act_btd_sp``): a reduce-scatter after each
+                           row-parallel product and an all-gather before
+                           each column-parallel one instead of the
+                           all-reduces; the same function.  No effect
+                           without a mesh or on serving.
     """
 
     bf16_attention: bool = False
@@ -327,14 +367,23 @@ class LM(nn.Module):
     whole, in the order it is drawn without one, and the rank keeps its
     slice, so that any tp holds slices of the tp = 1 weights wherever
     ``vocab_padded`` is the same (the embedding is drawn first, at that
-    size); at most one whole leaf is held beside the slices.
+    size); at most one whole leaf is held beside the slices.  ``sp_mode``
+    ("none" or "ulysses") sets the attention of the dense family's training
+    on a mesh; the leaves lie alike in both, and serving ignores it.
     """
 
     def __init__(self, cfg: ArchConfig, *, mesh=None, q_block: int = 512,
                  xent_chunks: int = 8, perf: PerfFlags | None = None,
-                 device: str | torch.device = "cuda", seed: int = 0):
+                 device: str | torch.device = "cuda", seed: int = 0, sp_mode: str = "none"):
         super().__init__()
         self.local_mode = False  # see ``local``
+        if sp_mode not in sharding.SP_MODES:
+            raise ValueError(f"sp_mode {sp_mode!r} is not one of {sharding.SP_MODES}")
+        if sp_mode == "ulysses" and mesh is not None and cfg.family != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: Ulysses sequence parallelism of the {cfg.family!r} family is not "
+                "ported yet (ROADMAP §1); the dense family's is")
+        self.sp_mode = sp_mode
         device = torch.device(device)
         if mesh is not None:
             if device.type != mesh.device_type:
@@ -974,13 +1023,102 @@ class LM(nn.Module):
                 x = self._ckpt(lambda x, p=p: self._train_mamba(p, x), x)
         return x
 
+    # -- training on a mesh (the dense family) ----------------------------------
+
+    def _mesh_attn(self, p, x, positions):
+        """The attention sub-block of the training forward on a mesh (the
+        placement of ``models/sharding.py``'s table).  ``"none"``: the rank's
+        q heads and the kv heads they read, on the whole sequence (gathered
+        from the blocks, or entered whole), its rows of ``wo``, the partials
+        summed (reduce-scattered back to the blocks).  ``"ulysses"``: the
+        rank's block of the sequence (its own, or split off the whole) with
+        every q head, through ``wq``, ``bq`` and ``wo`` gathered whole
+        (``Shard.gather_leaves``) and the whole ``wk``, ``wv``;
+        ``ulysses_attention``; the block through the gathered ``wo``
+        (joined back to the whole sequence)."""
+        sh, cfg = self.shard, self.cfg
+        B, S = positions.shape
+        seq = self.perf.seq_sharded_residual
+        h = _norm_apply(cfg, p.ln1, x)
+        if self.sp_mode == "ulysses":
+            s0, s = sh.seq_block(S)
+            names = [k for k in ("wq", "bq", "wo") if k in p.attn]
+            w = dict(p.attn, **dict(zip(names, sh.gather_leaves(
+                [p.attn[k] for k in names], [sharding.block_split_dim(f"attn.{k}")
+                                             for k in names]))))
+            q, k, v = attn.gqa_qkv(w, h if seq else sh.split_seq(h, 1),
+                                   n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                                   head_dim=self.head_dim, positions=positions[:, s0:s0 + s],
+                                   rope_theta=cfg.rope_theta)
+            o = attn.ulysses_attention(q, k, v, sh, causal=True, q_block=self.q_block)
+            y = o.reshape(B, s, -1) @ w["wo"]
+            return x + (y if seq else sh.join_seq(y, 1))
+        q, k, v = self._qkv(p, sh.gather_seq(h, 1) if seq else sh.enter(h), positions)
+        o = attn.blockwise_attention(q, *self._kv_heads(k, v), causal=True, q_block=self.q_block,
+                                     bf16_compute=self.perf.bf16_attention, remat=True)
+        y = o.reshape(B, S, -1) @ p.attn["wo"]
+        return x + (sh.scatter_seq(y, 1) if seq else sh.sum(y))
+
+    def _mesh_ffn(self, p, x):
+        """The MLP sub-block on a mesh: the rank's columns and rows, on the
+        whole sequence (gathered or entered), the partials summed
+        (reduce-scattered)."""
+        sh, seq = self.shard, self.perf.seq_sharded_residual
+        h = _norm_apply(self.cfg, p.ln2, x)
+        y = mlp_apply(p.mlp, sh.gather_seq(h, 1) if seq else sh.enter(h), self.cfg.mlp)
+        return x + (sh.scatter_seq(y, 1) if seq else sh.sum(y))
+
+    def _mesh_loss(self, batch, denom):
+        """``loss`` of the dense family on a mesh: the vocabulary-parallel
+        lookup summed (reduce-scattered to the rank's block of the sequence
+        under ``seq_sharded_residual``), each layer under the remat policy,
+        the final norm, and ``chunked_xent`` over the rank's columns of the
+        head."""
+        cfg, sh, dev = self.cfg, self.shard, self.device
+        tokens = batch["tokens"].to(dev)
+        B, S = tokens.shape
+        seq = self.perf.seq_sharded_residual
+        if seq or self.sp_mode == "ulysses":
+            sh.seq_block(S)  # raises where tp does not divide S
+        e = vocab_lookup(self.embed, tokens, sh.rank * self.embed.shape[0])
+        x = (sh.scatter_seq(e, 1) if seq else sh.sum(e)).to(self.dtype)
+        positions = torch.arange(S, device=dev).expand(B, S)
+        for p in self.blocks:
+            x = self._ckpt(lambda x, p=p: self._mesh_ffn(p, self._mesh_attn(p, x, positions)), x)
+        h = _norm_apply(cfg, self.final_norm, x)
+        h = sh.gather_seq(h, 1) if seq else sh.enter(h)
+        w = self.embed.T if cfg.tie_embeddings else self.lm_head
+        xent = chunked_xent(h, w, batch["targets"].to(dev), batch["mask"].to(dev),
+                            self.xent_chunks, denom, shard=sh, v0=sh.rank * w.shape[1])
+        return xent, {"xent": xent, "aux": torch.zeros((), dtype=torch.float32, device=dev)}
+
+    def summed_over_model(self, name: str) -> bool:
+        """Whether the training gradient of the leaf ``name`` is a partial
+        sum over "model" (``sharding.grad_summed_over_model``)."""
+        return sharding.grad_summed_over_model(name, self.perf.seq_sharded_residual)
+
+    def split_over_model(self, name: str) -> bool:
+        """Whether this LM holds a slice of the leaf ``name`` (on a mesh)."""
+        return self.shard is not None and sharding.split_dim(name) is not None
+
+    def sum_partial_grads(self, grads: dict) -> None:
+        """Sum over "model", in place, the gradients of the leaves
+        ``summed_over_model`` (one fp32 all_reduce of them all, cast back
+        once), so that every model rank holds each whole leaf's gradient."""
+        names = [k for k in grads if self.summed_over_model(k)]
+        if self.shard is None or not names:
+            return
+        flat = self.shard.reduce(torch.cat([grads[k].float().reshape(-1) for k in names]))
+        for k, piece in zip(names, flat.split([grads[k].numel() for k in names])):
+            grads[k].copy_(piece.view_as(grads[k]))
+
     def loss_not_ported(self) -> str | None:
-        """Why ``loss`` cannot train this LM, or None (any family, on one
-        device or one data-parallel rank)."""
-        if self.shard is not None:
-            return (f"{self.cfg.name}: the loss of an LM on a mesh (tensor-parallel "
-                    "training) is not ported yet (ROADMAP §1); data-parallel training takes "
-                    "a mesh-less LM on each rank and a mesh for the Trainer")
+        """Why ``loss`` cannot train this LM, or None (any family on one
+        device or one data-parallel rank; the dense family on a mesh)."""
+        if self.shard is not None and self.cfg.family != "dense":
+            return (f"{self.cfg.name}: the loss of a {self.cfg.family!r} LM on a mesh "
+                    "(tensor-parallel training) is not ported yet (ROADMAP §1); data-parallel "
+                    "training takes a mesh-less LM on each rank and a mesh for the Trainer")
         return None
 
     def local(self) -> LM:
@@ -1009,10 +1147,15 @@ class LM(nn.Module):
         cross-entropy plus the mean of the ranks' terms (the gradient the
         reference takes: ROADMAP §3).  Each layer runs under the
         ``remat_policy``; gradients reach the parameters of
-        ``trainable_params``."""
+        ``trainable_params``.  On a mesh (the dense family) ``batch`` is
+        this data rank's rows, the same on each of its model ranks, which
+        return the same loss; the gradients of the leaves
+        ``summed_over_model`` are partial sums (``sum_partial_grads``)."""
         why = self.loss_not_ported()
         if why:
             raise NotImplementedError(why)
+        if self.shard is not None:
+            return self._mesh_loss(batch, denom)
         cfg, dev = self.cfg, self.device
         tokens = batch["tokens"].to(dev)
         B, S = tokens.shape
@@ -1119,6 +1262,33 @@ class LM(nn.Module):
                                       absorbed)
                 x = self._ffn_block(p, x, use_moe=use_moe, decode=True)
         return cache, self._last_logits(x, n_rows)[:, 0]
+
+    def collectives_per_step(self, *, trainer: bool = False) -> Counter:
+        """The collectives, by kind, of one ``loss`` and its backward on a
+        mesh (nothing without one): the module docstring's training formula,
+        the recomputation of each layer under a remat policy (which stops
+        before the layer's closing sum or reduce-scatter: no saved tensor
+        needs it) and of each cross-entropy chunk counted; with ``trainer``
+        also the three all_reduces of a step of ``Trainer.run`` (the partial
+        gradients and the split leaves' squared norm over "model", the
+        ranks' stop flag over the mesh)."""
+        if self.shard is None:
+            return Counter()
+        c = 1 if self.perf.remat_policy == "none" else 2
+        seq = self.perf.seq_sharded_residual
+        if self.sp_mode == "ulysses":
+            layer = Counter({"all_to_all": 2 * c + 2, "all_gather": 2 * c + 1,
+                             "reduce_scatter": 1})
+            layer.update({("reduce_scatter" if seq else "all_reduce"): 2})
+        elif seq:
+            layer = Counter(all_gather=2 * c + 2, reduce_scatter=c + 3)
+        else:
+            layer = Counter(all_reduce=c + 3)
+        n = Counter(all_reduce=4 * self.xent_chunks + 3 * trainer)
+        n.update(Counter(reduce_scatter=2, all_gather=2) if seq else Counter(all_reduce=2))
+        for _ in self.blocks:
+            n.update(layer)
+        return n
 
     def collectives_per_call(self, batch: int, seq: int | None = None, *,
                              absorbed: bool = True) -> Counter:

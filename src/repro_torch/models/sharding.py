@@ -57,11 +57,71 @@ The reference also shards every weight over ``"data"`` (FSDP), a storage
 layout with the same results; here the weights are whole over ``"data"``.
 Every family has rules; a leaf without one raises ``NotImplementedError``.
 
-Every collective goes through a ``Shard`` (``reduce``, ``gather`` and
-``exchange``: ``torch.distributed``'s ``all_reduce``, ``all_gather`` and
-``all_to_all_single``) and is counted in ``collectives`` by kind
-(``"all_reduce"``, ``"all_gather"``, ``"all_to_all"``).  ``reduce``
-reduces fp32 on every backend: a bf16
+Training the dense family on a mesh (``LM.loss``) places its leaves as
+serving does, in both ``sp_mode``s: the placement does not depend on the
+mode, so a checkpoint, an optimizer state or a served LM is the same under
+either.  "own": the rank's gradient of its slice is the whole gradient of
+that slice; "summed": the leaf is whole on every rank, each rank's
+gradient of it a partial sum (its kv heads' share, or its sequence
+positions'), which the Trainer sums over ``"model"``
+(``grad_summed_over_model``); "whole": whole, its gradient the same on
+every rank.  Every gradient is then summed over ``"data"``.
+
+  residual:                 whole        seq-sharded
+  embed (V, D) by rows      own          own
+  lm_head (D, V) by cols    own          own
+  attn.wq, bq by cols       own          own
+  attn.wo by rows           own          own
+  attn.wk, wv, bk, bv       summed       summed
+  mlp.w_gate, w_up by cols  own          own
+  mlp.w_down by rows        own          own
+  ln1, ln2, final_norm      whole        summed
+
+("seq-sharded": ``seq_sharded_residual``, the residual stream between
+blocks split over "model" by sequence position.)
+
+Under ``"none"`` a rank's attention runs its own q heads on the whole
+sequence.  Under ``"ulysses"`` a rank projects its own block of the
+sequence with every q head: its block's sub-block all-gathers ``wq``,
+``bq`` and ``wo`` (``gather_leaves``: one all_gather of the three slices
+forward, one reduce_scatter of their gradients backward, so that each
+rank's gradient is again its slice's whole one), the all-to-all regroups
+the block by head (``attention.ulysses_attention``), and the block of the
+output leaves through the gathered ``wo``.  So a card holds 1/tp of the
+attention's weights and moments in both modes, and one layer's whole
+``wq`` and ``wo`` at a time under Ulysses.  The MLP is column/row-parallel
+in every form.  Where tp does not divide Hq the LM cannot be built on the
+mesh (``LM._place``), so the reference's fallback to the blockwise
+attention there has no counterpart (ROADMAP §3).
+
+The training collectives autograd goes through (each a ``Shard`` method,
+counted as the serving ones, a reduce-scatter as ``"reduce_scatter"``; sums
+in fp32, cast back once):
+
+* ``sum`` — all_reduce forward, identity backward (Megatron's g: a
+  row-parallel product's partial sums);
+* ``enter`` — identity forward, all_reduce backward (Megatron's f: a whole
+  input into each rank's own columns);
+* ``gather_seq`` — all_gather of the sequence forward, reduce_scatter
+  backward (a sequence block into each rank's own columns), and its
+  converse ``scatter_seq``;
+* ``split_seq`` — the rank's block of a whole sequence forward, all_gather
+  backward, and its converse ``join_seq``;
+* ``swap`` — the all_to_all, whose adjoint is the reverse all_to_all (the
+  same exchange: chunk r of rank s goes to chunk s of rank r);
+* ``gather_leaves`` — the whole leaves of several slices, one all_gather
+  of them packed forward, one reduce_scatter backward.
+
+``gather_to_lead`` (no gradient) sends a leaf's slices to the model
+group's first rank alone, one ``dist.gather``, counted as ``"gather"``:
+the Trainer's checkpoint.
+
+Every collective goes through a ``Shard`` (``reduce``, ``gather``,
+``exchange`` and ``reduce_scatter``: ``torch.distributed``'s ``all_reduce``,
+``all_gather``, ``all_to_all_single`` and ``reduce_scatter_tensor``) and
+is counted in ``collectives`` by kind (``"all_reduce"``, ``"all_gather"``,
+``"all_to_all"``, ``"reduce_scatter"``).  ``reduce`` and
+``reduce_scatter`` reduce fp32 on every backend: a bf16
 partial sum is cast to fp32, reduced and cast back once.  gloo does reduce
 bf16 (torch 2.13 on the CPU), but a ring reduction in bf16 rounds at every
 hop, and the fp32 sum of one rank's bf16 value casts back to itself bit for
@@ -90,6 +150,7 @@ _MAMBA = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "x_proj": 0, "dt_proj": 1, "dt
           "A_log": 0, "D": 0, "norm_w": 0, "out_proj": 0}
 
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 
 def mesh_sizes(mesh) -> tuple[int, int, int]:
@@ -104,6 +165,9 @@ def vocab_padded(vocab: int, mesh) -> int:
         return vocab
     dp, tp, _ = mesh_sizes(mesh)
     return -(-vocab // (tp * dp)) * (tp * dp)
+
+
+SP_MODES = ("none", "ulysses")
 
 
 def block_split_dim(name: str) -> int | None:
@@ -137,6 +201,18 @@ def split_dim(name: str) -> int | None:
     if head in ("blocks", "dense0", "enc_blocks", "dec_blocks") and rest:
         return block_split_dim(".".join(rest))
     raise NotImplementedError(f"no tensor-parallel rule for {name!r}")
+
+
+def grad_summed_over_model(name: str, seq_sharded: bool) -> bool:
+    """Whether the training gradient that a rank computes for the dense
+    leaf ``name`` is a partial sum over "model" (the module docstring's
+    table): a whole attention leaf (the kv heads'), and a norm where the
+    residual stream is sequence-sharded."""
+    if split_dim(name) is not None:
+        return False
+    head, *rest = name.split(".")
+    sub = next((r for r in rest if not r.isdigit()), None)
+    return (head == "blocks" and sub == "attn") or seq_sharded
 
 
 def leaf_parts(cfg, name: str) -> tuple[tuple[int, bool], ...] | None:
@@ -220,6 +296,15 @@ class Shard:
         holds global positions r * that onwards."""
         return -(-m // self.tp)
 
+    def seq_block(self, n: int) -> tuple[int, int]:
+        """(first position, positions) of this rank's block of a sequence of
+        ``n`` split over "model"; raises where tp does not divide n (as the
+        reference's ``shard_map`` does)."""
+        if n % self.tp:
+            raise ValueError(f"a sequence of {n} does not split over {self.tp} model ranks")
+        s = n // self.tp
+        return self.rank * s, s
+
     def rows(self, batch: int) -> tuple[int, int] | None:
         """This rank's rows [b0, b1) of a batch split over "data", or None
         where the batch is whole on every rank (one data rank, or a batch
@@ -260,3 +345,182 @@ class Shard:
         dist.all_to_all_single(out, t, group=self.group)
         collectives["all_to_all"] += 1
         return out
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum over the model group of ``t``, this rank's block of it
+        along ``dim``; summed in fp32 and returned in ``t``'s dtype."""
+        dim %= t.ndim
+        self.seq_block(t.shape[dim])  # raises where it does not split
+        n = self.tp
+        x = t.float()
+        if dim:  # the blocks concatenated along dim 0
+            x = x.unflatten(dim, (n, -1)).movedim(dim, 0).flatten(0, 1)
+        x = x.contiguous()
+        out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+        _reduce_scatter(out, x, group=self.group)
+        collectives["reduce_scatter"] += 1
+        return out.to(t.dtype)
+
+    def gather_to_lead(self, t: torch.Tensor, dim: int) -> torch.Tensor | None:
+        """The model group's slices ``t`` concatenated along ``dim`` on its
+        first rank (None on the others), one ``dist.gather``: the slices
+        travel to that rank alone."""
+        t = t.contiguous()
+        lead = self.rank == 0
+        buf = t.new_empty((self.tp, *t.shape)) if lead else None
+        dist.gather(t, list(buf.unbind(0)) if lead else None,
+                    dst=dist.get_global_rank(self.group, 0), group=self.group)
+        collectives["gather"] += 1
+        if not lead:
+            return None
+        return buf.movedim(0, dim % t.ndim).flatten(dim % t.ndim, dim % t.ndim + 1)
+
+    def block(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of ``t`` along ``dim`` (a contiguous copy)."""
+        s0, s = self.seq_block(t.shape[dim])
+        return t.narrow(dim, s0, s).contiguous()
+
+    # -- collectives autograd goes through (training) ---------------------------
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """all_reduce forward, identity backward (Megatron's g)."""
+        return _Sum.apply(t, self)
+
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        """Identity forward, all_reduce backward (Megatron's f)."""
+        return _Enter.apply(t, self)
+
+    def gather_seq(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """all_gather along ``dim`` forward, reduce_scatter backward."""
+        return _GatherSeq.apply(t, self, dim)
+
+    def scatter_seq(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """reduce_scatter along ``dim`` forward, all_gather backward."""
+        return _ScatterSeq.apply(t, self, dim)
+
+    def split_seq(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block along ``dim`` forward, all_gather backward."""
+        return _SplitSeq.apply(t, self, dim)
+
+    def join_seq(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """all_gather along ``dim`` forward, this rank's block backward."""
+        return _JoinSeq.apply(t, self, dim)
+
+    def swap(self, t: torch.Tensor) -> torch.Tensor:
+        """``exchange`` forward and backward (the all_to_all is its own
+        adjoint)."""
+        return _Swap.apply(t, self)
+
+    def gather_leaves(self, leaves: list[torch.Tensor], dims: list[int]) -> list[torch.Tensor]:
+        """The whole leaves of which ``leaves`` (one dtype) are this rank's
+        slices along ``dims``: one all_gather of the slices packed in one
+        buffer forward, one reduce_scatter of the whole leaves' gradients
+        backward (each rank's gradient of its slice, summed over the
+        model group)."""
+        return list(_GatherLeaves.apply(self, tuple(dims), *leaves))
+
+    def _sum_copy(self, t: torch.Tensor) -> torch.Tensor:
+        """``reduce`` of a copy: autograd may hold ``t`` (a saved product)."""
+        return self.reduce(t.to(torch.float32, copy=True).contiguous()).to(t.dtype)
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, shard):
+        return shard._sum_copy(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, shard):
+        ctx.shard = shard
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shard._sum_copy(g), None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, shard, dim):
+        ctx.shard, ctx.dim = shard, dim
+        return shard.gather(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shard.reduce_scatter(g, ctx.dim), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, shard, dim):
+        ctx.shard, ctx.dim = shard, dim
+        return shard.reduce_scatter(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shard.gather(g, ctx.dim), None, None
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, shard, dim):
+        ctx.shard, ctx.dim = shard, dim
+        return shard.block(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shard.gather(g, ctx.dim), None, None
+
+
+class _JoinSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, shard, dim):
+        ctx.shard, ctx.dim = shard, dim
+        return shard.gather(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shard.block(g, ctx.dim), None, None
+
+
+class _Swap(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, shard):
+        ctx.shard = shard
+        return shard.exchange(t.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shard.exchange(g.contiguous()), None
+
+
+class _GatherLeaves(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, dims, *slices):
+        if len({t.dtype for t in slices}) != 1:
+            raise ValueError("gather_leaves packs slices of one dtype")
+        ctx.shard, ctx.dims, ctx.shapes = shard, dims, [t.shape for t in slices]
+        ctx.like = slices[0].new_empty(())
+        tp = shard.tp
+        flat = torch.cat([t.reshape(-1) for t in slices])
+        got = shard.gather(flat, 0).view(tp, -1)  # rank r's slices in row r
+        return tuple(piece.reshape(tp, *shape).movedim(0, d).flatten(d, d + 1)
+                     for piece, shape, d in zip(got.split([s.numel() for s in ctx.shapes], 1),
+                                                ctx.shapes, dims))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        tp = ctx.shard.tp
+        rows = [(ctx.like.new_zeros((*shape[:d], tp * shape[d], *shape[d + 1:])) if g is None
+                 else g)
+                .unflatten(d, (tp, -1)).movedim(d, 0).reshape(tp, -1)
+                for g, shape, d in zip(grads, ctx.shapes, ctx.dims)]
+        flat = ctx.shard.reduce_scatter(torch.cat(rows, 1).reshape(-1), 0)
+        return (None, None, *(piece.view(shape) for piece, shape in
+                              zip(flat.split([s.numel() for s in ctx.shapes]), ctx.shapes)))

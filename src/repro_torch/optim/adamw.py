@@ -63,19 +63,29 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
     return lr
 
 
-def global_norm(grads: dict) -> torch.Tensor:
-    """sqrt of the sum over leaves (in order) of each leaf's fp32 sum of squares."""
+def global_norm(grads: dict, split: Callable[[str], bool] | None = None,
+                reduce: Callable[[torch.Tensor], torch.Tensor] | None = None) -> torch.Tensor:
+    """sqrt of the sum over leaves (in order) of each leaf's fp32 sum of
+    squares.  On a mesh, ``split(name)`` tells the leaves of which a rank
+    holds a slice: their sums of squares are ``reduce``d (summed over
+    "model", one collective of them all) before the sum, and the whole
+    leaves, which every rank holds alike, count once.  At one rank that is
+    the mesh-less sum bit for bit."""
+    sq = {k: g.float().square().sum() for k, g in grads.items()}
+    names = [k for k in sq if split(k)] if split is not None else []
+    if names:
+        sq.update(zip(names, reduce(torch.stack([sq[k] for k in names])).unbind()))
     gsq = None
-    for g in grads.values():
-        s = g.float().square().sum()
+    for s in sq.values():
         gsq = s if gsq is None else gsq + s
     return torch.sqrt(gsq)
 
 
-def clip_by_global_norm(grads: dict, max_norm: float):
+def clip_by_global_norm(grads: dict, max_norm: float, split=None, reduce=None):
     """Scales ``grads`` in place by min(1, max_norm / max(norm, 1e-9)), each
-    in fp32 and cast back; returns (grads, fp32 norm)."""
-    gnorm = global_norm(grads)
+    in fp32 and cast back; returns (grads, fp32 norm).  ``split`` and
+    ``reduce``: ``global_norm``'s, on a mesh."""
+    gnorm = global_norm(grads, split, reduce)
     scale = torch.clamp(_f32(max_norm).to(gnorm.device) / torch.clamp(gnorm, min=1e-9), max=1.0)
     for g in grads.values():
         g.copy_(g.float() * scale)
@@ -94,6 +104,11 @@ class AdamW:
     # matrix (``ndim >= 2``).  The trainer passes the reference's rule on
     # its stacked tree (``convert.decays_in_reference``).
     decays: Callable[[str, torch.Tensor], bool] | None = None
+    # on a mesh: split(name), whether a rank holds a slice of the leaf, and
+    # reduce(t), the sum over "model" of the slices' squared norm
+    # (``global_norm``)
+    split: Callable[[str], bool] | None = None
+    reduce: Callable[[torch.Tensor], torch.Tensor] | None = None
 
     def init(self, params: dict) -> OptState:
         def zeros(p):
@@ -106,7 +121,7 @@ class AdamW:
     def update(self, grads: dict, state: OptState, params: dict):
         """Returns (params, state, {"grad_norm", "lr"}), each written in place
         but the step; ``grads`` is clipped in place."""
-        grads, gnorm = clip_by_global_norm(grads, self.max_grad_norm)
+        grads, gnorm = clip_by_global_norm(grads, self.max_grad_norm, self.split, self.reduce)
         step = state.step + 1
         lr = self.lr(step) if callable(self.lr) else _f32(self.lr)
         t = step.to(torch.float32)

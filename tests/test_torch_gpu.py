@@ -31,7 +31,11 @@ run's energies within 1e-5 of cuFFT's, a bf16 wire's within its rounding
 bound), and every example plan audits clean.  The dense family's training
 step at the smoke size matches the CPU's (fp32, TF32 off: the loss, the
 grad norm and each gradient leaf within 1e-5 relative) and launches no
-kernel, and a resumed run is bitwise an uninterrupted one.
+kernel, and a resumed run is bitwise an uninterrupted one.  On a 1-rank
+NCCL mesh the dense family's four training forms (``sp_mode`` x
+``seq_sharded_residual``) give the mesh-less LM's loss and gradients
+within 1e-6 relative (fp32, TF32 off), issue the collectives of
+``LM.collectives_per_step`` and launch no kernel.
 """
 
 import math
@@ -1181,3 +1185,50 @@ def test_resume_on_the_card_is_bitwise(cuda, tmp_path, arch):
     for k in p3:
         assert torch.equal(p2[k], p3[k]) and torch.equal(o2.mu[k], o3.mu[k])
         assert torch.equal(o2.nu[k], o3.nu[k])
+
+
+@pytest.mark.parametrize("sp_mode,seq", [("none", False), ("none", True), ("ulysses", False),
+                                         ("ulysses", True)])
+def test_train_tp_forms_on_a_one_rank_mesh(mesh1, sp_mode, seq):
+    """The smoke GLM-4 on a 1-rank NCCL ``("data", "model")`` mesh in each
+    training form against the mesh-less LM on the card: the loss and every
+    gradient leaf (the partial ones summed) within 1e-6 relative, the
+    collectives of the loss and its backward as the formula, no kernel of
+    K1-K6 launched."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models.convert import shard_params
+    from repro_torch.models.lm import LM, PerfFlags
+
+    cfg, data = _train_smoke("float32", "glm4_9b")
+    batch = {k: v.cuda() for k, v in data.batch(0).items()}
+    init = LM(cfg, q_block=8, xent_chunks=2, device="cpu").state_dict()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = (fops.launches, xops.launches, tops.launches, flops.launches)
+    before = [dict(c) for c in counters]
+    mesh = make_host_mesh(1, device="cuda")
+    out = {}
+    try:
+        for name, kw in (("mesh_less", {}), ("mesh", {"mesh": mesh, "sp_mode": sp_mode})):
+            lm = LM(cfg, q_block=8, xent_chunks=2, perf=PerfFlags(seq_sharded_residual=seq),
+                    device="cuda", **kw)
+            lm.load_state_dict(shard_params(cfg, init, mesh) if kw else init)
+            params = lm.trainable_params()
+            sharding.collectives.clear()
+            loss, _ = lm.loss(batch)
+            loss.backward()
+            counts = Counter(sharding.collectives)
+            grads = {k: p.grad for k, p in params.items()}
+            lm.sum_partial_grads(grads)
+            out[name] = (float(loss), {k: g.cpu() for k, g in grads.items()}, counts,
+                         lm.collectives_per_step())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (l0, g0, _, _), (l1, g1, counts, want) = out["mesh_less"], out["mesh"]
+    assert abs(l1 - l0) <= 1e-6 * abs(l0)
+    for k in g0:
+        if g0[k].any():
+            assert float((g1[k] - g0[k]).norm() / g0[k].norm()) <= 1e-6, k
+    assert counts == want and counts
+    assert [dict(c) for c in counters] == before

@@ -28,12 +28,18 @@ reference's own initial weights carried across
   size (0 against one quantum is a step of 0 against lr: 1.8e-4 of the
   second step's loss at lr 3e-3); the heartbeat, ``SLOW_STEP`` and the
   SIGTERM save; ``launch.train`` and the ``lm_pretrain`` twin on the CPU,
-  and ``launch.train`` under two ranks.
+  and ``launch.train`` under two ranks; ``launch.train --model-parallel 2
+  --sp-mode ulysses`` under the two ranks (a (1, 2) mesh) resuming the
+  step-1 checkpoint of the reference's own CLI with those options (its
+  (1, 2) mesh of the subprocess's 2 devices), its steps 1 and 2 within
+  the bf16 limit (3e-2; the CLI trains the smoke config in bf16) of the
+  reference CLI's.
 * Every mesh-less LM of the registry trains (``loss_not_ported`` is None;
-  the other families: tests/test_torch_train_families.py); the forms not
-  ported yet raise, naming ROADMAP §1: the loss of an LM on a mesh, a
-  ``Trainer`` of one, ``launch.train --model-parallel 2`` and ``--sp-mode
-  ulysses``.
+  the other families: tests/test_torch_train_families.py; the dense family
+  on a mesh: tests/test_torch_train_tp.py); the forms not ported yet raise,
+  naming ROADMAP §1, for a family still unported on a mesh (Phi-3.5-MoE):
+  the loss of its LM on a mesh, a ``Trainer`` of one, ``launch.train
+  --model-parallel 2`` and ``--sp-mode ulysses``.
 """
 
 import dataclasses
@@ -164,10 +170,15 @@ def test_remat_policies_are_bitwise(ref_init, dtype):
         assert all(torch.equal(grads[k], grads0[k]) for k in grads0), pol
 
 
+#: a family whose training on a mesh is not ported yet
+UNPORTED_ON_A_MESH = "phi35_moe_42b"
+
+
 def _unported(case: str):
-    """Each training form not ported yet (ROADMAP §1): the loss of an LM on
-    a mesh (tensor-parallel training; a one-rank gloo mesh), a Trainer of
-    such an LM, and the CLI's tensor- and sequence-parallel options."""
+    """Each training form not ported yet for ``UNPORTED_ON_A_MESH`` (ROADMAP
+    §1): the loss of its LM on a mesh (tensor-parallel training; a one-rank
+    gloo mesh), a Trainer of such an LM, and the CLI's tensor- and
+    sequence-parallel options."""
     from repro_torch.core.meshutil import default_group
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_host_mesh
@@ -175,9 +186,10 @@ def _unported(case: str):
     if case.startswith("cli"):
         argv = ["--model-parallel", "2"] if case == "cli-model-parallel" else ["--sp-mode",
                                                                               "ulysses"]
-        return train.main(["--arch", ARCH, "--device", "cpu", *argv])
+        return train.main(["--arch", UNPORTED_ON_A_MESH, "--device", "cpu", *argv])
     with default_group("cpu"):
-        lm = plm.LM(configs.smoke(ARCH), mesh=make_host_mesh(1, device="cpu"), device="cpu")
+        lm = plm.LM(configs.smoke(UNPORTED_ON_A_MESH), mesh=make_host_mesh(1, device="cpu"),
+                    device="cpu")
         if case == "loss-on-a-mesh":
             return lm.loss(_data().batch(0))
         return Trainer(lm, _data(), TrainConfig())
@@ -323,6 +335,24 @@ from repro.models.lm import LM
 from repro.models.sharding import Axes
 from repro.runtime import TrainConfig, Trainer
 import _torch_train_ranks as TR
+from repro.launch import train as cli
+
+# the reference's CLI with --model-parallel 2 --sp-mode ulysses (a (1, 2)
+# mesh of the 2 devices), a checkpoint each step, for the port's CLI to resume
+run, cli_hist = cli.Trainer.run, []
+
+
+def recorded(self, *args, **kwargs):
+    out = run(self, *args, **kwargs)
+    cli_hist.append(out[2])
+    return out
+
+
+cli.Trainer.run = recorded
+cli.main([*TR.TP_CLI_ARGV, "--steps", str(TR.TP_CLI_STEPS), "--ckpt-every", "1",
+          "--ckpt-dir", {ref_cli!r}])
+cli.Trainer.run = run
+open({ref_cli!r} + ".done", "w").close()
 
 mesh = make_mesh((TR.WORLD, 1), ("data", "model"))
 cfg = dataclasses.replace(configs.smoke(TR.TRAIN_ARCH), dtype="float32")
@@ -335,6 +365,7 @@ for mode in TR.TRAIN_MODES:
                      warmup=TR.TRAIN_WARMUP, ckpt_dir=tempfile.mkdtemp(), grad_compression=mode)
     _, _, hist = Trainer(lm, data, tc).run()
     out[mode] = {{"loss": [h["loss"] for h in hist], "grad_norm": [h["grad_norm"] for h in hist]}}
+out["tp_cli"] = {{k: [h[k] for h in cli_hist[0]] for k in ("step", "loss", "grad_norm")}}
 open({out!r}, "w").write(json.dumps(out))
 """
 
@@ -351,7 +382,8 @@ def _dp_started(ref_init, tmp_path_factory):
     env = dict(os.environ, XLA_FLAGS=f"--xla_force_host_platform_device_count={TR.WORLD}",
                PYTHONPATH=str(TESTS.parent / "src"))
     proc = subprocess.Popen([sys.executable, "-c", _REFERENCE_DP.format(
-        tests=str(TESTS), out=str(d / "reference.json"))], env=env, stdout=subprocess.PIPE,
+        tests=str(TESTS), out=str(d / "reference.json"), ref_cli=str(d / "ref_cli"))], env=env,
+        stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     done = {}
 
@@ -399,3 +431,21 @@ def test_train_cli_under_two_ranks(dp_runs):
     ranks, _ = dp_runs
     losses = [r["cli"]["loss"] for r in ranks]
     assert len(losses[0]) == 2 and losses[0] == losses[1] and np.isfinite(losses[0]).all()
+
+
+def test_train_cli_tensor_and_sequence_parallel_matches_reference(dp_runs):
+    """``launch.train --model-parallel 2 --sp-mode ulysses`` under two gloo
+    ranks resumes the reference CLI's step-1 checkpoint and takes steps 1
+    and 2 within the smoke config's dtype limit (bf16: 3e-2, ``LOSS_TOL``)
+    of the reference CLI's own (its step 0 is the reference's alone: the
+    weights are drawn by its PRNG)."""
+    ranks, ref = dp_runs
+    want = ref["tp_cli"]
+    tol = LOSS_TOL[configs.smoke(ARCH).dtype]
+    assert want["step"] == list(range(TR.TP_CLI_STEPS))
+    for r in ranks:
+        got = r["tp_cli"]
+        assert got["step"] == want["step"][1:]
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(got[key], want[key][1:], rtol=tol, err_msg=key)
+    assert ranks[0]["tp_cli"] == ranks[1]["tp_cli"]
